@@ -1,0 +1,591 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
+card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX or gofr_tpu.
+
+Phases, one or more lines each, any failure exits non-zero:
+
+1. card and build: the card's name and power limit (nvidia-smi), TF32 off,
+   both kernels built from gofr_tpu_torch/ops/csrc with one nvcc each, in
+   parallel;
+2. each kernel against its plain PyTorch version on the card, in bf16, at
+   the stated tolerance (flash: H=32, Hkv=8, dh=128 at T=S 128 / 1000 /
+   16384, causal and not, plus dh=64; paged: B=8, ragged lengths around the
+   page size, zero table tails, page sizes 16 and 128, and zeros at length
+   0);
+3. the model on the card: Llama-3-8B at full width and depth, random
+   weights from seed 0; one paged decode step through both kernels must
+   match a full recompute of the same context with plain attention;
+4. serving: the port's app (gofr_tpu_torch/serve.py) on a free port with
+   ATTN_IMPL=flash answers concurrent streaming and non-streaming
+   POST /generate; every request returns its max_tokens, a repeated greedy
+   prompt repeats its tokens, and the kernels' launch counters (zeroed just
+   before) grew by n_layers per prefill and per decode step;
+5. timings: each kernel beside its bound, its plain version and (flash) the
+   library's scaled_dot_product_attention, and TTFT / decode tok/s of the
+   served requests, each with the card's name and power limit;
+6. profile: one decode block at B=8 — host wall time per step against the
+   card's busy time (torch.profiler), and the kernels that take it.
+
+The last three lines are the nvidia-smi line, the kernels JSON and
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import math
+import sys
+import threading
+import time
+
+H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
+H100_HBM_BYTES_S = 3.35e12
+# a kernel agrees with its plain version when every output element is within
+# RTOL * |want| + ATOL_RMS * rms(want): both are bf16 roundings of f32
+# results, which may sit one bf16 ulp (at most 2**-7 = 7.8e-3 of the value)
+# apart, and the floor for outputs near 0 scales with the case's own outputs
+# (|o| ~ 0.01 at S=16384, ~1 on early causal rows)
+RTOL = 1e-2
+ATOL_RMS = 1e-2
+MODEL_TOL = 0.25             # bf16 logits after 32 layers, see check_model
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+# -- phase 2: kernels against their plain versions ---------------------------
+def agreement(got, want):
+    """(max_abs_err, rms(want), worst) with worst the largest
+    |got - want| / (ATOL_RMS * rms(want) + RTOL * |want|) over the elements;
+    the kernel agrees where worst <= 1 and every output is finite."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = float(w.square().mean().sqrt())
+    limit = (ATOL_RMS * rms + RTOL * w.abs()).clamp_min(1e-30)
+    worst = float((err / limit).max())
+    if not bool(torch.isfinite(g).all()):
+        worst = math.inf
+    return float(err.max()), rms, worst
+
+
+def check_agreement(what: str, got, want) -> float:
+    err, rms, worst = agreement(got, want)
+    ok = worst <= 1.0
+    log(f"check {what}: max_abs_err={err:.3e} rms(want)={rms:.3e} "
+        f"worst err/tol={worst:.3f} (tol {RTOL}*|want| + {ATOL_RMS}*rms) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"kernel disagrees with its plain version: {what}")
+    return err
+
+
+def _randn(shape, gen, dev):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev,
+                       dtype=torch.float32).to(torch.bfloat16)
+
+
+def flash_inputs(B, H, Hkv, T, S, dh, dev, seed=0):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn((B, H, T, dh), gen, dev), _randn((B, Hkv, S, dh), gen, dev),
+            _randn((B, Hkv, S, dh), gen, dev))
+
+
+def paged_inputs(lengths, H, Hkv, dh, ps, dev, seed=0):
+    """q, pools, a table of distinct random live pages with zero tails
+    (width pow2(widest + 1), as the engine builds it), lengths."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    need = [max(1, -(-n // ps)) for n in lengths]
+    NP = 1 << max(0, max(need)).bit_length()
+    P = sum(need) + 1
+    perm = torch.randperm(P - 1, generator=gen, device=dev).to(torch.int32) + 1
+    table = torch.zeros((B, NP), dtype=torch.int32, device=dev)
+    off = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[off:off + n]
+        off += n
+    return (_randn((B, H, dh), gen, dev), _randn((P, Hkv, dh, ps), gen, dev),
+            _randn((P, Hkv, dh, ps), gen, dev), table,
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_kernels(dev) -> None:
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_reference)
+
+    for T, dh, causal in [(128, 128, True), (128, 128, False),
+                          (1000, 128, True), (1000, 128, False),
+                          (16384, 128, True), (16384, 128, False),
+                          (256, 64, True)]:
+        q, k, v = flash_inputs(1, 32, 8, T, T, dh, dev, seed=T + dh)
+        got = flash_attention_cuda(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal)
+        check_agreement(f"flash T=S={T} dh={dh} causal={causal}", got, want)
+        del q, k, v, got, want
+    for ps in (16, 128):
+        lengths = [1, ps - 1, ps, ps + 1, 2 * ps + 3, 5 * ps, 700, 1000]
+        q, kp, vp, table, lens = paged_inputs(lengths, 32, 8, 128, ps, dev,
+                                              seed=ps)
+        got = paged_attention_cuda(q, kp, vp, table, lens)
+        want = paged_attention_reference(q, kp, vp, table, lens)
+        check_agreement(f"paged ps={ps} lengths={lengths}", got, want)
+        lens[3] = 0
+        zero = paged_attention_cuda(q, kp, vp, table, lens)[3]
+        require(bool((zero == 0).all()), "paged kernel: length 0 is not zeros")
+    log("check paged length=0 row: zeros ok")
+
+
+# -- phase 3: the model on the card ------------------------------------------
+def check_model(params, cfg, dev) -> float:
+    """Prefill a prompt (flash), write its KV into pages, take ONE paged
+    decode step (both kernels on the path), and compare its logits with a
+    full recompute of prompt + token through plain masked attention. The
+    tolerance is on the max abs logit difference: bf16 activations through
+    32 layers on two different attention paths (logits are O(1) here)."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import (llama_decode_step_paged,
+                                             llama_prefill_last)
+    from gofr_tpu_torch.ops.paged_attention import paged_write_prefill_stacked
+
+    L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n, ps = 100, 128
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+
+    def prefill(tokens, c):
+        T = tokens.shape[1]
+        tk = torch.zeros((L, 1, Hkv, dh, T), dtype=torch.bfloat16, device=dev)
+        tv = torch.zeros_like(tk)
+        pos = torch.arange(T, device=dev)[None]
+        lens = torch.tensor([T], dtype=torch.int32, device=dev)
+        logits, tk, tv = llama_prefill_last(params, c, tokens, pos, lens, tk, tv)
+        return logits, tk, tv, lens
+
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    plain = dataclasses.replace(cfg, attn_impl="xla")
+    logits0, tk, tv, lens = prefill(prompt, flash)
+    pool_k = torch.zeros((L, 3, Hkv, dh, ps), dtype=torch.bfloat16, device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    ptable = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    paged_write_prefill_stacked(pool_k, pool_v, tk, tv, ptable, lens)
+    nxt = int(torch.argmax(logits0[0]))
+    table = torch.tensor([[1, 0]], dtype=torch.int32, device=dev)
+    step, _, _ = llama_decode_step_paged(
+        params, cfg, torch.tensor([nxt], device=dev),
+        torch.tensor([n], device=dev), pool_k, pool_v, table)
+    full = torch.cat([prompt, torch.tensor([[nxt]], device=dev)], dim=1)
+    want, _, _, _ = prefill(full, plain)
+    torch.cuda.synchronize()
+    require(tuple(step.shape) == (1, cfg.vocab_size), "decode logits shape")
+    require(bool(torch.isfinite(step).all()), "decode logits not finite")
+    diff = float((step - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"check model: paged decode step vs plain recompute: max_abs_diff="
+        f"{diff:.3e} (max |logit| {scale:.3f}) tol={MODEL_TOL} "
+        f"{'ok' if diff <= MODEL_TOL else 'FAIL'}")
+    require(diff <= MODEL_TOL, "decode step disagrees with the recompute")
+    return diff
+
+
+# -- phase 4: serving ----------------------------------------------------------
+PROMPT_WORDS = ("the quick brown fox jumps over a lazy dog while seven "
+                "tired engineers measure kernels on a hot card").split()
+
+
+def make_prompt(n_chars: int, seed: int) -> str:
+    import random
+
+    rnd = random.Random(seed)
+    out = ""
+    while len(out) < n_chars:
+        out += rnd.choice(PROMPT_WORDS) + " "
+    return out[:n_chars]
+
+
+def stream_request(port, prompt, max_tokens, out, key):
+    """POST /generate (SSE); records the token events' arrival times."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST", "/generate", body=json.dumps(
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": True}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    times, text, done = [], [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if not line.startswith(b"data: "):
+            continue
+        event = json.loads(line[6:])
+        if event.get("done"):
+            done = event
+            resp.read()   # the closing chunk, so the close is clean
+            break
+        times.append(time.monotonic() - t0)
+        text.append(event["text"])
+    conn.close()
+    out[key] = {"status": resp.status, "times": times, "text": "".join(text),
+                "done": done}
+
+
+def plain_request(port, prompt, max_tokens, out, key):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST", "/generate", body=json.dumps(
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": False}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    out[key] = {"status": resp.status, "seconds": time.monotonic() - t0,
+                "data": body.get("data")}
+
+
+def serve_phase(params, cfg, dev, card: str,
+                preset: str = "llama3-8b") -> dict:
+    """Drive the port's /generate; returns what the timing phase needs."""
+    from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
+    from gofr_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
+           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600"}
+    engine = build_engine(env, device=dev, params=params)
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        # warm the path once (allocator caches, cuBLAS handles), uncounted
+        warm = {}
+        stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
+        require(warm["w"]["status"] == 200, "warm-up request failed")
+
+        # every kernel count to 0 just before the main path runs
+        flash_attention_cuda.launches = 0
+        paged_attention_cuda.launches = 0
+        engine.prefill_dispatches = engine.decode_steps = 0
+        engine.prefill_shapes.clear()
+        n_tok, n_plain = 32, 16
+        lengths = [150, 180, 200, 220, 240, 130, 160]
+        prompts = [make_prompt(n, i) for i, n in enumerate(lengths)]
+        plain_prompt = make_prompt(250, 7)
+        out: dict = {}
+        threads = [threading.Thread(target=stream_request,
+                                    args=(app.http_port, p, n_tok, out, i))
+                   for i, p in enumerate(prompts)]
+        threads.append(threading.Thread(
+            target=plain_request,
+            args=(app.http_port, plain_prompt, n_plain, out, "plain")))
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t0
+        require(all(not t.is_alive() for t in threads), "requests hung")
+        # a repeated greedy prompt, alone each time, repeats its tokens
+        rep: dict = {}
+        for key in ("r1", "r2"):
+            stream_request(app.http_port, prompts[0], 24, rep, key)
+        flash_n = flash_attention_cuda.launches
+        paged_n = paged_attention_cuda.launches
+        prefills, steps = engine.prefill_dispatches, engine.decode_steps
+        shapes = dict(engine.prefill_shapes)
+    finally:
+        app.shutdown()
+
+    for i in range(len(prompts)):
+        r = out[i]
+        require(r["status"] == 200 and r["done"] is not None,
+                f"stream {i} failed: {r['status']}")
+        require(r["done"]["tokens"] == n_tok and len(r["times"]) == n_tok,
+                f"stream {i} returned {r['done']['tokens']} of {n_tok} tokens")
+    p = out["plain"]
+    require(p["status"] == 201 and p["data"]["tokens"] == n_plain,
+            f"non-streaming request failed: {p}")
+    require(rep["r1"]["done"]["tokens"] == 24
+            and rep["r1"]["text"] == rep["r2"]["text"],
+            "repeated greedy prompt gave different tokens")
+    log(f"serve: {len(prompts)} streams x {n_tok} tokens + 1 non-streaming x "
+        f"{n_plain} in {wall:.2f}s; repeat of a greedy prompt identical: ok")
+    L = cfg.n_layers
+    log(f"serve: launches flash={flash_n} (prefills={prefills} x n_layers={L})"
+        f" paged={paged_n} (decode steps={steps} x n_layers={L})")
+    log("serve: prefill windows [K, bucket] x count: " + ", ".join(
+        f"[{k}, {b}] x {n}" for (k, b), n in sorted(shapes.items())))
+    require(prefills > 0 and flash_n == L * prefills,
+            "flash launches do not match n_layers per prefill")
+    require(steps > 0 and paged_n == L * steps,
+            "paged launches do not match n_layers per decode step")
+    ttft = sorted(out[i]["times"][0] * 1e3 for i in range(len(prompts)))
+    tps = sorted((n_tok - 1) / (out[i]["times"][-1] - out[i]["times"][0])
+                 for i in range(len(prompts)))
+    log(f"serve: ttft_ms p50={ttft[len(ttft) // 2]:.1f} max={ttft[-1]:.1f} "
+        f"(client-side, {len(ttft)} concurrent streams) [{card}]")
+    log(f"serve: decode tok/s per stream p50={tps[len(tps) // 2]:.1f} "
+        f"min={tps[0]:.1f}; {len(prompts)} streams [{card}]")
+    solo = rep["r2"]["times"]
+    log(f"serve: single stream ttft_ms={solo[0] * 1e3:.1f} decode tok/s="
+        f"{(len(solo) - 1) / (solo[-1] - solo[0]):.1f} [{card}]")
+    return {"flash": flash_n, "paged": paged_n, "prefill_shapes": shapes,
+            "prompt_lens": [len(engine.tokenizer.encode(p)) for p in prompts],
+            "max_tokens": n_tok}
+
+
+# -- phase 5: timings ----------------------------------------------------------
+def time_ms(fn, iters: int, flush) -> float:
+    """Mean device time of fn over `iters` launches, CUDA events around each,
+    the 50 MB L2 flushed before each (a forward pass finds them cold)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def flash_bound(B, H, Hkv, T, S, dh, causal):
+    pairs = T * (T + 1) // 2 if causal else T * S
+    flops = 4.0 * B * H * pairs * dh
+    nbytes = 2.0 * (2 * B * H * T * dh + 2 * B * Hkv * S * dh)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def paged_bound(lengths, H, Hkv, dh, ps):
+    """K and V of each row's live tokens read once (the ragged tail of a
+    last page is not needed), q read and o written once, the live pages'
+    table entries and the lengths read once."""
+    pages = sum(-(-n // ps) for n in lengths)
+    nbytes = (sum(lengths) * Hkv * dh * 2 * 2 + 2 * 2 * len(lengths) * H * dh
+              + 4 * pages + 4 * len(lengths))
+    flops = 4.0 * H * dh * sum(lengths)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def time_flash(dev, B, T, causal, iters, flush):
+    import torch
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    H, Hkv, dh = 32, 8, 128
+    q, k, v = flash_inputs(B, H, Hkv, T, T, dh, dev, seed=3)
+    err = check_agreement(
+        f"flash B={B} T=S={T} causal={causal}",
+        flash_attention_cuda(q, k, v, causal),
+        flash_attention_plain(q, k, v, causal))
+    ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal), iters, flush)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal),
+                       max(1, iters // 2), flush)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True), iters, flush)
+    bound_ms, by = flash_bound(B, H, Hkv, T, T, dh, causal)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+
+
+def time_paged(dev, lengths, ps, iters, flush):
+    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_reference)
+
+    H, Hkv, dh = 32, 8, 128
+    q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, dh, ps, dev, seed=5)
+    err = check_agreement(
+        f"paged B={len(lengths)} ps={ps} lengths={lengths}",
+        paged_attention_cuda(q, kp, vp, table, lens),
+        paged_attention_reference(q, kp, vp, table, lens))
+    ms = time_ms(lambda: paged_attention_cuda(q, kp, vp, table, lens), iters,
+                 flush)
+    plain_ms = time_ms(lambda: paged_attention_reference(q, kp, vp, table,
+                                                         lens), iters, flush)
+    bound_ms, by = paged_bound(lengths, H, Hkv, dh, ps)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+
+
+# -- phase 6: where a decode step's time goes ---------------------------------
+def profile_decode(params, cfg, dev, card: str) -> None:
+    """One decode block of the paged engine at B=8 (contexts ~200 tokens),
+    this thread playing the engine loop (the loop thread is not started):
+    host wall time per step, the card's busy time per step from
+    torch.profiler (kernels only), the idle share, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    eng = PagedLLMEngine(params, cfg, device=dev, n_slots=8, max_seq_len=1024,
+                         page_size=128, prefill_buckets=(256,))
+    tok = DebugTokenizer(cfg.vocab_size)
+    for i in range(8):
+        eng.submit(tok.encode(make_prompt(200, 100 + i)), max_new_tokens=400)
+    eng._admit()
+    eng._decode()                                  # warm
+    torch.cuda.synchronize()
+    block = eng.decode_block_size
+    t0 = time.monotonic()
+    eng._decode()
+    wall_ms = (time.monotonic() - t0) * 1e3 / block
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._decode()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        log(f"profile decode B=8: wall_ms_per_step={wall_ms:.3f}; device "
+            f"busy time: not measured (profiler saw no kernels) [{card}]")
+        return
+    busy_ms = busy_us / 1e3 / block
+    log(f"profile decode B=8 ctx~200: wall_ms_per_step={wall_ms:.3f} "
+        f"device_busy_ms_per_step={busy_ms:.3f} idle_share="
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} kernel launches per step="
+        f"{sum(e.count for e in kernels) / block:.0f} [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile decode kernel: {e.key[:90]} ms_per_step="
+            f"{e.self_device_time_total / 1e3 / block:.4f} calls_per_step="
+            f"{e.count / block:.0f}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL no CUDA device is visible")
+        return 1
+    try:
+        from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+        from gofr_tpu_torch.ops import _build
+        from gofr_tpu_torch.tpu.device import card_info, resolve_device
+    except ImportError as exc:
+        log(f"FAIL gofr_tpu_torch is not importable ({exc}); run from the "
+            f"root of a checkout")
+        return 1
+    t_all = time.monotonic()
+    try:
+        dev = resolve_device("cuda:0")
+        card = card_info().splitlines()[0]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"card: {card}; torch {torch.__version__} cuda "
+            f"{torch.version.cuda}; torch.backends.cuda.matmul.allow_tf32="
+            f"False, torch.backends.cudnn.allow_tf32=False")
+        t0 = time.monotonic()
+        took = _build.build(*_build.KERNELS)
+        log(f"build: {json.dumps({k: round(v, 2) for k, v in took.items()})} "
+            f"wall={time.monotonic() - t0:.2f}s (nvcc, sm_90a, parallel)")
+        for name in _build.KERNELS:
+            ptxas = _build.target(name).with_suffix(".log")
+            for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
+                if "registers" in line or "spill" in line:
+                    log(f"build {name}: {line.strip()}")
+
+        check_kernels(dev)
+
+        cfg = LlamaConfig.llama3_8b()
+        t0 = time.monotonic()
+        params = llama_init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        log(f"model: llama3_8b {cfg.param_count() / 1e9:.2f}B params bf16, "
+            f"random seed 0, init {time.monotonic() - t0:.1f}s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        check_model(params, cfg, dev)
+        served = serve_phase(params, cfg, dev, card)
+
+        flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+        # flash at every [K, bucket] window serving dispatched; the kernels
+        # line carries the most frequent one (ties: the most work)
+        shapes = served["prefill_shapes"]
+        K, bucket = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
+        flash_main = time_flash(dev, K, bucket, True, 20, flush)
+        others = [(k, b) for k, b in sorted(shapes) if (k, b) != (K, bucket)]
+        for B, T in others + [(1, 1024), (1, 16384)]:
+            r = time_flash(dev, B, T, True, 5 if T > 1024 else 20, flush)
+            log(f"time flash B={B} T=S={T} causal: ms={r['ms']:.4f} bound_ms="
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
+                f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} [{card}]")
+        ctx = [n + served["max_tokens"] // 2 for n in served["prompt_lens"]]
+        ctx = (ctx + ctx)[:8]
+        paged_main = time_paged(dev, ctx, 128, 50, flush)
+        for name, r, shape in (
+                ("flash", flash_main,
+                 f"B={K} T=S={bucket} causal (served {shapes[(K, bucket)]}x)"),
+                ("paged", paged_main, f"B=8 ps=128 lengths={ctx}")):
+            log(f"time {name} {shape}: ms={r['ms']:.4f} bound_ms="
+                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
+                f"{r['plain_ms']:.4f} library_ms={r['library_ms']} [{card}]")
+        kernels = [
+            dict(name="flash_attention", route="cuda",
+                 source="gofr_tpu_torch/ops/csrc/flash_attention.cu",
+                 replaces="gofr_tpu/ops/flash_attention.py:186",
+                 launches=served["flash"], **flash_main),
+            dict(name="paged_attention", route="cuda",
+                 source="gofr_tpu_torch/ops/csrc/paged_attention.cu",
+                 replaces="gofr_tpu/ops/paged_attention.py:210",
+                 launches=served["paged"], **paged_main),
+        ]
+        for kern in kernels:
+            require(all(kern[k] is None or math.isfinite(kern[k])
+                        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+                    f"non-finite timing for {kern['name']}")
+        profile_decode(params, cfg, dev, card)
+        log(f"total: {time.monotonic() - t_all:.1f}s")
+    except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
+        import traceback
+
+        traceback.print_exc()
+        log(f"FAIL {type(exc).__name__}: {exc}")
+        return 1
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
