@@ -6,26 +6,36 @@ card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX or gofr_tpu.
 Phases, one or more lines each, any failure exits non-zero:
 
 1. card and build: the card's name and power limit (nvidia-smi), TF32 off,
-   both kernels built from gofr_tpu_torch/ops/csrc with one nvcc each, in
-   parallel;
+   the kernels' three sources built from gofr_tpu_torch/ops/csrc with one
+   nvcc each, in parallel;
 2. each kernel against its plain PyTorch version on the card, in bf16, at
    the stated tolerance (flash: H=32, Hkv=8, dh=128 at T=S 128 / 1000 /
-   16384, causal and not, plus dh=64; paged: B=8, ragged lengths around the
-   page size, zero table tails, page sizes 16 and 128, and zeros at length
-   0);
+   16384, causal and not, plus dh=64; paged and paged-int8: B=8, ragged
+   lengths around the page size, zero table tails, page sizes 16 and 128,
+   and zeros at length 0; decode and decode-int8: B=8 over a dense S=1024
+   cache at lengths 0, S, one past S and ragged ones between);
 3. the model on the card: Llama-3-8B at full width and depth, random
-   weights from seed 0; one paged decode step through both kernels must
-   match a full recompute of the same context with plain attention;
-4. serving: the port's app (gofr_tpu_torch/serve.py) on a free port with
-   ATTN_IMPL=flash answers concurrent streaming and non-streaming
-   POST /generate; every request returns its max_tokens, a repeated greedy
-   prompt repeats its tokens, and the kernels' launch counters (zeroed just
-   before) grew by n_layers per prefill and per decode step;
-5. timings: each kernel beside its bound, its plain version and (flash) the
-   library's scaled_dot_product_attention, and TTFT / decode tok/s of the
-   served requests, each with the card's name and power limit;
-6. profile: one decode block at B=8 — host wall time per step against the
-   card's busy time (torch.profiler), and the kernels that take it.
+   weights from seed 0; one paged decode step and one dense decode step
+   (decode kernel) must match a full recompute of the same context with
+   plain attention, and one dense int8 and one paged int8 step must match a
+   plain step over the same int8 cache, dequantized;
+4. serving, four configurations of the port's app (gofr_tpu_torch/serve.py)
+   on the same weights: paged bf16 (the main path), paged int8
+   (KV_DTYPE=int8), dense (PAGED=false DECODE_ATTN=kernel) and dense int8
+   (the same with KV_DTYPE=int8), each with ATTN_IMPL=flash. Each answers
+   concurrent streaming and non-streaming POST /generate; every request
+   returns its max_tokens, a repeated greedy prompt repeats its tokens, and
+   the kernels' launch counters (zeroed just before each configuration)
+   grew by n_layers per prefill (flash) and per decode step (that
+   configuration's decode kernel, and no other);
+5. timings: each kernel beside its bound, its plain version and, where one
+   PyTorch call computes the same function (flash, dense bf16 decode), the
+   library's scaled_dot_product_attention, at the shapes serving gave it,
+   and TTFT / decode tok/s of the served requests, each with the card's
+   name and power limit;
+6. profile: one decode block at B=8 in each serving configuration — host
+   wall time per step against the card's busy time (torch.profiler), and
+   the kernels that take it.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -36,11 +46,13 @@ from __future__ import annotations
 import http.client
 import json
 import math
+import re
 import sys
 import threading
 import time
 
 H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM data sheet
+H100_INT8_OPS = 1979e12      # dense int8 tensor-core peak, the same sheet
 H100_HBM_BYTES_S = 3.35e12
 # a kernel agrees with its plain version when every output element is within
 # RTOL * |want| + ATOL_RMS * rms(want): both are bf16 roundings of f32
@@ -50,6 +62,7 @@ H100_HBM_BYTES_S = 3.35e12
 RTOL = 1e-2
 ATOL_RMS = 1e-2
 MODEL_TOL = 0.25             # bf16 logits after 32 layers, see check_model
+DENSE_S = 1024               # the dense cache of phase 2's checks
 
 
 def log(msg: str) -> None:
@@ -128,10 +141,27 @@ def paged_inputs(lengths, H, Hkv, dh, ps, dev, seed=0):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def dense_inputs(lengths, H, Hkv, dh, S, dev, seed=0):
+    """q, a dense [B, Hkv, dh, S] k and v cache, lengths."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    return (_randn((B, H, dh), gen, dev), _randn((B, Hkv, dh, S), gen, dev),
+            _randn((B, Hkv, dh, S), gen, dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
 def check_kernels(dev) -> None:
+    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                     decode_attention_plain,
+                                                     decode_attention_q8_cuda,
+                                                     quantize_kv)
     from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
                                                     flash_attention_plain)
     from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_plain,
+                                                    paged_attention_q8_cuda,
                                                     paged_attention_reference)
 
     for T, dh, causal in [(128, 128, True), (128, 128, False),
@@ -150,29 +180,62 @@ def check_kernels(dev) -> None:
         got = paged_attention_cuda(q, kp, vp, table, lens)
         want = paged_attention_reference(q, kp, vp, table, lens)
         check_agreement(f"paged ps={ps} lengths={lengths}", got, want)
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+        check_agreement(f"paged-int8 ps={ps} lengths={lengths}",
+                        paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens),
+                        paged_attention_plain(q, k8, v8, table, lens, ks, vs))
         lens[3] = 0
         zero = paged_attention_cuda(q, kp, vp, table, lens)[3]
         require(bool((zero == 0).all()), "paged kernel: length 0 is not zeros")
-    log("check paged length=0 row: zeros ok")
+        zero = paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens)[3]
+        require(bool((zero == 0).all()),
+                "paged-int8 kernel: length 0 is not zeros")
+    log("check paged and paged-int8 length=0 row: zeros ok")
+    S = DENSE_S
+    lengths = [0, 1, 127, 128, 129, 700, S, S + 1]
+    q, k, v, lens = dense_inputs(lengths, 32, 8, 128, S, dev, seed=11)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    fp = decode_attention_cuda(q, k, v, lens)
+    q8 = decode_attention_q8_cuda(q, k8, v8, ks, vs, lens)
+    check_agreement(f"decode S={S} lengths={lengths}", fp,
+                    decode_attention_plain(q, k, v, lens))
+    check_agreement(f"decode-int8 S={S} lengths={lengths}", q8,
+                    decode_attention_plain(q, k8, v8, lens, ks, vs))
+    require(bool((fp[0] == 0).all()) and bool((q8[0] == 0).all()),
+            "decode kernels: length 0 is not zeros")
+    lens[-1] = S
+    require(bool((decode_attention_cuda(q, k, v, lens)[-1] == fp[-1]).all())
+            and bool((decode_attention_q8_cuda(q, k8, v8, ks, vs, lens)[-1]
+                      == q8[-1]).all()),
+            "decode kernels: a length past S does not read as S")
+    log("check decode and decode-int8 length=0 row: zeros; length S+1 reads "
+        "as S: ok")
 
 
 # -- phase 3: the model on the card ------------------------------------------
-def check_model(params, cfg, dev) -> float:
-    """Prefill a prompt (flash), write its KV into pages, take ONE paged
-    decode step (both kernels on the path), and compare its logits with a
-    full recompute of prompt + token through plain masked attention. The
-    tolerance is on the max abs logit difference: bf16 activations through
-    32 layers on two different attention paths (logits are O(1) here)."""
+def check_model(params, cfg, dev) -> None:
+    """Prefill a prompt (flash) and take ONE decode step through each
+    decode path from its KV: paged and dense (decode kernel) against a full
+    recompute of prompt + token through plain masked attention; dense int8
+    and paged int8 against a plain step (plain masked read) over the same
+    int8 cache, dequantized to bf16. The tolerance is on the max abs logit
+    difference: bf16 activations through 32 layers on two different
+    attention paths (logits are O(1) here)."""
     import dataclasses
 
     import torch
 
     from gofr_tpu_torch.models.llama import (llama_decode_step_paged,
+                                             llama_decode_step_paged_q8,
+                                             llama_decode_step_unrolled,
+                                             llama_decode_step_unrolled_q8,
                                              llama_prefill_last)
-    from gofr_tpu_torch.ops.paged_attention import paged_write_prefill_stacked
+    from gofr_tpu_torch.ops.decode_attention import quantize_kv
+    from gofr_tpu_torch.ops.paged_attention import (paged_write_prefill_scales,
+                                                    paged_write_prefill_stacked)
 
     L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    n, ps = 100, 128
+    n, ps, S = 100, 128, 128
     gen = torch.Generator(device=dev).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                            device=dev)
@@ -186,30 +249,71 @@ def check_model(params, cfg, dev) -> float:
         logits, tk, tv = llama_prefill_last(params, c, tokens, pos, lens, tk, tv)
         return logits, tk, tv, lens
 
+    def dense(tmp, dtype):
+        """Per-layer [1, ..., S] buffers holding `tmp`'s n tokens."""
+        out = []
+        for l in range(L):
+            buf = torch.zeros((*tmp.shape[1:-1], S), dtype=dtype, device=dev)
+            buf[..., :n] = tmp[l]
+            out.append(buf)
+        return out
+
+    def check(what, got, want) -> None:
+        torch.cuda.synchronize()
+        require(tuple(got.shape) == (1, cfg.vocab_size), f"{what}: shape")
+        require(bool(torch.isfinite(got).all()), f"{what}: not finite")
+        diff = float((got - want).abs().max())
+        log(f"check model: {what}: max_abs_diff={diff:.3e} (max |logit| "
+            f"{float(want.abs().max()):.3f}) tol={MODEL_TOL} "
+            f"{'ok' if diff <= MODEL_TOL else 'FAIL'}")
+        require(diff <= MODEL_TOL, f"{what}: disagrees")
+
     flash = dataclasses.replace(cfg, attn_impl="flash")
-    plain = dataclasses.replace(cfg, attn_impl="xla")
+    plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla")
+    kernel = dataclasses.replace(cfg, decode_attn="kernel")
     logits0, tk, tv, lens = prefill(prompt, flash)
+    nxt = int(torch.argmax(logits0[0]))
+    tok = torch.tensor([nxt], device=dev)
+    pos = torch.tensor([n], device=dev)
+    full = torch.cat([prompt, torch.tensor([[nxt]], device=dev)], dim=1)
+    want, _, _, _ = prefill(full, plain)
+
     pool_k = torch.zeros((L, 3, Hkv, dh, ps), dtype=torch.bfloat16, device=dev)
     pool_v = torch.zeros_like(pool_k)
     ptable = torch.tensor([[1]], dtype=torch.int32, device=dev)
     paged_write_prefill_stacked(pool_k, pool_v, tk, tv, ptable, lens)
-    nxt = int(torch.argmax(logits0[0]))
     table = torch.tensor([[1, 0]], dtype=torch.int32, device=dev)
-    step, _, _ = llama_decode_step_paged(
-        params, cfg, torch.tensor([nxt], device=dev),
-        torch.tensor([n], device=dev), pool_k, pool_v, table)
-    full = torch.cat([prompt, torch.tensor([[nxt]], device=dev)], dim=1)
-    want, _, _, _ = prefill(full, plain)
-    torch.cuda.synchronize()
-    require(tuple(step.shape) == (1, cfg.vocab_size), "decode logits shape")
-    require(bool(torch.isfinite(step).all()), "decode logits not finite")
-    diff = float((step - want).abs().max())
-    scale = float(want.abs().max())
-    log(f"check model: paged decode step vs plain recompute: max_abs_diff="
-        f"{diff:.3e} (max |logit| {scale:.3f}) tol={MODEL_TOL} "
-        f"{'ok' if diff <= MODEL_TOL else 'FAIL'}")
-    require(diff <= MODEL_TOL, "decode step disagrees with the recompute")
-    return diff
+    step, _, _ = llama_decode_step_paged(params, cfg, tok, pos, pool_k,
+                                         pool_v, table)
+    check("paged decode step vs plain recompute", step, want)
+    step, _, _ = llama_decode_step_unrolled(
+        params, kernel, tok, pos, dense(tk, torch.bfloat16),
+        dense(tv, torch.bfloat16))
+    check("dense decode step (decode kernel) vs plain recompute", step, want)
+
+    # int8: the same prefill KV quantized per token and head
+    (k8, ks), (v8, vs) = quantize_kv(tk), quantize_kv(tv)
+    deq_k = (k8.float() * ks[:, :, :, None, :]).to(torch.bfloat16)
+    deq_v = (v8.float() * vs[:, :, :, None, :]).to(torch.bfloat16)
+    want_q8, _, _ = llama_decode_step_unrolled(
+        params, plain, tok, pos, dense(deq_k, torch.bfloat16),
+        dense(deq_v, torch.bfloat16))
+    step = llama_decode_step_unrolled_q8(
+        params, kernel, tok, pos, dense(k8, torch.int8), dense(v8, torch.int8),
+        dense(ks, torch.float32), dense(vs, torch.float32))[0]
+    check("dense int8 decode step vs plain step over the dequantized cache",
+          step, want_q8)
+    pool_k = torch.zeros((L, 3, Hkv, dh, ps), dtype=torch.int8, device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    pool_ks = torch.zeros((L, 3, Hkv, ps), dtype=torch.float32, device=dev)
+    pool_vs = torch.zeros_like(pool_ks)
+    paged_write_prefill_stacked(pool_k, pool_v, k8, v8, ptable, lens)
+    paged_write_prefill_scales(pool_ks, ks, ptable, lens)
+    paged_write_prefill_scales(pool_vs, vs, ptable, lens)
+    step = llama_decode_step_paged_q8(params, cfg, tok, pos, pool_k, pool_v,
+                                      pool_ks, pool_vs, table)[0]
+    check("paged int8 decode step vs plain step over the dequantized cache",
+          step, want_q8)
 
 
 # -- phase 4: serving ----------------------------------------------------------
@@ -267,16 +371,43 @@ def plain_request(port, prompt, max_tokens, out, key):
                 "data": body.get("data")}
 
 
-def serve_phase(params, cfg, dev, card: str,
-                preset: str = "llama3-8b") -> dict:
-    """Drive the port's /generate; returns what the timing phase needs."""
+def kernel_wrappers() -> dict:
+    """Every kernel's wrapper, whose `launches` counts its launches."""
+    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                     decode_attention_q8_cuda)
     from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
-    from gofr_tpu_torch.ops.paged_attention import paged_attention_cuda
+    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_q8_cuda)
+
+    return {"flash_attention": flash_attention_cuda,
+            "paged_attention": paged_attention_cuda,
+            "paged_attention_q8": paged_attention_q8_cuda,
+            "decode_attention": decode_attention_cuda,
+            "decode_attention_q8": decode_attention_q8_cuda}
+
+
+# serving configuration -> (env beside the common keys, its decode kernel)
+SERVE_CONFIGS = {
+    "paged": ({}, "paged_attention"),
+    "paged-int8": ({"KV_DTYPE": "int8"}, "paged_attention_q8"),
+    "dense": ({"PAGED": "false", "DECODE_ATTN": "kernel"}, "decode_attention"),
+    "dense-int8": ({"PAGED": "false", "DECODE_ATTN": "kernel",
+                    "KV_DTYPE": "int8"}, "decode_attention_q8"),
+}
+
+
+def serve_phase(params, cfg, dev, card: str, config: str,
+                preset: str = "llama3-8b") -> dict:
+    """Drive the port's /generate in one serving configuration; returns
+    what the timing phase needs."""
     from gofr_tpu_torch.serve import build_app, build_engine
 
+    extra, decode_kernel = SERVE_CONFIGS[config]
+    wrappers = kernel_wrappers()
     env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
            "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
-           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600"}
+           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
+           **extra}
     engine = build_engine(env, device=dev, params=params)
     app = build_app(env, engine=engine)
     app.start()
@@ -284,11 +415,11 @@ def serve_phase(params, cfg, dev, card: str,
         # warm the path once (allocator caches, cuBLAS handles), uncounted
         warm = {}
         stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
-        require(warm["w"]["status"] == 200, "warm-up request failed")
+        require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
 
-        # every kernel count to 0 just before the main path runs
-        flash_attention_cuda.launches = 0
-        paged_attention_cuda.launches = 0
+        # every kernel count to 0 just before this configuration runs
+        for fn in wrappers.values():
+            fn.launches = 0
         engine.prefill_dispatches = engine.decode_steps = 0
         engine.prefill_shapes.clear()
         n_tok, n_plain = 32, 16
@@ -308,54 +439,63 @@ def serve_phase(params, cfg, dev, card: str,
         for t in threads:
             t.join(timeout=900)
         wall = time.monotonic() - t0
-        require(all(not t.is_alive() for t in threads), "requests hung")
+        require(all(not t.is_alive() for t in threads),
+                f"{config}: requests hung")
         # a repeated greedy prompt, alone each time, repeats its tokens
         rep: dict = {}
         for key in ("r1", "r2"):
             stream_request(app.http_port, prompts[0], 24, rep, key)
-        flash_n = flash_attention_cuda.launches
-        paged_n = paged_attention_cuda.launches
+        launches = {name: fn.launches for name, fn in wrappers.items()}
         prefills, steps = engine.prefill_dispatches, engine.decode_steps
         shapes = dict(engine.prefill_shapes)
+        cache_len = getattr(engine, "_cache_len", None)
     finally:
         app.shutdown()
 
     for i in range(len(prompts)):
         r = out[i]
         require(r["status"] == 200 and r["done"] is not None,
-                f"stream {i} failed: {r['status']}")
+                f"{config}: stream {i} failed: {r['status']}")
         require(r["done"]["tokens"] == n_tok and len(r["times"]) == n_tok,
-                f"stream {i} returned {r['done']['tokens']} of {n_tok} tokens")
+                f"{config}: stream {i} returned {r['done']['tokens']} of "
+                f"{n_tok} tokens")
     p = out["plain"]
     require(p["status"] == 201 and p["data"]["tokens"] == n_plain,
-            f"non-streaming request failed: {p}")
+            f"{config}: non-streaming request failed: {p}")
     require(rep["r1"]["done"]["tokens"] == 24
             and rep["r1"]["text"] == rep["r2"]["text"],
-            "repeated greedy prompt gave different tokens")
-    log(f"serve: {len(prompts)} streams x {n_tok} tokens + 1 non-streaming x "
-        f"{n_plain} in {wall:.2f}s; repeat of a greedy prompt identical: ok")
+            f"{config}: repeated greedy prompt gave different tokens")
+    log(f"serve {config}: {len(prompts)} streams x {n_tok} tokens + 1 "
+        f"non-streaming x {n_plain} in {wall:.2f}s; repeat of a greedy "
+        f"prompt identical: ok")
     L = cfg.n_layers
-    log(f"serve: launches flash={flash_n} (prefills={prefills} x n_layers={L})"
-        f" paged={paged_n} (decode steps={steps} x n_layers={L})")
-    log("serve: prefill windows [K, bucket] x count: " + ", ".join(
+    log(f"serve {config}: launches " + " ".join(
+        f"{k}={v}" for k, v in launches.items())
+        + f" (prefills={prefills}, decode steps={steps}, n_layers={L})")
+    log(f"serve {config}: prefill windows [K, bucket] x count: " + ", ".join(
         f"[{k}, {b}] x {n}" for (k, b), n in sorted(shapes.items())))
-    require(prefills > 0 and flash_n == L * prefills,
-            "flash launches do not match n_layers per prefill")
-    require(steps > 0 and paged_n == L * steps,
-            "paged launches do not match n_layers per decode step")
+    require(prefills > 0 and launches["flash_attention"] == L * prefills,
+            f"{config}: flash launches do not match n_layers per prefill")
+    require(steps > 0 and launches[decode_kernel] == L * steps,
+            f"{config}: {decode_kernel} launches do not match n_layers per "
+            f"decode step")
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention", decode_kernel) and v}
+    require(not others, f"{config}: other decode kernels launched: {others}")
     ttft = sorted(out[i]["times"][0] * 1e3 for i in range(len(prompts)))
     tps = sorted((n_tok - 1) / (out[i]["times"][-1] - out[i]["times"][0])
                  for i in range(len(prompts)))
-    log(f"serve: ttft_ms p50={ttft[len(ttft) // 2]:.1f} max={ttft[-1]:.1f} "
-        f"(client-side, {len(ttft)} concurrent streams) [{card}]")
-    log(f"serve: decode tok/s per stream p50={tps[len(tps) // 2]:.1f} "
-        f"min={tps[0]:.1f}; {len(prompts)} streams [{card}]")
+    log(f"serve {config}: ttft_ms p50={ttft[len(ttft) // 2]:.1f} "
+        f"max={ttft[-1]:.1f} (client-side, {len(ttft)} concurrent streams) "
+        f"[{card}]")
+    log(f"serve {config}: decode tok/s per stream p50={tps[len(tps) // 2]:.1f}"
+        f" min={tps[0]:.1f}; {len(prompts)} streams [{card}]")
     solo = rep["r2"]["times"]
-    log(f"serve: single stream ttft_ms={solo[0] * 1e3:.1f} decode tok/s="
-        f"{(len(solo) - 1) / (solo[-1] - solo[0]):.1f} [{card}]")
-    return {"flash": flash_n, "paged": paged_n, "prefill_shapes": shapes,
+    log(f"serve {config}: single stream ttft_ms={solo[0] * 1e3:.1f} decode "
+        f"tok/s={(len(solo) - 1) / (solo[-1] - solo[0]):.1f} [{card}]")
+    return {"launches": launches, "prefill_shapes": shapes,
             "prompt_lens": [len(engine.tokenizer.encode(p)) for p in prompts],
-            "max_tokens": n_tok}
+            "max_tokens": n_tok, "cache_len": cache_len}
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -388,17 +528,27 @@ def flash_bound(B, H, Hkv, T, S, dh, causal):
                                        else "bytes")
 
 
-def paged_bound(lengths, H, Hkv, dh, ps):
-    """K and V of each row's live tokens read once (the ragged tail of a
-    last page is not needed), q read and o written once, the live pages'
-    table entries and the lengths read once."""
-    pages = sum(-(-n // ps) for n in lengths)
-    nbytes = (sum(lengths) * Hkv * dh * 2 * 2 + 2 * 2 * len(lengths) * H * dh
-              + 4 * pages + 4 * len(lengths))
-    flops = 4.0 * H * dh * sum(lengths)
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+def read_bound(lengths, H, Hkv, dh, quantized, index_bytes):
+    """The decode reads' bound: K and V of each row's live tokens read once
+    (bf16, or int8 plus the two f32 scales of each token and head; the
+    ragged tail of a last page is not needed), q read and o written once in
+    bf16, plus `index_bytes` (lengths, live table entries). The operations,
+    ~4 * H * dh per live token, at the peak rate of the K/V type."""
+    per_token = Hkv * (dh * 2 + 2 * 4) if quantized else Hkv * dh * 2 * 2
+    nbytes = (sum(lengths) * per_token + 2 * 2 * len(lengths) * H * dh
+              + index_bytes)
+    ops = 4.0 * H * dh * sum(lengths)
+    t_ops = ops / (H100_INT8_OPS if quantized else H100_BF16_FLOPS)
+    t_bytes = nbytes / H100_HBM_BYTES_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def paged_bound(lengths, H, Hkv, dh, ps, quantized=False):
+    """read_bound, indexing through the live pages' table entries."""
+    pages = sum(-(-n // ps) for n in lengths)
+    return read_bound(lengths, H, Hkv, dh, quantized,
+                      4 * pages + 4 * len(lengths))
 
 
 def time_flash(dev, B, T, causal, iters, flush):
@@ -426,39 +576,108 @@ def time_flash(dev, B, T, causal, iters, flush):
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
 
 
-def time_paged(dev, lengths, ps, iters, flush):
+def time_paged(dev, lengths, ps, iters, flush, quantized=False):
+    from gofr_tpu_torch.ops.decode_attention import quantize_kv
     from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
-                                                    paged_attention_reference)
+                                                    paged_attention_plain,
+                                                    paged_attention_q8_cuda)
 
     H, Hkv, dh = 32, 8, 128
     q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, dh, ps, dev, seed=5)
-    err = check_agreement(
-        f"paged B={len(lengths)} ps={ps} lengths={lengths}",
-        paged_attention_cuda(q, kp, vp, table, lens),
-        paged_attention_reference(q, kp, vp, table, lens))
-    ms = time_ms(lambda: paged_attention_cuda(q, kp, vp, table, lens), iters,
-                 flush)
-    plain_ms = time_ms(lambda: paged_attention_reference(q, kp, vp, table,
-                                                         lens), iters, flush)
-    bound_ms, by = paged_bound(lengths, H, Hkv, dh, ps)
+    if quantized:
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+
+        def kernel():
+            return paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens)
+
+        def plain():
+            return paged_attention_plain(q, k8, v8, table, lens, ks, vs)
+    else:
+        def kernel():
+            return paged_attention_cuda(q, kp, vp, table, lens)
+
+        def plain():
+            return paged_attention_plain(q, kp, vp, table, lens)
+    err = check_agreement(f"paged{'-int8' if quantized else ''} "
+                          f"B={len(lengths)} ps={ps} lengths={lengths}",
+                          kernel(), plain())
+    ms = time_ms(kernel, iters, flush)
+    plain_ms = time_ms(plain, iters, flush)
+    bound_ms, by = paged_bound(lengths, H, Hkv, dh, ps, quantized)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
 
 
+def time_decode(dev, lengths, S, iters, flush, quantized=False):
+    """The dense read at B=len(lengths) over an S-long cache. Its library
+    yardstick (bf16 only): scaled_dot_product_attention with a length mask
+    and enable_gqa, on the same K/V copied beforehand into the [B, Hkv, S,
+    dh] layout it takes. No PyTorch call reads int8 K/V with scales."""
+    import torch
+    import torch.nn.functional as F
+
+    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                     decode_attention_plain,
+                                                     decode_attention_q8_cuda,
+                                                     quantize_kv)
+
+    H, Hkv, dh = 32, 8, 128
+    q, k, v, lens = dense_inputs(lengths, H, Hkv, dh, S, dev, seed=6)
+    lib_ms = None
+    if quantized:
+        (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+
+        def kernel():
+            return decode_attention_q8_cuda(q, k8, v8, ks, vs, lens)
+
+        def plain():
+            return decode_attention_plain(q, k8, v8, lens, ks, vs)
+    else:
+        def kernel():
+            return decode_attention_cuda(q, k, v, lens)
+
+        def plain():
+            return decode_attention_plain(q, k, v, lens)
+
+        k_sd = k.transpose(-1, -2).contiguous()          # [B, Hkv, S, dh]
+        v_sd = v.transpose(-1, -2).contiguous()
+        q_sd = q[:, :, None]                             # [B, H, 1, dh]
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q_sd, k_sd, v_sd, attn_mask=mask, enable_gqa=True), iters, flush)
+    err = check_agreement(f"decode{'-int8' if quantized else ''} "
+                          f"B={len(lengths)} S={S} lengths={lengths}",
+                          kernel(), plain())
+    ms = time_ms(kernel, iters, flush)
+    plain_ms = time_ms(plain, iters, flush)
+    bound_ms, by = read_bound(lengths, H, Hkv, dh, quantized, 4 * len(lengths))
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+
+
 # -- phase 6: where a decode step's time goes ---------------------------------
-def profile_decode(params, cfg, dev, card: str) -> None:
-    """One decode block of the paged engine at B=8 (contexts ~200 tokens),
-    this thread playing the engine loop (the loop thread is not started):
-    host wall time per step, the card's busy time per step from
-    torch.profiler (kernels only), the idle share, the top kernels."""
+def profile_decode(params, cfg, dev, card: str, config: str) -> None:
+    """One decode block of a serving configuration's engine at B=8
+    (contexts ~200 tokens), this thread playing the engine loop (the loop
+    thread is not started): host wall time per step, the card's busy time
+    per step from torch.profiler (kernels only), the idle share, the top
+    kernels."""
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.engine import LLMEngine
     from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
-    eng = PagedLLMEngine(params, cfg, device=dev, n_slots=8, max_seq_len=1024,
-                         page_size=128, prefill_buckets=(256,))
+    extra, _ = SERVE_CONFIGS[config]
+    cfg = dataclasses.replace(cfg, decode_attn=extra.get("DECODE_ATTN", "xla"),
+                              kv_dtype=extra.get("KV_DTYPE"))
+    kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,))
+    eng = (LLMEngine(params, cfg, **kw) if extra.get("PAGED") == "false"
+           else PagedLLMEngine(params, cfg, page_size=128, **kw))
     tok = DebugTokenizer(cfg.vocab_size)
     for i in range(8):
         eng.submit(tok.encode(make_prompt(200, 100 + i)), max_new_tokens=400)
@@ -476,16 +695,17 @@ def profile_decode(params, cfg, dev, card: str) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
-        log(f"profile decode B=8: wall_ms_per_step={wall_ms:.3f}; device "
-            f"busy time: not measured (profiler saw no kernels) [{card}]")
+        log(f"profile decode {config} B=8: wall_ms_per_step={wall_ms:.3f}; "
+            f"device busy time: not measured (profiler saw no kernels) "
+            f"[{card}]")
         return
     busy_ms = busy_us / 1e3 / block
-    log(f"profile decode B=8 ctx~200: wall_ms_per_step={wall_ms:.3f} "
+    log(f"profile decode {config} B=8 ctx~200: wall_ms_per_step={wall_ms:.3f} "
         f"device_busy_ms_per_step={busy_ms:.3f} idle_share="
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f} kernel launches per step="
         f"{sum(e.count for e in kernels) / block:.0f} [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"profile decode kernel: {e.key[:90]} ms_per_step="
+        log(f"profile decode {config} kernel: {e.key[:90]} ms_per_step="
             f"{e.self_device_time_total / 1e3 / block:.4f} calls_per_step="
             f"{e.count / block:.0f}")
 
@@ -519,9 +739,13 @@ def main() -> int:
             f"wall={time.monotonic() - t0:.2f}s (nvcc, sm_90a, parallel)")
         for name in _build.KERNELS:
             ptxas = _build.target(name).with_suffix(".log")
-            for line in ptxas.read_text().splitlines() if ptxas.exists() else []:
-                if "registers" in line or "spill" in line:
-                    log(f"build {name}: {line.strip()}")
+            text = ptxas.read_text() if ptxas.exists() else ""
+            regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+            spills = [int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+            log(f"build {name}: {len(regs)} kernels, registers "
+                f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
+                f"{sum(spills)}")
 
         check_kernels(dev)
 
@@ -533,12 +757,16 @@ def main() -> int:
             f"random seed 0, init {time.monotonic() - t0:.1f}s, "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
         check_model(params, cfg, dev)
-        served = serve_phase(params, cfg, dev, card)
+        served = {}
+        for config in SERVE_CONFIGS:
+            served[config] = serve_phase(params, cfg, dev, card, config)
+            torch.cuda.empty_cache()
 
         flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
-        # flash at every [K, bucket] window serving dispatched; the kernels
-        # line carries the most frequent one (ties: the most work)
-        shapes = served["prefill_shapes"]
+        # flash at every [K, bucket] window the main path dispatched; the
+        # kernels line carries the most frequent one (ties: the most work)
+        main = served["paged"]
+        shapes = main["prefill_shapes"]
         K, bucket = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
         flash_main = time_flash(dev, K, bucket, True, 20, flush)
         others = [(k, b) for k, b in sorted(shapes) if (k, b) != (K, bucket)]
@@ -547,31 +775,60 @@ def main() -> int:
             log(f"time flash B={B} T=S={T} causal: ms={r['ms']:.4f} bound_ms="
                 f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
                 f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} [{card}]")
-        ctx = [n + served["max_tokens"] // 2 for n in served["prompt_lens"]]
+        # the decode reads at B=8 and the contexts of mid-decode in serving
+        ctx = [n + main["max_tokens"] // 2 for n in main["prompt_lens"]]
         ctx = (ctx + ctx)[:8]
-        paged_main = time_paged(dev, ctx, 128, 50, flush)
-        for name, r, shape in (
-                ("flash", flash_main,
-                 f"B={K} T=S={bucket} causal (served {shapes[(K, bucket)]}x)"),
-                ("paged", paged_main, f"B=8 ps=128 lengths={ctx}")):
+        S = served["dense"]["cache_len"]
+        timed = {
+            "flash_attention": (flash_main, f"B={K} T=S={bucket} causal "
+                                f"(served {shapes[(K, bucket)]}x)"),
+            "paged_attention": (time_paged(dev, ctx, 128, 50, flush),
+                                f"B=8 ps=128 lengths={ctx}"),
+            "paged_attention_q8": (time_paged(dev, ctx, 128, 50, flush, True),
+                                   f"B=8 ps=128 lengths={ctx}"),
+            "decode_attention": (time_decode(dev, ctx, S, 50, flush),
+                                 f"B=8 S={S} lengths={ctx}"),
+            "decode_attention_q8": (time_decode(dev, ctx, S, 50, flush, True),
+                                    f"B=8 S={S} lengths={ctx}"),
+        }
+        for name, (r, shape) in timed.items():
             log(f"time {name} {shape}: ms={r['ms']:.4f} bound_ms="
                 f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
                 f"{r['plain_ms']:.4f} library_ms={r['library_ms']} [{card}]")
-        kernels = [
-            dict(name="flash_attention", route="cuda",
-                 source="gofr_tpu_torch/ops/csrc/flash_attention.cu",
-                 replaces="gofr_tpu/ops/flash_attention.py:186",
-                 launches=served["flash"], **flash_main),
-            dict(name="paged_attention", route="cuda",
-                 source="gofr_tpu_torch/ops/csrc/paged_attention.cu",
-                 replaces="gofr_tpu/ops/paged_attention.py:210",
-                 launches=served["paged"], **paged_main),
-        ]
-        for kern in kernels:
+        csrc = "gofr_tpu_torch/ops/csrc/"
+        # kernel -> (source, the Pallas call it replaces, its serving phase)
+        origin = {
+            "flash_attention": ("flash_attention.cu",
+                                "gofr_tpu/ops/flash_attention.py:186",
+                                "paged"),
+            "paged_attention": ("paged_attention.cu",
+                                "gofr_tpu/ops/paged_attention.py:210",
+                                "paged"),
+            "paged_attention_q8": ("paged_attention.cu",
+                                   "gofr_tpu/ops/paged_attention.py:210",
+                                   "paged-int8"),
+            "decode_attention": ("decode_attention.cu",
+                                 "gofr_tpu/ops/decode_attention.py:206",
+                                 "dense"),
+            "decode_attention_q8": ("decode_attention.cu",
+                                    "gofr_tpu/ops/decode_attention.py:206",
+                                    "dense-int8"),
+        }
+        kernels = []
+        for name, (src, replaces, config) in origin.items():
+            kern = dict(name=name, route="cuda", source=csrc + src,
+                        replaces=replaces,
+                        launches=served[config]["launches"][name],
+                        **timed[name][0])
+            require(kern["launches"] > 0, f"{name}: no launch on its path")
             require(all(kern[k] is None or math.isfinite(kern[k])
-                        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-                    f"non-finite timing for {kern['name']}")
-        profile_decode(params, cfg, dev, card)
+                        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                                  "library_ms")),
+                    f"non-finite timing for {name}")
+            kernels.append(kern)
+        for config in SERVE_CONFIGS:
+            profile_decode(params, cfg, dev, card, config)
+            torch.cuda.empty_cache()
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

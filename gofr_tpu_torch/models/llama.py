@@ -3,9 +3,13 @@
 Ports from ``gofr_tpu/models/llama.py``: ``LlamaConfig`` (same fields and
 presets), ``llama_init`` (same recipe, drawn from a ``torch.Generator`` —
 it never tries to replay ``jax.random``), ``rms_norm``, ``rope``, ``_mm``,
-``_embed``, ``_head``, ``_attention_block`` (the cache-writing T == S window
-path), ``_ffn_block``, ``llama_forward_hidden``, ``llama_prefill_last`` and
-``llama_decode_step_paged``.
+``_embed``, ``_head``, ``_attention_block`` (the T == S window, the T=1
+``decode_attn="kernel"`` read through ops/decode_attention, and the plain
+masked read), ``_ffn_block``, ``llama_forward_hidden``,
+``llama_prefill_last``, the dense engine's ``init_kv_cache_layers``,
+``init_kv_scale_layers``, ``llama_decode_step_unrolled`` and
+``llama_decode_step_unrolled_q8``, and the paged
+``llama_decode_step_paged`` and ``llama_decode_step_paged_q8``.
 
 The params tree keeps the JAX layout — a dict with stacked [L, in, out]
 layer weights and ``x @ W`` — so the weight bridge (models/weights.py) is
@@ -14,8 +18,13 @@ one copy per leaf. JAX's casts are kept: norms and rope in f32 cast back to
 returns updated arrays (its engine donates them).
 
 Not ported yet: int8 weights (``_q_matmul``, ``quantize_weights``) — ROADMAP
-A13; the dense-cache engine's decode steps and the int8-KV, chunked,
-prefix and verify programs — ROADMAP A7-A12.
+A13; the chunked, prefix and verify programs — ROADMAP A7, A10.
+
+A cache write past a dense cache's last column (a finished row that keeps
+advancing in lock-step decode) lands on that last column instead of being
+dropped as JAX's scatter drops it: torch indexing would raise. The row's
+emitted tokens never read that column (the engine caps a row's context at
+max_seq_len - 1), so the result is the same.
 """
 
 from __future__ import annotations
@@ -49,11 +58,13 @@ class LlamaConfig:
     # (T == S in _attention_block). "xla" is plain masked attention, the
     # counterpart of the JAX einsum; "flash" is ops/flash_attention
     attn_impl: str = "xla"
-    # "xla" | "kernel": the dense engine's T=1 read; the paged engine reads
-    # through its paged kernel whatever this says. Kept for field parity
+    # "xla" | "kernel": the dense engine's T=1 read ("kernel" is
+    # ops/decode_attention); the paged engine reads through its paged
+    # kernel whatever this says
     decode_attn: str = "xla"
-    # None (= dtype) | "int8": the KV pool's storage dtype. int8 is not
-    # ported yet (ROADMAP A8); kept for field parity
+    # None (= dtype) | "int8": the KV cache's storage dtype. int8 stores
+    # per-token-per-head scales beside it; the dense engine then needs
+    # decode_attn == "kernel"
     kv_dtype: Optional[str] = None
 
     @property
@@ -184,11 +195,13 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
 
     x: [B, T, D]; k/v_cache_l: [B, Hkv, dh, S] (S-minor, the JAX layout);
     positions: [B, T]. Writes this chunk's k/v into the caches IN PLACE at
-    its absolute positions and returns (out [B, T, D], k_cache_l,
-    v_cache_l). When T == S (the serving prefill's full window) and
-    cfg.attn_impl == "flash", attention runs through ops/flash_attention on
-    the fresh k/v; otherwise it is plain masked attention over the cache
-    (the JAX einsum path: cache-dtype operands, f32 scores)."""
+    its absolute positions (clamped to S - 1, see the module docstring) and
+    returns (out [B, T, D], k_cache_l, v_cache_l). When T == S (the serving
+    prefill's full window) and cfg.attn_impl == "flash", attention runs
+    through ops/flash_attention on the fresh k/v; when T == 1 and
+    cfg.decode_attn == "kernel", through ops/decode_attention over the
+    cache; otherwise it is plain masked attention over the cache (the JAX
+    einsum path: cache-dtype operands, f32 scores)."""
     B, T, _ = x.shape
     S = k_cache_l.shape[-1]
     H, Hkv, dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
@@ -203,14 +216,25 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
     # advanced indices on dims 0 and 3 -> value shape [B, T, Hkv, dh]
     batch_idx = torch.arange(B, device=x.device)[:, None]
     pos = positions.long()
-    k_cache_l[batch_idx, :, :, pos] = k
-    v_cache_l[batch_idx, :, :, pos] = v
+    write_pos = pos.clamp(max=S - 1)
+    k_cache_l[batch_idx, :, :, write_pos] = k
+    v_cache_l[batch_idx, :, :, write_pos] = v
 
     if T == S and cfg.attn_impl == "flash":
         from ..ops.flash_attention import flash_attention
 
         attn = flash_attention(q, k, v, True)                 # [B, T, H, dh]
         return (_mm(attn.reshape(B, T, H * dh), layer, "wo"), k_cache_l,
+                v_cache_l)
+
+    if T == 1 and cfg.decode_attn == "kernel":
+        from ..ops.decode_attention import decode_attention
+
+        # the write above put this step's k/v at `positions`, so the live
+        # window is [0, positions] inclusive
+        attn = decode_attention(q[:, 0].contiguous(), k_cache_l, v_cache_l,
+                                (pos[:, 0] + 1).to(torch.int32))
+        return (_mm(attn.reshape(B, 1, H * dh), layer, "wo"), k_cache_l,
                 v_cache_l)
 
     qg = q.reshape(B, T, Hkv, G, dh)
@@ -266,6 +290,108 @@ def llama_prefill_last(params, cfg: LlamaConfig, tokens, positions, lengths,
     return _head(last, params), k_cache, v_cache
 
 
+def init_kv_cache_layers(cfg: LlamaConfig, batch: int,
+                         seq_len: Optional[int] = None,
+                         dtype: Optional[str] = None, device=None):
+    """Per-layer zeroed (k, v) caches: lists of L tensors [B, Hkv, dh, S] in
+    `dtype` (default cfg.dtype; "int8" for the quantized cache). The dense
+    engine's representation: one buffer per layer, so growth can replace
+    them one at a time."""
+    dev = resolve_device(device)
+    S = seq_len or cfg.max_seq_len
+    shape = (batch, cfg.n_kv_heads, cfg.head_dim, S)
+    dt = torch.int8 if dtype == "int8" else DTYPES[dtype or cfg.dtype]
+    k = [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)]
+    v = [torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)]
+    return k, v
+
+
+def init_kv_scale_layers(cfg: LlamaConfig, batch: int,
+                         seq_len: Optional[int] = None, device=None):
+    """Per-layer (k_scale, v_scale) buffers of the int8 cache: lists of L
+    float32 tensors [B, Hkv, S] (dequant value = int8 * scale)."""
+    dev = resolve_device(device)
+    S = seq_len or cfg.max_seq_len
+    shape = (batch, cfg.n_kv_heads, S)
+    k = [torch.zeros(shape, dtype=torch.float32, device=dev)
+         for _ in range(cfg.n_layers)]
+    v = [torch.zeros(shape, dtype=torch.float32, device=dev)
+         for _ in range(cfg.n_layers)]
+    return k, v
+
+
+def llama_decode_step_unrolled(params, cfg: LlamaConfig, tokens, positions,
+                               k_layers, v_layers):
+    """One decode step over per-layer cache buffers.
+
+    tokens: [B]; positions: [B]; k/v_layers: lists of L [B, Hkv, dh, S]
+    tensors (init_kv_cache_layers), written in place. The T=1 read is
+    cfg.decode_attn's ("kernel": ops/decode_attention). Returns (logits
+    [B, V] float32, k_layers, v_layers)."""
+    x = _embed(params, cfg, tokens)[:, None]               # [B, 1, D]
+    pos_grid = positions[:, None]
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        attn, _, _ = _attention_block(x, layer, k_layers[l], v_layers[l],
+                                      pos_grid, cfg)
+        x = x + attn
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(x[:, 0], params), k_layers, v_layers
+
+
+def _qkv_decode(x, layer, pos_grid, cfg: LlamaConfig):
+    """The T=1 projections: (q [B, H, dh], k [B, Hkv, dh], v [B, Hkv, dh])
+    with rope on q and k."""
+    B = x.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    q = rope(_mm(normed, layer, "wq").reshape(B, 1, H, dh), pos_grid,
+             cfg.rope_theta)
+    k = rope(_mm(normed, layer, "wk").reshape(B, 1, Hkv, dh), pos_grid,
+             cfg.rope_theta)
+    v = _mm(normed, layer, "wv").reshape(B, 1, Hkv, dh)
+    return q[:, 0].contiguous(), k[:, 0], v[:, 0]
+
+
+def llama_decode_step_unrolled_q8(params, cfg: LlamaConfig, tokens, positions,
+                                  k_layers, v_layers, ks_layers, vs_layers):
+    """One decode step over int8 per-layer caches with per-token scales.
+
+    tokens/positions: [B]; k/v_layers: lists of [B, Hkv, dh, S] int8;
+    ks/vs_layers: lists of [B, Hkv, S] float32; all written in place. The
+    new token's K/V quantize on write (ops/decode_attention.quantize_kv,
+    per token and head); the read is ops/decode_attention with the
+    dequantization folded into it (cfg.decode_attn must be "kernel", as in
+    JAX). Returns (logits [B, V] f32, k_layers, v_layers, ks_layers,
+    vs_layers)."""
+    from ..ops.decode_attention import decode_attention, quantize_kv
+
+    B = tokens.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    x = _embed(params, cfg, tokens)[:, None]               # [B, 1, D]
+    pos_grid = positions[:, None]
+    rows = torch.arange(B, device=tokens.device)
+    S = k_layers[0].shape[-1]
+    write_pos = positions.long().clamp(max=S - 1)
+    lengths = (positions + 1).to(torch.int32)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        q, k, v = _qkv_decode(x, layer, pos_grid, cfg)
+        k8, ks = quantize_kv(k, axis=-1)                   # [B,Hkv,dh], [B,Hkv]
+        v8, vs = quantize_kv(v, axis=-1)
+        k_layers[l][rows, :, :, write_pos] = k8
+        v_layers[l][rows, :, :, write_pos] = v8
+        ks_layers[l][rows, :, write_pos] = ks
+        vs_layers[l][rows, :, write_pos] = vs
+        attn = decode_attention(q, k_layers[l], v_layers[l], lengths,
+                                ks_layers[l], vs_layers[l])
+        x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(x[:, 0], params), k_layers, v_layers, ks_layers, vs_layers
+
+
 def llama_decode_step_paged(params, cfg: LlamaConfig, tokens, positions,
                             k_pool, v_pool, table):
     """One decode step against a PAGED KV cache.
@@ -279,23 +405,51 @@ def llama_decode_step_paged(params, cfg: LlamaConfig, tokens, positions,
     from ..ops.paged_attention import paged_attention, paged_write_decode
 
     B = tokens.shape[0]
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, dh = cfg.n_heads, cfg.head_dim
     x = _embed(params, cfg, tokens)[:, None]               # [B, 1, D]
     pos_grid = positions[:, None]                          # [B, 1]
     lengths = (positions + 1).to(torch.int32)
     for l in range(cfg.n_layers):
         layer = _layer(params, l)
-        normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q = rope(_mm(normed, layer, "wq").reshape(B, 1, H, dh), pos_grid,
-                 cfg.rope_theta)
-        k = rope(_mm(normed, layer, "wk").reshape(B, 1, Hkv, dh), pos_grid,
-                 cfg.rope_theta)
-        v = _mm(normed, layer, "wv").reshape(B, 1, Hkv, dh)
-        paged_write_decode(k_pool[l], v_pool[l], k[:, 0], v[:, 0], table,
-                           positions)
-        attn = paged_attention(q[:, 0].contiguous(), k_pool[l], v_pool[l],
-                               table, lengths)
+        q, k, v = _qkv_decode(x, layer, pos_grid, cfg)
+        paged_write_decode(k_pool[l], v_pool[l], k, v, table, positions)
+        attn = paged_attention(q, k_pool[l], v_pool[l], table, lengths)
         x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return _head(x[:, 0], params), k_pool, v_pool
+
+
+def llama_decode_step_paged_q8(params, cfg: LlamaConfig, tokens, positions,
+                               k_pool, v_pool, ks_pool, vs_pool, table):
+    """One decode step against an int8 paged KV pool.
+
+    As llama_decode_step_paged, with k/v_pool [L, P, Hkv, dh, ps] int8 and
+    ks/vs_pool [L, P, Hkv, ps] float32, all updated in place. The new
+    token's K/V quantize on write; its scales go to the same (page, offset)
+    as its values (the value writer's index rule); the paged read folds
+    the dequantization in. Returns (logits [B, V] f32, k_pool, v_pool,
+    ks_pool, vs_pool)."""
+    from ..ops.decode_attention import quantize_kv
+    from ..ops.paged_attention import (paged_attention, paged_write_decode,
+                                       paged_write_decode_scales)
+
+    B = tokens.shape[0]
+    H, dh = cfg.n_heads, cfg.head_dim
+    x = _embed(params, cfg, tokens)[:, None]               # [B, 1, D]
+    pos_grid = positions[:, None]
+    lengths = (positions + 1).to(torch.int32)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        q, k, v = _qkv_decode(x, layer, pos_grid, cfg)
+        k8, ks = quantize_kv(k, axis=-1)                   # [B,Hkv,dh], [B,Hkv]
+        v8, vs = quantize_kv(v, axis=-1)
+        paged_write_decode(k_pool[l], v_pool[l], k8, v8, table, positions)
+        paged_write_decode_scales(ks_pool[l], vs_pool[l], ks, vs, table,
+                                  positions)
+        attn = paged_attention(q, k_pool[l], v_pool[l], table, lengths,
+                               ks_pool[l], vs_pool[l])
+        x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return (_head(x[:, 0], params), k_pool, v_pool, ks_pool, vs_pool)

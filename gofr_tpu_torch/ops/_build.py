@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. It is
+Each source is one ``csrc/<name>.cu`` with a plain C interface (one or
+more entry points; shared device code lives in ``csrc/*.cuh``). It is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
 root of the checkout, at first use, and rebuilt when a hash of its sources
 and flags changes. Nothing here runs at import: the CPU tests import every
@@ -24,15 +25,22 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel -> (C entry point, argtypes); every entry point returns
-# cudaGetLastError() as an int
+# kernel -> (source in csrc/, C entry point, argtypes); every entry point
+# returns cudaGetLastError() as an int
 ENTRY_POINTS = {
-    "flash_attention": ("gofr_flash_attention_fwd",
+    "flash_attention": ("flash_attention", "gofr_flash_attention_fwd",
                         [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]),
-    "paged_attention": ("gofr_paged_attention",
+    "paged_attention": ("paged_attention", "gofr_paged_attention",
                         [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]),
+    "paged_attention_q8": ("paged_attention", "gofr_paged_attention_q8",
+                           [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
+    "decode_attention": ("decode_attention", "gofr_decode_attention",
+                         [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]),
+    "decode_attention_q8": ("decode_attention", "gofr_decode_attention_q8",
+                            [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
 }
-KERNELS = tuple(ENTRY_POINTS)
+# the sources, one shared library each
+KERNELS = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))
 
 _lock = threading.Lock()
 _functions: Dict[str, ctypes._CFuncPtr] = {}
@@ -51,7 +59,7 @@ def nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """The library path for kernel `name`, keyed by a hash of its sources
+    """The library path for source `name`, keyed by a hash of its sources
     (the .cu and every shared .cuh) and the compiler flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
@@ -61,7 +69,7 @@ def target(name: str) -> Path:
 
 
 def build(*names: str) -> Dict[str, float]:
-    """Compile the named kernels that are not built yet, one nvcc process
+    """Compile the named sources that are not built yet, one nvcc process
     per source, all started together. Returns {name: seconds} for the ones
     compiled (the ptxas register/spill report is in ``<lib>.log``); raises
     RuntimeError with the compiler's output when any build fails."""
@@ -95,16 +103,17 @@ def build(*names: str) -> Dict[str, float]:
 
 def function(name: str) -> ctypes._CFuncPtr:
     """The C entry point of kernel `name`, its argtypes and restype set,
-    built and loaded at the first call; later calls are one dict lookup."""
+    its source built and loaded at the first call; later calls are one dict
+    lookup."""
     fn = _functions.get(name)
     if fn is not None:
         return fn
     with _lock:
         fn = _functions.get(name)
         if fn is None:
-            build(name)
-            symbol, argtypes = ENTRY_POINTS[name]
-            fn = getattr(ctypes.CDLL(str(target(name))), symbol)
+            source, symbol, argtypes = ENTRY_POINTS[name]
+            build(source)
+            fn = getattr(ctypes.CDLL(str(target(source))), symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _functions[name] = fn

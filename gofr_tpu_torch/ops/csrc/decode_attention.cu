@@ -1,0 +1,42 @@
+// Dense decode attention for Hopper (sm_90a): one query token per row, GQA,
+// over a per-slot cache, masked by per-row lengths, from bf16 caches or from
+// int8 caches with per-token f32 scales.
+//
+// Replaces: gofr_tpu/ops/decode_attention.py, decode_attention ->
+// _decode_kernel, without scales (gofr_decode_attention) and with them
+// (gofr_decode_attention_q8).
+//
+// Layout (the JAX cache's, so the port's caches compare one to one):
+// q, o [B, H, dh] bf16; k_cache, v_cache [B, Hkv, dh, S] (token index minor),
+// bf16 or int8; k_scale, v_scale [B, Hkv, S] f32; lengths [B] int32.
+//
+// Bound, design and the folded dequantization: decode_read.cuh, which this
+// file instantiates with Dense addressing. A row's length is clamped to S, as
+// the Pallas grid covers only S / block_s blocks: in lock-step decode a row
+// that finished and was not reused keeps advancing past the cache. The
+// Pallas kernel needs S % block_s == 0; this one takes any S >= 1.
+
+#include "decode_read.cuh"
+
+using gofr_decode::Dense;
+
+// Each returns a cudaError_t code: 0 when the launch was accepted.
+extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
+                                     const void* lengths, void* o, int B, int H, int Hkv,
+                                     int dh, int S, float scale, void* stream) {
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  const Dense addr{static_cast<const int*>(lengths), Hkv, dh, S};
+  return gofr_decode::dispatch<__nv_bfloat16>(H, q, k_cache, v_cache, nullptr, nullptr,
+                                              addr, o, B, scale, stream);
+}
+
+extern "C" int gofr_decode_attention_q8(const void* q, const void* k_cache,
+                                        const void* v_cache, const void* k_scale,
+                                        const void* v_scale, const void* lengths, void* o,
+                                        int B, int H, int Hkv, int dh, int S, float scale,
+                                        void* stream) {
+  if (S <= 0) return (int)cudaErrorInvalidValue;
+  const Dense addr{static_cast<const int*>(lengths), Hkv, dh, S};
+  return gofr_decode::dispatch<int8_t>(H, q, k_cache, v_cache, k_scale, v_scale, addr, o,
+                                       B, scale, stream);
+}

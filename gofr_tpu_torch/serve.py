@@ -11,12 +11,14 @@ body and sends the same events.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from the environment).
 Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
-debug), ATTN_IMPL (flash | xla, default flash), PAGE_SIZE (128), N_PAGES
-(0 = every slot can reach MAX_SEQ_LEN), MAX_BATCH (8), MAX_SEQ_LEN (1024),
-PREFILL_BUCKETS ("16,32,64,128,256"), HTTP_PORT (8000), REQUEST_TIMEOUT
-(5 s, for stream=false). Weights are random, from seed 0. Keys whose
-feature is not ported yet refuse to boot (NOT_PORTED below) rather than
-being ignored.
+debug), ATTN_IMPL (flash | xla, default flash), PAGED (true: the paged
+engine; false: the dense-cache engine), DECODE_ATTN (xla | kernel, the
+dense engine's T=1 read), KV_DTYPE (unset | int8; the dense engine needs
+DECODE_ATTN=kernel for int8), PAGE_SIZE (128), N_PAGES (0 = every slot can
+reach MAX_SEQ_LEN), MAX_BATCH (8), MAX_SEQ_LEN (1024), PREFILL_BUCKETS
+("16,32,64,128,256"), HTTP_PORT (8000), REQUEST_TIMEOUT (5 s, for
+stream=false). Weights are random, from seed 0. Keys whose feature is not
+ported yet refuse to boot (NOT_PORTED below) rather than being ignored.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from .http.errors import InvalidParam, RequestTimeout, ServiceUnavailable
 from .models.llama import LlamaConfig, llama_init
 from .models.tokenizer import ByteTokenizer, DebugTokenizer, StreamingDecoder
 from .tpu.device import resolve_device
+from .tpu.engine import LLMEngine
 from .tpu.paging import PagedLLMEngine
 
 PRESETS = {
@@ -59,14 +62,8 @@ def _int(env: Mapping[str, str], key: str, default: int) -> int:
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("PAGED", lambda e: not _flag(e, "PAGED", True),
-     "the dense-cache engine (PAGED=false) waits in ROADMAP A12"),
-    ("DECODE_ATTN", lambda e: e.get("DECODE_ATTN", "xla") != "xla",
-     "the dense decode kernel (DECODE_ATTN=kernel) waits in ROADMAP A12"),
     ("PREFIX_CACHE", lambda e: _flag(e, "PREFIX_CACHE", False),
      "the prefix cache waits in ROADMAP A7"),
-    ("KV_DTYPE", lambda e: bool(e.get("KV_DTYPE")),
-     "int8 paged KV waits in ROADMAP A8"),
     ("SAMPLING_CONTROLS", lambda e: _flag(e, "SAMPLING_CONTROLS", False),
      "per-request top_p/top_k controls wait in ROADMAP A9"),
     ("CHUNK_PREFILL_TOKENS", lambda e: _int(e, "CHUNK_PREFILL_TOKENS", 0) > 0,
@@ -100,7 +97,7 @@ def check_config(env: Mapping[str, str]) -> None:
 
 
 def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
-                 params=None) -> PagedLLMEngine:
+                 params=None) -> LLMEngine:
     """Engine from config keys (see the module docstring), started. device:
     None = the CUDA card (raises without one); "cpu" for tests. params: an
     already-built params dict for the preset (default: llama_init, seed 0).
@@ -114,24 +111,33 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         raise ValueError(f"MODEL_PRESET must be one of {sorted(PRESETS)}, "
                          f"got {preset!r}")
     attn_impl = env.get("ATTN_IMPL", "flash")
+    decode_attn = env.get("DECODE_ATTN", "xla")
+    kv_dtype = env.get("KV_DTYPE", "") or None
     if attn_impl not in ("xla", "flash"):
         raise ValueError(f"ATTN_IMPL must be xla|flash, got {attn_impl!r}")
-    cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl)
+    if decode_attn not in ("xla", "kernel"):
+        raise ValueError(f"DECODE_ATTN must be xla|kernel, got "
+                         f"{decode_attn!r}")
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
+    cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
+                              decode_attn=decode_attn, kv_dtype=kv_dtype)
     if dev.type == "cuda":
         from .ops import _build
 
         _build.build(*_build.KERNELS)
     if params is None:
         params = llama_init(cfg, seed=0, device=dev)
-    n_pages = _int(env, "N_PAGES", 0)
-    engine = PagedLLMEngine(
-        params, cfg, device=dev,
-        page_size=_int(env, "PAGE_SIZE", 128),
-        n_pages=n_pages or None,
-        n_slots=_int(env, "MAX_BATCH", 8),
-        max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
-        prefill_buckets=tuple(int(b) for b in env.get(
-            "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
+    kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
+              max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
+              prefill_buckets=tuple(int(b) for b in env.get(
+                  "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
+    if _flag(env, "PAGED", True):
+        engine = PagedLLMEngine(params, cfg,
+                                page_size=_int(env, "PAGE_SIZE", 128),
+                                n_pages=_int(env, "N_PAGES", 0) or None, **kw)
+    else:
+        engine = LLMEngine(params, cfg, **kw)
     # synthetic vocabularies sample ids the byte tokenizer cannot
     # round-trip; DebugTokenizer decodes every id to one char
     engine.tokenizer = (DebugTokenizer(cfg.vocab_size)

@@ -5,7 +5,14 @@ Ports from ``gofr_tpu/tpu/engine.py``: ``GenerationRequest`` (``stream``,
 of ``LLMEngine``: ``submit``, ``_admit`` (priority heap, prompt-length
 buckets, fused K-way admission), the decode dispatch of
 ``decode_block_size`` steps returning [B, M] tokens, ``_demux_plan`` (same
-stop / budget / context semantics), ``_finish_slot`` and ``start``/``stop``.
+stop / budget / context semantics), ``_finish_slot``, ``start``/``stop``,
+and the dense-cache device state: the kv_dtype checks (int8 needs
+``decode_attn="kernel"`` on the dense engine), the rounding of
+``max_seq_len`` down to a multiple of 512 under ``decode_attn="kernel"``,
+``_init_device_state`` (per-layer caches allocated at the smallest
+bucket), ``_grow_cache``, ``_decode_need``, ``_prefill_fn`` and
+``_decode_fn``. JAX's ``_prefill_fn_q8`` and ``_decode_fn_q8`` are branches
+of those two here: eager PyTorch has no donated signatures to keep apart.
 
 What the JAX engine overlaps, this one runs one-deep and synchronously:
 each prefill or decode dispatch is followed at once by its host copy and
@@ -15,9 +22,13 @@ fault injection, replay-after-reset and the reset-storm breaker, the
 off-loop finisher, draining and disaggregated hand-off. A failed dispatch
 here fails the requests it carried and the loop keeps serving.
 
-``LLMEngine`` is the host loop only; device state, prefill and decode come
-from a subclass (tpu/paging.PagedLLMEngine). The dense-cache engine
-(PAGED=false) is ROADMAP A12.
+As in JAX, ``LLMEngine`` is the dense-cache engine (``PAGED=false``): one
+[B, Hkv, dh, S] cache per layer, S grown by powers of two up to
+max_seq_len as contexts need it. ``tpu/paging.PagedLLMEngine`` overrides
+its device state, prefill and decode. Where JAX donates the caches to its
+programs, the port updates them in place, and growth copies one layer at a
+time, dropping each old buffer as its copy lands, so the peak stays one
+layer above the cache.
 """
 
 from __future__ import annotations
@@ -34,8 +45,13 @@ from typing import Dict, Iterator, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
+from ..models.llama import (DTYPES, init_kv_cache_layers,
+                            init_kv_scale_layers, llama_decode_step_unrolled,
+                            llama_decode_step_unrolled_q8, llama_prefill_last)
+from ..ops.decode_attention import quantize_kv
 from .device import resolve_device
 from .executor import next_bucket
+from .sampling import sample_tokens
 
 _request_ids = itertools.count(1)
 _log = logging.getLogger(__name__)
@@ -128,13 +144,29 @@ def _admission_split(n: int, cap: int) -> List[int]:
     return out
 
 
+def check_kernel_config(cfg) -> None:
+    """Raise unless cfg is one the CUDA kernels take: bfloat16, head_dim 64
+    or 128, n_heads / n_kv_heads in (1, 2, 4, 8)."""
+    if (cfg.dtype != "bfloat16" or cfg.head_dim not in (64, 128)
+            or cfg.q_per_kv not in (1, 2, 4, 8)):
+        raise ValueError(
+            f"the CUDA kernels take bfloat16, head_dim 64 or 128 and "
+            f"n_heads / n_kv_heads in (1, 2, 4, 8); this config has "
+            f"{cfg.dtype}, {cfg.head_dim}, {cfg.q_per_kv}")
+
+
 class LLMEngine:
-    """Host loop of a continuous-batching engine over `n_slots` lock-step
-    sequences. Subclasses provide ``_init_device_state``,
-    ``_dispatch_prefill`` (returns the [K] first tokens on the device) and
-    ``_dispatch_decode`` (returns the [B, block] tokens on the device)."""
+    """Continuous-batching engine over `n_slots` lock-step sequences and a
+    dense per-slot KV cache. The host loop (admission, decode blocks,
+    demux) is shared with subclasses, which override
+    ``_init_device_state``, ``_dispatch_prefill`` (returns the [K] first
+    tokens on the device) and ``_dispatch_decode`` (returns the [B, block]
+    tokens on the device)."""
 
     STOP_JOIN_S = 30.0
+    # the paged subclass reads through its paged kernel whatever
+    # cfg.decode_attn says, so the dense-only rules below skip it
+    _paged = False
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -145,14 +177,42 @@ class LLMEngine:
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
+        self.logger = logger or _log
         self.n_slots = n_slots
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
                                cfg.max_seq_len)
         self.prefill_buckets = tuple(b for b in prefill_buckets
                                      if b <= self.max_seq_len)
+        # the Pallas decode kernel reads the cache in min(512, S) blocks
+        # and the reference rounds the cap down at boot so a grow clamped
+        # to max_seq_len stays divisible; the CUDA kernel takes any S, but
+        # the cap is the admission limit users see, so it is kept
+        if (cfg.decode_attn == "kernel" and not self._paged
+                and self.max_seq_len > 512 and self.max_seq_len % 512):
+            rounded = (self.max_seq_len // 512) * 512
+            self.logger.warning(
+                "max_seq_len %d rounded down to %d: decode_attn='kernel' "
+                "keeps the reference's 512-aligned cap", self.max_seq_len,
+                rounded)
+            self.max_seq_len = rounded
+            self.prefill_buckets = tuple(b for b in self.prefill_buckets
+                                         if b <= rounded)
+            if not self.prefill_buckets:
+                raise ValueError(
+                    f"decode_attn='kernel' rounded max_seq_len to {rounded} "
+                    f"and no prefill bucket fits under it — requests could "
+                    f"be accepted but never admitted; configure a bucket "
+                    f"<= {rounded} or a 512-aligned max_seq_len")
+        # int8 KV: quantize on write, dequantize inside the kernels' reads
+        if cfg.kv_dtype not in (None, "int8", cfg.dtype):
+            raise ValueError(f"kv_dtype={cfg.kv_dtype!r} not supported; "
+                             f"use None or 'int8'")
+        self._q8 = cfg.kv_dtype == "int8"
+        if self._q8 and cfg.decode_attn != "kernel" and not self._paged:
+            raise ValueError("kv_dtype='int8' requires decode_attn="
+                             "'kernel' (no efficient XLA dequant read)")
         self.top_k = top_k
         self.decode_block_size = max(1, decode_block_size)
-        self.logger = logger or _log
         self._seed = seed
         self.slots = [_Slot() for _ in range(n_slots)]
         # arrivals (thread-safe) and the loop-owned admission heap of
@@ -171,18 +231,171 @@ class LLMEngine:
         self.decode_steps = 0
         self._init_device_state()
 
-    # -- subclass surface -----------------------------------------------------
+    # -- device state ---------------------------------------------------------
     def _init_device_state(self) -> None:
-        raise NotImplementedError(
-            "the dense-cache engine is not ported yet (ROADMAP A12); use "
-            "tpu.paging.PagedLLMEngine")
+        """Per-layer [B, Hkv, dh, S] caches (int8 plus [B, Hkv, S] f32
+        scales under kv_dtype='int8'), allocated at the smallest bucket and
+        grown on demand: the plain read's cost follows the allocated S."""
+        if self.device.type == "cuda" and (self.cfg.decode_attn == "kernel"
+                                           or self.cfg.attn_impl == "flash"):
+            check_kernel_config(self.cfg)
+        B = self.n_slots
+        self._cache_len = min(self.max_seq_len,
+                              max(16, min(self.prefill_buckets or (16,))))
+        self.k_cache, self.v_cache = init_kv_cache_layers(
+            self.cfg, B, self._cache_len, dtype="int8" if self._q8 else None,
+            device=self.device)
+        self.k_scale = self.v_scale = None
+        if self._q8:
+            self.k_scale, self.v_scale = init_kv_scale_layers(
+                self.cfg, B, self._cache_len, device=self.device)
+        self._init_loop_state()
 
+    def _init_loop_state(self) -> None:
+        """The loop state, persistent on the device and updated in place
+        (JAX donates it to every program)."""
+        B, dev = self.n_slots, self.device
+        self._tokens = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._positions = torch.zeros((B,), dtype=torch.long, device=dev)
+        self._temps = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.generator.manual_seed(self._seed)
+
+    def _grow_cache(self, needed: int) -> None:
+        """Pad every layer's cache (and scales) along S to the next power
+        of two covering `needed`, capped at max_seq_len. One layer at a
+        time, each old buffer dropped as its copy lands; a layer already at
+        the new length is skipped, so a growth that failed part way is
+        finished by the next call."""
+        new_len = min(self.max_seq_len,
+                      1 << (max(needed, 16) - 1).bit_length())
+        if new_len <= self._cache_len:
+            return
+        buffers = [self.k_cache, self.v_cache]
+        if self._q8:
+            buffers += [self.k_scale, self.v_scale]
+        for layers in buffers:
+            for l, old in enumerate(layers):
+                if old.shape[-1] >= new_len:
+                    continue
+                new = old.new_zeros((*old.shape[:-1], new_len))
+                new[..., :old.shape[-1]] = old
+                layers[l] = new
+                del old
+        self._cache_len = new_len
+        self.logger.debug("grew KV cache to %d", new_len)
+
+    def _decode_need(self) -> int:
+        """Cache length every active row needs after this dispatch: one
+        block past the longest live context (one-deep dispatch: nothing
+        else is in flight)."""
+        longest = max((slot.length for slot in self.slots if slot.active),
+                      default=0)
+        return longest + self.decode_block_size + 1
+
+    # -- programs -------------------------------------------------------------
+    def _prep_admission(self, bucket: int, batch: List[GenerationRequest]):
+        """([K, bucket] prompt tokens, [K] lengths, [K] temperatures) on
+        the device for one fused admission."""
+        ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
+        for row, request in enumerate(batch):
+            ptokens[row, :len(request.prompt_tokens)] = request.prompt_tokens
+        lengths = np.asarray([len(r.prompt_tokens) for r in batch],
+                             dtype=np.int32)
+        temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
+        dev = self.device
+        return (torch.from_numpy(ptokens).to(dev),
+                torch.from_numpy(lengths).to(dev),
+                torch.from_numpy(temps).to(dev))
+
+    def _prefill_window(self, ptokens, lengths):
+        """Forward a [K, bucket] admission window into fresh [L, K, Hkv, dh,
+        bucket] temps of the model dtype (flash or plain attention over the
+        window). Returns (last-position logits [K, V], tmp_k, tmp_v)."""
+        cfg = self.cfg
+        K, bucket = ptokens.shape
+        tmp_k = torch.zeros((cfg.n_layers, K, cfg.n_kv_heads, cfg.head_dim,
+                             bucket), dtype=DTYPES[cfg.dtype],
+                            device=self.device)
+        tmp_v = torch.zeros_like(tmp_k)
+        pos_grid = torch.arange(bucket, device=self.device).expand(K, bucket)
+        return llama_prefill_last(self.params, cfg, ptokens, pos_grid,
+                                  lengths, tmp_k, tmp_v)
+
+    def _splice_loop_state(self, last, slots, lengths, new_temps):
+        """Sample the admitted rows' first tokens and splice them, their
+        positions and temperatures into the loop state. Returns [K]."""
+        first = sample_tokens(last, self.generator, new_temps,
+                              top_k=self.top_k)
+        self._tokens[slots] = first
+        self._positions[slots] = lengths.long()
+        self._temps[slots] = new_temps
+        return first
+
+    def _prefill_fn(self, ptokens, slots, lengths, new_temps):
+        """Fused K-way admission into the dense caches: the window forward
+        runs at full precision into temps, which splice into the slots'
+        rows at [0, bucket) layer by layer — quantized per token and head
+        at the splice under int8 (with their scales). Returns [K] first
+        tokens."""
+        bucket = ptokens.shape[1]
+        last, tmp_k, tmp_v = self._prefill_window(ptokens, lengths)
+        if self._q8:
+            tmp_k, ks = quantize_kv(tmp_k, axis=-2)   # scales [L, K, Hkv, b]
+            tmp_v, vs = quantize_kv(tmp_v, axis=-2)
+        for l in range(self.cfg.n_layers):
+            self.k_cache[l][slots, :, :, :bucket] = tmp_k[l]
+            self.v_cache[l][slots, :, :, :bucket] = tmp_v[l]
+            if self._q8:
+                self.k_scale[l][slots, :, :bucket] = ks[l]
+                self.v_scale[l][slots, :, :bucket] = vs[l]
+        return self._splice_loop_state(last, slots, lengths, new_temps)
+
+    def _decode_loop(self, step, block: int) -> torch.Tensor:
+        """`block` lock-step decode steps: step(tokens, positions) -> [B, V]
+        logits. Returns the [B, block] sampled tokens and advances the
+        loop state in place."""
+        tok, pos = self._tokens, self._positions
+        out = []
+        for _ in range(block):
+            tok = sample_tokens(step(tok, pos), self.generator, self._temps,
+                                top_k=self.top_k)
+            pos = pos + 1
+            out.append(tok)
+        self._tokens.copy_(tok)
+        self._positions.copy_(pos)
+        return torch.stack(out, dim=1)
+
+    def _decode_fn(self, block: int) -> torch.Tensor:
+        """`block` dense decode steps (the int8 step under kv_dtype='int8')
+        over the caches at their grown length."""
+        params, cfg = self.params, self.cfg
+        if self._q8:
+            def step(tok, pos):
+                return llama_decode_step_unrolled_q8(
+                    params, cfg, tok, pos, self.k_cache, self.v_cache,
+                    self.k_scale, self.v_scale)[0]
+        else:
+            def step(tok, pos):
+                return llama_decode_step_unrolled(
+                    params, cfg, tok, pos, self.k_cache, self.v_cache)[0]
+        return self._decode_loop(step, block)
+
+    # -- dispatch -------------------------------------------------------------
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
-        raise NotImplementedError
+        if bucket + 1 > self._cache_len:   # prompts must land inside the cache
+            self._grow_cache(bucket + 1)
+        ptokens, lengths, temps = self._prep_admission(bucket, batch)
+        slots = torch.as_tensor(slots_idx, dtype=torch.long,
+                                device=self.device)
+        return self._prefill_fn(ptokens, slots, lengths, temps)
 
     def _dispatch_decode(self, block: int) -> torch.Tensor:
-        raise NotImplementedError
+        need = self._decode_need()
+        if need > self._cache_len:
+            self._grow_cache(need)
+        return self._decode_fn(block)
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True

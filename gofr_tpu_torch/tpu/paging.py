@@ -2,17 +2,19 @@
 
 Ports from ``gofr_tpu/tpu/paging.py``: ``PageAllocator`` (page 0 is the
 garbage page and is never handed out) and ``PagedLLMEngine`` with the fused
-K-way prefill (``_prefill_fn``), the decode block (``_decode_fn_paged``),
-``_build_table`` with its +1 garbage column, page reservation at admission
-and release at finish.
+K-way prefill (``_prefill_fn``, with ``_prefill_fn_q8`` as its int8
+branch), the decode block (``_decode_fn_paged``, with
+``_decode_fn_paged_q8`` as its int8 branch), ``_build_table`` with its +1
+garbage column, page reservation at admission and release at finish.
 
-K/V live in a fixed pool [L, P, Hkv, dh, page_size] allocated once; a slot
-owns ceil((prompt + max_new) / page_size) pages, mapped by a block table.
-The JAX engine donates the pool and the loop state (tokens, positions,
-temperatures) to every program; here they are persistent tensors updated
-in place. Not ported yet: the prefix cache (ROADMAP A7), int8 pools (A8),
-chunked prefill and speculative verify (A10), KV tiering, disaggregated
-hand-off and migration (A11).
+K/V live in a fixed pool [L, P, Hkv, dh, page_size] allocated once — in
+the model dtype, or int8 with f32 scale pools [L, P, Hkv, page_size] under
+kv_dtype='int8'; a slot owns ceil((prompt + max_new) / page_size) pages,
+mapped by a block table. The JAX engine donates the pools and the loop
+state (tokens, positions, temperatures) to every program; here they are
+persistent tensors updated in place. Not ported yet: the prefix cache
+(ROADMAP A7), chunked prefill and speculative verify (A10), KV tiering,
+disaggregated hand-off and migration (A11).
 """
 
 from __future__ import annotations
@@ -23,10 +25,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.llama import DTYPES, llama_decode_step_paged, llama_prefill_last
-from ..ops.paged_attention import paged_write_prefill_stacked
-from .engine import GenerationRequest, LLMEngine, _Slot
-from .sampling import sample_tokens
+from ..models.llama import (DTYPES, llama_decode_step_paged,
+                            llama_decode_step_paged_q8)
+from ..ops.decode_attention import quantize_kv
+from ..ops.paged_attention import (paged_write_prefill_scales,
+                                   paged_write_prefill_stacked)
+from .engine import GenerationRequest, LLMEngine, _Slot, check_kernel_config
 
 
 class PageAllocator:
@@ -75,11 +79,10 @@ class PagedLLMEngine(LLMEngine):
     n_pages * page_size tokens in total across slots (default: every slot
     can reach max_seq_len, plus the garbage page)."""
 
+    _paged = True
+
     def __init__(self, params, cfg, *, page_size: int = 128,
                  n_pages: Optional[int] = None, **kw):
-        if cfg.kv_dtype not in (None, cfg.dtype):
-            raise ValueError(f"kv_dtype={cfg.kv_dtype!r} is not ported yet "
-                             f"(int8 paged KV: ROADMAP A8)")
         self.page_size = page_size
         self._requested_pages = n_pages
         super().__init__(params, cfg, **kw)
@@ -87,13 +90,8 @@ class PagedLLMEngine(LLMEngine):
     # -- device state ---------------------------------------------------------
     def _init_device_state(self) -> None:
         cfg = self.cfg
-        if self.device.type == "cuda" and (
-                cfg.dtype != "bfloat16" or cfg.head_dim not in (64, 128)
-                or cfg.q_per_kv not in (1, 2, 4, 8)):
-            raise ValueError(
-                f"the CUDA kernels take bfloat16, head_dim 64 or 128 and "
-                f"n_heads / n_kv_heads in (1, 2, 4, 8); this config has "
-                f"{cfg.dtype}, {cfg.head_dim}, {cfg.q_per_kv}")
+        if self.device.type == "cuda":
+            check_kernel_config(cfg)
         ps = self.page_size
         n_pages = self._requested_pages or (
             self.n_slots * math.ceil(self.max_seq_len / ps) + 1)
@@ -101,15 +99,15 @@ class PagedLLMEngine(LLMEngine):
         self._reservations: Dict[int, List[int]] = {}
         dev = self.device
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, cfg.head_dim, ps)
-        self.k_cache = torch.zeros(shape, dtype=DTYPES[cfg.dtype], device=dev)
+        dtype = torch.int8 if self._q8 else DTYPES[cfg.dtype]
+        self.k_cache = torch.zeros(shape, dtype=dtype, device=dev)
         self.v_cache = torch.zeros_like(self.k_cache)
-        B = self.n_slots
-        # loop state, persistent on the device and updated in place
-        self._tokens = torch.zeros((B,), dtype=torch.long, device=dev)
-        self._positions = torch.zeros((B,), dtype=torch.long, device=dev)
-        self._temps = torch.zeros((B,), dtype=torch.float32, device=dev)
-        self.generator = torch.Generator(device=dev)
-        self.generator.manual_seed(self._seed)
+        self.k_scale = self.v_scale = None
+        if self._q8:   # f32 dequant scale pools ride along
+            self.k_scale = torch.zeros(shape[:3] + (ps,), dtype=torch.float32,
+                                       device=dev)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        self._init_loop_state()
 
     # -- admission: page reservation ------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens: int = 128, **kw
@@ -157,45 +155,39 @@ class PagedLLMEngine(LLMEngine):
     # -- programs -------------------------------------------------------------
     def _prefill_fn(self, ptokens, ptable, slots, lengths, new_temps):
         """Fused K-way paged admission: forward the [K, bucket] window
-        (flash or plain attention over the fresh window), scatter the
-        per-layer K/V into the slots' pages, sample first tokens, and
-        splice the loop state in place. ptable: [K, ceil(bucket/ps)]."""
-        cfg = self.cfg
-        K, bucket = ptokens.shape
-        L, _, Hkv, dh, _ = self.k_cache.shape
-        tmp_k = torch.zeros((L, K, Hkv, dh, bucket), dtype=self.k_cache.dtype,
-                            device=self.device)
-        tmp_v = torch.zeros_like(tmp_k)
-        pos_grid = torch.arange(bucket, device=self.device).expand(K, bucket)
-        last, tmp_k, tmp_v = llama_prefill_last(
-            self.params, cfg, ptokens, pos_grid, lengths, tmp_k, tmp_v)
+        (flash or plain attention over the fresh window) into temps of the
+        model dtype, scatter the per-layer K/V into the slots' pages —
+        quantized per token and head, scales beside them, under int8 —
+        sample first tokens, and splice the loop state in place. ptable:
+        [K, ceil(bucket/ps)]."""
+        last, tmp_k, tmp_v = self._prefill_window(ptokens, lengths)
         # token t of row k goes to (ptable[k, t // ps], t % ps); pad junk
         # past lengths[k] is redirected to the garbage page
+        if self._q8:
+            tmp_k, ks = quantize_kv(tmp_k, axis=-2)   # scales [L, K, Hkv, b]
+            tmp_v, vs = quantize_kv(tmp_v, axis=-2)
+            paged_write_prefill_scales(self.k_scale, ks, ptable, lengths)
+            paged_write_prefill_scales(self.v_scale, vs, ptable, lengths)
         paged_write_prefill_stacked(self.k_cache, self.v_cache, tmp_k, tmp_v,
                                     ptable, lengths)
-        first = sample_tokens(last, self.generator, new_temps,
-                              top_k=self.top_k)
-        self._tokens[slots] = first
-        self._positions[slots] = lengths.long()
-        self._temps[slots] = new_temps
-        return first
+        return self._splice_loop_state(last, slots, lengths, new_temps)
 
     def _decode_fn_paged(self, table, block: int):
-        """`block` paged decode steps; table [B, n_table]. Returns the
-        [B, block] sampled tokens and advances the loop state in place."""
-        tok, pos = self._tokens, self._positions
-        out = []
-        for _ in range(block):
-            logits, _, _ = llama_decode_step_paged(
-                self.params, self.cfg, tok, pos, self.k_cache, self.v_cache,
-                table)
-            tok = sample_tokens(logits, self.generator, self._temps,
-                                top_k=self.top_k)
-            pos = pos + 1
-            out.append(tok)
-        self._tokens.copy_(tok)
-        self._positions.copy_(pos)
-        return torch.stack(out, dim=1)
+        """`block` paged decode steps (the int8 step under kv_dtype='int8');
+        table [B, n_table]. Returns the [B, block] sampled tokens and
+        advances the loop state in place."""
+        params, cfg = self.params, self.cfg
+        if self._q8:
+            def step(tok, pos):
+                return llama_decode_step_paged_q8(
+                    params, cfg, tok, pos, self.k_cache, self.v_cache,
+                    self.k_scale, self.v_scale, table)[0]
+        else:
+            def step(tok, pos):
+                return llama_decode_step_paged(
+                    params, cfg, tok, pos, self.k_cache, self.v_cache,
+                    table)[0]
+        return self._decode_loop(step, block)
 
     # -- dispatch -------------------------------------------------------------
     def _build_table(self) -> np.ndarray:
@@ -213,22 +205,17 @@ class PagedLLMEngine(LLMEngine):
 
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
-        K = len(batch)
         n_ptable = max(1, math.ceil(bucket / self.page_size))
-        ptokens = np.zeros((K, bucket), dtype=np.int64)
-        ptable = np.zeros((K, n_ptable), dtype=np.int32)
+        ptable = np.zeros((len(batch), n_ptable), dtype=np.int32)
         for row, request in enumerate(batch):
-            ptokens[row, :len(request.prompt_tokens)] = request.prompt_tokens
             prompt_pages = self._reservations[request.id][:n_ptable]
             ptable[row, :len(prompt_pages)] = prompt_pages
-        lengths = np.asarray([len(r.prompt_tokens) for r in batch],
-                             dtype=np.int32)
-        temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
+        ptokens, lengths, temps = self._prep_admission(bucket, batch)
         dev = self.device
         return self._prefill_fn(
-            torch.from_numpy(ptokens).to(dev), torch.from_numpy(ptable).to(dev),
+            ptokens, torch.from_numpy(ptable).to(dev),
             torch.as_tensor(slots_idx, dtype=torch.long, device=dev),
-            torch.from_numpy(lengths).to(dev), torch.from_numpy(temps).to(dev))
+            lengths, temps)
 
     def _dispatch_decode(self, block: int) -> torch.Tensor:
         table = torch.from_numpy(self._build_table()).to(self.device)

@@ -14,11 +14,19 @@ import pytest
 import torch
 
 from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+from gofr_tpu_torch.ops.decode_attention import (decode_attention,
+                                                 decode_attention_cuda,
+                                                 decode_attention_plain,
+                                                 decode_attention_q8_cuda,
+                                                 quantize_kv)
 from gofr_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_cuda,
                                                 flash_attention_plain)
 from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                paged_attention_plain,
+                                                paged_attention_q8_cuda,
                                                 paged_attention_reference)
+from gofr_tpu_torch.tpu.engine import LLMEngine
 from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +99,107 @@ def test_paged_kernel_matches_reference(cuda, ps):
     _assert_agrees(got, want)
     lens[0] = 0
     assert bool((paged_attention_cuda(q, kp, vp, table, lens)[0] == 0).all())
+
+
+def _paged_table(gen, cuda, lengths, ps):
+    need = [max(1, -(-n // ps)) for n in lengths]
+    P = sum(need) + 1
+    table = torch.zeros((len(lengths), max(need) + 1), dtype=torch.int32,
+                        device=cuda)
+    ids = torch.randperm(P - 1, generator=gen, device=cuda).to(torch.int32) + 1
+    off = 0
+    for b, n in enumerate(need):
+        table[b, :n] = ids[off:off + n]
+        off += n
+    return table, P
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_q8_kernel_matches_plain(cuda, ps):
+    gen = torch.Generator(device=cuda).manual_seed(ps + 1)
+    lengths = [1, ps - 1, ps, ps + 1, 3 * ps + 2, 0]
+    table, P = _paged_table(gen, cuda, lengths, ps)
+    q = _randn(gen, cuda, len(lengths), 32, 128)
+    k8, ks = quantize_kv(_randn(gen, cuda, P, 8, 128, ps))
+    v8, vs = quantize_kv(_randn(gen, cuda, P, 8, 128, ps))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = paged_attention_q8_cuda.launches
+    got = paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens)
+    assert paged_attention_q8_cuda.launches == before + 1
+    want = paged_attention_plain(q, k8, v8, table, lens, ks, vs)
+    _assert_agrees(got, want)
+    assert bool((got[-1] == 0).all())
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_kernel_matches_plain(cuda, quantized):
+    """Ragged lengths including 0, S and one past S (clamped to S)."""
+    gen = torch.Generator(device=cuda).manual_seed(int(quantized))
+    B, S = 6, 700
+    lengths = [0, 1, 130, 511, S, S + 1]
+    q = _randn(gen, cuda, B, 32, 128)
+    k, v = _randn(gen, cuda, B, 8, 128, S), _randn(gen, cuda, B, 8, 128, S)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    scales = ()
+    if quantized:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+
+    def kernel(lens):
+        if quantized:
+            return decode_attention_q8_cuda(q, k, v, *scales, lens)
+        return decode_attention_cuda(q, k, v, lens)
+
+    got = kernel(lens)
+    _assert_agrees(got, decode_attention_plain(q, k, v, lens, *scales))
+    assert bool((got[0] == 0).all())
+    lens[-1] = S
+    assert torch.equal(kernel(lens)[-1], got[-1])
+
+
+def test_decode_dispatch_uses_the_kernels_on_cuda(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = _randn(gen, cuda, 2, 8, 64)
+    k, v = _randn(gen, cuda, 2, 2, 64, 40), _randn(gen, cuda, 2, 2, 64, 40)
+    lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    f0, q0 = decode_attention_cuda.launches, decode_attention_q8_cuda.launches
+    decode_attention(q, k, v, lens)
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+    decode_attention(q, k8, v8, lens, ks, vs)
+    assert decode_attention_cuda.launches == f0 + 1
+    assert decode_attention_q8_cuda.launches == q0 + 1
+    with pytest.raises(TypeError):
+        decode_attention(q.float(), k.float(), v.float(), lens)
+
+
+def _small_cfg(**kw):
+    return dataclasses.replace(LlamaConfig.debug(), dim=256, n_heads=4,
+                               n_kv_heads=2, dtype="bfloat16",
+                               attn_impl="flash", **kw)
+
+
+@pytest.mark.parametrize("paged,kw,counter", [
+    (False, {"decode_attn": "kernel"}, decode_attention_cuda),
+    (False, {"decode_attn": "kernel", "kv_dtype": "int8"},
+     decode_attention_q8_cuda),
+    (True, {"kv_dtype": "int8"}, paged_attention_q8_cuda),
+], ids=["dense", "dense-int8", "paged-int8"])
+def test_new_engine_configs_go_through_their_kernels(cuda, paged, kw,
+                                                     counter):
+    cfg = _small_cfg(**kw)
+    engine = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16))
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    eng.start()
+    try:
+        f0, c0 = flash_attention_cuda.launches, counter.launches
+        out = eng.generate(list(range(3, 17)), max_new_tokens=20)
+        assert len(out) == 20
+        assert flash_attention_cuda.launches - f0 == cfg.n_layers * eng.prefill_dispatches
+        assert counter.launches - c0 == cfg.n_layers * eng.decode_steps
+    finally:
+        eng.stop()
 
 
 def test_engine_on_the_card_goes_through_both_kernels(cuda):

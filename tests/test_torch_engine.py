@@ -225,8 +225,7 @@ def test_sse_generate_end_to_end(served):
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
-    asks = {"PAGED": "false", "DECODE_ATTN": "kernel", "PREFIX_CACHE": "true",
-            "KV_DTYPE": "int8", "SAMPLING_CONTROLS": "true",
+    asks = {"PREFIX_CACHE": "true", "SAMPLING_CONTROLS": "true",
             "CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
             "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
             "QOS": "true", "WEIGHTS_PATH": "/x.safetensors",
@@ -234,3 +233,46 @@ def test_unported_config_keys_refuse_to_boot(key):
             "TP_SHARDS": "2"}
     with pytest.raises(ValueError, match="ROADMAP A"):
         build_engine({key: asks[key]}, device="cpu")
+
+
+# config keys whose features are ported, each with an env that asks for it;
+# KV_DTYPE=int8 boots both engines
+PORTED = {
+    "PAGED": {"PAGED": "false"},
+    "DECODE_ATTN": {"PAGED": "false", "DECODE_ATTN": "kernel"},
+    "KV_DTYPE": {"KV_DTYPE": "int8"},
+    "KV_DTYPE-dense": {"PAGED": "false", "DECODE_ATTN": "kernel",
+                       "KV_DTYPE": "int8"},
+}
+
+
+@pytest.mark.parametrize("key", sorted(PORTED))
+def test_ported_config_keys_boot_and_serve(served, key):
+    env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
+           **PORTED[key]}
+    engine = build_engine(env, device="cpu", params=served[1])
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        assert isinstance(engine, PagedLLMEngine) == (env.get("PAGED")
+                                                      != "false")
+        assert engine.cfg.decode_attn == env.get("DECODE_ATTN", "xla")
+        assert engine._q8 == ("KV_DTYPE" in env)
+        status, body = _post(app.http_port, {"prompt": "hello",
+                                             "max_tokens": 6,
+                                             "stream": False})
+        assert status == 201
+        assert json.loads(body)["data"]["tokens"] >= 1
+    finally:
+        app.shutdown()
+
+
+def test_dense_int8_without_kernel_decode_refuses_to_boot():
+    """As the reference engine refuses it: no efficient plain dequant
+    read."""
+    with pytest.raises(ValueError, match="requires decode_attn='kernel'"):
+        build_engine({"PAGED": "false", "KV_DTYPE": "int8",
+                      "DECODE_ATTN": "xla"}, device="cpu")
+    with pytest.raises(ValueError, match="DECODE_ATTN must be"):
+        build_engine({"DECODE_ATTN": "pallas"}, device="cpu")
