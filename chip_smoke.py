@@ -2,6 +2,10 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX or gofr_tpu.
+Two short modes print no ok line: ``--flash`` (build, the flash checks,
+flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256) and
+``--prefill`` (build, the model's prefill wall time at [1, 256] and
+[4, 256]).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -10,7 +14,10 @@ Phases, one or more lines each, any failure exits non-zero:
    nvcc each, in parallel;
 2. each kernel against its plain PyTorch version on the card, in bf16, at
    the stated tolerance (flash: H=32, Hkv=8, dh=128 at T=S 128 / 1000 /
-   16384, causal and not, plus dh=64; paged and paged-int8: B=8, ragged
+   16384, causal and not, T=S=80 causal (two kv tiles), non-causal T=200
+   over S=333 at dh 128 and 64, causal dh=64, and the served B=4 T=S=256
+   window read and written in the model's [B, T, H, dh] layout; paged and
+   paged-int8: B=8, ragged
    lengths around the page size, zero table tails, page sizes 16 and 128,
    and zeros at length 0; decode and decode-int8: B=8 over a dense S=1024
    cache at lengths 0, S, one past S and ragged ones between);
@@ -30,9 +37,10 @@ Phases, one or more lines each, any failure exits non-zero:
    configuration's decode kernel, and no other);
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
-   library's scaled_dot_product_attention, at the shapes serving gave it,
-   and TTFT / decode tok/s of the served requests, each with the card's
-   name and power limit;
+   library's scaled_dot_product_attention, at the shapes serving gave it
+   (flash also in the model's layout and at 1024 and 16384), the model's
+   prefill wall time at each served window, and TTFT / decode tok/s of the
+   served requests, each with the card's name and power limit;
 6. profile: one decode block at B=8 in each serving configuration — host
    wall time per step against the card's busy time (torch.profiler), and
    the kernels that take it.
@@ -58,7 +66,13 @@ H100_HBM_BYTES_S = 3.35e12
 # RTOL * |want| + ATOL_RMS * rms(want): both are bf16 roundings of f32
 # results, which may sit one bf16 ulp (at most 2**-7 = 7.8e-3 of the value)
 # apart, and the floor for outputs near 0 scales with the case's own outputs
-# (|o| ~ 0.01 at S=16384, ~1 on early causal rows)
+# (|o| ~ 0.01 at S=16384, ~1 on early causal rows). Flash takes that floor
+# per query row: both sides round p to bf16 before p . v (as the Pallas
+# kernels do) from scores summed in different orders, so now and then one p
+# rounds to the other side of a bf16 midpoint, which moves an early causal
+# row's outputs (a few keys, one of them heavy) by up to ~2**-8 of that row's
+# own scale, more than the case-wide floor of a long window
+# (0.01 * rms = 3.7e-4 at 16384)
 RTOL = 1e-2
 ATOL_RMS = 1e-2
 MODEL_TOL = 0.25             # bf16 logits after 32 layers, see check_model
@@ -79,28 +93,40 @@ def require(cond: bool, msg: str) -> None:
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
-def agreement(got, want):
-    """(max_abs_err, rms(want), worst) with worst the largest
-    |got - want| / (ATOL_RMS * rms(want) + RTOL * |want|) over the elements;
-    the kernel agrees where worst <= 1 and every output is finite."""
+def agreement(got, want, per_row=False):
+    """(max_abs_err, rms(want), worst, where) with worst the largest
+    |got - want| / (ATOL_RMS * rms + RTOL * |want|) over the elements, at
+    index `where`; rms is over the whole case, or with per_row over each
+    output row (the last dim). The kernel agrees where worst <= 1 and every
+    output is finite."""
     import torch
 
     g, w = got.float(), want.float()
     err = (g - w).abs()
-    rms = float(w.square().mean().sqrt())
+    sq = w.square()
+    rms = (sq.mean(-1, keepdim=True) if per_row else sq.mean()).sqrt()
     limit = (ATOL_RMS * rms + RTOL * w.abs()).clamp_min(1e-30)
-    worst = float((err / limit).max())
+    ratio = err / limit
+    at = int(ratio.argmax())
+    where = tuple(int(i) for i in torch.unravel_index(torch.tensor(at),
+                                                      ratio.shape))
+    worst = float(ratio.flatten()[at])
     if not bool(torch.isfinite(g).all()):
         worst = math.inf
-    return float(err.max()), rms, worst
+    return float(err.max()), float(sq.mean().sqrt()), worst, where
 
 
-def check_agreement(what: str, got, want) -> float:
-    err, rms, worst = agreement(got, want)
+def check_agreement(what: str, got, want, per_row=False) -> float:
+    err, rms, worst, where = agreement(got, want, per_row)
     ok = worst <= 1.0
+    floor = "rms of its row" if per_row else "rms"
     log(f"check {what}: max_abs_err={err:.3e} rms(want)={rms:.3e} "
-        f"worst err/tol={worst:.3f} (tol {RTOL}*|want| + {ATOL_RMS}*rms) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"worst err/tol={worst:.3f} at {list(where)} (got "
+        f"{float(got[where]):.6f} want {float(want[where]):.6f}) (tol "
+        f"{RTOL}*|want| + {ATOL_RMS}*{floor}) {'ok' if ok else 'FAIL'}")
+    if per_row:
+        log(f"check {what}: with the case-wide rms floor instead, worst "
+            f"err/tol={agreement(got, want)[2]:.3f}")
     require(ok, f"kernel disagrees with its plain version: {what}")
     return err
 
@@ -152,27 +178,54 @@ def dense_inputs(lengths, H, Hkv, dh, S, dev, seed=0):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def check_flash(dev) -> None:
+    """The flash kernel against its plain version: H=32, Hkv=8 at the
+    listed (T, S, dh, causal), then the served [4, 256] window in the
+    model's [B, T, H, dh] layout through flash_attention (strided reads and
+    writes, no copies)."""
+    import torch
+
+    from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
+                                                    flash_attention,
+                                                    flash_attention_cuda,
+                                                    flash_attention_plain)
+
+    for T, S, dh, causal in [(128, 128, 128, True), (128, 128, 128, False),
+                             (80, 80, 128, True), (200, 333, 128, False),
+                             (1000, 1000, 128, True), (1000, 1000, 128, False),
+                             (16384, 16384, 128, True),
+                             (16384, 16384, 128, False),
+                             (256, 256, 64, True), (200, 333, 64, False)]:
+        q, k, v = flash_inputs(1, 32, 8, T, S, dh, dev, seed=T + dh)
+        got = flash_attention_cuda(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal, KERNEL_BLOCK_KV)
+        what = f"T=S={T}" if T == S else f"T={T} S={S}"
+        check_agreement(f"flash {what} dh={dh} causal={causal}", got, want,
+                        per_row=True)
+        del q, k, v, got, want
+    q, k, v = (t.transpose(1, 2).contiguous()
+               for t in flash_inputs(4, 32, 8, 256, 256, 128, dev, seed=4))
+    got = flash_attention(q, k, v, True)
+    require(got.shape == q.shape and got.is_contiguous(),
+            "flash_attention: output is not a contiguous [B, T, H, dh]")
+    want = flash_attention_plain(*(t.transpose(1, 2) for t in (q, k, v)),
+                                 True, KERNEL_BLOCK_KV).transpose(1, 2)
+    check_agreement("flash B=4 T=S=256 causal, [B, T, H, dh] views in and "
+                    "out", got, want, per_row=True)
+    torch.cuda.empty_cache()
+
+
 def check_kernels(dev) -> None:
     from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
                                                      decode_attention_plain,
                                                      decode_attention_q8_cuda,
                                                      quantize_kv)
-    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
-                                                    flash_attention_plain)
     from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                     paged_attention_plain,
                                                     paged_attention_q8_cuda,
                                                     paged_attention_reference)
 
-    for T, dh, causal in [(128, 128, True), (128, 128, False),
-                          (1000, 128, True), (1000, 128, False),
-                          (16384, 128, True), (16384, 128, False),
-                          (256, 64, True)]:
-        q, k, v = flash_inputs(1, 32, 8, T, T, dh, dev, seed=T + dh)
-        got = flash_attention_cuda(q, k, v, causal)
-        want = flash_attention_plain(q, k, v, causal)
-        check_agreement(f"flash T=S={T} dh={dh} causal={causal}", got, want)
-        del q, k, v, got, want
+    check_flash(dev)
     for ps in (16, 128):
         lengths = [1, ps - 1, ps, ps + 1, 2 * ps + 3, 5 * ps, 700, 1000]
         q, kp, vp, table, lens = paged_inputs(lengths, 32, 8, 128, ps, dev,
@@ -519,6 +572,26 @@ def time_ms(fn, iters: int, flush) -> float:
     return total / iters
 
 
+def kernel_device_ms(fn, iters: int, name: str) -> float:
+    """Device time per call of the kernels whose name holds `name`, from
+    torch.profiler over `iters` back-to-back calls (L2 warm): the kernel's
+    own time, without the host time that time_ms also sees when the host
+    launches slower than the card runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.key)
+    return us / 1e3 / iters if us > 0 else math.nan
+
+
 def flash_bound(B, H, Hkv, T, S, dh, causal):
     pairs = T * (T + 1) // 2 if causal else T * S
     flops = 4.0 * B * H * pairs * dh
@@ -555,7 +628,8 @@ def time_flash(dev, B, T, causal, iters, flush):
     import torch
     import torch.nn.functional as F
 
-    from gofr_tpu_torch.ops.flash_attention import (flash_attention_cuda,
+    from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
+                                                    flash_attention_cuda,
                                                     flash_attention_plain)
 
     H, Hkv, dh = 32, 8, 128
@@ -563,17 +637,72 @@ def time_flash(dev, B, T, causal, iters, flush):
     err = check_agreement(
         f"flash B={B} T=S={T} causal={causal}",
         flash_attention_cuda(q, k, v, causal),
-        flash_attention_plain(q, k, v, causal))
+        flash_attention_plain(q, k, v, causal, KERNEL_BLOCK_KV), per_row=True)
     ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal), iters, flush)
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal),
+    # the same values in the model's [B, T, H, dh] memory, as serving hands
+    # them over (transposed views in, a [B, T, H, dh] output)
+    qs, ks, vs = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                  for t in (q, k, v))
+    out = torch.empty_like(qs)
+    strided_ms = time_ms(lambda: flash_attention_cuda(qs, ks, vs, causal,
+                                                      out=out), iters, flush)
+    device_ms = kernel_device_ms(
+        lambda: flash_attention_cuda(qs, ks, vs, causal, out=out), iters,
+        "flash_fwd_kernel")
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal,
+                                                     KERNEL_BLOCK_KV),
                        max(1, iters // 2), flush)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, enable_gqa=True), iters, flush)
     bound_ms, by = flash_bound(B, H, Hkv, T, T, dh, causal)
-    del q, k, v
+    del q, k, v, qs, ks, vs, out
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err,
+            "strided_ms": strided_ms, "device_ms": device_ms}
+
+
+def log_flash_time(B, T, r, card) -> None:
+    log(f"time flash B={B} T=S={T} causal: ms={r['ms']:.4f} (model layout "
+        f"{r['strided_ms']:.4f}; kernel alone on the card, profiler, L2 warm "
+        f"{r['device_ms']:.4f}) bound_ms={r['bound_ms']:.4f} "
+        f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}) plain_ms="
+        f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} [{card}]")
+
+
+def time_prefill(params, cfg, dev, B, T, iters, card) -> None:
+    """Host wall time of one flash prefill of the whole model at [B, T]
+    (llama_prefill_last, the served prefill's forward): mean, median and
+    minimum of `iters` after a warm one, each ending in a synchronize."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_prefill_last
+
+    c = dataclasses.replace(cfg, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                           device=dev)
+    pos = torch.arange(T, device=dev)[None].expand(B, T)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    tk = torch.zeros((cfg.n_layers, B, cfg.n_kv_heads, cfg.head_dim, T),
+                     dtype=torch.bfloat16, device=dev)
+    tv = torch.zeros_like(tk)
+    walls = []
+    for i in range(iters + 1):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        llama_prefill_last(params, c, tokens, pos, lens, tk, tv)
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.monotonic() - t0) * 1e3)
+    walls.sort()
+    log(f"time prefill B={B} T={T} ({cfg.n_layers} layers, flash): wall_ms "
+        f"mean={sum(walls) / len(walls):.3f} p50={walls[len(walls) // 2]:.3f}"
+        f" min={walls[0]:.3f} over {len(walls)} [{card}]")
+    del tk, tv
+    torch.cuda.empty_cache()
 
 
 def time_paged(dev, lengths, ps, iters, flush, quantized=False):
@@ -710,8 +839,30 @@ def profile_decode(params, cfg, dev, card: str, config: str) -> None:
             f"{e.count / block:.0f}")
 
 
-def main() -> int:
+def flash_only(dev, card) -> None:
+    """--flash: the flash checks, then its times at the windows that test
+    the design (one and two kv tiles, the served windows, long prompts)."""
     import torch
+
+    check_flash(dev)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    for B, T in [(1, 16), (1, 80), (1, 256), (4, 256), (1, 1024),
+                 (1, 16384)]:
+        log_flash_time(B, T, time_flash(dev, B, T, True,
+                                        5 if T > 1024 else 20, flush), card)
+
+
+def main(argv=()) -> int:
+    """No arguments: every phase, as the module docstring lists. --flash:
+    build, then only the flash checks and times. --prefill: build, then only
+    the model's prefill times at [1, 256] and [4, 256]. The two short modes
+    print no ok line."""
+    import torch
+
+    mode = argv[0] if argv else None
+    if mode not in (None, "--flash", "--prefill"):
+        log(f"FAIL unknown argument {mode!r} (--flash, --prefill or none)")
+        return 2
 
     if not torch.cuda.is_available():
         log("FAIL no CUDA device is visible")
@@ -747,7 +898,12 @@ def main() -> int:
                 f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
                 f"{sum(spills)}")
 
-        check_kernels(dev)
+        if mode == "--flash":
+            flash_only(dev, card)
+            log(f"flash only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
+        if mode != "--prefill":
+            check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
         t0 = time.monotonic()
@@ -756,6 +912,11 @@ def main() -> int:
         log(f"model: llama3_8b {cfg.param_count() / 1e9:.2f}B params bf16, "
             f"random seed 0, init {time.monotonic() - t0:.1f}s, "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        if mode == "--prefill":
+            for B, T in [(1, 256), (4, 256)]:
+                time_prefill(params, cfg, dev, B, T, 10, card)
+            log(f"prefill only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
         check_model(params, cfg, dev)
         served = {}
         for config in SERVE_CONFIGS:
@@ -770,11 +931,13 @@ def main() -> int:
         K, bucket = max(shapes, key=lambda s: (shapes[s], s[0] * s[1]))
         flash_main = time_flash(dev, K, bucket, True, 20, flush)
         others = [(k, b) for k, b in sorted(shapes) if (k, b) != (K, bucket)]
+        log_flash_time(K, bucket, flash_main, card)
         for B, T in others + [(1, 1024), (1, 16384)]:
-            r = time_flash(dev, B, T, True, 5 if T > 1024 else 20, flush)
-            log(f"time flash B={B} T=S={T} causal: ms={r['ms']:.4f} bound_ms="
-                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
-                f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} [{card}]")
+            log_flash_time(B, T, time_flash(dev, B, T, True,
+                                            5 if T > 1024 else 20, flush),
+                           card)
+        for B, T in sorted(shapes):
+            time_prefill(params, cfg, dev, B, T, 10, card)
         # the decode reads at B=8 and the contexts of mid-decode in serving
         ctx = [n + main["max_tokens"] // 2 for n in main["prompt_lens"]]
         ctx = (ctx + ctx)[:8]
@@ -816,10 +979,11 @@ def main() -> int:
         }
         kernels = []
         for name, (src, replaces, config) in origin.items():
+            r = {k: x for k, x in timed[name][0].items()
+                 if k not in ("strided_ms", "device_ms")}
             kern = dict(name=name, route="cuda", source=csrc + src,
                         replaces=replaces,
-                        launches=served[config]["launches"][name],
-                        **timed[name][0])
+                        launches=served[config]["launches"][name], **r)
             require(kern["launches"] > 0, f"{name}: no launch on its path")
             require(all(kern[k] is None or math.isfinite(kern[k])
                         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
@@ -845,4 +1009,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

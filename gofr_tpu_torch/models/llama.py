@@ -223,8 +223,11 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
     if T == S and cfg.attn_impl == "flash":
         from ..ops.flash_attention import flash_attention
 
-        attn = flash_attention(q, k, v, True)                 # [B, T, H, dh]
-        return (_mm(attn.reshape(B, T, H * dh), layer, "wo"), k_cache_l,
+        # q, k, v go in as they are and the output comes back contiguous
+        # [B, T, H, dh]: the kernel reads and writes strided, so neither side
+        # is copied and the view below is free
+        attn = flash_attention(q, k, v, True)
+        return (_mm(attn.view(B, T, H * dh), layer, "wo"), k_cache_l,
                 v_cache_l)
 
     if T == 1 and cfg.decode_attn == "kernel":

@@ -29,7 +29,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # returns cudaGetLastError() as an int
 ENTRY_POINTS = {
     "flash_attention": ("flash_attention", "gofr_flash_attention_fwd",
-                        [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P]),
+                        [_P] * 4 + [_I] * 7 + [ctypes.c_float]
+                        + [ctypes.c_longlong] * 12 + [_P]),
     "paged_attention": ("paged_attention", "gofr_paged_attention",
                         [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]),
     "paged_attention_q8": ("paged_attention", "gofr_paged_attention_q8",

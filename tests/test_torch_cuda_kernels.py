@@ -19,7 +19,8 @@ from gofr_tpu_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_plain,
                                                  decode_attention_q8_cuda,
                                                  quantize_kv)
-from gofr_tpu_torch.ops.flash_attention import (flash_attention,
+from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
+                                                flash_attention,
                                                 flash_attention_cuda,
                                                 flash_attention_plain)
 from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
@@ -53,18 +54,30 @@ def _randn(gen, dev, *shape):
     return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("T,S,dh,causal", [(64, 64, 128, True),
-                                           (77, 77, 64, True),
-                                           (200, 130, 128, False),
-                                           (1, 300, 64, False)])
-def test_flash_kernel_matches_plain(cuda, T, S, dh, causal):
+@pytest.mark.parametrize("T,S,dh,causal,heads", [
+    (64, 64, 128, True, (2, 8, 2)),
+    (77, 77, 64, True, (2, 8, 2)),
+    (200, 130, 128, False, (2, 8, 2)),
+    (1, 300, 64, False, (2, 8, 2)),
+    # one and two kv tiles: the score -> A fragment repack of p
+    (16, 16, 128, True, (2, 8, 2)),
+    (80, 80, 128, True, (2, 8, 2)),
+    (1, 1, 128, True, (2, 8, 2)),
+    # a ragged kv tail that must give p = 0, at both head dims
+    (200, 333, 64, False, (2, 8, 2)),
+    (200, 333, 128, False, (2, 8, 2)),
+    # the served [4, 256] window at Llama-3-8B's heads
+    (256, 256, 128, True, (4, 32, 8)),
+])
+def test_flash_kernel_matches_plain(cuda, T, S, dh, causal, heads):
+    B, H, Hkv = heads
     gen = torch.Generator(device=cuda).manual_seed(T)
-    q = _randn(gen, cuda, 2, 8, T, dh)
-    k, v = _randn(gen, cuda, 2, 2, S, dh), _randn(gen, cuda, 2, 2, S, dh)
+    q = _randn(gen, cuda, B, H, T, dh)
+    k, v = _randn(gen, cuda, B, Hkv, S, dh), _randn(gen, cuda, B, Hkv, S, dh)
     before = flash_attention_cuda.launches
     got = flash_attention_cuda(q, k, v, causal)
     assert flash_attention_cuda.launches == before + 1
-    want = flash_attention_plain(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal, KERNEL_BLOCK_KV)
     _assert_agrees(got, want)
 
 
@@ -77,6 +90,26 @@ def test_flash_dispatch_uses_the_kernel_on_cuda(cuda):
     assert out.shape == q.shape
     with pytest.raises(TypeError):
         flash_attention(q.float(), k.float(), v.float(), True)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_reads_and_writes_the_model_layout_in_place(cuda, dh):
+    """[B, T, H, dh] in, one launch, a contiguous [B, T, H, dh] out that
+    equals the kernel's result on contiguous [B, H, T, dh] copies."""
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q = _randn(gen, cuda, 2, 130, 8, dh)
+    k, v = _randn(gen, cuda, 2, 130, 2, dh), _randn(gen, cuda, 2, 130, 2, dh)
+    before = flash_attention_cuda.launches
+    out = flash_attention(q, k, v, True)
+    assert flash_attention_cuda.launches == before + 1
+    assert out.shape == q.shape and out.is_contiguous()
+    want = flash_attention_cuda(*(t.transpose(1, 2).contiguous()
+                                  for t in (q, k, v)), True)
+    assert torch.equal(out, want.transpose(1, 2))
+    ragged = _randn(gen, cuda, 2, 130, 2, dh + 4)[..., :dh]   # head stride
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2),
+                             ragged.transpose(1, 2), True)
 
 
 @pytest.mark.parametrize("ps", [16, 128])

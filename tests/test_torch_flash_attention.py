@@ -3,9 +3,11 @@
 The port's plain blocked version and its oracle are held against the JAX
 `flash_attention` (the Pallas kernel in interpret mode, as the JAX tests run
 it) and `attention_reference`, on the same numpy inputs. Tolerances: f32
-1e-5 (same math, different blocking and summation order); bf16 2e-2 (one
-bf16 rounding of O(1) outputs is ~4e-3, and the two sides round p and the
-accumulators at different places).
+1e-5 (same math, different blocking and summation order). bf16: the plain
+version against the Pallas kernel 8e-3, one bf16 ulp of an O(1) output
+(both round p to bf16 before p . v over the same 128-key blocks, so only
+the summation order differs); the oracles 2e-2 (the reference rounds
+nothing but its output, the kernels also round p).
 """
 
 import importlib
@@ -20,6 +22,7 @@ jfa = importlib.import_module("gofr_tpu.ops.flash_attention")
 tfa = importlib.import_module("gofr_tpu_torch.ops.flash_attention")
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+KERNEL_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 
 
 def _qkv(seed, B, T, S, H, Hkv, dh):
@@ -63,8 +66,9 @@ def test_flash_attention_matches_jax(B, T, S, H, Hkv, dh, causal, dtype):
     got = tfa.flash_attention(*_torch(arrays, dtype), causal)
     assert tuple(got.shape) == (B, T, H, dh)
     assert got.dtype == getattr(torch, dtype)
-    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype],
-                               rtol=TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(want), atol=KERNEL_TOL[dtype],
+                               rtol=KERNEL_TOL[dtype])
+    assert got.is_contiguous()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -96,3 +100,33 @@ def test_plain_blocked_version_matches_reference(block_kv):
                                    v.transpose(1, 2), causal=True)
     np.testing.assert_allclose(got.transpose(1, 2).numpy(), want.numpy(),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_strides_of_the_model_layout():
+    """A transposed [B, T, H, dh] view goes to the kernel as it is, its
+    size-1 dims stepped by 0; views the kernel cannot read raise."""
+    x = torch.zeros((2, 40, 8, 64), dtype=torch.bfloat16)
+    assert tfa._strides("q", x.transpose(1, 2)) == (40 * 8 * 64, 64, 8 * 64)
+    assert tfa._strides("q", x[:1].transpose(1, 2)) == (0, 64, 8 * 64)
+    with pytest.raises(ValueError):
+        tfa._strides("q", x.transpose(1, 3))                  # dh strided
+    with pytest.raises(ValueError):
+        tfa._strides("k", torch.zeros((2, 40, 8, 68))[..., :64]
+                     .transpose(1, 2))                       # head stride 68
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    q = torch.zeros((1, 4, 16, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_cuda(q, q[:, :2], q[:, :2], True)
+
+
+def test_plain_version_rounds_p_like_the_pallas_kernel():
+    """bf16 p . v: the plain version follows the Pallas kernel's rounding of
+    p, so it sits closer to the kernel than to the unrounded oracle."""
+    arrays = _qkv(11, 1, 128, 128, 4, 2, 64)
+    kernel = _np(jfa.flash_attention(*_jax(arrays, "bfloat16"), True))
+    got = _np(tfa.flash_attention(*_torch(arrays, "bfloat16"), True))
+    oracle = _np(tfa.attention_reference(*_torch(arrays, "float32"),
+                                         causal=True))
+    assert np.abs(got - kernel).max() < np.abs(got - oracle).max()
