@@ -2,8 +2,10 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Needs one CUDA
 card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX or gofr_tpu.
-Two short modes print no ok line: ``--flash`` (build, the flash checks,
-flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256) and
+Three short modes print no ok line: ``--flash`` (build, the flash checks,
+flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256),
+``--decode`` (build, the decode-read checks, the four decode reads' times
+at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 ``--prefill`` (build, the model's prefill wall time at [1, 256] and
 [4, 256]).
 
@@ -20,7 +22,11 @@ Phases, one or more lines each, any failure exits non-zero:
    paged-int8: B=8, ragged
    lengths around the page size, zero table tails, page sizes 16 and 128,
    and zeros at length 0; decode and decode-int8: B=8 over a dense S=1024
-   cache at lengths 0, S, one past S and ragged ones between);
+   cache at lengths 0, S, one past S and ragged ones between; the bf16
+   split reads where the split matters: B=1 at 8192 and B=8 ragged up to
+   8192 with lengths at the split's unit boundaries and one past them, page
+   sizes 16 and 128, dense S=1000 and S=1001, and the same bits from two
+   calls in a row);
 3. the model on the card: Llama-3-8B at full width and depth, random
    weights from seed 0; one paged decode step and one dense decode step
    (decode kernel) must match a full recompute of the same context with
@@ -38,12 +44,15 @@ Phases, one or more lines each, any failure exits non-zero:
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
-   (flash also in the model's layout and at 1024 and 16384), the model's
-   prefill wall time at each served window, and TTFT / decode tok/s of the
-   served requests, each with the card's name and power limit;
+   (flash also in the model's layout and at 1024 and 16384; the decode
+   reads also at B=8 x 8192 and B=1 x 8192), by CUDA events and, for flash,
+   the decode reads and SDPA, the kernels alone (torch.profiler); the
+   model's prefill wall time at each served window, and TTFT / decode tok/s
+   of the served requests, each with the card's name and power limit;
 6. profile: one decode block at B=8 in each serving configuration — host
-   wall time per step against the card's busy time (torch.profiler), and
-   the kernels that take it.
+   wall time per step against the card's busy time (torch.profiler), the
+   launches per step (no more than before the split reads), the decode
+   read's time per step and the kernels that take it.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -215,7 +224,70 @@ def check_flash(dev) -> None:
     torch.cuda.empty_cache()
 
 
+def check_split(dev) -> None:
+    """The bf16 split reads (decode_split.cuh) where the split matters: many
+    blocks per row (B=1 at 8192; B=8 ragged up to 8192 with lengths at a
+    unit boundary and one past it, at the end of the first round of units
+    and one past it, short rows whose later blocks start past their
+    length), page sizes 16 and 128, dense S=8192, S=1000 and S=1001 (rows
+    not 16-byte aligned) with lengths 0, S and S + 1; each call is made
+    twice and must give the same bits (the block that combines a row
+    resets its counter)."""
+    import torch
+
+    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                     decode_attention_plain,
+                                                     plan_split)
+    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_reference)
+
+    H, Hkv, dh = 32, 8, 128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def twice(what, fn):
+        first = fn()
+        require(torch.equal(first, fn()),
+                f"{what}: two calls in a row differ (counters not reset?)")
+        return first
+
+    for ps in (16, 128):
+        NP = 1 << (-(-8192 // ps)).bit_length()    # as paged_inputs builds it
+        for B in (1, 8):
+            nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms)
+            lengths = ([8192] if B == 1 else
+                       [unit, unit + 1, nsplit * unit, nsplit * unit + 1, 8192,
+                        1, 100, 700])
+            q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, dh, ps,
+                                                  dev, seed=ps + B)
+            what = (f"paged split ps={ps} B={B} nsplit={nsplit} unit={unit} "
+                    f"lengths={lengths}")
+            got = twice(what, lambda: paged_attention_cuda(q, kp, vp, table,
+                                                           lens))
+            check_agreement(what, got,
+                            paged_attention_reference(q, kp, vp, table, lens))
+            del q, kp, vp, table, lens, got
+    for S, B in ((8192, 1), (8192, 8), (1000, 8), (1001, 8)):
+        nsplit, unit = plan_split(B, Hkv, S, None, sms)
+        lengths = ([S] if B == 1 else
+                   [unit, unit + 1, nsplit * unit, nsplit * unit + 1, S, S + 1,
+                    0, 1])
+        q, k, v, lens = dense_inputs(lengths, H, Hkv, dh, S, dev, seed=S + B)
+        what = (f"decode split S={S} B={B} nsplit={nsplit} unit={unit} "
+                f"lengths={lengths}")
+        got = twice(what, lambda: decode_attention_cuda(q, k, v, lens))
+        check_agreement(what, got, decode_attention_plain(q, k, v, lens))
+        require(B == 1 or bool((got[6] == 0).all()),
+                f"{what}: length 0 is not zeros")
+        del q, k, v, lens, got
+    torch.cuda.empty_cache()
+
+
 def check_kernels(dev) -> None:
+    check_flash(dev)
+    check_decode(dev)
+
+
+def check_decode(dev) -> None:
     from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
                                                      decode_attention_plain,
                                                      decode_attention_q8_cuda,
@@ -225,7 +297,6 @@ def check_kernels(dev) -> None:
                                                     paged_attention_q8_cuda,
                                                     paged_attention_reference)
 
-    check_flash(dev)
     for ps in (16, 128):
         lengths = [1, ps - 1, ps, ps + 1, 2 * ps + 3, 5 * ps, 700, 1000]
         q, kp, vp, table, lens = paged_inputs(lengths, 32, 8, 128, ps, dev,
@@ -263,6 +334,7 @@ def check_kernels(dev) -> None:
             "decode kernels: a length past S does not read as S")
     log("check decode and decode-int8 length=0 row: zeros; length S+1 reads "
         "as S: ok")
+    check_split(dev)
 
 
 # -- phase 3: the model on the card ------------------------------------------
@@ -705,6 +777,10 @@ def time_prefill(params, cfg, dev, B, T, iters, card) -> None:
     torch.cuda.empty_cache()
 
 
+# the profiler's name for each decode read's kernel
+READ_KERNEL = {False: "decode_split_kernel", True: "decode_read_kernel"}
+
+
 def time_paged(dev, lengths, ps, iters, flush, quantized=False):
     from gofr_tpu_torch.ops.decode_attention import quantize_kv
     from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
@@ -728,20 +804,23 @@ def time_paged(dev, lengths, ps, iters, flush, quantized=False):
         def plain():
             return paged_attention_plain(q, kp, vp, table, lens)
     err = check_agreement(f"paged{'-int8' if quantized else ''} "
-                          f"B={len(lengths)} ps={ps} lengths={lengths}",
+                          f"B={len(lengths)} ps={ps} {brief(lengths)}",
                           kernel(), plain())
     ms = time_ms(kernel, iters, flush)
-    plain_ms = time_ms(plain, iters, flush)
+    device_ms = kernel_device_ms(kernel, iters, READ_KERNEL[quantized])
+    plain_ms = time_ms(plain, max(1, iters // 5), flush)
     bound_ms, by = paged_bound(lengths, H, Hkv, dh, ps, quantized)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": by,
+            "max_abs_err": err}
 
 
 def time_decode(dev, lengths, S, iters, flush, quantized=False):
     """The dense read at B=len(lengths) over an S-long cache. Its library
     yardstick (bf16 only): scaled_dot_product_attention with a length mask
     and enable_gqa, on the same K/V copied beforehand into the [B, Hkv, S,
-    dh] layout it takes. No PyTorch call reads int8 K/V with scales."""
+    dh] layout it takes, by events and as the sum of every kernel the call
+    launches. No PyTorch call reads int8 K/V with scales."""
     import torch
     import torch.nn.functional as F
 
@@ -752,7 +831,7 @@ def time_decode(dev, lengths, S, iters, flush, quantized=False):
 
     H, Hkv, dh = 32, 8, 128
     q, k, v, lens = dense_inputs(lengths, H, Hkv, dh, S, dev, seed=6)
-    lib_ms = None
+    lib_ms = lib_device_ms = None
     if quantized:
         (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
 
@@ -773,19 +852,82 @@ def time_decode(dev, lengths, S, iters, flush, quantized=False):
         q_sd = q[:, :, None]                             # [B, H, 1, dh]
         mask = (torch.arange(S, device=dev)[None, :]
                 < lens[:, None].long())[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q_sd, k_sd, v_sd, attn_mask=mask, enable_gqa=True), iters, flush)
+
+        def library():
+            return F.scaled_dot_product_attention(q_sd, k_sd, v_sd,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+        lib_ms = time_ms(library, iters, flush)
+        lib_device_ms = kernel_device_ms(library, iters, "")
     err = check_agreement(f"decode{'-int8' if quantized else ''} "
-                          f"B={len(lengths)} S={S} lengths={lengths}",
+                          f"B={len(lengths)} S={S} {brief(lengths)}",
                           kernel(), plain())
     ms = time_ms(kernel, iters, flush)
-    plain_ms = time_ms(plain, iters, flush)
+    device_ms = kernel_device_ms(kernel, iters, READ_KERNEL[quantized])
+    plain_ms = time_ms(plain, max(1, iters // 5), flush)
     bound_ms, by = read_bound(lengths, H, Hkv, dh, quantized, 4 * len(lengths))
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+    return {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_device_ms": lib_device_ms,
             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
 
 
+def brief(lengths) -> str:
+    return (f"lengths={lengths}" if len(set(lengths)) > 1 or len(lengths) < 3
+            else f"lengths={len(lengths)}x{lengths[0]}")
+
+
+def log_read_time(name, shape, r, card) -> None:
+    lib = ""
+    if r["library_ms"] is not None:
+        lib = (f" library_ms={r['library_ms']:.4f} (alone "
+               f"{r['library_device_ms']:.4f})")
+    log(f"time {name} {shape}: ms={r['ms']:.4f} (kernel alone on the card, "
+        f"profiler, L2 warm {r['device_ms']:.4f}) bound_ms="
+        f"{r['bound_ms']:.4f} ({r['bound_by']}; share {r['bound_ms'] / r['ms']:.3f}"
+        f" of the event time, {r['bound_ms'] / r['device_ms']:.3f} of the "
+        f"kernel alone) plain_ms={r['plain_ms']:.4f}{lib} [{card}]")
+
+
+def time_reads(dev, ctx, S, flush, card) -> dict:
+    """The four decode reads at B=8 over the served contexts `ctx` (paged
+    ps=128, dense S), logged and returned for the kernels line, then at
+    B=8 x 8192 and B=1 x 8192 (paged ps=128, dense S=8192), logged."""
+    import torch
+
+    served = {
+        "paged_attention": (time_paged(dev, ctx, 128, 50, flush),
+                            f"B=8 ps=128 lengths={ctx}"),
+        "paged_attention_q8": (time_paged(dev, ctx, 128, 50, flush, True),
+                               f"B=8 ps=128 lengths={ctx}"),
+        "decode_attention": (time_decode(dev, ctx, S, 50, flush),
+                             f"B=8 S={S} lengths={ctx}"),
+        "decode_attention_q8": (time_decode(dev, ctx, S, 50, flush, True),
+                                f"B=8 S={S} lengths={ctx}"),
+    }
+    for name, (r, shape) in served.items():
+        log_read_time(name, shape, r, card)
+    for B in (8, 1):
+        long = [8192] * B
+        for quantized in (False, True):
+            suffix = "_q8" if quantized else ""
+            log_read_time(f"paged_attention{suffix}", f"B={B} ps=128 x 8192",
+                          time_paged(dev, long, 128, 20, flush, quantized),
+                          card)
+            log_read_time(f"decode_attention{suffix}", f"B={B} S=8192 x 8192",
+                          time_decode(dev, long, 8192, 20, flush, quantized),
+                          card)
+            torch.cuda.empty_cache()
+    return served
+
+
 # -- phase 6: where a decode step's time goes ---------------------------------
+# kernel launches per decode step with one read kernel per layer before the
+# bf16 reads were split over blocks (this profile phase, NVIDIA H100 80GB
+# HBM3, 700 W): the split reads combine in the same launch and add none
+LAUNCHES_PER_STEP = {"paged": 2621, "paged-int8": 3453, "dense": 2555,
+                     "dense-int8": 3071}
+
+
 def profile_decode(params, cfg, dev, card: str, config: str) -> None:
     """One decode block of a serving configuration's engine at B=8
     (contexts ~200 tokens), this thread playing the engine loop (the loop
@@ -829,10 +971,19 @@ def profile_decode(params, cfg, dev, card: str, config: str) -> None:
             f"[{card}]")
         return
     busy_ms = busy_us / 1e3 / block
+    per_step = round(sum(e.count for e in kernels) / block)
     log(f"profile decode {config} B=8 ctx~200: wall_ms_per_step={wall_ms:.3f} "
         f"device_busy_ms_per_step={busy_ms:.3f} idle_share="
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f} kernel launches per step="
-        f"{sum(e.count for e in kernels) / block:.0f} [{card}]")
+        f"{per_step} (at most {LAUNCHES_PER_STEP[config]}) [{card}]")
+    read = [e for e in kernels
+            if READ_KERNEL[extra.get("KV_DTYPE") == "int8"] in e.key]
+    log(f"profile decode {config} decode read: ms_per_step="
+        f"{sum(e.self_device_time_total for e in read) / 1e3 / block:.4f} "
+        f"calls_per_step={sum(e.count for e in read) / block:.0f}")
+    require(per_step <= LAUNCHES_PER_STEP[config],
+            f"{config}: {per_step} launches per decode step, more than "
+            f"{LAUNCHES_PER_STEP[config]}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile decode {config} kernel: {e.key[:90]} ms_per_step="
             f"{e.self_device_time_total / 1e3 / block:.4f} calls_per_step="
@@ -852,16 +1003,30 @@ def flash_only(dev, card) -> None:
                                         5 if T > 1024 else 20, flush), card)
 
 
+def decode_only(dev, card) -> None:
+    """--decode: the decode-read checks, then the four reads' times at B=8
+    over ~200-token contexts (those of serving's mid-decode; dense S=512),
+    B=8 x 8192 and B=1 x 8192."""
+    import torch
+
+    check_decode(dev)
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    time_reads(dev, [167, 197, 217, 237, 257, 147, 177, 167], 512, flush,
+               card)
+
+
 def main(argv=()) -> int:
     """No arguments: every phase, as the module docstring lists. --flash:
-    build, then only the flash checks and times. --prefill: build, then only
-    the model's prefill times at [1, 256] and [4, 256]. The two short modes
+    build, then only the flash checks and times. --decode: build, then
+    only the decode-read checks and times. --prefill: build, then only the
+    model's prefill times at [1, 256] and [4, 256]. The three short modes
     print no ok line."""
     import torch
 
     mode = argv[0] if argv else None
-    if mode not in (None, "--flash", "--prefill"):
-        log(f"FAIL unknown argument {mode!r} (--flash, --prefill or none)")
+    if mode not in (None, "--flash", "--decode", "--prefill"):
+        log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill "
+            f"or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -901,6 +1066,10 @@ def main(argv=()) -> int:
         if mode == "--flash":
             flash_only(dev, card)
             log(f"flash only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
+        if mode == "--decode":
+            decode_only(dev, card)
+            log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         if mode != "--prefill":
             check_kernels(dev)
@@ -942,22 +1111,8 @@ def main(argv=()) -> int:
         ctx = [n + main["max_tokens"] // 2 for n in main["prompt_lens"]]
         ctx = (ctx + ctx)[:8]
         S = served["dense"]["cache_len"]
-        timed = {
-            "flash_attention": (flash_main, f"B={K} T=S={bucket} causal "
-                                f"(served {shapes[(K, bucket)]}x)"),
-            "paged_attention": (time_paged(dev, ctx, 128, 50, flush),
-                                f"B=8 ps=128 lengths={ctx}"),
-            "paged_attention_q8": (time_paged(dev, ctx, 128, 50, flush, True),
-                                   f"B=8 ps=128 lengths={ctx}"),
-            "decode_attention": (time_decode(dev, ctx, S, 50, flush),
-                                 f"B=8 S={S} lengths={ctx}"),
-            "decode_attention_q8": (time_decode(dev, ctx, S, 50, flush, True),
-                                    f"B=8 S={S} lengths={ctx}"),
-        }
-        for name, (r, shape) in timed.items():
-            log(f"time {name} {shape}: ms={r['ms']:.4f} bound_ms="
-                f"{r['bound_ms']:.4f} ({r['bound_by']}) plain_ms="
-                f"{r['plain_ms']:.4f} library_ms={r['library_ms']} [{card}]")
+        timed = {"flash_attention": (flash_main, "")}
+        timed.update(time_reads(dev, ctx, S, flush, card))
         csrc = "gofr_tpu_torch/ops/csrc/"
         # kernel -> (source, the Pallas call it replaces, its serving phase)
         origin = {
@@ -980,14 +1135,15 @@ def main(argv=()) -> int:
         kernels = []
         for name, (src, replaces, config) in origin.items():
             r = {k: x for k, x in timed[name][0].items()
-                 if k not in ("strided_ms", "device_ms")}
+                 if k != "strided_ms"}
             kern = dict(name=name, route="cuda", source=csrc + src,
                         replaces=replaces,
                         launches=served[config]["launches"][name], **r)
             require(kern["launches"] > 0, f"{name}: no launch on its path")
-            require(all(kern[k] is None or math.isfinite(kern[k])
-                        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err",
-                                  "library_ms")),
+            require(all(kern.get(k) is None or math.isfinite(kern[k])
+                        for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                  "max_abs_err", "library_ms",
+                                  "library_device_ms")),
                     f"non-finite timing for {name}")
             kernels.append(kern)
         for config in SERVE_CONFIGS:

@@ -32,11 +32,11 @@ ENTRY_POINTS = {
                         [_P] * 4 + [_I] * 7 + [ctypes.c_float]
                         + [ctypes.c_longlong] * 12 + [_P]),
     "paged_attention": ("paged_attention", "gofr_paged_attention",
-                        [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P]),
+                        [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
     "paged_attention_q8": ("paged_attention", "gofr_paged_attention_q8",
                            [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
     "decode_attention": ("decode_attention", "gofr_decode_attention",
-                         [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]),
+                         [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]),
     "decode_attention_q8": ("decode_attention", "gofr_decode_attention_q8",
                             [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
 }

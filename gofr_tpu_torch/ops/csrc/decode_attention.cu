@@ -10,24 +10,30 @@
 // q, o [B, H, dh] bf16; k_cache, v_cache [B, Hkv, dh, S] (token index minor),
 // bf16 or int8; k_scale, v_scale [B, Hkv, S] f32; lengths [B] int32.
 //
-// Bound, design and the folded dequantization: decode_read.cuh, which this
-// file instantiates with Dense addressing. A row's length is clamped to S, as
+// bf16: decode_split.cuh with Dense addressing, each row's S tokens cut into
+// units of `unit` tokens dealt round-robin to nsplit blocks that read in
+// parallel and the last of them combines. int8 (and its folded dequantization): decode_read.cuh's one
+// block per (kv head, row). A row's length is clamped to S, as
 // the Pallas grid covers only S / block_s blocks: in lock-step decode a row
 // that finished and was not reused keeps advancing past the cache. The
 // Pallas kernel needs S % block_s == 0; this one takes any S >= 1.
 
 #include "decode_read.cuh"
+#include "decode_split.cuh"
 
 using gofr_decode::Dense;
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
+// part [B, Hkv, nsplit, H / Hkv, dh + 2] f32 scratch and counters [>= B * Hkv]
+// int32 zeros are read only when nsplit > 1 (decode_split.cuh).
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                     const void* lengths, void* o, int B, int H, int Hkv,
-                                     int dh, int S, float scale, void* stream) {
+                                     const void* lengths, void* o, void* part,
+                                     void* counters, int B, int H, int Hkv, int dh, int S,
+                                     int unit, int nsplit, float scale, void* stream) {
   if (S <= 0) return (int)cudaErrorInvalidValue;
   const Dense addr{static_cast<const int*>(lengths), Hkv, dh, S};
-  return gofr_decode::dispatch<__nv_bfloat16>(H, q, k_cache, v_cache, nullptr, nullptr,
-                                              addr, o, B, scale, stream);
+  return gofr_split::dispatch(H, q, k_cache, v_cache, addr, o, part, counters, B, unit,
+                              nsplit, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_q8(const void* q, const void* k_cache,

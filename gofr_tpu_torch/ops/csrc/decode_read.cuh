@@ -1,33 +1,34 @@
-// The T=1 decode read for Hopper (sm_90a), shared by the paged and the dense
-// KV caches, in bf16 or in int8 with per-token f32 scales: one query token
-// per row, GQA, f32 accumulation.
+// The int8 T=1 decode read for Hopper (sm_90a), shared by the paged and the
+// dense KV caches: int8 K/V with per-token f32 scales, one query token per
+// row, GQA, f32 accumulation. The bf16 reads run decode_split.cuh, which
+// shares this header's Paged / Dense addressing.
 //
-// One template, four instantiations (paged_attention.cu, decode_attention.cu):
-//   Paged  addressing: pools [P, Hkv, dh, ps], table [B, NP] int32 page ids;
-//   Dense  addressing: caches [B, Hkv, dh, S] (one row per slot);
-//   bf16 elements, or int8 elements with scales [P, Hkv, ps] / [B, Hkv, S].
-// q and o are [B, H, dh] bf16; lengths [B] int32 live tokens per row.
-// The layouts are the JAX ones (token index minor), kept so the port's caches
+// Two instantiations (paged_attention.cu gofr_paged_attention_q8,
+// decode_attention.cu gofr_decode_attention_q8):
+//   Paged  addressing: pools [P, Hkv, dh, ps], table [B, NP] int32 page ids,
+//                      scales [P, Hkv, ps];
+//   Dense  addressing: caches [B, Hkv, dh, S] (one row per slot), scales
+//                      [B, Hkv, S].
+// q and o are [B, H, dh] bf16; lengths [B] int32 live tokens per row. The
+// layouts are the JAX ones (token index minor), kept so the port's caches
 // compare one to one with the reference.
 //
 // Replaces the Pallas bodies _paged_kernel (gofr_tpu/ops/paged_attention.py)
-// and _decode_kernel (gofr_tpu/ops/decode_attention.py), which are one online
-// softmax under two addressing schemes, quantized or not.
+// and _decode_kernel (gofr_tpu/ops/decode_attention.py) with quantized=True /
+// scales: one online softmax under two addressing schemes.
 //
 // What bounds it on an H100: bytes. Each row must read the K and V of its live
-// tokens once: len * Hkv * dh * 2 * 2 bytes in bf16, len * Hkv * (dh * 2 +
-// 2 * 4) in int8 with its two scales, over 3.35 TB/s; the operations
-// (~4 * H * len * dh per row) are two orders below the FLOP bound. What the
-// design does about it: a block reads only its row's live tokens (the table
-// lookup is the block's own, the counterpart of scalar prefetch), each K/V
-// element is read once for all G query heads that share the kv head, and
-// neighbouring threads read neighbouring addresses (thread t reads
-// k[.., d, t]; a warp reads 64 contiguous bytes per d in bf16, 32 in int8).
-// The int8 bytes are what cross device memory: dequantization is folded into
-// the arithmetic and never materialised. Not yet done: splitting one row's
-// context over several blocks (flash-decoding), a dh-minor layout for 16-byte
-// loads, tensor cores; B * Hkv blocks must fill the card's 132 SMs by
-// themselves.
+// tokens once with their two scales: len * Hkv * (dh * 2 + 2 * 4) bytes over
+// 3.35 TB/s; the operations (~4 * H * len * dh per row) are two orders below
+// the int8 bound. What the design does about it: a block reads only its row's
+// live tokens (the table lookup is the block's own, the counterpart of scalar
+// prefetch), each K/V element is read once for all G query heads that share
+// the kv head, and neighbouring threads read neighbouring addresses (thread t
+// reads k[.., d, t]; a warp reads 32 contiguous bytes per d). The int8 bytes
+// are what cross device memory: dequantization is folded into the arithmetic
+// and never materialised. Not done here (decode_split.cuh does it for bf16):
+// splitting one row's context over several blocks, 16-byte asynchronous
+// loads; B * Hkv blocks must fill the card's 132 SMs by themselves.
 //
 // Design: one block of 128 threads per (kv head, row). The row's live tokens
 // are walked in chunks of 128, thread t taking token t of the chunk. Thread t
@@ -35,13 +36,14 @@
 // memory and stages its token's v column in shared memory; block-wide max and
 // sum reductions carry the online softmax (m, l) across chunks; then thread d
 // (< dh) sums p[g][t] * v[d][t] over the chunk's tokens for each of the G
-// heads. In int8 the scales fold in the Pallas order: s = (q . k8) * scale *
+// heads. The scales fold in the Pallas order: s = (q . k8) * scale *
 // k_scale[tok]; the max and p = exp(s - m) follow; l sums p BEFORE the v
 // scale; only then p *= v_scale[tok] and acc += p . v8. Tokens at or past a
 // row's length are never read: a paged row's length is clamped to NP * ps
 // (the addressable pages) and a dense row's to S, as the Pallas grids cover
 // only those. A row of length 0 returns zeros, as the Pallas kernels do.
 // Page ids outside [0, P) are treated as masked tokens rather than read.
+// (The template still compiles for bf16 elements; nothing instantiates it.)
 
 #pragma once
 

@@ -11,25 +11,31 @@
 // bf16 or int8; k_scale, v_scale [P, Hkv, ps] f32; table [B, NP] int32 page
 // ids; lengths [B] int32 live tokens per row.
 //
-// Bound, design and the folded dequantization: decode_read.cuh, which this
-// file instantiates with Paged addressing. A block reads table[b, tok / ps]
-// itself (the counterpart of scalar prefetch) and walks only live tokens;
-// entries past a row's live pages are never read.
+// bf16: decode_split.cuh with Paged addressing, each row's NP * ps tokens
+// cut into units of `unit` tokens (whole pages) dealt round-robin to
+// nsplit blocks that read in parallel and the last of them combines. int8: decode_read.cuh's one block
+// per (kv head, row). Either way a block reads table[b, tok / ps] itself
+// (the counterpart of scalar prefetch) and walks only live tokens; entries
+// past a row's live pages are never read.
 
 #include "decode_read.cuh"
+#include "decode_split.cuh"
 
 using gofr_decode::Paged;
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
+// part [B, Hkv, nsplit, H / Hkv, dh + 2] f32 scratch and counters [>= B * Hkv]
+// int32 zeros are read only when nsplit > 1 (decode_split.cuh).
 extern "C" int gofr_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                     const void* table, const void* lengths, void* o,
-                                    int B, int H, int Hkv, int dh, int P, int ps, int NP,
+                                    void* part, void* counters, int B, int H, int Hkv,
+                                    int dh, int P, int ps, int NP, int unit, int nsplit,
                                     float scale, void* stream) {
   if (ps <= 0 || NP <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int*>(table), static_cast<const int*>(lengths),
                    Hkv, dh, P, ps, NP};
-  return gofr_decode::dispatch<__nv_bfloat16>(H, q, k_pool, v_pool, nullptr, nullptr,
-                                              addr, o, B, scale, stream);
+  return gofr_split::dispatch(H, q, k_pool, v_pool, addr, o, part, counters, B, unit,
+                              nsplit, scale, stream);
 }
 
 extern "C" int gofr_paged_attention_q8(const void* q, const void* k_pool, const void* v_pool,

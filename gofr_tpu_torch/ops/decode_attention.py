@@ -13,8 +13,15 @@ Ports ``gofr_tpu/ops/decode_attention.py``:
 ``decode_attention_plain`` is the Pallas kernels' arithmetic in PyTorch —
 ``_decode_kernel`` and ``_paged_kernel`` are one online softmax under two
 addressing schemes — so ``ops/paged_attention`` reads through it too. The
-Pallas ``block_s`` tiling knob is not taken: the CUDA kernel walks 128-token
-chunks whatever S is, and the plain version walks the Pallas blocks.
+Pallas ``block_s`` tiling knob is not taken: the CUDA kernels pick their own
+tiles whatever S is, and the plain version walks the Pallas blocks.
+
+The bf16 kernels (``csrc/decode_split.cuh``, paged and dense) split each
+row's context over several blocks and combine them in the same launch:
+``plan_split`` chooses the blocks and their units on the host,
+``split_scratch`` hands the kernel its partials buffer and its zeroed
+per-(row, kv head) counters, and ``decode_read_split_plain`` is the
+split-and-combine in plain PyTorch, for the tests only.
 """
 
 from __future__ import annotations
@@ -28,6 +35,13 @@ from . import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # the Pallas kernel's default block, which the plain version walks
 PALLAS_BLOCK_S = 512
+# the split kernels' tile and blocks per row (csrc/decode_split.cuh TK,
+# MAX_SPLIT): a unit is a whole number of tiles (and of pages)
+SPLIT_TILE = 64
+SPLIT_MAX = 64
+# blocks the planner aims for, in waves of one block per SM
+SPLIT_WAVES = 2
+H100_SMS = 132
 
 
 def quantize_kv(x, axis: int = -2):
@@ -121,6 +135,112 @@ def decode_attention_plain(q, k, v, lengths, k_scale=None, v_scale=None,
     return out.reshape(B, H, dh).to(q.dtype)
 
 
+def decode_read_split_plain(q, k, v, lengths, nsplit: int, unit: int,
+                            tile: int = SPLIT_TILE):
+    """The split kernels' arithmetic in plain PyTorch, for the tests: q
+    [B, H, dh], k/v [B, Hkv, dh, S] (a paged read passes its gathered
+    pages), lengths [B] clamped to [0, S].
+
+    S is cut into units of `unit` tokens and block s takes units s,
+    s + nsplit, s + 2 nsplit, ... It folds its units' `tile`-token tiles,
+    in order, into its own f32 (m, l, acc) with p = exp(s - m) in f32
+    (masked tokens give p = 0) and reports them unnormalised. Blocks whose
+    first unit starts at or past a row's length are dropped (block 0 is
+    always kept), the rest merge with weights exp(m_s - max m), and o =
+    acc / max(l, 1e-30), so a row of length 0 gives zeros. Returns
+    [B, H, dh] in q.dtype."""
+    B, H, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[-1]
+    G = H // Hkv
+    per = -(-S // (unit * nsplit))                 # units per block
+    span = per * unit                              # tokens per block
+    pad = per * nsplit * unit - S
+
+    def deal(x):
+        """[B, Hkv, dh, S] -> [B, Hkv, dh, nsplit, span]: block s's units
+        in order."""
+        x = torch.nn.functional.pad(x.float(), (0, pad))
+        x = x.reshape(B, Hkv, dh, per, nsplit, unit).transpose(3, 4)
+        return x.reshape(B, Hkv, dh, nsplit, span)
+
+    kf, vf = deal(k), deal(v)
+    lengths = lengths.long().clamp(0, S)
+    qg = q.reshape(B, Hkv, G, dh).float()
+    scale = 1.0 / math.sqrt(dh)
+    blocks = torch.arange(nsplit, device=q.device)
+    within = torch.arange(span, device=q.device)
+    pos = ((within // unit)[None, :] * nsplit + blocks[:, None]) * unit \
+        + (within % unit)[None, :]                 # [nsplit, span] tokens
+    m = torch.full((B, Hkv, nsplit, G, 1), DEFAULT_MASK_VALUE,
+                   dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, nsplit, G, dh), dtype=torch.float32,
+                      device=q.device)
+    for t0 in range(0, span, tile):
+        kb, vb = kf[..., t0:t0 + tile], vf[..., t0:t0 + tile]
+        s = torch.einsum("bhgd,bhdnt->bhngt", qg, kb) * scale
+        live = (pos[None, :, t0:t0 + tile] < lengths[:, None, None])[
+            :, None, :, None, :]
+        s = torch.where(live, s, DEFAULT_MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(live, torch.exp(s - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhngt,bhdnt->bhngd", p, vb)
+        m = m_new
+    first = blocks * unit
+    keep = ((first[None] < lengths[:, None]) | (first[None] == 0))[
+        :, None, :, None, None]
+    m = torch.where(keep, m, DEFAULT_MASK_VALUE)
+    weight = torch.where(keep, torch.exp(m - m.amax(dim=2, keepdim=True)),
+                         0.0)
+    out = (weight * acc).sum(dim=2) / torch.clamp((weight * l).sum(dim=2),
+                                                  min=1e-30)
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
+def plan_split(B: int, Hkv: int, capacity: int, page_size=None,
+               sms: int = H100_SMS):
+    """(nsplit, unit) for the split kernels, from what the host knows
+    without a sync: units of `unit` tokens, a whole number of SPLIT_TILE
+    tiles and (paged) of pages, dealt round-robin to nsplit blocks per
+    (row, kv head), as many blocks as it takes for B * Hkv * nsplit to
+    reach SPLIT_WAVES waves of `sms` blocks, at most SPLIT_MAX and at most
+    one per unit of `capacity` (NP * ps paged, S dense)."""
+    unit = SPLIT_TILE if page_size is None else math.lcm(SPLIT_TILE,
+                                                        page_size)
+    units = -(-capacity // unit)
+    want = -(-SPLIT_WAVES * sms // (B * Hkv))
+    return max(1, min(want, units, SPLIT_MAX)), unit
+
+
+_counters: dict = {}
+
+
+def split_scratch(q, Hkv: int, capacity: int, page_size=None):
+    """(nsplit, unit, partials, counters) of one split read of q [B, H, dh]
+    on q's device and current stream. The partials are a fresh [B, Hkv,
+    nsplit, H / Hkv, dh + 2] float32 buffer (empty at nsplit 1); the
+    counters are the per-(row, kv head) tickets the last live block
+    resets to 0, one zeroed int32 buffer per (device, stream), grown (one
+    fill) when B * Hkv grows and never cleared per call. Two reads in
+    flight at once share counters only on one stream, where they cannot
+    overlap; the engines read on one stream."""
+    B, H, dh = q.shape
+    dev = q.device
+    nsplit, unit = plan_split(
+        B, Hkv, capacity, page_size,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((B, Hkv, nsplit, H // Hkv, dh + 2) if nsplit > 1
+                       else (0,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    counters = _counters.get((dev.index, stream))
+    if counters is None or counters.numel() < B * Hkv:
+        counters = torch.zeros(B * Hkv, dtype=torch.int32, device=dev)
+        _counters[(dev.index, stream)] = counters
+    return nsplit, unit, part, counters
+
+
 def check_kernel_inputs(who: str, q, kv, scales, ints) -> bool:
     """Raise unless q and every tensor of `kv`, `scales` and `ints` lie on
     one CUDA device and are contiguous, q is bf16, k/v are bf16 without
@@ -191,19 +311,26 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
         raise ValueError(f"{who}: scales must be [B, Hkv, S] = "
                          f"{(B, Hkv, S)}, got {tuple(k_scale.shape)}")
     o = torch.empty_like(q)
-    scales = [k_scale, v_scale] if quantized else []
-    launch("decode_attention_q8" if quantized else "decode_attention", who,
-           q, [q, k_cache, v_cache, *scales, lengths, o], (B, H, Hkv, dh, S),
-           1.0 / math.sqrt(dh))
+    if quantized:
+        launch("decode_attention_q8", who, q,
+               [q, k_cache, v_cache, k_scale, v_scale, lengths, o],
+               (B, H, Hkv, dh, S), 1.0 / math.sqrt(dh))
+        return o
+    nsplit, unit, part, counters = split_scratch(q, Hkv, S)
+    launch("decode_attention", who, q,
+           [q, k_cache, v_cache, lengths, o, part, counters],
+           (B, H, Hkv, dh, S, unit, nsplit), 1.0 / math.sqrt(dh))
     return o
 
 
 def decode_attention_cuda(q, k_cache, v_cache, lengths):
-    """Launch ``csrc/decode_attention.cu`` (bf16 caches). q: [B, H, dh] and
-    caches [B, Hkv, dh, S] contiguous bf16, lengths [B] int32 (clamped to
-    [0, S] in the kernel), on one CUDA device; dh in {64, 128}, H / Hkv in
+    """Launch ``csrc/decode_attention.cu`` (bf16 caches; the split read of
+    ``csrc/decode_split.cuh``, one launch). q: [B, H, dh] and caches
+    [B, Hkv, dh, S] contiguous bf16, lengths [B] int32 (clamped to [0, S]
+    in the kernel), on one CUDA device; dh in {64, 128}, H / Hkv in
     {1, 2, 4, 8}. Returns a new [B, H, dh] tensor. Raises on any other
-    input, or when the launch is refused; never falls back."""
+    input, or when the launch is refused; never falls back. Reads on one
+    stream (see ``split_scratch``)."""
     o = _decode_cuda(q, k_cache, v_cache, lengths, None, None)
     decode_attention_cuda.launches += 1
     return o

@@ -5,9 +5,10 @@ Ports ``gofr_tpu/ops/paged_attention.py``:
 - ``paged_attention_reference`` (the gather-based oracle, with optional
   int8 scales) and ``paged_attention``: on a CUDA tensor the hand-written
   kernel (``csrc/paged_attention.cu``, replacing the Pallas
-  ``_paged_kernel``: ``paged_attention_cuda`` for bf16 pools,
-  ``paged_attention_q8_cuda`` for int8 pools with per-token scales); on a
-  CPU tensor ``paged_attention_plain``, the Pallas page walk in PyTorch
+  ``_paged_kernel``: ``paged_attention_cuda`` for bf16 pools, the context
+  split over blocks, ``paged_attention_q8_cuda`` for int8 pools with
+  per-token scales); on a CPU tensor ``paged_attention_plain``, the Pallas
+  page walk in PyTorch
   (``ops/decode_attention.decode_attention_plain`` over the gathered
   pages);
 - ``paged_write_decode``, ``_prefill_scatter_indices``,
@@ -35,7 +36,7 @@ import math
 import torch
 
 from .decode_attention import (DEFAULT_MASK_VALUE, check_kernel_inputs,
-                               decode_attention_plain, launch)
+                               decode_attention_plain, launch, split_scratch)
 
 
 def _gather_pages(pool, table):
@@ -101,15 +102,22 @@ def _paged_cuda(q, k_pool, v_pool, table, lengths, k_scale, v_scale):
         raise ValueError(f"{who}: scale pools must be [P, Hkv, ps] = "
                          f"{(P, Hkv, ps)}, got {tuple(k_scale.shape)}")
     o = torch.empty_like(q)
-    scales = [k_scale, v_scale] if quantized else []
-    launch("paged_attention_q8" if quantized else "paged_attention", who, q,
-           [q, k_pool, v_pool, *scales, table, lengths, o],
-           (B, H, Hkv, dh, P, ps, NP), 1.0 / math.sqrt(dh))
+    if quantized:
+        launch("paged_attention_q8", who, q,
+               [q, k_pool, v_pool, k_scale, v_scale, table, lengths, o],
+               (B, H, Hkv, dh, P, ps, NP), 1.0 / math.sqrt(dh))
+        return o
+    nsplit, unit, part, counters = split_scratch(q, Hkv, NP * ps, ps)
+    launch("paged_attention", who, q,
+           [q, k_pool, v_pool, table, lengths, o, part, counters],
+           (B, H, Hkv, dh, P, ps, NP, unit, nsplit), 1.0 / math.sqrt(dh))
     return o
 
 
 def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
-    """Launch ``csrc/paged_attention.cu`` (bf16 pools). q: [B, H, dh] and
+    """Launch ``csrc/paged_attention.cu`` (bf16 pools; the split read of
+    ``csrc/decode_split.cuh``, one launch, on one stream: see
+    ``ops/decode_attention.split_scratch``). q: [B, H, dh] and
     pools [P, Hkv, dh, ps] contiguous bf16, table [B, NP] and lengths [B]
     contiguous int32, all on one CUDA device; dh in {64, 128}, H / Hkv in
     {1, 2, 4, 8}. Entries of `table` past a row's live pages must hold a

@@ -18,7 +18,7 @@ from gofr_tpu_torch.ops.decode_attention import (decode_attention,
                                                  decode_attention_cuda,
                                                  decode_attention_plain,
                                                  decode_attention_q8_cuda,
-                                                 quantize_kv)
+                                                 plan_split, quantize_kv)
 from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
                                                 flash_attention,
                                                 flash_attention_cuda,
@@ -203,6 +203,87 @@ def test_decode_dispatch_uses_the_kernels_on_cuda(cuda):
     assert decode_attention_q8_cuda.launches == q0 + 1
     with pytest.raises(TypeError):
         decode_attention(q.float(), k.float(), v.float(), lens)
+
+
+def _split_lengths(B, nsplit, unit):
+    """B=1: 8192; else lengths at a unit boundary and one past it, at the
+    end of the first round of units and one past it, 8192, and short rows
+    whose later blocks start past them."""
+    if B == 1:
+        return [8192]
+    return [unit, unit + 1, nsplit * unit, nsplit * unit + 1, 8192, 1, 100,
+            700][:B]
+
+
+def _twice(fn):
+    """fn() twice in a row must give the same bits: the block that combines
+    a row's blocks resets its counter."""
+    first = fn()
+    assert torch.equal(first, fn())
+    return first
+
+
+@pytest.mark.parametrize("ps,B", [(16, 1), (16, 8), (128, 1), (128, 8)])
+def test_paged_split_matches_reference(cuda, ps, B):
+    Hkv = 8
+    NP = 1 << (-(-8192 // ps)).bit_length()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms)
+    assert nsplit > 1
+    lengths = _split_lengths(B, nsplit, unit)
+    gen = torch.Generator(device=cuda).manual_seed(ps + B)
+    need = [-(-n // ps) for n in lengths]
+    P = sum(need) + 1
+    table = torch.zeros((B, NP), dtype=torch.int32, device=cuda)
+    ids = torch.randperm(P - 1, generator=gen, device=cuda).to(torch.int32) + 1
+    off = 0
+    for b, n in enumerate(need):
+        table[b, :n] = ids[off:off + n]
+        off += n
+    q = _randn(gen, cuda, B, 32, 128)
+    kp, vp = (_randn(gen, cuda, P, Hkv, 128, ps) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = paged_attention_cuda.launches
+    got = _twice(lambda: paged_attention_cuda(q, kp, vp, table, lens))
+    assert paged_attention_cuda.launches == before + 2
+    _assert_agrees(got, paged_attention_reference(q, kp, vp, table, lens))
+
+
+@pytest.mark.parametrize("S,B", [(8192, 1), (8192, 8), (1000, 8), (1001, 8)])
+def test_decode_split_matches_plain(cuda, S, B):
+    """Many blocks per row, lengths 0, S and S + 1, and rows that are not
+    16-byte aligned (S = 1001)."""
+    Hkv = 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsplit, unit = plan_split(B, Hkv, S, None, sms)
+    assert nsplit > 1
+    lengths = ([S] if B == 1 else
+               [unit, unit + 1, nsplit * unit, nsplit * unit + 1, S, S + 1,
+                0, 1])
+    gen = torch.Generator(device=cuda).manual_seed(S + B)
+    q = _randn(gen, cuda, B, 32, 128)
+    k, v = (_randn(gen, cuda, B, Hkv, 128, S) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = _twice(lambda: decode_attention_cuda(q, k, v, lens))
+    _assert_agrees(got, decode_attention_plain(q, k, v, lens))
+    if B > 1:
+        assert bool((got[6] == 0).all())
+
+
+def test_split_reads_on_two_streams(cuda):
+    """Each stream has its own counters: reads on a side stream agree with
+    the same reads on the default stream."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = _randn(gen, cuda, 2, 32, 128)
+    k, v = (_randn(gen, cuda, 2, 8, 128, 4096) for _ in range(2))
+    lens = torch.tensor([4000, 2500], dtype=torch.int32, device=cuda)
+    want = decode_attention_cuda(q, k, v, lens)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        got = decode_attention_cuda(q, k, v, lens)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.equal(got, want)
 
 
 def _small_cfg(**kw):
