@@ -13,7 +13,10 @@ Phases, one or more lines each, any failure exits non-zero:
 
 1. card and build: the card's name and power limit (nvidia-smi), TF32 off,
    the kernels' three sources built from gofr_tpu_torch/ops/csrc with one
-   nvcc each, in parallel;
+   nvcc each, in parallel; ptxas's registers and spill bytes per kernel
+   (the decode reads per element type and instantiation), and the int ->
+   float conversions in the decode reads' SASS (cuobjdump; an int8 read
+   must convert its elements without I2F);
 2. each kernel against its plain PyTorch version on the card, in bf16, at
    the stated tolerance (flash: H=32, Hkv=8, dh=128 at T=S 128 / 1000 /
    16384, causal and not, T=S=80 causal (two kv tiles), non-causal T=200
@@ -22,11 +25,11 @@ Phases, one or more lines each, any failure exits non-zero:
    paged-int8: B=8, ragged
    lengths around the page size, zero table tails, page sizes 16 and 128,
    and zeros at length 0; decode and decode-int8: B=8 over a dense S=1024
-   cache at lengths 0, S, one past S and ragged ones between; the bf16
-   split reads where the split matters: B=1 at 8192 and B=8 ragged up to
-   8192 with lengths at the split's unit boundaries and one past them, page
-   sizes 16 and 128, dense S=1000 and S=1001, and the same bits from two
-   calls in a row);
+   cache at lengths 0, S, one past S and ragged ones between; the split
+   reads, bf16 and int8, where the split matters: B=1 at 8192 and B=8
+   ragged up to 8192 with lengths at the split's unit boundaries and one
+   past them, page sizes 16 and 128, dense S=1000 and S=1001, the same bits
+   from two calls in a row, zeros at length 0 and S+1 read as S);
 3. the model on the card: Llama-3-8B at full width and depth, random
    weights from seed 0; one paged decode step and one dense decode step
    (decode kernel) must match a full recompute of the same context with
@@ -99,6 +102,65 @@ class SmokeFailure(RuntimeError):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+# -- phase 1: the build ---------------------------------------------------------
+# a decode read's instantiation in a mangled kernel name: element type, dh,
+# G, addressing
+SPLIT_NAME = re.compile(r"(Kv(?:Bf16|Int8))ELi(\d+)ELi(\d+)ENS_\d+(Paged|Dense)")
+
+
+def build_report(name: str, _build) -> None:
+    """Log source `name`'s ptxas report (registers and spill bytes per
+    kernel; the decode reads per element type and instantiation) and, from
+    cuobjdump's SASS, the int -> float conversions in each decode read
+    (I2F / I2FP), apart from the reciprocal seeds (I2F.*.RP) of integer
+    division; fails when an int8 read converts its elements that way."""
+    import subprocess
+    from pathlib import Path
+
+    lib = _build.target(name)
+    text = lib.with_suffix(".log").read_text()
+    regs, spills, groups = [], 0, {}
+    for entry in text.split("Compiling entry function")[1:]:
+        r = re.search(r"Used (\d+) registers", entry)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       entry)
+        n = int(r.group(1)) if r else 0
+        regs.append(n)
+        spills += int(sp.group(1)) + int(sp.group(2)) if sp else 0
+        m = SPLIT_NAME.search(entry.split("'")[1] if "'" in entry else "")
+        if m:
+            groups.setdefault(m.group(1), []).append(
+                f"{m.group(4)[0]}{m.group(2)}g{m.group(3)}:{n}")
+    log(f"build {name}: {len(regs)} kernels, registers "
+        f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes {spills}")
+    for kind, items in sorted(groups.items()):
+        log(f"build {name} {kind} registers (P/D dh gG:regs): "
+            f"{' '.join(sorted(items))}")
+    if not groups:
+        return
+    exe = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(exe), "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    conv = {}
+    for func in sass.split("Function : ")[1:]:
+        m = SPLIT_NAME.search(func.split(None, 1)[0])
+        if not m:
+            continue
+        ops = re.findall(r"\b(I2FP?(?:\.[A-Z0-9_.]+)?)\s", func)
+        seeds = sum(op.endswith(".RP") or ".RP." in op for op in ops)
+        total = conv.setdefault(m.group(1), [0, 0, 0])
+        total[0] += 1
+        total[1] += len(ops) - seeds
+        total[2] += seeds
+    for kind, (n, other, seeds) in sorted(conv.items()):
+        log(f"sass {name} {kind}: {n} kernels, int->float conversions "
+            f"{other} (besides {seeds} I2F.RP seeds of integer division)")
+    require(conv.get("KvInt8", [0, 0])[0] > 0,
+            f"{name}: no int8 decode read in the SASS")
+    require(conv["KvInt8"][1] == 0,
+            f"{name}: the int8 decode read converts with I2F")
 
 
 # -- phase 2: kernels against their plain versions ---------------------------
@@ -225,20 +287,27 @@ def check_flash(dev) -> None:
 
 
 def check_split(dev) -> None:
-    """The bf16 split reads (decode_split.cuh) where the split matters: many
-    blocks per row (B=1 at 8192; B=8 ragged up to 8192 with lengths at a
-    unit boundary and one past it, at the end of the first round of units
-    and one past it, short rows whose later blocks start past their
-    length), page sizes 16 and 128, dense S=8192, S=1000 and S=1001 (rows
-    not 16-byte aligned) with lengths 0, S and S + 1; each call is made
-    twice and must give the same bits (the block that combines a row
-    resets its counter)."""
+    """The split reads (decode_split.cuh), bf16 and int8, where the split
+    matters: many blocks per row (B=1 at 8192; B=8 ragged up to 8192 with
+    lengths at a unit boundary and one past it, at the end of the first
+    round of units and one past it, short rows whose later blocks start past
+    their length), page sizes 16 and 128, dense S=8192, S=1000 and S=1001
+    (rows not 16-byte aligned) with lengths 0, S and S + 1; each call is made
+    twice and must give the same bits (the block that combines a row resets
+    its counter), and a row of length 0 gives zeros. bf16 is held against
+    the gather reference (paged) or the plain version (dense), int8 against
+    the plain versions with scales."""
     import torch
 
-    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+    from gofr_tpu_torch.ops.decode_attention import (SPLIT_TILE,
+                                                     SPLIT_TILE_Q8,
+                                                     decode_attention_cuda,
                                                      decode_attention_plain,
-                                                     plan_split)
+                                                     decode_attention_q8_cuda,
+                                                     plan_split, quantize_kv)
     from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_plain,
+                                                    paged_attention_q8_cuda,
                                                     paged_attention_reference)
 
     H, Hkv, dh = 32, 8, 128
@@ -250,35 +319,67 @@ def check_split(dev) -> None:
                 f"{what}: two calls in a row differ (counters not reset?)")
         return first
 
-    for ps in (16, 128):
-        NP = 1 << (-(-8192 // ps)).bit_length()    # as paged_inputs builds it
-        for B in (1, 8):
-            nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms)
-            lengths = ([8192] if B == 1 else
-                       [unit, unit + 1, nsplit * unit, nsplit * unit + 1, 8192,
-                        1, 100, 700])
-            q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, dh, ps,
-                                                  dev, seed=ps + B)
-            what = (f"paged split ps={ps} B={B} nsplit={nsplit} unit={unit} "
-                    f"lengths={lengths}")
-            got = twice(what, lambda: paged_attention_cuda(q, kp, vp, table,
-                                                           lens))
-            check_agreement(what, got,
-                            paged_attention_reference(q, kp, vp, table, lens))
-            del q, kp, vp, table, lens, got
-    for S, B in ((8192, 1), (8192, 8), (1000, 8), (1001, 8)):
-        nsplit, unit = plan_split(B, Hkv, S, None, sms)
-        lengths = ([S] if B == 1 else
-                   [unit, unit + 1, nsplit * unit, nsplit * unit + 1, S, S + 1,
-                    0, 1])
-        q, k, v, lens = dense_inputs(lengths, H, Hkv, dh, S, dev, seed=S + B)
-        what = (f"decode split S={S} B={B} nsplit={nsplit} unit={unit} "
-                f"lengths={lengths}")
-        got = twice(what, lambda: decode_attention_cuda(q, k, v, lens))
-        check_agreement(what, got, decode_attention_plain(q, k, v, lens))
-        require(B == 1 or bool((got[6] == 0).all()),
-                f"{what}: length 0 is not zeros")
-        del q, k, v, lens, got
+    for quantized in (False, True):
+        kind, tile = (("-int8", SPLIT_TILE_Q8) if quantized else
+                      ("", SPLIT_TILE))
+        for ps in (16, 128):
+            NP = 1 << (-(-8192 // ps)).bit_length()   # as paged_inputs builds it
+            for B in (1, 8):
+                nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms, tile)
+                lengths = ([8192] if B == 1 else
+                           [unit, unit + 1, nsplit * unit, nsplit * unit + 1,
+                            8192, 1, 100, 700])
+                q, kp, vp, table, lens = paged_inputs(lengths, H, Hkv, dh, ps,
+                                                      dev, seed=ps + B)
+                if quantized:
+                    (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+
+                    def read(n):
+                        return paged_attention_q8_cuda(q, k8, v8, ks, vs,
+                                                       table, n)
+                    want = paged_attention_plain(q, k8, v8, table, lens, ks,
+                                                 vs)
+                else:
+                    def read(n):
+                        return paged_attention_cuda(q, kp, vp, table, n)
+                    want = paged_attention_reference(q, kp, vp, table, lens)
+                what = (f"paged{kind} split ps={ps} B={B} nsplit={nsplit} "
+                        f"unit={unit} lengths={lengths}")
+                check_agreement(what, twice(what, lambda: read(lens)), want)
+                zero = lens.clone()
+                zero[-1] = 0
+                require(bool((read(zero)[-1] == 0).all()),
+                        f"{what}: length 0 is not zeros")
+                del q, kp, vp, table, lens, want
+        for S, B in ((8192, 1), (8192, 8), (1000, 8), (1001, 8)):
+            nsplit, unit = plan_split(B, Hkv, S, None, sms, tile)
+            lengths = ([S] if B == 1 else
+                       [unit, unit + 1, nsplit * unit, nsplit * unit + 1, S,
+                        S + 1, 0, 1])
+            q, k, v, lens = dense_inputs(lengths, H, Hkv, dh, S, dev,
+                                         seed=S + B)
+            if quantized:
+                (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
+
+                def read(n):
+                    return decode_attention_q8_cuda(q, k8, v8, ks, vs, n)
+                want = decode_attention_plain(q, k8, v8, lens, ks, vs)
+            else:
+                def read(n):
+                    return decode_attention_cuda(q, k, v, n)
+                want = decode_attention_plain(q, k, v, lens)
+            what = (f"decode{kind} split S={S} B={B} nsplit={nsplit} "
+                    f"unit={unit} lengths={lengths}")
+            got = twice(what, lambda: read(lens))
+            check_agreement(what, got, want)
+            if B > 1:
+                require(bool((got[6] == 0).all()),
+                        f"{what}: length 0 is not zeros")
+                clamped = lens.clone()
+                clamped[5] = S
+                require(torch.equal(read(clamped)[5], got[5]),
+                        f"{what}: length S+1 does not read as S")
+            del q, k, v, lens, got, want
     torch.cuda.empty_cache()
 
 
@@ -777,8 +878,10 @@ def time_prefill(params, cfg, dev, B, T, iters, card) -> None:
     torch.cuda.empty_cache()
 
 
-# the profiler's name for each decode read's kernel
-READ_KERNEL = {False: "decode_split_kernel", True: "decode_read_kernel"}
+# what the profiler's name of each decode read's kernel holds: both launch
+# decode_split_kernel, told apart by its element type
+READ_KERNEL = {False: "KvBf16", True: "KvInt8"}
+
 
 
 def time_paged(dev, lengths, ps, iters, flush, quantized=False):
@@ -922,8 +1025,8 @@ def time_reads(dev, ctx, S, flush, card) -> dict:
 
 # -- phase 6: where a decode step's time goes ---------------------------------
 # kernel launches per decode step with one read kernel per layer before the
-# bf16 reads were split over blocks (this profile phase, NVIDIA H100 80GB
-# HBM3, 700 W): the split reads combine in the same launch and add none
+# reads were split over blocks (this profile phase, NVIDIA H100 80GB HBM3,
+# 700 W): the split reads combine in the same launch and add none
 LAUNCHES_PER_STEP = {"paged": 2621, "paged-int8": 3453, "dense": 2555,
                      "dense-int8": 3071}
 
@@ -1054,14 +1157,7 @@ def main(argv=()) -> int:
         log(f"build: {json.dumps({k: round(v, 2) for k, v in took.items()})} "
             f"wall={time.monotonic() - t0:.2f}s (nvcc, sm_90a, parallel)")
         for name in _build.KERNELS:
-            ptxas = _build.target(name).with_suffix(".log")
-            text = ptxas.read_text() if ptxas.exists() else ""
-            regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-            spills = [int(a) + int(b) for a, b in re.findall(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
-            log(f"build {name}: {len(regs)} kernels, registers "
-                f"{min(regs, default=0)}-{max(regs, default=0)}, spill bytes "
-                f"{sum(spills)}")
+            build_report(name, _build)
 
         if mode == "--flash":
             flash_only(dev, card)

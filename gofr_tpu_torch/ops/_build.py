@@ -34,11 +34,11 @@ ENTRY_POINTS = {
     "paged_attention": ("paged_attention", "gofr_paged_attention",
                         [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
     "paged_attention_q8": ("paged_attention", "gofr_paged_attention_q8",
-                           [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
+                           [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]),
     "decode_attention": ("decode_attention", "gofr_decode_attention",
                          [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]),
     "decode_attention_q8": ("decode_attention", "gofr_decode_attention_q8",
-                            [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
+                            [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]),
 }
 # the sources, one shared library each
 KERNELS = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))

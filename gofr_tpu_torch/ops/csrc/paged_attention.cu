@@ -11,17 +11,16 @@
 // bf16 or int8; k_scale, v_scale [P, Hkv, ps] f32; table [B, NP] int32 page
 // ids; lengths [B] int32 live tokens per row.
 //
-// bf16: decode_split.cuh with Paged addressing, each row's NP * ps tokens
-// cut into units of `unit` tokens (whole pages) dealt round-robin to
-// nsplit blocks that read in parallel and the last of them combines. int8: decode_read.cuh's one block
-// per (kv head, row). Either way a block reads table[b, tok / ps] itself
-// (the counterpart of scalar prefetch) and walks only live tokens; entries
-// past a row's live pages are never read.
+// Both: decode_split.cuh with Paged addressing (bf16 or int8 elements), each
+// row's NP * ps tokens cut into units of `unit` tokens (whole pages) dealt
+// round-robin to nsplit blocks that read in parallel and the last of them
+// combines. A block reads table[b, tok / ps] itself (the counterpart of
+// scalar prefetch) and walks only live tokens; entries past a row's live
+// pages are never read.
 
-#include "decode_read.cuh"
 #include "decode_split.cuh"
 
-using gofr_decode::Paged;
+using gofr_split::Paged;
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
 // part [B, Hkv, nsplit, H / Hkv, dh + 2] f32 scratch and counters [>= B * Hkv]
@@ -34,18 +33,21 @@ extern "C" int gofr_paged_attention(const void* q, const void* k_pool, const voi
   if (ps <= 0 || NP <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int*>(table), static_cast<const int*>(lengths),
                    Hkv, dh, P, ps, NP};
-  return gofr_split::dispatch(H, q, k_pool, v_pool, addr, o, part, counters, B, unit,
-                              nsplit, scale, stream);
+  return gofr_split::dispatch<gofr_split::KvBf16>(H, q, k_pool, v_pool, nullptr, nullptr,
+                                                  addr, o, part, counters, B, unit,
+                                                  nsplit, scale, stream);
 }
 
 extern "C" int gofr_paged_attention_q8(const void* q, const void* k_pool, const void* v_pool,
                                        const void* k_scale, const void* v_scale,
                                        const void* table, const void* lengths, void* o,
-                                       int B, int H, int Hkv, int dh, int P, int ps, int NP,
+                                       void* part, void* counters, int B, int H, int Hkv,
+                                       int dh, int P, int ps, int NP, int unit, int nsplit,
                                        float scale, void* stream) {
   if (ps <= 0 || NP <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int*>(table), static_cast<const int*>(lengths),
                    Hkv, dh, P, ps, NP};
-  return gofr_decode::dispatch<int8_t>(H, q, k_pool, v_pool, k_scale, v_scale, addr, o, B,
-                                       scale, stream);
+  return gofr_split::dispatch<gofr_split::KvInt8>(H, q, k_pool, v_pool, k_scale, v_scale,
+                                                  addr, o, part, counters, B, unit,
+                                                  nsplit, scale, stream);
 }

@@ -16,8 +16,9 @@ addressing schemes — so ``ops/paged_attention`` reads through it too. The
 Pallas ``block_s`` tiling knob is not taken: the CUDA kernels pick their own
 tiles whatever S is, and the plain version walks the Pallas blocks.
 
-The bf16 kernels (``csrc/decode_split.cuh``, paged and dense) split each
-row's context over several blocks and combine them in the same launch:
+The kernels (``csrc/decode_split.cuh``, paged and dense, bf16 and int8)
+split each row's context over several blocks and combine them in the same
+launch:
 ``plan_split`` chooses the blocks and their units on the host,
 ``split_scratch`` hands the kernel its partials buffer and its zeroed
 per-(row, kv head) counters, and ``decode_read_split_plain`` is the
@@ -35,9 +36,11 @@ from . import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # the Pallas kernel's default block, which the plain version walks
 PALLAS_BLOCK_S = 512
-# the split kernels' tile and blocks per row (csrc/decode_split.cuh TK,
-# MAX_SPLIT): a unit is a whole number of tiles (and of pages)
+# the split kernels' tiles, bf16 and int8, and blocks per row
+# (csrc/decode_split.cuh KvBf16::TK, KvInt8::TK, MAX_SPLIT): a tile's d row
+# is one 128-byte line, and a unit is a whole number of tiles (and of pages)
 SPLIT_TILE = 64
+SPLIT_TILE_Q8 = 128
 SPLIT_MAX = 64
 # blocks the planner aims for, in waves of one block per SM
 SPLIT_WAVES = 2
@@ -136,34 +139,43 @@ def decode_attention_plain(q, k, v, lengths, k_scale=None, v_scale=None,
 
 
 def decode_read_split_plain(q, k, v, lengths, nsplit: int, unit: int,
-                            tile: int = SPLIT_TILE):
+                            tile: int = SPLIT_TILE, k_scale=None,
+                            v_scale=None):
     """The split kernels' arithmetic in plain PyTorch, for the tests: q
     [B, H, dh], k/v [B, Hkv, dh, S] (a paged read passes its gathered
-    pages), lengths [B] clamped to [0, S].
+    pages), lengths [B] clamped to [0, S]; int8 k/v with k/v_scale
+    [B, Hkv, S] (a paged read gathers the scale pages too).
 
     S is cut into units of `unit` tokens and block s takes units s,
     s + nsplit, s + 2 nsplit, ... It folds its units' `tile`-token tiles,
     in order, into its own f32 (m, l, acc) with p = exp(s - m) in f32
-    (masked tokens give p = 0) and reports them unnormalised. Blocks whose
-    first unit starts at or past a row's length are dropped (block 0 is
-    always kept), the rest merge with weights exp(m_s - max m), and o =
-    acc / max(l, 1e-30), so a row of length 0 gives zeros. Returns
-    [B, H, dh] in q.dtype."""
+    (masked tokens give p = 0) and reports them unnormalised. With scales,
+    in the Pallas order: s = (q . k8) * 1/sqrt(dh) * k_scale, l sums p,
+    then p *= v_scale before p . v8 (p stays f32). Blocks whose first unit
+    starts at or past a row's length are dropped (block 0 is always kept),
+    the rest merge with weights exp(m_s - max m), and o = acc / max(l,
+    1e-30), so a row of length 0 gives zeros. Returns [B, H, dh] in
+    q.dtype."""
     B, H, dh = q.shape
     Hkv, S = k.shape[1], k.shape[-1]
     G = H // Hkv
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale or neither")
     per = -(-S // (unit * nsplit))                 # units per block
     span = per * unit                              # tokens per block
     pad = per * nsplit * unit - S
 
     def deal(x):
-        """[B, Hkv, dh, S] -> [B, Hkv, dh, nsplit, span]: block s's units
-        in order."""
+        """[..., S] -> [..., nsplit, span]: block s's units in order."""
+        lead = x.shape[:-1]
         x = torch.nn.functional.pad(x.float(), (0, pad))
-        x = x.reshape(B, Hkv, dh, per, nsplit, unit).transpose(3, 4)
-        return x.reshape(B, Hkv, dh, nsplit, span)
+        x = x.reshape(*lead, per, nsplit, unit).transpose(-3, -2)
+        return x.reshape(*lead, nsplit, span)
 
-    kf, vf = deal(k), deal(v)
+    kf, vf = deal(k), deal(v)                      # [B, Hkv, dh, nsplit, span]
+    if quantized:
+        ksf, vsf = deal(k_scale), deal(v_scale)    # [B, Hkv, nsplit, span]
     lengths = lengths.long().clamp(0, S)
     qg = q.reshape(B, Hkv, G, dh).float()
     scale = 1.0 / math.sqrt(dh)
@@ -179,6 +191,8 @@ def decode_read_split_plain(q, k, v, lengths, nsplit: int, unit: int,
     for t0 in range(0, span, tile):
         kb, vb = kf[..., t0:t0 + tile], vf[..., t0:t0 + tile]
         s = torch.einsum("bhgd,bhdnt->bhngt", qg, kb) * scale
+        if quantized:
+            s = s * ksf[:, :, :, None, t0:t0 + tile]
         live = (pos[None, :, t0:t0 + tile] < lengths[:, None, None])[
             :, None, :, None, :]
         s = torch.where(live, s, DEFAULT_MASK_VALUE)
@@ -186,6 +200,8 @@ def decode_read_split_plain(q, k, v, lengths, nsplit: int, unit: int,
         p = torch.where(live, torch.exp(s - m_new), 0.0)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if quantized:
+            p = p * vsf[:, :, :, None, t0:t0 + tile]
         acc = acc * alpha + torch.einsum("bhngt,bhdnt->bhngd", p, vb)
         m = m_new
     first = blocks * unit
@@ -200,15 +216,15 @@ def decode_read_split_plain(q, k, v, lengths, nsplit: int, unit: int,
 
 
 def plan_split(B: int, Hkv: int, capacity: int, page_size=None,
-               sms: int = H100_SMS):
+               sms: int = H100_SMS, tile: int = SPLIT_TILE):
     """(nsplit, unit) for the split kernels, from what the host knows
-    without a sync: units of `unit` tokens, a whole number of SPLIT_TILE
-    tiles and (paged) of pages, dealt round-robin to nsplit blocks per
-    (row, kv head), as many blocks as it takes for B * Hkv * nsplit to
-    reach SPLIT_WAVES waves of `sms` blocks, at most SPLIT_MAX and at most
-    one per unit of `capacity` (NP * ps paged, S dense)."""
-    unit = SPLIT_TILE if page_size is None else math.lcm(SPLIT_TILE,
-                                                        page_size)
+    without a sync: units of `unit` tokens, a whole number of `tile`-token
+    tiles (SPLIT_TILE bf16, SPLIT_TILE_Q8 int8) and (paged) of pages, dealt
+    round-robin to nsplit blocks per (row, kv head), as many blocks as it
+    takes for B * Hkv * nsplit to reach SPLIT_WAVES waves of `sms` blocks,
+    at most SPLIT_MAX and at most one per unit of `capacity` (NP * ps
+    paged, S dense)."""
+    unit = tile if page_size is None else math.lcm(tile, page_size)
     units = -(-capacity // unit)
     want = -(-SPLIT_WAVES * sms // (B * Hkv))
     return max(1, min(want, units, SPLIT_MAX)), unit
@@ -217,9 +233,11 @@ def plan_split(B: int, Hkv: int, capacity: int, page_size=None,
 _counters: dict = {}
 
 
-def split_scratch(q, Hkv: int, capacity: int, page_size=None):
+def split_scratch(q, Hkv: int, capacity: int, page_size=None,
+                  tile: int = SPLIT_TILE):
     """(nsplit, unit, partials, counters) of one split read of q [B, H, dh]
-    on q's device and current stream. The partials are a fresh [B, Hkv,
+    with `tile`-token tiles on q's device and current stream (see
+    ``plan_split``). The partials are a fresh [B, Hkv,
     nsplit, H / Hkv, dh + 2] float32 buffer (empty at nsplit 1); the
     counters are the per-(row, kv head) tickets the last live block
     resets to 0, one zeroed int32 buffer per (device, stream), grown (one
@@ -230,7 +248,7 @@ def split_scratch(q, Hkv: int, capacity: int, page_size=None):
     dev = q.device
     nsplit, unit = plan_split(
         B, Hkv, capacity, page_size,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        torch.cuda.get_device_properties(dev).multi_processor_count, tile)
     part = torch.empty((B, Hkv, nsplit, H // Hkv, dh + 2) if nsplit > 1
                        else (0,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -311,14 +329,13 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
         raise ValueError(f"{who}: scales must be [B, Hkv, S] = "
                          f"{(B, Hkv, S)}, got {tuple(k_scale.shape)}")
     o = torch.empty_like(q)
+    nsplit, unit, part, counters = split_scratch(
+        q, Hkv, S, tile=SPLIT_TILE_Q8 if quantized else SPLIT_TILE)
     if quantized:
-        launch("decode_attention_q8", who, q,
-               [q, k_cache, v_cache, k_scale, v_scale, lengths, o],
-               (B, H, Hkv, dh, S), 1.0 / math.sqrt(dh))
-        return o
-    nsplit, unit, part, counters = split_scratch(q, Hkv, S)
-    launch("decode_attention", who, q,
-           [q, k_cache, v_cache, lengths, o, part, counters],
+        entry, kv = "decode_attention_q8", [k_cache, v_cache, k_scale, v_scale]
+    else:
+        entry, kv = "decode_attention", [k_cache, v_cache]
+    launch(entry, who, q, [q, *kv, lengths, o, part, counters],
            (B, H, Hkv, dh, S, unit, nsplit), 1.0 / math.sqrt(dh))
     return o
 
@@ -338,8 +355,9 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
 
 def decode_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths):
     """Launch ``csrc/decode_attention.cu``'s int8 entry point: as
-    ``decode_attention_cuda`` with int8 caches and [B, Hkv, S] float32
-    scales, dequantization folded into the read."""
+    ``decode_attention_cuda`` (the same split read, one launch) with int8
+    caches and [B, Hkv, S] float32 scales, dequantization folded into the
+    read."""
     o = _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale)
     decode_attention_q8_cuda.launches += 1
     return o

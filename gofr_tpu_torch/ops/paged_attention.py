@@ -5,10 +5,10 @@ Ports ``gofr_tpu/ops/paged_attention.py``:
 - ``paged_attention_reference`` (the gather-based oracle, with optional
   int8 scales) and ``paged_attention``: on a CUDA tensor the hand-written
   kernel (``csrc/paged_attention.cu``, replacing the Pallas
-  ``_paged_kernel``: ``paged_attention_cuda`` for bf16 pools, the context
-  split over blocks, ``paged_attention_q8_cuda`` for int8 pools with
-  per-token scales); on a CPU tensor ``paged_attention_plain``, the Pallas
-  page walk in PyTorch
+  ``_paged_kernel``: ``paged_attention_cuda`` for bf16 pools,
+  ``paged_attention_q8_cuda`` for int8 pools with per-token scales, both
+  the context split over blocks); on a CPU tensor
+  ``paged_attention_plain``, the Pallas page walk in PyTorch
   (``ops/decode_attention.decode_attention_plain`` over the gathered
   pages);
 - ``paged_write_decode``, ``_prefill_scatter_indices``,
@@ -35,8 +35,9 @@ import math
 
 import torch
 
-from .decode_attention import (DEFAULT_MASK_VALUE, check_kernel_inputs,
-                               decode_attention_plain, launch, split_scratch)
+from .decode_attention import (DEFAULT_MASK_VALUE, SPLIT_TILE, SPLIT_TILE_Q8,
+                               check_kernel_inputs, decode_attention_plain,
+                               launch, split_scratch)
 
 
 def _gather_pages(pool, table):
@@ -102,14 +103,13 @@ def _paged_cuda(q, k_pool, v_pool, table, lengths, k_scale, v_scale):
         raise ValueError(f"{who}: scale pools must be [P, Hkv, ps] = "
                          f"{(P, Hkv, ps)}, got {tuple(k_scale.shape)}")
     o = torch.empty_like(q)
+    nsplit, unit, part, counters = split_scratch(
+        q, Hkv, NP * ps, ps, SPLIT_TILE_Q8 if quantized else SPLIT_TILE)
     if quantized:
-        launch("paged_attention_q8", who, q,
-               [q, k_pool, v_pool, k_scale, v_scale, table, lengths, o],
-               (B, H, Hkv, dh, P, ps, NP), 1.0 / math.sqrt(dh))
-        return o
-    nsplit, unit, part, counters = split_scratch(q, Hkv, NP * ps, ps)
-    launch("paged_attention", who, q,
-           [q, k_pool, v_pool, table, lengths, o, part, counters],
+        entry, kv = "paged_attention_q8", [k_pool, v_pool, k_scale, v_scale]
+    else:
+        entry, kv = "paged_attention", [k_pool, v_pool]
+    launch(entry, who, q, [q, *kv, table, lengths, o, part, counters],
            (B, H, Hkv, dh, P, ps, NP, unit, nsplit), 1.0 / math.sqrt(dh))
     return o
 
@@ -132,8 +132,9 @@ def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
 def paged_attention_q8_cuda(q, k_pool, v_pool, k_scale, v_scale, table,
                             lengths):
     """Launch ``csrc/paged_attention.cu``'s int8 entry point: as
-    ``paged_attention_cuda`` with int8 pools and [P, Hkv, ps] float32 scale
-    pools, dequantization folded into the read."""
+    ``paged_attention_cuda`` (the same split read, one launch) with int8
+    pools and [P, Hkv, ps] float32 scale pools, dequantization folded into
+    the read."""
     o = _paged_cuda(q, k_pool, v_pool, table, lengths, k_scale, v_scale)
     paged_attention_q8_cuda.launches += 1
     return o

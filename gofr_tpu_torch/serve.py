@@ -7,7 +7,12 @@ body and sends the same events.
     POST /generate {"prompt": "...", "max_tokens": 64, "temperature": 0.7,
     "stream": true} -> server-sent events, one {"text": ...} per token, then
     {"done": true, "tokens": N, "tok_per_s": x}. stream=false returns one
-    JSON response {"text", "tokens", "seconds"}.
+    JSON response {"text", "tokens", "seconds"}. The fields this port does
+    not serve yet are refused with 400 where the reference refuses them with
+    sampling controls and QoS off: top_p / top_k > 0 (ROADMAP A9), top_p
+    outside [0, 1], top_k < 0, non-numeric values, and a QoS class (the
+    X-QoS-Class header, else the body's "class") that is not one of
+    QOS_CLASSES; a known class changes nothing.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from the environment).
 Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
@@ -85,6 +90,34 @@ NOT_PORTED = (
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
 )
+
+
+# the reference's request classes (gofr_tpu/tpu/qos.py CLASSES); with QoS
+# off a known class is accepted and changes nothing
+QOS_CLASSES = ("interactive", "standard", "batch")
+
+
+def check_qos_class(value) -> None:
+    """Raise InvalidParam unless `value` (header, else body) is empty or
+    names one of QOS_CLASSES, case and surrounding blanks aside."""
+    if value is None or (isinstance(value, str)
+                         and value.strip().lower() in ("", *QOS_CLASSES)):
+        return
+    raise InvalidParam([f"class must be one of {', '.join(QOS_CLASSES)} "
+                        f"(got {value!r})"])
+
+
+def check_sampling_controls(top_p: float, top_k: int) -> None:
+    """Raise InvalidParam for per-request top_p / top_k: out of range, or
+    set at all (the port has no sampling controls yet)."""
+    if not 0.0 <= top_p <= 1.0:
+        raise InvalidParam([f"top_p must be in [0, 1], got {top_p}"])
+    if top_k < 0:
+        raise InvalidParam([f"top_k must be >= 0, got {top_k}"])
+    if top_p or top_k:
+        raise InvalidParam(["per-request top_p/top_k are not served by "
+                            "gofr_tpu_torch yet: sampling controls wait in "
+                            "ROADMAP A9"])
 
 
 def check_config(env: Mapping[str, str]) -> None:
@@ -175,9 +208,14 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
             priority = max(0, min(9, int(body.get("priority", 0))))
             # EOS is ignored until this floor is reached
             min_tokens = max(0, int(body.get("min_tokens", 0) or 0))
+            top_p = float(body.get("top_p", 0.0) or 0.0)
+            top_k = int(body.get("top_k", 0) or 0)
         except (TypeError, ValueError) as exc:
             raise InvalidParam(["max_tokens", "temperature", "priority",
-                                "min_tokens"]) from exc
+                                "min_tokens", "top_p", "top_k"]) from exc
+        check_sampling_controls(top_p, top_k)
+        check_qos_class(ctx.request.headers.get("x-qos-class")
+                        or body.get("class") or None)
         stream = bool(body.get("stream", True))
         try:
             request = engine.submit(

@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
-from gofr_tpu_torch.ops.decode_attention import (decode_attention,
+from gofr_tpu_torch.ops.decode_attention import (SPLIT_TILE, SPLIT_TILE_Q8,
+                                                 decode_attention,
                                                  decode_attention_cuda,
                                                  decode_attention_plain,
                                                  decode_attention_q8_cuda,
@@ -223,12 +224,16 @@ def _twice(fn):
     return first
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("ps,B", [(16, 1), (16, 8), (128, 1), (128, 8)])
-def test_paged_split_matches_reference(cuda, ps, B):
+def test_paged_split_matches_reference(cuda, ps, B, quantized):
+    """bf16 against the gather reference, int8 against the plain version
+    with scales; the same bits twice, zeros at length 0."""
     Hkv = 8
     NP = 1 << (-(-8192 // ps)).bit_length()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms)
+    tile = SPLIT_TILE_Q8 if quantized else SPLIT_TILE
+    nsplit, unit = plan_split(B, Hkv, NP * ps, ps, sms, tile)
     assert nsplit > 1
     lengths = _split_lengths(B, nsplit, unit)
     gen = torch.Generator(device=cuda).manual_seed(ps + B)
@@ -243,19 +248,36 @@ def test_paged_split_matches_reference(cuda, ps, B):
     q = _randn(gen, cuda, B, 32, 128)
     kp, vp = (_randn(gen, cuda, P, Hkv, 128, ps) for _ in range(2))
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    before = paged_attention_cuda.launches
-    got = _twice(lambda: paged_attention_cuda(q, kp, vp, table, lens))
-    assert paged_attention_cuda.launches == before + 2
-    _assert_agrees(got, paged_attention_reference(q, kp, vp, table, lens))
+    if quantized:
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+        counter = paged_attention_q8_cuda
+
+        def read(n):
+            return paged_attention_q8_cuda(q, k8, v8, ks, vs, table, n)
+        want = paged_attention_plain(q, k8, v8, table, lens, ks, vs)
+    else:
+        counter = paged_attention_cuda
+
+        def read(n):
+            return paged_attention_cuda(q, kp, vp, table, n)
+        want = paged_attention_reference(q, kp, vp, table, lens)
+    before = counter.launches
+    got = _twice(lambda: read(lens))
+    assert counter.launches == before + 2
+    _assert_agrees(got, want)
+    lens[-1] = 0
+    assert bool((read(lens)[-1] == 0).all())
 
 
+@pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("S,B", [(8192, 1), (8192, 8), (1000, 8), (1001, 8)])
-def test_decode_split_matches_plain(cuda, S, B):
+def test_decode_split_matches_plain(cuda, S, B, quantized):
     """Many blocks per row, lengths 0, S and S + 1, and rows that are not
-    16-byte aligned (S = 1001)."""
+    16-byte aligned (S = 1000, 1001), bf16 and int8; the same bits twice."""
     Hkv = 8
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    nsplit, unit = plan_split(B, Hkv, S, None, sms)
+    tile = SPLIT_TILE_Q8 if quantized else SPLIT_TILE
+    nsplit, unit = plan_split(B, Hkv, S, None, sms, tile)
     assert nsplit > 1
     lengths = ([S] if B == 1 else
                [unit, unit + 1, nsplit * unit, nsplit * unit + 1, S, S + 1,
@@ -264,26 +286,45 @@ def test_decode_split_matches_plain(cuda, S, B):
     q = _randn(gen, cuda, B, 32, 128)
     k, v = (_randn(gen, cuda, B, Hkv, 128, S) for _ in range(2))
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    got = _twice(lambda: decode_attention_cuda(q, k, v, lens))
-    _assert_agrees(got, decode_attention_plain(q, k, v, lens))
+    scales = ()
+    if quantized:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        scales = (ks, vs)
+
+    def read(n):
+        if quantized:
+            return decode_attention_q8_cuda(q, k, v, *scales, n)
+        return decode_attention_cuda(q, k, v, n)
+
+    got = _twice(lambda: read(lens))
+    _assert_agrees(got, decode_attention_plain(q, k, v, lens, *scales))
     if B > 1:
         assert bool((got[6] == 0).all())
+        lens[5] = S
+        assert torch.equal(read(lens)[5], got[5])
 
 
 def test_split_reads_on_two_streams(cuda):
-    """Each stream has its own counters: reads on a side stream agree with
-    the same reads on the default stream."""
+    """Each stream has its own counters: reads on a side stream, bf16 and
+    int8, agree with the same reads on the default stream."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     q = _randn(gen, cuda, 2, 32, 128)
     k, v = (_randn(gen, cuda, 2, 8, 128, 4096) for _ in range(2))
+    (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     lens = torch.tensor([4000, 2500], dtype=torch.int32, device=cuda)
-    want = decode_attention_cuda(q, k, v, lens)
+
+    def reads():
+        return (decode_attention_cuda(q, k, v, lens),
+                decode_attention_q8_cuda(q, k8, v8, ks, vs, lens))
+
+    want = reads()
     side = torch.cuda.Stream(device=cuda)
     side.wait_stream(torch.cuda.current_stream(cuda))
     with torch.cuda.stream(side):
-        got = decode_attention_cuda(q, k, v, lens)
+        got = reads()
     torch.cuda.current_stream(cuda).wait_stream(side)
-    assert torch.equal(got, want)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 def _small_cfg(**kw):

@@ -1,5 +1,5 @@
-"""The bf16 decode reads' split-and-combine, in plain PyTorch, vs the JAX
-package on the CPU; and the wrapper's split planner.
+"""The decode reads' split-and-combine, in plain PyTorch, vs the JAX package
+on the CPU; and the wrapper's split planner.
 
 The CUDA kernels of ``csrc/decode_split.cuh`` cut each row's context into
 units that they deal round-robin to several blocks, which read in parallel
@@ -13,10 +13,15 @@ one past the first round of units and the full capacity (so some blocks
 start past their row's length). Tolerances: 1e-5 in f32 (sums in another
 order); in bf16, 1e-2 * |want| + 1e-2 * rms(want) per element (both sides
 round the output to bf16, and the plain versions and the Pallas kernels
-also round p to bf16 where the split keeps it in f32).
+also round p to bf16 where the split keeps it in f32). The int8 reads take
+int8 K/V and f32 per-token scales from ``quantize_kv`` of the same seeded
+normals, the same values handed to both packages, and are held the same
+way: to 1e-5 in f32 against the references (which dequantize first), and
+to the bf16 tolerance against the Pallas kernels and the plain version.
 """
 
 import importlib
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +136,109 @@ def test_split_plain_over_pages_matches_jax_paged(ps, nsplit, unit, case):
         rtol=1e-5, atol=1e-5)
 
 
+def _q8(*arrays):
+    """(int8 values, f32 scales) as numpy, per array: quantize_kv of the
+    seeded normals (bit-identical to JAX's)."""
+    out = []
+    for a in arrays:
+        q8, sc = tda.quantize_kv(torch.from_numpy(a))
+        out += [q8.numpy(), sc.numpy()]
+    return out
+
+
+@pytest.mark.parametrize("case", ["short", "boundary"])
+@pytest.mark.parametrize("nsplit,unit", SPLITS)
+def test_split_plain_q8_matches_references_f32(nsplit, unit, case):
+    """int8 K/V with per-token scales, f32 q: the split read against both
+    packages' references, which dequantize before the product."""
+    q, k, v = _dense(nsplit * unit + 2)
+    k8, ks, v8, vs = _q8(k, v)
+    lens = np.asarray(_lengths(nsplit, unit, case), dtype=np.int32)
+    tq, tk, tv, tks, tvs, tl = (torch.from_numpy(a)
+                                for a in (q, k8, v8, ks, vs, lens))
+    got = tda.decode_read_split_plain(tq, tk, tv, tl, nsplit, unit, tile=16,
+                                      k_scale=tks, v_scale=tvs).numpy()
+    np.testing.assert_allclose(
+        got, tda.decode_attention_reference(tq, tk, tv, tl, tks,
+                                            tvs).numpy(),
+        rtol=1e-5, atol=1e-5)
+    j = [jnp.asarray(a) for a in (q, k8, v8, lens)]
+    np.testing.assert_allclose(
+        got, np.asarray(jda.decode_attention_reference(
+            *j, k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))),
+        rtol=1e-5, atol=1e-5)
+    for b in np.flatnonzero(lens == 0):
+        assert not got[b].any()
+
+
+@pytest.mark.parametrize("case", ["short", "boundary"])
+@pytest.mark.parametrize("nsplit,unit", SPLITS)
+def test_split_plain_q8_matches_pallas_and_plain_bf16(nsplit, unit, case):
+    """bf16 q over int8 K/V: the split read (p in f32) against the JAX
+    Pallas kernel in interpret mode and the port's plain version, both of
+    which round p to bf16."""
+    q, k, v = _dense(nsplit * unit + 3)
+    k8, ks, v8, vs = _q8(k, v)
+    lens = np.asarray(_lengths(nsplit, unit, case), dtype=np.int32)
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    tk, tv, tks, tvs, tl = (torch.from_numpy(a)
+                            for a in (k8, v8, ks, vs, lens))
+    got = tda.decode_read_split_plain(tq, tk, tv, tl, nsplit, unit, tile=16,
+                                      k_scale=tks, v_scale=tvs)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    _close_bf16(got, tda.decode_attention_plain(tq, tk, tv, tl, tks,
+                                                tvs).float())
+    _close_bf16(got, jda.decode_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), *(jnp.asarray(a) for a in
+                                               (k8, v8, lens)),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    for b in np.flatnonzero(lens == 0):
+        assert not got[b].any()
+
+
+@pytest.mark.parametrize("case", ["short", "boundary"])
+@pytest.mark.parametrize("ps,nsplit,unit", [(8, 2, 16), (16, 3, 16),
+                                            (16, 2, 32)])
+def test_split_plain_q8_over_pages_matches_jax_paged(ps, nsplit, unit, case):
+    """int8 pools with [P, Hkv, ps] scale pools: the split read of the
+    gathered pages and scale pages against the JAX paged reference (f32,
+    rows of length >= 1) and the JAX paged kernel and the port's plain
+    version (bf16 q)."""
+    q, kp, vp, table, lens = _paged(ps + unit + 1, ps,
+                                    _lengths(nsplit, unit, case))
+    k8, ks, v8, vs = _q8(kp, vp)
+    t = {n: torch.from_numpy(a) for n, a in dict(
+        q=q, k8=k8, v8=v8, ks=ks, vs=vs, table=table, lens=lens).items()}
+
+    def split(tq):
+        gather = [tpa._gather_pages(t[n], t["table"])
+                  for n in ("k8", "v8", "ks", "vs")]
+        return tda.decode_read_split_plain(
+            tq, gather[0], gather[1], t["lens"], nsplit, unit, tile=8,
+            k_scale=gather[2], v_scale=gather[3])
+
+    j = {n: jnp.asarray(a) for n, a in dict(
+        k8=k8, v8=v8, ks=ks, vs=vs, table=table, lens=lens).items()}
+    live = lens > 0
+    want = jpa.paged_attention_reference(
+        jnp.asarray(q), j["k8"], j["v8"], j["table"], j["lens"],
+        k_scale=j["ks"], v_scale=j["vs"])
+    got = split(t["q"]).numpy()
+    np.testing.assert_allclose(got[live], np.asarray(want)[live],
+                               rtol=1e-5, atol=1e-5)
+    tq = t["q"].to(torch.bfloat16)
+    got = split(tq).float().numpy()
+    _close_bf16(got, jpa.paged_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), j["k8"], j["v8"], j["table"],
+        j["lens"], k_scale=j["ks"], v_scale=j["vs"]))
+    _close_bf16(got, tpa.paged_attention_plain(
+        tq, t["k8"], t["v8"], t["table"], t["lens"], t["ks"],
+        t["vs"]).float())
+    for b in np.flatnonzero(~live):
+        assert not got[b].any()
+
+
 PLANS = [(8, 8, 512, None), (8, 8, 8192, None), (1, 8, 8192, None),
          (8, 8, 1000, None), (8, 8, 1001, None), (3, 2, 64, None),
          (1, 1, 32768, None), (8, 8, 512, 128), (8, 8, 16384, 128),
@@ -167,8 +275,27 @@ def test_plan_split_one_block_for_one_unit_of_capacity(cap, ps):
     assert tda.plan_split(8, 8, cap, ps) == (1, max(64, ps or 0))
 
 
+@pytest.mark.parametrize("B_,Hkv,cap,ps", PLANS)
+def test_plan_split_int8_units_are_whole_128_token_tiles(B_, Hkv, cap, ps):
+    """The int8 reads' tiles are 128 tokens: units are whole int8 tiles and
+    whole pages, every unit goes to one block and every block has one."""
+    nsplit, unit = tda.plan_split(B_, Hkv, cap, ps, tile=tda.SPLIT_TILE_Q8)
+    units = -(-cap // unit)
+    assert 1 <= nsplit <= min(tda.SPLIT_MAX, units)
+    assert unit % tda.SPLIT_TILE_Q8 == 0
+    assert ps is None or unit % ps == 0
+    assert unit == (tda.SPLIT_TILE_Q8 if ps is None
+                    else math.lcm(tda.SPLIT_TILE_Q8, ps))
+    dealt = sorted(u for s in range(nsplit) for u in range(s, units, nsplit))
+    assert dealt == list(range(units))
+
+
 def test_plan_split_served_shapes():
     """The served shapes (B=8 slots, Hkv=8): a dense S=512 cache is 8
-    tiles over 5 blocks, a 4-page ps=128 table 4 pages over 4 blocks."""
+    tiles over 5 blocks, a 4-page ps=128 table 4 pages over 4 blocks; in
+    int8 both are 4 tiles of 128 tokens over 4 blocks."""
     assert tda.plan_split(8, 8, 512, None) == (5, 64)
     assert tda.plan_split(8, 8, 4 * 128, 128) == (4, 128)
+    q8 = tda.SPLIT_TILE_Q8
+    assert tda.plan_split(8, 8, 512, None, tile=q8) == (4, 128)
+    assert tda.plan_split(8, 8, 4 * 128, 128, tile=q8) == (4, 128)

@@ -177,10 +177,11 @@ def test_submit_rejects_what_could_never_run(engine):
         engine.submit(list(range(17)))          # over the largest bucket
 
 
-def _post(port, body):
+def _post(port, body, headers=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     conn.request("POST", "/generate", body=json.dumps(body),
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
     resp = conn.getresponse()
     return resp.status, resp.read().decode()
 
@@ -221,6 +222,72 @@ def test_sse_generate_end_to_end(served):
         assert json.loads(conn.getresponse().read())["status"] == "UP"
     finally:
         app.shutdown()
+
+
+# (body fields beside the prompt, headers): the sampling controls and QoS
+# class fields of the reference's /generate, valid and not
+REQUEST_FIELDS = {
+    "top_p": ({"top_p": 0.5}, {}),
+    "top_k": ({"top_k": 3}, {}),
+    "top_p-above-1": ({"top_p": 1.5}, {}),
+    "top_k-negative": ({"top_k": -1}, {}),
+    "top_p-not-a-number": ({"top_p": "x"}, {}),
+    "class-unknown": ({"class": "gold"}, {}),
+    "header-class-unknown": ({}, {"X-QoS-Class": "gold"}),
+    "class-batch": ({"class": "batch"}, {}),
+    "controls-zero": ({"top_p": 0, "top_k": 0}, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def both_servers(served):
+    """(the reference llm-server app, the port's app), both started, both
+    on the debug preset on the CPU with their default config."""
+    import importlib.util
+    import os
+
+    from gofr_tpu.config import MockConfig
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "llm-server", "main.py")
+    spec = importlib.util.spec_from_file_location("example_llm_server_c1",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    ref = module.build_app(config=MockConfig({
+        "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "example",
+        "TPU_PLATFORM": "cpu", "MODEL_PRESET": "debug", "WARMUP": "false",
+        "REQUEST_TIMEOUT": "60"}))
+    env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8"}
+    port = build_app(env, engine=build_engine(env, device="cpu",
+                                              params=served[1]))
+    ref.start()
+    try:
+        port.start()
+        try:
+            yield ref, port
+        finally:
+            port.shutdown()
+    finally:
+        ref.shutdown()
+
+
+@pytest.mark.parametrize("case", sorted(REQUEST_FIELDS))
+def test_generate_refuses_the_fields_the_reference_refuses(both_servers,
+                                                           case):
+    """The port's /generate answers each body with the reference's status:
+    400 for top_p / top_k it does not serve or that are out of range or
+    not numbers, and for an unknown class in the body or the X-QoS-Class
+    header; 200 for a known class and for zero controls."""
+    fields, headers = REQUEST_FIELDS[case]
+    body = {"prompt": "hello", "max_tokens": 2, **fields}
+    want, _ = _post(both_servers[0].http_port, body, headers)
+    got, text = _post(both_servers[1].http_port, body, headers)
+    assert got == want, text
+    assert want in (200, 400)
+    if case == "top_p":
+        assert "ROADMAP A9" in text
 
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
