@@ -34,24 +34,37 @@ Phases, one or more lines each, any failure exits non-zero:
    weights from seed 0; one paged decode step and one dense decode step
    (decode kernel) must match a full recompute of the same context with
    plain attention, and one dense int8 and one paged int8 step must match a
-   plain step over the same int8 cache, dequantized;
+   plain step over the same int8 cache, dequantized; the prefix cache's
+   tail prefill over two cached pages (bf16 and int8) must match a plain
+   prefill of the whole prompt (int8: of the tail over the prefix's int8 K/V
+   dequantized);
 4. serving, four configurations of the port's app (gofr_tpu_torch/serve.py)
    on the same weights: paged bf16 (the main path), paged int8
    (KV_DTYPE=int8), dense (PAGED=false DECODE_ATTN=kernel) and dense int8
-   (the same with KV_DTYPE=int8), each with ATTN_IMPL=flash. Each answers
+   (the same with KV_DTYPE=int8), each with ATTN_IMPL=flash and the prefix
+   cache at its default (on for the paged engine). Each answers
    concurrent streaming and non-streaming POST /generate; every request
-   returns its max_tokens, a repeated greedy prompt repeats its tokens, and
-   the kernels' launch counters (zeroed just before each configuration)
-   grew by n_layers per prefill (flash) and per decode step (that
-   configuration's decode kernel, and no other);
+   returns its max_tokens, a repeated greedy prompt repeats its tokens (on
+   the paged engine both repeats hit its first page and prefill only the
+   tail), and the kernels' launch counters (zeroed just before each
+   configuration) grew by n_layers per full prefill wave (flash) and per
+   decode step (that configuration's decode kernel, and no other); then
+   two prefix phases, paged-prefix and paged-int8-prefix (PREFIX_CACHE=true,
+   buckets 16..512): a 384-token system prompt seeded by one request, then
+   8 concurrent requests on it with distinct tails, each hitting its 3
+   pages and prefilling only its tail (no flash), a hit prompt served twice
+   alike, and, logged, the tokens' agreement with and the TTFT of the same
+   prompts on an engine without the cache;
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
    (flash also in the model's layout and at 1024 and 16384; the decode
    reads also at B=8 x 8192 and B=1 x 8192), by CUDA events and, for flash,
    the decode reads and SDPA, the kernels alone (torch.profiler); the
-   model's prefill wall time at each served window, and TTFT / decode tok/s
-   of the served requests, each with the card's name and power limit;
+   model's prefill wall time at each served window; the tail prefill's wall
+   and card time at each tail wave the prefix phases gave it, beside a
+   full-window prefill of as many prompts; TTFT / decode tok/s of the
+   served requests, each with the card's name and power limit;
 6. profile: one decode block at B=8 in each serving configuration — host
    wall time per step against the card's busy time (torch.profiler), the
    launches per step (no more than before the split reads), the decode
@@ -540,6 +553,86 @@ def check_model(params, cfg, dev) -> None:
                                       pool_ks, pool_vs, table)[0]
     check("paged int8 decode step vs plain step over the dequantized cache",
           step, want_q8)
+    del pool_k, pool_v, pool_ks, pool_vs
+    check_prefix(params, cfg, dev, check)
+
+
+def check_prefix(params, cfg, dev, check) -> None:
+    """The prefix cache's tail prefill at full width and depth: a 300-token
+    prompt prefilled with flash into pages 1-3 of a pool (two full pages and
+    a tail), then the 44-token tail prefilled again over them with
+    prefix_lens=256 (bucket 64, a 4-wide table as the engine builds it).
+    bf16: its last logits against llama_prefill_last over the whole prompt
+    on the plain path. int8: the same pages quantized, the tail through
+    llama_prefill_paged_prefix_q8, against a plain prefill of the tail over
+    a dense bf16 cache holding the prefix's int8 K/V dequantized."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import (llama_prefill_last,
+                                             llama_prefill_paged_prefix,
+                                             llama_prefill_paged_prefix_q8)
+    from gofr_tpu_torch.ops.decode_attention import quantize_kv
+    from gofr_tpu_torch.ops.paged_attention import (paged_write_prefill_scales,
+                                                    paged_write_prefill_stacked)
+
+    L, Hkv, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    n, ps, prefix, bucket = 300, 128, 256, 64
+    tail = n - prefix
+    gen = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+
+    def prefill(c, tokens, positions, lengths, S):
+        tk = torch.zeros((L, 1, Hkv, dh, S), dtype=torch.bfloat16, device=dev)
+        tv = torch.zeros_like(tk)
+        return llama_prefill_last(params, c, tokens, positions, lengths, tk,
+                                  tv)
+
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla")
+    arange = torch.arange(n, device=dev)[None]
+    _, tk, tv = prefill(flash, prompt, arange, lens, n)
+    want, _, _ = prefill(plain, prompt, arange, lens, n)
+    ptable = torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)
+    table = torch.tensor([[1, 2, 3, 0]], dtype=torch.int32, device=dev)
+    window = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    window[0, :tail] = prompt[0, prefix:]
+    args = (window, torch.tensor([prefix], dtype=torch.int32, device=dev),
+            lens)
+    last = torch.tensor([tail - 1], device=dev)
+    pool_k = torch.zeros((L, 4, Hkv, dh, ps), dtype=torch.bfloat16, device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    paged_write_prefill_stacked(pool_k, pool_v, tk, tv, ptable, lens)
+    got = llama_prefill_paged_prefix(params, cfg, *args, pool_k, pool_v,
+                                     table, last)[0]
+    check("prefix tail prefill (256 cached + 44) vs plain prefill of the "
+          "whole prompt", got, want)
+    del pool_k, pool_v
+
+    (k8, ks), (v8, vs) = quantize_kv(tk), quantize_kv(tv)
+    pool_k = torch.zeros((L, 4, Hkv, dh, ps), dtype=torch.int8, device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    pool_ks = torch.zeros((L, 4, Hkv, ps), dtype=torch.float32, device=dev)
+    pool_vs = torch.zeros_like(pool_ks)
+    paged_write_prefill_stacked(pool_k, pool_v, k8, v8, ptable, lens)
+    paged_write_prefill_scales(pool_ks, ks, ptable, lens)
+    paged_write_prefill_scales(pool_vs, vs, ptable, lens)
+    got = llama_prefill_paged_prefix_q8(params, cfg, *args, pool_k, pool_v,
+                                        pool_ks, pool_vs, table, last)[0]
+    # the plain side: a dense cache holding the prefix dequantized; the
+    # tail writes its own K/V into it at positions [256, 300)
+    dk = torch.zeros((L, 1, Hkv, dh, n), dtype=torch.bfloat16, device=dev)
+    dv = torch.zeros_like(dk)
+    dk[..., :prefix] = (k8.float() * ks[:, :, :, None, :])[..., :prefix]
+    dv[..., :prefix] = (v8.float() * vs[:, :, :, None, :])[..., :prefix]
+    want_q8, _, _ = llama_prefill_last(
+        params, plain, prompt[:, prefix:], arange[:, prefix:],
+        torch.tensor([tail], dtype=torch.int32, device=dev), dk, dv)
+    check("prefix tail prefill int8 (256 cached + 44) vs plain prefill of "
+          "the tail over the dequantized prefix", got, want_q8)
 
 
 # -- phase 4: serving ----------------------------------------------------------
@@ -643,11 +736,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
         require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
 
-        # every kernel count to 0 just before this configuration runs
-        for fn in wrappers.values():
-            fn.launches = 0
-        engine.prefill_dispatches = engine.decode_steps = 0
-        engine.prefill_shapes.clear()
+        zero_counts(engine, wrappers)
         n_tok, n_plain = 32, 16
         lengths = [150, 180, 200, 220, 240, 130, 160]
         prompts = [make_prompt(n, i) for i, n in enumerate(lengths)]
@@ -667,14 +756,18 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         wall = time.monotonic() - t0
         require(all(not t.is_alive() for t in threads),
                 f"{config}: requests hung")
-        # a repeated greedy prompt, alone each time, repeats its tokens
+        # a repeated greedy prompt, alone each time, repeats its tokens;
+        # on the paged engine (the prefix cache on, as by default) both
+        # repeats hit the prompt's first page and prefill only its tail
         rep: dict = {}
         for key in ("r1", "r2"):
             stream_request(app.http_port, prompts[0], 24, rep, key)
         launches = {name: fn.launches for name, fn in wrappers.items()}
         prefills, steps = engine.prefill_dispatches, engine.decode_steps
-        shapes = dict(engine.prefill_shapes)
+        shapes, tail_shapes = (dict(engine.prefill_shapes),
+                               dict(engine.prefix_shapes))
         cache_len = getattr(engine, "_cache_len", None)
+        paged = getattr(engine, "prefix", None) is not None
     finally:
         app.shutdown()
 
@@ -698,10 +791,14 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     log(f"serve {config}: launches " + " ".join(
         f"{k}={v}" for k, v in launches.items())
         + f" (prefills={prefills}, decode steps={steps}, n_layers={L})")
-    log(f"serve {config}: prefill windows [K, bucket] x count: " + ", ".join(
-        f"[{k}, {b}] x {n}" for (k, b), n in sorted(shapes.items())))
+    log(f"serve {config}: prefill windows [K, bucket] x count: "
+        f"{wave_list(shapes)}; tail-only prefix-hit waves: "
+        f"{wave_list(tail_shapes) or 'none'}")
     require(prefills > 0 and launches["flash_attention"] == L * prefills,
-            f"{config}: flash launches do not match n_layers per prefill")
+            f"{config}: flash launches do not match n_layers per full "
+            f"prefill wave")
+    require(not paged or sum(tail_shapes.values()) == 2,
+            f"{config}: the repeated prompt did not hit the prefix cache")
     require(steps > 0 and launches[decode_kernel] == L * steps,
             f"{config}: {decode_kernel} launches do not match n_layers per "
             f"decode step")
@@ -722,6 +819,265 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     return {"launches": launches, "prefill_shapes": shapes,
             "prompt_lens": [len(engine.tokenizer.encode(p)) for p in prompts],
             "max_tokens": n_tok, "cache_len": cache_len}
+
+
+def zero_counts(engine, wrappers) -> None:
+    """Every kernel's launch count and the engine's dispatch counts to 0,
+    just before a configuration's counted run."""
+    for fn in wrappers.values():
+        fn.launches = 0
+    engine.prefill_dispatches = engine.decode_steps = 0
+    engine.prefix_dispatches = 0
+    engine.prefill_shapes.clear()
+    engine.prefix_shapes.clear()
+
+
+def wave_list(shapes) -> str:
+    return ", ".join(f"[{k}, {b}] x {n}"
+                     for (k, b), n in sorted(shapes.items()))
+
+
+# prefix-cache configuration -> (env beside the common keys, its decode
+# kernel): the paged engine with PREFIX_CACHE=true, bf16 and int8 pools
+PREFIX_CONFIGS = {
+    "paged-prefix": ({}, "paged_attention"),
+    "paged-int8-prefix": ({"KV_DTYPE": "int8"}, "paged_attention_q8"),
+}
+SYSTEM_CHARS = 383          # + BOS: a 384-token system prompt, 3 full pages
+TAIL_CHARS = [16, 120, 40, 64, 90, 24, 100, 56]
+
+
+def prefix_phase(params, cfg, dev, card: str, config: str,
+                 preset: str = "llama3-8b") -> dict:
+    """Serve shared-system-prompt traffic with the prefix cache on: one
+    request alone seeds the cache with a 384-token system prompt (3 full
+    pages), then 7 concurrent streams and 1 non-streaming request, each the
+    system prompt and a distinct 16-120 token tail, must each hit the 3
+    pages and prefill only their tails (tail buckets <= 128; flash only in
+    the full waves); the same hit prompt served twice alone gives the same
+    tokens. Logged: agreement with the same prompts on an engine without
+    the cache, TTFT beside that engine's and the cold seed's, the cache's
+    stats."""
+    import torch
+
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    extra, decode_kernel = PREFIX_CONFIGS[config]
+    wrappers = kernel_wrappers()
+    system = make_prompt(SYSTEM_CHARS, 50)
+    prompts = [system + make_prompt(n, 60 + i)
+               for i, n in enumerate(TAIL_CHARS)]
+    n_tok, n_plain = 32, 16
+    runs = {}
+    for cache in ("true", "false"):
+        env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
+               "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+               "PREFILL_BUCKETS": "16,32,64,128,256,512",
+               "REQUEST_TIMEOUT": "600", "PREFIX_CACHE": cache, **extra}
+        engine = build_engine(env, device=dev, params=params)
+        app = build_app(env, engine=engine)
+        app.start()
+        try:
+            warm: dict = {}
+            stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
+            require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
+            zero_counts(engine, wrappers)
+            out: dict = {}
+            stream_request(app.http_port, system + make_prompt(30, 59),
+                           n_tok, out, "seed")
+            before = engine.prefix.stats() if engine.prefix else None
+            threads = [threading.Thread(target=stream_request,
+                                        args=(app.http_port, p, n_tok, out,
+                                              i))
+                       for i, p in enumerate(prompts[:-1])]
+            threads.append(threading.Thread(
+                target=plain_request,
+                args=(app.http_port, prompts[-1], n_plain, out, "plain")))
+            t0 = time.monotonic()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.monotonic() - t0
+            require(all(not t.is_alive() for t in threads),
+                    f"{config}: requests hung")
+            run = {"out": out, "wall": wall,
+                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "full": engine.prefill_dispatches,
+                   "steps": engine.decode_steps,
+                   "shapes": dict(engine.prefill_shapes),
+                   "tail_shapes": dict(engine.prefix_shapes)}
+            if engine.prefix is not None:
+                run["stats"] = engine.prefix.stats()
+                run["hits"] = run["stats"]["hit_pages"] - before["hit_pages"]
+                rep: dict = {}
+                for key in ("r1", "r2"):
+                    stream_request(app.http_port, prompts[1], 24, rep, key)
+                run["rep"] = rep
+        finally:
+            app.shutdown()
+        runs[cache] = run
+        torch.cuda.empty_cache()
+
+    hit, cold = runs["true"], runs["false"]
+    out = hit["out"]
+    for cache, run in runs.items():
+        for key in ["seed", *range(len(prompts) - 1)]:
+            r = run["out"][key]
+            require(r["status"] == 200 and r["done"] is not None
+                    and r["done"]["tokens"] == n_tok
+                    and len(r["times"]) == n_tok,
+                    f"{config} PREFIX_CACHE={cache}: stream {key} failed or "
+                    f"came back short: {r['status']} {r['done']}")
+        p = run["out"]["plain"]
+        require(p["status"] == 201 and p["data"]["tokens"] == n_plain,
+                f"{config} PREFIX_CACHE={cache}: non-streaming request "
+                f"failed: {p}")
+    L = cfg.n_layers
+    log(f"serve {config}: seed + {len(prompts) - 1} streams x {n_tok} tokens "
+        f"+ 1 non-streaming x {n_plain}, all on a {SYSTEM_CHARS + 1}-token "
+        f"system prompt, in {hit['wall']:.2f}s")
+    log(f"serve {config}: launches " + " ".join(
+        f"{k}={v}" for k, v in hit["launches"].items())
+        + f" (full prefill waves={hit['full']}, decode steps={hit['steps']}, "
+        f"n_layers={L})")
+    log(f"serve {config}: full prefill waves [K, bucket] x count: "
+        f"{wave_list(hit['shapes'])}; tail-only waves: "
+        f"{wave_list(hit['tail_shapes'])}")
+    log(f"serve {config}: prefix cache {json.dumps(hit['stats'])}; hit pages "
+        f"in the concurrent run {hit['hits']} (3 per request)")
+    require(hit["hits"] == 3 * len(prompts),
+            f"{config}: {hit['hits']} hit pages, not {3 * len(prompts)}")
+    require(sum(hit["tail_shapes"].values()) > 0
+            and sum(k * n for (k, _), n in hit["tail_shapes"].items())
+            == len(prompts)
+            and all(b <= 128 for _, b in hit["tail_shapes"]),
+            f"{config}: the hits did not all admit tail-only at buckets "
+            f"<= 128: {hit['tail_shapes']}")
+    launches = hit["launches"]
+    require(hit["full"] > 0
+            and launches["flash_attention"] == L * hit["full"],
+            f"{config}: flash launches do not match n_layers per full wave")
+    require(hit["steps"] > 0 and launches[decode_kernel] == L * hit["steps"],
+            f"{config}: {decode_kernel} launches do not match n_layers per "
+            f"decode step")
+    others = {k: v for k, v in launches.items()
+              if k not in ("flash_attention", decode_kernel) and v}
+    require(not others, f"{config}: other kernels launched: {others}")
+    rep = hit["rep"]
+    require(rep["r1"]["done"]["tokens"] == 24
+            and rep["r1"]["text"] == rep["r2"]["text"],
+            f"{config}: a hit prompt served twice gave different tokens")
+    log(f"serve {config}: the same hit prompt served twice alone: identical")
+    same = total = first = 0
+    for i in range(len(prompts) - 1):
+        a, b = out[i]["text"], cold["out"][i]["text"]
+        total += max(len(a), len(b))
+        same += sum(x == y for x, y in zip(a, b))
+        first += a[:1] == b[:1]
+    log(f"serve {config}: greedy tokens of the hit streams equal to the same "
+        f"prompts on an engine without the prefix cache: {same}/{total} = "
+        f"{same / total:.3f}, first tokens {first}/{len(prompts) - 1} "
+        f"(logged, not required); that engine's waves: "
+        f"{wave_list(cold['shapes'])}")
+    ttft = sorted(out[i]["times"][0] * 1e3 for i in range(len(prompts) - 1))
+    ttft_cold = sorted(cold["out"][i]["times"][0] * 1e3
+                       for i in range(len(prompts) - 1))
+    log(f"serve {config}: ttft_ms of the {len(ttft)} concurrent hit streams "
+        f"p50={ttft[len(ttft) // 2]:.1f} max={ttft[-1]:.1f}; the same prompts "
+        f"without the prefix cache p50={ttft_cold[len(ttft) // 2]:.1f} "
+        f"max={ttft_cold[-1]:.1f}; the cold seed alone "
+        f"{out['seed']['times'][0] * 1e3:.1f} [{card}]")
+    return {"tail_shapes": hit["tail_shapes"], "launches": launches}
+
+
+def time_tail_prefill(params, cfg, dev, card, shapes, quantized) -> None:
+    """The tail prefill at each [K, bucket] wave shape serving gave it,
+    over 3 shared pages (a 4-wide table, as a 384-token prefix plus a tail
+    <= 128 has), against the full-window prefill of the same K prompts at
+    [K, 512] (flash): host wall time per call (mean of 5 after a warm one,
+    each ending in a synchronize) and the card's busy time per call (the
+    sum of its kernels, torch.profiler)."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.models.llama import (llama_prefill_last,
+                                             llama_prefill_paged_prefix,
+                                             llama_prefill_paged_prefix_q8)
+    from gofr_tpu_torch.ops.decode_attention import quantize_kv
+
+    L, Hkv, dh, ps = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 128
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+        return (sum(walls) / len(walls), busy / 1e3 if busy > 0 else math.nan,
+                sum(e.count for e in kernels),
+                "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
+                          f" ms x{e.count}" for e in top))
+
+    for K, bucket in sorted(shapes):
+        P = 4 * K + 1
+        kv = [torch.randn((L, P, Hkv, dh, ps), generator=gen, device=dev,
+                          dtype=torch.float32).to(torch.bfloat16)
+              for _ in range(2)]
+        if quantized:
+            (k8, ks), (v8, vs) = (quantize_kv(t) for t in kv)
+            pools = [k8, v8, ks, vs]
+            fn_tail = llama_prefill_paged_prefix_q8
+        else:
+            pools = kv
+            fn_tail = llama_prefill_paged_prefix
+        table = (torch.arange(4 * K, device=dev, dtype=torch.int32)
+                 .reshape(K, 4) + 1)
+        tokens = torch.randint(0, cfg.vocab_size, (K, bucket), generator=gen,
+                               device=dev)
+        prefix = torch.full((K,), 384, dtype=torch.int32, device=dev)
+        lengths = prefix + bucket
+        last = torch.full((K,), bucket - 1, device=dev)
+        tail_wall, tail_card, tail_n, tail_top = measure(lambda: fn_tail(
+            params, cfg, tokens, prefix, lengths, *pools, table, last))
+        del pools, kv
+        full_tokens = torch.randint(0, cfg.vocab_size, (K, 512),
+                                    generator=gen, device=dev)
+        tk = torch.zeros((L, K, Hkv, dh, 512), dtype=torch.bfloat16,
+                         device=dev)
+        tv = torch.zeros_like(tk)
+        pos = torch.arange(512, device=dev).expand(K, 512)
+        flash = dataclasses.replace(cfg, attn_impl="flash")
+        full_wall, full_card, full_n, full_top = measure(
+            lambda: llama_prefill_last(params, flash, full_tokens, pos,
+                                       lengths, tk, tv))
+        del tk, tv
+        torch.cuda.empty_cache()
+        kind = " int8" if quantized else ""
+        log(f"time tail prefill{kind} [{K}, {bucket}] over 384 cached "
+            f"tokens: wall_ms={tail_wall:.3f} card_busy_ms={tail_card:.3f} "
+            f"launches={tail_n}; full-window prefill [{K}, 512] (flash) "
+            f"wall_ms={full_wall:.3f} card_busy_ms={full_card:.3f} "
+            f"launches={full_n}; card time ratio "
+            f"{tail_card / full_card:.3f} [{card}]")
+        log(f"time tail prefill{kind} [{K}, {bucket}] top kernels: "
+            f"{tail_top}")
+        log(f"time full prefill [{K}, 512] top kernels: {full_top}")
+        require(math.isfinite(tail_card) and math.isfinite(full_card),
+                "the profiler saw no kernels in the tail prefill timing")
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -1187,6 +1543,8 @@ def main(argv=()) -> int:
         for config in SERVE_CONFIGS:
             served[config] = serve_phase(params, cfg, dev, card, config)
             torch.cuda.empty_cache()
+        for config in PREFIX_CONFIGS:
+            served[config] = prefix_phase(params, cfg, dev, card, config)
 
         flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
         # flash at every [K, bucket] window the main path dispatched; the
@@ -1203,6 +1561,10 @@ def main(argv=()) -> int:
                            card)
         for B, T in sorted(shapes):
             time_prefill(params, cfg, dev, B, T, 10, card)
+        for config, quantized in (("paged-prefix", False),
+                                  ("paged-int8-prefix", True)):
+            time_tail_prefill(params, cfg, dev, card,
+                              served[config]["tail_shapes"], quantized)
         # the decode reads at B=8 and the contexts of mid-decode in serving
         ctx = [n + main["max_tokens"] // 2 for n in main["prompt_lens"]]
         ctx = (ctx + ctx)[:8]

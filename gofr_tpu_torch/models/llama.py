@@ -5,11 +5,16 @@ presets), ``llama_init`` (same recipe, drawn from a ``torch.Generator`` —
 it never tries to replay ``jax.random``), ``rms_norm``, ``rope``, ``_mm``,
 ``_embed``, ``_head``, ``_attention_block`` (the T == S window, the T=1
 ``decode_attn="kernel"`` read through ops/decode_attention, and the plain
-masked read), ``_ffn_block``, ``llama_forward_hidden``,
-``llama_prefill_last``, the dense engine's ``init_kv_cache_layers``,
-``init_kv_scale_layers``, ``llama_decode_step_unrolled`` and
-``llama_decode_step_unrolled_q8``, and the paged
-``llama_decode_step_paged`` and ``llama_decode_step_paged_q8``.
+masked read), ``_ffn_block``, ``llama_forward_hidden``, ``llama_forward``,
+``llama_prefill``, ``llama_decode_step``, ``llama_prefill_last``, the dense
+engine's ``init_kv_cache_layers``, ``init_kv_scale_layers``,
+``llama_decode_step_unrolled`` and ``llama_decode_step_unrolled_q8``, the
+paged ``llama_decode_step_paged`` and ``llama_decode_step_paged_q8``, the
+prefix-cache tail prefill ``llama_prefill_paged_prefix`` and
+``llama_prefill_paged_prefix_q8``, and the cache-free
+``_attention_block_nocache``, ``forward_nocache_at`` and
+``llama_forward_nocache`` (flash or the f32 oracle; the reference's
+``attn_fn`` hook for ring/Ulysses attention waits in ROADMAP A14).
 
 The params tree keeps the JAX layout — a dict with stacked [L, in, out]
 layer weights and ``x @ W`` — so the weight bridge (models/weights.py) is
@@ -18,7 +23,8 @@ one copy per leaf. JAX's casts are kept: norms and rope in f32 cast back to
 returns updated arrays (its engine donates them).
 
 Not ported yet: int8 weights (``_q_matmul``, ``quantize_weights``) — ROADMAP
-A13; the chunked, prefix and verify programs — ROADMAP A7, A10.
+A13; ``llama_decode_step_inplace`` — A2; the chunked and verify programs —
+ROADMAP A10.
 
 A cache write past a dense cache's last column (a finished row that keeps
 advancing in lock-step decode) lands on that last column instead of being
@@ -293,6 +299,32 @@ def llama_prefill_last(params, cfg: LlamaConfig, tokens, positions, lengths,
     return _head(last, params), k_cache, v_cache
 
 
+def llama_forward(params, cfg: LlamaConfig, tokens, positions, k_cache,
+                  v_cache):
+    """Cache-writing forward over a token chunk. tokens/positions: [B, T];
+    k/v_cache: [L, B, Hkv, dh, S], written in place. Returns (logits
+    [B, T, V] float32, k_cache, v_cache)."""
+    hidden, k_cache, v_cache = llama_forward_hidden(
+        params, cfg, tokens, positions, k_cache, v_cache)
+    return _head(hidden, params), k_cache, v_cache
+
+
+def llama_prefill(params, cfg: LlamaConfig, tokens, k_cache, v_cache):
+    """Prefill from an empty cache: positions [0, T) on every row."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    return llama_forward(params, cfg, tokens, positions, k_cache, v_cache)
+
+
+def llama_decode_step(params, cfg: LlamaConfig, tokens, positions, k_cache,
+                      v_cache):
+    """One decode step for every row. tokens/positions: [B]. Returns
+    (logits [B, V], k_cache, v_cache)."""
+    logits, k_cache, v_cache = llama_forward(
+        params, cfg, tokens[:, None], positions[:, None], k_cache, v_cache)
+    return logits[:, 0], k_cache, v_cache
+
+
 def init_kv_cache_layers(cfg: LlamaConfig, batch: int,
                          seq_len: Optional[int] = None,
                          dtype: Optional[str] = None, device=None):
@@ -456,3 +488,170 @@ def llama_decode_step_paged_q8(params, cfg: LlamaConfig, tokens, positions,
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return (_head(x[:, 0], params), k_pool, v_pool, ks_pool, vs_pool)
+
+
+def _gather_rows(pool_l, table):
+    """A layer's pages through a block table as contiguous rows:
+    [P, Hkv, dh, ps] -> [K, Hkv, dh, NP * ps] (scales: [P, Hkv, ps] ->
+    [K, Hkv, NP * ps])."""
+    rows = pool_l[table]                       # [K, NP, Hkv, (dh,) ps]
+    rows = rows.movedim(1, -2)                 # [K, Hkv, (dh,) NP, ps]
+    return rows.reshape(*rows.shape[:-2], -1)
+
+
+def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
+                          lengths, k_pool, v_pool, table, project_last,
+                          ks_pool=None, vs_pool=None):
+    """The body of llama_prefill_paged_prefix[_q8]: int8 pools when
+    ks_pool/vs_pool are given. Returns the last logits [K, V] float32."""
+    from ..ops.decode_attention import quantize_kv
+
+    K, T = tokens.shape
+    H, Hkv, dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    ps = k_pool.shape[-1]
+    NP = table.shape[1]
+    S = NP * ps
+    dev = tokens.device
+    table = table.long()
+    pos_grid = prefix_lens.long()[:, None] + torch.arange(T, device=dev)
+    in_prompt = pos_grid < lengths.long()[:, None]              # [K, T]
+    # token at absolute pos -> (table[k, pos // ps], pos % ps); pads -> 0
+    page_slot = (pos_grid // ps).clamp(0, NP - 1)
+    page_ids = torch.where(in_prompt, table.gather(1, page_slot), 0)
+    offsets = pos_grid % ps
+    # query at absolute pos p sees gathered slot j iff j <= p
+    visible = (torch.arange(S, device=dev) <= pos_grid[:, :, None]
+               )[:, None, None]                                 # [K,1,1,T,S]
+    x = _embed(params, cfg, tokens)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q = rope(_mm(normed, layer, "wq").reshape(K, T, H, dh), pos_grid,
+                 cfg.rope_theta)
+        k = rope(_mm(normed, layer, "wk").reshape(K, T, Hkv, dh), pos_grid,
+                 cfg.rope_theta)
+        v = _mm(normed, layer, "wv").reshape(K, T, Hkv, dh)
+        if ks_pool is None:
+            # advanced indices on pool dims 0 and 3 -> value [K, T, Hkv, dh]
+            k_pool[l][page_ids, :, :, offsets] = k
+            v_pool[l][page_ids, :, :, offsets] = v
+            k_rows = _gather_rows(k_pool[l], table)             # [K,Hkv,dh,S]
+            v_rows = _gather_rows(v_pool[l], table)
+        else:
+            # the tail quantizes on write; the prefix pages keep the donor's
+            # quantization, and the gathered rows dequantize to the model
+            # dtype
+            k8, ks = quantize_kv(k, axis=-1)     # [K, T, Hkv, dh], [K, T, Hkv]
+            v8, vs = quantize_kv(v, axis=-1)
+            k_pool[l][page_ids, :, :, offsets] = k8
+            v_pool[l][page_ids, :, :, offsets] = v8
+            ks_pool[l][page_ids, :, offsets] = ks
+            vs_pool[l][page_ids, :, offsets] = vs
+            k_rows = (_gather_rows(k_pool[l], table).float()
+                      * _gather_rows(ks_pool[l], table)[:, :, None]
+                      ).to(x.dtype)
+            v_rows = (_gather_rows(v_pool[l], table).float()
+                      * _gather_rows(vs_pool[l], table)[:, :, None]
+                      ).to(x.dtype)
+        # f32 scores from the model-dtype q and k, the -1e30 mask, p rounded
+        # to the value dtype before p . v: the reference's einsums
+        qg = q.reshape(K, T, Hkv, G, dh)
+        scores = torch.einsum("bthgd,bhds->bhgts", qg.float(),
+                              k_rows.float()) / math.sqrt(dh)
+        probs = torch.softmax(torch.where(visible, scores, -1e30), dim=-1)
+        del scores
+        attn = torch.einsum("bhgts,bhds->bthgd",
+                            probs.to(v_rows.dtype).float(),
+                            v_rows.float()).to(x.dtype)
+        del probs
+        x = x + _mm(attn.reshape(K, T, H * dh), layer, "wo")
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    last = x[torch.arange(K, device=dev), project_last.long()]     # [K, D]
+    return _head(last, params)
+
+
+def llama_prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
+                               lengths, k_pool, v_pool, table, project_last):
+    """Prefill ONLY a prompt's un-cached tail against the paged pool.
+
+    The prefix-cache hit path: row k's first prefix_lens[k] tokens (whole
+    pages) are already in shared pages its block table references, so this
+    forward computes K/V for the tail window alone.
+
+    tokens: [K, T] tail token ids (row k's tail starts at absolute position
+    prefix_lens[k]); prefix_lens: [K] multiples of the page size; lengths:
+    [K] FULL prompt lengths; k/v_pool: [L, P, Hkv, dh, ps], written in
+    place; table: [K, NP] page ids (shared prefix pages first, then the
+    row's fresh pages); project_last: [K] within-window index of each row's
+    last prompt token.
+
+    Per layer: the tail's K/V scatter into their pages (pad positions past
+    lengths[k] go to the garbage page 0), then the tail's queries attend
+    the gathered pages [K, Hkv, dh, NP * ps] under the `j <= q_pos` mask,
+    which covers the shared prefix and the tail's own causal window in one
+    rule. This is plain PyTorch, as the reference's is XLA einsums: it is
+    not a Pallas call, and flash (T == S under causal) does not fit it.
+
+    Returns (last_logits [K, V] float32, k_pool, v_pool)."""
+    logits = _prefill_paged_prefix(params, cfg, tokens, prefix_lens, lengths,
+                                   k_pool, v_pool, table, project_last)
+    return logits, k_pool, v_pool
+
+
+def llama_prefill_paged_prefix_q8(params, cfg: LlamaConfig, tokens,
+                                  prefix_lens, lengths, k_pool, v_pool,
+                                  ks_pool, vs_pool, table, project_last):
+    """llama_prefill_paged_prefix over int8 pools with per-token scales:
+    k/v_pool [L, P, Hkv, dh, ps] int8 and ks/vs_pool [L, P, Hkv, ps] f32,
+    all written in place. The tail's K/V quantize on write
+    (ops/decode_attention.quantize_kv per token and head), so the pages
+    hold what later decode reads; the gathered rows dequantize to the model
+    dtype for the tail's attention, and the prefix pages keep the donor's
+    quantization. Returns (last_logits [K, V] f32, k_pool, v_pool, ks_pool,
+    vs_pool)."""
+    logits = _prefill_paged_prefix(params, cfg, tokens, prefix_lens, lengths,
+                                   k_pool, v_pool, table, project_last,
+                                   ks_pool, vs_pool)
+    return logits, k_pool, v_pool, ks_pool, vs_pool
+
+
+def _attention_block_nocache(x, layer, positions, cfg: LlamaConfig):
+    """Plain causal attention sublayer without a cache: x [B, T, D] ->
+    [B, T, D]. Flash (ops/flash_attention) under attn_impl="flash", else
+    the f32 oracle attention_reference."""
+    from ..ops.flash_attention import attention_reference, flash_attention
+
+    B, T, _ = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    q = rope(_mm(normed, layer, "wq").reshape(B, T, H, dh), positions,
+             cfg.rope_theta)
+    k = rope(_mm(normed, layer, "wk").reshape(B, T, Hkv, dh), positions,
+             cfg.rope_theta)
+    v = _mm(normed, layer, "wv").reshape(B, T, Hkv, dh)
+    if cfg.attn_impl == "flash":
+        attn = flash_attention(q, k, v, True)
+    else:
+        attn = attention_reference(q, k, v, causal=True)
+    return _mm(attn.reshape(B, T, H * dh), layer, "wo")
+
+
+def forward_nocache_at(params, cfg: LlamaConfig, tokens, positions):
+    """Cache-free forward over a token chunk at explicit absolute positions
+    [B, T]. Returns logits [B, T, V] float32."""
+    x = _embed(params, cfg, tokens)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        x = x + _attention_block_nocache(x, layer, positions, cfg)
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return _head(x, params)
+
+
+def llama_forward_nocache(params, cfg: LlamaConfig, tokens):
+    """Training/eval forward without a cache: plain causal attention over
+    positions [0, T). Returns logits [B, T, V] float32."""
+    B, T = tokens.shape
+    positions = torch.arange(T, device=tokens.device).expand(B, T)
+    return forward_nocache_at(params, cfg, tokens, positions)

@@ -20,9 +20,11 @@ debug), ATTN_IMPL (flash | xla, default flash), PAGED (true: the paged
 engine; false: the dense-cache engine), DECODE_ATTN (xla | kernel, the
 dense engine's T=1 read), KV_DTYPE (unset | int8; the dense engine needs
 DECODE_ATTN=kernel for int8), PAGE_SIZE (128), N_PAGES (0 = every slot can
-reach MAX_SEQ_LEN), MAX_BATCH (8), MAX_SEQ_LEN (1024), PREFILL_BUCKETS
-("16,32,64,128,256"), HTTP_PORT (8000), REQUEST_TIMEOUT (5 s, for
-stream=false). Weights are random, from seed 0. Keys whose feature is not
+reach MAX_SEQ_LEN), PREFIX_CACHE (true: the paged engine shares whole
+prompt-prefix pages between requests and prefills only the un-cached tail,
+as the reference does by default; the dense engine ignores it), MAX_BATCH
+(8), MAX_SEQ_LEN (1024), PREFILL_BUCKETS ("16,32,64,128,256"), HTTP_PORT
+(8000), REQUEST_TIMEOUT (5 s, for stream=false). Weights are random, from seed 0. Keys whose feature is not
 ported yet refuse to boot (NOT_PORTED below) rather than being ignored.
 """
 
@@ -67,8 +69,6 @@ def _int(env: Mapping[str, str], key: str, default: int) -> int:
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("PREFIX_CACHE", lambda e: _flag(e, "PREFIX_CACHE", False),
-     "the prefix cache waits in ROADMAP A7"),
     ("SAMPLING_CONTROLS", lambda e: _flag(e, "SAMPLING_CONTROLS", False),
      "per-request top_p/top_k controls wait in ROADMAP A9"),
     ("CHUNK_PREFILL_TOKENS", lambda e: _int(e, "CHUNK_PREFILL_TOKENS", 0) > 0,
@@ -168,7 +168,9 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     if _flag(env, "PAGED", True):
         engine = PagedLLMEngine(params, cfg,
                                 page_size=_int(env, "PAGE_SIZE", 128),
-                                n_pages=_int(env, "N_PAGES", 0) or None, **kw)
+                                n_pages=_int(env, "N_PAGES", 0) or None,
+                                prefix_cache=_flag(env, "PREFIX_CACHE", True),
+                                **kw)
     else:
         engine = LLMEngine(params, cfg, **kw)
     # synthetic vocabularies sample ids the byte tokenizer cannot

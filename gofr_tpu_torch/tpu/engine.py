@@ -2,8 +2,8 @@
 
 Ports from ``gofr_tpu/tpu/engine.py``: ``GenerationRequest`` (``stream``,
 ``result``, ``cancel``, ``hit_stop``), ``_Slot``, ``_admission_split``, and
-of ``LLMEngine``: ``submit``, ``_admit`` (priority heap, prompt-length
-buckets, fused K-way admission), the decode dispatch of
+of ``LLMEngine``: ``submit``, ``_admit`` (priority heap, requests grouped by
+``_admission_bucket``, fused K-way admission), the decode dispatch of
 ``decode_block_size`` steps returning [B, M] tokens, ``_demux_plan`` (same
 stop / budget / context semantics), ``_finish_slot``, ``start``/``stop``,
 and the dense-cache device state: the kv_dtype checks (int8 needs
@@ -224,10 +224,13 @@ class LLMEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # dispatch counts (loop-thread writes): what a run can show about
-        # the kernels it went through
+        # the kernels it went through. Full-window prefill waves (flash on
+        # the card) and the paged engine's tail-only prefix-hit waves are
+        # counted apart; (K, bucket) -> waves of that shape dispatched
         self.prefill_dispatches = 0
-        # (K, bucket) -> fused prefill windows of that shape dispatched
         self.prefill_shapes: collections.Counter = collections.Counter()
+        self.prefix_dispatches = 0
+        self.prefix_shapes: collections.Counter = collections.Counter()
         self.decode_steps = 0
         self._init_device_state()
 
@@ -294,12 +297,16 @@ class LLMEngine:
         return longest + self.decode_block_size + 1
 
     # -- programs -------------------------------------------------------------
-    def _prep_admission(self, bucket: int, batch: List[GenerationRequest]):
+    def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
+                        starts: Optional[Sequence[int]] = None):
         """([K, bucket] prompt tokens, [K] lengths, [K] temperatures) on
-        the device for one fused admission."""
+        the device for one fused admission. starts: per row, the first
+        prompt position the window holds (a prefix hit's tail; default 0);
+        lengths are the full prompts'."""
         ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
         for row, request in enumerate(batch):
-            ptokens[row, :len(request.prompt_tokens)] = request.prompt_tokens
+            window = request.prompt_tokens[starts[row] if starts else 0:]
+            ptokens[row, :len(window)] = window
         lengths = np.asarray([len(r.prompt_tokens) for r in batch],
                              dtype=np.int32)
         temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
@@ -399,6 +406,17 @@ class LLMEngine:
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True
+
+    def _admission_bucket(self, request: GenerationRequest) -> int:
+        """The prefill bucket a request admits under: its prompt's. The
+        paged engine overrides it to the un-cached tail's bucket on a
+        prefix hit."""
+        return next_bucket(len(request.prompt_tokens), self.prefill_buckets)
+
+    def _tail_only(self, batch: List[GenerationRequest]) -> bool:
+        """True when the wave prefills only un-cached tails (the paged
+        engine's prefix hits)."""
+        return False
 
     def _abort_admission(self, request: GenerationRequest) -> None:
         """Release whatever _admission_ready reserved for `request`."""
@@ -526,11 +544,11 @@ class LLMEngine:
                 heapq.heappush(self._admission_heap, entry)
                 break
             taken.append(request)
+        # grouped by admission bucket: a prefix hit admits at its tail's
         by_bucket: Dict[int, List[GenerationRequest]] = {}
         for request in taken:
-            bucket = next_bucket(len(request.prompt_tokens),
-                                 self.prefill_buckets)
-            by_bucket.setdefault(bucket, []).append(request)
+            by_bucket.setdefault(self._admission_bucket(request),
+                                 []).append(request)
         free_iter = iter(free)
         for bucket, group in by_bucket.items():
             offset = 0
@@ -541,9 +559,10 @@ class LLMEngine:
 
     def _prefill(self, bucket: int, slots_idx: List[int],
                  batch: List[GenerationRequest]) -> None:
-        """One fused prefill dispatch, synced at once: bind the slots, emit
-        the first tokens, finish the rows that are already done. A failure
-        fails this wave only."""
+        """One fused prefill dispatch, synced at once: bind the slots and
+        their pages, emit the first tokens, finish the rows that are already
+        done. A failure fails this wave only."""
+        tail_only = self._tail_only(batch)
         try:
             first = self._dispatch_prefill(bucket, slots_idx, batch).tolist()
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
@@ -552,22 +571,28 @@ class LLMEngine:
                 self._abort_admission(request)
                 self._fail_request(request, exc)
             return
-        self.prefill_dispatches += 1
-        self.prefill_shapes[(len(batch), bucket)] += 1
+        if tail_only:
+            self.prefix_dispatches += 1
+            self.prefix_shapes[(len(batch), bucket)] += 1
+        else:
+            self.prefill_dispatches += 1
+            self.prefill_shapes[(len(batch), bucket)] += 1
+        self._assign_pages(slots_idx, batch)
         for row, request in enumerate(batch):
             slot = self.slots[slots_idx[row]]
             slot.request = request
             slot.length = len(request.prompt_tokens)
             slot.remaining = request.max_new_tokens - 1
-            self._bind_pages(slot, request)
             token = int(first[row])
             self._emit_block(request, [token])
             if (request.hit_stop(token) or slot.remaining <= 0
                     or self._is_cancelled(request)):
                 self._finish_slot(slot)
 
-    def _bind_pages(self, slot: _Slot, request: GenerationRequest) -> None:
-        """Move the request's admission reservation onto its slot."""
+    def _assign_pages(self, slots_idx: List[int],
+                      batch: List[GenerationRequest]) -> None:
+        """Move each admitted request's admission reservation onto its
+        slot."""
 
     def _decode_block_now(self) -> int:
         """Full blocks for decode throughput, half blocks while requests

@@ -5,16 +5,23 @@ garbage page and is never handed out) and ``PagedLLMEngine`` with the fused
 K-way prefill (``_prefill_fn``, with ``_prefill_fn_q8`` as its int8
 branch), the decode block (``_decode_fn_paged``, with
 ``_decode_fn_paged_q8`` as its int8 branch), ``_build_table`` with its +1
-garbage column, page reservation at admission and release at finish.
+garbage column, page reservation at admission and release at finish, and
+the prefix cache (``prefix_cache=True``, tpu/prefixcache.py): the match and
+the evict-and-retry of ``_reserve_pages``, ``_abort_admission``,
+``_tail_bucket`` / ``_admission_bucket``, ``_release_slot_pages``, the
+tail-only program (``_prefix_fn``, with ``_prefix_fn_q8`` as its int8
+branch) and its dispatch (``_dispatch_prefill_prefix``), and
+``_assign_pages``, which registers every wave's full prompt pages.
 
 K/V live in a fixed pool [L, P, Hkv, dh, page_size] allocated once — in
 the model dtype, or int8 with f32 scale pools [L, P, Hkv, page_size] under
 kv_dtype='int8'; a slot owns ceil((prompt + max_new) / page_size) pages,
 mapped by a block table. The JAX engine donates the pools and the loop
 state (tokens, positions, temperatures) to every program; here they are
-persistent tensors updated in place. Not ported yet: the prefix cache
-(ROADMAP A7), chunked prefill and speculative verify (A10), KV tiering,
-disaggregated hand-off and migration (A11).
+persistent tensors updated in place. Not ported yet: chunked prefill and
+speculative verify (ROADMAP A10), KV tiering, disaggregated hand-off and
+migration (A11), and with them the prefix paths that serve them (the
+restore from a KV tier, dropping a hit whose tail would chunk).
 """
 
 from __future__ import annotations
@@ -26,11 +33,15 @@ import numpy as np
 import torch
 
 from ..models.llama import (DTYPES, llama_decode_step_paged,
-                            llama_decode_step_paged_q8)
+                            llama_decode_step_paged_q8,
+                            llama_prefill_paged_prefix,
+                            llama_prefill_paged_prefix_q8)
 from ..ops.decode_attention import quantize_kv
 from ..ops.paged_attention import (paged_write_prefill_scales,
                                    paged_write_prefill_stacked)
 from .engine import GenerationRequest, LLMEngine, _Slot, check_kernel_config
+from .executor import next_bucket
+from .prefixcache import PrefixCache
 
 
 class PageAllocator:
@@ -77,14 +88,19 @@ def _pow2_at_least(n: int) -> int:
 class PagedLLMEngine(LLMEngine):
     """Continuous-batching engine over a paged KV pool. Page budget:
     n_pages * page_size tokens in total across slots (default: every slot
-    can reach max_seq_len, plus the garbage page)."""
+    can reach max_seq_len, plus the garbage page). prefix_cache=True
+    shares whole prompt-prefix pages between requests (refcounted, evicted
+    LRU back into the allocator; int8 pools share their scale pages with
+    them)."""
 
     _paged = True
 
     def __init__(self, params, cfg, *, page_size: int = 128,
-                 n_pages: Optional[int] = None, **kw):
+                 n_pages: Optional[int] = None, prefix_cache: bool = False,
+                 **kw):
         self.page_size = page_size
         self._requested_pages = n_pages
+        self._prefix_enabled = bool(prefix_cache)
         super().__init__(params, cfg, **kw)
 
     # -- device state ---------------------------------------------------------
@@ -97,6 +113,10 @@ class PagedLLMEngine(LLMEngine):
             self.n_slots * math.ceil(self.max_seq_len / ps) + 1)
         self.allocator = PageAllocator(n_pages, ps)
         self._reservations: Dict[int, List[int]] = {}
+        # the cache lives and dies with the pool it indexes
+        self.prefix = PrefixCache(ps) if self._prefix_enabled else None
+        # request id -> its matched prefix pages (ref'd), until assigned
+        self._prefix_hits: Dict[int, List[int]] = {}
         dev = self.device
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, cfg.head_dim, ps)
         dtype = torch.int8 if self._q8 else DTYPES[cfg.dtype]
@@ -130,9 +150,24 @@ class PagedLLMEngine(LLMEngine):
         return self.allocator.pages_for(total)
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
+        """Page reservation (the reference's _reserve_pages): match the
+        prompt's cached prefix once, reserve the pages past it, and when
+        the pool is short evict idle cache pages into it and retry before
+        parking the request."""
         if request.id in self._reservations:
             return True
-        pages = self.allocator.alloc(self._request_pages(request))
+        shared: List[int] = []
+        if self.prefix is not None:
+            if request.id not in self._prefix_hits:
+                self._prefix_hits[request.id] = self.prefix.match(
+                    request.prompt_tokens)
+            shared = self._prefix_hits[request.id]
+        need = self._request_pages(request) - len(shared)
+        pages = self.allocator.alloc(need)
+        if pages is None and self.prefix is not None:
+            self.allocator.release(
+                self.prefix.evict(need - self.allocator.free_pages))
+            pages = self.allocator.alloc(need)
         if pages is None:
             return False
         self._reservations[request.id] = pages
@@ -142,14 +177,57 @@ class PagedLLMEngine(LLMEngine):
         pages = self._reservations.pop(request.id, None)
         if pages is not None:
             self.allocator.release(pages)
+        for page_id in self._prefix_hits.pop(request.id, None) or []:
+            self.prefix.unref(page_id)
 
-    def _bind_pages(self, slot: _Slot, request: GenerationRequest) -> None:
-        slot.pages = self._reservations.pop(request.id)
+    def _tail_bucket(self, request: GenerationRequest,
+                     shared: List[int]) -> int:
+        tail = len(request.prompt_tokens) - len(shared) * self.page_size
+        return next_bucket(max(1, tail), self.prefill_buckets)
+
+    def _admission_bucket(self, request: GenerationRequest) -> int:
+        """On a prefix hit, the admission window is the un-cached tail."""
+        shared = self._prefix_hits.get(request.id)
+        if not shared:
+            return super()._admission_bucket(request)
+        return self._tail_bucket(request, shared)
+
+    def _tail_only(self, batch: List[GenerationRequest]) -> bool:
+        """A wave with any hit runs the tail-only program; rows that missed
+        ride along with prefix_len 0."""
+        return any(self._prefix_hits.get(r.id) for r in batch)
+
+    def _assign_pages(self, slots_idx: List[int],
+                      batch: List[GenerationRequest]) -> None:
+        """Move each request's pages onto its slot (shared prefix pages
+        first, table order) and register the freshly written full prompt
+        pages in the prefix cache."""
+        for row, request in enumerate(batch):
+            fresh = self._reservations.pop(request.id)
+            shared = self._prefix_hits.pop(request.id, None) or []
+            slot = self.slots[slots_idx[row]]
+            slot.pages = shared + fresh
+            if self.prefix is not None:
+                self.prefix.insert(request.prompt_tokens, slot.pages)
+
+    def _release_slot_pages(self, slot: _Slot) -> None:
+        """Return a slot's pages to the allocator; pages the prefix cache
+        owns are unref'd and stay resident."""
+        if slot.pages is None:
+            return
+        free = slot.pages
+        if self.prefix is not None:
+            free = []
+            for page_id in slot.pages:
+                if self.prefix.owns(page_id):
+                    self.prefix.unref(page_id)   # stays cache-resident
+                else:
+                    free.append(page_id)
+        self.allocator.release(free)
+        slot.pages = None
 
     def _finish_slot(self, slot: _Slot) -> None:
-        if slot.pages is not None:
-            self.allocator.release(slot.pages)
-            slot.pages = None
+        self._release_slot_pages(slot)
         super()._finish_slot(slot)
 
     # -- programs -------------------------------------------------------------
@@ -170,6 +248,26 @@ class PagedLLMEngine(LLMEngine):
             paged_write_prefill_scales(self.v_scale, vs, ptable, lengths)
         paged_write_prefill_stacked(self.k_cache, self.v_cache, tmp_k, tmp_v,
                                     ptable, lengths)
+        return self._splice_loop_state(last, slots, lengths, new_temps)
+
+    def _prefix_fn(self, ptokens, ptable, prefix_lens, slots, lengths,
+                   new_temps):
+        """Tail-only K-way admission: each row's shared prefix pages are
+        live in the pool already; only the [K, bucket] tail window is
+        computed and written (llama_prefill_paged_prefix, or its int8 twin
+        under kv_dtype='int8'), then first tokens sample and the loop state
+        splices as in the fused path. ptable: [K, NP], shared pages first."""
+        bucket = ptokens.shape[1]
+        project_last = (lengths - prefix_lens - 1).clamp(0, bucket - 1)
+        if self._q8:
+            last = llama_prefill_paged_prefix_q8(
+                self.params, self.cfg, ptokens, prefix_lens, lengths,
+                self.k_cache, self.v_cache, self.k_scale, self.v_scale,
+                ptable, project_last)[0]
+        else:
+            last = llama_prefill_paged_prefix(
+                self.params, self.cfg, ptokens, prefix_lens, lengths,
+                self.k_cache, self.v_cache, ptable, project_last)[0]
         return self._splice_loop_state(last, slots, lengths, new_temps)
 
     def _decode_fn_paged(self, table, block: int):
@@ -205,6 +303,9 @@ class PagedLLMEngine(LLMEngine):
 
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
+        if self._tail_only(batch):
+            # `bucket` is already the group's tail bucket (_admission_bucket)
+            return self._dispatch_prefill_prefix(bucket, slots_idx, batch)
         n_ptable = max(1, math.ceil(bucket / self.page_size))
         ptable = np.zeros((len(batch), n_ptable), dtype=np.int32)
         for row, request in enumerate(batch):
@@ -214,6 +315,29 @@ class PagedLLMEngine(LLMEngine):
         dev = self.device
         return self._prefill_fn(
             ptokens, torch.from_numpy(ptable).to(dev),
+            torch.as_tensor(slots_idx, dtype=torch.long, device=dev),
+            lengths, temps)
+
+    def _dispatch_prefill_prefix(self, bucket: int, slots_idx: List[int],
+                                 batch: List[GenerationRequest]
+                                 ) -> torch.Tensor:
+        ps = self.page_size
+        hits = [self._prefix_hits.get(r.id) or [] for r in batch]
+        prefix_lens = [len(h) * ps for h in hits]
+        # table: shared prefix pages, then the reservation's fresh pages,
+        # wide enough for every row's full PROMPT page span
+        n_table = _pow2_at_least(max(
+            self.allocator.pages_for(len(r.prompt_tokens)) for r in batch))
+        ptable = np.zeros((len(batch), n_table), dtype=np.int32)
+        for row, request in enumerate(batch):
+            pages = (hits[row] + self._reservations[request.id])[:n_table]
+            ptable[row, :len(pages)] = pages
+        ptokens, lengths, temps = self._prep_admission(bucket, batch,
+                                                       prefix_lens)
+        dev = self.device
+        return self._prefix_fn(
+            ptokens, torch.from_numpy(ptable).to(dev),
+            torch.as_tensor(prefix_lens, dtype=torch.int32, device=dev),
             torch.as_tensor(slots_idx, dtype=torch.long, device=dev),
             lengths, temps)
 

@@ -292,7 +292,7 @@ def test_generate_refuses_the_fields_the_reference_refuses(both_servers,
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
-    asks = {"PREFIX_CACHE": "true", "SAMPLING_CONTROLS": "true",
+    asks = {"SAMPLING_CONTROLS": "true",
             "CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
             "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
             "QOS": "true", "WEIGHTS_PATH": "/x.safetensors",
@@ -303,13 +303,17 @@ def test_unported_config_keys_refuse_to_boot(key):
 
 
 # config keys whose features are ported, each with an env that asks for it;
-# KV_DTYPE=int8 boots both engines
+# KV_DTYPE=int8 boots both engines; PREFIX_CACHE is on by default on the
+# paged engine, as in the reference, and the dense engine ignores it
 PORTED = {
     "PAGED": {"PAGED": "false"},
     "DECODE_ATTN": {"PAGED": "false", "DECODE_ATTN": "kernel"},
     "KV_DTYPE": {"KV_DTYPE": "int8"},
     "KV_DTYPE-dense": {"PAGED": "false", "DECODE_ATTN": "kernel",
                        "KV_DTYPE": "int8"},
+    "PREFIX_CACHE": {"PREFIX_CACHE": "true"},
+    "PREFIX_CACHE-false": {"PREFIX_CACHE": "false"},
+    "PREFIX_CACHE-dense": {"PAGED": "false", "PREFIX_CACHE": "true"},
 }
 
 
@@ -322,8 +326,10 @@ def test_ported_config_keys_boot_and_serve(served, key):
     app = build_app(env, engine=engine)
     app.start()
     try:
-        assert isinstance(engine, PagedLLMEngine) == (env.get("PAGED")
-                                                      != "false")
+        paged = env.get("PAGED") != "false"
+        assert isinstance(engine, PagedLLMEngine) == paged
+        assert ((getattr(engine, "prefix", None) is not None)
+                == (paged and env.get("PREFIX_CACHE") != "false"))
         assert engine.cfg.decode_attn == env.get("DECODE_ATTN", "xla")
         assert engine._q8 == ("KV_DTYPE" in env)
         status, body = _post(app.http_port, {"prompt": "hello",
