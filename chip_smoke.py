@@ -42,13 +42,19 @@ Phases, one or more lines each, any failure exits non-zero:
    on the same weights: paged bf16 (the main path), paged int8
    (KV_DTYPE=int8), dense (PAGED=false DECODE_ATTN=kernel) and dense int8
    (the same with KV_DTYPE=int8), each with ATTN_IMPL=flash and the prefix
-   cache at its default (on for the paged engine). Each answers
+   cache at its default (on for the paged engine) and the dispatch layer
+   at its defaults (pipeline_depth 4, ENGINE_ASYNC_D2H and WARMUP on: every
+   decode program serving can reach captured as a CUDA graph at boot,
+   logged with the capture time). Each answers
    concurrent streaming and non-streaming POST /generate; every request
    returns its max_tokens, a repeated greedy prompt repeats its tokens (on
    the paged engine both repeats hit its first page and prefill only the
-   tail), and the kernels' launch counters (zeroed just before each
-   configuration) grew by n_layers per full prefill wave (flash) and per
-   decode step (that configuration's decode kernel, and no other); then
+   tail), and the kernels' launch counters (kept on the card by the
+   kernels, ops/launch_counts.py; zeroed just before each configuration)
+   grew by n_layers per full prefill wave (flash) and per decode step (that
+   configuration's decode kernel, and no other); every decode block was one
+   graph replay and no graph was captured after boot (logged: replays per
+   block, the peak in-flight depth); then
    two prefix phases, paged-prefix and paged-int8-prefix (PREFIX_CACHE=true,
    buckets 16..512): a 384-token system prompt seeded by one request, then
    8 concurrent requests on it with distinct tails, each hitting its 3
@@ -65,10 +71,17 @@ Phases, one or more lines each, any failure exits non-zero:
    and card time at each tail wave the prefix phases gave it, beside a
    full-window prefill of as many prompts; TTFT / decode tok/s of the
    served requests, each with the card's name and power limit;
-6. profile: one decode block at B=8 in each serving configuration — host
-   wall time per step against the card's busy time (torch.profiler), the
-   launches per step (no more than before the split reads), the decode
-   read's time per step and the kernels that take it.
+6. profile: the pipelined loop of each serving configuration's engine at
+   B=8 in steady state (the pipeline full of graph-replayed blocks) —
+   host wall time per step against the card's busy time over the same
+   window (torch.profiler; beside it the wall of the same window
+   untraced), the idle share, the host's launches per step and block, the
+   kernels executed per step (no more than before the split reads), the
+   decode read's time per step and the kernels that take it; then, on the
+   same engine, one block replayed from its graph against the same block
+   run eagerly from copies of the same state: equal greedy tokens, the KV
+   left within MODEL_TOL (max_abs_diff logged), n_layers decode reads per
+   step in each; the same at temperature 0.7 logged.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -690,21 +703,6 @@ def plain_request(port, prompt, max_tokens, out, key):
                 "data": body.get("data")}
 
 
-def kernel_wrappers() -> dict:
-    """Every kernel's wrapper, whose `launches` counts its launches."""
-    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
-                                                     decode_attention_q8_cuda)
-    from gofr_tpu_torch.ops.flash_attention import flash_attention_cuda
-    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
-                                                    paged_attention_q8_cuda)
-
-    return {"flash_attention": flash_attention_cuda,
-            "paged_attention": paged_attention_cuda,
-            "paged_attention_q8": paged_attention_q8_cuda,
-            "decode_attention": decode_attention_cuda,
-            "decode_attention_q8": decode_attention_q8_cuda}
-
-
 # serving configuration -> (env beside the common keys, its decode kernel)
 SERVE_CONFIGS = {
     "paged": ({}, "paged_attention"),
@@ -719,15 +717,16 @@ def serve_phase(params, cfg, dev, card: str, config: str,
                 preset: str = "llama3-8b") -> dict:
     """Drive the port's /generate in one serving configuration; returns
     what the timing phase needs."""
+    from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
     extra, decode_kernel = SERVE_CONFIGS[config]
-    wrappers = kernel_wrappers()
     env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
            "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
            "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
            **extra}
     engine = build_engine(env, device=dev, params=params)
+    boot = boot_line(engine, config, card)
     app = build_app(env, engine=engine)
     app.start()
     try:
@@ -736,7 +735,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
         require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
 
-        zero_counts(engine, wrappers)
+        zero_counts(engine)
         n_tok, n_plain = 32, 16
         lengths = [150, 180, 200, 220, 240, 130, 160]
         prompts = [make_prompt(n, i) for i, n in enumerate(lengths)]
@@ -762,8 +761,9 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         rep: dict = {}
         for key in ("r1", "r2"):
             stream_request(app.http_port, prompts[0], 24, rep, key)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches = launch_counts.counts()
         prefills, steps = engine.prefill_dispatches, engine.decode_steps
+        dispatch = dispatch_counts(engine, boot)
         shapes, tail_shapes = (dict(engine.prefill_shapes),
                                dict(engine.prefix_shapes))
         cache_len = getattr(engine, "_cache_len", None)
@@ -790,7 +790,10 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     L = cfg.n_layers
     log(f"serve {config}: launches " + " ".join(
         f"{k}={v}" for k, v in launches.items())
-        + f" (prefills={prefills}, decode steps={steps}, n_layers={L})")
+        + f" (prefills={prefills}, decode steps={steps}, n_layers={L}; "
+        f"{decode_kernel} launches outside graph replays "
+        f"{launches[decode_kernel] - L * steps})")
+    check_dispatch(config, dispatch, card)
     log(f"serve {config}: prefill windows [K, bucket] x count: "
         f"{wave_list(shapes)}; tail-only prefix-hit waves: "
         f"{wave_list(tail_shapes) or 'none'}")
@@ -821,15 +824,49 @@ def serve_phase(params, cfg, dev, card: str, config: str,
             "max_tokens": n_tok, "cache_len": cache_len}
 
 
-def zero_counts(engine, wrappers) -> None:
+def zero_counts(engine) -> None:
     """Every kernel's launch count and the engine's dispatch counts to 0,
     just before a configuration's counted run."""
-    for fn in wrappers.values():
-        fn.launches = 0
+    from gofr_tpu_torch.ops import launch_counts
+
+    launch_counts.zero()
     engine.prefill_dispatches = engine.decode_steps = 0
-    engine.prefix_dispatches = 0
+    engine.prefix_dispatches = engine.decode_blocks = 0
+    engine.max_inflight = 0
     engine.prefill_shapes.clear()
     engine.prefix_shapes.clear()
+    engine.executor.calls = 0
+
+
+def boot_line(engine, config: str, card: str) -> int:
+    """Log what WARMUP captured at boot; returns how many graphs."""
+    ex = engine.executor
+    log(f"serve {config}: warm-up at boot {engine.warmup_seconds:.2f}s: "
+        f"{ex.captures} decode graphs captured in {ex.capture_seconds:.2f}s "
+        f"({', '.join(ex.compiled)}) [{card}]")
+    return ex.captures
+
+
+def dispatch_counts(engine, boot: int) -> dict:
+    """The dispatch layer's counts of a counted run (since zero_counts)."""
+    ex = engine.executor
+    return {"captured": ex.captured, "blocks": engine.decode_blocks,
+            "calls": ex.calls, "captures": ex.captures - boot,
+            "peak": engine.max_inflight, "depth": engine.pipeline_depth}
+
+
+def check_dispatch(config, d, card):
+    """Every decode block was one call of a captured program (a CUDA graph
+    replay), and no graph was captured after boot (WARMUP captured every
+    one serving reaches)."""
+    blocks = d["blocks"]
+    log(f"serve {config}: dispatch: {blocks} decode blocks, graph replays "
+        f"{d['calls']} ({d['calls'] / max(1, blocks):.2f} per block); "
+        f"graphs captured after boot {d['captures']}; peak in flight "
+        f"{d['peak']} of pipeline_depth {d['depth']} [{card}]")
+    require(d["captured"] and blocks > 0 and d["calls"] == blocks,
+            f"{config}: a decode block ran outside a graph replay")
+    require(d["captures"] == 0, f"{config}: a graph was captured mid-serving")
 
 
 def wave_list(shapes) -> str:
@@ -860,10 +897,10 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
     stats."""
     import torch
 
+    from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
     extra, decode_kernel = PREFIX_CONFIGS[config]
-    wrappers = kernel_wrappers()
     system = make_prompt(SYSTEM_CHARS, 50)
     prompts = [system + make_prompt(n, 60 + i)
                for i, n in enumerate(TAIL_CHARS)]
@@ -875,13 +912,14 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
                "PREFILL_BUCKETS": "16,32,64,128,256,512",
                "REQUEST_TIMEOUT": "600", "PREFIX_CACHE": cache, **extra}
         engine = build_engine(env, device=dev, params=params)
+        boot = boot_line(engine, f"{config} PREFIX_CACHE={cache}", card)
         app = build_app(env, engine=engine)
         app.start()
         try:
             warm: dict = {}
             stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
             require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
-            zero_counts(engine, wrappers)
+            zero_counts(engine)
             out: dict = {}
             stream_request(app.http_port, system + make_prompt(30, 59),
                            n_tok, out, "seed")
@@ -902,9 +940,10 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
             require(all(not t.is_alive() for t in threads),
                     f"{config}: requests hung")
             run = {"out": out, "wall": wall,
-                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "launches": launch_counts.counts(),
                    "full": engine.prefill_dispatches,
                    "steps": engine.decode_steps,
+                   "dispatch": dispatch_counts(engine, boot),
                    "shapes": dict(engine.prefill_shapes),
                    "tail_shapes": dict(engine.prefix_shapes)}
             if engine.prefix is not None:
@@ -940,7 +979,8 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
     log(f"serve {config}: launches " + " ".join(
         f"{k}={v}" for k, v in hit["launches"].items())
         + f" (full prefill waves={hit['full']}, decode steps={hit['steps']}, "
-        f"n_layers={L})")
+        f"n_layers={L}; {decode_kernel} launches outside graph replays "
+        f"{hit['launches'][decode_kernel] - L * hit['steps']})")
     log(f"serve {config}: full prefill waves [K, bucket] x count: "
         f"{wave_list(hit['shapes'])}; tail-only waves: "
         f"{wave_list(hit['tail_shapes'])}")
@@ -958,6 +998,9 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
     require(hit["full"] > 0
             and launches["flash_attention"] == L * hit["full"],
             f"{config}: flash launches do not match n_layers per full wave")
+    for cache, run in runs.items():
+        check_dispatch(f"{config} PREFIX_CACHE={cache}", run["dispatch"],
+                       card)
     require(hit["steps"] > 0 and launches[decode_kernel] == L * hit["steps"],
             f"{config}: {decode_kernel} launches do not match n_layers per "
             f"decode step")
@@ -1382,21 +1425,23 @@ def time_reads(dev, ctx, S, flush, card) -> dict:
 # -- phase 6: where a decode step's time goes ---------------------------------
 # kernel launches per decode step with one read kernel per layer before the
 # reads were split over blocks (this profile phase, NVIDIA H100 80GB HBM3,
-# 700 W): the split reads combine in the same launch and add none
+# 700 W): the split reads combine in the same launch and add none. The
+# check is on kernels the card executed; under CUDA graphs the host
+# launches one graph per block
 LAUNCHES_PER_STEP = {"paged": 2621, "paged-int8": 3453, "dense": 2555,
                      "dense-int8": 3071}
+# the host's runtime calls that put work on the card, by the profiler's name
+HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|"
+                         r"cudaMemcpyAsync)")
 
 
-def profile_decode(params, cfg, dev, card: str, config: str) -> None:
-    """One decode block of a serving configuration's engine at B=8
-    (contexts ~200 tokens), this thread playing the engine loop (the loop
-    thread is not started): host wall time per step, the card's busy time
-    per step from torch.profiler (kernels only), the idle share, the top
-    kernels."""
+def decode_engine(params, cfg, dev, config: str):
+    """A serving configuration's engine at B=8 (contexts ~200 tokens, 600
+    new tokens each), its decode graphs captured by warmup(), its 8 greedy
+    requests admitted and driven, this thread playing the engine loop (the
+    loop thread is not started), until the pipeline is full of decode
+    blocks."""
     import dataclasses
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from gofr_tpu_torch.models.tokenizer import DebugTokenizer
     from gofr_tpu_torch.tpu.engine import LLMEngine
@@ -1408,45 +1453,143 @@ def profile_decode(params, cfg, dev, card: str, config: str) -> None:
     kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,))
     eng = (LLMEngine(params, cfg, **kw) if extra.get("PAGED") == "false"
            else PagedLLMEngine(params, cfg, page_size=128, **kw))
+    eng.warmup()
     tok = DebugTokenizer(cfg.vocab_size)
     for i in range(8):
-        eng.submit(tok.encode(make_prompt(200, 100 + i)), max_new_tokens=400)
-    eng._admit()
-    eng._decode()                                  # warm
+        eng.submit(tok.encode(make_prompt(200, 100 + i)), max_new_tokens=600)
+    # the first step admits the wave, dispatches the first blocks and syncs
+    # the prefill; the next ones sync a block each
+    for _ in range(eng.pipeline_depth + 1):
+        eng._step()
+    # each step fills the pipeline, then syncs its oldest dispatch
+    require(all(kind == "decode" for kind, *_ in eng._inflight)
+            and len(eng._inflight) == eng.pipeline_depth - 1,
+            f"{config}: the pipeline is not full of decode blocks")
+    return eng
+
+
+def _window(eng, n_steps: int) -> float:
+    """n_steps loop steps (each dispatches a block and syncs the oldest),
+    the card idle at the start and waited for at the end; returns the wall
+    ms."""
+    import torch
+
     torch.cuda.synchronize()
-    block = eng.decode_block_size
     t0 = time.monotonic()
-    eng._decode()
-    wall_ms = (time.monotonic() - t0) * 1e3 / block
+    for _ in range(n_steps):
+        eng._step()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3
+
+
+def profile_decode(eng, card: str, config: str) -> None:
+    """The pipelined loop in steady state (decode_engine's): a window of 4
+    loop steps under torch.profiler, with the card idle at its start and
+    waited for at its end, so the host's wall time and the card's busy time
+    (its kernels and copies) cover the same window and the same steps, the
+    64 the window dispatched. The profiler drops a few records under graph
+    replays (up to 4.4% of a window's decode reads on an H100), so busy time
+    and kernel counts are those it kept, the share it kept of the window's
+    decode reads is logged beside them, and a window with less than 0.9 of
+    them fails. Before it, a window of 10 steps without the profiler,
+    whose wall shows what tracing costs. Logs wall and busy per step, the
+    idle share (1 - busy / wall, same window), the kernels and copies the
+    card executed per step (less the generator's state fills that the
+    host launches before each replay, which the eager loop did not run)
+    and the host's launches per step and block, the top kernels. Fails if
+    busy exceeds wall, if a graph is captured in the windows, or above
+    LAUNCHES_PER_STEP kernels per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    block, L = eng.decode_block_size, eng.cfg.n_layers
+    captures = eng.executor.captures
+    ctx = [s.length for s in eng.slots if s.active]
+    untraced_ms = _window(eng, 10)
+    untraced_steps = 10 * block
+    extra, _ = SERVE_CONFIGS[config]
+    ran = eng.decode_steps
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng._decode()
-    kernels = [e for e in prof.key_averages()
+        wall_ms = _window(eng, 4)
+    # every step dispatched in the window ran in it: the card was drained
+    ran = eng.decode_steps - ran
+    ctx += [s.length for s in eng.slots if s.active]
+    require(eng.executor.captures == captures,
+            f"{config}: a graph was captured inside the profile windows")
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
-        log(f"profile decode {config} B=8: wall_ms_per_step={wall_ms:.3f}; "
-            f"device busy time: not measured (profiler saw no kernels) "
-            f"[{card}]")
-        return
-    busy_ms = busy_us / 1e3 / block
-    per_step = round(sum(e.count for e in kernels) / block)
-    log(f"profile decode {config} B=8 ctx~200: wall_ms_per_step={wall_ms:.3f} "
-        f"device_busy_ms_per_step={busy_ms:.3f} idle_share="
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} kernel launches per step="
-        f"{per_step} (at most {LAUNCHES_PER_STEP[config]}) [{card}]")
     read = [e for e in kernels
             if READ_KERNEL[extra.get("KV_DTYPE") == "int8"] in e.key]
-    log(f"profile decode {config} decode read: ms_per_step="
-        f"{sum(e.self_device_time_total for e in read) / 1e3 / block:.4f} "
-        f"calls_per_step={sum(e.count for e in read) / block:.0f}")
-    require(per_step <= LAUNCHES_PER_STEP[config],
-            f"{config}: {per_step} launches per decode step, more than "
+    kept = sum(e.count for e in read) / (L * ran)
+    require(kept >= 0.9, f"{config}: the profiler kept {kept:.4f} of the "
+            f"window's decode reads")
+    host = {e.key: e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and HOST_LAUNCH.match(e.key)}
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the kernels the host launched itself are the registered generator's
+    # state fills before each replay, which the eager loop did not run;
+    # the copies are counted, as they were there
+    fills = sum(n for k, n in host.items() if "LaunchKernel" in k)
+    per_step = (sum(e.count for e in kernels) - fills) / ran
+    host_per_step = sum(host.values()) / ran
+    log(f"profile decode {config} B=8 contexts {min(ctx)}-{max(ctx)}, "
+        f"pipelined (depth {eng.pipeline_depth}, graphs): one window of "
+        f"{wall_ms:.3f} ms under torch.profiler, the card idle at its start "
+        f"and drained at its end, {ran} steps run on the card (the profiler "
+        f"kept {kept:.4f} of their decode reads): wall_ms_per_step="
+        f"{wall_ms / ran:.4f} device_busy_ms_per_step={busy_ms / ran:.4f} "
+        f"idle_share={1 - busy_ms / wall_ms:.4f}; a 10-step window "
+        f"untraced: wall_ms_per_step={untraced_ms / untraced_steps:.4f}; host "
+        f"launches per step={host_per_step:.3f} per block="
+        f"{host_per_step * block:.2f} ({json.dumps(host)} over {ran} "
+        f"steps); kernels and copies executed per step, the "
+        f"generator fills aside={per_step:.3f} (rounded, at most "
+        f"{LAUNCHES_PER_STEP[config]}) [{card}]")
+    require(busy_ms <= wall_ms,
+            f"{config}: the card's busy time {busy_ms:.3f} ms exceeds the "
+            f"window's wall {wall_ms:.3f} ms")
+    require(round(per_step) <= LAUNCHES_PER_STEP[config],
+            f"{config}: {per_step:.3f} kernels per decode step, more than "
             f"{LAUNCHES_PER_STEP[config]}")
+    log(f"profile decode {config}: decode read: ms_per_step="
+        f"{sum(e.self_device_time_total for e in read) / 1e3 / ran:.4f} "
+        f"calls_per_step={sum(e.count for e in read) / ran:.0f}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile decode {config} kernel: {e.key[:90]} ms_per_step="
-            f"{e.self_device_time_total / 1e3 / block:.4f} calls_per_step="
-            f"{e.count / block:.0f}")
+            f"{e.self_device_time_total / 1e3 / ran:.4f} calls_per_step="
+            f"{e.count / ran:.0f}")
+
+
+def check_graph(eng, card: str, config: str) -> None:
+    """The graph against the eager block at the served shape: equal greedy
+    tokens, the caches or pools (and scales) left within MODEL_TOL, one
+    decode read per layer and step in each. Then the same with every row
+    sampled at temperature 0.7, logged: whether a replay draws the eager
+    run's numbers."""
+    from gofr_tpu_torch.tpu.graphcheck import graph_vs_eager
+
+    g = graph_vs_eager(eng, eng.decode_block_size)
+    L, block = eng.cfg.n_layers, eng.decode_block_size
+    same = bool((g["graph"].cpu() == g["eager"].cpu()).all())
+    log(f"check graph {config}: one {block}-step block replayed vs run "
+        f"eagerly from the same state at B=8: greedy tokens "
+        f"{'equal' if same else 'DIFFER'}; state max_abs_diff="
+        f"{g['state_diff']:.3e} (tol {MODEL_TOL}); decode read launches "
+        f"{g['graph_launches']} / {g['eager_launches']} (n_layers x block "
+        f"= {L * block}) {'ok' if same else 'FAIL'} [{card}]")
+    require(same, f"{config}: the graph's greedy tokens differ from eager")
+    require(g["state_diff"] <= MODEL_TOL,
+            f"{config}: the graph's KV differs from eager")
+    require(g["graph_launches"] == g["eager_launches"] == L * block,
+            f"{config}: decode read launches are not n_layers per step")
+    s = graph_vs_eager(eng, block, temperature=0.7)
+    agree = float((s["graph"].cpu() == s["eager"].cpu()).float().mean())
+    log(f"check graph {config}: sampled at temperature 0.7, the replay's "
+        f"tokens equal the eager run's at {agree:.3f} of positions (logged)")
 
 
 def flash_only(dev, card) -> None:
@@ -1605,7 +1748,10 @@ def main(argv=()) -> int:
                     f"non-finite timing for {name}")
             kernels.append(kern)
         for config in SERVE_CONFIGS:
-            profile_decode(params, cfg, dev, card, config)
+            eng = decode_engine(params, cfg, dev, config)
+            profile_decode(eng, card, config)
+            check_graph(eng, card, config)
+            del eng
             torch.cuda.empty_cache()
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run

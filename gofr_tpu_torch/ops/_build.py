@@ -26,19 +26,20 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel -> (source in csrc/, C entry point, argtypes); every entry point
-# returns cudaGetLastError() as an int
+# takes the kernel's launch counter (launch_counts.py) as its last pointer
+# before the stream and returns cudaGetLastError() as an int
 ENTRY_POINTS = {
     "flash_attention": ("flash_attention", "gofr_flash_attention_fwd",
                         [_P] * 4 + [_I] * 7 + [ctypes.c_float]
-                        + [ctypes.c_longlong] * 12 + [_P]),
+                        + [ctypes.c_longlong] * 12 + [_P, _P]),
     "paged_attention": ("paged_attention", "gofr_paged_attention",
-                        [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]),
+                        [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]),
     "paged_attention_q8": ("paged_attention", "gofr_paged_attention_q8",
-                           [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]),
+                           [_P] * 11 + [_I] * 9 + [ctypes.c_float, _P]),
     "decode_attention": ("decode_attention", "gofr_decode_attention",
-                         [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P]),
+                         [_P] * 8 + [_I] * 7 + [ctypes.c_float, _P]),
     "decode_attention_q8": ("decode_attention", "gofr_decode_attention_q8",
-                            [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P]),
+                            [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P]),
 }
 # the sources, one shared library each
 KERNELS = tuple(dict.fromkeys(src for src, _, _ in ENTRY_POINTS.values()))

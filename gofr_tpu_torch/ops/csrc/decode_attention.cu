@@ -24,27 +24,29 @@ using gofr_split::Dense;
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
 // part [B, Hkv, nsplit, H / Hkv, dh + 2] f32 scratch and counters [>= B * Hkv]
-// int32 zeros are read only when nsplit > 1 (decode_split.cuh).
+// int32 zeros are read only when nsplit > 1 (decode_split.cuh); launches is
+// the kernel's uint64 launch counter (ops/launch_counts.py).
 extern "C" int gofr_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* lengths, void* o, void* part,
-                                     void* counters, int B, int H, int Hkv, int dh, int S,
-                                     int unit, int nsplit, float scale, void* stream) {
+                                     void* counters, void* launches, int B, int H,
+                                     int Hkv, int dh, int S, int unit, int nsplit,
+                                     float scale, void* stream) {
   if (S <= 0) return (int)cudaErrorInvalidValue;
   const Dense addr{static_cast<const int*>(lengths), Hkv, dh, S};
   return gofr_split::dispatch<gofr_split::KvBf16>(H, q, k_cache, v_cache, nullptr, nullptr,
-                                                  addr, o, part, counters, B, unit,
+                                                  addr, o, part, counters, launches, B, unit,
                                                   nsplit, scale, stream);
 }
 
 extern "C" int gofr_decode_attention_q8(const void* q, const void* k_cache,
                                         const void* v_cache, const void* k_scale,
                                         const void* v_scale, const void* lengths, void* o,
-                                        void* part, void* counters, int B, int H, int Hkv,
-                                        int dh, int S, int unit, int nsplit, float scale,
-                                        void* stream) {
+                                        void* part, void* counters, void* launches,
+                                        int B, int H, int Hkv, int dh, int S, int unit,
+                                        int nsplit, float scale, void* stream) {
   if (S <= 0) return (int)cudaErrorInvalidValue;
   const Dense addr{static_cast<const int*>(lengths), Hkv, dh, S};
   return gofr_split::dispatch<gofr_split::KvInt8>(H, q, k_cache, v_cache, k_scale, v_scale,
-                                                  addr, o, part, counters, B, unit,
+                                                  addr, o, part, counters, launches, B, unit,
                                                   nsplit, scale, stream);
 }

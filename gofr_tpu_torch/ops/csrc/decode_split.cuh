@@ -81,6 +81,9 @@
 //   step launches one read per layer. The counters must not be shared by
 //   reads in flight at the same time (the wrapper keys them by device and
 //   stream).
+// - thread 0 of block (0, 0, 0) adds one to the wrapper's 64-bit launch
+//   counter (ops/launch_counts.py) before anything else, so a launch counts
+//   where it runs, a CUDA graph's replays included.
 // - the arithmetic is the Pallas kernels': s = (q . k) * scale, and for
 //   int8 s = (q . k8) * scale * k_scale[tok], masked tokens never
 //   contribute, l sums p = exp(s - m) before the v scale, then p *=
@@ -358,8 +361,9 @@ decode_split_kernel(const bf16* __restrict__ q, const typename E::T* __restrict_
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale, const Addr a,
                     bf16* __restrict__ o, float* __restrict__ part,
-                    int* __restrict__ counters, int unit, int nsplit,
-                    float scale) {
+                    int* __restrict__ counters,
+                    unsigned long long* __restrict__ launches, int unit,
+                    int nsplit, float scale) {
   typedef typename E::T T;
   static_assert(DH % 32 == 0, "dh");
   constexpr int KD = DH / 32;        // d values per lane in p . v
@@ -379,6 +383,7 @@ decode_split_kernel(const bf16* __restrict__ q, const typename E::T* __restrict_
 
   const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  if ((hk | b | split | tid) == 0) atomicAdd(launches, 1ull);
   const int H = a.Hkv * G;
   const int live = a.live(b);
   if (split > 0 && split * unit >= live) return;   // nothing of this row here
@@ -672,7 +677,8 @@ decode_split_kernel(const bf16* __restrict__ q, const typename E::T* __restrict_
 template <class E, int DH, int G, class Addr>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const Addr& a, void* o, void* part, void* counters,
-           int B, int unit, int nsplit, float scale, cudaStream_t stream) {
+           void* launches, int B, int unit, int nsplit, float scale,
+           cudaStream_t stream) {
   typedef typename E::T T;
   constexpr int smem = smem_bytes<E, DH, G>();
   constexpr int tiles = E::NSTAGE * stage_bytes<E, DH>();
@@ -696,20 +702,21 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const bf16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), a, static_cast<bf16*>(o),
-      static_cast<float*>(part), static_cast<int*>(counters), unit, nsplit,
-      scale);
+      static_cast<float*>(part), static_cast<int*>(counters),
+      static_cast<unsigned long long*>(launches), unit, nsplit, scale);
   return (int)cudaGetLastError();
 }
 
 template <class E, int DH, class Addr>
 int launch_g(int G, const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const Addr& a, void* o, void* part, void* counters,
-             int B, int unit, int nsplit, float scale, cudaStream_t st) {
+             void* launches, int B, int unit, int nsplit, float scale,
+             cudaStream_t st) {
   switch (G) {
-    case 1: return launch<E, DH, 1>(q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
-    case 2: return launch<E, DH, 2>(q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
-    case 4: return launch<E, DH, 4>(q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
-    case 8: return launch<E, DH, 8>(q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
+    case 1: return launch<E, DH, 1>(q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
+    case 2: return launch<E, DH, 2>(q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
+    case 4: return launch<E, DH, 4>(q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
+    case 8: return launch<E, DH, 8>(q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -717,23 +724,26 @@ int launch_g(int G, const void* q, const void* k, const void* v, const void* ks,
 // Launch the split read on `stream`; returns a cudaError_t code, 0 when the
 // launch was accepted. ks / vs: the f32 scales of int8 elements (null for
 // bf16). part: [B, Hkv, nsplit, G, dh + 2] f32 scratch and counters:
-// [>= B * Hkv] int32, all 0, each needed only when nsplit > 1.
+// [>= B * Hkv] int32, all 0, each needed only when nsplit > 1. launches: the
+// kernel's uint64 launch counter, which the launch adds one to.
 template <class E, class Addr>
 int dispatch(int H, const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const Addr& a, void* o, void* part, void* counters,
-             int B, int unit, int nsplit, float scale, void* stream) {
+             void* launches, int B, int unit, int nsplit, float scale,
+             void* stream) {
   if (B <= 0 || a.Hkv <= 0 || H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
   if (unit <= 0 || unit % E::TK != 0 || nsplit < 1 || nsplit > MAX_SPLIT)
     return (int)cudaErrorInvalidValue;
   if (nsplit > 1 && (part == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
   if (E::kScaled && (ks == nullptr || vs == nullptr)) return (int)cudaErrorInvalidValue;
+  if (launches == nullptr) return (int)cudaErrorInvalidValue;
   const int G = H / a.Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.dh == 128)
-    return launch_g<E, 128>(G, q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
+    return launch_g<E, 128>(G, q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
   if (a.dh == 64)
-    return launch_g<E, 64>(G, q, k, v, ks, vs, a, o, part, counters, B, unit, nsplit, scale, st);
+    return launch_g<E, 64>(G, q, k, v, ks, vs, a, o, part, counters, launches, B, unit, nsplit, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

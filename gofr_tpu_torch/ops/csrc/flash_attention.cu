@@ -142,7 +142,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long sqb, long long sqh, long long sqt,
                  long long skb, long long skh, long long skt,
                  long long svb, long long svh, long long svt,
-                 long long sob, long long soh, long long sot) {
+                 long long sob, long long soh, long long sot,
+                 unsigned long long* __restrict__ launches) {
   constexpr int KQ = DH / 16;            // k16 steps of q . k
   constexpr int NS = BK / 8;             // n8 score tiles per warp
   constexpr int NO = DH / 8;             // n8 output tiles per warp
@@ -158,6 +159,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;          // mma row group, column pair
+  // one count per launch, kept on the card (ops/launch_counts.py)
+  if ((blockIdx.x | h | b | tid) == 0) atomicAdd(launches, 1ull);
   const int q0 = tile * BQ;
   const int wrow = warp * 16;                      // the warp's first row in the tile
 
@@ -333,7 +336,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Hkv, int T, int S, int causal, float scale, const long long* st,
-           cudaStream_t stream) {
+           void* launches, cudaStream_t stream) {
   constexpr int smem = smem_bytes<DH>();
   // above 48 KB a kernel must opt in, once per device
   static bool opted_in[64] = {};
@@ -351,24 +354,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hkv, T, S, causal,
       scale * kLog2e, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+      st[8], st[9], st[10], st[11], static_cast<unsigned long long*>(launches));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Strides are in elements, (batch, head, token) for q, k, v, then o.
+// Strides are in elements, (batch, head, token) for q, k, v, then o. launches:
+// the kernel's uint64 launch counter, which every launch adds one to.
 // Returns a cudaError_t code: 0 when the launch was accepted.
 extern "C" int gofr_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
     int T, int S, int dh, int causal, float scale, long long sqb, long long sqh,
     long long sqt, long long skb, long long skh, long long skt, long long svb,
     long long svh, long long svt, long long sob, long long soh, long long sot,
-    void* stream) {
+    void* launches, void* stream) {
+  if (launches == nullptr) return (int)cudaErrorInvalidValue;
   if (B <= 0 || T <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
   const long long st[12] = {sqb, sqh, sqt, skb, skh, skt, svb, svh, svt, sob, soh, sot};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh == 128) return launch<128>(q, k, v, o, B, H, Hkv, T, S, causal, scale, st, s);
-  if (dh == 64) return launch<64>(q, k, v, o, B, H, Hkv, T, S, causal, scale, st, s);
+  if (dh == 128) return launch<128>(q, k, v, o, B, H, Hkv, T, S, causal, scale, st, launches, s);
+  if (dh == 64) return launch<64>(q, k, v, o, B, H, Hkv, T, S, causal, scale, st, launches, s);
   return (int)cudaErrorInvalidValue;
 }

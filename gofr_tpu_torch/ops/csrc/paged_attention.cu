@@ -24,30 +24,32 @@ using gofr_split::Paged;
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
 // part [B, Hkv, nsplit, H / Hkv, dh + 2] f32 scratch and counters [>= B * Hkv]
-// int32 zeros are read only when nsplit > 1 (decode_split.cuh).
+// int32 zeros are read only when nsplit > 1 (decode_split.cuh); launches is
+// the kernel's uint64 launch counter (ops/launch_counts.py).
 extern "C" int gofr_paged_attention(const void* q, const void* k_pool, const void* v_pool,
                                     const void* table, const void* lengths, void* o,
-                                    void* part, void* counters, int B, int H, int Hkv,
-                                    int dh, int P, int ps, int NP, int unit, int nsplit,
-                                    float scale, void* stream) {
+                                    void* part, void* counters, void* launches, int B,
+                                    int H, int Hkv, int dh, int P, int ps, int NP,
+                                    int unit, int nsplit, float scale, void* stream) {
   if (ps <= 0 || NP <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int*>(table), static_cast<const int*>(lengths),
                    Hkv, dh, P, ps, NP};
   return gofr_split::dispatch<gofr_split::KvBf16>(H, q, k_pool, v_pool, nullptr, nullptr,
-                                                  addr, o, part, counters, B, unit,
+                                                  addr, o, part, counters, launches, B, unit,
                                                   nsplit, scale, stream);
 }
 
 extern "C" int gofr_paged_attention_q8(const void* q, const void* k_pool, const void* v_pool,
                                        const void* k_scale, const void* v_scale,
                                        const void* table, const void* lengths, void* o,
-                                       void* part, void* counters, int B, int H, int Hkv,
-                                       int dh, int P, int ps, int NP, int unit, int nsplit,
-                                       float scale, void* stream) {
+                                       void* part, void* counters, void* launches,
+                                       int B, int H, int Hkv, int dh, int P, int ps,
+                                       int NP, int unit, int nsplit, float scale,
+                                       void* stream) {
   if (ps <= 0 || NP <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
   const Paged addr{static_cast<const int*>(table), static_cast<const int*>(lengths),
                    Hkv, dh, P, ps, NP};
   return gofr_split::dispatch<gofr_split::KvInt8>(H, q, k_pool, v_pool, k_scale, v_scale,
-                                                  addr, o, part, counters, B, unit,
+                                                  addr, o, part, counters, launches, B, unit,
                                                   nsplit, scale, stream);
 }

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, launch_counts
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # the Pallas kernel's default block, which the plain version walks
@@ -230,6 +230,9 @@ def plan_split(B: int, Hkv: int, capacity: int, page_size=None,
     return max(1, min(want, units, SPLIT_MAX)), unit
 
 
+# (device index, stream) -> the counter buffers made for that stream, the
+# one in use last: a grown buffer does not free the old one, which a
+# captured CUDA graph may still read
 _counters: dict = {}
 
 
@@ -243,7 +246,13 @@ def split_scratch(q, Hkv: int, capacity: int, page_size=None,
     resets to 0, one zeroed int32 buffer per (device, stream), grown (one
     fill) when B * Hkv grows and never cleared per call. Two reads in
     flight at once share counters only on one stream, where they cannot
-    overlap; the engines read on one stream."""
+    overlap; the engines read on one stream.
+
+    Under CUDA graph capture the current stream is the one the graph is
+    captured on and replayed on: its counters must exist already (an eager
+    read on that stream before the capture makes them), or their zero-fill
+    would be captured into the graph and their memory taken from its pool.
+    Raises then."""
     B, H, dh = q.shape
     dev = q.device
     nsplit, unit = plan_split(
@@ -252,11 +261,15 @@ def split_scratch(q, Hkv: int, capacity: int, page_size=None,
     part = torch.empty((B, Hkv, nsplit, H // Hkv, dh + 2) if nsplit > 1
                        else (0,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    counters = _counters.get((dev.index, stream))
-    if counters is None or counters.numel() < B * Hkv:
-        counters = torch.zeros(B * Hkv, dtype=torch.int32, device=dev)
-        _counters[(dev.index, stream)] = counters
-    return nsplit, unit, part, counters
+    made = _counters.setdefault((dev.index, stream), [])
+    if not made or made[-1].numel() < B * Hkv:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "split read counters for this stream do not exist at "
+                f"capture (B * Hkv = {B * Hkv}): run the read once eagerly "
+                "on the capture stream first")
+        made.append(torch.zeros(B * Hkv, dtype=torch.int32, device=dev))
+    return nsplit, unit, part, made[-1]
 
 
 def check_kernel_inputs(who: str, q, kv, scales, ints) -> bool:
@@ -303,12 +316,14 @@ def check_kernel_inputs(who: str, q, kv, scales, ints) -> bool:
 
 def launch(entry: str, who: str, q, pointers, ints, scale: float):
     """Call C entry point `entry` on q's current stream with the data
-    pointers of `pointers` (output last), the ints and the softmax scale;
-    raise when the launch is refused."""
+    pointers of `pointers`, the kernel's launch counter (which the kernel
+    adds one to), the ints and the softmax scale; raise when the launch is
+    refused."""
     fn = _build.function(entry)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in pointers), *ints, scale, stream)
+        rc = fn(*(t.data_ptr() for t in pointers),
+                launch_counts.counter(entry, q.device), *ints, scale, stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: CUDA error {rc}")
 
@@ -348,9 +363,7 @@ def decode_attention_cuda(q, k_cache, v_cache, lengths):
     {1, 2, 4, 8}. Returns a new [B, H, dh] tensor. Raises on any other
     input, or when the launch is refused; never falls back. Reads on one
     stream (see ``split_scratch``)."""
-    o = _decode_cuda(q, k_cache, v_cache, lengths, None, None)
-    decode_attention_cuda.launches += 1
-    return o
+    return _decode_cuda(q, k_cache, v_cache, lengths, None, None)
 
 
 def decode_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths):
@@ -358,13 +371,7 @@ def decode_attention_q8_cuda(q, k_cache, v_cache, k_scale, v_scale, lengths):
     ``decode_attention_cuda`` (the same split read, one launch) with int8
     caches and [B, Hkv, S] float32 scales, dequantization folded into the
     read."""
-    o = _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale)
-    decode_attention_q8_cuda.launches += 1
-    return o
-
-
-decode_attention_cuda.launches = 0
-decode_attention_q8_cuda.launches = 0
+    return _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, launch_counts
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # keys per kv tile of the CUDA kernel: the plain version at this block size
@@ -137,6 +137,7 @@ def flash_attention_cuda(q, k, v, causal: bool, out=None):
             Hkv, T, S, dh, int(bool(causal)), 1.0 / math.sqrt(dh),
             *_strides("q", q), *_strides("k", k), *_strides("v", v),
             *_strides("out", out),
+            launch_counts.counter("flash_attention", q.device),
             torch.cuda.current_stream(q.device).cuda_stream)
     fn = _build.function("flash_attention")
     with torch.cuda.device(q.device):
@@ -144,11 +145,7 @@ def flash_attention_cuda(q, k, v, causal: bool, out=None):
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error "
                            f"{rc}")
-    flash_attention_cuda.launches += 1
     return out
-
-
-flash_attention_cuda.launches = 0
 
 
 def flash_attention(q, k, v, causal: bool = True):

@@ -124,9 +124,7 @@ def paged_attention_cuda(q, k_pool, v_pool, table, lengths):
     valid page id (0 is the garbage page); they are never read. Returns a
     new [B, H, dh] tensor. Raises on any other input, or when the launch is
     refused; never falls back."""
-    o = _paged_cuda(q, k_pool, v_pool, table, lengths, None, None)
-    paged_attention_cuda.launches += 1
-    return o
+    return _paged_cuda(q, k_pool, v_pool, table, lengths, None, None)
 
 
 def paged_attention_q8_cuda(q, k_pool, v_pool, k_scale, v_scale, table,
@@ -135,13 +133,7 @@ def paged_attention_q8_cuda(q, k_pool, v_pool, k_scale, v_scale, table,
     ``paged_attention_cuda`` (the same split read, one launch) with int8
     pools and [P, Hkv, ps] float32 scale pools, dequantization folded into
     the read."""
-    o = _paged_cuda(q, k_pool, v_pool, table, lengths, k_scale, v_scale)
-    paged_attention_q8_cuda.launches += 1
-    return o
-
-
-paged_attention_cuda.launches = 0
-paged_attention_q8_cuda.launches = 0
+    return _paged_cuda(q, k_pool, v_pool, table, lengths, k_scale, v_scale)
 
 
 def paged_attention(q, k_pool, v_pool, table, lengths, k_scale=None,

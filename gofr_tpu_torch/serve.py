@@ -24,8 +24,14 @@ reach MAX_SEQ_LEN), PREFIX_CACHE (true: the paged engine shares whole
 prompt-prefix pages between requests and prefills only the un-cached tail,
 as the reference does by default; the dense engine ignores it), MAX_BATCH
 (8), MAX_SEQ_LEN (1024), PREFILL_BUCKETS ("16,32,64,128,256"), HTTP_PORT
-(8000), REQUEST_TIMEOUT (5 s, for stream=false). Weights are random, from seed 0. Keys whose feature is not
-ported yet refuse to boot (NOT_PORTED below) rather than being ignored.
+(8000), REQUEST_TIMEOUT (5 s, for stream=false), ENGINE_ASYNC_D2H (true:
+each dispatch's tokens start their copy to the host when it is enqueued;
+false: at sync), WARMUP (true: capture every decode program serving can
+reach at boot, before the engine starts; false: capture each at its first
+use; wide, which also warms each prefill program's fused-admission widths,
+refuses to boot until prefill programs are captured, ROADMAP A11b). Weights
+are random, from seed 0. Keys whose feature is not ported yet refuse to
+boot (NOT_PORTED below) rather than being ignored.
 """
 
 from __future__ import annotations
@@ -89,7 +95,24 @@ NOT_PORTED = (
      "the BPE tokenizers wait in ROADMAP A13"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
+    ("WARMUP", lambda e: _warmup_mode(e) == "wide",
+     "WARMUP=wide warms the prefill programs' fused-admission widths; "
+     "prefill programs wait in ROADMAP A11b"),
 )
+
+
+def _warmup_mode(env: Mapping[str, str]) -> str:
+    """WARMUP as the reference reads it: "wide", a false value (no warm-up)
+    or a true one; raises ValueError on anything else."""
+    value = env.get("WARMUP", "true").strip().lower()
+    if value == "wide":
+        return "wide"
+    if value in _FALSE:
+        return "false"
+    if value in ("1", "true", "yes", "on"):
+        return "true"
+    raise ValueError(f"WARMUP must be true, wide or false, got "
+                     f"{env.get('WARMUP')!r}")
 
 
 # the reference's request classes (gofr_tpu/tpu/qos.py CLASSES); with QoS
@@ -131,11 +154,13 @@ def check_config(env: Mapping[str, str]) -> None:
 
 def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
                  params=None) -> LLMEngine:
-    """Engine from config keys (see the module docstring), started. device:
-    None = the CUDA card (raises without one); "cpu" for tests. params: an
-    already-built params dict for the preset (default: llama_init, seed 0).
-    On the card the kernels are built here, at boot, so no request pays the
-    compiler."""
+    """Engine from config keys (see the module docstring), warmed up and
+    started. device: None = the CUDA card (raises without one); "cpu" for
+    tests. params: an already-built params dict for the preset (default:
+    llama_init, seed 0). On the card the kernels are built here, at boot,
+    and then WARMUP captures every decode program serving can reach, so no
+    request pays the compiler or a capture. The engine's `warmup_seconds`
+    holds the warm-up's time (0.0 with WARMUP=false)."""
     env = dict(env or {})
     check_config(env)
     dev = resolve_device(device)
@@ -161,7 +186,9 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         _build.build(*_build.KERNELS)
     if params is None:
         params = llama_init(cfg, seed=0, device=dev)
+    warm = _warmup_mode(env) == "true"     # "wide" refused by check_config
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
+              async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
               prefill_buckets=tuple(int(b) for b in env.get(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
@@ -178,6 +205,11 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     engine.tokenizer = (DebugTokenizer(cfg.vocab_size)
                         if cfg.vocab_size > ByteTokenizer.vocab_size
                         else ByteTokenizer())
+    engine.warmup_seconds = 0.0
+    if warm:
+        t0 = time.monotonic()
+        engine.warmup()
+        engine.warmup_seconds = time.monotonic() - t0
     engine.start()
     return engine
 

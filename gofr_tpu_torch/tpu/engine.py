@@ -1,4 +1,4 @@
-"""Continuous-batching LLM engine: the lean host loop.
+"""Continuous-batching LLM engine: the pipelined host loop.
 
 Ports from ``gofr_tpu/tpu/engine.py``: ``GenerationRequest`` (``stream``,
 ``result``, ``cancel``, ``hit_stop``), ``_Slot``, ``_admission_split``, and
@@ -14,13 +14,34 @@ bucket), ``_grow_cache``, ``_decode_need``, ``_prefill_fn`` and
 ``_decode_fn``. JAX's ``_prefill_fn_q8`` and ``_decode_fn_q8`` are branches
 of those two here: eager PyTorch has no donated signatures to keep apart.
 
-What the JAX engine overlaps, this one runs one-deep and synchronously:
-each prefill or decode dispatch is followed at once by its host copy and
-demux. Waiting for later PRs (ROADMAP A11): the pipelined dispatch and
-async D2H, QoS, the step ledger, flight recorder and utilization ledger,
-fault injection, replay-after-reset and the reset-storm breaker, the
-off-loop finisher, draining and disaggregated hand-off. A failed dispatch
-here fails the requests it carried and the loop keeps serving.
+The dispatch layer is the reference's: up to ``pipeline_depth`` (4)
+dispatches in flight (the ``_inflight`` deque), the loop order of its
+``_loop`` (admit; dispatch decode blocks while fewer than pipeline_depth
+are in flight; sync the oldest; park only when nothing is in flight),
+``_bind_slots`` (its slot half: a prefill's rows are bound at dispatch),
+``_start_d2h`` (``async_d2h``, default True: the tokens' device-to-host
+copy starts at enqueue time into pinned memory, behind a CUDA event that
+``_sync_oldest`` waits on; with async_d2h=False the copy is made at sync),
+``_sync_oldest`` with its prefill and decode branches and the ``slot.request
+is not request`` guards for rows freed or cancelled between dispatch and
+sync, the in-flight-aware ``_decode_need``, the shutdown that drains
+``_inflight`` before it fails the rest, and ``warmup`` (decode part). Each
+decode block is one program of ``tpu/executor.Executor``, named as the
+reference names it, ``llama-decode[-q8]-x{block}-S{len}``: on the card a CUDA
+graph replayed in one launch, on the CPU the eager block. Prefills run
+eagerly (their graphs are ROADMAP A11b). Waiting for A11: QoS, the step
+ledger, flight recorder and utilization ledger, fault injection,
+replay-after-reset and the reset-storm breaker, the off-loop finisher,
+draining and disaggregated hand-off. A failed dispatch here fails the
+requests it carried and the loop keeps serving.
+
+Everything runs on ONE stream, the engine's, in dispatch order: prefills,
+decode replays, cache growth, the host copies. That order is what makes
+speculative decode of freed rows safe, as in the reference: a row freed at
+sync keeps "decoding" junk inside blocks already dispatched; its tokens are
+discarded at their sync (the slot's request changed) and its K/V writes
+land before anything dispatched later — a new occupant's prefill writes
+its window, and decode writes position p before reading it.
 
 As in JAX, ``LLMEngine`` is the dense-cache engine (``PAGED=false``): one
 [B, Hkv, dh, S] cache per layer, S grown by powers of two up to
@@ -34,6 +55,7 @@ layer above the cache.
 from __future__ import annotations
 
 import collections
+import contextlib
 import heapq
 import itertools
 import logging
@@ -50,7 +72,7 @@ from ..models.llama import (DTYPES, init_kv_cache_layers,
                             llama_decode_step_unrolled_q8, llama_prefill_last)
 from ..ops.decode_attention import quantize_kv
 from .device import resolve_device
-from .executor import next_bucket
+from .executor import Executor, next_bucket
 from .sampling import sample_tokens
 
 _request_ids = itertools.count(1)
@@ -160,8 +182,12 @@ class LLMEngine:
     dense per-slot KV cache. The host loop (admission, decode blocks,
     demux) is shared with subclasses, which override
     ``_init_device_state``, ``_dispatch_prefill`` (returns the [K] first
-    tokens on the device) and ``_dispatch_decode`` (returns the [B, block]
-    tokens on the device)."""
+    tokens on the device) and ``_run_decode`` (returns the [B, block]
+    tokens on the device).
+
+    pipeline_depth: dispatches kept in flight (the reference's default 4).
+    async_d2h: start each dispatch's device-to-host token copy at enqueue
+    time."""
 
     STOP_JOIN_S = 30.0
     # the paged subclass reads through its paged kernel whatever
@@ -172,7 +198,9 @@ class LLMEngine:
                  max_seq_len: Optional[int] = None,
                  prefill_buckets: Sequence[int] = (16, 32, 64, 128, 256, 512,
                                                    1024),
-                 top_k: int = 0, decode_block_size: int = 16, seed: int = 0,
+                 top_k: int = 0, decode_block_size: int = 16,
+                 pipeline_depth: int = 4, async_d2h: bool = True,
+                 seed: int = 0,
                  device=None, logger: Optional[logging.Logger] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -213,6 +241,8 @@ class LLMEngine:
                              "'kernel' (no efficient XLA dequant read)")
         self.top_k = top_k
         self.decode_block_size = max(1, decode_block_size)
+        self.pipeline_depth = max(1, pipeline_depth)
+        self.async_d2h = bool(async_d2h)
         self._seed = seed
         self.slots = [_Slot() for _ in range(n_slots)]
         # arrivals (thread-safe) and the loop-owned admission heap of
@@ -223,6 +253,19 @@ class LLMEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # dispatched, not yet synced: (kind, host fetch, rows, block) with
+        # kind "prefill" (rows: the admitted (slot, request) pairs) or
+        # "decode" (rows: the active pairs at dispatch)
+        self._inflight: collections.deque = collections.deque()
+        # the engine's one stream on the card (dispatch order is execution
+        # order); None on the CPU
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        # the program cache, on this engine's device and stream
+        self.executor = Executor(self.device, stream=self._stream)
+        # pinned [n_slots * decode_block_size] int64 buffers free for a
+        # token copy (taken at dispatch, given back at sync)
+        self._host_free: List[torch.Tensor] = []
         # dispatch counts (loop-thread writes): what a run can show about
         # the kernels it went through. Full-window prefill waves (flash on
         # the card) and the paged engine's tail-only prefix-hit waves are
@@ -232,7 +275,12 @@ class LLMEngine:
         self.prefix_dispatches = 0
         self.prefix_shapes: collections.Counter = collections.Counter()
         self.decode_steps = 0
+        self.decode_blocks = 0
+        # the most dispatches in flight at once
+        self.max_inflight = 0
         self._init_device_state()
+        if self._stream is not None:   # the state was made on the default one
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     # -- device state ---------------------------------------------------------
     def _init_device_state(self) -> None:
@@ -274,6 +322,14 @@ class LLMEngine:
                       1 << (max(needed, 16) - 1).bit_length())
         if new_len <= self._cache_len:
             return
+        if self._stream is not None:
+            # the in-flight blocks read the old buffers, which were made
+            # on another stream: let them finish before the buffers go
+            self._stream.synchronize()
+        # the programs of the old length read buffers that are going
+        self.executor.drop(lambda name: name in {
+            self._decode_program_name(b, self._cache_len)
+            for b in self._block_sizes()})
         buffers = [self.k_cache, self.v_cache]
         if self._q8:
             buffers += [self.k_scale, self.v_scale]
@@ -289,12 +345,15 @@ class LLMEngine:
         self.logger.debug("grew KV cache to %d", new_len)
 
     def _decode_need(self) -> int:
-        """Cache length every active row needs after this dispatch: one
-        block past the longest live context (one-deep dispatch: nothing
-        else is in flight)."""
+        """Cache length every active row needs after this dispatch.
+
+        Host-side slot.length lags the device by the pipelined in-flight
+        dispatches, so budget a block for each outstanding dispatch plus
+        this one."""
         longest = max((slot.length for slot in self.slots if slot.active),
                       default=0)
-        return longest + self.decode_block_size + 1
+        outstanding = len(self._inflight) + 1
+        return longest + self.decode_block_size * outstanding + 1
 
     # -- programs -------------------------------------------------------------
     def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
@@ -310,10 +369,8 @@ class LLMEngine:
         lengths = np.asarray([len(r.prompt_tokens) for r in batch],
                              dtype=np.int32)
         temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
-        dev = self.device
-        return (torch.from_numpy(ptokens).to(dev),
-                torch.from_numpy(lengths).to(dev),
-                torch.from_numpy(temps).to(dev))
+        return (self._to_device(ptokens), self._to_device(lengths),
+                self._to_device(temps))
 
     def _prefill_window(self, ptokens, lengths):
         """Forward a [K, bucket] admission window into fresh [L, K, Hkv, dh,
@@ -388,21 +445,134 @@ class LLMEngine:
                     params, cfg, tok, pos, self.k_cache, self.v_cache)[0]
         return self._decode_loop(step, block)
 
+    def _block_sizes(self) -> List[int]:
+        """The decode blocks dispatched: full, and half under admission
+        pressure (_decode_block_now)."""
+        return sorted({self.decode_block_size,
+                       max(1, self.decode_block_size // 2)}, reverse=True)
+
+    def _decode_program_name(self, block: int, cache_len: int) -> str:
+        if self._q8:
+            return f"llama-decode-q8-x{block}-S{cache_len}"
+        suffix = "-kern" if self.cfg.decode_attn == "kernel" else ""
+        return f"llama-decode-x{block}-S{cache_len}{suffix}"
+
+    def _decode_program(self, block: int):
+        """The `block`-step decode program at the cache's current length:
+        one CUDA graph per (block, length) on the card."""
+        return self.executor.compile(
+            self._decode_program_name(block, self._cache_len),
+            lambda: self._decode_fn(block),
+            warmup=lambda: self._warmup_state(block),
+            generators=(self.generator,))
+
+    @contextlib.contextmanager
+    def _warmup_state(self, block: int, inputs=()):
+        """Around the eager run before a capture, which writes K/V and
+        advances the tokens, positions and generator: those three are
+        saved and restored, and ``_make_harmless`` points the run's writes
+        where no live row reads."""
+        tokens, positions = self._tokens.clone(), self._positions.clone()
+        rng = self.generator.get_state()
+        self._make_harmless(inputs)
+        try:
+            yield
+        finally:
+            self._tokens.copy_(tokens)
+            self._positions.copy_(positions)
+            self.generator.set_state(rng)
+
+    def _make_harmless(self, inputs) -> None:
+        """Dense: every row at position S - 1. A row writes a position
+        before it reads it, so no live row reads what the run leaves
+        there (writes past S - 1 clamp to it)."""
+        self._positions.fill_(self._cache_len - 1)
+
+    def warmup(self) -> None:
+        """Capture every decode program serving can reach, so no capture
+        stalls the loop later (the reference's ``warmup``, decode part;
+        prefill graphs wait for ROADMAP A11b). Call it before start(): a
+        capture must not race the loop."""
+        if self._thread is not None:
+            raise RuntimeError("warmup() runs before start()")
+        with torch.no_grad(), self._stream_ctx():
+            self._warm_programs()
+
+    def _warm_programs(self) -> None:
+        """Dense: grow the cache to max_seq_len, the last length it can
+        reach (the reference grows to the largest bucket; each later growth
+        would capture the block again, mid-serving), then the full and the
+        half block at that length."""
+        self._grow_cache(self.max_seq_len)
+        for block in self._block_sizes():
+            self._decode_program(block)
+
+    # -- host <-> device ------------------------------------------------------
+    def _stream_ctx(self):
+        """The engine's stream as the current one (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A host array on the device without waiting for the stream: on
+        the card through pinned memory, copied on the current stream (the
+        caching host allocator keeps the pinned block until the copy is
+        done)."""
+        host = torch.from_numpy(array)
+        if self._stream is None:
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _start_d2h(self, out: torch.Tensor):
+        """Start a dispatch output's copy to the host at enqueue time (the
+        reference's ``_start_d2h``): into a pinned buffer, non_blocking,
+        with an event recorded behind it, so the sync is a completion check.
+        With async_d2h=False the copy is made at sync, from a device clone
+        taken now: a program's output is overwritten by its next call. On
+        the CPU the output is host memory already. Returns what
+        ``_fetch_host`` takes."""
+        if self._stream is None:
+            return out
+        if not self.async_d2h:
+            return out.clone()
+        buf = (self._host_free.pop() if self._host_free else torch.empty(
+            self.n_slots * self.decode_block_size, dtype=torch.long,
+            pin_memory=True))
+        host = buf[:out.numel()].view(out.shape)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return buf, host, done
+
+    def _fetch_host(self, fetch) -> np.ndarray:
+        """The dispatch output behind `fetch` as a numpy array, waiting for
+        the device where it has to."""
+        if isinstance(fetch, tuple):
+            buf, host, done = fetch
+            done.synchronize()
+            out = host.numpy().copy()
+            self._host_free.append(buf)
+            return out
+        return fetch.cpu().numpy()
+
     # -- dispatch -------------------------------------------------------------
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
         if bucket + 1 > self._cache_len:   # prompts must land inside the cache
             self._grow_cache(bucket + 1)
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
-        slots = torch.as_tensor(slots_idx, dtype=torch.long,
-                                device=self.device)
+        slots = self._to_device(np.asarray(slots_idx, dtype=np.int64))
         return self._prefill_fn(ptokens, slots, lengths, temps)
 
-    def _dispatch_decode(self, block: int) -> torch.Tensor:
+    def _run_decode(self, block: int) -> torch.Tensor:
+        """Dispatch one `block`-step decode program over the dense caches
+        (grown first to what the active rows need); returns its [B, block]
+        output on the device."""
         need = self._decode_need()
         if need > self._cache_len:
             self._grow_cache(need)
-        return self._decode_fn(block)
+        return self._decode_program(block)()
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True
@@ -497,24 +667,42 @@ class LLMEngine:
 
     # -- loop -----------------------------------------------------------------
     def _loop(self) -> None:
-        with torch.no_grad():
-            while not self._stop.is_set():
+        while not self._stop.is_set():
+            synced = False
+            try:
+                synced = self._step()
+            except Exception:  # noqa: BLE001 - the loop must keep serving
+                self.logger.exception("engine step failed")
+            if not synced and not self._inflight:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+        # graceful shutdown: finish what was already dispatched, then fail
+        # requests still mid-generation so no client blocks on result()
+        with torch.no_grad(), self._stream_ctx():
+            while self._inflight:
                 try:
-                    self._admit()
-                    busy = any(slot.active for slot in self.slots)
-                    if busy:
-                        self._decode()
-                except Exception:  # noqa: BLE001 - the loop must keep serving
-                    self.logger.exception("engine step failed")
-                    busy = False
-                if not busy:
-                    self._wake.wait(timeout=0.05)
-                    self._wake.clear()
-            stop_exc = RuntimeError("engine stopped")
-            for slot in self.slots:
-                if slot.active:
-                    slot.request.error = stop_exc
-                    self._finish_slot(slot)
+                    self._sync_oldest()
+                except Exception:  # noqa: BLE001 - fail the rest below
+                    self.logger.exception("engine sync failed at stop")
+        stop_exc = RuntimeError("engine stopped")
+        for slot in self.slots:
+            if slot.active:
+                slot.request.error = stop_exc
+                self._finish_slot(slot)
+
+    def _step(self) -> bool:
+        """One loop iteration in the reference's order: admit; dispatch
+        decode blocks while fewer than pipeline_depth dispatches are in
+        flight; sync the oldest dispatch. Returns whether it synced one."""
+        with torch.no_grad(), self._stream_ctx():
+            self._admit()
+            while (len(self._inflight) < self.pipeline_depth
+                   and any(slot.active for slot in self.slots)):
+                self._dispatch_decode()
+            if not self._inflight:
+                return False
+            self._sync_oldest()
+            return True
 
     def _is_cancelled(self, request: GenerationRequest) -> bool:
         return request.cancelled.is_set()
@@ -559,12 +747,12 @@ class LLMEngine:
 
     def _prefill(self, bucket: int, slots_idx: List[int],
                  batch: List[GenerationRequest]) -> None:
-        """One fused prefill dispatch, synced at once: bind the slots and
-        their pages, emit the first tokens, finish the rows that are already
-        done. A failure fails this wave only."""
+        """One fused prefill dispatch: bind the slots and their pages now;
+        the first tokens are emitted at its sync. A failure at dispatch
+        fails this wave only."""
         tail_only = self._tail_only(batch)
         try:
-            first = self._dispatch_prefill(bucket, slots_idx, batch).tolist()
+            first = self._dispatch_prefill(bucket, slots_idx, batch)
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
             self.logger.error("prefill wave of %d failed: %s", len(batch), exc)
             for request in batch:
@@ -578,16 +766,26 @@ class LLMEngine:
             self.prefill_dispatches += 1
             self.prefill_shapes[(len(batch), bucket)] += 1
         self._assign_pages(slots_idx, batch)
+        self._bind_slots(slots_idx, batch, first)
+
+    def _bind_slots(self, slots_idx: List[int],
+                    batch: List[GenerationRequest], first) -> None:
+        """Bind a dispatched wave's rows to their slots (length: the prompt,
+        whose KV the wave writes; remaining: the budget past the first
+        token) and queue it for sync, its D2H started."""
+        fetch = self._start_d2h(first)
+        admitted = []
         for row, request in enumerate(batch):
             slot = self.slots[slots_idx[row]]
             slot.request = request
             slot.length = len(request.prompt_tokens)
             slot.remaining = request.max_new_tokens - 1
-            token = int(first[row])
-            self._emit_block(request, [token])
-            if (request.hit_stop(token) or slot.remaining <= 0
-                    or self._is_cancelled(request)):
-                self._finish_slot(slot)
+            admitted.append((slots_idx[row], request))
+        self._push(("prefill", fetch, admitted, 1))
+
+    def _push(self, entry) -> None:
+        self._inflight.append(entry)
+        self.max_inflight = max(self.max_inflight, len(self._inflight))
 
     def _assign_pages(self, slots_idx: List[int],
                       batch: List[GenerationRequest]) -> None:
@@ -601,19 +799,50 @@ class LLMEngine:
             return max(1, self.decode_block_size // 2)
         return self.decode_block_size
 
-    def _decode(self) -> None:
+    def _dispatch_decode(self) -> None:
+        """Dispatch one decode block over the active rows, its D2H started.
+        A failure at dispatch fails the rows it carried."""
         block = self._decode_block_now()
-        live = [(i, slot.request) for i, slot in enumerate(self.slots)
-                if slot.active]
+        snapshot = [(i, slot.request) for i, slot in enumerate(self.slots)
+                    if slot.active]
         try:
-            tokens_host = self._dispatch_decode(block).cpu().numpy()
+            fetch = self._start_d2h(self._run_decode(block))
         except Exception as exc:  # noqa: BLE001 - fail the block, keep serving
             self.logger.error("decode block failed: %s", exc)
-            for i, request in live:
+            for i, request in snapshot:
                 request.error = exc
                 self._finish_slot(self.slots[i])
             return
         self.decode_steps += block
+        self.decode_blocks += 1
+        self._push(("decode", fetch, snapshot, block))
+
+    def _sync_oldest(self) -> None:
+        """Wait for the oldest dispatch and deliver it: a prefill's first
+        tokens, or a decode block demuxed per row. Rows whose slot was
+        freed or re-bound since the dispatch are skipped."""
+        kind, fetch, rows, block = self._inflight.popleft()
+        try:
+            tokens_host = self._fetch_host(fetch)
+        except Exception as exc:  # noqa: BLE001 - fail its rows, keep serving
+            self.logger.error("%s dispatch failed at sync: %s", kind, exc)
+            for i, request in rows:
+                if self.slots[i].request is request:
+                    request.error = exc
+                    self._finish_slot(self.slots[i])
+            return
+        if kind == "prefill":
+            for row, (slot_idx, request) in enumerate(rows):
+                slot = self.slots[slot_idx]
+                if slot.request is not request:  # cancelled since dispatch
+                    continue
+                token = int(tokens_host[row])
+                self._emit_block(request, [token])
+                if (request.hit_stop(token) or slot.remaining <= 0
+                        or self._is_cancelled(request)):
+                    self._finish_slot(slot)
+            return
+        live = [(i, r) for i, r in rows if self.slots[i].request is r]
         counts, finishes = self._demux_plan(
             tokens_host, [i for i, _ in live], [r for _, r in live],
             [block] * len(live))

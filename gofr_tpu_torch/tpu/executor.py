@@ -1,14 +1,45 @@
-"""Prompt-length bucketing.
+"""Prompt-length bucketing and the program cache.
 
 Ports ``next_bucket`` and ``DEFAULT_BUCKETS`` from
-``gofr_tpu/tpu/executor.py``. PyTorch runs eagerly, so the JAX executor's
-compile cache has no counterpart yet; capturing the step programs as CUDA
-graphs is ROADMAP A11.
+``gofr_tpu/tpu/executor.py``, and of its ``Executor`` what the engines use:
+``compile(name, fn, static_inputs)``, calling the program, ``cache_size()``
+and ``cache_info()``. The JAX executor compiles one XLA program per name and
+shape; here a program is, on ``cuda``, a ``torch.cuda.CUDAGraph`` captured
+once per name and replayed, and on ``cpu`` (only ever the tests' explicit
+choice) the eager callable itself.
+
+A captured program reads and writes fixed buffers: its ``inputs`` (the
+caller fills them before each call; they stay the same tensors for the
+program's life), the tensors ``fn`` closes over (the engine's caches and
+loop state, updated in place) and its ``output``, which the next call
+overwrites. Capture on the card goes:
+
+1. ``fn`` runs once eagerly on the capture stream, inside the caller's
+   ``warmup`` context (which puts the state it writes into a harmless one
+   and restores it after). That run does the one-time work a capture must
+   not: cuBLAS handles and workspaces, the kernels' shared-memory opt-ins
+   (``cudaFuncSetAttribute``), the split reads' tickets, the kernels'
+   launch counters.
+2. The generators ``fn`` draws from are registered with the graph, and
+   ``fn`` runs again under ``torch.cuda.graph`` on the same stream, all
+   graphs sharing one memory pool, with Python's cycle collector held off.
+   Nothing executes during a capture.
+
+A capture that fails raises; there is no eager fallback on the card.
+
+A replay runs no Python, so the kernels count their launches themselves,
+on the card (``ops/launch_counts.py``): a replayed kernel counts as an
+eager one does, and the warm-up run's kernels count too.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import gc
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -19,3 +50,136 @@ def next_bucket(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
         if n <= b:
             return b
     raise ValueError(f"size {n} exceeds largest bucket {buckets[-1]}")
+
+
+class Program:
+    """One cached program. ``program()`` runs it and returns its output;
+    ``inputs`` are its static input buffers. Each call counts in its own
+    ``calls`` and its executor's."""
+
+    def __init__(self, name: str, inputs: Tuple[torch.Tensor, ...],
+                 run: Callable[[], torch.Tensor], owner: "Executor"):
+        self.name = name
+        self.inputs = inputs
+        self._run = run
+        self._owner = owner
+        self.calls = 0
+        # seconds of the capture, its eager warm-up run included
+        self.capture_seconds = 0.0
+
+    def __call__(self) -> torch.Tensor:
+        out = self._run()
+        self.calls += 1
+        self._owner.calls += 1
+        return out
+
+
+def _graph_capture(pool, stream, generators):
+    """The card's capture: fn under torch.cuda.graph on `stream`, sharing
+    `pool`, with `generators` registered. Returns a replay that gives the
+    static output."""
+
+    def capture(fn, inputs):
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            # raises where this torch cannot replay a generator's draws
+            graph.register_generator_state(gen)
+        # Python's cycle collector must not run inside the capture: freeing
+        # an unreachable object's CUDA graph or memory there is an
+        # operation a capture forbids, and it invalidates the capture. So
+        # collect now and hold the collector off until the capture ends.
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                out = fn(*inputs)
+        finally:
+            if enabled:
+                gc.enable()
+
+        def replay():
+            graph.replay()
+            return out
+        return replay
+    return capture
+
+
+class Executor:
+    """Capture-once, call-many cache of named programs on one device.
+
+    device: where the programs run. stream: the stream a card's programs
+    are captured on and must be replayed on (the engine's). capture:
+    replaces the card's CUDA graph capture; ``capture(fn, inputs)`` returns
+    a callable that runs the program and returns its output (the tests'
+    stub on the CPU). With neither a card nor `capture`, a program is the
+    eager callable."""
+
+    def __init__(self, device, stream=None, capture=None):
+        self.device = torch.device(device)
+        self.stream = stream
+        self._capture = capture
+        self._pool = None
+        self._cache: Dict[str, Program] = {}
+        # program calls, dropped programs' included
+        self.calls = 0
+        # every name compiled, in order (a dropped program's included)
+        self.compiled: List[str] = []
+        self.captures = 0
+        self.capture_seconds = 0.0
+
+    @property
+    def captured(self) -> bool:
+        """Whether programs are captured (the card, or a stub) rather than
+        called eagerly."""
+        return self._capture is not None or self.device.type == "cuda"
+
+    def compile(self, name: str, fn: Callable[..., torch.Tensor],
+                static_inputs: Sequence[torch.Tensor] = (),
+                warmup: Optional[Callable[[], contextlib.AbstractContextManager]]
+                = None, generators: Sequence[torch.Generator] = ()
+                ) -> Program:
+        """The program `name`, captured from ``fn(*static_inputs)`` at its
+        first use. warmup: a context manager factory around the eager run
+        before the capture; generators: those ``fn`` draws from."""
+        program = self._cache.get(name)
+        if program is not None:
+            return program
+        inputs = tuple(static_inputs)
+        if not self.captured:
+            program = Program(name, inputs, lambda: fn(*inputs), self)
+        else:
+            t0 = time.monotonic()
+            program = self._capture_program(name, fn, inputs, warmup,
+                                            generators)
+            program.capture_seconds = time.monotonic() - t0
+            self.captures += 1
+            self.capture_seconds += program.capture_seconds
+        self._cache[name] = program
+        self.compiled.append(name)
+        return program
+
+    def _capture_program(self, name, fn, inputs, warmup, generators):
+        with warmup() if warmup is not None else contextlib.nullcontext():
+            fn(*inputs)
+        capture = self._capture
+        if capture is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            capture = _graph_capture(self._pool, self.stream, generators)
+        return Program(name, inputs, capture(fn, inputs), self)
+
+    def drop(self, predicate: Callable[[str], bool]) -> int:
+        """Forget the programs whose name satisfies `predicate` (their
+        buffers are gone); returns how many."""
+        names = [n for n in self._cache if predicate(n)]
+        for n in names:
+            del self._cache[n]
+        return len(names)
+
+    def cache_size(self) -> int:
+        return len(self._cache)
+
+    def cache_info(self) -> Dict[str, int]:
+        """{program name: calls}."""
+        return {name: p.calls for name, p in self._cache.items()}

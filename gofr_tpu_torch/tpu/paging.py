@@ -18,10 +18,31 @@ the model dtype, or int8 with f32 scale pools [L, P, Hkv, page_size] under
 kv_dtype='int8'; a slot owns ceil((prompt + max_new) / page_size) pages,
 mapped by a block table. The JAX engine donates the pools and the loop
 state (tokens, positions, temperatures) to every program; here they are
-persistent tensors updated in place. Not ported yet: chunked prefill and
-speculative verify (ROADMAP A10), KV tiering, disaggregated hand-off and
-migration (A11), and with them the prefix paths that serve them (the
-restore from a KV tier, dropping a hit whose tail would chunk).
+persistent tensors updated in place.
+
+Decode runs through the program cache (tpu/executor.py): one program per
+(table width, block), named as ``paging.py`` names them,
+``llama-paged-decode[-q8]-x{block}-NP{n_table}`` — on the card a CUDA graph.
+The block table reaches it through a static device buffer per width,
+filled before each replay by a host-to-device copy on the engine's stream
+from a pinned staging buffer of a ring of pipeline_depth + 1 (a buffer is
+reused only once the copy out of it is done). ``warmup`` captures every
+width a decode can reach. Prefill and the tail prefill run eagerly
+(their graphs are ROADMAP A11b).
+
+Pages are released at sync, while younger dispatched blocks may still hold
+the freed pages in their tables (a finished row keeps decoding junk into
+its old pages). That is safe only because everything runs on the engine's
+ONE stream in dispatch order, the argument of ``gofr_tpu/tpu/engine.py``'s
+docstring: those blocks' writes land before the prefill of whichever
+request is handed the pages next, and a row never reads a position it has
+not written. A prefix hit may likewise share pages whose prefill is queued
+but has not run; its tail prefill is queued after it.
+
+Not ported yet: chunked prefill and speculative verify (ROADMAP A10), KV
+tiering, disaggregated hand-off and migration (A11), and with them the
+prefix paths that serve them (the restore from a KV tier, dropping a hit
+whose tail would chunk).
 """
 
 from __future__ import annotations
@@ -117,6 +138,11 @@ class PagedLLMEngine(LLMEngine):
         self.prefix = PrefixCache(ps) if self._prefix_enabled else None
         # request id -> its matched prefix pages (ref'd), until assigned
         self._prefix_hits: Dict[int, List[int]] = {}
+        # width -> the static [B, width] table buffer of its programs; the
+        # pinned staging ring (made at the first upload on the card)
+        self._tables: Dict[int, torch.Tensor] = {}
+        self._table_ring: List[tuple] = []
+        self._table_next = 0
         dev = self.device
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, cfg.head_dim, ps)
         dtype = torch.int8 if self._q8 else DTYPES[cfg.dtype]
@@ -270,6 +296,64 @@ class PagedLLMEngine(LLMEngine):
                 self.k_cache, self.v_cache, ptable, project_last)[0]
         return self._splice_loop_state(last, slots, lengths, new_temps)
 
+    def _decode_program_paged(self, n_table: int, block: int):
+        """The `block`-step paged decode program at table width n_table; its
+        one static input is that width's [B, n_table] table buffer."""
+        table = self._tables.get(n_table)
+        if table is None:
+            table = torch.zeros((self.n_slots, n_table), dtype=torch.int32,
+                                device=self.device)
+            self._tables[n_table] = table
+        kind = "-q8" if self._q8 else ""
+        return self.executor.compile(
+            f"llama-paged-decode{kind}-x{block}-NP{n_table}",
+            lambda t: self._decode_fn_paged(t, block), (table,),
+            warmup=lambda: self._warmup_state(block, (table,)),
+            generators=(self.generator,))
+
+    def _make_harmless(self, inputs) -> None:
+        """Paged: an all-zero table, so every write lands on the garbage
+        page 0."""
+        inputs[0].zero_()
+
+    def _warm_programs(self) -> None:
+        """Paged: every table width a decode can reach (dispatch uses
+        pow2(widest pages + 1): 2, 4, ... up to max_seq_len's pages + 1;
+        the reference warms only the first admissions' width, and each
+        other one would capture mid-serving), at the full and the half
+        block."""
+        width, widest = 2, _pow2_at_least(
+            self.allocator.pages_for(self.max_seq_len) + 1)
+        widths = []
+        while width <= widest:
+            widths.append(width)
+            width *= 2
+        for width in widths:
+            for block in self._block_sizes():
+                self._decode_program_paged(width, block)
+
+    def _upload_table(self, dst: torch.Tensor, table: np.ndarray) -> None:
+        """Enqueue the copy of `table` into the static buffer `dst`: on the
+        card from the next staging buffer of the pinned ring, waiting first
+        (in practice never) for the copy that last used it."""
+        if self._stream is None:
+            dst.copy_(torch.from_numpy(table))
+            return
+        if not self._table_ring:
+            width = _pow2_at_least(self.allocator.pages_for(
+                self.max_seq_len) + 1)
+            self._table_ring = [
+                (torch.empty(self.n_slots * width, dtype=torch.int32,
+                             pin_memory=True), torch.cuda.Event())
+                for _ in range(self.pipeline_depth + 1)]
+        buf, done = self._table_ring[self._table_next]
+        self._table_next = (self._table_next + 1) % len(self._table_ring)
+        done.synchronize()
+        staged = buf[:table.size].view(table.shape)
+        staged.numpy()[...] = table
+        dst.copy_(staged, non_blocking=True)
+        done.record(self._stream)
+
     def _decode_fn_paged(self, table, block: int):
         """`block` paged decode steps (the int8 step under kv_dtype='int8');
         table [B, n_table]. Returns the [B, block] sampled tokens and
@@ -312,10 +396,9 @@ class PagedLLMEngine(LLMEngine):
             prompt_pages = self._reservations[request.id][:n_ptable]
             ptable[row, :len(prompt_pages)] = prompt_pages
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
-        dev = self.device
         return self._prefill_fn(
-            ptokens, torch.from_numpy(ptable).to(dev),
-            torch.as_tensor(slots_idx, dtype=torch.long, device=dev),
+            ptokens, self._to_device(ptable),
+            self._to_device(np.asarray(slots_idx, dtype=np.int64)),
             lengths, temps)
 
     def _dispatch_prefill_prefix(self, bucket: int, slots_idx: List[int],
@@ -334,13 +417,14 @@ class PagedLLMEngine(LLMEngine):
             ptable[row, :len(pages)] = pages
         ptokens, lengths, temps = self._prep_admission(bucket, batch,
                                                        prefix_lens)
-        dev = self.device
         return self._prefix_fn(
-            ptokens, torch.from_numpy(ptable).to(dev),
-            torch.as_tensor(prefix_lens, dtype=torch.int32, device=dev),
-            torch.as_tensor(slots_idx, dtype=torch.long, device=dev),
+            ptokens, self._to_device(ptable),
+            self._to_device(np.asarray(prefix_lens, dtype=np.int32)),
+            self._to_device(np.asarray(slots_idx, dtype=np.int64)),
             lengths, temps)
 
-    def _dispatch_decode(self, block: int) -> torch.Tensor:
-        table = torch.from_numpy(self._build_table()).to(self.device)
-        return self._decode_fn_paged(table, block)
+    def _run_decode(self, block: int) -> torch.Tensor:
+        table = self._build_table()
+        program = self._decode_program_paged(table.shape[1], block)
+        self._upload_table(program.inputs[0], table)
+        return program()

@@ -6,6 +6,16 @@ temperature plane and the static engine-wide ``top_k``/``top_p`` caps; the
 argmax. Sampling draws from an explicit ``torch.Generator``: it cannot give
 ``jax.random``'s numbers, so tests hold sampled rows to the set the filters
 allow, not to JAX's tokens.
+
+Inside a decode block captured as a CUDA graph (tpu/executor.py) the draws
+stay graph-safe: the engine's generator, not the default one, is
+registered with each graph before its capture
+(``CUDAGraph.register_generator_state``), so every replay draws at the
+generator's current Philox offset and advances it, as an eager call does.
+Greedy rows never read the draw. Sampled rows keep their distribution, and
+their numbers do not change: a replay draws what the eager block draws
+from the same generator state (``chip_smoke.py``'s ``check graph`` lines,
+at temperature 0.7).
 """
 
 from __future__ import annotations

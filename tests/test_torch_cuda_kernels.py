@@ -24,6 +24,7 @@ from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
                                                 flash_attention,
                                                 flash_attention_cuda,
                                                 flash_attention_plain)
+from gofr_tpu_torch.ops.launch_counts import counts as launch_counts
 from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
                                                 paged_attention_plain,
                                                 paged_attention_q8_cuda,
@@ -75,9 +76,9 @@ def test_flash_kernel_matches_plain(cuda, T, S, dh, causal, heads):
     gen = torch.Generator(device=cuda).manual_seed(T)
     q = _randn(gen, cuda, B, H, T, dh)
     k, v = _randn(gen, cuda, B, Hkv, S, dh), _randn(gen, cuda, B, Hkv, S, dh)
-    before = flash_attention_cuda.launches
+    before = launch_counts()["flash_attention"]
     got = flash_attention_cuda(q, k, v, causal)
-    assert flash_attention_cuda.launches == before + 1
+    assert launch_counts()["flash_attention"] == before + 1
     want = flash_attention_plain(q, k, v, causal, KERNEL_BLOCK_KV)
     _assert_agrees(got, want)
 
@@ -85,9 +86,9 @@ def test_flash_kernel_matches_plain(cuda, T, S, dh, causal, heads):
 def test_flash_dispatch_uses_the_kernel_on_cuda(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (_randn(gen, cuda, 1, 50, 4, 64) for _ in range(3))
-    before = flash_attention_cuda.launches
+    before = launch_counts()["flash_attention"]
     out = flash_attention(q, k, v, True)
-    assert flash_attention_cuda.launches == before + 1
+    assert launch_counts()["flash_attention"] == before + 1
     assert out.shape == q.shape
     with pytest.raises(TypeError):
         flash_attention(q.float(), k.float(), v.float(), True)
@@ -100,9 +101,9 @@ def test_flash_reads_and_writes_the_model_layout_in_place(cuda, dh):
     gen = torch.Generator(device=cuda).manual_seed(dh)
     q = _randn(gen, cuda, 2, 130, 8, dh)
     k, v = _randn(gen, cuda, 2, 130, 2, dh), _randn(gen, cuda, 2, 130, 2, dh)
-    before = flash_attention_cuda.launches
+    before = launch_counts()["flash_attention"]
     out = flash_attention(q, k, v, True)
-    assert flash_attention_cuda.launches == before + 1
+    assert launch_counts()["flash_attention"] == before + 1
     assert out.shape == q.shape and out.is_contiguous()
     want = flash_attention_cuda(*(t.transpose(1, 2).contiguous()
                                   for t in (q, k, v)), True)
@@ -157,9 +158,9 @@ def test_paged_q8_kernel_matches_plain(cuda, ps):
     k8, ks = quantize_kv(_randn(gen, cuda, P, 8, 128, ps))
     v8, vs = quantize_kv(_randn(gen, cuda, P, 8, 128, ps))
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    before = paged_attention_q8_cuda.launches
+    before = launch_counts()["paged_attention_q8"]
     got = paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens)
-    assert paged_attention_q8_cuda.launches == before + 1
+    assert launch_counts()["paged_attention_q8"] == before + 1
     want = paged_attention_plain(q, k8, v8, table, lens, ks, vs)
     _assert_agrees(got, want)
     assert bool((got[-1] == 0).all())
@@ -196,12 +197,13 @@ def test_decode_dispatch_uses_the_kernels_on_cuda(cuda):
     q = _randn(gen, cuda, 2, 8, 64)
     k, v = _randn(gen, cuda, 2, 2, 64, 40), _randn(gen, cuda, 2, 2, 64, 40)
     lens = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
-    f0, q0 = decode_attention_cuda.launches, decode_attention_q8_cuda.launches
+    before = launch_counts()
     decode_attention(q, k, v, lens)
     (k8, ks), (v8, vs) = quantize_kv(k), quantize_kv(v)
     decode_attention(q, k8, v8, lens, ks, vs)
-    assert decode_attention_cuda.launches == f0 + 1
-    assert decode_attention_q8_cuda.launches == q0 + 1
+    after = launch_counts()
+    assert after["decode_attention"] == before["decode_attention"] + 1
+    assert after["decode_attention_q8"] == before["decode_attention_q8"] + 1
     with pytest.raises(TypeError):
         decode_attention(q.float(), k.float(), v.float(), lens)
 
@@ -250,20 +252,20 @@ def test_paged_split_matches_reference(cuda, ps, B, quantized):
     lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
     if quantized:
         (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
-        counter = paged_attention_q8_cuda
+        counter = "paged_attention_q8"
 
         def read(n):
             return paged_attention_q8_cuda(q, k8, v8, ks, vs, table, n)
         want = paged_attention_plain(q, k8, v8, table, lens, ks, vs)
     else:
-        counter = paged_attention_cuda
+        counter = "paged_attention"
 
         def read(n):
             return paged_attention_cuda(q, kp, vp, table, n)
         want = paged_attention_reference(q, kp, vp, table, lens)
-    before = counter.launches
+    before = launch_counts()[counter]
     got = _twice(lambda: read(lens))
-    assert counter.launches == before + 2
+    assert launch_counts()[counter] == before + 2
     _assert_agrees(got, want)
     lens[-1] = 0
     assert bool((read(lens)[-1] == 0).all())
@@ -334,10 +336,10 @@ def _small_cfg(**kw):
 
 
 @pytest.mark.parametrize("paged,kw,counter", [
-    (False, {"decode_attn": "kernel"}, decode_attention_cuda),
+    (False, {"decode_attn": "kernel"}, "decode_attention"),
     (False, {"decode_attn": "kernel", "kv_dtype": "int8"},
-     decode_attention_q8_cuda),
-    (True, {"kv_dtype": "int8"}, paged_attention_q8_cuda),
+     "decode_attention_q8"),
+    (True, {"kv_dtype": "int8"}, "paged_attention_q8"),
 ], ids=["dense", "dense-int8", "paged-int8"])
 def test_new_engine_configs_go_through_their_kernels(cuda, paged, kw,
                                                      counter):
@@ -346,13 +348,18 @@ def test_new_engine_configs_go_through_their_kernels(cuda, paged, kw,
     params = llama_init(cfg, seed=0, device=cuda)
     eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
            if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    eng.warmup()       # every decode graph, before the counted run
     eng.start()
     try:
-        f0, c0 = flash_attention_cuda.launches, counter.launches
+        before = launch_counts()
         out = eng.generate(list(range(3, 17)), max_new_tokens=20)
         assert len(out) == 20
-        assert flash_attention_cuda.launches - f0 == cfg.n_layers * eng.prefill_dispatches
-        assert counter.launches - c0 == cfg.n_layers * eng.decode_steps
+        after = launch_counts()
+        assert (after["flash_attention"] - before["flash_attention"]
+                == cfg.n_layers * eng.prefill_dispatches)
+        # every decode step ran in a graph replay, counted on the card
+        assert (after[counter] - before[counter]
+                == cfg.n_layers * eng.decode_steps)
     finally:
         eng.stop()
 
@@ -364,12 +371,69 @@ def test_engine_on_the_card_goes_through_both_kernels(cuda):
     eng = PagedLLMEngine(llama_init(cfg, seed=0, device=cuda), cfg,
                          device=cuda, n_slots=4, max_seq_len=64,
                          prefill_buckets=(8, 16), page_size=8)
+    eng.warmup()
     eng.start()
     try:
-        f0, p0 = flash_attention_cuda.launches, paged_attention_cuda.launches
+        before = launch_counts()
         out = eng.generate([5, 6, 7], max_new_tokens=8)
         assert len(out) == 8
-        assert flash_attention_cuda.launches - f0 == cfg.n_layers * eng.prefill_dispatches
-        assert paged_attention_cuda.launches - p0 == cfg.n_layers * eng.decode_steps
+        after = launch_counts()
+        assert (after["flash_attention"] - before["flash_attention"]
+                == cfg.n_layers * eng.prefill_dispatches)
+        assert (after["paged_attention"] - before["paged_attention"]
+                == cfg.n_layers * eng.decode_steps)
     finally:
         eng.stop()
+
+
+@pytest.mark.parametrize("paged,kw", [
+    (True, {}), (True, {"kv_dtype": "int8"}),
+    (False, {"decode_attn": "kernel"}),
+    (False, {"decode_attn": "kernel", "kv_dtype": "int8"}),
+], ids=["paged", "paged-int8", "dense", "dense-int8"])
+def test_decode_block_graph_matches_eager(cuda, paged, kw):
+    """One decode block replayed from its CUDA graph against the same block
+    run eagerly from the same state (tpu/graphcheck.graph_vs_eager, as
+    chip_smoke.py runs it): equal greedy tokens, K/V (and scales) within
+    one bf16 rounding of O(1) values, should cuBLAS pick another algorithm
+    under capture, and the decode read counted on the card n_layers per
+    step in both."""
+    from gofr_tpu_torch.tpu.graphcheck import graph_vs_eager
+
+    cfg = _small_cfg(**kw)
+    engine = dict(n_slots=4, max_seq_len=128, prefill_buckets=(8, 16),
+                  decode_block_size=8)
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    for i in range(3):
+        eng.submit(list(range(3 + i, 14 + 2 * i)), max_new_tokens=60)
+    for _ in range(6):
+        eng._step()
+    got = graph_vs_eager(eng, 8)
+    assert torch.equal(got["graph"], got["eager"])
+    assert got["state_diff"] <= 0.05
+    assert got["graph_launches"] == got["eager_launches"] == cfg.n_layers * 8
+    assert eng.executor.captures >= 1 and eng.executor.calls >= 2
+
+
+def test_async_d2h_off_serves_the_same_tokens(cuda):
+    """ENGINE_ASYNC_D2H=false copies a device clone of each block at sync
+    instead of a pinned copy at dispatch: the same greedy streams, with
+    blocks in flight behind each other either way."""
+    cfg = _small_cfg()
+    params = llama_init(cfg, seed=0, device=cuda)
+    prompts = [list(range(3 + i, 12 + 3 * i)) for i in range(3)]
+    got = []
+    for async_d2h in (True, False):
+        eng = PagedLLMEngine(params, cfg, device=cuda, n_slots=4,
+                             max_seq_len=64, prefill_buckets=(8, 16),
+                             page_size=8, async_d2h=async_d2h)
+        eng.start()
+        try:
+            reqs = [eng.submit(p, max_new_tokens=24) for p in prompts]
+            got.append([r.result(timeout_s=300) for r in reqs])
+        finally:
+            eng.stop()
+        assert eng.max_inflight >= 2
+    assert got[0] == got[1] and all(len(s) == 24 for s in got[0])
