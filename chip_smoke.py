@@ -6,8 +6,9 @@ Three short modes print no ok line: ``--flash`` (build, the flash checks,
 flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256),
 ``--decode`` (build, the decode-read checks, the four decode reads' times
 at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
-``--prefill`` (build, the model's prefill wall time at [1, 256] and
-[4, 256]).
+``--prefill`` (build, the main path's admission wave at [1, 256] and
+[4, 256], eager and as its graph's replay: host wall, card busy time and
+host launches).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -42,19 +43,24 @@ Phases, one or more lines each, any failure exits non-zero:
    on the same weights: paged bf16 (the main path), paged int8
    (KV_DTYPE=int8), dense (PAGED=false DECODE_ATTN=kernel) and dense int8
    (the same with KV_DTYPE=int8), each with ATTN_IMPL=flash and the prefix
-   cache at its default (on for the paged engine) and the dispatch layer
-   at its defaults (pipeline_depth 4, ENGINE_ASYNC_D2H and WARMUP on: every
-   decode program serving can reach captured as a CUDA graph at boot,
-   logged with the capture time). Each answers
+   cache at its default (on for the paged engine), the dispatch layer
+   at its defaults (pipeline_depth 4, ENGINE_ASYNC_D2H on) and WARMUP=wide:
+   every program serving can reach, decode blocks, admission waves and
+   prefix-hit tail waves, captured as a CUDA graph at boot, logged per
+   kind with the capture seconds and the graph pool's bytes). Each answers
    concurrent streaming and non-streaming POST /generate; every request
    returns its max_tokens, a repeated greedy prompt repeats its tokens (on
    the paged engine both repeats hit its first page and prefill only the
    tail), and the kernels' launch counters (kept on the card by the
    kernels, ops/launch_counts.py; zeroed just before each configuration)
    grew by n_layers per full prefill wave (flash) and per decode step (that
-   configuration's decode kernel, and no other); every decode block was one
-   graph replay and no graph was captured after boot (logged: replays per
-   block, the peak in-flight depth); then
+   configuration's decode kernel, and no other); every decode block, every
+   admission wave and every tail-only wave was one graph replay and no
+   graph was captured after boot (logged: replays per kind, the peak
+   in-flight depth); then the main path with WARMUP=true (the reference's
+   narrower set) takes one burst of 8 requests that admits a K=8 wave,
+   whose graph is captured on the loop thread (logged: that stall beside
+   the burst's TTFT); then
    two prefix phases, paged-prefix and paged-int8-prefix (PREFIX_CACHE=true,
    buckets 16..512): a 384-token system prompt seeded by one request, then
    8 concurrent requests on it with distinct tails, each hitting its 3
@@ -67,10 +73,11 @@ Phases, one or more lines each, any failure exits non-zero:
    (flash also in the model's layout and at 1024 and 16384; the decode
    reads also at B=8 x 8192 and B=1 x 8192), by CUDA events and, for flash,
    the decode reads and SDPA, the kernels alone (torch.profiler); the
-   model's prefill wall time at each served window; the tail prefill's wall
-   and card time at each tail wave the prefix phases gave it, beside a
-   full-window prefill of as many prompts; TTFT / decode tok/s of the
-   served requests, each with the card's name and power limit;
+   admission wave at each served window and the tail prefill at each tail
+   wave the prefix phases gave it (beside a full-window wave of as many
+   prompts), each eager and as its graph's replay: host wall, card busy
+   time, host launches; TTFT / decode tok/s of the served requests, each
+   with the card's name and power limit;
 6. profile: the pipelined loop of each serving configuration's engine at
    B=8 in steady state (the pipeline full of graph-replayed blocks) —
    host wall time per step against the card's busy time over the same
@@ -81,7 +88,12 @@ Phases, one or more lines each, any failure exits non-zero:
    same engine, one block replayed from its graph against the same block
    run eagerly from copies of the same state: equal greedy tokens, the KV
    left within MODEL_TOL (max_abs_diff logged), n_layers decode reads per
-   step in each; the same at temperature 0.7 logged.
+   step in each; the same at temperature 0.7 logged; then admission waves
+   replayed from their graphs against the same waves run eagerly
+   (graphcheck.prefill_graph_vs_eager): full at [1, 256] and [4, 256] and,
+   paged, tail-only at [4, 256], each at temperature 0 and 0.7, with equal
+   first tokens, bit-equal state and n_layers flash launches per full wave
+   in both.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -724,7 +736,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
            "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
            "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
-           **extra}
+           "WARMUP": "wide", **extra}
     engine = build_engine(env, device=dev, params=params)
     boot = boot_line(engine, config, card)
     app = build_app(env, engine=engine)
@@ -825,8 +837,8 @@ def serve_phase(params, cfg, dev, card: str, config: str,
 
 
 def zero_counts(engine) -> None:
-    """Every kernel's launch count and the engine's dispatch counts to 0,
-    just before a configuration's counted run."""
+    """Every kernel's launch count, the engine's dispatch counts and its
+    programs' calls to 0, just before a configuration's counted run."""
     from gofr_tpu_torch.ops import launch_counts
 
     launch_counts.zero()
@@ -836,36 +848,62 @@ def zero_counts(engine) -> None:
     engine.prefill_shapes.clear()
     engine.prefix_shapes.clear()
     engine.executor.calls = 0
+    for program in engine.executor._cache.values():
+        program.calls = 0
+
+
+def program_kind(name: str) -> str:
+    """A program's kind by its name: a prefix hit's tail-only wave, a full
+    admission wave, or a decode block."""
+    if "-prefix-" in name:
+        return "prefix"
+    return "prefill" if "-prefill-" in name else "decode"
 
 
 def boot_line(engine, config: str, card: str) -> int:
-    """Log what WARMUP captured at boot; returns how many graphs."""
+    """Log what WARMUP captured at boot, per kind (graphs and their capture
+    seconds), and the graph pool's bytes; returns how many graphs."""
     ex = engine.executor
+    kinds = {k: [0, 0.0] for k in ("prefill", "prefix", "decode")}
+    for name, program in ex._cache.items():
+        kinds[program_kind(name)][0] += 1
+        kinds[program_kind(name)][1] += program.capture_seconds
     log(f"serve {config}: warm-up at boot {engine.warmup_seconds:.2f}s: "
-        f"{ex.captures} decode graphs captured in {ex.capture_seconds:.2f}s "
-        f"({', '.join(ex.compiled)}) [{card}]")
+        f"{ex.captures} graphs captured in {ex.capture_seconds:.2f}s ("
+        + ", ".join(f"{k} {n} in {t:.2f}s" for k, (n, t) in kinds.items())
+        + f"); graph pool {engine.graph_pool_bytes} bytes reserved "
+        f"({engine.graph_pool_bytes / 2**30:.3f} GiB) [{card}]")
     return ex.captures
 
 
 def dispatch_counts(engine, boot: int) -> dict:
     """The dispatch layer's counts of a counted run (since zero_counts)."""
     ex = engine.executor
+    calls = dict.fromkeys(("prefill", "prefix", "decode"), 0)
+    for name, n in ex.cache_info().items():
+        calls[program_kind(name)] += n
     return {"captured": ex.captured, "blocks": engine.decode_blocks,
-            "calls": ex.calls, "captures": ex.captures - boot,
-            "peak": engine.max_inflight, "depth": engine.pipeline_depth}
+            "waves": engine.prefill_dispatches,
+            "tails": engine.prefix_dispatches, "calls": calls,
+            "captures": ex.captures - boot, "peak": engine.max_inflight,
+            "depth": engine.pipeline_depth}
 
 
 def check_dispatch(config, d, card):
-    """Every decode block was one call of a captured program (a CUDA graph
-    replay), and no graph was captured after boot (WARMUP captured every
-    one serving reaches)."""
-    blocks = d["blocks"]
-    log(f"serve {config}: dispatch: {blocks} decode blocks, graph replays "
-        f"{d['calls']} ({d['calls'] / max(1, blocks):.2f} per block); "
-        f"graphs captured after boot {d['captures']}; peak in flight "
-        f"{d['peak']} of pipeline_depth {d['depth']} [{card}]")
-    require(d["captured"] and blocks > 0 and d["calls"] == blocks,
+    """Every decode block, every full admission wave and every tail-only
+    wave was one call of a captured program (a CUDA graph replay), and no
+    graph was captured after boot (WARMUP=wide captured every one serving
+    reaches)."""
+    blocks, calls = d["blocks"], d["calls"]
+    log(f"serve {config}: dispatch: {blocks} decode blocks, {d['waves']} "
+        f"full waves, {d['tails']} tail-only waves; graph replays "
+        f"{calls['decode']} / {calls['prefill']} / {calls['prefix']}; graphs "
+        f"captured after boot {d['captures']}; peak in flight {d['peak']} of "
+        f"pipeline_depth {d['depth']} [{card}]")
+    require(d["captured"] and blocks > 0 and calls["decode"] == blocks,
             f"{config}: a decode block ran outside a graph replay")
+    require(calls["prefill"] == d["waves"] and calls["prefix"] == d["tails"],
+            f"{config}: an admission wave ran outside a graph replay")
     require(d["captures"] == 0, f"{config}: a graph was captured mid-serving")
 
 
@@ -910,7 +948,8 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
         env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
                "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
                "PREFILL_BUCKETS": "16,32,64,128,256,512",
-               "REQUEST_TIMEOUT": "600", "PREFIX_CACHE": cache, **extra}
+               "REQUEST_TIMEOUT": "600", "PREFIX_CACHE": cache,
+               "WARMUP": "wide", **extra}
         engine = build_engine(env, device=dev, params=params)
         boot = boot_line(engine, f"{config} PREFIX_CACHE={cache}", card)
         app = build_app(env, engine=engine)
@@ -1034,93 +1073,103 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
     return {"tail_shapes": hit["tail_shapes"], "launches": launches}
 
 
-def time_tail_prefill(params, cfg, dev, card, shapes, quantized) -> None:
-    """The tail prefill at each [K, bucket] wave shape serving gave it,
-    over 3 shared pages (a 4-wide table, as a 384-token prefix plus a tail
-    <= 128 has), against the full-window prefill of the same K prompts at
-    [K, 512] (flash): host wall time per call (mean of 5 after a warm one,
-    each ending in a synchronize) and the card's busy time per call (the
-    sum of its kernels, torch.profiler)."""
-    import dataclasses
-
+def time_wave(eng, K: int, bucket: int, tail: bool, iters: int,
+              prefix_pages: int = 2) -> dict:
+    """One admission wave of K rows at `bucket` (graphcheck.wave: full, or
+    tail-only over `prefix_pages` cached pages) dispatched on the engine's
+    stream eagerly and as its program's replay, each with the upload of its
+    inputs: host wall time per dispatch (mean of `iters` after a warm one,
+    each from an idle card to a synchronize), then one more under
+    torch.profiler for the card's busy time (the sum of its kernels and
+    copies), the kernels it ran and the host's launches (HOST_LAUNCH).
+    Returns {"eager": ..., "graph": ...}, each (wall_ms, busy_ms, kernels,
+    host launches, top kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gofr_tpu_torch.models.llama import (llama_prefill_last,
-                                             llama_prefill_paged_prefix,
-                                             llama_prefill_paged_prefix_q8)
-    from gofr_tpu_torch.ops.decode_attention import quantize_kv
-
-    L, Hkv, dh, ps = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, 128
-    gen = torch.Generator(device=dev).manual_seed(4)
+    from gofr_tpu_torch.tpu.graphcheck import wave
 
     def measure(fn):
         fn()
         torch.cuda.synchronize()
         walls = []
-        for _ in range(5):
+        for _ in range(iters):
             t0 = time.monotonic()
             fn()
             torch.cuda.synchronize()
             walls.append((time.monotonic() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in kernels)
+        host = sum(e.count for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and HOST_LAUNCH.match(e.key))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
         return (sum(walls) / len(walls), busy / 1e3 if busy > 0 else math.nan,
-                sum(e.count for e in kernels),
+                sum(e.count for e in kernels), host,
                 "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f}"
                           f" ms x{e.count}" for e in top))
 
+    with torch.no_grad(), eng._stream_ctx():
+        program, arrays, eager_fn = wave(eng, K, bucket, tail, prefix_pages)
+        runs = {"eager": lambda: (eng._upload(program.inputs, arrays),
+                                  eager_fn(*program.inputs)),
+                "graph": lambda: eng._call(program, arrays)}
+        out = {kind: measure(fn) for kind, fn in runs.items()}
+    for kind, r in out.items():
+        require(math.isfinite(r[1]),
+                f"the profiler saw no kernels in the {kind} wave")
+    return out
+
+
+def wave_line(r) -> str:
+    return (f"wall_ms={r[0]:.3f} card_busy_ms={r[1]:.3f} kernels={r[2]} "
+            f"host_launches={r[3]}")
+
+
+def timing_engine(params, cfg, dev, buckets, quantized=False):
+    """A paged engine of the main path (flash prefill, 8 slots, the
+    serving phases' sizes) for the wave timings; nothing is served."""
+    import dataclasses
+
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    c = dataclasses.replace(cfg, attn_impl="flash",
+                            kv_dtype="int8" if quantized else None)
+    return PagedLLMEngine(params, c, device=dev, n_slots=8,
+                          max_seq_len=1024, prefill_buckets=buckets,
+                          page_size=128, prefix_cache=True)
+
+
+def time_tail_prefill(params, cfg, dev, card, shapes, quantized) -> None:
+    """The tail prefill at each [K, bucket] wave shape serving gave it,
+    over 3 cached pages (a 4-wide table, as a 384-token prefix plus a tail
+    <= 128 has), against the full-window prefill of as many prompts at
+    [K, 512] (flash), each eager and as its program's replay (time_wave)."""
+    import torch
+
+    eng = timing_engine(params, cfg, dev, (16, 32, 64, 128, 256, 512),
+                        quantized)
+    kind = " int8" if quantized else ""
     for K, bucket in sorted(shapes):
-        P = 4 * K + 1
-        kv = [torch.randn((L, P, Hkv, dh, ps), generator=gen, device=dev,
-                          dtype=torch.float32).to(torch.bfloat16)
-              for _ in range(2)]
-        if quantized:
-            (k8, ks), (v8, vs) = (quantize_kv(t) for t in kv)
-            pools = [k8, v8, ks, vs]
-            fn_tail = llama_prefill_paged_prefix_q8
-        else:
-            pools = kv
-            fn_tail = llama_prefill_paged_prefix
-        table = (torch.arange(4 * K, device=dev, dtype=torch.int32)
-                 .reshape(K, 4) + 1)
-        tokens = torch.randint(0, cfg.vocab_size, (K, bucket), generator=gen,
-                               device=dev)
-        prefix = torch.full((K,), 384, dtype=torch.int32, device=dev)
-        lengths = prefix + bucket
-        last = torch.full((K,), bucket - 1, device=dev)
-        tail_wall, tail_card, tail_n, tail_top = measure(lambda: fn_tail(
-            params, cfg, tokens, prefix, lengths, *pools, table, last))
-        del pools, kv
-        full_tokens = torch.randint(0, cfg.vocab_size, (K, 512),
-                                    generator=gen, device=dev)
-        tk = torch.zeros((L, K, Hkv, dh, 512), dtype=torch.bfloat16,
-                         device=dev)
-        tv = torch.zeros_like(tk)
-        pos = torch.arange(512, device=dev).expand(K, 512)
-        flash = dataclasses.replace(cfg, attn_impl="flash")
-        full_wall, full_card, full_n, full_top = measure(
-            lambda: llama_prefill_last(params, flash, full_tokens, pos,
-                                       lengths, tk, tv))
-        del tk, tv
-        torch.cuda.empty_cache()
-        kind = " int8" if quantized else ""
+        tail = time_wave(eng, K, bucket, True, 5, prefix_pages=3)
+        full = time_wave(eng, K, 512, False, 5)
         log(f"time tail prefill{kind} [{K}, {bucket}] over 384 cached "
-            f"tokens: wall_ms={tail_wall:.3f} card_busy_ms={tail_card:.3f} "
-            f"launches={tail_n}; full-window prefill [{K}, 512] (flash) "
-            f"wall_ms={full_wall:.3f} card_busy_ms={full_card:.3f} "
-            f"launches={full_n}; card time ratio "
-            f"{tail_card / full_card:.3f} [{card}]")
+            f"tokens: eager {wave_line(tail['eager'])}; replay "
+            f"{wave_line(tail['graph'])}; full-window prefill [{K}, 512] "
+            f"(flash): eager {wave_line(full['eager'])}; replay "
+            f"{wave_line(full['graph'])}; card time ratio tail / full "
+            f"{tail['graph'][1] / full['graph'][1]:.3f} [{card}]")
         log(f"time tail prefill{kind} [{K}, {bucket}] top kernels: "
-            f"{tail_top}")
-        log(f"time full prefill [{K}, 512] top kernels: {full_top}")
-        require(math.isfinite(tail_card) and math.isfinite(full_card),
-                "the profiler saw no kernels in the tail prefill timing")
+            f"{tail['eager'][4]}")
+        log(f"time full prefill [{K}, 512] top kernels: {full['eager'][4]}")
+    del eng
+    torch.cuda.empty_cache()
 
 
 # -- phase 5: timings ----------------------------------------------------------
@@ -1242,38 +1291,21 @@ def log_flash_time(B, T, r, card) -> None:
         f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} [{card}]")
 
 
-def time_prefill(params, cfg, dev, B, T, iters, card) -> None:
-    """Host wall time of one flash prefill of the whole model at [B, T]
-    (llama_prefill_last, the served prefill's forward): mean, median and
-    minimum of `iters` after a warm one, each ending in a synchronize."""
-    import dataclasses
-
+def time_prefill(params, cfg, dev, shapes, iters, card) -> None:
+    """The main path's full admission wave (flash) at each [K, T] of
+    `shapes`, eager and as its program's replay (time_wave): host wall,
+    card busy time and host launches per wave."""
     import torch
 
-    from gofr_tpu_torch.models.llama import llama_prefill_last
-
-    c = dataclasses.replace(cfg, attn_impl="flash")
-    gen = torch.Generator(device=dev).manual_seed(2)
-    tokens = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
-                           device=dev)
-    pos = torch.arange(T, device=dev)[None].expand(B, T)
-    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
-    tk = torch.zeros((cfg.n_layers, B, cfg.n_kv_heads, cfg.head_dim, T),
-                     dtype=torch.bfloat16, device=dev)
-    tv = torch.zeros_like(tk)
-    walls = []
-    for i in range(iters + 1):
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        llama_prefill_last(params, c, tokens, pos, lens, tk, tv)
-        torch.cuda.synchronize()
-        if i:
-            walls.append((time.monotonic() - t0) * 1e3)
-    walls.sort()
-    log(f"time prefill B={B} T={T} ({cfg.n_layers} layers, flash): wall_ms "
-        f"mean={sum(walls) / len(walls):.3f} p50={walls[len(walls) // 2]:.3f}"
-        f" min={walls[0]:.3f} over {len(walls)} [{card}]")
-    del tk, tv
+    eng = timing_engine(params, cfg, dev,
+                        tuple(sorted({T for _, T in shapes})))
+    for K, T in sorted(shapes):
+        r = time_wave(eng, K, T, False, iters)
+        log(f"time prefill [{K}, {T}] ({cfg.n_layers} layers, flash), over "
+            f"{iters}: eager {wave_line(r['eager'])}; replay "
+            f"{wave_line(r['graph'])}; replay wall / card busy "
+            f"{r['graph'][0] / r['graph'][1]:.3f} [{card}]")
+    del eng
     torch.cuda.empty_cache()
 
 
@@ -1437,7 +1469,8 @@ HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|"
 
 def decode_engine(params, cfg, dev, config: str):
     """A serving configuration's engine at B=8 (contexts ~200 tokens, 600
-    new tokens each), its decode graphs captured by warmup(), its 8 greedy
+    new tokens each, flash prefill as served), its graphs captured by
+    warmup(), its 8 greedy
     requests admitted and driven, this thread playing the engine loop (the
     loop thread is not started), until the pipeline is full of decode
     blocks."""
@@ -1448,7 +1481,8 @@ def decode_engine(params, cfg, dev, config: str):
     from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
     extra, _ = SERVE_CONFIGS[config]
-    cfg = dataclasses.replace(cfg, decode_attn=extra.get("DECODE_ATTN", "xla"),
+    cfg = dataclasses.replace(cfg, attn_impl="flash",
+                              decode_attn=extra.get("DECODE_ATTN", "xla"),
                               kv_dtype=extra.get("KV_DTYPE"))
     kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,))
     eng = (LLMEngine(params, cfg, **kw) if extra.get("PAGED") == "false"
@@ -1592,6 +1626,94 @@ def check_graph(eng, card: str, config: str) -> None:
         f"tokens equal the eager run's at {agree:.3f} of positions (logged)")
 
 
+def check_prefill_graph(eng, card: str, config: str) -> None:
+    """Admission waves replayed from their graphs against the same waves
+    run eagerly from the same state (graphcheck.prefill_graph_vs_eager): a
+    full wave at [1, 256] and [4, 256] and, on the paged engine, a tail-only
+    wave at [4, 256] over 2 cached pages, each at temperature 0 and 0.7:
+    the first tokens equal, the loop state and the caches or pools (with
+    their scales) bit-equal, and flash counted on the card n_layers times
+    per full wave (none in a tail wave) under replay as when eager."""
+    import torch
+
+    from gofr_tpu_torch.tpu.graphcheck import prefill_graph_vs_eager
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    L = eng.cfg.n_layers
+    waves = [(1, False), (4, False)]
+    if isinstance(eng, PagedLLMEngine):
+        waves.append((4, True))
+    for K, tail in waves:
+        for temperature in (0.0, 0.7):
+            g = prefill_graph_vs_eager(eng, K, 256, tail, temperature)
+            same = bool(torch.equal(g["graph"].cpu(), g["eager"].cpu()))
+            flash = 0 if tail else L
+            ok = (same and g["state_diff"] == 0.0
+                  and g["graph_launches"] == g["eager_launches"] == flash)
+            kind = "tail-only" if tail else "full"
+            log(f"check prefill graph {config}: {kind} wave [{K}, 256] at "
+                f"temperature {temperature} replayed vs "
+                f"run eagerly from the same state: first tokens "
+                f"{'equal' if same else 'DIFFER'}; state max_abs_diff="
+                f"{g['state_diff']:.3e} (largest |K/V| "
+                f"{g['state_max']:.3e}; the garbage page 0, left out: "
+                f"{g['garbage_diff']:.3e}); flash launches "
+                f"{g['graph_launches']} / {g['eager_launches']} (want "
+                f"{flash}) {'ok' if ok else 'FAIL'} [{card}]")
+            require(ok, f"{config}: the [{K}, 256] {kind} wave's graph "
+                    f"differs from eager")
+
+
+def warmup_true_phase(params, cfg, dev, card: str,
+                      preset: str = "llama3-8b") -> None:
+    """The reference's narrower warm set on the main path (paged, WARMUP=
+    true: the admission at K=1 per bucket): one burst of 8 requests at
+    bucket 256, all queued before the loop thread runs again (the switch
+    interval held long across the submits), admits one K=8 wave, whose
+    graph is captured on the loop thread. Logs that capture's seconds,
+    the stall every request of the burst waits out, beside the burst's
+    TTFT."""
+    from gofr_tpu_torch.serve import build_engine
+
+    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
+           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+           "PREFILL_BUCKETS": "16,32,64,128,256", "WARMUP": "true"}
+    engine = build_engine(env, device=dev, params=params)
+    try:
+        boot_line(engine, "paged WARMUP=true", card)
+        booted = set(engine.executor.cache_info())
+        prompts = [engine.tokenizer.encode(make_prompt(200 + 5 * i, 200 + i))
+                   for i in range(8)]
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5.0)
+        try:
+            t0 = time.monotonic()
+            reqs = [engine.submit(p, max_new_tokens=8) for p in prompts]
+        finally:
+            sys.setswitchinterval(interval)
+        ttft = []
+        for r in reqs:
+            next(r.stream(timeout_s=600))
+            ttft.append((time.monotonic() - t0) * 1e3)
+        for r in reqs:
+            r.result(timeout_s=600)
+        shapes = dict(engine.prefill_shapes)
+        new = {name: p.capture_seconds
+               for name, p in engine.executor._cache.items()
+               if name not in booted}
+    finally:
+        engine.stop()
+    log(f"serve paged WARMUP=true: a burst of 8 at bucket 256 admitted as "
+        f"{wave_list(shapes)}; graphs captured on the loop thread: "
+        + ", ".join(f"{n} in {t:.3f}s" for n, t in new.items())
+        + f"; burst ttft_ms p50={sorted(ttft)[4]:.1f} max={max(ttft):.1f} "
+        f"[{card}]")
+    require(any(K >= 4 for K, _ in shapes)
+            and any(n.endswith(("x4", "x8")) for n in new),
+            f"the burst did not admit a K >= 4 wave captured after boot: "
+            f"{shapes}, {sorted(new)}")
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -1677,8 +1799,7 @@ def main(argv=()) -> int:
             f"random seed 0, init {time.monotonic() - t0:.1f}s, "
             f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
         if mode == "--prefill":
-            for B, T in [(1, 256), (4, 256)]:
-                time_prefill(params, cfg, dev, B, T, 10, card)
+            time_prefill(params, cfg, dev, [(1, 256), (4, 256)], 10, card)
             log(f"prefill only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         check_model(params, cfg, dev)
@@ -1686,6 +1807,8 @@ def main(argv=()) -> int:
         for config in SERVE_CONFIGS:
             served[config] = serve_phase(params, cfg, dev, card, config)
             torch.cuda.empty_cache()
+        warmup_true_phase(params, cfg, dev, card)
+        torch.cuda.empty_cache()
         for config in PREFIX_CONFIGS:
             served[config] = prefix_phase(params, cfg, dev, card, config)
 
@@ -1702,18 +1825,20 @@ def main(argv=()) -> int:
             log_flash_time(B, T, time_flash(dev, B, T, True,
                                             5 if T > 1024 else 20, flush),
                            card)
-        for B, T in sorted(shapes):
-            time_prefill(params, cfg, dev, B, T, 10, card)
-        for config, quantized in (("paged-prefix", False),
-                                  ("paged-int8-prefix", True)):
-            time_tail_prefill(params, cfg, dev, card,
-                              served[config]["tail_shapes"], quantized)
         # the decode reads at B=8 and the contexts of mid-decode in serving
         ctx = [n + main["max_tokens"] // 2 for n in main["prompt_lens"]]
         ctx = (ctx + ctx)[:8]
         S = served["dense"]["cache_len"]
         timed = {"flash_attention": (flash_main, "")}
         timed.update(time_reads(dev, ctx, S, flush, card))
+        # after the kernels' own times: once graph replays had been
+        # profiled, a later profile of one kernel came back without its
+        # records on an H100
+        time_prefill(params, cfg, dev, shapes, 10, card)
+        for config, quantized in (("paged-prefix", False),
+                                  ("paged-int8-prefix", True)):
+            time_tail_prefill(params, cfg, dev, card,
+                              served[config]["tail_shapes"], quantized)
         csrc = "gofr_tpu_torch/ops/csrc/"
         # kernel -> (source, the Pallas call it replaces, its serving phase)
         origin = {
@@ -1751,6 +1876,7 @@ def main(argv=()) -> int:
             eng = decode_engine(params, cfg, dev, config)
             profile_decode(eng, card, config)
             check_graph(eng, card, config)
+            check_prefill_graph(eng, card, config)
             del eng
             torch.cuda.empty_cache()
         log(f"total: {time.monotonic() - t_all:.1f}s")

@@ -26,11 +26,13 @@ as the reference does by default; the dense engine ignores it), MAX_BATCH
 (8), MAX_SEQ_LEN (1024), PREFILL_BUCKETS ("16,32,64,128,256"), HTTP_PORT
 (8000), REQUEST_TIMEOUT (5 s, for stream=false), ENGINE_ASYNC_D2H (true:
 each dispatch's tokens start their copy to the host when it is enqueued;
-false: at sync), WARMUP (true: capture every decode program serving can
-reach at boot, before the engine starts; false: capture each at its first
-use; wide, which also warms each prefill program's fused-admission widths,
-refuses to boot until prefill programs are captured, ROADMAP A11b). Weights
-are random, from seed 0. Keys whose feature is not ported yet refuse to
+false: at sync), WARMUP (true: capture at boot, before the engine starts,
+every decode program serving can reach and the reference's warm admission
+set, K=1 for every bucket and the prefix cache's tail programs at the
+smallest bucket; wide: also every power-of-two K <= MAX_BATCH for every
+bucket, as the reference's, and every tail program the buckets can reach;
+false: capture each program at its first use). Weights are random, from
+seed 0. Keys whose feature is not ported yet refuse to
 boot (NOT_PORTED below) rather than being ignored.
 """
 
@@ -95,9 +97,6 @@ NOT_PORTED = (
      "the BPE tokenizers wait in ROADMAP A13"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
-    ("WARMUP", lambda e: _warmup_mode(e) == "wide",
-     "WARMUP=wide warms the prefill programs' fused-admission widths; "
-     "prefill programs wait in ROADMAP A11b"),
 )
 
 
@@ -158,11 +157,13 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     started. device: None = the CUDA card (raises without one); "cpu" for
     tests. params: an already-built params dict for the preset (default:
     llama_init, seed 0). On the card the kernels are built here, at boot,
-    and then WARMUP captures every decode program serving can reach, so no
-    request pays the compiler or a capture. The engine's `warmup_seconds`
-    holds the warm-up's time (0.0 with WARMUP=false)."""
+    and then WARMUP captures the programs serving is expected to reach
+    (every one under wide), so no request pays the compiler or a capture.
+    The engine's `warmup_seconds` holds the warm-up's time (0.0 with
+    WARMUP=false)."""
     env = dict(env or {})
     check_config(env)
+    warm = _warmup_mode(env)
     dev = resolve_device(device)
     preset = env.get("MODEL_PRESET", "debug")
     if preset not in PRESETS:
@@ -186,7 +187,6 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         _build.build(*_build.KERNELS)
     if params is None:
         params = llama_init(cfg, seed=0, device=dev)
-    warm = _warmup_mode(env) == "true"     # "wide" refused by check_config
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
               async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
@@ -206,9 +206,9 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
                         if cfg.vocab_size > ByteTokenizer.vocab_size
                         else ByteTokenizer())
     engine.warmup_seconds = 0.0
-    if warm:
+    if warm != "false":
         t0 = time.monotonic()
-        engine.warmup()
+        engine.warmup(k_variants=warm == "wide")
         engine.warmup_seconds = time.monotonic() - t0
     engine.start()
     return engine

@@ -25,15 +25,21 @@ copy starts at enqueue time into pinned memory, behind a CUDA event that
 ``_sync_oldest`` with its prefill and decode branches and the ``slot.request
 is not request`` guards for rows freed or cancelled between dispatch and
 sync, the in-flight-aware ``_decode_need``, the shutdown that drains
-``_inflight`` before it fails the rest, and ``warmup`` (decode part). Each
-decode block is one program of ``tpu/executor.Executor``, named as the
-reference names it, ``llama-decode[-q8]-x{block}-S{len}``: on the card a CUDA
-graph replayed in one launch, on the CPU the eager block. Prefills run
-eagerly (their graphs are ROADMAP A11b). Waiting for A11: QoS, the step
-ledger, flight recorder and utilization ledger, fault injection,
-replay-after-reset and the reset-storm breaker, the off-loop finisher,
-draining and disaggregated hand-off. A failed dispatch here fails the
-requests it carried and the loop keeps serving.
+``_inflight`` before it fails the rest, and ``warmup`` (with its
+``k_variants``). Every dispatch is one program of ``tpu/executor.Executor``,
+named as the reference names it: each decode block
+``llama-decode[-q8]-x{block}-S{len}`` and each fused admission wave
+``_prefill_program(bucket, K)``, ``llama-prefill[-q8]-{bucket}x{K}-S{len}``
+(``-flash`` under attn_impl="flash"); on the card a CUDA graph replayed in
+one launch, on the CPU the eager function. A program's inputs are static
+buffers, typed views into one device block per program, filled before each
+call by one host-to-device copy from a pinned staging ring
+(``_static_inputs``, ``_upload``). Waiting for A11: QoS, the step ledger,
+flight recorder and utilization ledger, fault injection, replay-after-reset
+and the reset-storm breaker, the off-loop finisher, draining and
+disaggregated hand-off; the chunked prefill programs wait for A10. A failed
+dispatch here (a failed capture included) fails the requests it carried and
+the loop keeps serving.
 
 Everything runs on ONE stream, the engine's, in dispatch order: prefills,
 decode replays, cache growth, the host copies. That order is what makes
@@ -56,13 +62,17 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import heapq
 import itertools
 import logging
+import math
 import queue
+import re
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Set
+from typing import (Callable, Dict, Iterator, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -77,6 +87,19 @@ from .sampling import sample_tokens
 
 _request_ids = itertools.count(1)
 _log = logging.getLogger(__name__)
+# the cache length a dense program is captured at, in its name
+_CACHE_LEN = re.compile(r"-S(\d+)(?:-|$)")
+
+
+def _aligned(nbytes: int) -> int:
+    """nbytes rounded up to 16: every static input starts 16-byte aligned."""
+    return -(-nbytes // 16) * 16
+
+
+def _cache_len_of(name: str) -> Optional[int]:
+    """The cache length in a dense program's name; None for the others."""
+    m = _CACHE_LEN.search(name)
+    return int(m.group(1)) if m else None
 
 
 class GenerationRequest:
@@ -266,6 +289,16 @@ class LLMEngine:
         # pinned [n_slots * decode_block_size] int64 buffers free for a
         # token copy (taken at dispatch, given back at sync)
         self._host_free: List[torch.Tensor] = []
+        # key -> the static inputs of its programs (_static_inputs), and the
+        # device block under each, by its address; the pinned staging ring
+        # that fills them (made at the first upload on the card) and its
+        # next buffer
+        self._static: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+        self._blocks: Dict[int, torch.Tensor] = {}
+        self._ring: List[tuple] = []
+        self._ring_next = 0
+        # the card memory warmup()'s captures reserved (0 on the CPU)
+        self.graph_pool_bytes = 0
         # dispatch counts (loop-thread writes): what a run can show about
         # the kernels it went through. Full-window prefill waves (flash on
         # the card) and the paged engine's tail-only prefix-hit waves are
@@ -326,10 +359,9 @@ class LLMEngine:
             # the in-flight blocks read the old buffers, which were made
             # on another stream: let them finish before the buffers go
             self._stream.synchronize()
-        # the programs of the old length read buffers that are going
-        self.executor.drop(lambda name: name in {
-            self._decode_program_name(b, self._cache_len)
-            for b in self._block_sizes()})
+        # the programs of the old length, decode and prefill, read and write
+        # buffers that are going
+        self.executor.drop(lambda name: _cache_len_of(name) == self._cache_len)
         buffers = [self.k_cache, self.v_cache]
         if self._q8:
             buffers += [self.k_scale, self.v_scale]
@@ -358,10 +390,10 @@ class LLMEngine:
     # -- programs -------------------------------------------------------------
     def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
                         starts: Optional[Sequence[int]] = None):
-        """([K, bucket] prompt tokens, [K] lengths, [K] temperatures) on
-        the device for one fused admission. starts: per row, the first
-        prompt position the window holds (a prefix hit's tail; default 0);
-        lengths are the full prompts'."""
+        """The host arrays of one fused admission: [K, bucket] int64 prompt
+        tokens, [K] int32 lengths, [K] f32 temperatures. starts: per row,
+        the first prompt position the window holds (a prefix hit's tail;
+        default 0); lengths are the full prompts'."""
         ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
         for row, request in enumerate(batch):
             window = request.prompt_tokens[starts[row] if starts else 0:]
@@ -369,8 +401,7 @@ class LLMEngine:
         lengths = np.asarray([len(r.prompt_tokens) for r in batch],
                              dtype=np.int32)
         temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
-        return (self._to_device(ptokens), self._to_device(lengths),
-                self._to_device(temps))
+        return ptokens, lengths, temps
 
     def _prefill_window(self, ptokens, lengths):
         """Forward a [K, bucket] admission window into fresh [L, K, Hkv, dh,
@@ -459,53 +490,123 @@ class LLMEngine:
 
     def _decode_program(self, block: int):
         """The `block`-step decode program at the cache's current length:
-        one CUDA graph per (block, length) on the card."""
+        one CUDA graph per (block, length) on the card. Its warm-up puts
+        every row at position S - 1: a row writes a position before it
+        reads it, so no live row reads what the run leaves there (writes
+        past S - 1 clamp to it)."""
         return self.executor.compile(
             self._decode_program_name(block, self._cache_len),
             lambda: self._decode_fn(block),
-            warmup=lambda: self._warmup_state(block),
+            warmup=lambda: self._warmup_state(
+                lambda: self._positions.fill_(self._cache_len - 1)),
             generators=(self.generator,))
 
+    def _row_specs(self, K: int) -> list:
+        """The static inputs every admission program ends with, as [K]
+        rows: slots (int64), lengths (int32), temperatures (f32)."""
+        return [((K,), torch.long), ((K,), torch.int32),
+                ((K,), torch.float32)]
+
+    def _prefill_program(self, bucket: int, K: int,
+                         slots: Optional[Sequence[int]] = None):
+        """The fused K-way admission program at `bucket` over the caches at
+        their current length (the reference's ``_prefill_program(bucket,
+        K)``): one CUDA graph per (bucket, K, length) on the card. Static
+        inputs: tokens [K, bucket], then the rows (_row_specs). slots: the
+        wave's target rows, which the warm-up before a capture writes
+        (default the first K: at boot no row is live)."""
+        kind = "-q8" if self._q8 else ""
+        flash = "-flash" if self.cfg.attn_impl == "flash" else ""
+        inputs = self._static_inputs(
+            ("prefill", bucket, K),
+            [((K, bucket), torch.long), *self._row_specs(K)])
+        return self.executor.compile(
+            f"llama-prefill{kind}-{bucket}x{K}-S{self._cache_len}{flash}",
+            self._prefill_fn, inputs,
+            warmup=lambda: self._warmup_state(
+                lambda: self._harmless_wave(inputs, slots)),
+            generators=(self.generator,))
+
+    def _harmless_wave(self, inputs, slots) -> None:
+        """Fill an admission program's inputs with a wave that writes only
+        where no live row reads: every row one token long at temperature 0,
+        zero page tables and prefix lengths (paged: every K/V write lands on
+        the garbage page 0), into `slots` (dense: their cache rows at [0,
+        bucket), free by construction; the loop state it splices there is
+        restored by _warmup_state)."""
+        for t in inputs:
+            t.zero_()
+        K = inputs[0].shape[0]
+        inputs[-3].copy_(torch.as_tensor(
+            list(slots) if slots is not None else list(range(K))))
+        inputs[-2].fill_(1)
+
     @contextlib.contextmanager
-    def _warmup_state(self, block: int, inputs=()):
-        """Around the eager run before a capture, which writes K/V and
-        advances the tokens, positions and generator: those three are
-        saved and restored, and ``_make_harmless`` points the run's writes
-        where no live row reads."""
-        tokens, positions = self._tokens.clone(), self._positions.clone()
+    def _warmup_state(self, harmless: Callable[[], object]):
+        """Around the eager run before a capture, which writes K/V and the
+        loop state and advances the generator: the tokens, positions,
+        temperatures and generator are saved and restored, and `harmless`
+        points the run's K/V writes where no live row reads."""
+        saved = [t.clone() for t in (self._tokens, self._positions,
+                                     self._temps)]
         rng = self.generator.get_state()
-        self._make_harmless(inputs)
+        harmless()
         try:
             yield
         finally:
-            self._tokens.copy_(tokens)
-            self._positions.copy_(positions)
+            for t, s in zip((self._tokens, self._positions, self._temps),
+                            saved):
+                t.copy_(s)
             self.generator.set_state(rng)
 
-    def _make_harmless(self, inputs) -> None:
-        """Dense: every row at position S - 1. A row writes a position
-        before it reads it, so no live row reads what the run leaves
-        there (writes past S - 1 clamp to it)."""
-        self._positions.fill_(self._cache_len - 1)
-
-    def warmup(self) -> None:
-        """Capture every decode program serving can reach, so no capture
-        stalls the loop later (the reference's ``warmup``, decode part;
-        prefill graphs wait for ROADMAP A11b). Call it before start(): a
-        capture must not race the loop."""
+    def warmup(self, k_variants: bool = False) -> None:
+        """Capture every program serving is expected to reach, so no capture
+        stalls the loop later (the reference's ``warmup``): every decode
+        block, the fused admission at K=1 for every bucket and, with
+        k_variants (WARMUP=wide), at every power-of-two K <= n_slots; the
+        paged engine adds the prefix cache's tail programs (see its
+        _warm_programs). Call it before start(): a capture must not race
+        the loop. Sets graph_pool_bytes, the card memory the captures
+        reserved."""
         if self._thread is not None:
             raise RuntimeError("warmup() runs before start()")
         with torch.no_grad(), self._stream_ctx():
-            self._warm_programs()
+            if not self._paged:
+                # the last length the cache can reach (the reference grows
+                # to the largest bucket; each later growth would capture
+                # every program again, mid-serving)
+                self._grow_cache(self.max_seq_len)
+            before = self._reserved()
+            self._warm_programs(k_variants)
+            self.graph_pool_bytes = self._reserved() - before
 
-    def _warm_programs(self) -> None:
-        """Dense: grow the cache to max_seq_len, the last length it can
-        reach (the reference grows to the largest bucket; each later growth
-        would capture the block again, mid-serving), then the full and the
-        half block at that length."""
-        self._grow_cache(self.max_seq_len)
+    def _warm_ks(self, k_variants: bool) -> List[int]:
+        """The admission widths warmed: 1, or with k_variants every power of
+        two <= n_slots, as the reference's."""
+        ks = [1]
+        while k_variants and ks[-1] * 2 <= self.n_slots:
+            ks.append(ks[-1] * 2)
+        return ks
+
+    def _warm_programs(self, k_variants: bool) -> None:
+        """Dense: the admission at each of _warm_ks for every bucket, and
+        the full and the half decode block, all at the grown length."""
+        for bucket in self.prefill_buckets:
+            for K in self._warm_ks(k_variants):
+                self._prefill_program(bucket, K)
         for block in self._block_sizes():
             self._decode_program(block)
+
+    def _reserved(self) -> int:
+        """The card memory reserved on the engine's device once unreachable
+        objects are collected and the caching allocator has let go of what
+        nothing holds (a graph pool holds its blocks); 0 on the CPU."""
+        if self._stream is None:
+            return 0
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
 
     # -- host <-> device ------------------------------------------------------
     def _stream_ctx(self):
@@ -514,15 +615,81 @@ class LLMEngine:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """A host array on the device without waiting for the stream: on
-        the card through pinned memory, copied on the current stream (the
-        caching host allocator keeps the pinned block until the copy is
-        done)."""
-        host = torch.from_numpy(array)
+    def _static_inputs(self, key: tuple, specs) -> Tuple[torch.Tensor, ...]:
+        """The static input buffers of the programs keyed `key`, made zeroed
+        at first use and kept for the engine's life (a captured graph reads
+        their addresses): one typed view per (shape, dtype) of `specs` into
+        one device block, each 16-byte aligned, so that _upload fills them
+        all with one copy."""
+        inputs = self._static.get(key)
+        if inputs is None:
+            sizes = [_aligned(math.prod(shape) * dtype.itemsize)
+                     for shape, dtype in specs]
+            block = torch.zeros(sum(sizes), dtype=torch.uint8,
+                                device=self.device)
+            views, offset = [], 0
+            for (shape, dtype), size in zip(specs, sizes):
+                n = math.prod(shape) * dtype.itemsize
+                views.append(block[offset:offset + n].view(dtype).view(shape))
+                offset += size
+            inputs = self._static[key] = tuple(views)
+            self._blocks[block.data_ptr()] = block
+        return inputs
+
+    def _staging_bytes(self) -> int:
+        """The widest static block: a [n_slots, largest bucket] wave's
+        tokens, its rows and prefix lengths, and two of the widest tables
+        (a wave's page table and a tail wave's)."""
+        B = self.n_slots
+        T = max(self.prefill_buckets, default=16)
+        return (_aligned(B * T * 8) + 4 * _aligned(B * 8)
+                + 2 * _aligned(B * self._widest_table() * 4))
+
+    def _widest_table(self) -> int:
+        """The widest page table a program takes (none on the dense
+        engine)."""
+        return 0
+
+    def _upload(self, inputs: Sequence[torch.Tensor],
+                arrays: Sequence[np.ndarray]) -> None:
+        """Enqueue the fill of a program's static `inputs` (views made by
+        _static_inputs) from the host `arrays`, in order. On the card the
+        arrays are staged at the inputs' offsets in the next pinned buffer
+        of a ring of pipeline_depth + 1, and the block is copied in one
+        non_blocking copy on the engine's stream, with the buffer's event
+        recorded behind it; a buffer is refilled only once its event has
+        passed, which holds the host back only while more than
+        pipeline_depth + 1 uploads wait on the card. On the CPU each input
+        is filled by copy_."""
         if self._stream is None:
-            return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+            for dst, array in zip(inputs, arrays):
+                dst.copy_(torch.from_numpy(array))
+            return
+        if not self._ring:
+            self._ring = [(torch.empty(self._staging_bytes(),
+                                       dtype=torch.uint8, pin_memory=True),
+                           torch.cuda.Event())
+                          for _ in range(self.pipeline_depth + 1)]
+        buf, done = self._ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % len(self._ring)
+        done.synchronize()
+        # the block the views share starts where the first one does
+        block = self._blocks[inputs[0].data_ptr()]
+        base = block.data_ptr()
+        for dst, array in zip(inputs, arrays):
+            offset = dst.data_ptr() - base
+            staged = buf[offset:offset + dst.numel() * dst.element_size()]
+            staged.view(dst.dtype).view(dst.shape).numpy()[...] = array
+        block.copy_(buf[:block.numel()], non_blocking=True)
+        done.record(self._stream)
+
+    def _call(self, program, arrays: Sequence[np.ndarray]) -> torch.Tensor:
+        """Fill `program`'s static inputs from host `arrays` and run it;
+        returns its output, which its next call overwrites (_bind_slots and
+        _dispatch_decode start its copy out before anything else is
+        dispatched)."""
+        self._upload(program.inputs, arrays)
+        return program()
 
     def _start_d2h(self, out: torch.Tensor):
         """Start a dispatch output's copy to the host at enqueue time (the
@@ -530,11 +697,9 @@ class LLMEngine:
         with an event recorded behind it, so the sync is a completion check.
         With async_d2h=False the copy is made at sync, from a device clone
         taken now: a program's output is overwritten by its next call. On
-        the CPU the output is host memory already. Returns what
+        the CPU the output is cloned now, for the same reason. Returns what
         ``_fetch_host`` takes."""
-        if self._stream is None:
-            return out
-        if not self.async_d2h:
+        if self._stream is None or not self.async_d2h:
             return out.clone()
         buf = (self._host_free.pop() if self._host_free else torch.empty(
             self.n_slots * self.decode_block_size, dtype=torch.long,
@@ -559,11 +724,14 @@ class LLMEngine:
     # -- dispatch -------------------------------------------------------------
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
+        """One fused admission wave through its program; returns its [K]
+        first tokens on the device."""
         if bucket + 1 > self._cache_len:   # prompts must land inside the cache
             self._grow_cache(bucket + 1)
+        program = self._prefill_program(bucket, len(batch), slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
-        slots = self._to_device(np.asarray(slots_idx, dtype=np.int64))
-        return self._prefill_fn(ptokens, slots, lengths, temps)
+        return self._call(program, (ptokens, np.asarray(slots_idx, np.int64),
+                                    lengths, temps))
 
     def _run_decode(self, block: int) -> torch.Tensor:
         """Dispatch one `block`-step decode program over the dense caches

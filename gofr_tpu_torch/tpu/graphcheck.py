@@ -1,25 +1,27 @@
-"""A decode block's program held against the same block run eagerly.
+"""A dispatch's program held against the same work run eagerly.
 
 For ``chip_smoke.py`` and the card's tests, not for serving: one decode
-block replayed from its program (a CUDA graph on the card) and the same
-block run op by op from the same state, which is copied before the replay
-and put back before the eager run (the loop state, the caches or pools
-with their scales, and the generator).
+block, or one admission wave (full or, on the paged engine, tail-only),
+replayed from its program (a CUDA graph on the card) and the same work run
+op by op from the same state, which is copied before the replay and put
+back before the eager run (the loop state, the caches or pools with their
+scales, and the generator).
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..ops import launch_counts
-from .paging import PagedLLMEngine
+from .paging import PagedLLMEngine, _pow2_at_least
 
 
 def state_tensors(eng) -> List[torch.Tensor]:
-    """Every device tensor a decode block reads or writes in place: the
-    loop state, then the caches or pools (and their scales)."""
+    """Every device tensor a dispatch reads or writes in place: the loop
+    state, then the caches or pools (and their scales)."""
     kv = ([eng.k_cache, eng.v_cache] if isinstance(eng, PagedLLMEngine)
           else [*eng.k_cache, *eng.v_cache])
     if eng._q8:
@@ -31,7 +33,8 @@ def state_tensors(eng) -> List[torch.Tensor]:
 def eager_block(eng, block: int) -> torch.Tensor:
     """`block` decode steps run eagerly, outside the program cache."""
     if isinstance(eng, PagedLLMEngine):
-        return eng._decode_fn_paged(eng._to_device(eng._build_table()), block)
+        table = torch.from_numpy(eng._build_table()).to(eng.device)
+        return eng._decode_fn_paged(table, block)
     return eng._decode_fn(block)
 
 
@@ -68,4 +71,109 @@ def graph_vs_eager(eng, block: int, temperature: float = 0.0) -> dict:
         diff = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(after_graph, state))
     return {"graph": graph, "eager": eager, "state_diff": diff,
+            "graph_launches": mid - before, "eager_launches": end - mid}
+
+
+def wave(eng, K: int, bucket: int, tail: bool = False,
+         prefix_pages: int = 2, temperature: float = 0.0, seed: int = 0):
+    """A synthetic admission wave of K rows at `bucket` into slots 0..K-1:
+    (its program, the host arrays a dispatch fills it with, the eager
+    function). Prompt tokens and lengths come from a numpy generator seeded
+    with `seed` (full waves: lengths in (bucket / 2, bucket]); paged rows
+    take distinct pages from 1 up; a tail wave (paged) gives each row
+    `prefix_pages` cached pages and a tail of up to `bucket` tokens, over a
+    table as wide as dispatch makes it. The dense engine's cache is grown
+    first where the bucket needs it, as dispatch does. Raises if the pool
+    has too few pages for distinct ones."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, eng.cfg.vocab_size, (K, bucket), dtype=np.int64)
+    slots = np.arange(K, dtype=np.int64)
+    temps = np.full(K, temperature, dtype=np.float32)
+    tails = rng.integers(bucket // 2 + 1, bucket + 1, K).astype(np.int32)
+    if not isinstance(eng, PagedLLMEngine):
+        if tail:
+            raise ValueError("tail-only waves run on the paged engine")
+        if bucket + 1 > eng._cache_len:
+            eng._grow_cache(bucket + 1)
+        return (eng._prefill_program(bucket, K),
+                (tokens, slots, tails, temps), eng._prefill_fn)
+    ps = eng.page_size
+    if not tail:
+        n_ptable = -(-bucket // ps)
+        program = eng._prefill_program(bucket, K)
+        arrays = (tokens, _pages(eng, K, n_ptable), slots, tails, temps)
+        return program, arrays, eng._prefill_fn
+    prefix = np.full(K, prefix_pages * ps, dtype=np.int32)
+    lengths = prefix + tails
+    n_table = _pow2_at_least(eng.allocator.pages_for(int(lengths.max())))
+    program = eng._prefix_program(bucket, K, n_table)
+    arrays = (tokens, _pages(eng, K, n_table), prefix, slots, lengths, temps)
+    return program, arrays, eng._prefix_fn
+
+
+def _pages(eng, K: int, width: int) -> np.ndarray:
+    if K * width >= eng.allocator.n_pages:
+        raise ValueError(f"{K} x {width} distinct pages do not fit a pool of "
+                         f"{eng.allocator.n_pages}")
+    return np.arange(1, K * width + 1, dtype=np.int32).reshape(K, width)
+
+
+def _flash() -> int:
+    return launch_counts.counts()["flash_attention"]
+
+
+def prefill_graph_vs_eager(eng, K: int, bucket: int, tail: bool = False,
+                           temperature: float = 0.0) -> dict:
+    """Sync the engine's in-flight dispatches and copy its state; make
+    (capturing it if it is new) the program of a synthetic K-row wave at
+    `bucket` (`wave`: full, or tail-only on the paged engine) and put the
+    state back; replay the wave, copy what it left, put the state back and
+    run the same wave eagerly on the same inputs; put the state back once
+    more, so the engine is left as it was found. Returns both runs' [K]
+    first tokens, the largest difference over the loop state and the
+    caches or pools with their scales (`state_diff`) beside the largest
+    magnitude in the caches or pools (`state_max`), and the flash launches
+    each run made
+    (counted on the card, so 0 on the CPU). The paged pools' garbage page
+    0 is left out of `state_diff` and reported alone (`garbage_diff`): a
+    wave's pad positions all scatter there, so on the card which of the
+    duplicate writes lands last is not fixed."""
+    on_card = eng.device.type == "cuda"
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
+        if (not isinstance(eng, PagedLLMEngine)
+                and bucket + 1 > eng._cache_len):
+            eng._grow_cache(bucket + 1)
+        state = state_tensors(eng)
+        saved = [t.clone() for t in state]
+        rng = eng.generator.get_state()
+
+        def restore():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            eng.generator.set_state(rng)
+
+        program, arrays, eager_fn = wave(eng, K, bucket, tail,
+                                        temperature=temperature)
+        restore()
+        before = _flash() if on_card else 0
+        graph = eng._call(program, arrays).clone()
+        mid = _flash() if on_card else 0
+        after_graph = [t.clone() for t in state]
+        restore()
+        eager = eager_fn(*program.inputs)
+        end = _flash() if on_card else 0
+        diffs = [(a.float() - b.float()).abs()
+                 for a, b in zip(after_graph, state)]
+        pools = isinstance(eng, PagedLLMEngine)
+        loop = 3                        # the loop state leads state_tensors
+        diff = max(float((d[:, 1:] if pools and i >= loop else d).max())
+                   for i, d in enumerate(diffs))
+        garbage = max((float(d[:, 0].max()) for d in diffs[loop:]),
+                      default=0.0) if pools else 0.0
+        scale = max(float(t.float().abs().max()) for t in after_graph[loop:])
+        restore()
+    return {"graph": graph, "eager": eager, "state_diff": diff,
+            "garbage_diff": garbage, "state_max": scale,
             "graph_launches": mid - before, "eager_launches": end - mid}

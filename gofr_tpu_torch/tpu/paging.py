@@ -20,15 +20,19 @@ mapped by a block table. The JAX engine donates the pools and the loop
 state (tokens, positions, temperatures) to every program; here they are
 persistent tensors updated in place.
 
-Decode runs through the program cache (tpu/executor.py): one program per
-(table width, block), named as ``paging.py`` names them,
-``llama-paged-decode[-q8]-x{block}-NP{n_table}`` — on the card a CUDA graph.
-The block table reaches it through a static device buffer per width,
-filled before each replay by a host-to-device copy on the engine's stream
-from a pinned staging buffer of a ring of pipeline_depth + 1 (a buffer is
-reused only once the copy out of it is done). ``warmup`` captures every
-width a decode can reach. Prefill and the tail prefill run eagerly
-(their graphs are ROADMAP A11b).
+Every dispatch runs through the program cache (tpu/executor.py), named as
+``paging.py`` names them — on the card a CUDA graph: the decode block per
+(table width, block), ``llama-paged-decode[-q8]-x{block}-NP{n_table}``; the
+fused admission per (bucket, K), ``_prefill_program``,
+``llama-paged-prefill[-q8]-{bucket}x{K}``; the tail-only admission per
+(bucket, K, table width), ``_prefix_program``,
+``llama-paged-prefix[-q8]-{bucket}x{K}-NP{n_table}``. Their inputs (tables,
+tokens, rows) are static buffers filled before each call by one
+host-to-device copy from the engine's pinned staging ring
+(``LLMEngine._upload``). The warm-up before a capture points every write at
+the garbage page 0 (zero tables and prefix lengths). ``warmup`` captures
+every decode width, the reference's admission and tail sets and, with
+k_variants, every tail program the configured buckets can reach.
 
 Pages are released at sync, while younger dispatched blocks may still hold
 the freed pages in their tables (a finished row keeps decoding junk into
@@ -60,7 +64,8 @@ from ..models.llama import (DTYPES, llama_decode_step_paged,
 from ..ops.decode_attention import quantize_kv
 from ..ops.paged_attention import (paged_write_prefill_scales,
                                    paged_write_prefill_stacked)
-from .engine import GenerationRequest, LLMEngine, _Slot, check_kernel_config
+from .engine import (GenerationRequest, LLMEngine, _admission_split, _Slot,
+                     check_kernel_config)
 from .executor import next_bucket
 from .prefixcache import PrefixCache
 
@@ -138,11 +143,6 @@ class PagedLLMEngine(LLMEngine):
         self.prefix = PrefixCache(ps) if self._prefix_enabled else None
         # request id -> its matched prefix pages (ref'd), until assigned
         self._prefix_hits: Dict[int, List[int]] = {}
-        # width -> the static [B, width] table buffer of its programs; the
-        # pinned staging ring (made at the first upload on the card)
-        self._tables: Dict[int, torch.Tensor] = {}
-        self._table_ring: List[tuple] = []
-        self._table_next = 0
         dev = self.device
         shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, cfg.head_dim, ps)
         dtype = torch.int8 if self._q8 else DTYPES[cfg.dtype]
@@ -298,61 +298,108 @@ class PagedLLMEngine(LLMEngine):
 
     def _decode_program_paged(self, n_table: int, block: int):
         """The `block`-step paged decode program at table width n_table; its
-        one static input is that width's [B, n_table] table buffer."""
-        table = self._tables.get(n_table)
-        if table is None:
-            table = torch.zeros((self.n_slots, n_table), dtype=torch.int32,
-                                device=self.device)
-            self._tables[n_table] = table
+        one static input is that width's [B, n_table] table, all zero (page
+        0) in its warm-up."""
+        (table,) = self._static_inputs(
+            ("table", n_table), [((self.n_slots, n_table), torch.int32)])
         kind = "-q8" if self._q8 else ""
         return self.executor.compile(
             f"llama-paged-decode{kind}-x{block}-NP{n_table}",
             lambda t: self._decode_fn_paged(t, block), (table,),
-            warmup=lambda: self._warmup_state(block, (table,)),
+            warmup=lambda: self._warmup_state(table.zero_),
             generators=(self.generator,))
 
-    def _make_harmless(self, inputs) -> None:
-        """Paged: an all-zero table, so every write lands on the garbage
-        page 0."""
-        inputs[0].zero_()
+    def _prefill_program(self, bucket: int, K: int,
+                         slots: Optional[Sequence[int]] = None):
+        """The fused K-way paged admission at `bucket` (the reference's
+        ``_prefill_program(bucket, K)``). Static inputs: tokens [K, bucket],
+        the page table [K, ceil(bucket / ps)], then the rows."""
+        n_ptable = max(1, math.ceil(bucket / self.page_size))
+        kind = "-q8" if self._q8 else ""
+        return self._admission_program(
+            f"llama-paged-prefill{kind}-{bucket}x{K}", self._prefill_fn,
+            ("prefill", bucket, K), [((K, bucket), torch.long),
+                                     ((K, n_ptable), torch.int32),
+                                     *self._row_specs(K)], slots)
 
-    def _warm_programs(self) -> None:
-        """Paged: every table width a decode can reach (dispatch uses
-        pow2(widest pages + 1): 2, 4, ... up to max_seq_len's pages + 1;
-        the reference warms only the first admissions' width, and each
-        other one would capture mid-serving), at the full and the half
-        block."""
+    def _prefix_program(self, bucket: int, K: int, n_table: int,
+                        slots: Optional[Sequence[int]] = None):
+        """The tail-only K-way admission at `bucket` over tables n_table
+        wide (the reference's ``_prefix_program(bucket, K, n_table)``).
+        Static inputs: tokens [K, bucket], the table [K, n_table], the prefix
+        lengths [K] int32, then the rows."""
+        kind = "-q8" if self._q8 else ""
+        return self._admission_program(
+            f"llama-paged-prefix{kind}-{bucket}x{K}-NP{n_table}",
+            self._prefix_fn, ("prefix", bucket, K, n_table),
+            [((K, bucket), torch.long), ((K, n_table), torch.int32),
+             ((K,), torch.int32), *self._row_specs(K)], slots)
+
+    def _admission_program(self, name, fn, key, specs, slots):
+        inputs = self._static_inputs(key, specs)
+        return self.executor.compile(
+            name, fn, inputs,
+            warmup=lambda: self._warmup_state(
+                lambda: self._harmless_wave(inputs, slots)),
+            generators=(self.generator,))
+
+    def _warm_programs(self, k_variants: bool) -> None:
+        """Paged: the admission at each of _warm_ks for every bucket; with
+        the prefix cache the reference's tail set (the smallest bucket, K=1,
+        every bucket's page span) and, with k_variants (WARMUP=wide), every
+        tail program the buckets can reach (_tail_shapes) at every K
+        _admission_split gives; then every table width a decode can reach
+        (dispatch uses pow2(widest pages + 1): 2, 4, ... up to max_seq_len's
+        pages + 1; the reference warms only the first admissions' width,
+        and each other one would capture mid-serving), at the full and the
+        half block."""
+        for bucket in self.prefill_buckets:
+            for K in self._warm_ks(k_variants):
+                self._prefill_program(bucket, K)
+        if self.prefix is not None and self.prefill_buckets:
+            tail_b = min(self.prefill_buckets)
+            for bucket in self.prefill_buckets:
+                self._prefix_program(tail_b, 1, _pow2_at_least(
+                    self.allocator.pages_for(bucket)))
+            if k_variants:
+                split = {k for n in range(1, self.n_slots + 1)
+                         for k in _admission_split(n, self.n_slots)}
+                for bucket, n_table in self._tail_shapes():
+                    for K in sorted(split):
+                        self._prefix_program(bucket, K, n_table)
         width, widest = 2, _pow2_at_least(
             self.allocator.pages_for(self.max_seq_len) + 1)
-        widths = []
         while width <= widest:
-            widths.append(width)
-            width *= 2
-        for width in widths:
             for block in self._block_sizes():
                 self._decode_program_paged(width, block)
+            width *= 2
 
-    def _upload_table(self, dst: torch.Tensor, table: np.ndarray) -> None:
-        """Enqueue the copy of `table` into the static buffer `dst`: on the
-        card from the next staging buffer of the pinned ring, waiting first
-        (in practice never) for the copy that last used it."""
-        if self._stream is None:
-            dst.copy_(torch.from_numpy(table))
-            return
-        if not self._table_ring:
-            width = _pow2_at_least(self.allocator.pages_for(
-                self.max_seq_len) + 1)
-            self._table_ring = [
-                (torch.empty(self.n_slots * width, dtype=torch.int32,
-                             pin_memory=True), torch.cuda.Event())
-                for _ in range(self.pipeline_depth + 1)]
-        buf, done = self._table_ring[self._table_next]
-        self._table_next = (self._table_next + 1) % len(self._table_ring)
-        done.synchronize()
-        staged = buf[:table.size].view(table.shape)
-        staged.numpy()[...] = table
-        dst.copy_(staged, non_blocking=True)
-        done.record(self._stream)
+    def _tail_shapes(self) -> List[tuple]:
+        """Every (tail bucket, table width) a tail-only wave can take: a hit
+        of s >= 1 whole pages on a prompt of n <= admission_limit tokens
+        (one tail token always left) gives bucket(n - s * ps) and width
+        pow2(pages(n)); a row that missed rides along at its own bucket
+        with its own prompt's width, so a bucket's width may also be that
+        of any prompt no longer than the bucket."""
+        ps, buckets = self.page_size, np.asarray(self.prefill_buckets)
+        n = np.arange(ps + 1, self.admission_limit + 1)
+        widths = np.asarray([_pow2_at_least(int(p)) for p in -(-n // ps)],
+                            dtype=np.int64)
+        hit = set()
+        for s in range(1, (self.admission_limit - 1) // ps + 1):
+            live = n - s * ps >= 1
+            bucket = buckets[np.searchsorted(buckets, n[live] - s * ps)]
+            hit.update(zip(bucket.tolist(), widths[live].tolist()))
+        shapes = set(hit)
+        for bucket, width in hit:
+            w = 1
+            while w <= _pow2_at_least(self.allocator.pages_for(bucket)):
+                shapes.add((bucket, max(width, w)))
+                w *= 2
+        return sorted(shapes)
+
+    def _widest_table(self) -> int:
+        return _pow2_at_least(self.allocator.pages_for(self.max_seq_len) + 1)
 
     def _decode_fn_paged(self, table, block: int):
         """`block` paged decode steps (the int8 step under kv_dtype='int8');
@@ -395,11 +442,11 @@ class PagedLLMEngine(LLMEngine):
         for row, request in enumerate(batch):
             prompt_pages = self._reservations[request.id][:n_ptable]
             ptable[row, :len(prompt_pages)] = prompt_pages
+        program = self._prefill_program(bucket, len(batch), slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
-        return self._prefill_fn(
-            ptokens, self._to_device(ptable),
-            self._to_device(np.asarray(slots_idx, dtype=np.int64)),
-            lengths, temps)
+        return self._call(program, (ptokens, ptable,
+                                    np.asarray(slots_idx, np.int64),
+                                    lengths, temps))
 
     def _dispatch_prefill_prefix(self, bucket: int, slots_idx: List[int],
                                  batch: List[GenerationRequest]
@@ -415,16 +462,16 @@ class PagedLLMEngine(LLMEngine):
         for row, request in enumerate(batch):
             pages = (hits[row] + self._reservations[request.id])[:n_table]
             ptable[row, :len(pages)] = pages
+        program = self._prefix_program(bucket, len(batch), n_table,
+                                       slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch,
                                                        prefix_lens)
-        return self._prefix_fn(
-            ptokens, self._to_device(ptable),
-            self._to_device(np.asarray(prefix_lens, dtype=np.int32)),
-            self._to_device(np.asarray(slots_idx, dtype=np.int64)),
-            lengths, temps)
+        return self._call(program, (ptokens, ptable,
+                                    np.asarray(prefix_lens, np.int32),
+                                    np.asarray(slots_idx, np.int64),
+                                    lengths, temps))
 
     def _run_decode(self, block: int) -> torch.Tensor:
         table = self._build_table()
-        program = self._decode_program_paged(table.shape[1], block)
-        self._upload_table(program.inputs[0], table)
-        return program()
+        return self._call(self._decode_program_paged(table.shape[1], block),
+                          (table,))

@@ -437,3 +437,69 @@ def test_async_d2h_off_serves_the_same_tokens(cuda):
             eng.stop()
         assert eng.max_inflight >= 2
     assert got[0] == got[1] and all(len(s) == 24 for s in got[0])
+
+
+@pytest.mark.parametrize("paged,kw,tail", [
+    (True, {}, False), (True, {}, True),
+    (True, {"kv_dtype": "int8"}, False), (True, {"kv_dtype": "int8"}, True),
+    (False, {"decode_attn": "kernel"}, False),
+    (False, {"decode_attn": "kernel", "kv_dtype": "int8"}, False),
+], ids=["paged", "paged-tail", "paged-int8", "paged-int8-tail", "dense",
+        "dense-int8"])
+def test_prefill_wave_graph_matches_eager(cuda, paged, kw, tail):
+    """Admission waves (full, or tail-only over 2 cached pages) replayed
+    from their CUDA graphs against the same waves run eagerly from the
+    same state (tpu/graphcheck.prefill_graph_vs_eager, as chip_smoke.py
+    runs it), beside two live rows, at temperature 0 and 0.8: the first
+    tokens equal, the state bit-equal, flash counted on the card n_layers
+    times per full wave (none in a tail wave) in both."""
+    from gofr_tpu_torch.tpu.graphcheck import prefill_graph_vs_eager
+
+    cfg = _small_cfg(**kw)
+    engine = dict(n_slots=4, max_seq_len=128, prefill_buckets=(8, 16))
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    for i in range(2):
+        eng.submit(list(range(3 + i, 14 + 2 * i)), max_new_tokens=40)
+    for _ in range(3):
+        eng._step()
+    flash = 0 if tail else cfg.n_layers
+    for K in (1, 4):
+        for temperature in (0.0, 0.8):
+            got = prefill_graph_vs_eager(eng, K, 16, tail, temperature)
+            assert torch.equal(got["graph"], got["eager"])
+            assert got["state_diff"] == 0.0
+            assert got["graph_launches"] == got["eager_launches"] == flash
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_no_capture_after_wide_warmup(cuda, paged):
+    """warmup(k_variants=True) (WARMUP=wide) captures every program a short
+    burst reaches: waves of several widths and buckets, a prefix hit's
+    tail on the paged engine, decode blocks full and half; nothing is
+    captured while it is served, and every wave is one graph replay."""
+    cfg = _small_cfg(**({} if paged else {"decode_attn": "kernel"}))
+    engine = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16))
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8,
+                          prefix_cache=True, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    eng.warmup(k_variants=True)
+    captures = eng.executor.captures
+    eng.start()
+    try:
+        system = list(range(1, 9))
+        assert len(eng.generate(system + [20, 21], max_new_tokens=6)) == 6
+        reqs = [eng.submit(p, max_new_tokens=10) for p in
+                [system + [30], system + [31, 32], [5, 6, 7],
+                 list(range(40, 52)), [60, 61]]]
+        assert all(len(r.result(timeout_s=300)) == 10 for r in reqs)
+    finally:
+        eng.stop()
+    assert eng.executor.captures == captures
+    waves = eng.prefill_dispatches + eng.prefix_dispatches
+    calls = eng.executor.cache_info()
+    assert sum(n for name, n in calls.items() if "decode" not in name) \
+        == waves
+    assert not paged or eng.prefix_dispatches >= 1

@@ -297,7 +297,7 @@ def test_unported_config_keys_refuse_to_boot(key):
             "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
             "QOS": "true", "WEIGHTS_PATH": "/x.safetensors",
             "WEIGHT_DTYPE": "int8", "VOCAB_PATH": "/vocab.json",
-            "TP_SHARDS": "2", "WARMUP": "wide"}
+            "TP_SHARDS": "2"}
     with pytest.raises(ValueError, match="ROADMAP A"):
         build_engine({key: asks[key]}, device="cpu")
 
@@ -314,6 +314,7 @@ PORTED = {
     "PREFIX_CACHE": {"PREFIX_CACHE": "true"},
     "PREFIX_CACHE-false": {"PREFIX_CACHE": "false"},
     "PREFIX_CACHE-dense": {"PAGED": "false", "PREFIX_CACHE": "true"},
+    "WARMUP": {"WARMUP": "wide"},
 }
 
 

@@ -216,10 +216,13 @@ def test_dense_cache_length_after_each_dispatch_matches_jax(weights, config):
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_program_names_match_the_jax_executor(weights, config):
-    """Under a stub capture, the decode programs a fixed traffic compiles
-    are the ones the JAX executor compiles for it: one per (block, cache
-    length) dense, per (block, table width) paged, half blocks included;
-    and the warm-up before every capture leaves the streams untouched."""
+    """Under a stub capture, the programs a fixed traffic compiles are the
+    ones the JAX executor compiles for it: the decode blocks, one per
+    (block, cache length) dense, per (block, table width) paged, half
+    blocks included; the fused admission waves, one per (bucket, K) (and
+    cache length, dense); the paged tail-only waves, one per (bucket, K,
+    table width); and the warm-up before every capture leaves the streams
+    untouched."""
     runs = []
     for make, params in ((_jax_engine, weights[0]),
                          (_port_engine, weights[1])):
@@ -227,17 +230,24 @@ def test_program_names_match_the_jax_executor(weights, config):
         port = make is _port_engine
         if port:
             eng.executor = Executor("cpu", capture=_stub_capture)
-        # five requests on four slots: half blocks while one waits
+        # five requests on four slots: half blocks while one waits; then
+        # two that hit the system prompt's cached pages (paged)
         reqs = [eng.submit(p, max_new_tokens=n) for p, n in
                 [SEED] + CONCURRENT]
         _drive(eng)
+        reqs += [eng.submit(SYSTEM + [90 + i, 91], max_new_tokens=5)
+                 for i in range(2)]
+        _drive(eng)
         names = (eng.executor.compiled if port else
-                 [n for n in eng.executor.cache_info() if "decode" in n])
+                 [n for n in eng.executor.cache_info()
+                  if any(k in n for k in ("decode", "prefill", "prefix"))])
         runs.append((sorted(names), [r.result(timeout_s=5) for r in reqs]))
     (want_names, want), (names, got) = runs
     assert got == want
     assert names == want_names
     assert any("-x2-" in n for n in names) and any("-x4-" in n for n in names)
+    assert any("prefill" in n for n in names)
+    assert CONFIGS[config][0] == any("prefix" in n for n in names)
 
 
 def test_program_calls_its_capture_once_and_replays_after():
@@ -361,16 +371,14 @@ def _generate(port, prompt, n):
 def test_dispatch_keys_boot_and_serve(weights, paged, keys):
     """Each value boots, serves, and sets what it names: async_d2h; WARMUP
     true registers every decode program serving can reach at boot (the
-    full and half block), false none; wide refuses to boot (it warms
-    prefill programs, ROADMAP A11b)."""
+    full and half block) and the reference's warm admission set (K=1 per
+    bucket; paged, the tail programs at the smallest bucket per bucket's
+    page span), false none; wide adds every K <= MAX_BATCH that is a power
+    of two and, paged, every tail program the buckets can reach."""
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "REQUEST_TIMEOUT": "120", "PAGED": paged, "DECODE_ATTN": "kernel",
            **keys}
-    if keys.get("WARMUP") == "wide":
-        with pytest.raises(ValueError, match="ROADMAP A11b"):
-            build_engine(env, device="cpu", params=weights[1])
-        return
     engine = build_engine(env, device="cpu", params=weights[1])
     booted = set(engine.executor.cache_info())
     app = build_app(env, engine=engine)
@@ -382,14 +390,25 @@ def test_dispatch_keys_boot_and_serve(weights, paged, keys):
     assert status == 201 and body["data"]["tokens"] == 6
     assert engine.async_d2h == (keys.get("ENGINE_ASYNC_D2H") != "false")
     assert engine.pipeline_depth == 4
+    wide = keys.get("WARMUP") == "wide"
+    ks = (1, 2) if wide else (1,)
     if keys.get("WARMUP") == "false":
         assert not booted and engine.warmup_seconds == 0.0
     elif paged == "true":
-        # MAX_SEQ_LEN 64 = 8 pages: widths pow2(pages + 1) = 2 .. 16
-        assert booted == {f"llama-paged-decode-x{b}-NP{n}"
-                          for b in (16, 8) for n in (2, 4, 8, 16)}
+        # MAX_SEQ_LEN 64 = 8 pages: widths pow2(pages + 1) = 2 .. 16; a
+        # tail (prompts of 9-16 tokens on one cached page) is at bucket 8
+        # over 2 pages
+        tails = {f"llama-paged-prefix-8x1-NP{n}" for n in (1, 2)}
+        if wide:
+            tails.add("llama-paged-prefix-8x2-NP2")
+        assert booted == ({f"llama-paged-decode-x{b}-NP{n}"
+                           for b in (16, 8) for n in (2, 4, 8, 16)}
+                          | {f"llama-paged-prefill-{b}x{k}" for b in (8, 16)
+                             for k in ks} | tails)
     else:
         # the cache grown to MAX_SEQ_LEN, where it stays
-        assert booted == {"llama-decode-x16-S64-kern",
-                          "llama-decode-x8-S64-kern"}
+        assert booted == ({"llama-decode-x16-S64-kern",
+                           "llama-decode-x8-S64-kern"}
+                          | {f"llama-prefill-{b}x{k}-S64-flash"
+                             for b in (8, 16) for k in ks})
         assert engine._cache_len == 64
