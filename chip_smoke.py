@@ -8,7 +8,8 @@ flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256),
 at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 ``--prefill`` (build, the main path's admission wave at [1, 256] and
 [4, 256], eager and as its graph's replay: host wall, card busy time and
-host launches).
+host launches) and ``--sc`` (build, the main path's serve phase, then its
+sampling-controls, sort-skip and scoring phases, 7 and 8 below).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -66,7 +67,9 @@ Phases, one or more lines each, any failure exits non-zero:
    8 concurrent requests on it with distinct tails, each hitting its 3
    pages and prefilling only its tail (no flash), a hit prompt served twice
    alike, and, logged, the tokens' agreement with and the TTFT of the same
-   prompts on an engine without the cache;
+   prompts on an engine without the cache; each serve phase ends, after its
+   counted run, with the sampling-controls burst's prompts all greedy in
+   one wave, the reference of phase 7;
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
@@ -93,7 +96,29 @@ Phases, one or more lines each, any failure exits non-zero:
    (graphcheck.prefill_graph_vs_eager): full at [1, 256] and [4, 256] and,
    paged, tail-only at [4, 256], each at temperature 0 and 0.7, with equal
    first tokens, bit-equal state and n_layers flash launches per full wave
-   in both.
+   in both;
+7. sampling controls (``serve <config> sc``, after the serve phases): the
+   four configurations again with SAMPLING_CONTROLS=true and WARMUP=wide
+   (two decode graphs per shape, with and without the per-row filters,
+   -sc names), 7 streams and 1 non-streaming request of 32 tokens admitted
+   as one wave with rows greedy, top_k=1, top_p=1e-6, top_k=40, top_p=0.9
+   and both at temperature 0.8: counted as the serve phases are; the
+   greedy, top_k=1 and tiny top_p rows equal the greedy rows of phase 4's
+   reference (or leave them only at a tie of the served bf16 logits, where
+   top_k=1 keeps every tied token as the reference does), and score within
+   MODEL_TOL as top-1 (engine.score); every token of a filtered row lies in
+   its filtered set by the teacher-forced full logits;
+8. at the end: the sort-skip (the main path's decode step at B=8 on the
+   plain engine, on a sampling-controls engine with all rows greedy, which
+   must run no sort and stay within 3% of the plain step's card time, and
+   with one top_k row live, which shows the filters' cost), ``check sc
+   graph`` on that engine (both decode variants and a -sc wave with filter
+   rows, graph against eager, at temperature 0 and 0.8), and the scoring
+   passes (``score``: WARMUP_SCORE's boot, score and embed at buckets
+   16..512 against a full-sequence oracle within MODEL_TOL, per (S, W) the
+   wall and card time and the flash launches, then 8 sequences scored and
+   embedded from a second thread while 7 greedy streams decode, which must
+   come out as without it, with no capture after boot).
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -675,12 +700,14 @@ def make_prompt(n_chars: int, seed: int) -> str:
     return out[:n_chars]
 
 
-def stream_request(port, prompt, max_tokens, out, key):
-    """POST /generate (SSE); records the token events' arrival times."""
+def stream_request(port, prompt, max_tokens, out, key, extra=None):
+    """POST /generate (SSE), with `extra` body fields; records the token
+    events' arrival times."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.monotonic()
     conn.request("POST", "/generate", body=json.dumps(
-        {"prompt": prompt, "max_tokens": max_tokens, "stream": True}),
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": True,
+         **(extra or {})}),
         headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     times, text, done = [], [], None
@@ -702,11 +729,12 @@ def stream_request(port, prompt, max_tokens, out, key):
                 "done": done}
 
 
-def plain_request(port, prompt, max_tokens, out, key):
+def plain_request(port, prompt, max_tokens, out, key, extra=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.monotonic()
     conn.request("POST", "/generate", body=json.dumps(
-        {"prompt": prompt, "max_tokens": max_tokens, "stream": False}),
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": False,
+         **(extra or {})}),
         headers={"Content-Type": "application/json"})
     resp = conn.getresponse()
     body = json.loads(resp.read())
@@ -780,6 +808,9 @@ def serve_phase(params, cfg, dev, card: str, config: str,
                                dict(engine.prefix_shapes))
         cache_len = getattr(engine, "_cache_len", None)
         paged = getattr(engine, "prefix", None) is not None
+        # after the counted run: the sampling-controls phase's prompts, all
+        # greedy, in the same one wave, its greedy reference
+        sc_ref = sc_burst(app.http_port, engine, greedy=True)
     finally:
         app.shutdown()
 
@@ -833,7 +864,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         f"tok/s={(len(solo) - 1) / (solo[-1] - solo[0]):.1f} [{card}]")
     return {"launches": launches, "prefill_shapes": shapes,
             "prompt_lens": [len(engine.tokenizer.encode(p)) for p in prompts],
-            "max_tokens": n_tok, "cache_len": cache_len}
+            "max_tokens": n_tok, "cache_len": cache_len, "sc_ref": sc_ref}
 
 
 def zero_counts(engine) -> None:
@@ -1469,11 +1500,13 @@ HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|"
 
 def decode_engine(params, cfg, dev, config: str):
     """A serving configuration's engine at B=8 (contexts ~200 tokens, 600
-    new tokens each, flash prefill as served), its graphs captured by
-    warmup(), its 8 greedy
-    requests admitted and driven, this thread playing the engine loop (the
-    loop thread is not started), until the pipeline is full of decode
-    blocks."""
+    new tokens each, flash prefill as served), its 8 greedy requests
+    admitted and driven, this thread playing the engine loop (the loop
+    thread is not started), until the pipeline is full of decode blocks.
+    The paged engine captures each graph at its first use, before the
+    windows (the run reaches one table width); the dense one captures
+    warmup()'s set, which first grows the cache to max_seq_len, so no
+    growth drops the graphs mid-window."""
     import dataclasses
 
     from gofr_tpu_torch.models.tokenizer import DebugTokenizer
@@ -1485,9 +1518,11 @@ def decode_engine(params, cfg, dev, config: str):
                               decode_attn=extra.get("DECODE_ATTN", "xla"),
                               kv_dtype=extra.get("KV_DTYPE"))
     kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,))
-    eng = (LLMEngine(params, cfg, **kw) if extra.get("PAGED") == "false"
-           else PagedLLMEngine(params, cfg, page_size=128, **kw))
-    eng.warmup()
+    if extra.get("PAGED") == "false":
+        eng = LLMEngine(params, cfg, **kw)
+        eng.warmup()
+    else:
+        eng = PagedLLMEngine(params, cfg, page_size=128, **kw)
     tok = DebugTokenizer(cfg.vocab_size)
     for i in range(8):
         eng.submit(tok.encode(make_prompt(200, 100 + i)), max_new_tokens=600)
@@ -1714,6 +1749,567 @@ def warmup_true_phase(params, cfg, dev, card: str,
             f"{shapes}, {sorted(new)}")
 
 
+# -- sampling controls, the sort-skip and the scoring passes (PR 10) ----------
+# the sampling-controls burst: per row (temperature, top_p, top_k) and
+# whether its tokens must equal the greedy ones (one survivor per step);
+# rows 0-6 stream, row 7 is the non-streaming request
+SC_ROWS = [(0.0, 0.0, 0, True), (1.0, 0.0, 1, True), (0.8, 1e-6, 0, True),
+           (0.8, 0.0, 40, False), (0.8, 0.9, 0, False),
+           (0.8, 0.9, 40, False), (0.0, 0.0, 0, True), (0.8, 0.0, 1, True)]
+# + BOS, + 32 new tokens: every row fits the largest serving bucket (256),
+# so the burst admits as one [8, 256] wave and every row can be scored
+SC_CHARS = [150, 180, 200, 220, 130, 160, 170, 190]
+SC_TOKENS = 32
+
+
+def gate_admission(engine, n: int) -> None:
+    """Hold the engine's admission until n requests are queued, then admit
+    them in one round (so into one wave per bucket, whatever order the
+    clients' requests arrive in) and stop holding."""
+    admit = engine._admit
+
+    def gated():
+        if engine.queue_depth() >= n:
+            engine._admit = admit
+            admit()
+    engine._admit = gated
+
+
+def sc_burst(port, engine, greedy: bool) -> dict:
+    """The SC_CHARS prompts, 7 streams and 1 non-streaming request of
+    SC_TOKENS tokens, admitted together as one wave with their rows in a
+    fixed order (priority = row): with SC_ROWS's sampling controls, or
+    every row greedy with none. Returns {row: its client record}."""
+    out: dict = {}
+    threads = []
+    for row, (n, (temp, top_p, top_k, _)) in enumerate(zip(SC_CHARS,
+                                                           SC_ROWS)):
+        extra = {"priority": row}
+        if not greedy:
+            extra.update(temperature=temp, top_p=top_p, top_k=top_k)
+        target = stream_request if row < 7 else plain_request
+        threads.append(threading.Thread(
+            target=target, args=(port, make_prompt(n, 300 + row), SC_TOKENS,
+                                 out, row, extra)))
+    gate_admission(engine, len(threads))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    require(all(not t.is_alive() for t in threads), "sc burst: hung")
+    return out
+
+
+def burst_text(r) -> str:
+    return r["text"] if "text" in r else (r["data"] or {}).get("text", "")
+
+
+def oracle_logits(params, cfg, dev, ids):
+    """The teacher-forced logits of `ids`, one llama_forward over the whole
+    sequence (flash, T = S) from an empty cache: [len(ids), V] float32 on
+    the card."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import init_kv_cache, llama_forward
+
+    c = dataclasses.replace(cfg, attn_impl="flash")
+    with torch.no_grad():
+        k, v = init_kv_cache(c, 1, len(ids), device=dev)
+        toks = torch.tensor([ids], dtype=torch.long, device=dev)
+        pos = torch.arange(len(ids), device=dev)[None]
+        return llama_forward(params, c, toks, pos, k, v)[0][0]
+
+
+def in_filter(logits, tokens, temperature, top_p, top_k, boost=0.0) -> int:
+    """How many of `tokens` (one per row of the [C, V] teacher-forced
+    `logits`) lie in the set their row's filters allow at `temperature`:
+    top_k keeps the k largest, then top_p the smallest prefix of the top_k
+    renormalized distribution whose mass reaches top_p, i.e. a token whose
+    tokens ahead hold less than top_p. boost: added to each token's own
+    logit first (a tolerance for logits computed another way)."""
+    import numpy as np
+
+    n = 0
+    for row, t in zip(logits, tokens):
+        s = row.astype(np.float64) / temperature
+        lt = s[t] + boost / temperature
+        sd = np.sort(s)[::-1]
+        ahead = int(np.sum(sd > lt))
+        ok = not top_k or ahead < top_k
+        if ok and top_p:
+            kept = sd[:top_k] if top_k else sd
+            p = np.exp(kept - kept[0])
+            p /= p.sum()
+            ok = float(p[:min(ahead, len(kept))].sum()) < top_p
+        n += ok
+    return n
+
+
+def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
+                   preset: str = "llama3-8b") -> dict:
+    """One serving configuration with SAMPLING_CONTROLS=true and
+    WARMUP=wide: the boot (two decode graphs per shape, -sc names), then
+    the SC_ROWS burst through POST /generate in one wave (7 streams, 1
+    non-streaming), counted as the serve phases count: flash n_layers per
+    full wave, the decode kernel n_layers per step, every dispatch a graph
+    replay, no capture after boot. The greedy, top_k=1 and tiny top_p rows
+    must equal `ref` (the same prompts greedy on the engine without
+    controls, serve_phase); every token of the filtered rows must lie in
+    its set by the teacher-forced full logits (oracle_logits; strictly,
+    logged, and within MODEL_TOL of the logits, required); and
+    engine.score(top=20) must rank each greedy-equal row's token first
+    where the scored top two are more than 2 * MODEL_TOL apart."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    extra, decode_kernel = SERVE_CONFIGS[config]
+    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
+           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
+           "WARMUP": "wide", "SAMPLING_CONTROLS": "true", **extra}
+    engine = build_engine(env, device=dev, params=params)
+    name = f"{config} sc"
+    boot = boot_line(engine, name, card)
+    names = set(engine.executor.cache_info())
+    nosort = [n for n in names if n.endswith("-sc-nosort")]
+    require(all(n.endswith(("-sc", "-sc-nosort")) for n in names)
+            and nosort and all(n[:-len("-nosort")] in names for n in nosort),
+            f"{name}: the programs are not the -sc set: {sorted(names)}")
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        warm: dict = {}
+        stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w",
+                       {"temperature": 0.8, "top_k": 40})
+        require(warm["w"]["status"] == 200, f"{name}: warm-up failed")
+        zero_counts(engine)
+        t0 = time.monotonic()
+        out = sc_burst(app.http_port, engine, greedy=False)
+        wall = time.monotonic() - t0
+        launches = launch_counts.counts()
+        prefills, steps = engine.prefill_dispatches, engine.decode_steps
+        dispatch = dispatch_counts(engine, boot)
+        shapes = dict(engine.prefill_shapes)
+        calls = engine.executor.cache_info()
+        tok = engine.tokenizer
+        rows = []
+        for row, (n, (temp, top_p, top_k, one)) in enumerate(zip(SC_CHARS,
+                                                                 SC_ROWS)):
+            r = out[row]
+            require(r["status"] in (200, 201), f"{name}: row {row} failed: "
+                    f"{r['status']}")
+            ids = tok.encode(burst_text(r), bos=False)
+            rows.append((tok.encode(make_prompt(n, 300 + row)), ids))
+        # the teacher-forced checks, after the counted run (the score
+        # window programs are captured at their first use here)
+        scored = [engine.score(p, c, top=20) for p, c in rows]
+    finally:
+        app.shutdown()
+    filt = sum(v for k, v in calls.items()
+               if k.endswith("-sc") and "decode" in k)
+    nosort = sum(v for k, v in calls.items() if k.endswith("-nosort"))
+    log(f"serve {name}: 7 streams + 1 non-streaming x {SC_TOKENS} tokens, "
+        f"rows (temperature, top_p, top_k) {[r[:3] for r in SC_ROWS]}, in "
+        f"{wall:.2f}s; waves {wave_list(shapes)}; decode block replays with "
+        f"the filters / without: {filt} / {nosort}")
+    L = cfg.n_layers
+    check_dispatch(name, dispatch, card)
+    require(prefills > 0 and launches["flash_attention"] == L * prefills,
+            f"{name}: flash launches do not match n_layers per full wave")
+    require(steps > 0 and launches[decode_kernel] == L * steps,
+            f"{name}: {decode_kernel} launches do not match n_layers per "
+            f"decode step")
+    same = [row for row, r in enumerate(SC_ROWS) if r[3]]
+    for row in same:
+        prompt, got = rows[row]
+        want = tok.encode(burst_text(ref[row]), bos=False)
+        if got == want:
+            log(f"serve {name}: row {row} {SC_ROWS[row][:3]}: its "
+                f"{len(got)} tokens equal the same prompt's greedy tokens on "
+                f"the engine without controls, in the same wave")
+            continue
+        # the logits are bf16 values: a step whose largest logit is tied
+        # keeps every tied token under top_k=1 or a tiny top_p (as in the
+        # reference) and draws one, where greedy takes the first
+        require(SC_ROWS[row][1] or SC_ROWS[row][2], f"{name}: greedy row "
+                f"{row} differs from the engine without controls")
+        p = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 min(len(got), len(want)))
+        x = got[p] if p < len(got) else tok.EOS
+        y = want[p] if p < len(want) else tok.EOS
+        lg = oracle_logits(params, cfg, dev, prompt + want[:p])[-1].float()
+        top = float(lg.max())
+        gx, gy = top - float(lg[x]), top - float(lg[y])
+        tie = max(gx, gy) <= 2 * MODEL_TOL
+        log(f"serve {name}: row {row} {SC_ROWS[row][:3]}: equal to the "
+            f"greedy tokens for {p} tokens, then token {x} where greedy took "
+            f"{y}: below the largest teacher-forced logit by {gx:.4f} and "
+            f"{gy:.4f} (a tie in the served bf16 logits if both are within "
+            f"{2 * MODEL_TOL}) {'ok' if tie else 'FAIL'}")
+        require(tie, f"{name}: row {row} left the greedy tokens at a step "
+                f"without a tie")
+    first = total = 0
+    worst = 0.0
+    for row in same:
+        chosen, ids, lps = scored[row]
+        comp = np.asarray(rows[row][1])
+        first += int((ids[:, 0] == comp).sum())
+        total += len(comp)
+        worst = max(worst, float((lps[:, 0] - chosen).max()))
+    log(f"serve {name}: engine.score(top=20) over the greedy-equal rows: "
+        f"their token scored top-1 at {first} of {total} positions; the "
+        f"largest gap between a token's scored logprob and the top one "
+        f"{worst:.4f} (tol {MODEL_TOL}) "
+        f"{'ok' if worst <= MODEL_TOL else 'FAIL'}")
+    require(worst <= MODEL_TOL, f"{name}: a greedy-equal row's token is not "
+            f"the scored top-1 within {MODEL_TOL}")
+    for row, (temp, top_p, top_k, one) in enumerate(SC_ROWS):
+        if one:
+            continue
+        prompt, comp = rows[row]
+        require(len(comp) >= 1, f"{name}: row {row} returned nothing")
+        logits = oracle_logits(params, cfg, dev, prompt + comp)
+        P = len(prompt)
+        lg = logits[P - 1:P - 1 + len(comp)].float().cpu().numpy()
+        strict = in_filter(lg, comp, temp, top_p, top_k)
+        loose = in_filter(lg, comp, temp, top_p, top_k, 2 * MODEL_TOL)
+        log(f"serve {name}: row {row} (T={temp}, top_p={top_p}, "
+            f"top_k={top_k}): {strict}/{len(comp)} tokens inside the "
+            f"filtered set by the teacher-forced logits, {loose}/{len(comp)}"
+            f" within {2 * MODEL_TOL} of them "
+            f"{'ok' if loose == len(comp) else 'FAIL'}")
+        require(loose == len(comp), f"{name}: row {row} drew a token "
+                f"outside its filtered set")
+        del logits
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def sort_skip_engine(params, cfg, dev, controls: bool):
+    """The main path's engine (paged, flash prefill, 8 slots, bucket 256)
+    with or without sampling controls, nothing captured ahead (each program
+    at its first use), 8 greedy ~200-token requests of 600 new tokens
+    admitted and driven, this thread playing the loop, until the pipeline
+    is full of decode blocks."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    c = dataclasses.replace(cfg, attn_impl="flash")
+    eng = PagedLLMEngine(params, c, device=dev, n_slots=8, max_seq_len=1024,
+                         prefill_buckets=(256,), page_size=128,
+                         sampling_controls=controls)
+    tok = DebugTokenizer(cfg.vocab_size)
+    reqs = [eng.submit(tok.encode(make_prompt(200, 100 + i)),
+                       max_new_tokens=600) for i in range(8)]
+    for _ in range(eng.pipeline_depth + 1):
+        eng._step()
+    require(all(kind == "decode" for kind, *_ in eng._inflight),
+            "sort skip: the pipeline is not full of decode blocks")
+    return eng, reqs
+
+
+def step_profile(eng, n_steps: int = 4) -> dict:
+    """n_steps loop steps under torch.profiler, the card idle at the start
+    and drained at the end (_window): per decode step, the card's busy
+    time, the kernels it ran, and the sort kernels and their time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ran = eng.decode_steps
+    captures = eng.executor.captures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _window(eng, n_steps)
+    ran = eng.decode_steps - ran
+    require(eng.executor.captures == captures,
+            "sort skip: a graph was captured inside the window")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    sort = [e for e in kernels if "sort" in e.key.lower()]
+    return {"busy": sum(e.self_device_time_total for e in kernels) / 1e3 / ran,
+            "kernels": sum(e.count for e in kernels) / ran,
+            "sorts": sum(e.count for e in sort) / ran,
+            "sort_ms": sum(e.self_device_time_total for e in sort) / 1e3 / ran,
+            "steps": ran,
+            "row_filter": (eng._row_filter_now() if eng.sampling_controls
+                           else None)}
+
+
+def sort_skip_phase(params, cfg, dev, card: str) -> None:
+    """The decode step at B=8 in the pipelined loop on the main path: the
+    plain engine, a sampling-controls engine with every row greedy (its
+    -nosort blocks), and the same engine once one row is replaced by a
+    top_k=40 row at temperature 0.8 (its filter blocks). Logs card busy
+    time, kernels and sort kernels per step. Requires no sort in the
+    all-greedy -sc step and its busy time within 3% of the plain step's,
+    and sort kernels in the filter step. Then check_sc_graph on that
+    engine."""
+    import torch
+
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+
+    got = {}
+    for controls in (False, True):
+        eng, reqs = sort_skip_engine(params, cfg, dev, controls)
+        got["plain" if not controls else "sc greedy"] = step_profile(eng)
+        if controls:
+            reqs[0].cancel()
+            tok = DebugTokenizer(cfg.vocab_size)
+            eng.submit(tok.encode(make_prompt(200, 100)), max_new_tokens=600,
+                       temperature=0.8, top_k=40)
+            for _ in range(eng.pipeline_depth + 2):
+                eng._step()
+            require(len(eng._filter_rows) == 1
+                    and all(kind == "decode" for kind, *_ in eng._inflight),
+                    "sort skip: the filter row is not live in a full "
+                    "pipeline")
+            got["sc one filter row"] = step_profile(eng)
+            check_sc_graph(eng, card)
+        del eng, reqs
+        torch.cuda.empty_cache()
+    for kind, r in got.items():
+        log(f"sort skip: decode step B=8 paged, {kind}: card_busy_ms_per_step"
+            f"={r['busy']:.4f} kernels_per_step={r['kernels']:.2f} "
+            f"sort_kernels_per_step={r['sorts']:.2f} sort_ms_per_step="
+            f"{r['sort_ms']:.4f} (per-row filters "
+            f"{ {None: 'none', True: 'on', False: 'off'}[r['row_filter']]}; "
+            f"{r['steps']} steps) [{card}]")
+    plain, greedy, filt = (got["plain"], got["sc greedy"],
+                           got["sc one filter row"])
+    require(plain["busy"] > 0, "sort skip: the profiler saw no kernels")
+    log(f"sort skip: the filter row's cost per step "
+        f"{filt['busy'] - greedy['busy']:.4f} ms of card time (sort kernels alone {filt['sort_ms']:.4f}); the "
+        f"all-greedy -sc step against the plain step "
+        f"{greedy['busy'] / plain['busy']:.4f}x [{card}]")
+    require(greedy["sorts"] == 0 and not greedy["row_filter"],
+            "sort skip: the all-greedy -sc step ran a sort")
+    require(abs(greedy["busy"] / plain["busy"] - 1) <= 0.03,
+            "sort skip: the all-greedy -sc step is not within 3% of the "
+            "plain step")
+    require(filt["sorts"] > 0 and filt["row_filter"],
+            "sort skip: the filter step ran no sort")
+
+
+def check_sc_graph(eng, card: str) -> None:
+    """On a sampling-controls engine in full flight: both decode variants
+    (CONTROLS rows live, and all rows without controls), replayed against
+    the same block run eagerly, and a [4, 256] admission wave with CONTROLS
+    rows, each at temperature 0 and 0.8: equal tokens bit for bit, the
+    state within MODEL_TOL (decode; logged) and bit-equal (wave), the
+    variant asked for."""
+    import torch
+
+    from gofr_tpu_torch.tpu.graphcheck import (graph_vs_eager,
+                                               prefill_graph_vs_eager)
+
+    block, L = eng.decode_block_size, eng.cfg.n_layers
+    for filters in (True, False):
+        for temperature in (0.0, 0.8):
+            g = graph_vs_eager(eng, block, temperature, filters)
+            same = bool(torch.equal(g["graph"].cpu(), g["eager"].cpu()))
+            ok = (same and g["state_diff"] <= MODEL_TOL
+                  and g["row_filter"] == filters
+                  and g["graph_launches"] == g["eager_launches"] == L * block)
+            kind = "with" if filters else "without"
+            log(f"check sc graph: decode block {kind} the per-row filters at "
+                f"temperature {temperature}: tokens "
+                f"{'equal' if same else 'DIFFER'}; state max_abs_diff="
+                f"{g['state_diff']:.3e}; decode reads {g['graph_launches']} / "
+                f"{g['eager_launches']} {'ok' if ok else 'FAIL'} [{card}]")
+            require(ok, "the -sc decode graph differs from eager")
+    for temperature in (0.0, 0.8):
+        g = prefill_graph_vs_eager(eng, 4, 256, False, temperature,
+                                   filters=True)
+        same = bool(torch.equal(g["graph"].cpu(), g["eager"].cpu()))
+        ok = (same and g["state_diff"] == 0.0
+              and g["graph_launches"] == g["eager_launches"] == L)
+        log(f"check sc graph: -sc wave [4, 256] with filter rows at "
+            f"temperature {temperature}: first tokens "
+            f"{'equal' if same else 'DIFFER'}; state max_abs_diff="
+            f"{g['state_diff']:.3e} (page 0 aside: {g['garbage_diff']:.3e}); "
+            f"flash {g['graph_launches']} / {g['eager_launches']} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        require(ok, "the -sc wave's graph differs from eager")
+
+
+SCORE_BUCKETS = (16, 32, 64, 128, 256, 512)
+
+
+def score_phase(params, cfg, dev, card: str,
+                preset: str = "llama3-8b") -> None:
+    """The scoring passes on the main path's engine (paged, flash, buckets
+    16..512, no prefix cache) booted with WARMUP=wide and WARMUP_SCORE=true:
+    the score
+    family's boot; per bucket S a sequence of S tokens (half prompt, half
+    completion) scored (top=20) and embedded against the teacher-forced
+    oracle (oracle_logits; its final-norm hidden state): chosen and top
+    logprobs within MODEL_TOL, top ids equal where the oracle's neighbours
+    are more than 2 * MODEL_TOL apart, the embedding's cosine >= 0.999;
+    wall per pass (mean of 5), card busy per pass (torch.profiler), flash
+    launches per pass (counted on the card: n_layers at S <= 128, where the
+    window is the bucket, else 0). Then 7 greedy streams decode while a
+    second thread scores and embeds 8 sequences: the streams equal those of
+    the same requests without it, nothing fails, no capture after boot."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.models.llama import init_kv_cache, llama_forward_hidden
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_engine
+
+    # without the prefix cache the second run of the same prompts admits as
+    # the first did (a prefix hit's tail prefill computes otherwise)
+    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "MAX_BATCH": "8",
+           "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+           "PREFILL_BUCKETS": ",".join(map(str, SCORE_BUCKETS)),
+           "PREFIX_CACHE": "false", "WARMUP": "wide", "WARMUP_SCORE": "true"}
+    engine = build_engine(env, device=dev, params=params)
+    try:
+        ex = engine.executor
+        boot = ex.captures
+        fam = {n: p for n, p in ex._cache.items()
+               if n.startswith(("score-", "embed-"))}
+        log(f"score: boot with WARMUP=wide in {engine.warmup_seconds:.2f}s, "
+            f"then WARMUP_SCORE in {engine.score_warmup_seconds:.2f}s: "
+            f"{len(fam)} window graphs ({', '.join(sorted(fam))}) captured in "
+            f"{sum(p.capture_seconds for p in fam.values()):.2f}s, "
+            f"{engine.score_pool_bytes} bytes of card memory "
+            f"({engine.score_pool_bytes / 2**30:.3f} GiB; serving graphs "
+            f"{engine.graph_pool_bytes / 2**30:.3f} GiB) [{card}]")
+        require(set(fam) == {f"{f}-{S}x{math.gcd(S, 128)}"
+                             for f in ("score", "embed")
+                             for S in SCORE_BUCKETS},
+                f"score: the warmed family is {sorted(fam)}")
+        rng = np.random.default_rng(0)
+        L = cfg.n_layers
+        for S in SCORE_BUCKETS:
+            W = math.gcd(S, 128)
+            seq = rng.integers(259, cfg.vocab_size, S).tolist()
+            P = S // 2
+            prompt, comp = seq[:P], seq[P:]
+            launch_counts.zero()
+            chosen, ids, lps = engine.score(prompt, comp, top=20)
+            flash = launch_counts.counts()["flash_attention"]
+            emb = engine.embed(seq)
+            lg = oracle_logits(params, cfg, dev, seq)
+            lsm = torch.log_softmax(lg[P - 1:S - 1].float(), dim=-1)
+            o_lps, o_ids = torch.topk(lsm, 20, dim=-1)
+            o_chosen = torch.gather(lsm, 1, torch.tensor(
+                comp, device=dev)[:, None])[:, 0].cpu().numpy()
+            o_lps, o_ids = o_lps.cpu().numpy(), o_ids.cpu().numpy()
+            c = dataclasses.replace(cfg, attn_impl="flash")
+            with torch.no_grad():
+                k, v = init_kv_cache(c, 1, S, device=dev)
+                hid = llama_forward_hidden(
+                    params, c, torch.tensor([seq], device=dev),
+                    torch.arange(S, device=dev)[None], k, v)[0][0, -1]
+            o_emb = hid.float().cpu().numpy()
+            o_emb /= np.linalg.norm(o_emb)
+            del lg, lsm, k, v, hid
+            d_chosen = float(np.abs(chosen - o_chosen).max())
+            d_lps = float(np.abs(lps - o_lps).max())
+            gaps = np.abs(np.diff(o_lps, axis=1)) > 2 * MODEL_TOL
+            clear = np.ones(o_ids.shape, dtype=bool)
+            clear[:, :-1] &= gaps
+            clear[:, 1:] &= gaps
+            ids_ok = bool((ids[clear] == o_ids[clear]).all())
+            cos = float(np.dot(emb, o_emb))
+            bit = bool((chosen == o_chosen).all() and (lps == o_lps).all())
+
+            def timed(fn):
+                fn()
+                t0 = time.monotonic()
+                for _ in range(5):
+                    fn()
+                wall = (time.monotonic() - t0) / 5 * 1e3
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                busy = sum(e.self_device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+                return wall, busy / 1e3
+
+            s_wall, s_busy = timed(lambda: engine.score(prompt, comp, top=20))
+            e_wall, e_busy = timed(lambda: engine.embed(seq))
+            windows = -(-(S - 1) // W)
+            ok = (d_chosen <= MODEL_TOL and d_lps <= MODEL_TOL and ids_ok
+                  and cos >= 0.999 and flash == (L if S <= 128 else 0))
+            log(f"score S={S} W={W} ({windows} windows scored, "
+                f"{-(-S // W)} embedded): chosen logprobs max_abs_diff="
+                f"{d_chosen:.3e}, top-20 logprobs {d_lps:.3e} (tol "
+                f"{MODEL_TOL}; bit-equal to the oracle: {bit}), top ids "
+                f"{'equal' if ids_ok else 'DIFFER'} where clear; embedding "
+                f"cosine {cos:.6f}; flash launches per score pass {flash} "
+                f"(want {L if S <= 128 else 0}); score pass wall_ms="
+                f"{s_wall:.3f} card_busy_ms={s_busy:.3f}; embed pass "
+                f"wall_ms={e_wall:.3f} card_busy_ms={e_busy:.3f} "
+                f"{'ok' if ok else 'FAIL'} [{card}]")
+            require(ok, f"score S={S}: disagrees with the oracle")
+        require(ex.captures == boot, "score: a window graph was captured "
+                "after boot")
+
+        tok = engine.tokenizer
+        prompts = [tok.encode(make_prompt(n, 400 + i))
+                   for i, n in enumerate(SC_CHARS[:7])]
+        seqs = [rng.integers(259, cfg.vocab_size, n).tolist()
+                for n in (12, 30, 60, 100, 200, 300, 450, 510)]
+
+        def streams(passes: bool):
+            gate_admission(engine, len(prompts))
+            reqs = [engine.submit(p, max_new_tokens=SC_TOKENS, priority=i)
+                    for i, p in enumerate(prompts)]
+            errors, done = [], []
+
+            def scorer():
+                try:
+                    for s in seqs:
+                        engine.score(s[:len(s) // 2], s[len(s) // 2:], top=5)
+                        engine.embed(s)
+                        done.append(len(s))
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(exc)
+
+            thread = threading.Thread(target=scorer)
+            t0 = time.monotonic()
+            if passes:
+                thread.start()
+            out = [r.result(timeout_s=600) for r in reqs]
+            wall = time.monotonic() - t0
+            if passes:
+                thread.join(timeout=600)
+                require(not thread.is_alive() and not errors
+                        and len(done) == len(seqs),
+                        f"score while serving: the passes failed: {errors}")
+            return out, wall
+
+        quiet, q_wall = streams(False)
+        busy, b_wall = streams(True)
+        same = sum(a == b for a, b in zip(quiet, busy))
+        log(f"score while serving: 7 greedy streams x {SC_TOKENS} tokens "
+            f"alone in {q_wall:.2f}s, and while a second thread scores and "
+            f"embeds {len(seqs)} sequences (12-510 tokens) in {b_wall:.2f}s: "
+            f"streams equal {same}/{len(quiet)}; graphs captured after boot "
+            f"{ex.captures - boot} [{card}]")
+        require(same == len(quiet), "score while serving: the streams "
+                "changed")
+        require(ex.captures == boot, "score while serving: a capture after "
+                "boot")
+    finally:
+        engine.stop()
+    torch.cuda.empty_cache()
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -1743,14 +2339,15 @@ def main(argv=()) -> int:
     """No arguments: every phase, as the module docstring lists. --flash:
     build, then only the flash checks and times. --decode: build, then
     only the decode-read checks and times. --prefill: build, then only the
-    model's prefill times at [1, 256] and [4, 256]. The three short modes
-    print no ok line."""
+    model's prefill times at [1, 256] and [4, 256]. --sc: build, then the
+    main path's serve phase, its sampling-controls phase, the sort-skip
+    phase and the scoring phase. The short modes print no ok line."""
     import torch
 
     mode = argv[0] if argv else None
-    if mode not in (None, "--flash", "--decode", "--prefill"):
-        log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill "
-            f"or none)")
+    if mode not in (None, "--flash", "--decode", "--prefill", "--sc"):
+        log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
+            f"--sc or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -1802,10 +2399,21 @@ def main(argv=()) -> int:
             time_prefill(params, cfg, dev, [(1, 256), (4, 256)], 10, card)
             log(f"prefill only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
+        if mode == "--sc":
+            ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
+            serve_sc_phase(params, cfg, dev, card, "paged", ref)
+            sort_skip_phase(params, cfg, dev, card)
+            score_phase(params, cfg, dev, card)
+            log(f"sc only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
         check_model(params, cfg, dev)
         served = {}
         for config in SERVE_CONFIGS:
             served[config] = serve_phase(params, cfg, dev, card, config)
+            torch.cuda.empty_cache()
+        for config in SERVE_CONFIGS:
+            serve_sc_phase(params, cfg, dev, card, config,
+                           served[config]["sc_ref"])
             torch.cuda.empty_cache()
         warmup_true_phase(params, cfg, dev, card)
         torch.cuda.empty_cache()
@@ -1879,6 +2487,8 @@ def main(argv=()) -> int:
             check_prefill_graph(eng, card, config)
             del eng
             torch.cuda.empty_cache()
+        sort_skip_phase(params, cfg, dev, card)
+        score_phase(params, cfg, dev, card)
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

@@ -6,8 +6,10 @@ it never tries to replay ``jax.random``), ``rms_norm``, ``rope``, ``_mm``,
 ``_embed``, ``_head``, ``_attention_block`` (the T == S window, the T=1
 ``decode_attn="kernel"`` read through ops/decode_attention, and the plain
 masked read), ``_ffn_block``, ``llama_forward_hidden``, ``llama_forward``,
-``llama_prefill``, ``llama_decode_step``, ``llama_prefill_last``, the dense
-engine's ``init_kv_cache_layers``, ``init_kv_scale_layers``,
+``llama_prefill``, ``llama_decode_step``, ``llama_prefill_last``, the
+stacked ``init_kv_cache`` (the post-hoc scoring passes' cache) and
+``llama_decode_step_inplace`` over it, the dense engine's
+``init_kv_cache_layers``, ``init_kv_scale_layers``,
 ``llama_decode_step_unrolled`` and ``llama_decode_step_unrolled_q8``, the
 paged ``llama_decode_step_paged`` and ``llama_decode_step_paged_q8``, the
 prefix-cache tail prefill ``llama_prefill_paged_prefix`` and
@@ -23,8 +25,7 @@ one copy per leaf. JAX's casts are kept: norms and rope in f32 cast back to
 returns updated arrays (its engine donates them).
 
 Not ported yet: int8 weights (``_q_matmul``, ``quantize_weights``) — ROADMAP
-A13; ``llama_decode_step_inplace`` — A2; the chunked and verify programs —
-ROADMAP A10.
+A13; the chunked and verify programs — ROADMAP A10.
 
 A cache write past a dense cache's last column (a finished row that keeps
 advancing in lock-step decode) lands on that last column instead of being
@@ -325,6 +326,30 @@ def llama_decode_step(params, cfg: LlamaConfig, tokens, positions, k_cache,
     return logits[:, 0], k_cache, v_cache
 
 
+def init_kv_cache(cfg: LlamaConfig, batch: int, seq_len: Optional[int] = None,
+                  dtype: Optional[str] = None, device=None):
+    """Zeroed stacked (k, v) caches [L, B, Hkv, dh, S] (S-minor, the JAX
+    layout) in `dtype` (default cfg.dtype), on `device` (default the
+    card)."""
+    dev = resolve_device(device)
+    S = seq_len or cfg.max_seq_len
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cfg.head_dim, S)
+    dt = torch.int8 if dtype == "int8" else DTYPES[dtype or cfg.dtype]
+    return (torch.zeros(shape, dtype=dt, device=dev),
+            torch.zeros(shape, dtype=dt, device=dev))
+
+
+def llama_decode_step_inplace(params, cfg: LlamaConfig, tokens, positions,
+                              k_cache, v_cache):
+    """One decode step over the stacked [L, B, Hkv, dh, S] caches, each
+    layer's slice written in place: the same math as llama_decode_step.
+    (JAX needs this form to keep XLA from double-buffering the stacked
+    caches; here every forward already writes in place.) tokens /
+    positions: [B]. Returns (logits [B, V] float32, k_cache, v_cache)."""
+    return llama_decode_step_unrolled(params, cfg, tokens, positions,
+                                      k_cache, v_cache)
+
+
 def init_kv_cache_layers(cfg: LlamaConfig, batch: int,
                          seq_len: Optional[int] = None,
                          dtype: Optional[str] = None, device=None):
@@ -359,10 +384,11 @@ def llama_decode_step_unrolled(params, cfg: LlamaConfig, tokens, positions,
                                k_layers, v_layers):
     """One decode step over per-layer cache buffers.
 
-    tokens: [B]; positions: [B]; k/v_layers: lists of L [B, Hkv, dh, S]
-    tensors (init_kv_cache_layers), written in place. The T=1 read is
-    cfg.decode_attn's ("kernel": ops/decode_attention). Returns (logits
-    [B, V] float32, k_layers, v_layers)."""
+    tokens: [B]; positions: [B]; k/v_layers: L [B, Hkv, dh, S] tensors
+    (lists from init_kv_cache_layers, or a stacked cache), written in
+    place. The T=1 read is cfg.decode_attn's ("kernel":
+    ops/decode_attention). Returns (logits [B, V] float32, k_layers,
+    v_layers)."""
     x = _embed(params, cfg, tokens)[:, None]               # [B, 1, D]
     pos_grid = positions[:, None]
     for l in range(cfg.n_layers):

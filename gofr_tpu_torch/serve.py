@@ -7,12 +7,12 @@ body and sends the same events.
     POST /generate {"prompt": "...", "max_tokens": 64, "temperature": 0.7,
     "stream": true} -> server-sent events, one {"text": ...} per token, then
     {"done": true, "tokens": N, "tok_per_s": x}. stream=false returns one
-    JSON response {"text", "tokens", "seconds"}. The fields this port does
-    not serve yet are refused with 400 where the reference refuses them with
-    sampling controls and QoS off: top_p / top_k > 0 (ROADMAP A9), top_p
-    outside [0, 1], top_k < 0, non-numeric values, and a QoS class (the
-    X-QoS-Class header, else the body's "class") that is not one of
-    QOS_CLASSES; a known class changes nothing.
+    JSON response {"text", "tokens", "seconds"}. "top_p" / "top_k" truncate
+    the sampled distribution per request under SAMPLING_CONTROLS=true. The
+    reference's 400 answers them without it or out of range (the engine
+    refuses them), non-numeric values, and a QoS class (the X-QoS-Class
+    header, else the body's "class") that is not one of QOS_CLASSES. QoS is
+    not ported (ROADMAP A11): a known class changes nothing.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from the environment).
 Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
@@ -33,12 +33,18 @@ smallest bucket; wide: also every power-of-two K <= MAX_BATCH for every
 bucket, as the reference's, and every tail program the buckets can reach;
 false: capture each program at its first use). Weights are random, from
 seed 0. Keys whose feature is not ported yet refuse to
-boot (NOT_PORTED below) rather than being ignored.
+boot (NOT_PORTED below) rather than being ignored. SAMPLING_CONTROLS
+(false: per-request top_p / top_k are refused; true: served, through the
+[B, 3] row controls, each decode block captured with and without the
+per-row filters), WARMUP_SCORE (false; true: also capture at boot, after
+WARMUP, the logprobs / embeddings window programs, one per bucket and
+family, tpu/score.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Mapping, Optional
@@ -77,8 +83,6 @@ def _int(env: Mapping[str, str], key: str, default: int) -> int:
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("SAMPLING_CONTROLS", lambda e: _flag(e, "SAMPLING_CONTROLS", False),
-     "per-request top_p/top_k controls wait in ROADMAP A9"),
     ("CHUNK_PREFILL_TOKENS", lambda e: _int(e, "CHUNK_PREFILL_TOKENS", 0) > 0,
      "chunked prefill waits in ROADMAP A10"),
     ("SPECULATIVE_TOKENS", lambda e: _int(e, "SPECULATIVE_TOKENS", 0) > 0,
@@ -129,19 +133,6 @@ def check_qos_class(value) -> None:
                         f"(got {value!r})"])
 
 
-def check_sampling_controls(top_p: float, top_k: int) -> None:
-    """Raise InvalidParam for per-request top_p / top_k: out of range, or
-    set at all (the port has no sampling controls yet)."""
-    if not 0.0 <= top_p <= 1.0:
-        raise InvalidParam([f"top_p must be in [0, 1], got {top_p}"])
-    if top_k < 0:
-        raise InvalidParam([f"top_k must be >= 0, got {top_k}"])
-    if top_p or top_k:
-        raise InvalidParam(["per-request top_p/top_k are not served by "
-                            "gofr_tpu_torch yet: sampling controls wait in "
-                            "ROADMAP A9"])
-
-
 def check_config(env: Mapping[str, str]) -> None:
     """Raise ValueError naming the ROADMAP item of the first config key that
     asks for a feature the port does not have yet."""
@@ -158,9 +149,9 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     tests. params: an already-built params dict for the preset (default:
     llama_init, seed 0). On the card the kernels are built here, at boot,
     and then WARMUP captures the programs serving is expected to reach
-    (every one under wide), so no request pays the compiler or a capture.
-    The engine's `warmup_seconds` holds the warm-up's time (0.0 with
-    WARMUP=false)."""
+    (every one under wide) and WARMUP_SCORE the scoring family, so no
+    request pays the compiler or a capture. The engine's `warmup_seconds`
+    and `score_warmup_seconds` hold their times (0.0 when off)."""
     env = dict(env or {})
     check_config(env)
     warm = _warmup_mode(env)
@@ -189,6 +180,7 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         params = llama_init(cfg, seed=0, device=dev)
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
               async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
+              sampling_controls=_flag(env, "SAMPLING_CONTROLS", False),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
               prefill_buckets=tuple(int(b) for b in env.get(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
@@ -205,11 +197,20 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     engine.tokenizer = (DebugTokenizer(cfg.vocab_size)
                         if cfg.vocab_size > ByteTokenizer.vocab_size
                         else ByteTokenizer())
-    engine.warmup_seconds = 0.0
+    log = logging.getLogger("gofr_tpu_torch")
+    engine.warmup_seconds = engine.score_warmup_seconds = 0.0
     if warm != "false":
         t0 = time.monotonic()
         engine.warmup(k_variants=warm == "wide")
         engine.warmup_seconds = time.monotonic() - t0
+        log.info("engine warmed up in %.1fs%s", engine.warmup_seconds,
+                 " (wide)" if warm == "wide" else "")
+    if _flag(env, "WARMUP_SCORE", False):
+        t0 = time.monotonic()
+        n = engine.warmup_scoring()
+        engine.score_warmup_seconds = time.monotonic() - t0
+        log.info("scoring warmed up in %.1fs (%d passes)",
+                 engine.score_warmup_seconds, n)
     engine.start()
     return engine
 
@@ -242,12 +243,13 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
             priority = max(0, min(9, int(body.get("priority", 0))))
             # EOS is ignored until this floor is reached
             min_tokens = max(0, int(body.get("min_tokens", 0) or 0))
+            # per-request truncation (needs SAMPLING_CONTROLS=true; the
+            # engine refuses it otherwise, a 400 below)
             top_p = float(body.get("top_p", 0.0) or 0.0)
             top_k = int(body.get("top_k", 0) or 0)
         except (TypeError, ValueError) as exc:
             raise InvalidParam(["max_tokens", "temperature", "priority",
                                 "min_tokens", "top_p", "top_k"]) from exc
-        check_sampling_controls(top_p, top_k)
         check_qos_class(ctx.request.headers.get("x-qos-class")
                         or body.get("class") or None)
         stream = bool(body.get("stream", True))
@@ -255,7 +257,8 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
             request = engine.submit(
                 tokenizer.encode(prompt), max_new_tokens=max_tokens,
                 temperature=temperature, stop_tokens={tokenizer.EOS},
-                priority=priority, min_tokens=min_tokens)
+                priority=priority, min_tokens=min_tokens, top_p=top_p,
+                top_k=top_k)
         except ValueError as exc:
             raise InvalidParam([str(exc)]) from exc
         except RuntimeError as exc:   # engine stopped

@@ -41,6 +41,23 @@ disaggregated hand-off; the chunked prefill programs wait for A10. A failed
 dispatch here (a failed capture included) fails the requests it carried and
 the loop keeps serving.
 
+``sampling_controls`` (the reference's, off by default) widens the per-row
+sampling state from [B] temperatures to [B, 3] (temperature, top_p, top_k):
+``_temps_init``, ``_prep_admission`` packing [K, 3] rows, ``submit``'s
+``top_p``/``top_k`` and their checks, the ``-sc`` tag on every program name
+(``_id_tag``), and the clear of a freed slot's control row. Where the
+reference skips the [B, V] sort of the per-row filters by a ``jax.lax.cond``
+on the device, a CUDA graph cannot branch: each decode block of a
+``sampling_controls`` engine has two programs, ``...-sc`` with the filters
+and ``...-sc-nosort`` without, and the host picks one per dispatch from
+``_filter_rows``, the slots whose control row on the device may be set. A
+slot joins it when the admission that writes its controls is dispatched
+and leaves it when the clear of its row is enqueued at ``_finish_slot``,
+both on the engine's stream, so at each dispatch the set is exactly the
+rows the block will read with a control. Admission waves always run the
+filters (the identity on rows without controls). The post-hoc scoring
+passes (``score``, ``embed``, ``warmup_scoring``) are tpu/score.py's.
+
 Everything runs on ONE stream, the engine's, in dispatch order: prefills,
 decode replays, cache growth, the host copies. That order is what makes
 speculative decode of freed rows safe, as in the reference: a row freed at
@@ -83,7 +100,7 @@ from ..models.llama import (DTYPES, init_kv_cache_layers,
 from ..ops.decode_attention import quantize_kv
 from .device import resolve_device
 from .executor import Executor, next_bucket
-from .sampling import sample_tokens
+from .sampling import pack_controls, sample_tokens
 
 _request_ids = itertools.count(1)
 _log = logging.getLogger(__name__)
@@ -105,7 +122,8 @@ def _cache_len_of(name: str) -> Optional[int]:
 class GenerationRequest:
     def __init__(self, prompt_tokens: Sequence[int], max_new_tokens: int = 128,
                  temperature: float = 0.0, stop_tokens: Optional[Set[int]] = None,
-                 priority: int = 0, min_tokens: int = 0):
+                 priority: int = 0, min_tokens: int = 0, top_p: float = 0.0,
+                 top_k: int = 0):
         self.id = next(_request_ids)
         # admission priority: LOWER admits first; ties resolve FIFO by id
         self.priority = int(priority)
@@ -114,6 +132,9 @@ class GenerationRequest:
         self.prompt_tokens = list(prompt_tokens)
         self.max_new_tokens = max_new_tokens
         self.temperature = float(temperature)
+        # per-request truncation of the sampled distribution (0 = off)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k)
         self.stop_tokens = stop_tokens or set()
         self.out_queue: "queue.Queue" = queue.Queue()
         self.cancelled = threading.Event()
@@ -210,7 +231,8 @@ class LLMEngine:
 
     pipeline_depth: dispatches kept in flight (the reference's default 4).
     async_d2h: start each dispatch's device-to-host token copy at enqueue
-    time."""
+    time. sampling_controls: per-request top_p / top_k ([B, 3] row
+    controls; see the module docstring)."""
 
     STOP_JOIN_S = 30.0
     # the paged subclass reads through its paged kernel whatever
@@ -223,7 +245,7 @@ class LLMEngine:
                                                    1024),
                  top_k: int = 0, decode_block_size: int = 16,
                  pipeline_depth: int = 4, async_d2h: bool = True,
-                 seed: int = 0,
+                 sampling_controls: bool = False, seed: int = 0,
                  device=None, logger: Optional[logging.Logger] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -266,6 +288,16 @@ class LLMEngine:
         self.decode_block_size = max(1, decode_block_size)
         self.pipeline_depth = max(1, pipeline_depth)
         self.async_d2h = bool(async_d2h)
+        self.sampling_controls = bool(sampling_controls)
+        # on every program name: the widened sampling state
+        self._id_tag = "-sc" if self.sampling_controls else ""
+        # slots whose control row on the device may be set (loop-thread
+        # owned): a decode block runs the per-row filters iff any is
+        self._filter_rows: Set[int] = set()
+        # one post-hoc scoring pass at a time (tpu/score.py): its programs
+        # share their buffers; the pass's state, made at its first use
+        self._post_hoc_lock = threading.Lock()
+        self._post_hoc = None
         self._seed = seed
         self.slots = [_Slot() for _ in range(n_slots)]
         # arrivals (thread-safe) and the loop-owned admission heap of
@@ -297,8 +329,10 @@ class LLMEngine:
         self._blocks: Dict[int, torch.Tensor] = {}
         self._ring: List[tuple] = []
         self._ring_next = 0
-        # the card memory warmup()'s captures reserved (0 on the CPU)
+        # the card memory warmup()'s and warmup_scoring()'s captures reserved
+        # (0 on the CPU)
         self.graph_pool_bytes = 0
+        self.score_pool_bytes = 0
         # dispatch counts (loop-thread writes): what a run can show about
         # the kernels it went through. Full-window prefill waves (flash on
         # the card) and the paged engine's tail-only prefix-hit waves are
@@ -341,9 +375,15 @@ class LLMEngine:
         B, dev = self.n_slots, self.device
         self._tokens = torch.zeros((B,), dtype=torch.long, device=dev)
         self._positions = torch.zeros((B,), dtype=torch.long, device=dev)
-        self._temps = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self._temps = self._temps_init(B)
         self.generator = torch.Generator(device=dev)
         self.generator.manual_seed(self._seed)
+
+    def _temps_init(self, rows: int) -> torch.Tensor:
+        """Zeroed per-row sampling state: [rows] temperatures, or [rows, 3]
+        (temperature, top_p, top_k) under sampling_controls."""
+        shape = (rows, 3) if self.sampling_controls else (rows,)
+        return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
     def _grow_cache(self, needed: int) -> None:
         """Pad every layer's cache (and scales) along S to the next power
@@ -391,7 +431,8 @@ class LLMEngine:
     def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
                         starts: Optional[Sequence[int]] = None):
         """The host arrays of one fused admission: [K, bucket] int64 prompt
-        tokens, [K] int32 lengths, [K] f32 temperatures. starts: per row,
+        tokens, [K] int32 lengths, [K] f32 temperatures ([K, 3] f32 row
+        controls under sampling_controls). starts: per row,
         the first prompt position the window holds (a prefix hit's tail;
         default 0); lengths are the full prompts'."""
         ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
@@ -400,7 +441,13 @@ class LLMEngine:
             ptokens[row, :len(window)] = window
         lengths = np.asarray([len(r.prompt_tokens) for r in batch],
                              dtype=np.int32)
-        temps = np.asarray([r.temperature for r in batch], dtype=np.float32)
+        if self.sampling_controls:
+            temps = pack_controls([r.temperature for r in batch],
+                                  [r.top_p for r in batch],
+                                  [r.top_k for r in batch])
+        else:
+            temps = np.asarray([r.temperature for r in batch],
+                               dtype=np.float32)
         return ptokens, lengths, temps
 
     def _prefill_window(self, ptokens, lengths):
@@ -418,8 +465,9 @@ class LLMEngine:
                                   lengths, tmp_k, tmp_v)
 
     def _splice_loop_state(self, last, slots, lengths, new_temps):
-        """Sample the admitted rows' first tokens and splice them, their
-        positions and temperatures into the loop state. Returns [K]."""
+        """Sample the admitted rows' first tokens (through the per-row
+        filters under sampling_controls) and splice them, their positions
+        and sampling rows into the loop state. Returns [K]."""
         first = sample_tokens(last, self.generator, new_temps,
                               top_k=self.top_k)
         self._tokens[slots] = first
@@ -446,22 +494,25 @@ class LLMEngine:
                 self.v_scale[l][slots, :, :bucket] = vs[l]
         return self._splice_loop_state(last, slots, lengths, new_temps)
 
-    def _decode_loop(self, step, block: int) -> torch.Tensor:
+    def _decode_loop(self, step, block: int, row_filter: bool = True
+                     ) -> torch.Tensor:
         """`block` lock-step decode steps: step(tokens, positions) -> [B, V]
-        logits. Returns the [B, block] sampled tokens and advances the
-        loop state in place."""
+        logits; row_filter: run the per-row filters (sampling_controls).
+        Returns the [B, block] sampled tokens and advances the loop state in
+        place."""
         tok, pos = self._tokens, self._positions
         out = []
         for _ in range(block):
             tok = sample_tokens(step(tok, pos), self.generator, self._temps,
-                                top_k=self.top_k)
+                                top_k=self.top_k, row_filter=row_filter)
             pos = pos + 1
             out.append(tok)
         self._tokens.copy_(tok)
         self._positions.copy_(pos)
         return torch.stack(out, dim=1)
 
-    def _decode_fn(self, block: int) -> torch.Tensor:
+    def _decode_fn(self, block: int, row_filter: bool = True
+                   ) -> torch.Tensor:
         """`block` dense decode steps (the int8 step under kv_dtype='int8')
         over the caches at their grown length."""
         params, cfg = self.params, self.cfg
@@ -474,7 +525,7 @@ class LLMEngine:
             def step(tok, pos):
                 return llama_decode_step_unrolled(
                     params, cfg, tok, pos, self.k_cache, self.v_cache)[0]
-        return self._decode_loop(step, block)
+        return self._decode_loop(step, block, row_filter)
 
     def _block_sizes(self) -> List[int]:
         """The decode blocks dispatched: full, and half under admission
@@ -482,30 +533,51 @@ class LLMEngine:
         return sorted({self.decode_block_size,
                        max(1, self.decode_block_size // 2)}, reverse=True)
 
-    def _decode_program_name(self, block: int, cache_len: int) -> str:
-        if self._q8:
-            return f"llama-decode-q8-x{block}-S{cache_len}"
-        suffix = "-kern" if self.cfg.decode_attn == "kernel" else ""
-        return f"llama-decode-x{block}-S{cache_len}{suffix}"
+    def _decode_variants(self) -> Tuple[bool, ...]:
+        """The decode programs of each block shape, by whether they run the
+        per-row filters: both under sampling_controls, else one."""
+        return (True, False) if self.sampling_controls else (True,)
 
-    def _decode_program(self, block: int):
+    def _row_filter_now(self) -> bool:
+        """Whether the next decode block must run the per-row filters: a
+        row on the device may have a control set."""
+        return bool(self._filter_rows) or not self.sampling_controls
+
+    def _decode_tag(self, row_filter: bool) -> str:
+        """A decode program's name tag: the engine's _id_tag, and -nosort on
+        the sampling_controls block without the per-row filters."""
+        if self.sampling_controls and not row_filter:
+            return self._id_tag + "-nosort"
+        return self._id_tag
+
+    def _decode_program_name(self, block: int, cache_len: int,
+                             row_filter: bool = True) -> str:
+        tag = self._decode_tag(row_filter)
+        if self._q8:
+            return f"llama-decode-q8-x{block}-S{cache_len}{tag}"
+        suffix = "-kern" if self.cfg.decode_attn == "kernel" else ""
+        return f"llama-decode-x{block}-S{cache_len}{suffix}{tag}"
+
+    def _decode_program(self, block: int, row_filter: bool = True):
         """The `block`-step decode program at the cache's current length:
-        one CUDA graph per (block, length) on the card. Its warm-up puts
-        every row at position S - 1: a row writes a position before it
+        one CUDA graph per (block, length, variant) on the card. Its warm-up
+        puts every row at position S - 1: a row writes a position before it
         reads it, so no live row reads what the run leaves there (writes
         past S - 1 clamp to it)."""
         return self.executor.compile(
-            self._decode_program_name(block, self._cache_len),
-            lambda: self._decode_fn(block),
+            self._decode_program_name(block, self._cache_len, row_filter),
+            lambda: self._decode_fn(block, row_filter),
             warmup=lambda: self._warmup_state(
                 lambda: self._positions.fill_(self._cache_len - 1)),
             generators=(self.generator,))
 
     def _row_specs(self, K: int) -> list:
         """The static inputs every admission program ends with, as [K]
-        rows: slots (int64), lengths (int32), temperatures (f32)."""
+        rows: slots (int64), lengths (int32), temperatures (f32; [K, 3]
+        row controls under sampling_controls)."""
+        temps = (K, 3) if self.sampling_controls else (K,)
         return [((K,), torch.long), ((K,), torch.int32),
-                ((K,), torch.float32)]
+                (temps, torch.float32)]
 
     def _prefill_program(self, bucket: int, K: int,
                          slots: Optional[Sequence[int]] = None):
@@ -521,7 +593,8 @@ class LLMEngine:
             ("prefill", bucket, K),
             [((K, bucket), torch.long), *self._row_specs(K)])
         return self.executor.compile(
-            f"llama-prefill{kind}-{bucket}x{K}-S{self._cache_len}{flash}",
+            f"llama-prefill{kind}-{bucket}x{K}-S{self._cache_len}{flash}"
+            f"{self._id_tag}",
             self._prefill_fn, inputs,
             warmup=lambda: self._warmup_state(
                 lambda: self._harmless_wave(inputs, slots)),
@@ -590,12 +663,14 @@ class LLMEngine:
 
     def _warm_programs(self, k_variants: bool) -> None:
         """Dense: the admission at each of _warm_ks for every bucket, and
-        the full and the half decode block, all at the grown length."""
+        the full and the half decode block (each variant), all at the grown
+        length."""
         for bucket in self.prefill_buckets:
             for K in self._warm_ks(k_variants):
                 self._prefill_program(bucket, K)
         for block in self._block_sizes():
-            self._decode_program(block)
+            for row_filter in self._decode_variants():
+                self._decode_program(block, row_filter)
 
     def _reserved(self) -> int:
         """The card memory reserved on the engine's device once unreachable
@@ -740,7 +815,7 @@ class LLMEngine:
         need = self._decode_need()
         if need > self._cache_len:
             self._grow_cache(need)
-        return self._decode_program(block)()
+        return self._decode_program(block, self._row_filter_now())()
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True
@@ -781,14 +856,24 @@ class LLMEngine:
     def submit(self, prompt_tokens: Sequence[int], max_new_tokens: int = 128,
                temperature: float = 0.0,
                stop_tokens: Optional[Set[int]] = None, priority: int = 0,
-               min_tokens: int = 0) -> GenerationRequest:
+               min_tokens: int = 0, top_p: float = 0.0,
+               top_k: int = 0) -> GenerationRequest:
         """priority: LOWER admits first when slots are contended (ties stay
         FIFO). min_tokens: stop tokens are ignored until this many tokens
-        have been emitted."""
+        have been emitted. top_p/top_k truncate the sampled distribution
+        per request (0 = off) — only on engines built with
+        sampling_controls=True."""
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
+        if (top_p or top_k) and not self.sampling_controls:
+            raise ValueError("per-request top_p/top_k need an engine built "
+                             "with sampling_controls=True")
+        if not 0.0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         limit = self.admission_limit
@@ -797,7 +882,8 @@ class LLMEngine:
                              f"admission limit ({limit})")
         request = GenerationRequest(prompt_tokens, max_new_tokens, temperature,
                                     stop_tokens, priority=priority,
-                                    min_tokens=min_tokens)
+                                    min_tokens=min_tokens, top_p=top_p,
+                                    top_k=top_k)
         self._pending.put((request.priority, request.id, request))
         if self._stop.is_set():
             # stop() may have drained _pending between the check above and
@@ -809,6 +895,38 @@ class LLMEngine:
 
     def generate(self, prompt_tokens: Sequence[int], **kw) -> List[int]:
         return self.submit(prompt_tokens, **kw).result()
+
+    def score(self, prompt_tokens: Sequence[int],
+              completion_tokens: Sequence[int], top: int = 5):
+        """Teacher-forced per-token logprobs for a completion (the OpenAI
+        `logprobs` feature): (chosen_lp [C], top_ids [C, top], top_lps [C,
+        top]) numpy arrays. A post-hoc pass beside serving; see
+        tpu/score.py."""
+        from .score import score_tokens
+
+        return score_tokens(self, prompt_tokens, completion_tokens, top=top)
+
+    def embed(self, tokens: Sequence[int], normalize: bool = True):
+        """The last position's final-norm hidden state as a sequence
+        embedding (float32 [D], L2-normalized by default); see
+        tpu/score.py."""
+        from .score import embed_tokens
+
+        return embed_tokens(self, tokens, normalize=normalize)
+
+    def warmup_scoring(self, embeddings: bool = True) -> int:
+        """Capture the scoring (and embedding) window programs, one per
+        bucket and family, so no client request waits for a capture.
+        Returns the passes run. Called before start(), it sets
+        score_pool_bytes, the card memory they reserved."""
+        from .score import warmup_post_hoc
+
+        idle = self._thread is None
+        before = self._reserved() if idle else 0
+        ran = warmup_post_hoc(self, embeddings=embeddings)
+        if idle:
+            self.score_pool_bytes = self._reserved() - before
+        return ran
 
     def start(self) -> None:
         if self._thread is not None:
@@ -927,6 +1045,10 @@ class LLMEngine:
                 self._abort_admission(request)
                 self._fail_request(request, exc)
             return
+        # the wave writes these rows' controls before any block dispatched
+        # after it reads them
+        self._filter_rows.update(slot for slot, r in zip(slots_idx, batch)
+                                 if r.top_p or r.top_k)
         if tail_only:
             self.prefix_dispatches += 1
             self.prefix_shapes[(len(batch), bucket)] += 1
@@ -1092,6 +1214,14 @@ class LLMEngine:
         slot.request = None
         slot.length = 0
         slot.remaining = 0
+        idx = self.slots.index(slot)
+        if idx in self._filter_rows:
+            # zero the freed row's controls behind the blocks in flight
+            # (they read them at their fixed address), so the blocks
+            # dispatched from now on may skip the filters
+            with self._stream_ctx():
+                self._temps[idx] = 0.0
+            self._filter_rows.discard(idx)
         if request is not None:
             request.finished_at = time.monotonic()
             request.out_queue.put(None)

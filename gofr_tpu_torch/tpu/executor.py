@@ -30,12 +30,29 @@ A capture that fails raises; there is no eager fallback on the card.
 A replay runs no Python, so the kernels count their launches themselves,
 on the card (``ops/launch_counts.py``): a replayed kernel counts as an
 eager one does, and the warm-up run's kernels count too.
+
+Two threads may use one executor: the engine's loop, which captures and
+replays its programs on the engine's stream, and a caller of the post-hoc
+scoring passes (tpu/score.py), which captures and replays its window
+programs on a stream of its own. So:
+
+- ``compile`` and the cache's readers hold one lock: two captures never
+  run at once (a capture begins by emptying the caching allocator, which
+  PyTorch refuses while another capture is under way), and the cache is
+  never read while it changes. Calls of a program do not take it.
+- Every capture uses ``capture_error_mode="thread_local"``: what another
+  thread does meanwhile (its launches, replays, synchronizations and
+  allocations on its own stream) neither fails nor spoils the capture.
+- The graphs of each stream share one memory pool of their own. A pool is
+  shared only by graphs that never run at once, and graphs replayed on two
+  streams may.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -92,7 +109,8 @@ def _graph_capture(pool, stream, generators):
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
                 out = fn(*inputs)
         finally:
             if enabled:
@@ -109,7 +127,8 @@ class Executor:
     """Capture-once, call-many cache of named programs on one device.
 
     device: where the programs run. stream: the stream a card's programs
-    are captured on and must be replayed on (the engine's). capture:
+    are captured on and must be replayed on (the engine's; ``compile``
+    may name another for one program). capture:
     replaces the card's CUDA graph capture; ``capture(fn, inputs)`` returns
     a callable that runs the program and returns its output (the tests'
     stub on the CPU). With neither a card nor `capture`, a program is the
@@ -119,7 +138,9 @@ class Executor:
         self.device = torch.device(device)
         self.stream = stream
         self._capture = capture
-        self._pool = None
+        # capture stream -> the graph memory pool of the programs on it
+        self._pools: Dict[object, object] = {}
+        self._lock = threading.Lock()
         self._cache: Dict[str, Program] = {}
         # program calls, dropped programs' included
         self.calls = 0
@@ -137,49 +158,58 @@ class Executor:
     def compile(self, name: str, fn: Callable[..., torch.Tensor],
                 static_inputs: Sequence[torch.Tensor] = (),
                 warmup: Optional[Callable[[], contextlib.AbstractContextManager]]
-                = None, generators: Sequence[torch.Generator] = ()
-                ) -> Program:
+                = None, generators: Sequence[torch.Generator] = (),
+                stream=None) -> Program:
         """The program `name`, captured from ``fn(*static_inputs)`` at its
         first use. warmup: a context manager factory around the eager run
-        before the capture; generators: those ``fn`` draws from."""
-        program = self._cache.get(name)
-        if program is not None:
+        before the capture; generators: those ``fn`` draws from; stream:
+        where this program is captured and replayed, if not the executor's
+        stream (the caller makes it current around the compile and the
+        calls)."""
+        with self._lock:
+            program = self._cache.get(name)
+            if program is not None:
+                return program
+            inputs = tuple(static_inputs)
+            if not self.captured:
+                program = Program(name, inputs, lambda: fn(*inputs), self)
+            else:
+                t0 = time.monotonic()
+                program = self._capture_program(name, fn, inputs, warmup,
+                                                generators,
+                                                stream or self.stream)
+                program.capture_seconds = time.monotonic() - t0
+                self.captures += 1
+                self.capture_seconds += program.capture_seconds
+            self._cache[name] = program
+            self.compiled.append(name)
             return program
-        inputs = tuple(static_inputs)
-        if not self.captured:
-            program = Program(name, inputs, lambda: fn(*inputs), self)
-        else:
-            t0 = time.monotonic()
-            program = self._capture_program(name, fn, inputs, warmup,
-                                            generators)
-            program.capture_seconds = time.monotonic() - t0
-            self.captures += 1
-            self.capture_seconds += program.capture_seconds
-        self._cache[name] = program
-        self.compiled.append(name)
-        return program
 
-    def _capture_program(self, name, fn, inputs, warmup, generators):
+    def _capture_program(self, name, fn, inputs, warmup, generators, stream):
         with warmup() if warmup is not None else contextlib.nullcontext():
             fn(*inputs)
         capture = self._capture
         if capture is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            capture = _graph_capture(self._pool, self.stream, generators)
+            pool = self._pools.get(stream)
+            if pool is None:
+                pool = self._pools[stream] = torch.cuda.graph_pool_handle()
+            capture = _graph_capture(pool, stream, generators)
         return Program(name, inputs, capture(fn, inputs), self)
 
     def drop(self, predicate: Callable[[str], bool]) -> int:
         """Forget the programs whose name satisfies `predicate` (their
         buffers are gone); returns how many."""
-        names = [n for n in self._cache if predicate(n)]
-        for n in names:
-            del self._cache[n]
-        return len(names)
+        with self._lock:
+            names = [n for n in self._cache if predicate(n)]
+            for n in names:
+                del self._cache[n]
+            return len(names)
 
     def cache_size(self) -> int:
-        return len(self._cache)
+        with self._lock:
+            return len(self._cache)
 
     def cache_info(self) -> Dict[str, int]:
         """{program name: calls}."""
-        return {name: p.calls for name, p in self._cache.items()}
+        with self._lock:
+            return {name: p.calls for name, p in self._cache.items()}

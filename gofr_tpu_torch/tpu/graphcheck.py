@@ -5,7 +5,9 @@ block, or one admission wave (full or, on the paged engine, tail-only),
 replayed from its program (a CUDA graph on the card) and the same work run
 op by op from the same state, which is copied before the replay and put
 back before the eager run (the loop state, the caches or pools with their
-scales, and the generator).
+scales, and the generator). On a sampling_controls engine the rows' top_p /
+top_k come from ``CONTROLS`` or are all 0, and the block runs the decode
+variant the host picks for them: with the per-row filters, or without.
 """
 
 from __future__ import annotations
@@ -17,6 +19,20 @@ import torch
 
 from ..ops import launch_counts
 from .paging import PagedLLMEngine, _pow2_at_least
+from .sampling import pack_controls
+
+# the (top_p, top_k) of rows 0, 1, 2, ... in turn where a check sets the
+# per-row controls: none, top_k, top_p, both
+CONTROLS = ((0.0, 0), (0.0, 40), (0.9, 0), (0.9, 40))
+
+
+def _controls(K: int, temperature: float, filters: bool) -> np.ndarray:
+    """[K, 3] row controls at `temperature`, the rows' top_p / top_k from
+    CONTROLS in turn, or all 0."""
+    picks = [CONTROLS[i % len(CONTROLS)] if filters else (0.0, 0)
+             for i in range(K)]
+    return pack_controls([temperature] * K, [p for p, _ in picks],
+                         [k for _, k in picks])
 
 
 def state_tensors(eng) -> List[torch.Tensor]:
@@ -31,11 +47,13 @@ def state_tensors(eng) -> List[torch.Tensor]:
 
 
 def eager_block(eng, block: int) -> torch.Tensor:
-    """`block` decode steps run eagerly, outside the program cache."""
+    """`block` decode steps run eagerly, outside the program cache, with
+    the decode variant a dispatch would pick now."""
+    row_filter = eng._row_filter_now()
     if isinstance(eng, PagedLLMEngine):
         table = torch.from_numpy(eng._build_table()).to(eng.device)
-        return eng._decode_fn_paged(table, block)
-    return eng._decode_fn(block)
+        return eng._decode_fn_paged(table, block, row_filter)
+    return eng._decode_fn(block, row_filter)
 
 
 def _decode_launches() -> int:
@@ -43,18 +61,29 @@ def _decode_launches() -> int:
     return sum(n for k, n in counts.items() if k != "flash_attention")
 
 
-def graph_vs_eager(eng, block: int, temperature: float = 0.0) -> dict:
-    """Sync the engine's in-flight dispatches, run one real block through
-    the program (capturing it if it is new), then: copy the state, replay
-    the block, put the state back and run the block eagerly. Returns the
-    two [B, block] token matrices, the largest difference over the state
-    each left behind, and the decode reads each ran (counted on the card,
-    so 0 on the CPU)."""
+def graph_vs_eager(eng, block: int, temperature: float = 0.0,
+                   filters: bool = False) -> dict:
+    """Sync the engine's in-flight dispatches, set every row's temperature
+    (and, on a sampling_controls engine, its top_p / top_k: CONTROLS in
+    turn with `filters`, else 0, with the engine's record of the rows that
+    have a control to match), run one real block through the program
+    (capturing it if it is new), then: copy the state, replay the block,
+    put the state back and run the block eagerly. Returns the two [B,
+    block] token matrices, the largest difference over the state each left
+    behind, the decode reads each ran (counted on the card, so 0 on the
+    CPU) and whether the block ran the per-row filters."""
     on_card = eng.device.type == "cuda"
     with torch.no_grad(), eng._stream_ctx():
         while eng._inflight:
             eng._sync_oldest()
-        eng._temps.fill_(temperature)
+        if eng.sampling_controls:
+            eng._temps.copy_(torch.from_numpy(
+                _controls(eng.n_slots, temperature, filters)))
+            eng._filter_rows = ({i for i in range(eng.n_slots)
+                                 if any(CONTROLS[i % len(CONTROLS)])}
+                                if filters else set())
+        else:
+            eng._temps.fill_(temperature)
         eng._run_decode(block)
         state = state_tensors(eng)
         saved = [t.clone() for t in state]
@@ -71,15 +100,19 @@ def graph_vs_eager(eng, block: int, temperature: float = 0.0) -> dict:
         diff = max(float((a.float() - b.float()).abs().max())
                    for a, b in zip(after_graph, state))
     return {"graph": graph, "eager": eager, "state_diff": diff,
-            "graph_launches": mid - before, "eager_launches": end - mid}
+            "graph_launches": mid - before, "eager_launches": end - mid,
+            "row_filter": eng._row_filter_now()}
 
 
 def wave(eng, K: int, bucket: int, tail: bool = False,
-         prefix_pages: int = 2, temperature: float = 0.0, seed: int = 0):
+         prefix_pages: int = 2, temperature: float = 0.0, seed: int = 0,
+         filters: bool = False):
     """A synthetic admission wave of K rows at `bucket` into slots 0..K-1:
     (its program, the host arrays a dispatch fills it with, the eager
     function). Prompt tokens and lengths come from a numpy generator seeded
-    with `seed` (full waves: lengths in (bucket / 2, bucket]); paged rows
+    with `seed` (full waves: lengths in (bucket / 2, bucket]); on a
+    sampling_controls engine the rows' top_p / top_k are CONTROLS in turn
+    with `filters`, else 0; paged rows
     take distinct pages from 1 up; a tail wave (paged) gives each row
     `prefix_pages` cached pages and a tail of up to `bucket` tokens, over a
     table as wide as dispatch makes it. The dense engine's cache is grown
@@ -88,7 +121,8 @@ def wave(eng, K: int, bucket: int, tail: bool = False,
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, eng.cfg.vocab_size, (K, bucket), dtype=np.int64)
     slots = np.arange(K, dtype=np.int64)
-    temps = np.full(K, temperature, dtype=np.float32)
+    temps = (_controls(K, temperature, filters) if eng.sampling_controls
+             else np.full(K, temperature, dtype=np.float32))
     tails = rng.integers(bucket // 2 + 1, bucket + 1, K).astype(np.int32)
     if not isinstance(eng, PagedLLMEngine):
         if tail:
@@ -123,10 +157,12 @@ def _flash() -> int:
 
 
 def prefill_graph_vs_eager(eng, K: int, bucket: int, tail: bool = False,
-                           temperature: float = 0.0) -> dict:
+                           temperature: float = 0.0,
+                           filters: bool = False) -> dict:
     """Sync the engine's in-flight dispatches and copy its state; make
     (capturing it if it is new) the program of a synthetic K-row wave at
-    `bucket` (`wave`: full, or tail-only on the paged engine) and put the
+    `bucket` (`wave`: full, or tail-only on the paged engine; `filters`:
+    its rows' per-row controls on a sampling_controls engine) and put the
     state back; replay the wave, copy what it left, put the state back and
     run the same wave eagerly on the same inputs; put the state back once
     more, so the engine is left as it was found. Returns both runs' [K]
@@ -155,7 +191,8 @@ def prefill_graph_vs_eager(eng, K: int, bucket: int, tail: bool = False,
             eng.generator.set_state(rng)
 
         program, arrays, eager_fn = wave(eng, K, bucket, tail,
-                                        temperature=temperature)
+                                        temperature=temperature,
+                                        filters=filters)
         restore()
         before = _flash() if on_card else 0
         graph = eng._call(program, arrays).clone()

@@ -26,8 +26,10 @@ Every dispatch runs through the program cache (tpu/executor.py), named as
 fused admission per (bucket, K), ``_prefill_program``,
 ``llama-paged-prefill[-q8]-{bucket}x{K}``; the tail-only admission per
 (bucket, K, table width), ``_prefix_program``,
-``llama-paged-prefix[-q8]-{bucket}x{K}-NP{n_table}``. Their inputs (tables,
-tokens, rows) are static buffers filled before each call by one
+``llama-paged-prefix[-q8]-{bucket}x{K}-NP{n_table}``; each with ``-sc``
+under sampling_controls, whose decode blocks come in two variants, with the
+per-row filters and without (``-sc-nosort``; tpu/engine.py). Their inputs
+(tables, tokens, rows) are static buffers filled before each call by one
 host-to-device copy from the engine's pinned staging ring
 (``LLMEngine._upload``). The warm-up before a capture points every write at
 the garbage page 0 (zero tables and prefix lengths). ``warmup`` captures
@@ -296,16 +298,19 @@ class PagedLLMEngine(LLMEngine):
                 self.k_cache, self.v_cache, ptable, project_last)[0]
         return self._splice_loop_state(last, slots, lengths, new_temps)
 
-    def _decode_program_paged(self, n_table: int, block: int):
-        """The `block`-step paged decode program at table width n_table; its
-        one static input is that width's [B, n_table] table, all zero (page
-        0) in its warm-up."""
+    def _decode_program_paged(self, n_table: int, block: int,
+                              row_filter: bool = True):
+        """The `block`-step paged decode program at table width n_table (with
+        or without the per-row filters, see _decode_variants); its one
+        static input is that width's [B, n_table] table, all zero (page 0)
+        in its warm-up."""
         (table,) = self._static_inputs(
             ("table", n_table), [((self.n_slots, n_table), torch.int32)])
         kind = "-q8" if self._q8 else ""
         return self.executor.compile(
-            f"llama-paged-decode{kind}-x{block}-NP{n_table}",
-            lambda t: self._decode_fn_paged(t, block), (table,),
+            f"llama-paged-decode{kind}-x{block}-NP{n_table}"
+            f"{self._decode_tag(row_filter)}",
+            lambda t: self._decode_fn_paged(t, block, row_filter), (table,),
             warmup=lambda: self._warmup_state(table.zero_),
             generators=(self.generator,))
 
@@ -317,7 +322,8 @@ class PagedLLMEngine(LLMEngine):
         n_ptable = max(1, math.ceil(bucket / self.page_size))
         kind = "-q8" if self._q8 else ""
         return self._admission_program(
-            f"llama-paged-prefill{kind}-{bucket}x{K}", self._prefill_fn,
+            f"llama-paged-prefill{kind}-{bucket}x{K}{self._id_tag}",
+            self._prefill_fn,
             ("prefill", bucket, K), [((K, bucket), torch.long),
                                      ((K, n_ptable), torch.int32),
                                      *self._row_specs(K)], slots)
@@ -330,7 +336,8 @@ class PagedLLMEngine(LLMEngine):
         lengths [K] int32, then the rows."""
         kind = "-q8" if self._q8 else ""
         return self._admission_program(
-            f"llama-paged-prefix{kind}-{bucket}x{K}-NP{n_table}",
+            f"llama-paged-prefix{kind}-{bucket}x{K}-NP{n_table}"
+            f"{self._id_tag}",
             self._prefix_fn, ("prefix", bucket, K, n_table),
             [((K, bucket), torch.long), ((K, n_table), torch.int32),
              ((K,), torch.int32), *self._row_specs(K)], slots)
@@ -352,7 +359,7 @@ class PagedLLMEngine(LLMEngine):
         (dispatch uses pow2(widest pages + 1): 2, 4, ... up to max_seq_len's
         pages + 1; the reference warms only the first admissions' width,
         and each other one would capture mid-serving), at the full and the
-        half block."""
+        half block, each variant."""
         for bucket in self.prefill_buckets:
             for K in self._warm_ks(k_variants):
                 self._prefill_program(bucket, K)
@@ -371,7 +378,8 @@ class PagedLLMEngine(LLMEngine):
             self.allocator.pages_for(self.max_seq_len) + 1)
         while width <= widest:
             for block in self._block_sizes():
-                self._decode_program_paged(width, block)
+                for row_filter in self._decode_variants():
+                    self._decode_program_paged(width, block, row_filter)
             width *= 2
 
     def _tail_shapes(self) -> List[tuple]:
@@ -401,10 +409,10 @@ class PagedLLMEngine(LLMEngine):
     def _widest_table(self) -> int:
         return _pow2_at_least(self.allocator.pages_for(self.max_seq_len) + 1)
 
-    def _decode_fn_paged(self, table, block: int):
+    def _decode_fn_paged(self, table, block: int, row_filter: bool = True):
         """`block` paged decode steps (the int8 step under kv_dtype='int8');
-        table [B, n_table]. Returns the [B, block] sampled tokens and
-        advances the loop state in place."""
+        table [B, n_table]; row_filter: run the per-row filters. Returns the
+        [B, block] sampled tokens and advances the loop state in place."""
         params, cfg = self.params, self.cfg
         if self._q8:
             def step(tok, pos):
@@ -416,7 +424,7 @@ class PagedLLMEngine(LLMEngine):
                 return llama_decode_step_paged(
                     params, cfg, tok, pos, self.k_cache, self.v_cache,
                     table)[0]
-        return self._decode_loop(step, block)
+        return self._decode_loop(step, block, row_filter)
 
     # -- dispatch -------------------------------------------------------------
     def _build_table(self) -> np.ndarray:
@@ -473,5 +481,5 @@ class PagedLLMEngine(LLMEngine):
 
     def _run_decode(self, block: int) -> torch.Tensor:
         table = self._build_table()
-        return self._call(self._decode_program_paged(table.shape[1], block),
-                          (table,))
+        return self._call(self._decode_program_paged(
+            table.shape[1], block, self._row_filter_now()), (table,))

@@ -239,10 +239,10 @@ REQUEST_FIELDS = {
 }
 
 
-@pytest.fixture(scope="module")
-def both_servers(served):
+def _server_pair(served, controls: str):
     """(the reference llm-server app, the port's app), both started, both
-    on the debug preset on the CPU with their default config."""
+    on the debug preset on the CPU with their default config but
+    SAMPLING_CONTROLS=`controls`."""
     import importlib.util
     import os
 
@@ -250,16 +250,17 @@ def both_servers(served):
 
     path = os.path.join(os.path.dirname(__file__), "..", "examples",
                         "llm-server", "main.py")
-    spec = importlib.util.spec_from_file_location("example_llm_server_c1",
-                                                  path)
+    spec = importlib.util.spec_from_file_location(
+        f"example_llm_server_c1_{controls}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     ref = module.build_app(config=MockConfig({
         "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "example",
         "TPU_PLATFORM": "cpu", "MODEL_PRESET": "debug", "WARMUP": "false",
-        "REQUEST_TIMEOUT": "60"}))
+        "REQUEST_TIMEOUT": "60", "SAMPLING_CONTROLS": controls}))
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
-           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8"}
+           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
+           "SAMPLING_CONTROLS": controls}
     port = build_app(env, engine=build_engine(env, device="cpu",
                                               params=served[1]))
     ref.start()
@@ -273,27 +274,43 @@ def both_servers(served):
         ref.shutdown()
 
 
-@pytest.mark.parametrize("case", sorted(REQUEST_FIELDS))
-def test_generate_refuses_the_fields_the_reference_refuses(both_servers,
-                                                           case):
-    """The port's /generate answers each body with the reference's status:
-    400 for top_p / top_k it does not serve or that are out of range or
-    not numbers, and for an unknown class in the body or the X-QoS-Class
-    header; 200 for a known class and for zero controls."""
-    fields, headers = REQUEST_FIELDS[case]
+@pytest.fixture(scope="module")
+def both_servers(served):
+    yield from _server_pair(served, "false")
+
+
+@pytest.fixture(scope="module")
+def both_servers_sc(served):
+    yield from _server_pair(served, "true")
+
+
+@pytest.mark.parametrize("case", sorted(REQUEST_FIELDS)
+                         + [f"sc-{c}" for c in sorted(REQUEST_FIELDS)])
+def test_generate_refuses_the_fields_the_reference_refuses(request, case):
+    """The port's /generate answers each body with the reference's status,
+    with sampling controls off (the default) and on ("sc-"): 400 for
+    top_p / top_k > 0 with the controls off, for top_p / top_k out of
+    range or not numbers, and for an unknown class in the body or the
+    X-QoS-Class header; 200 for a known class and for zero controls, and
+    with the controls on for top_p / top_k in range."""
+    controls = case.startswith("sc-")
+    servers = request.getfixturevalue(
+        "both_servers_sc" if controls else "both_servers")
+    fields, headers = REQUEST_FIELDS[case[3:] if controls else case]
     body = {"prompt": "hello", "max_tokens": 2, **fields}
-    want, _ = _post(both_servers[0].http_port, body, headers)
-    got, text = _post(both_servers[1].http_port, body, headers)
+    want, _ = _post(servers[0].http_port, body, headers)
+    got, text = _post(servers[1].http_port, body, headers)
     assert got == want, text
     assert want in (200, 400)
-    if case == "top_p":
-        assert "ROADMAP A9" in text
+    if case in ("top_p", "top_k"):
+        assert "sampling_controls=True" in text
+    if case in ("sc-top_p", "sc-top_k"):
+        assert want == 200
 
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
-    asks = {"SAMPLING_CONTROLS": "true",
-            "CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
+    asks = {"CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
             "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
             "QOS": "true", "WEIGHTS_PATH": "/x.safetensors",
             "WEIGHT_DTYPE": "int8", "VOCAB_PATH": "/vocab.json",
@@ -315,6 +332,10 @@ PORTED = {
     "PREFIX_CACHE-false": {"PREFIX_CACHE": "false"},
     "PREFIX_CACHE-dense": {"PAGED": "false", "PREFIX_CACHE": "true"},
     "WARMUP": {"WARMUP": "wide"},
+    "SAMPLING_CONTROLS": {"SAMPLING_CONTROLS": "true"},
+    "SAMPLING_CONTROLS-dense": {"PAGED": "false", "DECODE_ATTN": "kernel",
+                                "SAMPLING_CONTROLS": "true"},
+    "WARMUP_SCORE": {"WARMUP_SCORE": "true"},
 }
 
 
@@ -333,6 +354,7 @@ def test_ported_config_keys_boot_and_serve(served, key):
                 == (paged and env.get("PREFIX_CACHE") != "false"))
         assert engine.cfg.decode_attn == env.get("DECODE_ATTN", "xla")
         assert engine._q8 == ("KV_DTYPE" in env)
+        assert engine.sampling_controls == ("SAMPLING_CONTROLS" in env)
         status, body = _post(app.http_port, {"prompt": "hello",
                                              "max_tokens": 6,
                                              "stream": False})
