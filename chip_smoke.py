@@ -8,8 +8,9 @@ flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256),
 at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 ``--prefill`` (build, the main path's admission wave at [1, 256] and
 [4, 256], eager and as its graph's replay: host wall, card busy time and
-host launches) and ``--sc`` (build, the main path's serve phase, then its
-sampling-controls, sort-skip and scoring phases, 7 and 8 below).
+host launches), ``--sc`` (build, the main path's serve phase, then its
+sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
+``--weights`` (build, then phase 9 alone).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -120,6 +121,24 @@ Phases, one or more lines each, any failure exits non-zero:
    embedded from a second thread while 7 greedy streams decode, which must
    come out as without it, with no capture after boot).
 
+9. checkpoints, int8 weights and the tokenizers (``w8_phase``): a
+   Llama-3-8B-width checkpoint written with export_llama_safetensors (full
+   depth where the temp dir's free space holds it, else 4 layers) and
+   loaded in bf16 and with weight_dtype="int8", each bit-equal to the
+   exported tree (or quantize_weights of it) in its leaves and its
+   logits, with its seconds, GB/s and peak card memory; llama_init_quantized
+   bit-equal to quantize_weights(llama_init); phase 3's model checks on
+   the int8 tree (within MODEL_TOL_W8); the main path served on the int8
+   tree (``serve paged-w8``, counted as phase 4's, with the capacity plan
+   made from the card's memory logged), a greedy stream against the plain
+   oracle on the same tree, and a byte-level tokenizer.json written from
+   README.md served through VOCAB_PATH's loader on the same engine (the
+   native BPE core active and equal to the Python loop, tokens/s of both);
+   phase 6's profile and graph check on the int8 tree (a ``matrix
+   products`` line, as for every configuration); _q_matmul's times per
+   product at the decode shape beside its bound, ``_int_mm`` alone and the
+   bf16 product.
+
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
 """
@@ -151,6 +170,11 @@ H100_HBM_BYTES_S = 3.35e12
 RTOL = 1e-2
 ATOL_RMS = 1e-2
 MODEL_TOL = 0.25             # bf16 logits after 32 layers, see check_model
+# the same on int8 weights: every product re-quantizes its activations to
+# 1/127 of each row's absmax, so a bf16 difference between two attention
+# paths can move a code by one and the logits further (0.319 on the paged
+# decode step's check on an NVIDIA H100 80GB HBM3 at 700 W)
+MODEL_TOL_W8 = 0.5
 DENSE_S = 1024               # the dense cache of phase 2's checks
 
 
@@ -502,14 +526,15 @@ def check_decode(dev) -> None:
 
 
 # -- phase 3: the model on the card ------------------------------------------
-def check_model(params, cfg, dev) -> None:
+def check_model(params, cfg, dev, tol: float = MODEL_TOL) -> None:
     """Prefill a prompt (flash) and take ONE decode step through each
     decode path from its KV: paged and dense (decode kernel) against a full
     recompute of prompt + token through plain masked attention; dense int8
     and paged int8 against a plain step (plain masked read) over the same
     int8 cache, dequantized to bf16. The tolerance is on the max abs logit
     difference: bf16 activations through 32 layers on two different
-    attention paths (logits are O(1) here)."""
+    attention paths (logits are O(1) here); `tol` is MODEL_TOL_W8 on an
+    int8 tree."""
     import dataclasses
 
     import torch
@@ -553,9 +578,9 @@ def check_model(params, cfg, dev) -> None:
         require(bool(torch.isfinite(got).all()), f"{what}: not finite")
         diff = float((got - want).abs().max())
         log(f"check model: {what}: max_abs_diff={diff:.3e} (max |logit| "
-            f"{float(want.abs().max()):.3f}) tol={MODEL_TOL} "
-            f"{'ok' if diff <= MODEL_TOL else 'FAIL'}")
-        require(diff <= MODEL_TOL, f"{what}: disagrees")
+            f"{float(want.abs().max()):.3f}) tol={tol} "
+            f"{'ok' if diff <= tol else 'FAIL'}")
+        require(diff <= tol, f"{what}: disagrees")
 
     flash = dataclasses.replace(cfg, attn_impl="flash")
     plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla")
@@ -751,16 +776,20 @@ SERVE_CONFIGS = {
     "dense-int8": ({"PAGED": "false", "DECODE_ATTN": "kernel",
                     "KV_DTYPE": "int8"}, "decode_attention_q8"),
 }
+# the main path on int8 weights, served and profiled as the four
+W8_CONFIGS = {"paged-w8": ({"WEIGHT_DTYPE": "int8"}, "paged_attention")}
+ALL_CONFIGS = {**SERVE_CONFIGS, **W8_CONFIGS}
 
 
 def serve_phase(params, cfg, dev, card: str, config: str,
-                preset: str = "llama3-8b") -> dict:
+                preset: str = "llama3-8b", after=None) -> dict:
     """Drive the port's /generate in one serving configuration; returns
-    what the timing phase needs."""
+    what the timing phase needs. after(app, engine), when given, runs on
+    the served engine after the counted run, before the shutdown."""
     from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
-    extra, decode_kernel = SERVE_CONFIGS[config]
+    extra, decode_kernel = ALL_CONFIGS[config]
     env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
            "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
            "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
@@ -811,6 +840,8 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         # after the counted run: the sampling-controls phase's prompts, all
         # greedy, in the same one wave, its greedy reference
         sc_ref = sc_burst(app.http_port, engine, greedy=True)
+        if after is not None:
+            after(app, engine)
     finally:
         app.shutdown()
 
@@ -1488,11 +1519,14 @@ def time_reads(dev, ctx, S, flush, card) -> dict:
 # -- phase 6: where a decode step's time goes ---------------------------------
 # kernel launches per decode step with one read kernel per layer before the
 # reads were split over blocks (this profile phase, NVIDIA H100 80GB HBM3,
-# 700 W): the split reads combine in the same launch and add none. The
+# 700 W): the split reads combine in the same launch and add none; on int8
+# weights (paged-w8) as first measured (5451.3). The
 # check is on kernels the card executed; under CUDA graphs the host
 # launches one graph per block
 LAUNCHES_PER_STEP = {"paged": 2621, "paged-int8": 3453, "dense": 2555,
-                     "dense-int8": 3071}
+                     "dense-int8": 3071, "paged-w8": 5451}
+# the matrix products' kernels by name (cuBLAS / cuBLASLt on an H100)
+GEMM_KERNEL = re.compile(r"gemm|xmma|nvjet|cutlass", re.IGNORECASE)
 # the host's runtime calls that put work on the card, by the profiler's name
 HOST_LAUNCH = re.compile(r"^(cudaLaunchKernel|cuLaunchKernel|cudaGraphLaunch|"
                          r"cudaMemcpyAsync)")
@@ -1513,7 +1547,7 @@ def decode_engine(params, cfg, dev, config: str):
     from gofr_tpu_torch.tpu.engine import LLMEngine
     from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
-    extra, _ = SERVE_CONFIGS[config]
+    extra, _ = ALL_CONFIGS[config]
     cfg = dataclasses.replace(cfg, attn_impl="flash",
                               decode_attn=extra.get("DECODE_ATTN", "xla"),
                               kv_dtype=extra.get("KV_DTYPE"))
@@ -1576,7 +1610,7 @@ def profile_decode(eng, card: str, config: str) -> None:
     ctx = [s.length for s in eng.slots if s.active]
     untraced_ms = _window(eng, 10)
     untraced_steps = 10 * block
-    extra, _ = SERVE_CONFIGS[config]
+    extra, _ = ALL_CONFIGS[config]
     ran = eng.decode_steps
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1627,6 +1661,14 @@ def profile_decode(eng, card: str, config: str) -> None:
     log(f"profile decode {config}: decode read: ms_per_step="
         f"{sum(e.self_device_time_total for e in read) / 1e3 / ran:.4f} "
         f"calls_per_step={sum(e.count for e in read) / ran:.0f}")
+    gemm = [e for e in kernels if GEMM_KERNEL.search(e.key)]
+    gemm_ms = sum(e.self_device_time_total for e in gemm) / 1e3
+    log(f"profile decode {config}: matrix products: ms_per_step="
+        f"{gemm_ms / ran:.4f} share_of_busy={gemm_ms / busy_ms:.4f} "
+        f"kernels_per_step={sum(e.count for e in gemm) / ran:.1f}; the "
+        f"rest (norms, rope, activations, quantization, sampling, copies): "
+        f"ms_per_step={(busy_ms - gemm_ms) / ran:.4f} kernels_per_step="
+        f"{per_step - sum(e.count for e in gemm) / ran:.1f} [{card}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"profile decode {config} kernel: {e.key[:90]} ms_per_step="
             f"{e.self_device_time_total / 1e3 / ran:.4f} calls_per_step="
@@ -2310,6 +2352,397 @@ def score_phase(params, cfg, dev, card: str,
     torch.cuda.empty_cache()
 
 
+# -- checkpoints, int8 weights and the tokenizers ---------------------------
+# full depth's checkpoint needs this much more free space than its bytes
+DISK_MARGIN = 1.25
+# the depth written when the temp dir cannot hold the full model
+SHORT_DEPTH = 4
+SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>")
+
+
+def write_tokenizer_json(path: str, text: str, n_merges: int = 300) -> int:
+    """A byte-level BPE tokenizer.json (HF's layout): the 256 byte pieces
+    (ids 0-255), `n_merges` merges counted from `text` (each the most
+    frequent adjacent pair within the port's pre-tokenizer pieces, ties to
+    the first seen), then the two specials. Returns its vocab size."""
+    import collections
+
+    from gofr_tpu_torch.models.tokenizer import _compile_split, bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    words = collections.Counter(
+        tuple(b2u[b] for b in piece.encode("utf-8"))
+        for piece in _compile_split().findall(text))
+    merges = []
+    while len(merges) < n_merges:
+        pairs = collections.Counter()
+        for word, n in words.items():
+            for pair in zip(word, word[1:]):
+                pairs[pair] += n
+        if not pairs:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        merges.append(f"{a} {b}")
+        vocab.setdefault(a + b, len(vocab))
+        merged = collections.Counter()
+        for word, n in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if i + 1 < len(word) and word[i] == a and word[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    added = [{"id": len(vocab) + i, "content": c, "special": True}
+             for i, c in enumerate(SPECIALS)]
+    with open(path, "w", encoding="utf-8") as fp:
+        json.dump({"model": {"type": "BPE", "vocab": vocab,
+                             "merges": merges}, "added_tokens": added}, fp)
+    return len(vocab) + len(added)
+
+
+def _flat_tree(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_tree(v, prefix + k + ".")
+        else:
+            yield prefix + k, v
+
+
+def trees_equal(got, want) -> list:
+    """The leaves of two params trees that differ in name, dtype, shape or
+    any bit; [] when they are equal."""
+    import torch
+
+    g, w = dict(_flat_tree(got)), dict(_flat_tree(want))
+    bad = sorted(set(g) ^ set(w))
+    for name in set(g) & set(w):
+        a, b = g[name], w[name]
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not torch.equal(a, b)):
+            bad.append(name)
+    return bad
+
+
+def weights_phase(params, cfg, dev, card: str):
+    """A Llama-3-8B-width checkpoint written with export_llama_safetensors
+    (full depth where the temp dir's free space holds it, else SHORT_DEPTH
+    layers), loaded in bf16 (the tree bit-equal to the exported one, and
+    so are the logits of a 16-token prompt) and with weight_dtype="int8"
+    (bit-equal to quantize_weights of the same tree, and its logits), each
+    load's seconds, GB/s and peak card memory beside the tree's bytes;
+    then llama_init_quantized at full size, bit-equal to
+    quantize_weights(llama_init(seed 0)). Returns that int8 tree."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import (llama_forward_nocache,
+                                             llama_init_quantized,
+                                             params_nbytes, quantize_weights)
+    from gofr_tpu_torch.models.weights import (export_llama_safetensors,
+                                               load_llama_safetensors)
+
+    full_bytes = params_nbytes(params)
+    t0 = time.monotonic()
+    q_full = quantize_weights({**params, "layers": dict(params["layers"])})
+    torch.cuda.synchronize()
+    log(f"weights: quantize_weights of the bf16 tree "
+        f"{time.monotonic() - t0:.2f}s: {params_nbytes(q_full) / 1e9:.3f} GB "
+        f"int8 against {full_bytes / 1e9:.3f} GB bf16 [{card}]")
+    tmp = tempfile.mkdtemp(prefix="gofr-ckpt-")
+    try:
+        free = shutil.disk_usage(tmp).free
+        depth = (cfg.n_layers if free >= DISK_MARGIN * full_bytes
+                 else SHORT_DEPTH)
+        c = dataclasses.replace(cfg, n_layers=depth, attn_impl="xla",
+                                decode_attn="xla")
+
+        def cut(tree):
+            return tree if depth == cfg.n_layers else {
+                **tree, "layers": {k: v[:depth]
+                                   for k, v in tree["layers"].items()}}
+
+        tree, q_tree = cut(params), cut(q_full)
+        nbytes = params_nbytes(tree)
+        path = os.path.join(tmp, "model.safetensors")
+        t0 = time.monotonic()
+        export_llama_safetensors(tree, path)
+        took = time.monotonic() - t0
+        log(f"weights: checkpoint at Llama-3-8B width, {depth} of "
+            f"{cfg.n_layers} layers ({nbytes / 1e9:.3f} GB; "
+            f"{free / 1e9:.1f} GB free in the temp dir), written in "
+            f"{took:.2f}s ({nbytes / took / 1e9:.2f} GB/s)")
+        gen = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
+                             device=dev)
+        for dtype, want in ((None, tree), ("int8", q_tree)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.monotonic()
+            loaded = load_llama_safetensors(c, path, weight_dtype=dtype,
+                                            device=dev)
+            torch.cuda.synchronize()
+            took = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated(dev) - base
+            size = params_nbytes(loaded)
+            bad = trees_equal(loaded, want)
+            same = bool(torch.equal(llama_forward_nocache(loaded, c, toks),
+                                    llama_forward_nocache(want, c, toks)))
+            what = dtype or "bf16"
+            log(f"weights: load {what}: {took:.2f}s ({nbytes / took / 1e9:.2f}"
+                f" GB/s of checkpoint), tree {size / 1e9:.3f} GB, peak card "
+                f"memory {peak / 1e9:.3f} GB (tree + {(peak - size) / 1e9:.3f}"
+                f" GB in flight); tree bit-equal to "
+                f"{'the exported one' if dtype is None else 'quantize_weights'}"
+                f": {'yes' if not bad else bad[:4]}; logits of a 16-token "
+                f"prompt bit-equal: {same} [{card}]")
+            require(not bad and same, f"the {what} load disagrees: {bad[:4]}")
+            del loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.monotonic()
+    q8 = llama_init_quantized(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    took = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    bad = trees_equal(q8, q_full)
+    log(f"weights: llama_init_quantized(llama3_8b, seed 0) {took:.2f}s: "
+        f"params_nbytes {params_nbytes(q8)} ({params_nbytes(q8) / 1e9:.3f} "
+        f"GB, bf16 {full_bytes / 1e9:.3f} GB), peak card memory "
+        f"{peak / 1e9:.3f} GB; bit-equal to quantize_weights(llama_init): "
+        f"{'yes' if not bad else bad[:4]} [{card}]")
+    require(not bad, f"llama_init_quantized disagrees: {bad[:4]}")
+    del q_full
+    torch.cuda.empty_cache()
+    return q8
+
+
+def greedy_vs_oracle(engine, params, cfg, dev, card: str,
+                     n_new: int = 24) -> None:
+    """A greedy stream of the served engine against the plain-PyTorch
+    oracle on the same weights: the whole sequence teacher-forced through
+    llama_forward_nocache (no cache, f32 attention); every token must be
+    the oracle's argmax or within MODEL_TOL_W8 of its top logit (ties),
+    and the share of exact argmaxes is logged."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+
+    prompt = engine.tokenizer.encode(make_prompt(200, 77))
+    got = engine.generate(prompt, max_new_tokens=n_new)
+    plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla",
+                                kv_dtype=None)
+    seq = torch.tensor([prompt + got[:-1]], device=dev)
+    with torch.no_grad():
+        logits = llama_forward_nocache(params, plain, seq)[0, len(prompt) - 1:]
+    top = logits.max(dim=-1).values
+    chosen = logits[torch.arange(len(got), device=dev),
+                    torch.tensor(got, device=dev)]
+    gap = float((top - chosen).max())
+    exact = float((logits.argmax(dim=-1).cpu()
+                   == torch.tensor(got)).float().mean())
+    log(f"check int8 weights: a greedy stream of {len(got)} tokens after a "
+        f"{len(prompt)}-token prompt against the plain oracle on the same "
+        f"int8 tree (teacher-forced): exact argmax at {exact:.3f} of "
+        f"positions, largest gap to the oracle's top logit {gap:.3e} (tol "
+        f"{MODEL_TOL_W8}) {'ok' if gap <= MODEL_TOL_W8 else 'FAIL'} "
+        f"[{card}]")
+    require(len(got) == n_new and gap <= MODEL_TOL_W8,
+            "the int8 engine's greedy stream leaves the oracle's")
+
+
+def tokenizer_check(app, engine, card: str, vocab_path: str) -> None:
+    """VOCAB_PATH's loader (serve.load_tokenizer) on the script's
+    tokenizer.json: the byte-level tokenizer with the native BPE core
+    built and active, equal to the Python merge loop on a long prompt
+    (README.md), encode tokens/s of both; then /generate served with it
+    on the running int8-weight engine (a second app over the same engine):
+    a stream and a non-streaming request of their full length."""
+    import os
+
+    from gofr_tpu_torch.serve import build_app, load_tokenizer
+
+    tok = load_tokenizer(vocab_path)
+    require(type(tok).__name__ == "ByteLevelBPETokenizer"
+            and tok._native is not None,
+            "VOCAB_PATH did not load the byte-level tokenizer with the "
+            "native core")
+    require(tok.vocab_size <= engine.cfg.vocab_size,
+            "the tokenizer outgrows the model's vocabulary")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "README.md"), encoding="utf-8") as fp:
+        text = fp.read()
+    t0 = time.monotonic()
+    fast = tok._encode_text(text)
+    t_native = time.monotonic() - t0
+    t0 = time.monotonic()
+    slow = tok._encode_text(text, native=False)
+    t_python = time.monotonic() - t0
+    log(f"tokenizer: {tok.vocab_size} ids, native core active; README.md "
+        f"({len(text)} chars) -> {len(fast)} tokens, native "
+        f"{len(fast) / t_native:.0f} tok/s, Python loop "
+        f"{len(slow) / t_python:.0f} tok/s ({t_python / t_native:.1f}x), "
+        f"ids equal: {fast == slow}")
+    require(fast == slow, "the native core and the Python loop disagree")
+    saved = engine.tokenizer
+    engine.tokenizer = tok
+    app2 = build_app({"HTTP_PORT": "0", "VOCAB_PATH": vocab_path},
+                     engine=engine)
+    app2.start()
+    out: dict = {}
+    prompt = text[:240]
+    try:
+        # min_tokens: the stream's length does not hang on whether the
+        # random model samples the tokenizer's EOS
+        stream_request(app2.http_port, prompt, 16, out, "s",
+                       {"min_tokens": 16})
+        plain_request(app2.http_port, prompt, 8, out, "p", {"min_tokens": 8})
+    finally:
+        # the HTTP server only: the engine belongs to the serve phase
+        app2._http_server.shutdown()
+        engine.tokenizer = saved
+    require(out["s"]["status"] == 200 and out["s"]["done"]["tokens"] == 16
+            and out["p"]["status"] == 201 and out["p"]["data"]["tokens"] == 8,
+            f"/generate with the BPE tokenizer failed: {out}")
+    log(f"tokenizer: /generate on the int8-weight engine with VOCAB_PATH's "
+        f"tokenizer: a {len(tok.encode(prompt))}-token prompt, a stream of "
+        f"16 and a request of 8 tokens served [{card}]")
+
+
+def time_q_matmul(params, q8, cfg, dev, flush, card: str) -> None:
+    """_q_matmul at the decode shape (8 rows, padded to 32 for _int_mm) for
+    each product of a layer and the head, by CUDA events with the L2
+    flushed (the wrapper's host time included) and on the card alone
+    (replayed from a CUDA graph, every kernel of the call, as the decode
+    graphs run it, each call on the next layer's weight so that none is
+    in L2), beside its byte
+    bound (the int8 weight, its scales, x and out read or written once at
+    3.35 TB/s), _int_mm alone and the bf16 product it replaces; then the
+    sums over a decode step (32 layers and the head)."""
+    import torch
+
+    from gofr_tpu_torch.models.llama import _int_matmul, _q_matmul
+
+    def alone(fn, iters=20):
+        """Device ms per call: fn(0), ..., fn(iters - 1) captured in one
+        CUDA graph (after one eager call on a side stream), its replay
+        timed by CUDA events, the mean of 3 replays (torch.profiler lost
+        some of these calls' records on an H100)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(iters):
+                fn(i)
+        graph.replay()
+        total = 0.0
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        del graph
+        return total / 3 / iters
+
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+    step = dict.fromkeys(("bound", "q", "q_alone", "int_mm", "bf16"), 0.0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name in names:
+        top = name == "lm_head"
+        # one [1, ...] stack for the head, which is read whole each call
+        w8s = q8[name][None] if top else q8["layers"][name]
+        ss = q8[name + "_s"][None] if top else q8["layers"][name + "_s"]
+        wbs = params[name][None] if top else params["layers"][name]
+        L = w8s.shape[0]
+        w8, s = w8s[0], ss[0]
+        K, N = w8.shape
+        x = torch.randn((8, K), generator=gen, device=dev).to(torch.bfloat16)
+        x8 = torch.randint(-127, 128, (32, K), generator=gen, device=dev,
+                           dtype=torch.int8)
+        bound = (K * N + 4 * N + 2 * 8 * K + 2 * 8 * N) / H100_HBM_BYTES_S * 1e3
+        r = {"bound": bound,
+             "q": time_ms(lambda: _q_matmul(x, w8, s), 20, flush),
+             "q_alone": alone(lambda i: _q_matmul(x, w8s[i % L],
+                                                  ss[i % L])),
+             "int_mm": alone(lambda i: _int_matmul(x8, w8s[i % L])),
+             "bf16": alone(lambda i: x @ wbs[i % L])}
+        times = 1 if top else cfg.n_layers
+        for k in step:
+            step[k] += times * r[k]
+        log(f"time _q_matmul {name} [8, {K}] x [{K}, {N}] int8: ev "
+            f"{r['q']:.4f} ms, alone {r['q_alone']:.4f} ms (share "
+            f"{bound / r['q_alone']:.3f}); _int_mm alone at 32 rows "
+            f"{r['int_mm']:.4f} ms; bound {bound:.4f} ms (bytes); the bf16 "
+            f"product alone {r['bf16']:.4f} ms [{card}]")
+    log(f"time _q_matmul per decode step (x{cfg.n_layers} layers + head): "
+        f"alone {step['q_alone']:.4f} ms ({step['int_mm']:.4f} of it "
+        f"_int_mm), bound {step['bound']:.4f} ms, the bf16 products alone "
+        f"{step['bf16']:.4f} ms [{card}]")
+
+
+def w8_phase(params, cfg, dev, card: str, flush) -> None:
+    """The weights phases: the checkpoint round trip, int8 weights served on
+    the main path (WARMUP=wide, as the four serve phases; counted, with
+    VOCAB_PATH's tokenizer served after the counted run and a greedy
+    stream against the plain oracle), check_model on the int8 tree, the
+    pipelined decode profile and graph-vs-eager on it, and _q_matmul's
+    times at the decode shape."""
+    import os
+    import tempfile
+
+    import torch
+
+    q8 = weights_phase(params, cfg, dev, card)
+    check_model(q8, cfg, dev, MODEL_TOL_W8)
+    vocab_dir = tempfile.mkdtemp(prefix="gofr-vocab-")
+    vocab_path = os.path.join(vocab_dir, "tokenizer.json")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "README.md"), encoding="utf-8") as fp:
+        n = write_tokenizer_json(vocab_path, fp.read())
+    log(f"tokenizer: wrote a byte-level tokenizer.json of {n} ids (256 "
+        f"bytes, merges counted from README.md, 2 specials)")
+
+    def after(app, engine):
+        # HBM_BUDGET_BYTES unset: the plan is made from the card's memory
+        require(engine.plan is not None and engine.plan.fits,
+                "no capacity plan on the card")
+        log(f"capacity: {engine.plan.summary()} [{card}]")
+        greedy_vs_oracle(engine, q8, cfg, dev, card)
+        tokenizer_check(app, engine, card, vocab_path)
+
+    serve_phase(q8, cfg, dev, card, "paged-w8", after=after)
+    torch.cuda.empty_cache()
+    eng = decode_engine(q8, cfg, dev, "paged-w8")
+    profile_decode(eng, card, "paged-w8")
+    check_graph(eng, card, "paged-w8")
+    del eng
+    torch.cuda.empty_cache()
+    time_q_matmul(params, q8, cfg, dev, flush, card)
+    os.remove(vocab_path)
+    os.rmdir(vocab_dir)
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -2341,13 +2774,15 @@ def main(argv=()) -> int:
     only the decode-read checks and times. --prefill: build, then only the
     model's prefill times at [1, 256] and [4, 256]. --sc: build, then the
     main path's serve phase, its sampling-controls phase, the sort-skip
-    phase and the scoring phase. The short modes print no ok line."""
+    phase and the scoring phase. --weights: build, then the weights phases
+    (w8_phase). The short modes print no ok line."""
     import torch
 
     mode = argv[0] if argv else None
-    if mode not in (None, "--flash", "--decode", "--prefill", "--sc"):
+    if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
+                    "--weights"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc or none)")
+            f"--sc, --weights or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -2385,7 +2820,7 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode != "--prefill":
+        if mode not in ("--prefill", "--weights"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -2398,6 +2833,12 @@ def main(argv=()) -> int:
         if mode == "--prefill":
             time_prefill(params, cfg, dev, [(1, 256), (4, 256)], 10, card)
             log(f"prefill only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
+        if mode == "--weights":
+            flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32,
+                                device=dev)
+            w8_phase(params, cfg, dev, card, flush)
+            log(f"weights only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         if mode == "--sc":
             ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
@@ -2489,6 +2930,7 @@ def main(argv=()) -> int:
             torch.cuda.empty_cache()
         sort_skip_phase(params, cfg, dev, card)
         score_phase(params, cfg, dev, card)
+        w8_phase(params, cfg, dev, card, flush)
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

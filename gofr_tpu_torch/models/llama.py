@@ -24,8 +24,25 @@ one copy per leaf. JAX's casts are kept: norms and rope in f32 cast back to
 ``x.dtype``, logits in f32. Caches and pools are updated in place where JAX
 returns updated arrays (its engine donates them).
 
-Not ported yet: int8 weights (``_q_matmul``, ``quantize_weights``) — ROADMAP
-A13; the chunked and verify programs — ROADMAP A10.
+The int8 weights (ROADMAP A13): ``_q_matmul`` and the int8 branches of
+``_mm``, ``_embed`` and ``_head`` (the weights' dtype is the switch, as in
+the reference, so it reaches every program: paged and dense, int8 KV, the
+tail prefill, ``-sc`` and scoring), ``_quantize_leaf``, ``_QUANT_AXES``,
+``quantize_weights`` (consumes its input tree), ``llama_init_quantized``
+and ``params_nbytes``. ``_q_matmul`` is XLA's int8 x int8 -> int32
+``dot_general`` in the reference, not a Pallas kernel; here it is
+``torch._int_mm`` (a library product on the card and the CPU), with the
+reference's per-row activation quantization and f32 epilogue around it. On
+the card ``_int_mm`` needs more than 16 rows, so fewer (decode's B rows)
+are zero-padded to ``_INT_MM_ROWS`` (the int32 result is exact, the pad
+rows dropped), and it is 4-10x slower with a row-major second operand than
+with a column-major one (H100, torch 2.11). So the port's int8 producers
+(``quantize_weights``, ``llama_init_quantized``, the checkpoint loader)
+store every matrix the product reads (the layer weights and ``lm_head``)
+column-major: the leaf keeps the JAX shape [.., in, out], as a transposed
+view of [.., out, in] storage, instead of the row-major layout, never beside
+it. ``tok_emb`` (gathered by rows) stays row-major. Not ported yet: the
+chunked and verify programs — ROADMAP A10.
 
 A cache write past a dense cache's last column (a finished row that keeps
 advancing in lock-step decode) lands on that last column instead of being
@@ -37,6 +54,7 @@ max_seq_len - 1), so the result is the same.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, Optional
 
@@ -114,14 +132,11 @@ class LlamaConfig:
         return 2 * embed + self.n_layers * per_layer + self.dim
 
 
-def llama_init(cfg: LlamaConfig, seed: int = 0,
-               device=None) -> Dict[str, Any]:
-    """Random-init params dict with stacked [L, ...] layer weights: normal
-    * 1/sqrt(fan_in) matrices, ones for the norms (the JAX recipe), drawn
-    from a torch.Generator on `device` seeded with `seed`. Each leaf is
-    drawn one [in, out] slice at a time so an 8B model never holds a full
-    f32 copy of its largest leaf."""
-    dev = resolve_device(device)
+def _drawn_leaves(cfg: LlamaConfig, seed: int, dev: torch.device):
+    """The random matrices of llama_init, in its draw order: (name, leaf)
+    with name a top-level key or a layer leaf's. Each leaf is drawn one
+    [in, out] slice at a time, so an 8B model never holds a full f32 copy
+    of its largest leaf; no leaf is kept here once yielded."""
     dtype = DTYPES[cfg.dtype]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -138,22 +153,40 @@ def llama_init(cfg: LlamaConfig, seed: int = 0,
             slices[i].copy_(draw.mul_(1.0 / math.sqrt(fan_in)))
         return out
 
-    return {
-        "tok_emb": init((V, D), D),
-        "layers": {
-            "wq": init((L, D, H * dh), D),
-            "wk": init((L, D, Hkv * dh), D),
-            "wv": init((L, D, Hkv * dh), D),
-            "wo": init((L, H * dh, D), H * dh),
-            "w_gate": init((L, D, F_), D),
-            "w_up": init((L, D, F_), D),
-            "w_down": init((L, F_, D), F_),
-            "attn_norm": torch.ones((L, D), dtype=dtype, device=dev),
-            "ffn_norm": torch.ones((L, D), dtype=dtype, device=dev),
-        },
-        "final_norm": torch.ones((D,), dtype=dtype, device=dev),
-        "lm_head": init((D, V), D),
-    }
+    yield "tok_emb", init((V, D), D)
+    yield "wq", init((L, D, H * dh), D)
+    yield "wk", init((L, D, Hkv * dh), D)
+    yield "wv", init((L, D, Hkv * dh), D)
+    yield "wo", init((L, H * dh, D), H * dh)
+    yield "w_gate", init((L, D, F_), D)
+    yield "w_up", init((L, D, F_), D)
+    yield "w_down", init((L, F_, D), F_)
+    yield "lm_head", init((D, V), D)
+
+
+def _tree(cfg: LlamaConfig, leaves: Dict[str, Any], dev) -> Dict[str, Any]:
+    """The params dict from its matrices (and scales): layer leaves under
+    "layers", the norms as ones, as llama_init makes them."""
+    dtype = DTYPES[cfg.dtype]
+    L, D = cfg.n_layers, cfg.dim
+    top = ("tok_emb", "tok_emb_s", "lm_head", "lm_head_s")
+    layers = {k: v for k, v in leaves.items() if k not in top}
+    layers["attn_norm"] = torch.ones((L, D), dtype=dtype, device=dev)
+    layers["ffn_norm"] = torch.ones((L, D), dtype=dtype, device=dev)
+    tree = {k: leaves[k] for k in top[:2] if k in leaves}
+    tree["layers"] = layers
+    tree["final_norm"] = torch.ones((D,), dtype=dtype, device=dev)
+    tree.update({k: leaves[k] for k in top[2:] if k in leaves})
+    return tree
+
+
+def llama_init(cfg: LlamaConfig, seed: int = 0,
+               device=None) -> Dict[str, Any]:
+    """Random-init params dict with stacked [L, ...] layer weights: normal
+    * 1/sqrt(fan_in) matrices, ones for the norms (the JAX recipe), drawn
+    from a torch.Generator on `device` seeded with `seed`."""
+    dev = resolve_device(device)
+    return _tree(cfg, dict(_drawn_leaves(cfg, seed, dev)), dev)
 
 
 def rms_norm(x, weight, eps: float):
@@ -177,19 +210,169 @@ def rope(x, positions, theta: float):
     return rotated.to(x.dtype)
 
 
+# the reference divides by 127.0; XLA compiles that, in every jitted
+# program, into a product with the f32 reciprocal, which this repeats
+_INV127 = 1.0 / 127.0
+_F127 = torch.tensor(127.0)
+# torch._int_mm on the card takes more than 16 rows; fewer are padded to
+# this many (the module docstring)
+_INT_MM_MIN_ROWS = 17
+_INT_MM_ROWS = 32
+
+
+def _q_matmul(x, w8, s, out_dtype=None):
+    """Weight-only int8 matmul with dynamic per-row activation quantization.
+
+    x: [..., Din] float; w8: [Din, Dout] int8 (column-major from the port's
+    producers); s: [Dout] f32 per-output-channel weight scales. Returns
+    [..., Dout] in out_dtype (default x.dtype): the reference's
+    round(x * 127 / absmax) int8 rows, the exact int32 product, then
+    acc * (absmax / 127) * s in f32 before the cast, in its order (the
+    division as XLA compiles it, see _INV127)."""
+    x8, ax = _quantize_rows(x)
+    # int32 * f32 promotes as acc.float() does, in one kernel
+    out = (_int_matmul(x8, w8) * (ax * _INV127)).mul_(s)
+    return out.to(out_dtype or x.dtype)
+
+
+def _quantize_rows(x):
+    """(x8, absmax): x's rows as int8, round(x * 127 / absmax), and their
+    [..., 1] f32 absmax, as the reference quantizes activations (in as few
+    kernels as give its bits: the inf-norm is the abs-max)."""
+    xf = x.float()
+    ax = torch.linalg.vector_norm(xf, ord=math.inf, dim=-1,
+                                  keepdim=True).clamp_min_(1e-12)
+    # a true division: torch computes `127.0 / ax` as 127 * (1 / ax), which
+    # rounds twice; a CPU scalar tensor is a kernel argument, also in a
+    # captured graph
+    inv = torch.div(_F127, ax)
+    return xf.mul(inv).round_().to(torch.int8), ax
+
+
+def _int_matmul(x8, w8):
+    """The exact int32 product x8 @ w8 of [..., Din] by [Din, Dout] int8,
+    through torch._int_mm (rows padded to its minimum on the card)."""
+    rows = x8.reshape(-1, x8.shape[-1])
+    n = rows.shape[0]
+    if n < _INT_MM_MIN_ROWS:
+        rows = F.pad(rows, (0, 0, 0, _INT_MM_ROWS - n))
+    return torch._int_mm(rows, w8)[:n].reshape(*x8.shape[:-1], w8.shape[-1])
+
+
 def _mm(x, tree, name):
-    """x @ tree[name] (float weights; the int8 path is ROADMAP A13)."""
-    return x @ tree[name]
+    """x @ tree[name], through the int8 path when the weight is quantized."""
+    w = tree[name]
+    if w.dtype == torch.int8:
+        return _q_matmul(x, w, tree[name + "_s"])
+    return x @ w
 
 
 def _embed(params, cfg: LlamaConfig, tokens):
-    """Token embedding gather."""
-    return params["tok_emb"][tokens]
+    """Token embedding gather; dequantizes per row when tok_emb is int8."""
+    e = params["tok_emb"][tokens]
+    if e.dtype == torch.int8:
+        scale = params["tok_emb_s"][tokens]
+        return (e.float() * scale[..., None]).to(DTYPES[cfg.dtype])
+    return e
 
 
 def _head(x, params):
-    """lm_head projection to float32 logits."""
-    return (x @ params["lm_head"]).float()
+    """lm_head projection to float32 logits (int8-aware)."""
+    w = params["lm_head"]
+    if w.dtype == torch.int8:
+        return _q_matmul(x, w, params["lm_head_s"], out_dtype=torch.float32)
+    return (x @ w).float()
+
+
+def _quantize_leaf(w, axis: int):
+    """Symmetric per-channel int8: (w8, scale) with scale shaped as w minus
+    `axis` (the contraction dim)."""
+    wf = w.float()
+    s = wf.abs().amax(dim=axis).clamp_min(1e-12) * _INV127
+    w8 = torch.clamp(torch.round(wf / s.unsqueeze(axis)), -127, 127
+                     ).to(torch.int8)
+    return w8, s
+
+
+# weight name -> contraction axis reduced away by its scale. Layer weights
+# are stacked [L, in, out]; tok_emb [V, D] scales per row (gather dim);
+# lm_head [D, V] per output channel. Norm vectors stay float.
+_QUANT_AXES = {"wq": -2, "wk": -2, "wv": -2, "wo": -2,
+               "w_gate": -2, "w_up": -2, "w_down": -2}
+# columns (or rows) quantized at a time: bounds the f32 temporaries
+_QUANT_CHUNK = 1 << 14
+
+
+def _quantized(w, axis: int):
+    """_quantize_leaf(w, axis) of a whole leaf, one [in, out] matrix and a
+    chunk of the dim the scale keeps at a time (exact: every scale still
+    reduces over the whole contraction dim), so the f32 temporaries stay a
+    chunk's. axis -2 (a matrix the product reads) gives w8 column-major,
+    -1 (tok_emb's rows) row-major."""
+    *lead, a, b = w.shape
+    dev = w.device
+    if axis == -2:
+        w8 = torch.empty((*lead, b, a), dtype=torch.int8,
+                         device=dev).transpose(-1, -2)
+        s = torch.empty((*lead, b), dtype=torch.float32, device=dev)
+    else:
+        w8 = torch.empty(w.shape, dtype=torch.int8, device=dev)
+        s = torch.empty((*lead, a), dtype=torch.float32, device=dev)
+    # the dim the scales keep, within one matrix: its columns (axis -2)
+    # or its rows (-1)
+    keep = 1 if axis == -2 else 0
+    for idx in itertools.product(*map(range, lead)):
+        for i in range(0, w.shape[keep - 2], _QUANT_CHUNK):
+            n = min(_QUANT_CHUNK, w.shape[keep - 2] - i)
+            q, sc = _quantize_leaf(w[idx].narrow(keep, i, n), axis)
+            w8[idx].narrow(keep, i, n).copy_(q)
+            s[idx][i:i + n].copy_(sc)
+    return w8, s
+
+
+def quantize_weights(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Quantize a float params tree to int8 storage, leaf by leaf.
+
+    CONSUMES the input tree: each float leaf is popped out of the nested
+    dicts as its int8 twin is built, so (given the caller holds no other
+    references to the leaves) the peak is the float tree plus one int8
+    leaf, not two trees."""
+    layers = params["layers"]
+    leaves: Dict[str, Any] = {}
+    for name, axis in _QUANT_AXES.items():
+        leaves[name], leaves[name + "_s"] = _quantized(layers.pop(name),
+                                                       axis)
+    out = {"layers": {**leaves, "attn_norm": layers["attn_norm"],
+                      "ffn_norm": layers["ffn_norm"]}}
+    tok8, tok_s = _quantized(params.pop("tok_emb"), -1)
+    head8, head_s = _quantized(params.pop("lm_head"), -2)
+    return {"tok_emb": tok8, "tok_emb_s": tok_s, **out,
+            "final_norm": params["final_norm"],
+            "lm_head": head8, "lm_head_s": head_s}
+
+
+def llama_init_quantized(cfg: LlamaConfig, seed: int = 0,
+                         device=None) -> Dict[str, Any]:
+    """Random-init DIRECTLY to int8 storage, one leaf at a time: each float
+    leaf is drawn on `device` by llama_init's recipe (the same generator
+    draws, in its order) and quantized before the next is drawn, so the
+    peak is the int8 tree plus one float leaf. Bit for bit
+    quantize_weights(llama_init(cfg, seed, device))."""
+    dev = resolve_device(device)
+    axes = {**_QUANT_AXES, "tok_emb": -1, "lm_head": -2}
+    leaves: Dict[str, Any] = {}
+    for name, w in _drawn_leaves(cfg, seed, dev):
+        leaves[name], leaves[name + "_s"] = _quantized(w, axes[name])
+        del w
+    return _tree(cfg, leaves, dev)
+
+
+def params_nbytes(params) -> int:
+    """Bytes of a params tree's leaves (int8-aware, unlike the analytic
+    cfg-based estimate in tpu/capacity.params_bytes)."""
+    if isinstance(params, dict):
+        return sum(params_nbytes(v) for v in params.values())
+    return params.numel() * params.element_size()
 
 
 def _layer(params, l: int) -> Dict[str, Any]:

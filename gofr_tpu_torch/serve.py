@@ -15,7 +15,10 @@ body and sends the same events.
     not ported (ROADMAP A11): a known class changes nothing.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from the environment).
-Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
+Every key the reference's llm-server reads is accounted for here: served
+(PORTED, read by build_engine), refused at boot where it asks for a
+feature not ported yet (NOT_PORTED, naming its ROADMAP item), or inert,
+each for its stated reason (INERT). Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
 debug), ATTN_IMPL (flash | xla, default flash), PAGED (true: the paged
 engine; false: the dense-cache engine), DECODE_ATTN (xla | kernel, the
 dense engine's T=1 read), KV_DTYPE (unset | int8; the dense engine needs
@@ -31,9 +34,20 @@ every decode program serving can reach and the reference's warm admission
 set, K=1 for every bucket and the prefix cache's tail programs at the
 smallest bucket; wide: also every power-of-two K <= MAX_BATCH for every
 bucket, as the reference's, and every tail program the buckets can reach;
-false: capture each program at its first use). Weights are random, from
-seed 0. Keys whose feature is not ported yet refuse to
-boot (NOT_PORTED below) rather than being ignored. SAMPLING_CONTROLS
+false: capture each program at its first use). WEIGHTS_PATH (an HF-layout
+safetensors checkpoint: a file, a directory or a sharded index, checked
+against MODEL_PRESET's shapes before any bytes are read; unset: random
+weights from seed 0), WEIGHT_DTYPE (unset | int8: per-output-channel int8
+weights, quantized on the card as they load, or drawn straight to int8
+without WEIGHTS_PATH), VOCAB_PATH (an HF tokenizer.json, a tiktoken
+.model/.tiktoken file, or a {vocab, merges} JSON; unset: the byte
+tokenizer, or the debug vocabulary's), HBM_BUDGET_BYTES (0: plan from the
+card's memory, nothing on the CPU; > 0: that budget; -1: no plan; the plan
+clamps MAX_BATCH, MAX_SEQ_LEN and the buckets so the weights, cache,
+prefill transients and graph pools fit, tpu/capacity.py), DRAIN_TIMEOUT
+(30 s: at shutdown the engine stops admitting, answers 503 to new and
+queued requests and lets the active streams finish for up to this long,
+then stops). SAMPLING_CONTROLS
 (false: per-request top_p / top_k are refused; true: served, through the
 [B, 3] row controls, each decode block captured with and without the
 per-row filters), WARMUP_SCORE (false; true: also capture at boot, after
@@ -44,6 +58,7 @@ family, tpu/score.py).
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -51,8 +66,11 @@ from typing import Mapping, Optional
 
 from .app import App, Stream
 from .http.errors import InvalidParam, RequestTimeout, ServiceUnavailable
-from .models.llama import LlamaConfig, llama_init
-from .models.tokenizer import ByteTokenizer, DebugTokenizer, StreamingDecoder
+from .models.llama import LlamaConfig, llama_init, llama_init_quantized
+from .models.tokenizer import (BPETokenizer, ByteLevelBPETokenizer,
+                               ByteTokenizer, DebugTokenizer,
+                               StreamingDecoder)
+from .tpu.capacity import device_budget_bytes
 from .tpu.device import resolve_device
 from .tpu.engine import LLMEngine
 from .tpu.paging import PagedLLMEngine
@@ -79,6 +97,22 @@ def _int(env: Mapping[str, str], key: str, default: int) -> int:
     return default if value in (None, "") else int(value)
 
 
+def _float(env: Mapping[str, str], key: str, default: float) -> float:
+    value = env.get(key)
+    return default if value in (None, "") else float(value)
+
+
+# the keys build_engine reads and serves, as the reference's llm-server
+# does (the module docstring)
+PORTED = (
+    "MODEL_PRESET", "ATTN_IMPL", "DECODE_ATTN", "KV_DTYPE", "PAGED",
+    "PAGE_SIZE", "N_PAGES", "PREFIX_CACHE", "MAX_BATCH", "MAX_SEQ_LEN",
+    "PREFILL_BUCKETS", "ENGINE_ASYNC_D2H", "SAMPLING_CONTROLS", "WARMUP",
+    "WARMUP_SCORE", "WEIGHTS_PATH", "WEIGHT_DTYPE", "VOCAB_PATH",
+    "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT",
+)
+
+
 # (key, predicate on the config that asks for the feature, what waits and
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
@@ -93,15 +127,80 @@ NOT_PORTED = (
      "the host KV tier waits in ROADMAP A11"),
     ("QOS", lambda e: _flag(e, "QOS", False),
      "the QoS serving plane waits in ROADMAP A11"),
-    ("WEIGHTS_PATH", lambda e: bool(e.get("WEIGHTS_PATH")),
-     "checkpoint loading waits in ROADMAP A13"),
-    ("WEIGHT_DTYPE", lambda e: bool(e.get("WEIGHT_DTYPE")),
-     "int8 weights wait in ROADMAP A13"),
-    ("VOCAB_PATH", lambda e: bool(e.get("VOCAB_PATH")),
-     "the BPE tokenizers wait in ROADMAP A13"),
+    ("ELASTIC_WARM_BOOT", lambda e: _flag(e, "ELASTIC_WARM_BOOT", False),
+     "the warm boot behind a `warming` lifecycle waits in ROADMAP A11"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
 )
+
+# keys the reference reads that change nothing the port serves: (key, why)
+INERT = (
+    # they act only on paths that are refused above or absent here
+    ("DISAGG_PREFILL_SLOTS", "sizes the prefill pool of DISAGG_MODE=both, "
+     "refused (A11)"),
+    ("DISAGG_TRANSPORT", "the hand-off transport of DISAGG_MODE, refused "
+     "(A11)"),
+    ("DISAGG_QUEUE_DEPTH", "the hand-off queue of DISAGG_MODE, refused "
+     "(A11)"),
+    ("DISAGG_HANDOFF_TIMEOUT_S", "the hand-off timeout of DISAGG_MODE, "
+     "refused (A11)"),
+    ("KV_REDIS_TIER", "the Redis tier under KV_HOST_TIER_BYTES, refused "
+     "(A11)"),
+    ("KV_REDIS_TTL_S", "the Redis tier under KV_HOST_TIER_BYTES, refused "
+     "(A11)"),
+    ("CONVERSATION_PIN_S", "pins host-tier pages of KV_HOST_TIER_BYTES, "
+     "refused (A11)"),
+    ("ELASTIC_PREWARM_PEERS", "the KV pre-warm of ELASTIC_WARM_BOOT, "
+     "refused (A11)"),
+    ("ELASTIC_PREWARM_PAGES", "the KV pre-warm of ELASTIC_WARM_BOOT, "
+     "refused (A11)"),
+    ("ENGINE_RETRY_BUDGET", "replay after a device reset; the port has no "
+     "reset path (A11)"),
+    ("RESET_STORM_MAX", "the reset-storm breaker; no reset path (A11)"),
+    ("RESET_STORM_WINDOW_S", "the reset-storm breaker; no reset path "
+     "(A11)"),
+    ("BREAKER_COOLDOWN_S", "the reset-storm breaker; no reset path (A11)"),
+    ("ENGINE_FINISHER_QUEUE", "the off-loop finisher; the port finishes "
+     "on the loop thread (A11)"),
+    ("FLEET_AFFINITY_BLOCK", "the /stats fleet digest; the port serves no "
+     "/stats (A11)"),
+    # they opt out of observability routes the port does not serve (A11)
+    ("FLIGHT_RECORDER", "opts out of /debug/requests, not served (A11)"),
+    ("FLIGHT_TRACE_EXPORT", "opts out of /debug/trace, not served (A11)"),
+    ("ENGINE_SNAPSHOT", "opts out of /debug/engine, not served (A11)"),
+    ("STEP_LEDGER", "opts out of /debug/steps, not served (A11)"),
+    ("TIMELINE", "opts out of /debug/timeline, not served (A11)"),
+    ("HOSTPROF", "opts out of /debug/hostprof, not served (A11)"),
+    ("INCIDENT_AUTOPSY", "opts out of /debug/slo and /debug/incidents, not "
+     "served (A11)"),
+    ("CAPACITY", "opts out of /debug/capacity, not served (A11)"),
+    # no analogue
+    ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
+     "are captured per process and cannot be stored"),
+)
+
+
+def load_tokenizer(path: str):
+    """VOCAB_PATH format sniffing, as the reference's ``_load_tokenizer``:
+    an HF tokenizer.json (byte-level BPE, what real Llama-3 checkpoints
+    ship), a tiktoken .model/.tiktoken file (Meta's distribution), or the
+    {vocab, merges} JSON of BPETokenizer."""
+    if path.endswith((".model", ".tiktoken")):
+        return ByteLevelBPETokenizer.from_tiktoken(path)
+    with open(path, "r", encoding="utf-8") as fp:
+        head = json.load(fp)
+    if "model" in head and "vocab" in head.get("model", {}):
+        return ByteLevelBPETokenizer.from_tokenizer_json(path, data=head)
+    return BPETokenizer.from_file(path)
+
+
+def shed_to_503(exc: RuntimeError) -> ServiceUnavailable:
+    """The reference's ``_raise_for_shed``: a draining engine's error
+    (EngineDrainingError, which carries status_code 503 and its
+    retry_after_s) as a 503 with a Retry-After hint; a stopped engine's
+    RuntimeError too (the reference answers it with a 500)."""
+    return ServiceUnavailable(
+        str(exc), retry_after_s=getattr(exc, "retry_after_s", None) or 1.0)
 
 
 def _warmup_mode(env: Mapping[str, str]) -> str:
@@ -172,13 +271,47 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
     cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
                               decode_attn=decode_attn, kv_dtype=kv_dtype)
+    weight_dtype = env.get("WEIGHT_DTYPE", "") or None
+    if weight_dtype not in (None, "int8"):
+        raise ValueError(f"WEIGHT_DTYPE must be int8 or unset, got "
+                         f"{weight_dtype!r}")
+    log = logging.getLogger("gofr_tpu_torch")
+    vocab_path = env.get("VOCAB_PATH", "")
+    if vocab_path:
+        tokenizer = load_tokenizer(vocab_path)
+        log.info("loaded vocab from %s (%s, %d tokens)", vocab_path,
+                 type(tokenizer).__name__, tokenizer.vocab_size)
+    elif cfg.vocab_size > ByteTokenizer.vocab_size:
+        # synthetic vocabularies sample ids the byte tokenizer cannot
+        # round-trip; DebugTokenizer decodes every id to one char
+        tokenizer = DebugTokenizer(cfg.vocab_size)
+    else:
+        tokenizer = ByteTokenizer()
+    if cfg.vocab_size < tokenizer.vocab_size:
+        raise ValueError(f"model vocab ({cfg.vocab_size}) too small for "
+                         f"tokenizer ({tokenizer.vocab_size})")
     if dev.type == "cuda":
         from .ops import _build
 
         _build.build(*_build.KERNELS)
-    if params is None:
+    weights_path = env.get("WEIGHTS_PATH", "")
+    if params is None and weights_path:
+        from .models.weights import load_llama_safetensors
+
+        t0 = time.monotonic()
+        params = load_llama_safetensors(cfg, weights_path,
+                                        weight_dtype=weight_dtype,
+                                        logger=log, device=dev)
+        log.info("loaded weights from %s in %.1fs (%s)", weights_path,
+                 time.monotonic() - t0, weight_dtype or cfg.dtype)
+    elif params is None and weight_dtype == "int8":
+        params = llama_init_quantized(cfg, seed=0, device=dev)
+    elif params is None:
         params = llama_init(cfg, seed=0, device=dev)
+    budget = _int(env, "HBM_BUDGET_BYTES", 0)
+    budget = 0 if budget < 0 else budget or device_budget_bytes(dev)
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
+              budget_bytes=budget or None,
               async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
               sampling_controls=_flag(env, "SAMPLING_CONTROLS", False),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
@@ -192,12 +325,7 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
                                 **kw)
     else:
         engine = LLMEngine(params, cfg, **kw)
-    # synthetic vocabularies sample ids the byte tokenizer cannot
-    # round-trip; DebugTokenizer decodes every id to one char
-    engine.tokenizer = (DebugTokenizer(cfg.vocab_size)
-                        if cfg.vocab_size > ByteTokenizer.vocab_size
-                        else ByteTokenizer())
-    log = logging.getLogger("gofr_tpu_torch")
+    engine.tokenizer = tokenizer
     engine.warmup_seconds = engine.score_warmup_seconds = 0.0
     if warm != "false":
         t0 = time.monotonic()
@@ -226,7 +354,10 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
     app.engine = engine
     tokenizer = engine.tokenizer
     app.add_health_contributor("engine", engine.health_check)
-    app.on_shutdown(engine.stop)
+    # graceful drain: the active streams finish (bounded), queued and new
+    # requests get 503, then the engine stops
+    drain_s = _float(env, "DRAIN_TIMEOUT", 30.0)
+    app.on_shutdown(lambda: (engine.drain(drain_s), engine.stop()))
 
     @app.post("/generate")
     def generate(ctx):
@@ -261,8 +392,8 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
                 top_k=top_k)
         except ValueError as exc:
             raise InvalidParam([str(exc)]) from exc
-        except RuntimeError as exc:   # engine stopped
-            raise ServiceUnavailable(str(exc), retry_after_s=1.0) from exc
+        except RuntimeError as exc:   # draining or stopped
+            raise shed_to_503(exc) from exc
 
         if not stream:
             start = time.monotonic()
@@ -270,6 +401,8 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
                 tokens = request.result(timeout_s=ctx.remaining())
             except TimeoutError as exc:   # slot already freed by result()
                 raise RequestTimeout() from exc
+            except RuntimeError as exc:   # failed in the queue by a drain
+                raise shed_to_503(exc) from exc
             return {"text": tokenizer.decode(tokens), "tokens": len(tokens),
                     "seconds": round(time.monotonic() - start, 3)}
 

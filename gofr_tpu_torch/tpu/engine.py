@@ -108,6 +108,19 @@ _log = logging.getLogger(__name__)
 _CACHE_LEN = re.compile(r"-S(\d+)(?:-|$)")
 
 
+class EngineDrainingError(RuntimeError):
+    """Submitted, or still queued, while the engine drains for shutdown.
+    status_code is duck-typed for the HTTP surface: 503 tells load
+    balancers and clients to go elsewhere; retry_after_s is the
+    Retry-After hint."""
+
+    status_code = 503
+    retry_after_s = 1.0
+
+    def __init__(self):
+        super().__init__("engine draining: not accepting new requests")
+
+
 def _aligned(nbytes: int) -> int:
     """nbytes rounded up to 16: every static input starts 16-byte aligned."""
     return -(-nbytes // 16) * 16
@@ -246,6 +259,7 @@ class LLMEngine:
                  top_k: int = 0, decode_block_size: int = 16,
                  pipeline_depth: int = 4, async_d2h: bool = True,
                  sampling_controls: bool = False, seed: int = 0,
+                 budget_bytes: Optional[int] = None,
                  device=None, logger: Optional[logging.Logger] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -256,6 +270,25 @@ class LLMEngine:
                                cfg.max_seq_len)
         self.prefill_buckets = tuple(b for b in prefill_buckets
                                      if b <= self.max_seq_len)
+        # the capacity plan (tpu/capacity.py): with a budget, clamp
+        # (n_slots, max_seq_len) and the buckets so the weights, the cache,
+        # the prefill transients and, on the card, the graph pools fit
+        self.plan = None
+        if budget_bytes is not None and budget_bytes > 0:
+            from ..models.llama import params_nbytes
+            from .capacity import graph_pool_margin, plan_capacity
+
+            self.plan = plan_capacity(
+                cfg, self.n_slots, self.max_seq_len, budget_bytes,
+                prefill_buckets=self.prefill_buckets, paged=self._paged,
+                params_nbytes=params_nbytes(params),
+                graph_pool_bytes=(graph_pool_margin(cfg)
+                                  if self.device.type == "cuda" else 0))
+            self.n_slots = self.plan.n_slots
+            self.max_seq_len = self.plan.max_seq_len
+            self.prefill_buckets = self.plan.prefill_buckets
+            (self.logger.warning if self.plan.clamped
+             else self.logger.info)("%s", self.plan.summary())
         # the Pallas decode kernel reads the cache in min(512, S) blocks
         # and the reference rounds the cap down at boot so a grow clamped
         # to max_seq_len stays divisible; the CUDA kernel takes any S, but
@@ -299,7 +332,7 @@ class LLMEngine:
         self._post_hoc_lock = threading.Lock()
         self._post_hoc = None
         self._seed = seed
-        self.slots = [_Slot() for _ in range(n_slots)]
+        self.slots = [_Slot() for _ in range(self.n_slots)]
         # arrivals (thread-safe) and the loop-owned admission heap of
         # (priority, id, request): requests parked on a subclass resource
         # (free pages) wait here; same-priority requests stay FIFO
@@ -307,6 +340,11 @@ class LLMEngine:
         self._admission_heap: List[tuple] = []
         self._wake = threading.Event()
         self._stop = threading.Event()
+        # drain(): no admission; the loop fails what is queued. The lock
+        # spans an admission from its pop to its slots' binding, so the
+        # drain's poll never sees a request in neither place
+        self._draining = False
+        self._state_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         # dispatched, not yet synced: (kind, host fetch, rows, block) with
         # kind "prefill" (rows: the admitted (slot, request) pairs) or
@@ -865,6 +903,8 @@ class LLMEngine:
         sampling_controls=True."""
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
+        if self._draining:
+            raise EngineDrainingError()
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
         if (top_p or top_k) and not self.sampling_controls:
@@ -932,6 +972,7 @@ class LLMEngine:
         if self._thread is not None:
             return
         self._stop.clear()
+        self._draining = False   # a drained engine may be restarted
         self._thread = threading.Thread(target=self._loop, name="llm-engine",
                                         daemon=True)
         self._thread.start()
@@ -950,6 +991,25 @@ class LLMEngine:
                 return
             self._thread = None
         self._drain_pending(RuntimeError("engine stopped"))
+
+    def drain(self, timeout_s: float = 30.0) -> bool:
+        """Graceful shutdown, phase 1: stop admitting (submit raises
+        EngineDrainingError, and the loop thread fails the queued requests
+        with it), and let the active generations run to completion, bounded
+        by timeout_s. True when every one finished, False on timeout; call
+        stop() either way, which fails whatever remains. Only sets the flag
+        and waits: the queue is mutated by the loop thread alone."""
+        self._draining = True
+        self._wake.set()
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._state_lock:
+                busy = (any(s.active for s in self.slots) or self._inflight
+                        or self._admission_heap or self._pending.qsize())
+            if not busy:
+                return True
+            time.sleep(0.05)
+        return False
 
     # -- loop -----------------------------------------------------------------
     def _loop(self) -> None:
@@ -995,7 +1055,15 @@ class LLMEngine:
 
     def _admit(self) -> None:
         """Fuse pending requests into batched prefill dispatches, one per
-        (bucket, K) group, while free slots last."""
+        (bucket, K) group, while free slots last; while draining, fail
+        every queued request with EngineDrainingError instead."""
+        with self._state_lock:
+            if self._draining:
+                self._drain_pending(EngineDrainingError())
+                return
+            self._admit_locked()
+
+    def _admit_locked(self) -> None:
         free = [i for i, slot in enumerate(self.slots) if not slot.active]
         if not free:
             return

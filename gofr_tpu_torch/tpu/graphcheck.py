@@ -8,6 +8,8 @@ back before the eager run (the loop state, the caches or pools with their
 scales, and the generator). On a sampling_controls engine the rows' top_p /
 top_k come from ``CONTROLS`` or are all 0, and the block runs the decode
 variant the host picks for them: with the per-row filters, or without.
+Any engine will do, on bf16 or int8 weights (models.llama.quantize_weights:
+an int8 tree's products are cuBLASLt int8 products inside the captures).
 """
 
 from __future__ import annotations

@@ -503,3 +503,54 @@ def test_no_capture_after_wide_warmup(cuda, paged):
     assert sum(n for name, n in calls.items() if "decode" not in name) \
         == waves
     assert not paged or eng.prefix_dispatches >= 1
+
+
+@pytest.mark.parametrize("rows", [8, 17, 32])
+def test_int8_product_on_the_card_equals_the_cpu(cuda, rows):
+    """_q_matmul's pieces on the card at a Llama-3-8B width: the int8
+    activations, the int32 product through torch._int_mm (8 rows padded
+    to its minimum) on a column-major weight, bit-equal to the CPU's; the
+    bf16 output within one bf16 ulp (the f32 epilogue's order may differ
+    inside the fused kernels)."""
+    from gofr_tpu_torch.models.llama import (_int_matmul, _q_matmul,
+                                             _quantize_rows, _quantized)
+
+    gen = torch.Generator(device="cpu").manual_seed(rows)
+    x = torch.randn((rows, 4096), generator=gen).to(torch.bfloat16)
+    w = (torch.randn((4096, 1024), generator=gen) * 0.02).to(torch.bfloat16)
+    w8, s = _quantized(w, -2)
+    assert w8.t().is_contiguous()
+    x8, ax = _quantize_rows(x)
+    x8c, axc = _quantize_rows(x.to(cuda))
+    assert torch.equal(x8c.cpu(), x8) and torch.equal(axc.cpu(), ax)
+    acc = _int_matmul(x8c, w8.to(cuda))
+    assert torch.equal(acc.cpu(), (x8.long() @ w8.long()).int())
+    got = _q_matmul(x.to(cuda), w8.to(cuda), s.to(cuda)).float().cpu()
+    want = _q_matmul(x, w8, s).float()
+    assert bool(((got - want).abs() <= want.abs() * 2 ** -7).all())
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_int8_weight_decode_block_graph_matches_eager(cuda, paged):
+    """An engine on int8 weights (llama_init_quantized): one decode block
+    replayed from its graph against the same block run eagerly from the
+    same state: equal greedy tokens and bit-equal K/V (the cuBLASLt int8
+    product inside the capture replays as eager)."""
+    from gofr_tpu_torch.models.llama import llama_init_quantized
+    from gofr_tpu_torch.tpu.graphcheck import graph_vs_eager
+
+    cfg = _small_cfg(**({} if paged else {"decode_attn": "kernel"}))
+    engine = dict(n_slots=4, max_seq_len=128, prefill_buckets=(8, 16),
+                  decode_block_size=8)
+    params = llama_init_quantized(cfg, seed=0, device=cuda)
+    assert params["layers"]["wq"].dtype == torch.int8
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    for i in range(3):
+        eng.submit(list(range(3 + i, 14 + 2 * i)), max_new_tokens=60)
+    for _ in range(6):
+        eng._step()
+    got = graph_vs_eager(eng, 8)
+    assert torch.equal(got["graph"], got["eager"])
+    assert got["state_diff"] == 0.0
+    assert got["graph_launches"] == got["eager_launches"] == cfg.n_layers * 8

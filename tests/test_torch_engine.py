@@ -312,9 +312,7 @@ def test_generate_refuses_the_fields_the_reference_refuses(request, case):
 def test_unported_config_keys_refuse_to_boot(key):
     asks = {"CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
             "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
-            "QOS": "true", "WEIGHTS_PATH": "/x.safetensors",
-            "WEIGHT_DTYPE": "int8", "VOCAB_PATH": "/vocab.json",
-            "TP_SHARDS": "2"}
+            "QOS": "true", "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2"}
     with pytest.raises(ValueError, match="ROADMAP A"):
         build_engine({key: asks[key]}, device="cpu")
 

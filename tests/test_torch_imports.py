@@ -1,7 +1,9 @@
 """The port stands alone: no jax, no gofr_tpu, and no silent CPU fallback.
 
-- every gofr_tpu_torch module (and chip_smoke.py) imports in a fresh
-  interpreter where `jax`, `jaxlib` and `gofr_tpu` are blocked;
+- every gofr_tpu_torch module (native/ included) and chip_smoke.py imports
+  in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
+  packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
+  `transformers`, `tokenizers`) are blocked;
 - an AST scan finds no import of them anywhere in the package or script;
 - the port's LlamaConfig presets equal the JAX ones field for field;
 - with no card and no explicit device, the entry points raise.
@@ -19,7 +21,8 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "gofr_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "gofr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "gofr_tpu", "ml_dtypes", "regex",
+             "safetensors", "transformers", "tokenizers")
 
 
 def _module_names():
@@ -37,6 +40,9 @@ def _forbidden(name: str) -> bool:
 
 def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
     mods = list(_module_names()) + ["chip_smoke"]
+    assert {"gofr_tpu_torch.native", "gofr_tpu_torch.models.weights",
+            "gofr_tpu_torch.models.tokenizer",
+            "gofr_tpu_torch.tpu.capacity"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -1,0 +1,457 @@
+"""The port's server config against the reference llm-server's.
+
+Every key examples/llm-server/main.py reads (taken from its text, not by
+importing it) must be served (serve.PORTED, and read by build_engine),
+refused at boot naming its ROADMAP item (NOT_PORTED) or inert with a
+stated reason (INERT); a new key there fails this file until it is
+accounted for. build_engine boots from WEIGHTS_PATH (file, directory,
+sharded), WEIGHT_DTYPE=int8 (with and without WEIGHTS_PATH) and VOCAB_PATH
+(tokenizer.json, tiktoken, {vocab, merges}) in the four configurations,
+and its greedy streams equal the JAX engines' on the same weights;
+HBM_BUDGET_BYTES plans as the reference's engine does; DRAIN_TIMEOUT
+drains as the reference's (tests/test_tpu_runtime.py:568): the active
+stream finishes, new and queued requests get 503.
+"""
+
+import base64
+import dataclasses
+import http.client
+import inspect
+import json
+import os
+import pathlib
+import re
+import threading
+import time
+
+import jax
+import pytest
+import torch
+
+from gofr_tpu.models import llama as jl
+from gofr_tpu.models import weights as jw
+from gofr_tpu.tpu.engine import LLMEngine as JEngine
+from gofr_tpu.tpu.paging import PagedLLMEngine as JPaged
+from gofr_tpu_torch import serve
+from gofr_tpu_torch.models import tokenizer as tt
+from gofr_tpu_torch.models.weights import params_from_numpy
+from gofr_tpu_torch.tpu.engine import EngineDrainingError, LLMEngine
+from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MAIN = ROOT / "examples" / "llm-server" / "main.py"
+BASE = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
+        "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
+        "WARMUP": "false", "REQUEST_TIMEOUT": "120"}
+CONFIGS = {
+    "paged": {},
+    "paged-int8": {"KV_DTYPE": "int8"},
+    "dense": {"PAGED": "false", "DECODE_ATTN": "kernel"},
+    "dense-int8": {"PAGED": "false", "DECODE_ATTN": "kernel",
+                   "KV_DTYPE": "int8"},
+}
+PROMPTS = [[5, 6, 7], list(range(20, 33)), [1, 2]]
+
+
+class _QuietLogger:
+    def debugf(self, *a): pass
+    def infof(self, *a): pass
+    def warnf(self, *a): pass
+    def errorf(self, *a): pass
+
+
+def _reference_keys():
+    text = MAIN.read_text()
+    return sorted(set(re.findall(r'config\.get_\w+\(\s*"([A-Z0-9_]+)"',
+                                 text)))
+
+
+def test_every_llm_server_key_is_accounted_for():
+    keys = _reference_keys()
+    assert len(keys) >= 50
+    ported = set(serve.PORTED)
+    refused = {k for k, _, _ in serve.NOT_PORTED}
+    inert = {k for k, _ in serve.INERT}
+    assert not (ported & refused) and not (ported & inert) \
+        and not (refused & inert)
+    missing = [k for k in keys if k not in ported | refused | inert]
+    assert not missing, f"unaccounted llm-server keys: {missing}"
+    # and nothing listed that the reference does not read
+    assert not (ported | refused | inert) - set(keys)
+
+
+@pytest.mark.parametrize("key", serve.PORTED)
+def test_ported_keys_are_read_by_the_server(key):
+    src = "".join(inspect.getsource(f) for f in (
+        serve.build_engine, serve.build_app, serve._warmup_mode))
+    assert f'"{key}"' in src
+
+
+@pytest.mark.parametrize("key", [k for k, _ in serve.INERT])
+def test_inert_keys_boot_and_change_nothing(key, served):
+    """Set to a value the reference would act on, an inert key boots and
+    serves the same greedy tokens as without it."""
+    reason = dict(serve.INERT)[key]
+    assert len(reason) > 20
+    env = {**BASE, key: "false" if key in (
+        "FLIGHT_RECORDER", "FLIGHT_TRACE_EXPORT", "ENGINE_SNAPSHOT",
+        "STEP_LEDGER", "TIMELINE", "HOSTPROF", "INCIDENT_AUTOPSY",
+        "CAPACITY") else "/tmp/x" if key == "PROGRAM_CACHE_DIR" else "3"}
+    eng = serve.build_engine(env, device="cpu", params=served["float"][1])
+    try:
+        assert [eng.generate(p, max_new_tokens=6) for p in PROMPTS] == \
+            served["float"][2]["paged"]
+    finally:
+        eng.stop()
+
+
+def test_elastic_warm_boot_refused_naming_a11():
+    with pytest.raises(ValueError, match="ROADMAP A11"):
+        serve.build_engine({"ELASTIC_WARM_BOOT": "true"}, device="cpu")
+    serve.check_config({"ELASTIC_WARM_BOOT": "false"})
+
+
+def test_weight_dtype_other_than_int8_refused():
+    with pytest.raises(ValueError, match="WEIGHT_DTYPE must be int8"):
+        serve.build_engine({"WEIGHT_DTYPE": "fp8"}, device="cpu")
+
+
+def _jax_goldens(params, cfg_changes, paged):
+    cfg = dataclasses.replace(jl.LlamaConfig.debug(), **cfg_changes)
+    kw = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16))
+    eng = (JPaged(params, cfg, page_size=8, logger=_QuietLogger(), **kw)
+           if paged else JEngine(params, cfg, logger=_QuietLogger(), **kw))
+    eng.start()
+    try:
+        return [eng.generate(p, max_new_tokens=6, temperature=0.0)
+                for p in PROMPTS]
+    finally:
+        eng.stop()
+
+
+_JAX_CFG = {"paged": {}, "paged-int8": {"kv_dtype": "int8"},
+            "dense": {"decode_attn": "kernel"},
+            "dense-int8": {"decode_attn": "kernel", "kv_dtype": "int8"}}
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """{"float" | "int8": (JAX tree, port tree, {config: JAX greedy
+    streams})} and "ckpt": the JAX export of the float tree, as a file,
+    a directory and a sharded index."""
+    fp = jl.llama_init(jl.LlamaConfig.debug(), seed=0)
+    q = jl.quantize_weights(jl.llama_init(jl.LlamaConfig.debug(), seed=0))
+    out = {}
+    for name, tree in (("float", fp), ("int8", q)):
+        out[name] = (tree, params_from_numpy(jax.device_get(tree),
+                                             device="cpu"),
+                     {c: _jax_goldens(tree, _JAX_CFG[c], c.startswith("paged"))
+                      for c in CONFIGS})
+    d = tmp_path_factory.mktemp("ckpt")
+    (d / "file").mkdir()
+    (d / "sharded").mkdir()
+    whole = str(d / "file" / "model.safetensors")
+    jw.export_llama_safetensors(fp, whole)
+    f = jw.SafetensorsFile(whole)
+    names = sorted(f.keys())
+    weight_map = {}
+    for i, members in enumerate((names[:len(names) // 2],
+                                 names[len(names) // 2:])):
+        fname = f"model-0000{i + 1}-of-00002.safetensors"
+        jw.write_safetensors(str(d / "sharded" / fname),
+                             {n: f.tensor(n) for n in members})
+        weight_map.update({n: fname for n in members})
+    with open(d / "sharded" / "model.safetensors.index.json", "w") as fp_:
+        json.dump({"weight_map": weight_map}, fp_)
+    out["ckpt"] = {"file": whole, "directory": str(d / "file"),
+                   "sharded": str(d / "sharded" /
+                                  "model.safetensors.index.json")}
+    return out
+
+
+# (WEIGHTS_PATH form or None, WEIGHT_DTYPE): the weight sources
+SOURCES = {
+    "file": ("file", None), "directory": ("directory", None),
+    "sharded": ("sharded", None), "file-int8": ("file", "int8"),
+    "sharded-int8": ("sharded", "int8"), "init-int8": (None, "int8"),
+}
+
+
+@pytest.mark.parametrize("source", sorted(SOURCES))
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_build_engine_boots_from_weights(served, config, source):
+    form, dtype = SOURCES[source]
+    env = {**BASE, **CONFIGS[config]}
+    if form:
+        env["WEIGHTS_PATH"] = served["ckpt"][form]
+    if dtype:
+        env["WEIGHT_DTYPE"] = dtype
+    eng = serve.build_engine(env, device="cpu")
+    try:
+        assert isinstance(eng, PagedLLMEngine) == config.startswith("paged")
+        want = served["int8" if dtype else "float"]
+        if form is None:    # llama_init_quantized: the port's own draw
+            from gofr_tpu_torch.models import llama as tl
+
+            assert eng.params["layers"]["wq"].dtype == torch.int8
+            assert tl.params_nbytes(eng.params) < tl.params_nbytes(
+                tl.llama_init(tl.LlamaConfig.debug(), 0, "cpu"))
+            return
+        got = [eng.generate(p, max_new_tokens=6) for p in PROMPTS]
+        assert got == want[2][config]
+    finally:
+        eng.stop()
+
+
+@pytest.fixture(scope="module")
+def vocab_files(tmp_path_factory):
+    """{format: path}: a trained byte-level tokenizer.json, its tiktoken
+    form, and the shipped {vocab, merges} test vocab."""
+    tokenizers = pytest.importorskip("tokenizers")
+    from tokenizers import Regex, models, pre_tokenizers, trainers
+
+    tok = tokenizers.Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(tt._LLAMA3_SPLIT), behavior="isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.train_from_iterator(
+        (ROOT / "README.md").read_text(encoding="utf-8").splitlines(),
+        trainers.BpeTrainer(
+            vocab_size=400, special_tokens=["<|begin_of_text|>",
+                                            "<|end_of_text|>"],
+            initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    d = tmp_path_factory.mktemp("vocab")
+    tok.save(str(d / "tokenizer.json"))
+    vocab = json.loads((d / "tokenizer.json").read_text())["model"]["vocab"]
+    u2b = {c: b for b, c in tt.bytes_to_unicode().items()}
+    (d / "tokenizer.model").write_text("".join(
+        f"{base64.b64encode(bytes(u2b[c] for c in p)).decode()} {r}\n"
+        for p, r in sorted(vocab.items(), key=lambda kv: kv[1])))
+    return {"tokenizer.json": str(d / "tokenizer.json"),
+            "tiktoken": str(d / "tokenizer.model"),
+            "vocab-json": str(ROOT / "examples" / "llm-server" /
+                              "vocab.test.json")}
+
+
+def _reference_loader():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("example_llm_server_c2",
+                                                  str(MAIN))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module._load_tokenizer
+
+
+def _post(port, body):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", "/generate", body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, resp.read().decode(), dict(resp.getheaders())
+
+
+@pytest.mark.parametrize("fmt", ["tokenizer.json", "tiktoken", "vocab-json"])
+@pytest.mark.parametrize("config", sorted(CONFIGS))
+def test_vocab_path_serves(served, vocab_files, fmt, config):
+    path = vocab_files[fmt]
+    ref = _reference_loader()(path)
+    env = {**BASE, **CONFIGS[config], "VOCAB_PATH": path,
+           "WEIGHT_DTYPE": "int8"}
+    eng = serve.build_engine(env, device="cpu", params=served["int8"][1])
+    app = serve.build_app(env, engine=eng)
+    app.start()
+    try:
+        tok = eng.tokenizer
+        assert type(tok).__name__ == type(ref).__name__
+        text = "hello world's 12"
+        assert tok.encode(text) == ref.encode(text)
+        # min_tokens: the lengths do not hang on whether the random model
+        # samples the tokenizer's EOS
+        status, body, _ = _post(app.http_port, {"prompt": text,
+                                                "max_tokens": 6,
+                                                "min_tokens": 6,
+                                                "stream": False})
+        assert status == 201, body
+        assert json.loads(body)["data"]["tokens"] == 6
+        status, body, _ = _post(app.http_port, {"prompt": text,
+                                                "max_tokens": 4,
+                                                "min_tokens": 4})
+        events = [json.loads(line[6:]) for line in body.splitlines()
+                  if line.startswith("data: ")]
+        assert status == 200 and events[-1]["tokens"] == 4
+    finally:
+        app.shutdown()
+
+
+def test_model_vocab_too_small_refused(tmp_path):
+    path = tmp_path / "v.json"
+    path.write_text(json.dumps({"vocab": {"a": 0, "<s>": 1, "</s>": 600},
+                                "merges": []}))
+    with pytest.raises(ValueError, match="too small for tokenizer"):
+        serve.build_engine({"VOCAB_PATH": str(path)}, device="cpu")
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_hbm_budget_plans_as_the_reference(served, paged):
+    env = {**BASE, "MAX_BATCH": "8", "MAX_SEQ_LEN": "256",
+           "PREFILL_BUCKETS": "8,64", "HBM_BUDGET_BYTES": str(1 << 21)}
+    if not paged:
+        env["PAGED"] = "false"
+    eng = serve.build_engine(env, device="cpu", params=served["float"][1])
+    try:
+        kw = dict(n_slots=8, max_seq_len=256, prefill_buckets=(8, 64),
+                  budget_bytes=1 << 21, logger=_QuietLogger())
+        ref = (JPaged(served["float"][0], jl.LlamaConfig.debug(),
+                      page_size=8, **kw) if paged else
+               JEngine(served["float"][0], jl.LlamaConfig.debug(), **kw))
+        assert eng.plan is not None and eng.plan.clamped
+        assert (eng.n_slots, eng.max_seq_len, eng.prefill_buckets) == (
+            ref.n_slots, ref.max_seq_len, ref.prefill_buckets)
+        assert eng.generate([5, 6, 7], max_new_tokens=3)
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("budget", ["-1", "0", None])
+def test_no_plan_without_a_budget_on_the_cpu(served, budget):
+    env = dict(BASE)
+    if budget is not None:
+        env["HBM_BUDGET_BYTES"] = budget
+    eng = serve.build_engine(env, device="cpu", params=served["float"][1])
+    try:
+        assert eng.plan is None
+    finally:
+        eng.stop()
+
+
+def _gated(engine):
+    """Hold the engine's decode dispatches until the returned event is
+    set, so a request stays active while the test sets up the drain; once
+    the engine is stopping, the held dispatch fails instead."""
+    go = threading.Event()
+    real = engine._dispatch_decode
+
+    def gated():
+        go.wait(timeout=60)
+        if engine._stop.is_set():
+            raise RuntimeError("stopped while held")
+        real()
+
+    engine._dispatch_decode = gated
+    return go
+
+
+def _wait(cond, what):
+    deadline = time.monotonic() + 60
+    while not cond():
+        assert time.monotonic() < deadline, what
+        time.sleep(0.005)
+
+
+@pytest.mark.parametrize("cls", [PagedLLMEngine, LLMEngine])
+def test_drain_finishes_active_and_fails_queued_and_new(served, cls):
+    from gofr_tpu_torch.models.llama import LlamaConfig
+
+    kw = dict(page_size=8) if cls is PagedLLMEngine else {}
+    eng = cls(served["float"][1], LlamaConfig.debug(), n_slots=1,
+              max_seq_len=64, prefill_buckets=(8, 16), device="cpu", **kw)
+    go = _gated(eng)
+    eng.start()
+    try:
+        active = eng.submit([1, 2, 3], max_new_tokens=24)
+        _wait(lambda: any(s.request is active for s in eng.slots),
+              "never admitted")
+        queued = eng.submit([4, 5], max_new_tokens=4)
+        result = {}
+        drainer = threading.Thread(
+            target=lambda: result.update(ok=eng.drain(timeout_s=60)))
+        drainer.start()
+        _wait(lambda: eng._draining, "drain never began")
+        with pytest.raises(EngineDrainingError) as exc:
+            eng.submit([6, 7], max_new_tokens=4)
+        assert exc.value.status_code == 503
+        go.set()
+        drainer.join(timeout=90)
+        assert result == {"ok": True}
+        assert len(active.result(timeout_s=10)) == 24
+        with pytest.raises(EngineDrainingError):
+            queued.result(timeout_s=10)
+        eng.stop()
+        eng.start()         # a drained engine may be restarted
+        assert len(eng.generate([7, 8, 9], max_new_tokens=3)) == 3
+    finally:
+        go.set()
+        eng.stop()
+
+
+def test_drain_times_out_and_stop_fails_the_rest(served):
+    from gofr_tpu_torch.models.llama import LlamaConfig
+
+    eng = PagedLLMEngine(served["float"][1], LlamaConfig.debug(), n_slots=1,
+                         max_seq_len=64, prefill_buckets=(8,), page_size=8,
+                         device="cpu")
+    go = _gated(eng)
+    eng.start()
+    try:
+        active = eng.submit([1, 2, 3], max_new_tokens=24)
+        _wait(lambda: any(s.request is active for s in eng.slots),
+              "never admitted")
+        assert eng.drain(timeout_s=0.2) is False
+        stopper = threading.Thread(target=eng.stop)
+        stopper.start()
+        _wait(eng._stop.is_set, "stop never began")
+        go.set()
+        stopper.join(timeout=60)
+        with pytest.raises(RuntimeError, match="engine stopped"):
+            active.result(timeout_s=10)
+    finally:
+        go.set()
+        eng.stop()
+
+
+def test_shutdown_drains_with_503_over_http(served):
+    env = {**BASE, "MAX_BATCH": "1", "DRAIN_TIMEOUT": "60"}
+    eng = serve.build_engine(env, device="cpu", params=served["float"][1])
+    go = _gated(eng)
+    app = serve.build_app(env, engine=eng)
+    app.start()
+    port = app.http_port
+    replies = {}
+    try:
+        first = threading.Thread(target=lambda: replies.update(
+            active=_post(port, {"prompt": "hello", "max_tokens": 20})))
+        first.start()
+        _wait(lambda: any(s.active for s in eng.slots), "never admitted")
+        second = threading.Thread(target=lambda: replies.update(
+            queued=_post(port, {"prompt": "queued", "max_tokens": 4,
+                                "stream": False})))
+        second.start()
+        _wait(lambda: eng.queue_depth() == 1, "never queued")
+        stopper = threading.Thread(target=app.shutdown)
+        stopper.start()
+        _wait(lambda: eng._draining, "drain never began")
+        replies["new"] = _post(port, {"prompt": "late", "max_tokens": 4})
+        go.set()
+        for t in (first, second, stopper):
+            t.join(timeout=90)
+    finally:
+        go.set()
+        app.shutdown()
+    status, body, _ = replies["active"]
+    events = [json.loads(line[6:]) for line in body.splitlines()
+              if line.startswith("data: ")]
+    assert status == 200 and events[-1] == {**events[-1], "done": True,
+                                            "tokens": 20}
+    for key in ("queued", "new"):
+        status, body, headers = replies[key]
+        assert status == 503, (key, body)
+        assert "draining" in body
+        assert headers.get("Retry-After") in ("1", "1.0")
+
+
+def test_module_docstring_names_every_ported_key():
+    doc = serve.__doc__
+    for key in serve.PORTED:
+        assert key in doc, key
+    assert os.path.exists(MAIN)
