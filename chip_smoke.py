@@ -10,7 +10,8 @@ at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 [4, 256], eager and as its graph's replay: host wall, card busy time and
 host launches), ``--sc`` (build, the main path's serve phase, then its
 sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
-``--weights`` (build, then phase 9 alone).
+``--weights`` (build, then phase 9 alone) and ``--spec`` (build, then
+phase 10 alone).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -138,6 +139,26 @@ Phases, one or more lines each, any failure exits non-zero:
    products`` line, as for every configuration); _q_matmul's times per
    product at the decode shape beside its bound, ``_int_mm`` alone and the
    bf16 product.
+
+10. speculative verify and chunked prefill (``spec_phase``,
+   ``chunk_phase``), at the end: the main path with SPECULATIVE_TOKENS=4 and
+   WARMUP=true (verify graphs per table width), 7 greedy streams x 48
+   tokens and 1 non-streaming request, every other prompt a repeated
+   passage, then the same traffic with speculation off on the same engine:
+   verifies, drafted and accepted tokens per eligible row, cooloffs and
+   zero-draft rounds, the flash and paged-read launches, TTFT and tok/s;
+   every stream against the teacher-forced oracle within MODEL_TOL, no
+   capture after boot, pages released; a hand-driven B=8 spec engine's
+   verify graph against eager (graphcheck.verify_graph_vs_eager), a
+   verify's wall and card time against a decode step's, its parts by
+   events (page gather, plain einsum, lm_head as one product and per
+   position); the dense spec engine at 4 layers against its oracle; then
+   CHUNK_PREFILL_TOKENS=256 with MAX_SEQ_LEN=2048 and buckets 16..1024: a
+   900-token prompt arriving while 6 streams decode, its TTFT and the
+   streams' largest gap between tokens, chunked and not (the same engine),
+   the long stream against the oracle, the middle and final chunk graphs
+   against eager (graphcheck.chunk_graph_vs_eager), and the int8-KV paged
+   engine's chunks (the q8-final program) once.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -907,6 +928,8 @@ def zero_counts(engine) -> None:
     engine.prefill_dispatches = engine.decode_steps = 0
     engine.prefix_dispatches = engine.decode_blocks = 0
     engine.max_inflight = 0
+    for name in SPEC_CHUNK_COUNTS:
+        setattr(engine, name, 0)
     engine.prefill_shapes.clear()
     engine.prefix_shapes.clear()
     engine.executor.calls = 0
@@ -914,25 +937,37 @@ def zero_counts(engine) -> None:
         program.calls = 0
 
 
+# the engines' speculation and chunked-prefill counters (phase 10)
+SPEC_CHUNK_COUNTS = ("verify_dispatches", "spec_drafted", "spec_accepted",
+                     "spec_eligible", "spec_cooloffs", "spec_zero_draft",
+                     "chunk_dispatches", "chunk_jobs", "chunk_swaps",
+                     "chunk_swap_bytes")
+PROGRAM_KINDS = ("prefill", "prefix", "decode", "verify", "chunk")
+
+
 def program_kind(name: str) -> str:
     """A program's kind by its name: a prefix hit's tail-only wave, a full
-    admission wave, or a decode block."""
-    if "-prefix-" in name:
-        return "prefix"
-    return "prefill" if "-prefill-" in name else "decode"
+    admission wave, a speculative verify, a chunk of a chunked admission,
+    or a decode block."""
+    for kind, tag in (("prefix", "-prefix-"), ("prefill", "-prefill-"),
+                      ("verify", "-verify-"), ("chunk", "-chunk")):
+        if tag in name:
+            return kind
+    return "decode"
 
 
 def boot_line(engine, config: str, card: str) -> int:
     """Log what WARMUP captured at boot, per kind (graphs and their capture
     seconds), and the graph pool's bytes; returns how many graphs."""
     ex = engine.executor
-    kinds = {k: [0, 0.0] for k in ("prefill", "prefix", "decode")}
+    kinds = {k: [0, 0.0] for k in PROGRAM_KINDS}
     for name, program in ex._cache.items():
         kinds[program_kind(name)][0] += 1
         kinds[program_kind(name)][1] += program.capture_seconds
     log(f"serve {config}: warm-up at boot {engine.warmup_seconds:.2f}s: "
         f"{ex.captures} graphs captured in {ex.capture_seconds:.2f}s ("
-        + ", ".join(f"{k} {n} in {t:.2f}s" for k, (n, t) in kinds.items())
+        + ", ".join(f"{k} {n} in {t:.2f}s" for k, (n, t) in kinds.items()
+                    if n or k in ("prefill", "prefix", "decode"))
         + f"); graph pool {engine.graph_pool_bytes} bytes reserved "
         f"({engine.graph_pool_bytes / 2**30:.3f} GiB) [{card}]")
     return ex.captures
@@ -941,12 +976,14 @@ def boot_line(engine, config: str, card: str) -> int:
 def dispatch_counts(engine, boot: int) -> dict:
     """The dispatch layer's counts of a counted run (since zero_counts)."""
     ex = engine.executor
-    calls = dict.fromkeys(("prefill", "prefix", "decode"), 0)
+    calls = dict.fromkeys(PROGRAM_KINDS, 0)
     for name, n in ex.cache_info().items():
         calls[program_kind(name)] += n
     return {"captured": ex.captured, "blocks": engine.decode_blocks,
             "waves": engine.prefill_dispatches,
-            "tails": engine.prefix_dispatches, "calls": calls,
+            "tails": engine.prefix_dispatches,
+            "verifies": engine.verify_dispatches,
+            "chunks": engine.chunk_dispatches, "calls": calls,
             "captures": ex.captures - boot, "peak": engine.max_inflight,
             "depth": engine.pipeline_depth}
 
@@ -962,10 +999,18 @@ def check_dispatch(config, d, card):
         f"{calls['decode']} / {calls['prefill']} / {calls['prefix']}; graphs "
         f"captured after boot {d['captures']}; peak in flight {d['peak']} of "
         f"pipeline_depth {d['depth']} [{card}]")
-    require(d["captured"] and blocks > 0 and calls["decode"] == blocks,
+    require(d["captured"] and (blocks > 0 or d["verifies"] > 0)
+            and calls["decode"] == blocks,
             f"{config}: a decode block ran outside a graph replay")
     require(calls["prefill"] == d["waves"] and calls["prefix"] == d["tails"],
             f"{config}: an admission wave ran outside a graph replay")
+    if d["verifies"] or d["chunks"]:
+        log(f"serve {config}: dispatch: {d['verifies']} verifies, "
+            f"{d['chunks']} chunks; graph replays {calls['verify']} / "
+            f"{calls['chunk']} [{card}]")
+    require(calls["verify"] == d["verifies"]
+            and calls["chunk"] == d["chunks"],
+            f"{config}: a verify or a chunk ran outside a graph replay")
     require(d["captures"] == 0, f"{config}: a graph was captured mid-serving")
 
 
@@ -2743,6 +2788,632 @@ def w8_phase(params, cfg, dev, card: str, flush) -> None:
     os.rmdir(vocab_dir)
 
 
+# -- speculative verify and chunked prefill (phase 10) -----------------------
+SPEC_TOKENS = 48
+SPEC_CHARS = [150, 180, 200, 220, 240, 130, 160]
+SPEC_PLAIN_CHARS = 250
+SPEC_ENV = {"MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+            "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+            "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256",
+            "REQUEST_TIMEOUT": "600", "WARMUP": "wide",
+            "SPECULATIVE_TOKENS": "4"}
+
+
+def rag_prompt(n_chars: int, seed: int) -> str:
+    """A passage and then the passage again, as a RAG prompt quotes its
+    retrieved text: the second copy gives bigram drafts to look up."""
+    half = make_prompt(n_chars // 2, seed)
+    return (half + " " + half)[:n_chars]
+
+
+def spec_prompts():
+    """7 stream prompts (every other one a repeated passage) and the
+    non-streaming one."""
+    prompts = [(rag_prompt if i % 2 == 0 else make_prompt)(n, 500 + i)
+               for i, n in enumerate(SPEC_CHARS)]
+    return prompts, rag_prompt(SPEC_PLAIN_CHARS, 507)
+
+
+def serve_traffic(port, prompts, plain_prompt, n_tok) -> tuple:
+    """The streams and the non-streaming request of `prompts` at once;
+    returns (client records, wall seconds)."""
+    out: dict = {}
+    threads = [threading.Thread(target=stream_request,
+                                args=(port, p, n_tok, out, i))
+               for i, p in enumerate(prompts)]
+    threads.append(threading.Thread(target=plain_request, args=(
+        port, plain_prompt, n_tok, out, "plain")))
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    require(all(not t.is_alive() for t in threads), "requests hung")
+    return out, time.monotonic() - t0
+
+
+def oracle_gap(params, cfg, dev, prompt_ids, got) -> tuple:
+    """A greedy stream against the teacher-forced plain oracle
+    (llama_forward_nocache, f32 attention, on the same weights): (the
+    largest gap between the oracle's top logit and the chosen token's,
+    the share of positions where the chosen token is the oracle's
+    argmax)."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+
+    plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla",
+                                kv_dtype=None)
+    seq = torch.tensor([prompt_ids + got[:-1]], device=dev)
+    with torch.no_grad():
+        logits = llama_forward_nocache(params, plain, seq)[
+            0, len(prompt_ids) - 1:]
+    chosen = torch.tensor(got, device=dev)
+    top = logits.max(dim=-1).values
+    gap = float((top - logits[torch.arange(len(got), device=dev),
+                              chosen]).max())
+    exact = float((logits.argmax(dim=-1) == chosen).float().mean())
+    return gap, exact
+
+
+def record_tokens(engine) -> dict:
+    """From now on keep the ids the engine delivers to each request:
+    {request id: (prompt ids, delivered ids)} (the served text drops the
+    special ids)."""
+    rec: dict = {}
+    emit = engine._emit_block
+
+    def kept(request, tokens):
+        rec.setdefault(request.id, (request.prompt_tokens, []))[1].extend(
+            tokens)
+        emit(request, tokens)
+    engine._emit_block = kept
+    return rec
+
+
+def check_streams(what, params, cfg, dev, rec, n_tok, card) -> None:
+    """Every request recorded (record_tokens) got n_tok ids, and each
+    passes the teacher-forced oracle check within MODEL_TOL (bf16
+    near-ties: the verify window reads through the plain einsum, decode
+    through the CUDA read)."""
+    gaps, exact = [], []
+    for prompt, ids in rec.values():
+        require(len(ids) == n_tok, f"{what}: a request got {len(ids)} of "
+                f"{n_tok} tokens")
+        g, e = oracle_gap(params, cfg, dev, list(prompt), ids)
+        gaps.append(g)
+        exact.append(e)
+    log(f"{what}: {len(rec)} greedy requests x {n_tok} tokens against the "
+        f"teacher-forced plain oracle: exact argmax at "
+        f"{min(exact):.3f}-{max(exact):.3f} of positions, largest gap to the "
+        f"oracle's top logit {max(gaps):.3e} (tol {MODEL_TOL}) [{card}]")
+    require(max(gaps) <= MODEL_TOL, f"{what}: a stream leaves the oracle's")
+
+
+def traffic_line(what, out, n, wall, card) -> dict:
+    ttft = sorted(out[i]["times"][0] * 1e3 for i in range(n))
+    tps = sorted((len(out[i]["times"]) - 1)
+                 / (out[i]["times"][-1] - out[i]["times"][0])
+                 for i in range(n))
+    log(f"{what}: {n} streams + 1 non-streaming in {wall:.2f}s: ttft_ms "
+        f"p50={ttft[n // 2]:.1f} max={ttft[-1]:.1f}; decode tok/s per stream "
+        f"p50={tps[n // 2]:.1f} min={tps[0]:.1f} max={tps[-1]:.1f} [{card}]")
+    return {"ttft_p50": ttft[n // 2], "tps_p50": tps[n // 2]}
+
+
+def drop_prefix(engine) -> None:
+    """Empty the prefix cache's idle pages back into the pool (the engine's
+    loop stopped), so a second run of the same prompts misses as the
+    first did."""
+    if getattr(engine, "prefix", None) is not None:
+        engine.allocator.release(engine.prefix.drop_all_idle())
+
+
+def spec_phase(params, cfg, dev, card: str) -> None:
+    """The main path (paged, prefix cache on) with SPECULATIVE_TOKENS=4 and
+    WARMUP=wide (the 8 requests admit as one K=8 wave, which WARMUP=true
+    would capture on the loop) through POST /generate: 7 greedy streams x SPEC_TOKENS and
+    1 non-streaming request, every other prompt a repeated passage; then
+    the same traffic on the same engine with speculation off
+    (speculative_tokens 0, the loop restarted, the prefix cache emptied).
+    Logs per run the verifies, drafted / accepted tokens per eligible row,
+    cooloffs and zero-draft rounds, the flash and paged-read launches
+    counted on the card, TTFT and tok/s. Gates: no capture after boot,
+    every dispatch a graph replay, flash n_layers per full wave and the
+    paged read n_layers per decode step (verifies read by the plain
+    einsum), every stream against the oracle, pages all released."""
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    engine = build_engine(SPEC_ENV, device=dev, params=params)
+    boot = boot_line(engine, "paged spec", card)
+    prompts, plain_prompt = spec_prompts()
+    L = cfg.n_layers
+    res = {}
+    for label, d in (("spec", 4), ("spec off", 0)):
+        engine.speculative_tokens = d
+        drop_prefix(engine)
+        engine.start()
+        app = build_app(SPEC_ENV, engine=engine)
+        app.start()
+        try:
+            warm: dict = {}
+            stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
+            require(warm["w"]["status"] == 200, "spec: warm-up failed")
+            zero_counts(engine)
+            rec = record_tokens(engine)
+            out, wall = serve_traffic(app.http_port, prompts, plain_prompt,
+                                      SPEC_TOKENS)
+            del engine._emit_block
+            launches = launch_counts.counts()
+            dispatch = dispatch_counts(engine, boot)
+            counts = {k: getattr(engine, k) for k in SPEC_CHUNK_COUNTS}
+            steps, prefills = engine.decode_steps, engine.prefill_dispatches
+        finally:
+            app.shutdown()
+        what = f"serve paged {label}"
+        p = out["plain"]
+        require(p["status"] == 201 and p["data"]["tokens"] == SPEC_TOKENS,
+                f"{what}: non-streaming request failed: {p}")
+        res[label] = traffic_line(what, out, len(prompts), wall, card)
+        check_dispatch(f"paged {label}", dispatch, card)
+        elig = max(1, counts["spec_eligible"])
+        log(f"{what}: {counts['verify_dispatches']} verifies, "
+            f"{engine.decode_blocks} decode blocks ({steps} steps); per "
+            f"eligible row and verify: drafted "
+            f"{counts['spec_drafted'] / elig:.3f}, accepted "
+            f"{counts['spec_accepted'] / elig:.3f} ({counts['spec_eligible']}"
+            f" eligible rows over the verifies); cooloffs "
+            f"{counts['spec_cooloffs']}, zero-draft rounds "
+            f"{counts['spec_zero_draft']}; launches on the card: flash "
+            f"{launches['flash_attention']} ({prefills} full waves), "
+            f"paged_attention {launches['paged_attention']} [{card}]")
+        require(launches["flash_attention"] == L * prefills,
+                f"{what}: flash launches are not n_layers per full wave")
+        require(launches["paged_attention"] == L * steps,
+                f"{what}: paged reads are not n_layers per decode step")
+        require(d == 0 or counts["verify_dispatches"]
+                + counts["spec_zero_draft"] > 0,
+                f"{what}: speculation never ran")
+        check_streams(what, params, cfg, dev, rec, SPEC_TOKENS, card)
+    drop_prefix(engine)
+    require(engine.allocator.used_pages == 0,
+            f"spec: {engine.allocator.used_pages} pages still used")
+    log(f"serve paged spec vs off, the same traffic and engine: ttft_ms p50 "
+        f"{res['spec']['ttft_p50']:.1f} / {res['spec off']['ttft_p50']:.1f}; "
+        f"decode tok/s per stream p50 {res['spec']['tps_p50']:.1f} / "
+        f"{res['spec off']['tps_p50']:.1f}; pages all released [{card}]")
+    del engine
+    import torch
+    torch.cuda.empty_cache()
+    verify_profile(params, cfg, dev, card)
+    dense_spec_reduced(params, cfg, dev, card)
+
+
+def time_events(fn, iters: int) -> float:
+    """ms per call of fn by CUDA events, after one warm call."""
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# a verify's kernels by kind, the first pattern that matches a name: the
+# f32 products of the plain einsum, the model-dtype products (the layers and
+# the head), softmax, the page gather (advanced indexing), copies and casts
+VERIFY_SPLIT = (
+    ("f32 products", re.compile(r"sgemm|simt|gemm.*f32_f32|fp32|tf32",
+                                re.IGNORECASE)),
+    ("bf16 products", GEMM_KERNEL),
+    ("softmax", re.compile(r"softmax", re.IGNORECASE)),
+    ("gather", re.compile(r"index", re.IGNORECASE)),
+    ("copies and casts", re.compile(r"copy", re.IGNORECASE)),
+)
+
+
+def verify_profile(params, cfg, dev, card: str) -> None:
+    """A paged spec engine at B=8 driven by hand past its prefills
+    (contexts ~200 tokens): drafts every row accepts in full
+    (graphcheck.greedy_drafts, so the check does not wait on random
+    weights to repeat themselves); the verify graph against eager
+    (graphcheck.verify_graph_vs_eager: outputs bit-equal, the pools outside
+    page 0 bit-equal); then that verify dispatched as the loop dispatches it
+    (upload and replay, then its sync), from the same state each time:
+    host wall and card time (CUDA events) per verify against a 16-step
+    decode block's per step, its matrix-product kernels (torch.profiler);
+    the verify's parts timed by events at its shape (the page gather, the
+    plain einsum read, the head); and the window's lm_head as one product
+    against one per position."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gofr_tpu_torch.models.llama import (_gather_rows, _head,
+                                             _masked_read, _verify_head)
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.graphcheck import (greedy_drafts, state_tensors,
+                                               verify_graph_vs_eager)
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    c = dataclasses.replace(cfg, attn_impl="flash")
+    eng = PagedLLMEngine(params, c, page_size=128, device=dev, n_slots=8,
+                         max_seq_len=1024, prefill_buckets=(256,),
+                         speculative_tokens=4)
+    tok = DebugTokenizer(cfg.vocab_size)
+    for i in range(8):
+        eng.submit(tok.encode(rag_prompt(200, 600 + i)), max_new_tokens=600)
+    for _ in range(3):
+        eng._step()
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
+    drafts, lens = greedy_drafts(eng)
+    g = verify_graph_vs_eager(eng, drafts, lens)
+    same = bool(torch.equal(g["graph"].cpu(), g["eager"].cpu()))
+    ok = same and g["state_diff"] == 0.0 and g["accepted"] == 4 * g["rows"]
+    log(f"check verify graph paged: one verify (B=8, d=4, {g['rows']} rows "
+        f"drafting their greedy continuation, {g['accepted']} drafts "
+        f"accepted) replayed vs run eagerly from the same state: tokens and "
+        f"emit counts {'equal' if same else 'DIFFER'}; pools max_abs_diff="
+        f"{g['state_diff']:.3e} (largest |K/V| {g['state_max']:.3e}; the "
+        f"garbage page 0, left out: {g['garbage_diff']:.3e}) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    require(ok, "the verify graph differs from eager")
+    ctx = [s.length for s in eng.slots if s.active]
+    table = eng._build_table()
+    state = state_tensors(eng)
+    saved = [t.clone() for t in state]
+    rng = eng.generator.get_state()
+
+    def restore():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        eng.generator.set_state(rng)
+
+    def dispatch_times(program, arrays, n):
+        """(host wall ms, card ms) per dispatch of `program`, uploaded and
+        replayed from the same state, then synced, n times."""
+        wall = card_ms = 0.0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in (0, 1))
+        with torch.no_grad(), eng._stream_ctx():
+            for _ in range(n + 1):
+                restore()
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                start.record()
+                eng._call(program, arrays)
+                end.record()
+                torch.cuda.synchronize()
+                if _:
+                    wall += (time.monotonic() - t0) * 1e3
+                    card_ms += start.elapsed_time(end)
+            restore()
+        return wall / n, card_ms / n
+
+    vprog = eng._verify_program(table.shape[1], True)
+    vwall, vcard = dispatch_times(vprog, (table, drafts, lens), 10)
+    block = eng.decode_block_size
+    dprog = eng._decode_program_paged(table.shape[1], block, True)
+    dwall, dcard = dispatch_times(dprog, (table,), 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad(), eng._stream_ctx():
+            for _ in range(3):
+                eng._call(vprog, (table, drafts, lens))
+                torch.cuda.synchronize()
+                restore()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "Memcpy" not in e.key]      # the restores between runs
+    split: dict = {}
+    for e in kernels:
+        kind = next((k for k, pat in VERIFY_SPLIT if pat.search(e.key)),
+                    "other")
+        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 3e3
+    gemm = split.get("bf16 products", 0.0) + split.get("f32 products", 0.0)
+    log("profile verify paged: card time per verify by kernel kind "
+        "(torch.profiler over 3 replays): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(split.items(),
+                                                 key=lambda kv: -kv[1]))
+        + f" [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile verify paged kernel: {e.key[:90]} ms_per_verify="
+            f"{e.self_device_time_total / 3e3:.4f} calls_per_verify="
+            f"{e.count / 3:.0f}")
+    log(f"profile verify paged B=8 d=4 contexts {min(ctx)}-{max(ctx)}, "
+        f"table width {table.shape[1]}: one verify dispatched and synced as "
+        f"the loop does (upload, one graph replay, sync), from the same "
+        f"state 10 times: wall_ms={vwall:.4f} card_ms (events)={vcard:.4f} "
+        f"idle_share={1 - vcard / vwall:.4f}; matrix-product kernels "
+        f"{gemm:.4f} ms (torch.profiler); a {block}-step decode block the "
+        f"same way: wall_ms_per_step={dwall / block:.4f} card_ms_per_step="
+        f"{dcard / block:.4f}; a verify's card time is "
+        f"{vcard / (dcard / block):.3f} decode steps' and emits up to 5 "
+        f"tokens a row [{card}]")
+    # the parts, by events at the verify's shape (the engine's table)
+    tt = torch.from_numpy(table).to(dev).long()
+    B, W, L = 8, 5, cfg.n_layers
+    H, dh = cfg.n_heads, cfg.head_dim
+    pos = eng._positions[:, None] + torch.arange(W, device=dev)
+    q = torch.randn(B, W, H, dh, device=dev, dtype=torch.bfloat16)
+    rows = _gather_rows(eng.k_cache[0], tt)
+    with torch.no_grad():
+        gather = time_events(lambda: [_gather_rows(eng.k_cache[l], tt)
+                                      for l in range(L) for _ in (0, 1)], 5)
+        read = time_events(lambda: [_masked_read(q, rows, rows, pos, c)
+                                    for _ in range(L)], 5)
+        x = torch.randn(B, W, cfg.dim, device=dev, dtype=torch.bfloat16)
+        one = time_events(lambda: _verify_head(x, params), 20)
+        per = time_events(lambda: [_head(x[:, i], params).argmax(-1)
+                                   for i in range(W)], 20)
+    log(f"profile verify paged: parts by CUDA events at its shape, eager, "
+        f"per verify: page gather (K and V, {L} layers, table "
+        f"{tuple(table.shape)}) {gather:.4f} ms; plain einsum read (f32, "
+        f"{L} layers) {read:.4f} ms; lm_head of the [{B}, {W}] window as one "
+        f"product {one:.4f} ms, one product per position {per:.4f} ms "
+        f"(kept: one product); the rest of the replayed verify (layer "
+        f"products, norms, rope, sampling) {vcard - gather - read - one:.4f} "
+        f"ms [{card}]")
+    del eng
+
+
+def dense_spec_reduced(params, cfg, dev, card: str, n_layers: int = 4
+                       ) -> None:
+    """The dense spec engine once, at reduced depth (the first n_layers of
+    the same weights): 4 greedy prompts (2 repeated passages) of 32 tokens
+    through engine.generate, each against the oracle at that depth."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.engine import LLMEngine
+
+    c = dataclasses.replace(cfg, n_layers=n_layers, attn_impl="flash",
+                            decode_attn="kernel")
+    p = {**params, "layers": {k: v[:n_layers]
+                              for k, v in params["layers"].items()}}
+    eng = LLMEngine(p, c, device=dev, n_slots=4, max_seq_len=512,
+                    prefill_buckets=(256,), speculative_tokens=4)
+    eng.warmup()
+    eng.start()
+    tok = DebugTokenizer(cfg.vocab_size)
+    try:
+        prompts = [tok.encode((rag_prompt if i % 2 == 0 else make_prompt)(
+            200, 700 + i)) for i in range(4)]
+        reqs = [eng.submit(q, max_new_tokens=32) for q in prompts]
+        got = [r.result(timeout_s=600) for r in reqs]
+    finally:
+        eng.stop()
+    gaps = [oracle_gap(p, c, dev, q, g)[0] for q, g in zip(prompts, got)]
+    log(f"serve dense spec (reduced depth: {n_layers} of {cfg.n_layers} "
+        f"layers): 4 greedy requests x 32 tokens, {eng.verify_dispatches} "
+        f"verifies, accepted {eng.spec_accepted} of {eng.spec_drafted} "
+        f"drafted; largest gap to the oracle's top logit {max(gaps):.3e} "
+        f"(tol {MODEL_TOL}) [{card}]")
+    require(all(len(g) == 32 for g in got) and max(gaps) <= MODEL_TOL,
+            "dense spec at reduced depth failed")
+
+
+CHUNK_ENV = {"MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+             "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "2048",
+             "PAGE_SIZE": "128",
+             "PREFILL_BUCKETS": "16,32,64,128,256,512,1024",
+             "REQUEST_TIMEOUT": "600", "WARMUP": "true",
+             "CHUNK_PREFILL_TOKENS": "256"}
+LONG_CHARS = 899                # + BOS: a 900-token prompt, bucket 1024
+
+
+def live_stream(port, prompt, max_tokens, rec) -> None:
+    """stream_request whose token times land in rec["times"] as they
+    arrive (seconds on the monotonic clock)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/generate", body=json.dumps(
+        {"prompt": prompt, "max_tokens": max_tokens, "stream": True}),
+        headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    rec["status"] = resp.status
+    text = []
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if not line.startswith(b"data: "):
+            continue
+        event = json.loads(line[6:])
+        if event.get("done"):
+            rec["done"] = event
+            resp.read()
+            break
+        rec["times"].append(time.monotonic())
+        text.append(event["text"])
+    conn.close()
+    rec["text"] = "".join(text)
+
+
+def long_admission(port) -> dict:
+    """6 streams of 96 tokens decoding (sent one after another), then the
+    900-token prompt (16 tokens) sent once each stream has 4 tokens; returns the long request's
+    TTFT and the active streams' largest gap between tokens while it was
+    admitted (token arrivals after it was sent, up to its first token)."""
+    recs = [{"times": []} for _ in range(7)]
+    prompts = [make_prompt(n, 800 + i) for i, n in enumerate(SPEC_CHARS[:6])]
+    threads = [threading.Thread(target=live_stream,
+                                args=(port, p, 96, recs[i]))
+               for i, p in enumerate(prompts)]
+    deadline = time.monotonic() + 300
+    for t, r in zip(threads, recs):
+        # one at a time, each after the previous one's first token: K=1
+        # waves, which WARMUP=true captured
+        t.start()
+        while not r["times"] and time.monotonic() < deadline:
+            time.sleep(0.002)
+    while (any(len(r["times"]) < 4 for r in recs[:6])
+           and time.monotonic() < deadline):
+        time.sleep(0.002)
+    sent = time.monotonic()
+    long_prompt = make_prompt(LONG_CHARS, 899)
+    threads.append(threading.Thread(target=live_stream, args=(
+        port, long_prompt, 16, recs[6])))
+    threads[-1].start()
+    for t in threads:
+        t.join(timeout=600)
+    require(all(not t.is_alive() for t in threads), "chunk: requests hung")
+    first = recs[6]["times"][0]
+    gap = 0.0
+    for r in recs[:6]:
+        ts = r["times"]
+        for a, b in zip(ts, ts[1:]):
+            if b > sent and a < first:
+                gap = max(gap, b - max(a, sent))
+    return {"ttft_ms": (first - sent) * 1e3, "gap_ms": gap * 1e3,
+            "recs": recs, "long_prompt": long_prompt}
+
+
+def chunk_phase(params, cfg, dev, card: str) -> None:
+    """The main path (paged, prefix cache on) with CHUNK_PREFILL_TOKENS=256,
+    MAX_SEQ_LEN=2048, buckets 16..1024 and WARMUP=true: 6 streams decode
+    when a 900-token prompt (bucket 1024: 4 chunks) arrives; logged its
+    TTFT and the streams' largest gap between tokens during its admission,
+    then the same with chunking off (the loop restarted, the fused [1,
+    1024] and [1, 512] waves captured before it, the prefix cache emptied).
+    Gates: the long stream against the oracle, no capture after boot,
+    every dispatch a graph replay, the chunk graphs (a middle and the final
+    chunk) equal eager. Then the int8-KV paged engine's chunks (the
+    q8-final program) once: its final chunk's graph against eager and the
+    long prompt served."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_app, build_engine
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    engine = build_engine(CHUNK_ENV, device=dev, params=params)
+    boot = boot_line(engine, "paged chunk", card)
+    L = cfg.n_layers
+    res = {}
+    chunk_size = engine.chunk_prefill_tokens
+    long_bucket = engine.prefill_buckets[-1]
+    for label, chunk in (("chunked", chunk_size), ("chunking off", 0)):
+        if not chunk:
+            engine.chunk_prefill_tokens = 0
+            with torch.no_grad(), engine._stream_ctx():
+                for bucket in engine.prefill_buckets:
+                    if bucket > chunk_size:
+                        engine._prefill_program(bucket, 1)
+            boot = engine.executor.captures
+        drop_prefix(engine)
+        engine.start()
+        app = build_app(CHUNK_ENV, engine=engine)
+        app.start()
+        try:
+            warm: dict = {}
+            stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
+            zero_counts(engine)
+            rec = record_tokens(engine)
+            r = long_admission(app.http_port)
+            del engine._emit_block
+            launches = launch_counts.counts()
+            dispatch = dispatch_counts(engine, boot)
+            counts = {k: getattr(engine, k) for k in SPEC_CHUNK_COUNTS}
+            steps, prefills = engine.decode_steps, engine.prefill_dispatches
+        finally:
+            app.shutdown()
+        what = f"serve paged {label}"
+        res[label] = r
+        check_dispatch(f"paged {label}", dispatch, card)
+        long_rec = r["recs"][6]
+        require(long_rec["status"] == 200
+                and long_rec["done"]["tokens"] == 16,
+                f"{what}: the long request failed")
+        log(f"{what}: a {LONG_CHARS + 1}-token prompt sent while 6 streams "
+            f"decode: its ttft_ms={r['ttft_ms']:.1f}; the streams' largest "
+            f"gap between tokens during its admission {r['gap_ms']:.1f} ms; "
+            f"{counts['chunk_jobs']} chunk jobs, {counts['chunk_dispatches']} "
+            f"chunks, {counts['chunk_swaps']} swaps of carried state "
+            f"({counts['chunk_swap_bytes']} bytes); launches on the card: "
+            f"flash {launches['flash_attention']} ({prefills} full waves), "
+            f"paged_attention {launches['paged_attention']} ({steps} decode "
+            f"steps) [{card}]")
+        require(launches["flash_attention"] == L * prefills
+                and launches["paged_attention"] == L * steps,
+                f"{what}: launches are not n_layers per wave / step")
+        require(not chunk or counts["chunk_dispatches"]
+                == long_bucket // chunk_size,
+                f"{what}: the long prompt did not run in chunks")
+        prompt, ids = max(rec.values(), key=lambda v: len(v[0]))
+        gap, exact = oracle_gap(params, cfg, dev, list(prompt), ids)
+        log(f"{what}: the long stream ({len(prompt)} prompt tokens) against "
+            f"the teacher-forced oracle: exact argmax at {exact:.3f} of "
+            f"positions, largest gap {gap:.3e} (tol {MODEL_TOL}) [{card}]")
+        require(len(ids) == 16 and gap <= MODEL_TOL,
+                f"{what}: the long stream leaves the oracle's")
+    log(f"serve paged chunk vs off: long-prompt ttft_ms "
+        f"{res['chunked']['ttft_ms']:.1f} / "
+        f"{res['chunking off']['ttft_ms']:.1f}; the streams' largest gap "
+        f"during its admission {res['chunked']['gap_ms']:.1f} / "
+        f"{res['chunking off']['gap_ms']:.1f} ms [{card}]")
+    engine.chunk_prefill_tokens = chunk_size
+    for final in (False, True):
+        check_chunk_graph(engine, "paged", final, card)
+    del engine
+    torch.cuda.empty_cache()
+    q8 = PagedLLMEngine(params, dataclasses.replace(
+        cfg, attn_impl="flash", kv_dtype="int8"),
+        page_size=int(CHUNK_ENV["PAGE_SIZE"]), device=dev, n_slots=8,
+        max_seq_len=int(CHUNK_ENV["MAX_SEQ_LEN"]),
+        prefill_buckets=(chunk_size, long_bucket),
+        chunk_prefill_tokens=chunk_size)
+    check_chunk_graph(q8, "paged-int8", True, card)
+    prompt = DebugTokenizer(cfg.vocab_size).encode(
+        make_prompt(LONG_CHARS, 899))
+    q8.start()
+    try:
+        got = q8.generate(prompt, max_new_tokens=8)
+    finally:
+        q8.stop()
+    gap, exact = oracle_gap(params, cfg, dev, prompt, got)
+    names = [n for n, c in q8.executor.cache_info().items() if c]
+    log(f"serve paged-int8 chunk: the {len(prompt)}-token prompt in "
+        f"{q8.chunk_dispatches} chunks ({', '.join(sorted(names))}), 8 "
+        f"tokens; against the bf16 oracle (logged): exact argmax at "
+        f"{exact:.3f}, largest gap {gap:.3e} [{card}]")
+    require(len(got) == 8
+            and q8.chunk_dispatches == long_bucket // chunk_size
+            and any("-chunk-q8-final-" in n for n in names),
+            "paged-int8 chunk: the q8-final program did not serve")
+
+
+def check_chunk_graph(eng, config: str, final: bool, card: str) -> None:
+    import torch
+
+    from gofr_tpu_torch.tpu.graphcheck import chunk_graph_vs_eager
+
+    bucket = eng.prefill_buckets[-1]
+    g = chunk_graph_vs_eager(eng, 1, bucket, final)
+    same = bool(torch.equal(g["graph"].cpu(), g["eager"].cpu()))
+    ok = same and g["state_diff"] == 0.0
+    kind = "final" if final else "middle"
+    log(f"check chunk graph {config}: the {kind} chunk of a [1, {bucket}] "
+        f"admission (chunk {eng.chunk_prefill_tokens}) replayed vs run eagerly from the same "
+        f"state: {'first tokens' if final else 'carried logits'} "
+        f"{'equal' if same else 'DIFFER'}; state and carried temps "
+        f"max_abs_diff={g['state_diff']:.3e} (largest |K/V| "
+        f"{g['state_max']:.3e}; the garbage page 0, left out: "
+        f"{g['garbage_diff']:.3e}) {'ok' if ok else 'FAIL'} [{card}]")
+    require(ok, f"{config}: the {kind} chunk's graph differs from eager")
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -2772,7 +3443,8 @@ def main(argv=()) -> int:
     """No arguments: every phase, as the module docstring lists. --flash:
     build, then only the flash checks and times. --decode: build, then
     only the decode-read checks and times. --prefill: build, then only the
-    model's prefill times at [1, 256] and [4, 256]. --sc: build, then the
+    model's prefill times at [1, 256] and [4, 256]. --spec: build, then the
+    speculation and chunked-prefill phases (10). --sc: build, then the
     main path's serve phase, its sampling-controls phase, the sort-skip
     phase and the scoring phase. --weights: build, then the weights phases
     (w8_phase). The short modes print no ok line."""
@@ -2780,9 +3452,9 @@ def main(argv=()) -> int:
 
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
-                    "--weights"):
+                    "--weights", "--spec"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc, --weights or none)")
+            f"--sc, --weights, --spec or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -2820,7 +3492,7 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode not in ("--prefill", "--weights"):
+        if mode not in ("--prefill", "--weights", "--spec"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -2839,6 +3511,15 @@ def main(argv=()) -> int:
                                 device=dev)
             w8_phase(params, cfg, dev, card, flush)
             log(f"weights only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
+        if mode == "--spec":
+            t0 = time.monotonic()
+            spec_phase(params, cfg, dev, card)
+            log(f"spec phases: {time.monotonic() - t0:.1f}s")
+            t0 = time.monotonic()
+            chunk_phase(params, cfg, dev, card)
+            log(f"chunk phases: {time.monotonic() - t0:.1f}s")
+            log(f"spec only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         if mode == "--sc":
             ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
@@ -2931,6 +3612,11 @@ def main(argv=()) -> int:
         sort_skip_phase(params, cfg, dev, card)
         score_phase(params, cfg, dev, card)
         w8_phase(params, cfg, dev, card, flush)
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        spec_phase(params, cfg, dev, card)
+        chunk_phase(params, cfg, dev, card)
+        log(f"spec and chunk phases: {time.monotonic() - t0:.1f}s")
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

@@ -41,8 +41,16 @@ with a column-major one (H100, torch 2.11). So the port's int8 producers
 store every matrix the product reads (the layer weights and ``lm_head``)
 column-major: the leaf keeps the JAX shape [.., in, out], as a transposed
 view of [.., out, in] storage, instead of the row-major layout, never beside
-it. ``tok_emb`` (gathered by rows) stays row-major. Not ported yet: the
-chunked and verify programs — ROADMAP A10.
+it. ``tok_emb`` (gathered by rows) stays row-major.
+
+Speculative verify and chunked prefill (ROADMAP A10): ``llama_verify_step``
+and ``llama_verify_step_paged`` (the window [tokens | drafts] in one
+forward, the plain masked read over the cache or the gathered pages, the
+window's lm_head in one product, ``_verify_head``), ``llama_prefill_chunk``
+and ``llama_prefill_chunk_q8`` (one chunk of a long prompt at its absolute
+positions against the rows it has written so far). None reaches a Pallas
+call in the reference: a T = d+1 or T = chunk < S window takes
+``_attention_block``'s plain branch there as here.
 
 A cache write past a dense cache's last column (a finished row that keeps
 advancing in lock-step decode) lands on that last column instead of being
@@ -394,7 +402,7 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
     einsum path: cache-dtype operands, f32 scores)."""
     B, T, _ = x.shape
     S = k_cache_l.shape[-1]
-    H, Hkv, dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
     q = _mm(normed, layer, "wq").reshape(B, T, H, dh)
@@ -430,19 +438,8 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
         return (_mm(attn.reshape(B, 1, H * dh), layer, "wo"), k_cache_l,
                 v_cache_l)
 
-    qg = q.reshape(B, T, Hkv, G, dh)
-    scores = torch.einsum("bthgd,bhds->bhgts", qg.float(),
-                          k_cache_l.float()) / math.sqrt(dh)
-    # query at absolute pos p sees cache slot j iff j <= p
-    cache_pos = torch.arange(S, device=x.device)[None, None, :]
-    visible = cache_pos <= pos[:, :, None]                    # [B, T, S]
-    scores = torch.where(visible[:, None, None, :, :], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgts,bhds->bthgd",
-                       probs.to(v_cache_l.dtype).float(),
-                       v_cache_l.float()).to(x.dtype)
-    return (_mm(out.reshape(B, T, H * dh), layer, "wo"), k_cache_l,
-            v_cache_l)
+    return (_mm(_masked_read(q, k_cache_l, v_cache_l, pos, cfg), layer,
+                "wo"), k_cache_l, v_cache_l)
 
 
 def _ffn_block(x, layer, cfg: LlamaConfig):
@@ -708,6 +705,223 @@ def _gather_rows(pool_l, table):
     return rows.reshape(*rows.shape[:-2], -1)
 
 
+def _masked_read(q, k_rows, v_rows, positions, cfg: LlamaConfig):
+    """The plain masked GQA read of a window over cache rows (the JAX
+    einsums): q [K, T, H, dh] in the model dtype, k/v_rows [K, Hkv, dh, S]
+    in the model dtype, positions [K, T]; f32 scores, a query at absolute
+    position p sees cache slot j iff j <= p, p rounded to the value dtype
+    before p . v. Returns [K, T, H * dh] in q's dtype."""
+    K, T, H, dh = q.shape
+    S = k_rows.shape[-1]
+    qg = q.reshape(K, T, cfg.n_kv_heads, cfg.q_per_kv, dh)
+    scores = torch.einsum("bthgd,bhds->bhgts", qg.float(),
+                          k_rows.float()) / math.sqrt(dh)
+    visible = (torch.arange(S, device=q.device)[None, None, :]
+               <= positions.long()[:, :, None])                   # [K, T, S]
+    probs = torch.softmax(torch.where(visible[:, None, None], scores, -1e30),
+                          dim=-1)
+    del scores
+    out = torch.einsum("bhgts,bhds->bthgd", probs.to(v_rows.dtype).float(),
+                       v_rows.float()).to(q.dtype)
+    return out.reshape(K, T, H * dh)
+
+
+def _project_last(x, params, cfg: LlamaConfig, project_last):
+    """Final norm, then the lm_head of row k's hidden state at window index
+    project_last[k]: [K, V] f32."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _head(x[rows, project_last.long()], params)
+
+
+def llama_prefill_chunk(params, cfg: LlamaConfig, tokens, positions,
+                        k_layers, v_layers, slots, project_last=None):
+    """One CHUNK of a cached prefill over per-layer cache buffers.
+
+    tokens: [K, C] the chunk's token ids; positions: [K, C] their absolute
+    positions (a later chunk attends the earlier chunks' K/V already in the
+    cache rows: the mask `j <= q_pos` needs nothing more); k/v_layers: L
+    [B, Hkv, dh, S] buffers, written in place; slots: [K] row ids, whose
+    rows are gathered, run through the cache-aware attention for the chunk
+    (``_attention_block``: the plain masked read, as C < S) and scattered
+    back; None when the buffers hold exactly the K rows (the paged engine's
+    per-job temps), which are then written in place with no gather.
+
+    project_last: [K] within-chunk index of the hidden row to project (the
+    engine passes one for EVERY chunk: a short row's last prompt token may
+    fall in any chunk); None skips the final norm and the lm_head.
+    Returns (logits [K, V] f32 or None, k_layers, v_layers)."""
+    x = _embed(params, cfg, tokens)                        # [K, C, D]
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        if slots is None:
+            k_rows, v_rows = k_layers[l], v_layers[l]
+        else:
+            k_rows, v_rows = k_layers[l][slots], v_layers[l][slots]
+        attn, _, _ = _attention_block(x, layer, k_rows, v_rows, positions,
+                                      cfg)
+        x = x + attn
+        x = x + _ffn_block(x, layer, cfg)
+        if slots is not None:
+            k_layers[l][slots] = k_rows
+            v_layers[l][slots] = v_rows
+    if project_last is None:
+        return None, k_layers, v_layers
+    return _project_last(x, params, cfg, project_last), k_layers, v_layers
+
+
+def llama_prefill_chunk_q8(params, cfg: LlamaConfig, tokens, positions,
+                           k_layers, v_layers, ks_layers, vs_layers, slots,
+                           project_last=None):
+    """One CHUNK of a cached prefill over int8 per-layer caches.
+
+    As llama_prefill_chunk over int8 [B, Hkv, dh, S] buffers with their f32
+    [B, Hkv, S] scales, all written in place: the K rows' int8 values and
+    scales are gathered, this chunk's fresh K/V quantize into them per
+    token and head (ops/decode_attention.quantize_kv; earlier tokens keep
+    their quantization), and the chunk's queries read ALL the gathered rows
+    dequantized to the model dtype, its own positions included, so later
+    chunks and decode see what this chunk saw. Dequantization materializes
+    the K gathered rows only. Returns (logits [K, V] f32 or None,
+    k_layers, v_layers, ks_layers, vs_layers)."""
+    from ..ops.decode_attention import quantize_kv
+
+    K, C = tokens.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = DTYPES[cfg.dtype]
+    batch_idx = torch.arange(K, device=tokens.device)[:, None]
+    pos = positions.long()
+    x = _embed(params, cfg, tokens)                        # [K, C, D]
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        k_rows8, v_rows8 = k_layers[l][slots], v_layers[l][slots]
+        ks_rows, vs_rows = ks_layers[l][slots], vs_layers[l][slots]
+        normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q = rope(_mm(normed, layer, "wq").reshape(K, C, H, dh), positions,
+                 cfg.rope_theta)
+        k = rope(_mm(normed, layer, "wk").reshape(K, C, Hkv, dh), positions,
+                 cfg.rope_theta)
+        v = _mm(normed, layer, "wv").reshape(K, C, Hkv, dh)
+        k8, ks = quantize_kv(k, axis=-1)          # [K, C, Hkv, dh], [K, C, Hkv]
+        v8, vs = quantize_kv(v, axis=-1)
+        # advanced indices on dims 0 and 3 (2 for the scales)
+        k_rows8[batch_idx, :, :, pos] = k8
+        v_rows8[batch_idx, :, :, pos] = v8
+        ks_rows[batch_idx, :, pos] = ks
+        vs_rows[batch_idx, :, pos] = vs
+        k_deq = (k_rows8.float() * ks_rows[:, :, None, :]).to(dt)
+        v_deq = (v_rows8.float() * vs_rows[:, :, None, :]).to(dt)
+        attn = _masked_read(q, k_deq, v_deq, positions, cfg)
+        x = x + _mm(attn, layer, "wo")
+        x = x + _ffn_block(x, layer, cfg)
+        k_layers[l][slots] = k_rows8
+        v_layers[l][slots] = v_rows8
+        ks_layers[l][slots] = ks_rows
+        vs_layers[l][slots] = vs_rows
+    logits = (None if project_last is None
+              else _project_last(x, params, cfg, project_last))
+    return logits, k_layers, v_layers, ks_layers, vs_layers
+
+
+def _verify_head(x, params):
+    """The verify window's lm_head: x [B, W, D] final-norm hidden states ->
+    (greedy [B, W] int64, the position-0 logits [B, V] f32). One [B * W, D]
+    @ [D, V] product, which reads the head once; the reference projects
+    one window position at a time so that no [B, W, V] buffer exists (at
+    B=8, W=5 and Llama-3's vocabulary it is 20.5 MB of f32). Both compute
+    the same function; the single product is the faster: 0.4029 ms against
+    1.9026 for one per position at that shape (Llama-3-8B's head, CUDA
+    events, NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py --spec, PERF.md
+    §5)."""
+    B, W, D = x.shape
+    logits = _head(x.reshape(B * W, D), params).view(B, W, -1)
+    return logits.argmax(dim=-1), logits[:, 0]
+
+
+def _window(tokens, drafts, positions):
+    """The verify window [tokens | drafts] [B, d+1] and its absolute
+    positions positions + arange(d+1)."""
+    window = torch.cat([tokens[:, None], drafts.to(tokens.dtype)], dim=1)
+    pos_grid = (positions.long()[:, None]
+                + torch.arange(window.shape[1], device=tokens.device))
+    return window, pos_grid
+
+
+def llama_verify_step(params, cfg: LlamaConfig, tokens, drafts, positions,
+                      k_layers, v_layers):
+    """Speculative decoding's VERIFY over per-layer dense caches: score
+    every row's current token and its d drafted tokens in ONE forward.
+
+    tokens: [B] the current (already sampled) tokens; drafts: [B, d]
+    proposed continuations (junk rows allowed: acceptance is the caller's);
+    positions: [B] the current tokens' absolute positions; k/v_layers: L
+    [B, Hkv, dh, S] buffers. The window [tokens | drafts] runs at
+    positions + arange(d+1) and its K/V are written IN PLACE (clamped to
+    S - 1, see the module docstring): for an accepted prefix they are what
+    decode would have written, and a rejected position holds junk its real
+    occupant overwrites before any query reads it. The window's attention
+    is the plain masked read over the whole cache (``_attention_block``:
+    T = d+1 takes neither the flash nor the T=1 kernel branch).
+
+    Returns (greedy [B, d+1] int64, the argmax after each window position;
+    logits0 [B, V] f32, position 0's logits for temperature sampling;
+    k_layers, v_layers)."""
+    window, pos_grid = _window(tokens, drafts, positions)
+    x = _embed(params, cfg, window)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        attn, _, _ = _attention_block(x, layer, k_layers[l], v_layers[l],
+                                      pos_grid, cfg)
+        x = x + attn
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    greedy, logits0 = _verify_head(x, params)
+    return greedy, logits0, k_layers, v_layers
+
+
+def llama_verify_step_paged(params, cfg: LlamaConfig, tokens, drafts,
+                            positions, k_pool, v_pool, table):
+    """Speculative decoding's VERIFY against the paged pool: the contract
+    of llama_verify_step over k/v_pool [L, P, Hkv, dh, ps] (written in
+    place) through table [B, NP].
+
+    Per layer, the window's K/V are written one position at a time with
+    ops/paged_attention.paged_write_decode, so a position past a row's
+    reservation maps to a zero table entry, the garbage page 0; then each
+    row's pages are gathered into contiguous [B, Hkv, dh, NP * ps] rows
+    (one pool read per layer: the paged kernel is a T=1 read, d+1 of them
+    would stream the pages d+1 times) and the plain masked read runs over
+    them. Page j of a row covers positions [j * ps, (j+1) * ps), so a
+    gathered offset is an absolute position and the `j <= q_pos` mask
+    carries over. Returns (greedy [B, d+1] int64, logits0 [B, V] f32,
+    k_pool, v_pool)."""
+    from ..ops.paged_attention import paged_write_decode
+
+    B, d = drafts.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    window, pos_grid = _window(tokens, drafts, positions)
+    table_l = table.long()
+    x = _embed(params, cfg, window)
+    for l in range(cfg.n_layers):
+        layer = _layer(params, l)
+        normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q = rope(_mm(normed, layer, "wq").reshape(B, d + 1, H, dh), pos_grid,
+                 cfg.rope_theta)
+        k = rope(_mm(normed, layer, "wk").reshape(B, d + 1, Hkv, dh),
+                 pos_grid, cfg.rope_theta)
+        v = _mm(normed, layer, "wv").reshape(B, d + 1, Hkv, dh)
+        for i in range(d + 1):
+            paged_write_decode(k_pool[l], v_pool[l], k[:, i], v[:, i], table,
+                               pos_grid[:, i])
+        attn = _masked_read(q, _gather_rows(k_pool[l], table_l),
+                            _gather_rows(v_pool[l], table_l), pos_grid, cfg)
+        x = x + _mm(attn, layer, "wo")
+        x = x + _ffn_block(x, layer, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    greedy, logits0 = _verify_head(x, params)
+    return greedy, logits0, k_pool, v_pool
+
+
 def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
                           lengths, k_pool, v_pool, table, project_last,
                           ks_pool=None, vs_pool=None):
@@ -716,10 +930,9 @@ def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
     from ..ops.decode_attention import quantize_kv
 
     K, T = tokens.shape
-    H, Hkv, dh, G = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.q_per_kv
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ps = k_pool.shape[-1]
     NP = table.shape[1]
-    S = NP * ps
     dev = tokens.device
     table = table.long()
     pos_grid = prefix_lens.long()[:, None] + torch.arange(T, device=dev)
@@ -728,9 +941,6 @@ def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
     page_slot = (pos_grid // ps).clamp(0, NP - 1)
     page_ids = torch.where(in_prompt, table.gather(1, page_slot), 0)
     offsets = pos_grid % ps
-    # query at absolute pos p sees gathered slot j iff j <= p
-    visible = (torch.arange(S, device=dev) <= pos_grid[:, :, None]
-               )[:, None, None]                                 # [K,1,1,T,S]
     x = _embed(params, cfg, tokens)
     for l in range(cfg.n_layers):
         layer = _layer(params, l)
@@ -762,18 +972,8 @@ def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
             v_rows = (_gather_rows(v_pool[l], table).float()
                       * _gather_rows(vs_pool[l], table)[:, :, None]
                       ).to(x.dtype)
-        # f32 scores from the model-dtype q and k, the -1e30 mask, p rounded
-        # to the value dtype before p . v: the reference's einsums
-        qg = q.reshape(K, T, Hkv, G, dh)
-        scores = torch.einsum("bthgd,bhds->bhgts", qg.float(),
-                              k_rows.float()) / math.sqrt(dh)
-        probs = torch.softmax(torch.where(visible, scores, -1e30), dim=-1)
-        del scores
-        attn = torch.einsum("bhgts,bhds->bthgd",
-                            probs.to(v_rows.dtype).float(),
-                            v_rows.float()).to(x.dtype)
-        del probs
-        x = x + _mm(attn.reshape(K, T, H * dh), layer, "wo")
+        attn = _masked_read(q, k_rows, v_rows, pos_grid, cfg)
+        x = x + _mm(attn, layer, "wo")
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last = x[torch.arange(K, device=dev), project_last.long()]     # [K, D]

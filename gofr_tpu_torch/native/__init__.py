@@ -2,7 +2,8 @@
 
 Ports from ``gofr_tpu/native/__init__.py``: ``available``, ``version`` and
 ``BPECore`` (id-level greedy BPE merges, the tokenizers' hot encode loop),
-with ``encode_pieces``, the loop over many pieces in one library call.
+with ``encode_pieces``, the loop over many pieces in one library call, and
+``propose_draft`` (speculative decoding's prompt-lookup scan).
 The library is compiled from the source beside this file with the host C++
 compiler (``CXX``, default ``g++``) at first use, into
 ``build/torch_native/`` at the root of the checkout, named by a hash of the
@@ -10,7 +11,7 @@ source and flags (the reference builds next to its source, inside the
 package). Nothing is built at import. Without a compiler ``available()`` is
 False and the tokenizers keep their Python merge loop, as the reference's
 do: host code, not a device fallback. ``pad_batch`` is not ported (the
-port's admission pads); ``propose_draft`` goes with ROADMAP A10.
+port's admission pads).
 """
 
 from __future__ import annotations
@@ -80,6 +81,9 @@ def _load():
         lib.gn_bpe_encode_pieces.restype = ctypes.c_int32
         lib.gn_bpe_encode_pieces.argtypes = [ctypes.c_void_p, _i32p, _i32p,
                                              ctypes.c_int32, _i32p, _i32p]
+        lib.gn_propose_draft.restype = ctypes.c_int32
+        lib.gn_propose_draft.argtypes = [_i32p, ctypes.c_int32,
+                                         ctypes.c_int32, _i32p]
         _lib = lib
         return _lib
 
@@ -92,6 +96,24 @@ def available() -> bool:
 def version() -> str:
     lib = _load()
     return lib.gn_version().decode() if lib else "unavailable"
+
+
+def propose_draft(history, d: int) -> Optional[List[int]]:
+    """Prompt-lookup draft: tokens that followed the most recent earlier
+    occurrence of history's trailing bigram (speculative decoding's host
+    side). Returns None when the library is missing (callers fall back to
+    the pure-Python scan in the engine)."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(history)
+    if n < 3 or d <= 0:
+        return []
+    hist = np.ascontiguousarray(np.asarray(history, dtype=np.int32))
+    out = np.empty(d, dtype=np.int32)
+    count = lib.gn_propose_draft(hist.ctypes.data_as(_i32p), n, d,
+                                 out.ctypes.data_as(_i32p))
+    return out[:count].tolist()
 
 
 class BPECore:

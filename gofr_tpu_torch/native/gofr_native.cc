@@ -5,7 +5,8 @@
 // gn_bpe_new, gn_bpe_free, gn_bpe_encode), and gn_bpe_encode_pieces, the
 // same loop over many pieces in one call. The tokenizer's merge loop runs
 // per request before the model sees a token; in Python it is O(n^2)
-// interpreter-bound. This is host code, not a device kernel.
+// interpreter-bound. Also a copy of gn_propose_draft, speculative
+// decoding's prompt-lookup scan. This is host code, not a device kernel.
 //
 // Build: gofr_tpu_torch/native/__init__.py compiles it with the host C++
 // compiler at first use into build/torch_native/.
@@ -13,6 +14,7 @@
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <unordered_map>
 #include <utility>
 #include <vector>
@@ -99,6 +101,26 @@ int32_t gn_bpe_encode_pieces(void* handle, const int32_t* ids,
     total += n;
   }
   return total;
+}
+
+// Prompt-lookup draft proposal (speculative decoding): find the most recent
+// earlier occurrence of the history's trailing bigram and copy up to `d`
+// tokens that followed it into `out`. Returns tokens written (0 = no match).
+// Runs once per active slot per verify dispatch.
+int32_t gn_propose_draft(const int32_t* hist, int32_t n, int32_t d,
+                         int32_t* out) {
+  if (n < 3 || d <= 0) return 0;
+  const int32_t a = hist[n - 2], b = hist[n - 1];
+  for (int32_t i = n - 3; i >= 0; --i) {
+    if (hist[i] == a && hist[i + 1] == b) {
+      const int32_t start = i + 2;  // <= n-1, so at least one token follows
+      const int32_t avail = n - start;
+      const int32_t count = avail < d ? avail : d;
+      std::memcpy(out, hist + start, count * sizeof(int32_t));
+      return count;
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

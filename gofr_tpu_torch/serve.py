@@ -52,7 +52,12 @@ then stops). SAMPLING_CONTROLS
 [B, 3] row controls, each decode block captured with and without the
 per-row filters), WARMUP_SCORE (false; true: also capture at boot, after
 WARMUP, the logprobs / embeddings window programs, one per bucket and
-family, tpu/score.py).
+family, tpu/score.py), CHUNK_PREFILL_TOKENS (0; > 0: a prompt whose bucket
+is larger is admitted in chunks of this many tokens, decode blocks running
+between them; it must divide every larger bucket), SPECULATIVE_TOKENS (0;
+> 0: prompt-lookup speculation, up to this many drafts verified per
+dispatch, greedy output unchanged; it refuses KV_DTYPE=int8 and
+CHUNK_PREFILL_TOKENS, as the reference does).
 """
 
 from __future__ import annotations
@@ -109,7 +114,8 @@ PORTED = (
     "PAGE_SIZE", "N_PAGES", "PREFIX_CACHE", "MAX_BATCH", "MAX_SEQ_LEN",
     "PREFILL_BUCKETS", "ENGINE_ASYNC_D2H", "SAMPLING_CONTROLS", "WARMUP",
     "WARMUP_SCORE", "WEIGHTS_PATH", "WEIGHT_DTYPE", "VOCAB_PATH",
-    "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT",
+    "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT", "CHUNK_PREFILL_TOKENS",
+    "SPECULATIVE_TOKENS",
 )
 
 
@@ -117,10 +123,6 @@ PORTED = (
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("CHUNK_PREFILL_TOKENS", lambda e: _int(e, "CHUNK_PREFILL_TOKENS", 0) > 0,
-     "chunked prefill waits in ROADMAP A10"),
-    ("SPECULATIVE_TOKENS", lambda e: _int(e, "SPECULATIVE_TOKENS", 0) > 0,
-     "speculative decoding waits in ROADMAP A10"),
     ("DISAGG_MODE", lambda e: e.get("DISAGG_MODE", "off").lower() != "off",
      "disaggregated prefill/decode waits in ROADMAP A11"),
     ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
@@ -315,6 +317,11 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
               async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
               sampling_controls=_flag(env, "SAMPLING_CONTROLS", False),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
+              # >0 splits long prompts into bounded chunk dispatches (must
+              # divide the buckets it splits); >0 verifies up to N
+              # prompt-lookup drafts per dispatch (greedy output unchanged)
+              chunk_prefill_tokens=_int(env, "CHUNK_PREFILL_TOKENS", 0),
+              speculative_tokens=_int(env, "SPECULATIVE_TOKENS", 0),
               prefill_buckets=tuple(int(b) for b in env.get(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
     if _flag(env, "PAGED", True):

@@ -36,10 +36,33 @@ buffers, typed views into one device block per program, filled before each
 call by one host-to-device copy from a pinned staging ring
 (``_static_inputs``, ``_upload``). Waiting for A11: QoS, the step ledger,
 flight recorder and utilization ledger, fault injection, replay-after-reset
-and the reset-storm breaker, the off-loop finisher, draining and
-disaggregated hand-off; the chunked prefill programs wait for A10. A failed
-dispatch here (a failed capture included) fails the requests it carried and
-the loop keeps serving.
+and the reset-storm breaker, the off-loop finisher and disaggregated
+hand-off. A failed dispatch here (a failed capture included) fails the
+requests it carried and the loop keeps serving.
+
+Speculative decoding and chunked prefill (ROADMAP A10) are the reference's:
+``spec_accept_epilogue`` (shared with the paged engine), the SPEC_* class
+attributes and the adaptive state (``_spec_accept_ema``, ``_spec_cooloff``,
+``_spec_no_draft_streak``), ``_propose_draft`` (the native scan bound at
+boot, native/), ``_verify_fn`` / ``_verify_program`` / ``_verify_call`` /
+``_dispatch_verify`` (``llama-verify-x{d}-S{len}``; a zero-draft round falls
+back to a block decode), the loop's branch (one verify at a time while not
+cooling off, else pipelined blocks counting the cooloff down) and the
+verify sync (the EMA over greedy-eligible rows); ``_chunk_fn`` (with
+``_chunk_fn_q8`` as its int8 branch; the first chunk parks the reserved
+rows' positions at the cache's last column), ``_chunk_program``
+(``llama-chunk[-q8]-{chunk}x{K}[-first][-final]-S{len}``),
+``_start_chunk_job``, ``_advance_chunk_job`` (one chunk per loop
+iteration), ``_dispatch_chunk``, ``_finish_chunk_job`` and
+``_abort_chunk_job``, with a slot's ``chunking`` reservation and
+``history``. Two differences come from the graphs: a verify has the decode
+blocks' two variants under sampling_controls (``-sc`` and ``-sc-nosort``,
+picked per dispatch), and a chunk job's carried state (the [K, V] logits
+of each row's last prompt position; the paged engine's temps too) lives in
+its programs' buffers, which a graph reads at fixed addresses: a second
+job of the same shape swaps the first's state out into tensors it owns
+and back in when it runs again (``_swap_chunk_state``, counted in
+``chunk_swaps`` and ``chunk_swap_bytes``).
 
 ``sampling_controls`` (the reference's, off by default) widens the per-row
 sampling state from [B] temperatures to [B, 3] (temperature, top_p, top_k):
@@ -94,13 +117,16 @@ from typing import (Callable, Dict, Iterator, List, Optional, Sequence, Set,
 import numpy as np
 import torch
 
+from .. import native
 from ..models.llama import (DTYPES, init_kv_cache_layers,
                             init_kv_scale_layers, llama_decode_step_unrolled,
-                            llama_decode_step_unrolled_q8, llama_prefill_last)
+                            llama_decode_step_unrolled_q8, llama_prefill_chunk,
+                            llama_prefill_chunk_q8, llama_prefill_last,
+                            llama_verify_step)
 from ..ops.decode_attention import quantize_kv
 from .device import resolve_device
 from .executor import Executor, next_bucket
-from .sampling import pack_controls, sample_tokens
+from .sampling import pack_controls, sample_tokens, temperature_of
 
 _request_ids = itertools.count(1)
 _log = logging.getLogger(__name__)
@@ -193,13 +219,21 @@ class GenerationRequest:
 
 
 class _Slot:
-    __slots__ = ("request", "length", "remaining", "pages")
+    __slots__ = ("request", "length", "remaining", "pages", "chunking",
+                 "history")
 
     def __init__(self):
         self.request: Optional[GenerationRequest] = None
         self.length = 0        # tokens whose KV is in the cache
         self.remaining = 0     # emissions left in the budget
         self.pages: Optional[List[int]] = None  # paged engine: owned page ids
+        # a chunked prefill in progress: the slot is RESERVED (its rows are
+        # being filled chunk by chunk) but not yet emitting, so it is
+        # neither free nor demuxed until the final chunk
+        self.chunking: Optional[GenerationRequest] = None
+        # speculative mode: prompt + emitted tokens, the corpus the
+        # prompt-lookup draft searches
+        self.history: Optional[List[int]] = None
 
     @property
     def active(self) -> bool:
@@ -221,6 +255,32 @@ def _admission_split(n: int, cap: int) -> List[int]:
             out.append(k)
             n -= k
     return out
+
+
+def spec_accept_epilogue(g, logits0, temps, generator, drafts, draft_lens,
+                         positions, d: int, top_k: int,
+                         row_filter: bool = True):
+    """Speculative verify's acceptance, shared by the dense and the paged
+    verify programs (one implementation, as the reference insists): sample
+    position 0 (through the per-row filters under [B, 3] controls unless
+    row_filter is False), accept on greedy rows the longest prefix of
+    drafts equal to the model's own argmax, and advance the loop state.
+
+    g: [B, d+1] greedy continuations; logits0: [B, V] position 0's logits;
+    temps: [B] or [B, 3] row controls; drafts / draft_lens: [B, d] / [B];
+    positions: [B]. Returns (tokens [B], positions [B], out [B, d+1],
+    n_emit [B]): row b emits out[b, :n_emit[b]]."""
+    B = g.shape[0]
+    next0 = sample_tokens(logits0, generator, temps, top_k=top_k,
+                          row_filter=row_filter)
+    greedy_row = temperature_of(temps) <= 0.0
+    cols = torch.arange(d, device=g.device)[None, :]
+    matches = ((drafts == g[:, :d]) & (cols < draft_lens[:, None])
+               & greedy_row[:, None])
+    accepted = torch.cumprod(matches.long(), dim=1).sum(dim=1)     # [B]
+    out = torch.cat([next0[:, None], g[:, 1:]], dim=1)
+    tokens = out[torch.arange(B, device=g.device), accepted]
+    return tokens, positions + accepted + 1, out, accepted + 1
 
 
 def check_kernel_config(cfg) -> None:
@@ -248,6 +308,15 @@ class LLMEngine:
     controls; see the module docstring)."""
 
     STOP_JOIN_S = 30.0
+    # adaptive speculation (class attributes, so tests can tighten them):
+    # the EMA smoothing of accepted tokens per eligible row, the floor below
+    # which verify dispatches pause, how many block-decode dispatches a
+    # cooloff lasts, and the EMA a probe restarts at (2x the floor: ~4-5
+    # zero-acceptance verifies before cooling again, one good to recover)
+    SPEC_EMA_ALPHA = 0.2
+    SPEC_MIN_ACCEPT = 0.25
+    SPEC_COOLOFF_DISPATCHES = 16
+    SPEC_PROBE_EMA = 0.5
     # the paged subclass reads through its paged kernel whatever
     # cfg.decode_attn says, so the dense-only rules below skip it
     _paged = False
@@ -260,6 +329,7 @@ class LLMEngine:
                  pipeline_depth: int = 4, async_d2h: bool = True,
                  sampling_controls: bool = False, seed: int = 0,
                  budget_bytes: Optional[int] = None,
+                 speculative_tokens: int = 0, chunk_prefill_tokens: int = 0,
                  device=None, logger: Optional[logging.Logger] = None):
         self.device = resolve_device(device)
         self.params = params
@@ -317,6 +387,51 @@ class LLMEngine:
         if self._q8 and cfg.decode_attn != "kernel" and not self._paged:
             raise ValueError("kv_dtype='int8' requires decode_attn="
                              "'kernel' (no efficient XLA dequant read)")
+        # speculative decoding (prompt-lookup drafting): d > 0 replaces the
+        # block decode by a VERIFY dispatch scoring each row's current token
+        # and up to d host-proposed drafts in one forward; greedy output is
+        # the plain engine's. Verify dispatches run one at a time (the next
+        # window starts where this one's acceptance ends)
+        self.speculative_tokens = max(0, int(speculative_tokens))
+        # bound once: the native scan, or the Python one without a compiler
+        self._native_propose = (native.propose_draft if native.available()
+                                else None)
+        # adaptive speculation: the accepted-per-eligible-row estimate picks
+        # a verify or a pipelined block decode; a cold streak cools off for
+        # SPEC_COOLOFF_DISPATCHES blocks, then probes again
+        self._spec_accept_ema = float(self.speculative_tokens)
+        self._spec_cooloff = 0
+        # consecutive verify rounds in which no row had a draft (two in a
+        # row cool off: _dispatch_verify's zero-draft branch)
+        self._spec_no_draft_streak = 0
+        if self.speculative_tokens:
+            if self._q8:
+                raise ValueError("speculative_tokens with kv_dtype='int8' "
+                                 "is not supported yet (the verify window "
+                                 "needs a dequant cached-attention read)")
+            if chunk_prefill_tokens:
+                raise ValueError("speculative_tokens with chunked prefill "
+                                 "is not supported yet")
+        # chunked prefill (0 = off): prompts in buckets larger than this are
+        # admitted as several bounded chunk dispatches, so decode blocks and
+        # other admissions run between them; the chunk size must divide
+        # every bucket it splits
+        self.chunk_prefill_tokens = max(0, int(chunk_prefill_tokens))
+        if self.chunk_prefill_tokens:
+            for bucket in self.prefill_buckets:
+                if (bucket > self.chunk_prefill_tokens
+                        and bucket % self.chunk_prefill_tokens):
+                    raise ValueError(
+                        f"chunk_prefill_tokens={self.chunk_prefill_tokens} "
+                        f"must divide prefill bucket {bucket}")
+        # chunk jobs in admission order; the oldest advances one chunk per
+        # loop iteration
+        self._chunk_jobs: collections.deque = collections.deque()
+        # a chunk job's carried device state lives in its program's buffers
+        # (a graph reads fixed addresses): key -> the buffers, and the job
+        # whose state they hold; a job of the same shape swaps it out
+        self._chunk_bufs: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+        self._chunk_resident: Dict[tuple, dict] = {}
         self.top_k = top_k
         self.decode_block_size = max(1, decode_block_size)
         self.pipeline_depth = max(1, pipeline_depth)
@@ -383,6 +498,21 @@ class LLMEngine:
         self.decode_blocks = 0
         # the most dispatches in flight at once
         self.max_inflight = 0
+        # speculation: verify dispatches, drafts proposed, drafts accepted
+        # on the device, greedy-eligible rows over the verifies synced,
+        # cooloffs engaged and zero-draft rounds fallen back to a block
+        self.verify_dispatches = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_eligible = 0
+        self.spec_cooloffs = 0
+        self.spec_zero_draft = 0
+        # chunked prefill: chunk dispatches, jobs started, and the swaps of
+        # a job's carried state between jobs of one shape (and their bytes)
+        self.chunk_dispatches = 0
+        self.chunk_jobs = 0
+        self.chunk_swaps = 0
+        self.chunk_swap_bytes = 0
         self._init_device_state()
         if self._stream is not None:   # the state was made on the default one
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -463,7 +593,11 @@ class LLMEngine:
         longest = max((slot.length for slot in self.slots if slot.active),
                       default=0)
         outstanding = len(self._inflight) + 1
-        return longest + self.decode_block_size * outstanding + 1
+        # adaptive speculation interleaves verifies (d+1 tokens) and blocks
+        per_dispatch = (max(self.speculative_tokens + 1,
+                            self.decode_block_size)
+                        if self.speculative_tokens else self.decode_block_size)
+        return longest + per_dispatch * outstanding + 1
 
     # -- programs -------------------------------------------------------------
     def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
@@ -653,20 +787,21 @@ class LLMEngine:
         inputs[-2].fill_(1)
 
     @contextlib.contextmanager
-    def _warmup_state(self, harmless: Callable[[], object]):
+    def _warmup_state(self, harmless: Callable[[], object],
+                      extra: Sequence[torch.Tensor] = ()):
         """Around the eager run before a capture, which writes K/V and the
         loop state and advances the generator: the tokens, positions,
-        temperatures and generator are saved and restored, and `harmless`
-        points the run's K/V writes where no live row reads."""
-        saved = [t.clone() for t in (self._tokens, self._positions,
-                                     self._temps)]
+        temperatures, `extra` (a live chunk job's carried state) and the
+        generator are saved and restored, and `harmless` points the run's
+        K/V writes where no live row reads."""
+        kept = (self._tokens, self._positions, self._temps, *extra)
+        saved = [t.clone() for t in kept]
         rng = self.generator.get_state()
         harmless()
         try:
             yield
         finally:
-            for t, s in zip((self._tokens, self._positions, self._temps),
-                            saved):
+            for t, s in zip(kept, saved):
                 t.copy_(s)
             self.generator.set_state(rng)
 
@@ -699,15 +834,32 @@ class LLMEngine:
             ks.append(ks[-1] * 2)
         return ks
 
+    def _chunked(self, bucket: int) -> bool:
+        """Whether a wave at `bucket` is admitted in chunks."""
+        return bool(self.chunk_prefill_tokens
+                    and bucket > self.chunk_prefill_tokens)
+
     def _warm_programs(self, k_variants: bool) -> None:
-        """Dense: the admission at each of _warm_ks for every bucket, and
-        the full and the half decode block (each variant), all at the grown
-        length."""
+        """Dense, all at the grown length: the admission at each of
+        _warm_ks for every bucket not routed to chunks; for each of those
+        K the first and final chunk programs (and the middle one where a
+        bucket has more than two chunks); the verify program; and the full
+        and the half decode block, which a cooloff runs (each variant)."""
+        chunk = self.chunk_prefill_tokens
         for bucket in self.prefill_buckets:
+            if not self._chunked(bucket):
+                for K in self._warm_ks(k_variants):
+                    self._prefill_program(bucket, K)
+        if any(self._chunked(b) for b in self.prefill_buckets):
             for K in self._warm_ks(k_variants):
-                self._prefill_program(bucket, K)
-        for block in self._block_sizes():
-            for row_filter in self._decode_variants():
+                self._chunk_program(chunk, K, first=True, final=False)
+                self._chunk_program(chunk, K, first=False, final=True)
+                if any(b > 2 * chunk for b in self.prefill_buckets):
+                    self._chunk_program(chunk, K, first=False, final=False)
+        for row_filter in self._decode_variants():
+            if self.speculative_tokens:
+                self._verify_program(row_filter)
+            for block in self._block_sizes():
                 self._decode_program(block, row_filter)
 
     def _reserved(self) -> int:
@@ -720,6 +872,375 @@ class LLMEngine:
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
         return torch.cuda.memory_reserved(self.device)
+
+    # -- speculative decoding (prompt-lookup drafting) ------------------------
+    def _propose_draft(self, history: List[int]) -> List[int]:
+        """Prompt-lookup draft: the tokens that followed the most recent
+        earlier occurrence of the sequence's trailing bigram, up to
+        speculative_tokens of them; empty without a match (the row then
+        rides the verify as a one-token step). The native scan
+        (native.propose_draft), or this Python one without a compiler."""
+        d = self.speculative_tokens
+        if self._native_propose is not None:
+            return self._native_propose(history, d)
+        n = 2
+        if len(history) < n + 1:
+            return []
+        tail = history[-n:]
+        for i in range(len(history) - n - 1, -1, -1):
+            if history[i:i + n] == tail:
+                return history[i + n: i + n + d]
+        return []
+
+    def _verify_forward(self, drafts, *table):
+        """The window forward of a verify: (greedy [B, d+1], logits0
+        [B, V]); the dense engine's over its caches."""
+        return llama_verify_step(self.params, self.cfg, self._tokens, drafts,
+                                 self._positions, self.k_cache,
+                                 self.v_cache)[:2]
+
+    def _verify_fn(self, drafts, draft_lens, row_filter: bool, *table):
+        """One verify dispatch: the window forward, then the shared
+        acceptance (spec_accept_epilogue), the loop state advanced in place.
+        Returns [B, d+2]: the [B, d+1] tokens and, last, the emit counts."""
+        g, logits0 = self._verify_forward(drafts, *table)
+        tokens, positions, out, n_emit = spec_accept_epilogue(
+            g, logits0, self._temps, self.generator, drafts, draft_lens,
+            self._positions, self.speculative_tokens, self.top_k,
+            row_filter)
+        self._tokens.copy_(tokens)
+        self._positions.copy_(positions)
+        return torch.cat([out, n_emit[:, None]], dim=1)
+
+    def _verify_specs(self) -> list:
+        """The static inputs every verify program ends with: drafts [B, d]
+        (int64) and their lengths [B] (int32)."""
+        B = self.n_slots
+        return [((B, self.speculative_tokens), torch.long),
+                ((B,), torch.int32)]
+
+    def _verify_program(self, row_filter: bool = True):
+        """The verify program at the cache's current length (the
+        reference's ``llama-verify-x{d}-S{len}``, with the decode blocks'
+        variant tag: under sampling_controls ``-sc`` samples position 0
+        through the per-row filters and ``-sc-nosort`` without). Its
+        warm-up puts every row at S - 1, where the window's writes clamp."""
+        inputs = self._static_inputs(("verify",), self._verify_specs())
+        flash = "-flash" if self.cfg.attn_impl == "flash" else ""
+        return self.executor.compile(
+            f"llama-verify-x{self.speculative_tokens}-S{self._cache_len}"
+            f"{flash}{self._decode_tag(row_filter)}",
+            lambda drafts, lens: self._verify_fn(drafts, lens, row_filter),
+            inputs,
+            warmup=lambda: self._warmup_state(
+                lambda: self._positions.fill_(self._cache_len - 1)),
+            generators=(self.generator,))
+
+    def _verify_call(self, drafts: np.ndarray, lens: np.ndarray
+                     ) -> torch.Tensor:
+        """Run the verify program over the caches, grown first to what the
+        active rows need; returns its [B, d+2] output on the device."""
+        need = self._decode_need()
+        if need > self._cache_len:
+            self._grow_cache(need)
+        return self._call(self._verify_program(self._row_filter_now()),
+                          (drafts, lens))
+
+    def _dispatch_verify(self) -> None:
+        """Propose drafts for the greedy rows and dispatch one verify, its
+        D2H started. With no draft at all, a block decode goes instead (a
+        verify would be an unpipelined one-token step); two such rounds in
+        a row cool speculation off. A failure at dispatch fails the rows it
+        carried."""
+        d, B = self.speculative_tokens, self.n_slots
+        drafts = np.zeros((B, d), dtype=np.int64)
+        lens = np.zeros((B,), dtype=np.int32)
+        snapshot = []
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            # acceptance is exact-match against the argmax, so only greedy
+            # rows draft; a temperature row rides along as a one-token step.
+            # Eligibility travels with the snapshot: the acceptance EMA
+            # divides by the rows that COULD accept
+            eligible = bool(slot.request.temperature <= 0.0 and slot.history
+                            and slot.remaining > 0)
+            snapshot.append((i, slot.request, eligible))
+            if eligible:
+                cont = self._propose_draft(slot.history)
+                if cont:
+                    drafts[i, :len(cont)] = cont
+                    lens[i] = len(cont)
+        if not lens.any():
+            # zero drafts is no acceptance signal (the EMA stays), but two
+            # draftless rounds in a row let block decodes pipeline again
+            self.spec_zero_draft += 1
+            self._spec_no_draft_streak += 1
+            if self._spec_no_draft_streak >= 2:
+                self._cool_off()
+            self._dispatch_decode()
+            return
+        self._spec_no_draft_streak = 0
+        try:
+            fetch = self._start_d2h(self._verify_call(drafts, lens))
+        except Exception as exc:  # noqa: BLE001 - fail the rows, keep serving
+            self.logger.error("verify dispatch failed: %s", exc)
+            for i, request, _ in snapshot:
+                request.error = exc
+                self._finish_slot(self.slots[i])
+            return
+        self.verify_dispatches += 1
+        self.spec_drafted += int(lens.sum())
+        self._push(("verify", fetch, snapshot, d))
+
+    def _cool_off(self) -> None:
+        """Pause verifies for SPEC_COOLOFF_DISPATCHES block decodes."""
+        if self._spec_cooloff <= 0:
+            self.spec_cooloffs += 1
+        self._spec_cooloff = self.SPEC_COOLOFF_DISPATCHES
+
+    # -- chunked prefill ------------------------------------------------------
+    def _chunk_key(self, bucket: int, K: int) -> tuple:
+        """The key of a chunk job's programs, static inputs and carried
+        state: the dense engine's depend on (chunk, K) only."""
+        return ("chunk", self.chunk_prefill_tokens, K)
+
+    def _chunk_state_specs(self, key: tuple) -> list:
+        """The carried state of a job keyed `key`: the dense engine's
+        [K, V] f32 logits of each row's last prompt position (`selected`: a
+        short row's last token may fall in any chunk)."""
+        return [((key[2], self.cfg.vocab_size), torch.float32)]
+
+    def _chunk_state(self, key: tuple) -> Tuple[torch.Tensor, ...]:
+        """The carried-state buffers of the chunk programs keyed `key`,
+        made zeroed at first use and kept for the engine's life."""
+        bufs = self._chunk_bufs.get(key)
+        if bufs is None:
+            bufs = self._chunk_bufs[key] = tuple(
+                torch.zeros(shape, dtype=dtype, device=self.device)
+                for shape, dtype in self._chunk_state_specs(key))
+        return bufs
+
+    def _chunk_live_state(self, key: tuple) -> Tuple[torch.Tensor, ...]:
+        """The buffers a capture's warm-up must save and restore: those
+        keyed `key` while a job's state is in them, else none."""
+        return self._chunk_bufs[key] if key in self._chunk_resident else ()
+
+    def _chunk_specs(self, K: int, extra: list) -> list:
+        """A chunk program's static inputs: tokens and positions [K, chunk]
+        (int64), `extra` (the paged engine's page table), the chunk's start
+        [1] (int64), then the rows (_row_specs)."""
+        chunk = self.chunk_prefill_tokens
+        return [((K, chunk), torch.long), ((K, chunk), torch.long), *extra,
+                ((1,), torch.long), *self._row_specs(K)]
+
+    def _harmless_chunk(self, inputs, slots, park: Optional[int]) -> None:
+        """_harmless_wave for a chunk program, with every position at
+        `park` (dense: the cache's last column, where no live row reads)."""
+        self._harmless_wave(inputs, slots)
+        if park is not None:
+            inputs[1].fill_(park)
+
+    def _chunk_forward(self, selected, ctokens, cpositions, start, slots,
+                       lengths, tmp=None):
+        """One chunk's forward (the rows' own caches, or the paged job's
+        temps `tmp`), its last-position logits folded into `selected`
+        where a row's last prompt token falls in this chunk."""
+        chunk = ctokens.shape[1]
+        project_last = (lengths.long() - 1 - start).clamp(0, chunk - 1)
+        params, cfg = self.params, self.cfg
+        if tmp is not None:
+            logits = llama_prefill_chunk(params, cfg, ctokens, cpositions,
+                                         list(tmp[0]), list(tmp[1]), None,
+                                         project_last)[0]
+        elif self._q8:
+            logits = llama_prefill_chunk_q8(
+                params, cfg, ctokens, cpositions, self.k_cache, self.v_cache,
+                self.k_scale, self.v_scale, slots, project_last)[0]
+        else:
+            logits = llama_prefill_chunk(params, cfg, ctokens, cpositions,
+                                         self.k_cache, self.v_cache, slots,
+                                         project_last)[0]
+        last = lengths.long() - 1
+        in_chunk = (last >= start) & (last < start + chunk)
+        selected.copy_(torch.where(in_chunk[:, None], logits, selected))
+
+    def _chunk_fn(self, selected, first: bool, final: bool, ctokens,
+                  cpositions, start, slots, lengths, new_temps):
+        """One dense chunk dispatch (the reference's ``_chunk_fn``, with
+        ``_chunk_fn_q8`` as its int8 branch): the chunk's forward against
+        the live cache rows; the first chunk PARKS the reserved rows'
+        positions at the cache's last column, so decode blocks between
+        chunks write their lock-step junk there and never inside the
+        prompt; the final one samples the first tokens from `selected` and
+        splices the loop state. Returns the [K] first tokens (final) or
+        `selected`."""
+        self._chunk_forward(selected, ctokens, cpositions, start, slots,
+                            lengths)
+        if first:
+            self._positions.index_fill_(0, slots, self._cache_len - 1)
+        if not final:
+            return selected
+        return self._splice_loop_state(selected, slots, lengths, new_temps)
+
+    def _chunk_program(self, chunk: int, K: int, first: bool, final: bool,
+                       slots: Optional[Sequence[int]] = None):
+        """The dense chunk program (the reference's ``_chunk_program``):
+        ``llama-chunk[-q8]-{chunk}x{K}[-first][-final]-S{len}``, one graph
+        per variant and cache length on the card. Static inputs:
+        _chunk_specs; the carried `selected` is _chunk_state's. slots: the
+        job's rows, which the warm-up writes (at the parked column)."""
+        key = self._chunk_key(0, K)
+        inputs = self._static_inputs(key, self._chunk_specs(K, []))
+        (selected,) = self._chunk_state(key)
+        kind = "-q8" if self._q8 else ""
+        tag = (f"{'-first' if first else ''}{'-final' if final else ''}"
+               f"-S{self._cache_len}{self._id_tag}")
+        return self.executor.compile(
+            f"llama-chunk{kind}-{chunk}x{K}{tag}",
+            lambda *a: self._chunk_fn(selected, first, final, *a), inputs,
+            warmup=lambda: self._warmup_state(
+                lambda: self._harmless_chunk(inputs, slots,
+                                             self._cache_len - 1),
+                self._chunk_live_state(key)),
+            generators=(self.generator,))
+
+    def _chunk_program_of(self, job: dict, first: bool, final: bool):
+        """The program of a job's next chunk."""
+        if job["bucket"] + 1 > self._cache_len:
+            self._grow_cache(job["bucket"] + 1)
+        return self._chunk_program(job["chunk"], len(job["batch"]), first,
+                                   final, job["slots_idx"])
+
+    def _start_chunk_job(self, bucket: int, slots_idx: List[int],
+                         batch: List[GenerationRequest]) -> None:
+        """Admit a wave in chunks (the reference's ``_start_chunk_job``):
+        its first chunk is dispatched now (its parking lands before any
+        later decode block), its slots are reserved and the job queued;
+        _advance_chunk_job runs the rest, one chunk per loop iteration. A
+        failure at the first dispatch fails this wave only."""
+        ptokens, lengths, temps = self._prep_admission(bucket, batch)
+        job = {"batch": batch, "slots_idx": slots_idx, "bucket": bucket,
+               "chunk": self.chunk_prefill_tokens, "next_start": 0,
+               "ptokens": ptokens, "lengths": lengths, "new_temps": temps,
+               "key": self._chunk_key(bucket, len(batch)),
+               "extra": self._chunk_extra(bucket, batch)}
+        try:
+            self._dispatch_chunk(job)
+        except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
+            self.logger.error("chunked admission of %d failed: %s",
+                              len(batch), exc)
+            self._release_chunk_state(job)
+            for request in batch:
+                self._abort_admission(request)
+                self._fail_request(request, exc)
+            return
+        for row, request in enumerate(batch):
+            self.slots[slots_idx[row]].chunking = request
+        self.chunk_jobs += 1
+        self._chunk_jobs.append(job)
+
+    def _chunk_extra(self, bucket: int, batch: List[GenerationRequest]
+                     ) -> tuple:
+        """The host arrays a job's chunks upload between positions and
+        start: none on the dense engine (the paged one: its page table)."""
+        return ()
+
+    def _advance_chunk_job(self) -> None:
+        """Dispatch ONE chunk of the oldest job (decode blocks fill the
+        pipeline between calls, which is the point); a job whose requests
+        were all cancelled is dropped, a failed dispatch fails its job."""
+        if not self._chunk_jobs:
+            return
+        job = self._chunk_jobs[0]
+        if all(self._is_cancelled(r) for r in job["batch"]):
+            self._chunk_jobs.popleft()
+            self._abort_chunk_job(job, None)
+            return
+        try:
+            final = self._dispatch_chunk(job)
+        except Exception as exc:  # noqa: BLE001 - fail the job, keep serving
+            self.logger.error("chunk dispatch failed: %s", exc)
+            self._chunk_jobs.popleft()
+            self._abort_chunk_job(job, exc)
+            return
+        if final:
+            self._chunk_jobs.popleft()
+            self._finish_chunk_job(job)
+
+    def _swap_chunk_state(self, job: dict) -> None:
+        """Put `job`'s carried state in its programs' buffers: the state of
+        another live job of the same shape is copied out first (into
+        tensors it then owns), and this job's copied in if it was swapped
+        out before; both copies are enqueued on the engine's stream."""
+        key = job["key"]
+        bufs = self._chunk_state(key)
+        resident = self._chunk_resident.get(key)
+        if resident is job:
+            return
+        nbytes = sum(b.numel() * b.element_size() for b in bufs)
+        if resident is not None:
+            resident["saved"] = [b.clone() for b in bufs]
+            self.chunk_swaps += 1
+            self.chunk_swap_bytes += nbytes
+        saved = job.pop("saved", None)
+        if saved is not None:
+            for b, s in zip(bufs, saved):
+                b.copy_(s)
+            self.chunk_swaps += 1
+            self.chunk_swap_bytes += nbytes
+        self._chunk_resident[key] = job
+
+    def _release_chunk_state(self, job: dict) -> None:
+        if self._chunk_resident.get(job["key"]) is job:
+            del self._chunk_resident[job["key"]]
+
+    def _dispatch_chunk(self, job: dict) -> bool:
+        """Run the job's next chunk program; True when it was the final
+        chunk (job["first_tok"] then holds the [K] first tokens on the
+        device)."""
+        batch, chunk, start = job["batch"], job["chunk"], job["next_start"]
+        K = len(batch)
+        final = start + chunk >= job["bucket"]
+        program = self._chunk_program_of(job, start == 0, final)
+        self._swap_chunk_state(job)
+        positions = np.tile(np.arange(start, start + chunk, dtype=np.int64),
+                            (K, 1))
+        out = self._call(program, (
+            job["ptokens"][:, start:start + chunk], positions, *job["extra"],
+            np.asarray([start], dtype=np.int64),
+            np.asarray(job["slots_idx"], np.int64), job["lengths"],
+            job["new_temps"]))
+        self.chunk_dispatches += 1
+        job["next_start"] = start + chunk
+        if final:
+            # the final chunk writes these rows' controls before any block
+            # dispatched after it reads them
+            self._filter_rows.update(
+                slot for slot, r in zip(job["slots_idx"], batch)
+                if r.top_p or r.top_k)
+            job["first_tok"] = out
+        return final
+
+    def _finish_chunk_job(self, job: dict) -> None:
+        """Bind a job's slots after its final chunk, as an admission wave's
+        are at dispatch; the first tokens are emitted at its sync."""
+        self._release_chunk_state(job)
+        for slot_idx in job["slots_idx"]:
+            self.slots[slot_idx].chunking = None
+        self._assign_pages(job["slots_idx"], job["batch"])
+        self._bind_slots(job["slots_idx"], job["batch"], job["first_tok"])
+
+    def _abort_chunk_job(self, job: dict,
+                         exc: Optional[BaseException]) -> None:
+        """Unreserve a job's slots and fail its requests (releasing what
+        their admission reserved)."""
+        self._release_chunk_state(job)
+        for slot_idx in job["slots_idx"]:
+            self.slots[slot_idx].chunking = None
+        for request in job["batch"]:
+            self._abort_admission(request)
+            self._fail_request(request, exc)
 
     # -- host <-> device ------------------------------------------------------
     def _stream_ctx(self):
@@ -751,12 +1272,14 @@ class LLMEngine:
 
     def _staging_bytes(self) -> int:
         """The widest static block: a [n_slots, largest bucket] wave's
-        tokens, its rows and prefix lengths, and two of the widest tables
-        (a wave's page table and a tail wave's)."""
+        tokens (a chunk's tokens and positions are no more), its rows and
+        prefix lengths, two of the widest tables (a wave's page table and a
+        tail wave's), and a verify's drafts."""
         B = self.n_slots
         T = max(self.prefill_buckets, default=16)
-        return (_aligned(B * T * 8) + 4 * _aligned(B * 8)
-                + 2 * _aligned(B * self._widest_table() * 4))
+        return (_aligned(B * T * 8) + 5 * _aligned(B * 8)
+                + 2 * _aligned(B * self._widest_table() * 4)
+                + _aligned(B * self.speculative_tokens * 8))
 
     def _widest_table(self) -> int:
         """The widest page table a program takes (none on the dense
@@ -814,9 +1337,11 @@ class LLMEngine:
         ``_fetch_host`` takes."""
         if self._stream is None or not self.async_d2h:
             return out.clone()
+        # the widest output: a decode block, or a verify's [B, d+1] tokens
+        # and its emit counts
+        width = max(self.decode_block_size, self.speculative_tokens + 2)
         buf = (self._host_free.pop() if self._host_free else torch.empty(
-            self.n_slots * self.decode_block_size, dtype=torch.long,
-            pin_memory=True))
+            self.n_slots * width, dtype=torch.long, pin_memory=True))
         host = buf[:out.numel()].view(out.shape)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
@@ -1004,7 +1529,9 @@ class LLMEngine:
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             with self._state_lock:
-                busy = (any(s.active for s in self.slots) or self._inflight
+                busy = (any(s.active or s.chunking is not None
+                            for s in self.slots)
+                        or self._inflight or self._chunk_jobs
                         or self._admission_heap or self._pending.qsize())
             if not busy:
                 return True
@@ -1019,7 +1546,7 @@ class LLMEngine:
                 synced = self._step()
             except Exception:  # noqa: BLE001 - the loop must keep serving
                 self.logger.exception("engine step failed")
-            if not synced and not self._inflight:
+            if not synced and not self._inflight and not self._chunk_jobs:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
         # graceful shutdown: finish what was already dispatched, then fail
@@ -1031,20 +1558,40 @@ class LLMEngine:
                 except Exception:  # noqa: BLE001 - fail the rest below
                     self.logger.exception("engine sync failed at stop")
         stop_exc = RuntimeError("engine stopped")
+        while self._chunk_jobs:   # mid-prefill requests must not block
+            self._abort_chunk_job(self._chunk_jobs.popleft(), stop_exc)
         for slot in self.slots:
             if slot.active:
                 slot.request.error = stop_exc
                 self._finish_slot(slot)
 
     def _step(self) -> bool:
-        """One loop iteration in the reference's order: admit; dispatch
-        decode blocks while fewer than pipeline_depth dispatches are in
-        flight; sync the oldest dispatch. Returns whether it synced one."""
+        """One loop iteration in the reference's order: admit; advance the
+        oldest chunk job by one chunk; then, while speculation is not
+        cooling off, one verify, only when no verify or decode is in flight
+        (drafts come from host state that must not lag the device);
+        otherwise decode blocks while fewer than pipeline_depth dispatches
+        are in flight, each counting a cooloff down (its end raises the EMA
+        to the probe value); sync the oldest dispatch. Returns whether it
+        synced one."""
         with torch.no_grad(), self._stream_ctx():
             self._admit()
-            while (len(self._inflight) < self.pipeline_depth
-                   and any(slot.active for slot in self.slots)):
-                self._dispatch_decode()
+            self._advance_chunk_job()
+            if self.speculative_tokens and self._spec_cooloff <= 0:
+                if (any(slot.active for slot in self.slots)
+                        and not any(e[0] in ("verify", "decode")
+                                    for e in self._inflight)):
+                    self._dispatch_verify()
+            else:
+                while (len(self._inflight) < self.pipeline_depth
+                       and any(slot.active for slot in self.slots)):
+                    self._dispatch_decode()
+                    if self._spec_cooloff > 0:
+                        self._spec_cooloff -= 1
+                        if self._spec_cooloff == 0:
+                            self._spec_accept_ema = max(
+                                self._spec_accept_ema, self.SPEC_PROBE_EMA)
+                            break
             if not self._inflight:
                 return False
             self._sync_oldest()
@@ -1064,7 +1611,8 @@ class LLMEngine:
             self._admit_locked()
 
     def _admit_locked(self) -> None:
-        free = [i for i, slot in enumerate(self.slots) if not slot.active]
+        free = [i for i, slot in enumerate(self.slots)
+                if not slot.active and slot.chunking is None]
         if not free:
             return
         while True:
@@ -1097,7 +1645,11 @@ class LLMEngine:
             for K in _admission_split(len(group), self.n_slots):
                 batch = group[offset:offset + K]
                 offset += K
-                self._prefill(bucket, [next(free_iter) for _ in batch], batch)
+                slots_idx = [next(free_iter) for _ in batch]
+                if self._chunked(bucket):
+                    self._start_chunk_job(bucket, slots_idx, batch)
+                else:
+                    self._prefill(bucket, slots_idx, batch)
 
     def _prefill(self, bucket: int, slots_idx: List[int],
                  batch: List[GenerationRequest]) -> None:
@@ -1139,6 +1691,13 @@ class LLMEngine:
             slot.length = len(request.prompt_tokens)
             slot.remaining = request.max_new_tokens - 1
             admitted.append((slots_idx[row], request))
+        if self.speculative_tokens and self._spec_cooloff > 0:
+            # fresh traffic probes at once: the cold streak belonged to
+            # other requests, and a short request could otherwise finish
+            # without speculation ever being tried
+            self._spec_cooloff = 0
+            self._spec_accept_ema = max(self._spec_accept_ema,
+                                        self.SPEC_PROBE_EMA)
         self._push(("prefill", fetch, admitted, 1))
 
     def _push(self, entry) -> None:
@@ -1177,14 +1736,15 @@ class LLMEngine:
 
     def _sync_oldest(self) -> None:
         """Wait for the oldest dispatch and deliver it: a prefill's first
-        tokens, or a decode block demuxed per row. Rows whose slot was
-        freed or re-bound since the dispatch are skipped."""
+        tokens, a decode block demuxed per row, or a verify's accepted
+        tokens demuxed per row (then the acceptance EMA). Rows whose slot
+        was freed or re-bound since the dispatch are skipped."""
         kind, fetch, rows, block = self._inflight.popleft()
         try:
             tokens_host = self._fetch_host(fetch)
         except Exception as exc:  # noqa: BLE001 - fail its rows, keep serving
             self.logger.error("%s dispatch failed at sync: %s", kind, exc)
-            for i, request in rows:
+            for i, request, *_ in rows:
                 if self.slots[i].request is request:
                     request.error = exc
                     self._finish_slot(self.slots[i])
@@ -1195,23 +1755,58 @@ class LLMEngine:
                 if slot.request is not request:  # cancelled since dispatch
                     continue
                 token = int(tokens_host[row])
+                if self.speculative_tokens:
+                    slot.history = list(request.prompt_tokens) + [token]
                 self._emit_block(request, [token])
                 if (request.hit_stop(token) or slot.remaining <= 0
                         or self._is_cancelled(request)):
                     self._finish_slot(slot)
             return
+        if kind == "verify":
+            self._sync_verify(tokens_host, rows)
+            return
         live = [(i, r) for i, r in rows if self.slots[i].request is r]
+        self._demux(tokens_host, live, [block] * len(live))
+
+    def _demux(self, tokens_host, live, limits) -> None:
+        """Deliver a synced [B, W] token matrix to its live (slot, request)
+        rows, each up to its limit (_demux_plan), extending the drafting
+        history of speculative rows (a cooloff's blocks too)."""
         counts, finishes = self._demux_plan(
-            tokens_host, [i for i, _ in live], [r for _, r in live],
-            [block] * len(live))
+            tokens_host, [i for i, _ in live], [r for _, r in live], limits)
         for j, (slot_idx, request) in enumerate(live):
             slot = self.slots[slot_idx]
             n = int(counts[j])
+            toks = tokens_host[slot_idx, :n].tolist()
             slot.length += n
             slot.remaining -= n
-            self._emit_block(request, tokens_host[slot_idx, :n].tolist())
+            if slot.history is not None:
+                slot.history.extend(toks)
+            self._emit_block(request, toks)
             if finishes[j]:
                 self._finish_slot(slot)
+
+    def _sync_verify(self, synced, rows) -> None:
+        """A verify's [B, d+2] output: each live row emits out[b, :n_emit]
+        (truncated at its stops and budget by _demux_plan); the acceptance
+        counted on the device, before that truncation, is folded into the
+        EMA per greedy-ELIGIBLE row (temperature rows can never accept, so
+        they must not read as rejection), and a cold EMA cools off."""
+        out, n_emit = synced[:, :-1], synced[:, -1]
+        live = [(i, r) for i, r, _ in rows if self.slots[i].request is r]
+        eligible = sum(1 for i, r, e in rows
+                       if e and self.slots[i].request is r)
+        limits = [int(n_emit[i]) for i, _ in live]
+        accepted = sum(max(0, n - 1) for n in limits)
+        self.spec_accepted += accepted
+        self.spec_eligible += eligible
+        self._demux(out, live, limits)
+        if eligible:
+            a = self.SPEC_EMA_ALPHA
+            self._spec_accept_ema = ((1 - a) * self._spec_accept_ema
+                                     + a * accepted / eligible)
+            if self._spec_accept_ema < self.SPEC_MIN_ACCEPT:
+                self._cool_off()
 
     def _emit_block(self, request: GenerationRequest,
                     tokens: List[int]) -> None:
@@ -1282,6 +1877,7 @@ class LLMEngine:
         slot.request = None
         slot.length = 0
         slot.remaining = 0
+        slot.history = None
         idx = self.slots.index(slot)
         if idx in self._filter_rows:
             # zero the freed row's controls behind the blocks in flight

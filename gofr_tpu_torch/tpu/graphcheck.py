@@ -1,11 +1,12 @@
 """A dispatch's program held against the same work run eagerly.
 
 For ``chip_smoke.py`` and the card's tests, not for serving: one decode
-block, or one admission wave (full or, on the paged engine, tail-only),
-replayed from its program (a CUDA graph on the card) and the same work run
-op by op from the same state, which is copied before the replay and put
-back before the eager run (the loop state, the caches or pools with their
-scales, and the generator). On a sampling_controls engine the rows' top_p /
+block, one admission wave (full or, on the paged engine, tail-only), one
+speculative verify or one chunk of a chunked admission, replayed from its
+program (a CUDA graph on the card) and the same work run op by op from the
+same state, which is copied before the replay and put back before the
+eager run (the loop state, the caches or pools with their scales, a chunk
+job's carried state, and the generator). On a sampling_controls engine the rows' top_p /
 top_k come from ``CONTROLS`` or are all 0, and the block runs the decode
 variant the host picks for them: with the per-row filters, or without.
 Any engine will do, on bf16 or int8 weights (models.llama.quantize_weights:
@@ -203,16 +204,198 @@ def prefill_graph_vs_eager(eng, K: int, bucket: int, tail: bool = False,
         restore()
         eager = eager_fn(*program.inputs)
         end = _flash() if on_card else 0
-        diffs = [(a.float() - b.float()).abs()
-                 for a, b in zip(after_graph, state)]
-        pools = isinstance(eng, PagedLLMEngine)
-        loop = 3                        # the loop state leads state_tensors
-        diff = max(float((d[:, 1:] if pools and i >= loop else d).max())
-                   for i, d in enumerate(diffs))
-        garbage = max((float(d[:, 0].max()) for d in diffs[loop:]),
-                      default=0.0) if pools else 0.0
-        scale = max(float(t.float().abs().max()) for t in after_graph[loop:])
+        diff, garbage, scale = _compare(eng, state, after_graph)
         restore()
     return {"graph": graph, "eager": eager, "state_diff": diff,
             "garbage_diff": garbage, "state_max": scale,
             "graph_launches": mid - before, "eager_launches": end - mid}
+
+
+def _compare(eng, state, after_graph, loop: int = 3) -> tuple:
+    """(largest difference of the state a replay left against the eager
+    run's, the paged garbage page 0's alone, the largest |K/V|): `state`
+    is state_tensors(eng), then any carried buffers, the first `loop` the
+    loop state; the pools' page 0 is left out of the first number
+    (duplicate pad and junk writes land there in no fixed order on the
+    card)."""
+    pools = isinstance(eng, PagedLLMEngine)
+    diffs = [(a.float() - b.float()).abs() for a, b in zip(after_graph, state)]
+    n_kv = len(state_tensors(eng)) - loop
+    kv = range(loop, loop + n_kv)
+    diff = max(float((d[:, 1:] if pools and i in kv else d).max())
+               for i, d in enumerate(diffs))
+    garbage = (max(float(diffs[i][:, 0].max()) for i in kv) if pools
+               else 0.0)
+    scale = max(float(after_graph[i].float().abs().max()) for i in kv)
+    return diff, garbage, scale
+
+
+def _saved(state):
+    return [t.clone() for t in state]
+
+
+def greedy_drafts(eng):
+    """Drafts [B, d] that every active greedy row's verify accepts in full,
+    and their lengths [B] (d on those rows, else 0): the model's own greedy
+    continuation, found one position at a time by d eager verifies from
+    copies of the engine's state, which is put back after each (the
+    engine's in-flight dispatches synced)."""
+    d, B = eng.speculative_tokens, eng.n_slots
+    drafts = np.zeros((B, d), dtype=np.int64)
+    rows = [i for i, slot in enumerate(eng.slots)
+            if slot.active and slot.request.temperature <= 0.0]
+    if not rows:
+        raise ValueError("greedy_drafts needs an active greedy row")
+    lens = np.zeros((B,), dtype=np.int32)
+    lens[rows] = d
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
+        state = state_tensors(eng)
+        saved = _saved(state)
+        rng = eng.generator.get_state()
+        table = ((torch.from_numpy(eng._build_table()).to(eng.device),)
+                 if isinstance(eng, PagedLLMEngine) else ())
+        for i in range(d):
+            out = eng._verify_fn(torch.from_numpy(drafts).to(eng.device),
+                                 torch.from_numpy(lens).to(eng.device),
+                                 eng._row_filter_now(), *table)
+            drafts[rows, i] = out[rows, i].cpu().numpy()
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            eng.generator.set_state(rng)
+    return drafts, lens
+
+
+def verify_graph_vs_eager(eng, drafts=None, lens=None) -> dict:
+    """Sync the engine's in-flight dispatches; with `drafts` [B, d] and
+    `lens` [B] (default: greedy_drafts, which every active greedy row
+    accepts in full) make the verify program a dispatch would call
+    (capturing it if it is new) and put the state back; replay it, copy
+    what it left, put the state back and run the same verify eagerly on
+    the same inputs; put the state back once more. Returns both [B, d+2]
+    outputs (the window's tokens and, last, the emit counts), `state_diff`
+    (the paged pools' page 0 left out, where inactive rows' windows land),
+    `garbage_diff`, `state_max`, the rows that drafted and the drafts
+    accepted by the replay."""
+    paged = isinstance(eng, PagedLLMEngine)
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
+        if not paged:
+            need = eng._decode_need()
+            if need > eng._cache_len:
+                eng._grow_cache(need)
+        if drafts is None:
+            drafts, lens = greedy_drafts(eng)
+        row_filter = eng._row_filter_now()
+        if paged:
+            table = eng._build_table()
+            program = eng._verify_program(table.shape[1], row_filter)
+            arrays = (table, drafts, lens)
+        else:
+            program = eng._verify_program(row_filter)
+            arrays = (drafts, lens)
+        state = state_tensors(eng)
+        saved = _saved(state)
+        rng = eng.generator.get_state()
+
+        def restore():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            eng.generator.set_state(rng)
+
+        graph = eng._call(program, arrays).clone()
+        after_graph = _saved(state)
+        restore()
+        inputs = program.inputs
+        eager = eng._verify_fn(inputs[-2], inputs[-1], row_filter,
+                               *inputs[:-2])
+        diff, garbage, scale = _compare(eng, state, after_graph)
+        restore()
+    n_emit = graph[:, -1].cpu()
+    rows = int((lens > 0).sum())
+    return {"graph": graph, "eager": eager, "state_diff": diff,
+            "garbage_diff": garbage, "state_max": scale, "rows": rows,
+            "accepted": int((n_emit - 1).clamp(min=0).sum())}
+
+
+def chunk_graph_vs_eager(eng, K: int, bucket: int, final: bool,
+                         temperature: float = 0.0, seed: int = 0) -> dict:
+    """A synthetic K-row chunked admission at `bucket` into slots 0..K-1
+    (prompt lengths in (bucket / 2, bucket], paged rows on distinct pages
+    from 1 up): its chunks before the checked one run through their
+    programs, then the checked chunk (the second, a middle one, or with
+    `final` the last) is replayed from its program and run eagerly from the
+    same state, as prefill_graph_vs_eager does for a wave; the engine's
+    state (the loop state, the caches or pools, the job's carried buffers,
+    the generator) is put back at the end. Returns both runs' outputs (the
+    [K] first tokens of a final chunk, else the carried logits),
+    `state_diff` over the state and the carried buffers (the paged pools'
+    page 0 left out), `garbage_diff`, `state_max`."""
+    chunk = eng.chunk_prefill_tokens
+    if not eng._chunked(bucket):
+        raise ValueError(f"bucket {bucket} is not admitted in chunks")
+    paged = isinstance(eng, PagedLLMEngine)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, eng.cfg.vocab_size, (K, bucket), dtype=np.int64)
+    lengths = rng.integers(bucket // 2 + 1, bucket + 1, K).astype(np.int32)
+    temps = (_controls(K, temperature, False) if eng.sampling_controls
+             else np.full(K, temperature, dtype=np.float32))
+    slots = np.arange(K, dtype=np.int64)
+    extra = (_pages(eng, K, -(-bucket // eng.page_size)),) if paged else ()
+    target = bucket - chunk if final else chunk
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
+        if not paged and bucket + 1 > eng._cache_len:
+            eng._grow_cache(bucket + 1)
+        key = eng._chunk_key(bucket, K)
+        bufs = list(eng._chunk_state(key))
+        state = state_tensors(eng) + bufs
+        saved = _saved(state)
+        gen = eng.generator.get_state()
+
+        def restore():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+            eng.generator.set_state(gen)
+
+        def program_at(start):
+            last = start + chunk >= bucket
+            if paged:
+                return eng._chunk_program_paged(chunk, K, bucket, last)
+            return eng._chunk_program(chunk, K, start == 0, last)
+
+        def arrays_at(start):
+            pos = np.tile(np.arange(start, start + chunk, dtype=np.int64),
+                          (K, 1))
+            return (tokens[:, start:start + chunk], pos, *extra,
+                    np.asarray([start], dtype=np.int64), slots, lengths,
+                    temps)
+
+        for start in range(0, target + chunk, chunk):
+            program_at(start)          # capture before any state is kept
+        restore()
+        for start in range(0, target, chunk):
+            eng._call(program_at(start), arrays_at(start))
+        before = _saved(state)
+        program = program_at(target)
+        graph = eng._call(program, arrays_at(target)).clone()
+        after_graph = _saved(state)
+        for t, s in zip(state, before):
+            t.copy_(s)
+        eng.generator.set_state(gen)      # only a final chunk draws
+        last = target + chunk >= bucket
+        if paged:
+            tmp_k, tmp_v, selected = bufs
+            eager = eng._chunk_fn_paged(tmp_k, tmp_v, selected, last,
+                                        *program.inputs)
+        else:
+            eager = eng._chunk_fn(bufs[0], target == 0, last,
+                                  *program.inputs)
+        eager = eager.clone()
+        diff, garbage, scale = _compare(eng, state, after_graph)
+        restore()
+    return {"graph": graph, "eager": eager, "state_diff": diff,
+            "garbage_diff": garbage, "state_max": scale}

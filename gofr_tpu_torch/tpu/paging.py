@@ -45,10 +45,16 @@ request is handed the pages next, and a row never reads a position it has
 not written. A prefix hit may likewise share pages whose prefill is queued
 but has not run; its tail prefill is queued after it.
 
-Not ported yet: chunked prefill and speculative verify (ROADMAP A10), KV
-tiering, disaggregated hand-off and migration (A11), and with them the
-prefix paths that serve them (the restore from a KV tier, dropping a hit
-whose tail would chunk).
+Speculative verify and chunked prefill (ROADMAP A10): the verify program
+per table width (``_verify_fn_paged`` as ``_verify_forward`` around the
+shared ``engine.spec_accept_epilogue``, ``_verify_program(n_table)``,
+``_verify_call``), ``llama-paged-verify-x{d}-NP{n_table}``; the chunk
+programs per (chunk, K, bucket) over per-job temps (``_chunk_fn_paged``
+with ``_chunk_fn_paged_q8_final`` as its int8 branch,
+``_chunk_program_paged``, the job's page table), and
+``_tail_routes_to_chunk``, which drops a prefix hit whose tail would still
+chunk. Not ported yet: KV tiering, disaggregated hand-off and migration
+(A11), and with them the restore from a KV tier.
 """
 
 from __future__ import annotations
@@ -62,7 +68,8 @@ import torch
 from ..models.llama import (DTYPES, llama_decode_step_paged,
                             llama_decode_step_paged_q8,
                             llama_prefill_paged_prefix,
-                            llama_prefill_paged_prefix_q8)
+                            llama_prefill_paged_prefix_q8,
+                            llama_verify_step_paged)
 from ..ops.decode_attention import quantize_kv
 from ..ops.paged_attention import (paged_write_prefill_scales,
                                    paged_write_prefill_stacked)
@@ -187,8 +194,15 @@ class PagedLLMEngine(LLMEngine):
         shared: List[int] = []
         if self.prefix is not None:
             if request.id not in self._prefix_hits:
-                self._prefix_hits[request.id] = self.prefix.match(
-                    request.prompt_tokens)
+                hit = self.prefix.match(request.prompt_tokens)
+                if hit and self._tail_routes_to_chunk(request, hit):
+                    # the tail would still chunk: drop the hit before the
+                    # reservation is sized (the finished chunk job still
+                    # inserts, so the next such prompt admits tail-only)
+                    for page_id in hit:
+                        self.prefix.unref(page_id)
+                    hit = []
+                self._prefix_hits[request.id] = hit
             shared = self._prefix_hits[request.id]
         need = self._request_pages(request) - len(shared)
         pages = self.allocator.alloc(need)
@@ -212,6 +226,10 @@ class PagedLLMEngine(LLMEngine):
                      shared: List[int]) -> int:
         tail = len(request.prompt_tokens) - len(shared) * self.page_size
         return next_bucket(max(1, tail), self.prefill_buckets)
+
+    def _tail_routes_to_chunk(self, request: GenerationRequest,
+                              shared: List[int]) -> bool:
+        return self._chunked(self._tail_bucket(request, shared))
 
     def _admission_bucket(self, request: GenerationRequest) -> int:
         """On a prefix hit, the admission window is the un-cached tail."""
@@ -350,17 +368,137 @@ class PagedLLMEngine(LLMEngine):
                 lambda: self._harmless_wave(inputs, slots)),
             generators=(self.generator,))
 
+    def _verify_forward(self, drafts, table):
+        return llama_verify_step_paged(self.params, self.cfg, self._tokens,
+                                       drafts, self._positions, self.k_cache,
+                                       self.v_cache, table)[:2]
+
+    def _verify_program(self, n_table: int, row_filter: bool = True):
+        """The paged verify program at table width n_table (the reference's
+        ``_verify_program(n_table)``, ``llama-paged-verify-x{d}-NP{n}``,
+        with the decode blocks' variant tag). Static inputs: the table
+        [B, n_table] (all zero, page 0, in its warm-up), then the drafts
+        (_verify_specs)."""
+        inputs = self._static_inputs(
+            ("verify", n_table),
+            [((self.n_slots, n_table), torch.int32), *self._verify_specs()])
+        return self.executor.compile(
+            f"llama-paged-verify-x{self.speculative_tokens}-NP{n_table}"
+            f"{self._decode_tag(row_filter)}",
+            lambda table, drafts, lens: self._verify_fn(drafts, lens,
+                                                        row_filter, table),
+            inputs, warmup=lambda: self._warmup_state(inputs[0].zero_),
+            generators=(self.generator,))
+
+    def _verify_call(self, drafts: np.ndarray, lens: np.ndarray
+                     ) -> torch.Tensor:
+        table = self._build_table()
+        return self._call(self._verify_program(table.shape[1],
+                                               self._row_filter_now()),
+                          (table, drafts, lens))
+
+    # -- chunked prefill into per-job temps -----------------------------------
+    # A job's chunks run against temps of its bucket's width, [L, K, Hkv, dh,
+    # bucket] in the model dtype, not the pool (its pages are not needed
+    # until the end); the FINAL chunk scatters the whole window into the
+    # pages as the fused wave does (quantized once, under int8). The dense
+    # engine's parking is not needed: a reserved slot's table row is all
+    # zeros, so lock-step junk between chunks lands in the garbage page.
+    def _chunk_key(self, bucket: int, K: int) -> tuple:
+        return ("chunk", self.chunk_prefill_tokens, K, bucket)
+
+    def _chunk_state_specs(self, key: tuple) -> list:
+        """tmp_k, tmp_v [L, K, Hkv, dh, bucket] (model dtype) and the
+        `selected` logits [K, V] f32."""
+        cfg, K, bucket = self.cfg, key[2], key[3]
+        tmp = ((cfg.n_layers, K, cfg.n_kv_heads, cfg.head_dim, bucket),
+               DTYPES[cfg.dtype])
+        return [tmp, tmp, ((K, cfg.vocab_size), torch.float32)]
+
+    def _chunk_fn_paged(self, tmp_k, tmp_v, selected, final: bool, ctokens,
+                        cpositions, ptable, start, slots, lengths,
+                        new_temps):
+        """One paged chunk dispatch (the reference's ``_chunk_fn_paged``,
+        with ``_chunk_fn_paged_q8_final`` as its int8 branch): the chunk's
+        forward into the job's temps; the final one scatters the whole
+        window into the pages through ptable [K, ceil(bucket / ps)] (pad
+        past lengths to page 0), quantizing the float window once under
+        int8, then samples and splices as a fused wave does. Returns the
+        [K] first tokens (final) or `selected`."""
+        self._chunk_forward(selected, ctokens, cpositions, start, slots,
+                            lengths, tmp=(tmp_k, tmp_v))
+        if not final:
+            return selected
+        if self._q8:
+            k8, ks = quantize_kv(tmp_k, axis=-2)     # scales [L, K, Hkv, b]
+            v8, vs = quantize_kv(tmp_v, axis=-2)
+            paged_write_prefill_scales(self.k_scale, ks, ptable, lengths)
+            paged_write_prefill_scales(self.v_scale, vs, ptable, lengths)
+            paged_write_prefill_stacked(self.k_cache, self.v_cache, k8, v8,
+                                        ptable, lengths)
+        else:
+            paged_write_prefill_stacked(self.k_cache, self.v_cache, tmp_k,
+                                        tmp_v, ptable, lengths)
+        return self._splice_loop_state(selected, slots, lengths, new_temps)
+
+    def _chunk_program_paged(self, chunk: int, K: int, bucket: int,
+                             final: bool,
+                             slots: Optional[Sequence[int]] = None):
+        """The paged chunk program (the reference's
+        ``_chunk_program_paged``), keyed on the bucket too (the temps are
+        bucket-wide): ``llama-paged-chunk-{chunk}x{K}-b{bucket}`` and
+        ``llama-paged-chunk[-q8]-final-{chunk}x{K}-b{bucket}``. Static
+        inputs: _chunk_specs with the page table; the carried temps and
+        `selected` are _chunk_state's."""
+        key = self._chunk_key(bucket, K)
+        n_ptable = max(1, math.ceil(bucket / self.page_size))
+        inputs = self._static_inputs(key, self._chunk_specs(
+            K, [((K, n_ptable), torch.int32)]))
+        tmp_k, tmp_v, selected = self._chunk_state(key)
+        kind = ("-q8-final" if self._q8 else "-final") if final else ""
+        return self.executor.compile(
+            f"llama-paged-chunk{kind}-{chunk}x{K}-b{bucket}{self._id_tag}",
+            lambda *a: self._chunk_fn_paged(tmp_k, tmp_v, selected, final,
+                                            *a), inputs,
+            warmup=lambda: self._warmup_state(
+                lambda: self._harmless_chunk(inputs, slots, None),
+                self._chunk_live_state(key)),
+            generators=(self.generator,))
+
+    def _chunk_program_of(self, job: dict, first: bool, final: bool):
+        return self._chunk_program_paged(job["chunk"], len(job["batch"]),
+                                         job["bucket"], final,
+                                         job["slots_idx"])
+
+    def _chunk_extra(self, bucket: int, batch: List[GenerationRequest]
+                     ) -> tuple:
+        """The job's page table [K, ceil(bucket / ps)]: each row's prompt
+        pages from its reservation."""
+        n_ptable = max(1, math.ceil(bucket / self.page_size))
+        ptable = np.zeros((len(batch), n_ptable), dtype=np.int32)
+        for row, request in enumerate(batch):
+            pages = self._reservations[request.id][:n_ptable]
+            ptable[row, :len(pages)] = pages
+        return (ptable,)
+
     def _warm_programs(self, k_variants: bool) -> None:
-        """Paged: the admission at each of _warm_ks for every bucket; with
-        the prefix cache the reference's tail set (the smallest bucket, K=1,
-        every bucket's page span) and, with k_variants (WARMUP=wide), every
-        tail program the buckets can reach (_tail_shapes) at every K
-        _admission_split gives; then every table width a decode can reach
-        (dispatch uses pow2(widest pages + 1): 2, 4, ... up to max_seq_len's
-        pages + 1; the reference warms only the first admissions' width,
-        and each other one would capture mid-serving), at the full and the
-        half block, each variant."""
+        """Paged: the admission at each of _warm_ks for every bucket not
+        routed to chunks, and the middle and final chunk programs at K=1
+        for each bucket that is (as the reference); with the prefix cache
+        the reference's tail set (the smallest bucket, K=1, every bucket's
+        page span) and, with k_variants (WARMUP=wide), every tail program
+        the buckets can reach (_tail_shapes) at every K _admission_split
+        gives; then every table width a decode can reach (dispatch uses
+        pow2(widest pages + 1): 2, 4, ... up to max_seq_len's pages + 1;
+        the reference warms only the first admissions' width, and each
+        other one would capture mid-serving), at the full and the half
+        block and for the verify, each variant."""
         for bucket in self.prefill_buckets:
+            if self._chunked(bucket):
+                for final in (False, True):
+                    self._chunk_program_paged(self.chunk_prefill_tokens, 1,
+                                              bucket, final)
+                continue
             for K in self._warm_ks(k_variants):
                 self._prefill_program(bucket, K)
         if self.prefix is not None and self.prefill_buckets:
@@ -377,8 +515,10 @@ class PagedLLMEngine(LLMEngine):
         width, widest = 2, _pow2_at_least(
             self.allocator.pages_for(self.max_seq_len) + 1)
         while width <= widest:
-            for block in self._block_sizes():
-                for row_filter in self._decode_variants():
+            for row_filter in self._decode_variants():
+                if self.speculative_tokens:
+                    self._verify_program(width, row_filter)
+                for block in self._block_sizes():
                     self._decode_program_paged(width, block, row_filter)
             width *= 2
 
@@ -398,6 +538,8 @@ class PagedLLMEngine(LLMEngine):
             live = n - s * ps >= 1
             bucket = buckets[np.searchsorted(buckets, n[live] - s * ps)]
             hit.update(zip(bucket.tolist(), widths[live].tolist()))
+        # a hit whose tail would chunk is dropped (_tail_routes_to_chunk)
+        hit = {(b, w) for b, w in hit if not self._chunked(b)}
         shapes = set(hit)
         for bucket, width in hit:
             w = 1

@@ -554,3 +554,59 @@ def test_int8_weight_decode_block_graph_matches_eager(cuda, paged):
     assert torch.equal(got["graph"], got["eager"])
     assert got["state_diff"] == 0.0
     assert got["graph_launches"] == got["eager_launches"] == cfg.n_layers * 8
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_verify_graph_matches_eager(cuda, paged):
+    """A speculative engine driven past its prefills: one verify with the
+    rows' greedy continuations as drafts (graphcheck.greedy_drafts), replayed
+    from its graph against the same verify run eagerly from the same state
+    (tpu/graphcheck.verify_graph_vs_eager, as chip_smoke.py runs it): the
+    window's tokens and emit counts equal, every draft accepted, the caches
+    or pools (page 0 aside) bit-equal."""
+    from gofr_tpu_torch.tpu.graphcheck import verify_graph_vs_eager
+
+    cfg = _small_cfg(**({} if paged else {"decode_attn": "kernel"}))
+    engine = dict(n_slots=4, max_seq_len=128, prefill_buckets=(8, 16),
+                  speculative_tokens=4)
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    for i in range(3):
+        eng.submit([5, 6, 7, 8, 5, 6, 7, 8, 5 + i, 6], max_new_tokens=200)
+    # past the prefills, the rows still decoding (a cooloff pipelines
+    # whole blocks, so a few steps only)
+    for _ in range(3):
+        eng._step()
+    got = verify_graph_vs_eager(eng)
+    assert got["rows"] == 3 and got["accepted"] == 4 * 3
+    assert torch.equal(got["graph"], got["eager"])
+    assert got["state_diff"] == 0.0
+
+
+@pytest.mark.parametrize("paged,kw", [
+    (True, {}), (True, {"kv_dtype": "int8"}), (False, {}),
+    (False, {"decode_attn": "kernel", "kv_dtype": "int8"}),
+], ids=["paged", "paged-int8", "dense", "dense-int8"])
+def test_chunk_graph_matches_eager(cuda, paged, kw):
+    """A middle and the final chunk of a [2, 32] chunked admission (chunk 8)
+    replayed from their graphs against the same chunks run eagerly from
+    the same state (tpu/graphcheck.chunk_graph_vs_eager), beside two live
+    rows: outputs equal, the state and the carried buffers bit-equal (the
+    paged garbage page 0 aside)."""
+    from gofr_tpu_torch.tpu.graphcheck import chunk_graph_vs_eager
+
+    cfg = _small_cfg(**kw)
+    engine = dict(n_slots=4, max_seq_len=128, prefill_buckets=(8, 32),
+                  chunk_prefill_tokens=8)
+    params = llama_init(cfg, seed=0, device=cuda)
+    eng = (PagedLLMEngine(params, cfg, device=cuda, page_size=8, **engine)
+           if paged else LLMEngine(params, cfg, device=cuda, **engine))
+    for i in range(2):
+        eng.submit(list(range(3 + i, 8 + i)), max_new_tokens=40)
+    for _ in range(3):
+        eng._step()
+    for final in (False, True):
+        got = chunk_graph_vs_eager(eng, 2, 32, final, temperature=0.8)
+        assert torch.equal(got["graph"], got["eager"])
+        assert got["state_diff"] == 0.0

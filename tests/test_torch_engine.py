@@ -310,8 +310,7 @@ def test_generate_refuses_the_fields_the_reference_refuses(request, case):
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
-    asks = {"CHUNK_PREFILL_TOKENS": "64", "SPECULATIVE_TOKENS": "4",
-            "DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
+    asks = {"DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
             "QOS": "true", "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2"}
     with pytest.raises(ValueError, match="ROADMAP A"):
         build_engine({key: asks[key]}, device="cpu")
@@ -334,6 +333,12 @@ PORTED = {
     "SAMPLING_CONTROLS-dense": {"PAGED": "false", "DECODE_ATTN": "kernel",
                                 "SAMPLING_CONTROLS": "true"},
     "WARMUP_SCORE": {"WARMUP_SCORE": "true"},
+    "CHUNK_PREFILL_TOKENS": {"CHUNK_PREFILL_TOKENS": "8"},
+    "CHUNK_PREFILL_TOKENS-dense": {"PAGED": "false",
+                                   "CHUNK_PREFILL_TOKENS": "8"},
+    "SPECULATIVE_TOKENS": {"SPECULATIVE_TOKENS": "4"},
+    "SPECULATIVE_TOKENS-dense": {"PAGED": "false",
+                                 "SPECULATIVE_TOKENS": "4"},
 }
 
 
@@ -353,6 +358,10 @@ def test_ported_config_keys_boot_and_serve(served, key):
         assert engine.cfg.decode_attn == env.get("DECODE_ATTN", "xla")
         assert engine._q8 == ("KV_DTYPE" in env)
         assert engine.sampling_controls == ("SAMPLING_CONTROLS" in env)
+        assert engine.chunk_prefill_tokens == int(
+            env.get("CHUNK_PREFILL_TOKENS", 0))
+        assert engine.speculative_tokens == int(
+            env.get("SPECULATIVE_TOKENS", 0))
         status, body = _post(app.http_port, {"prompt": "hello",
                                              "max_tokens": 6,
                                              "stream": False})
