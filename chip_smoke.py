@@ -10,8 +10,9 @@ at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 [4, 256], eager and as its graph's replay: host wall, card busy time and
 host launches), ``--sc`` (build, the main path's serve phase, then its
 sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
-``--weights`` (build, then phase 9 alone) and ``--spec`` (build, then
-phase 10 alone).
+``--weights`` (build, then phase 9 alone), ``--spec`` (build, then
+phase 10 alone) and ``--openai`` (build, then phase 7b on an engine booted
+for it, OPENAI_ENV).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -86,8 +87,9 @@ Phases, one or more lines each, any failure exits non-zero:
 6. profile: the pipelined loop of each serving configuration's engine at
    B=8 in steady state (the pipeline full of graph-replayed blocks) —
    host wall time per step against the card's busy time over the same
-   window (torch.profiler; beside it the wall of the same window
-   untraced), the idle share, the host's launches per step and block, the
+   window (torch.profiler; beside it the wall of a window untraced, with
+   the engine's metrics hook and dispatch spans as served and without
+   them), the idle share, the host's launches per step and block, the
    kernels executed per step (no more than before the split reads), the
    decode read's time per step and the kernels that take it; then, on the
    same engine, one block replayed from its graph against the same block
@@ -110,6 +112,25 @@ Phases, one or more lines each, any failure exits non-zero:
    top_k=1 keeps every tied token as the reference does), and score within
    MODEL_TOL as top-1 (engine.score); every token of a filtered row lies in
    its filtered set by the teacher-forced full logits;
+7b. the OpenAI server (``openai_phase``, gofr_tpu_torch/serve_openai.py),
+   on the main path's sampling-controls engine of phase 7 before its
+   shutdown (its WARMUP=wide boot reused, the score windows added by
+   warmup_scoring), with its metrics server (METRICS_PORT) and the memory
+   trace exporter: the 7 chat prompts as 7 concurrent POST /generate
+   streams, then as 7 concurrent streaming chat completions (32 tokens,
+   temperature 0), then a logprobs=5 completion, an n=4 completion at
+   temperature 0.8 and top_p 0.9, a 2-input /v1/embeddings call and GET
+   /v1/models at once, then a chat completion with a stop string; every
+   greedy request within MODEL_TOL of the teacher-forced oracle, the
+   logprobs and embeddings against the oracle, flash and the paged read
+   launched, every dispatch a graph replay with no capture after boot, the
+   engine's app_tpu_* series on GET /metrics equal to what its requests
+   did, a series of app_http_response per route, and an inbound
+   traceparent's trace id back in X-Trace-Id with its tpu.generate span
+   the child of the route's server span (streamed and not); logged: the
+   client TTFT p50 and tok/s of the /generate and the chat streams, the
+   server histograms' TTFT and TPOT p50 (Histogram.percentile), the
+   phase's seconds;
 8. at the end: the sort-skip (the main path's decode step at B=8 on the
    plain engine, on a sampling-controls engine with all rows greedy, which
    must run no sort and stay within 3% of the plain step's card time, and
@@ -197,6 +218,9 @@ MODEL_TOL = 0.25             # bf16 logits after 32 layers, see check_model
 # decode step's check on an NVIDIA H100 80GB HBM3 at 700 W)
 MODEL_TOL_W8 = 0.5
 DENSE_S = 1024               # the dense cache of phase 2's checks
+# the servers' config: their logs at WARN and above (an INFO line per
+# request would bury the phases' lines)
+QUIET = {"LOG_LEVEL": "WARN"}
 
 
 def log(msg: str) -> None:
@@ -811,10 +835,10 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     from gofr_tpu_torch.serve import build_app, build_engine
 
     extra, decode_kernel = ALL_CONFIGS[config]
-    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
-           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
-           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
-           "WARMUP": "wide", **extra}
+    env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+           "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+           "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256",
+           "REQUEST_TIMEOUT": "600", "WARMUP": "wide", **extra}
     engine = build_engine(env, device=dev, params=params)
     boot = boot_line(engine, config, card)
     app = build_app(env, engine=engine)
@@ -942,13 +966,15 @@ SPEC_CHUNK_COUNTS = ("verify_dispatches", "spec_drafted", "spec_accepted",
                      "spec_eligible", "spec_cooloffs", "spec_zero_draft",
                      "chunk_dispatches", "chunk_jobs", "chunk_swaps",
                      "chunk_swap_bytes")
-PROGRAM_KINDS = ("prefill", "prefix", "decode", "verify", "chunk")
+PROGRAM_KINDS = ("prefill", "prefix", "decode", "verify", "chunk", "score")
 
 
 def program_kind(name: str) -> str:
     """A program's kind by its name: a prefix hit's tail-only wave, a full
     admission wave, a speculative verify, a chunk of a chunked admission,
-    or a decode block."""
+    a logprobs or embedding window (tpu/score.py), or a decode block."""
+    if name.startswith(("score-", "embed-")):
+        return "score"
     for kind, tag in (("prefix", "-prefix-"), ("prefill", "-prefill-"),
                       ("verify", "-verify-"), ("chunk", "-chunk")):
         if tag in name:
@@ -1052,9 +1078,9 @@ def prefix_phase(params, cfg, dev, card: str, config: str,
     n_tok, n_plain = 32, 16
     runs = {}
     for cache in ("true", "false"):
-        env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
-               "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
-               "PREFILL_BUCKETS": "16,32,64,128,256,512",
+        env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+               "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+               "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256,512",
                "REQUEST_TIMEOUT": "600", "PREFIX_CACHE": cache,
                "WARMUP": "wide", **extra}
         engine = build_engine(env, device=dev, params=params)
@@ -1588,15 +1614,23 @@ def decode_engine(params, cfg, dev, config: str):
     growth drops the graphs mid-window."""
     import dataclasses
 
+    from gofr_tpu_torch.metrics import Manager
     from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.tpu.device import register_metrics
     from gofr_tpu_torch.tpu.engine import LLMEngine
     from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+    from gofr_tpu_torch.tracing import Tracer
 
     extra, _ = ALL_CONFIGS[config]
     cfg = dataclasses.replace(cfg, attn_impl="flash",
                               decode_attn=extra.get("DECODE_ATTN", "xla"),
                               kv_dtype=extra.get("KV_DTYPE"))
-    kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,))
+    # recording as build_engine has it: the metrics hook at every sync and
+    # a span per dispatch (the default exporter drops them)
+    metrics = Manager()
+    register_metrics(metrics)
+    kw = dict(device=dev, n_slots=8, max_seq_len=1024, prefill_buckets=(256,),
+              metrics=metrics, tracer=Tracer())
     if extra.get("PAGED") == "false":
         eng = LLMEngine(params, cfg, **kw)
         eng.warmup()
@@ -1639,8 +1673,10 @@ def profile_decode(eng, card: str, config: str) -> None:
     replays (up to 4.4% of a window's decode reads on an H100), so busy time
     and kernel counts are those it kept, the share it kept of the window's
     decode reads is logged beside them, and a window with less than 0.9 of
-    them fails. Before it, a window of 10 steps without the profiler,
-    whose wall shows what tracing costs. Logs wall and busy per step, the
+    them fails. Before it, 10 steps without the profiler, whose wall shows
+    what tracing costs, with the engine's metrics hook and dispatch spans
+    as served (decode_engine), and 10 without them, whose wall beside it
+    shows what they cost (5-step windows: on, off, off, on). Logs wall and busy per step, the
     idle share (1 - busy / wall, same window), the kernels and copies the
     card executed per step (less the generator's state fills that the
     host launches before each replay, which the eager loop did not run)
@@ -1653,7 +1689,20 @@ def profile_decode(eng, card: str, config: str) -> None:
     block, L = eng.decode_block_size, eng.cfg.n_layers
     captures = eng.executor.captures
     ctx = [s.length for s in eng.slots if s.active]
-    untraced_ms = _window(eng, 10)
+    # 10 steps untraced as served (the metrics hook and the dispatch spans
+    # on) and 10 without them, in 5-step windows taken on, off, off, on so
+    # that a drift between windows cancels
+    hook, tracer = eng._obs.metrics, eng.tracer
+    untraced_ms = bare_ms = 0.0
+    for served in (True, False, False, True):
+        eng._obs.metrics, eng.tracer = ((hook, tracer) if served
+                                        else (None, None))
+        ms = _window(eng, 5)
+        if served:
+            untraced_ms += ms
+        else:
+            bare_ms += ms
+    eng._obs.metrics, eng.tracer = hook, tracer
     untraced_steps = 10 * block
     extra, _ = ALL_CONFIGS[config]
     ran = eng.decode_steps
@@ -1690,8 +1739,10 @@ def profile_decode(eng, card: str, config: str) -> None:
         f"and drained at its end, {ran} steps run on the card (the profiler "
         f"kept {kept:.4f} of their decode reads): wall_ms_per_step="
         f"{wall_ms / ran:.4f} device_busy_ms_per_step={busy_ms / ran:.4f} "
-        f"idle_share={1 - busy_ms / wall_ms:.4f}; a 10-step window "
-        f"untraced: wall_ms_per_step={untraced_ms / untraced_steps:.4f}; host "
+        f"idle_share={1 - busy_ms / wall_ms:.4f}; 10 steps untraced, in "
+        f"5-step windows: wall_ms_per_step={untraced_ms / untraced_steps:.4f}"
+        f" as served, {bare_ms / untraced_steps:.4f} without the metrics "
+        f"hook and the dispatch spans (windows on, off, off, on); host "
         f"launches per step={host_per_step:.3f} per block="
         f"{host_per_step * block:.2f} ({json.dumps(host)} over {ran} "
         f"steps); kernels and copies executed per step, the "
@@ -1797,9 +1848,10 @@ def warmup_true_phase(params, cfg, dev, card: str,
     TTFT."""
     from gofr_tpu_torch.serve import build_engine
 
-    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
-           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
-           "PREFILL_BUCKETS": "16,32,64,128,256", "WARMUP": "true"}
+    env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+           "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+           "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256",
+           "WARMUP": "true"}
     engine = build_engine(env, device=dev, params=params)
     try:
         boot_line(engine, "paged WARMUP=true", card)
@@ -1935,7 +1987,7 @@ def in_filter(logits, tokens, temperature, top_p, top_k, boost=0.0) -> int:
 
 
 def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
-                   preset: str = "llama3-8b") -> dict:
+                   preset: str = "llama3-8b", after=None) -> dict:
     """One serving configuration with SAMPLING_CONTROLS=true and
     WARMUP=wide: the boot (two decode graphs per shape, -sc names), then
     the SC_ROWS burst through POST /generate in one wave (7 streams, 1
@@ -1947,7 +1999,9 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
     its set by the teacher-forced full logits (oracle_logits; strictly,
     logged, and within MODEL_TOL of the logits, required); and
     engine.score(top=20) must rank each greedy-equal row's token first
-    where the scored top two are more than 2 * MODEL_TOL apart."""
+    where the scored top two are more than 2 * MODEL_TOL apart.
+    after(app, engine), when given, runs on the served engine after those
+    checks, before the shutdown (the OpenAI phase)."""
     import numpy as np
     import torch
 
@@ -1955,10 +2009,12 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
     from gofr_tpu_torch.serve import build_app, build_engine
 
     extra, decode_kernel = SERVE_CONFIGS[config]
-    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "HTTP_PORT": "0",
-           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
-           "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
-           "WARMUP": "wide", "SAMPLING_CONTROLS": "true", **extra}
+    env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+           "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+           "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256",
+           "REQUEST_TIMEOUT": "600", "WARMUP": "wide",
+           "SAMPLING_CONTROLS": "true", "METRICS_PORT": "0",
+           "TRACE_EXPORTER": "memory", **extra}
     engine = build_engine(env, device=dev, params=params)
     name = f"{config} sc"
     boot = boot_line(engine, name, card)
@@ -1995,6 +2051,8 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
         # the teacher-forced checks, after the counted run (the score
         # window programs are captured at their first use here)
         scored = [engine.score(p, c, top=20) for p, c in rows]
+        if after is not None:
+            after(app, engine)
     finally:
         app.shutdown()
     filt = sum(v for k, v in calls.items()
@@ -2255,8 +2313,8 @@ def score_phase(params, cfg, dev, card: str,
 
     # without the prefix cache the second run of the same prompts admits as
     # the first did (a prefix hit's tail prefill computes otherwise)
-    env = {"MODEL_PRESET": preset, "ATTN_IMPL": "flash", "MAX_BATCH": "8",
-           "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+    env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
            "PREFILL_BUCKETS": ",".join(map(str, SCORE_BUCKETS)),
            "PREFIX_CACHE": "false", "WARMUP": "wide", "WARMUP_SCORE": "true"}
     engine = build_engine(env, device=dev, params=params)
@@ -2394,6 +2452,414 @@ def score_phase(params, cfg, dev, card: str,
                 "boot")
     finally:
         engine.stop()
+    torch.cuda.empty_cache()
+
+
+# -- the OpenAI server (serve_openai.py) ------------------------------------
+# the 7 streams' user turns: with the chat template ("user: ...\nassistant:")
+# and the BOS, 150-240 tokens, the serve phases' prompt lengths
+OPENAI_CHARS = [132, 162, 182, 202, 222, 112, 142]
+OPENAI_TOKENS = 32
+OPENAI_ENV = {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+              "HTTP_PORT": "0", "METRICS_PORT": "0", "MAX_BATCH": "8",
+              "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+              "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
+              "WARMUP": "wide", "WARMUP_SCORE": "true",
+              "SAMPLING_CONTROLS": "true", "TRACE_EXPORTER": "memory"}
+TRACEPARENT = "00-{}-b7ad6b7169203331-01"
+
+
+def openai_call(port, path, body, out, key, headers=None) -> None:
+    """One OpenAI request; SSE bodies (stream=true) are read event by event
+    with each content chunk's arrival time."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.monotonic()
+    conn.request("POST" if body is not None else "GET", path,
+                 body=json.dumps(body) if body is not None else None,
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
+    resp = conn.getresponse()
+    rec = {"status": resp.status, "trace": resp.getheader("X-Trace-Id")}
+    if body is not None and body.get("stream"):
+        times, text, finish = [], [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            if line.strip() == b"data: [DONE]":
+                resp.read()
+                break
+            choice = json.loads(line[6:])["choices"][0]
+            piece = (choice["delta"].get("content", "")
+                     if "delta" in choice else choice["text"])
+            if piece:
+                times.append(time.monotonic() - t0)
+                text.append(piece)
+            finish = choice["finish_reason"] or finish
+        rec.update(times=times, text="".join(text), finish=finish)
+    else:
+        rec["data"] = json.loads(resp.read())
+        rec["seconds"] = time.monotonic() - t0
+    conn.close()
+    out[key] = rec
+
+
+def scrape(port) -> dict:
+    """The metrics server's series: {name{labels}: value}."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/metrics")
+    resp = conn.getresponse()
+    text = resp.read().decode()
+    conn.close()
+    require(resp.status == 200, f"GET /metrics answered {resp.status}")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def hist_between(before: dict, after: dict, name: str, buckets):
+    """A metrics.Histogram of the observations `name` gained between two
+    scrapes (its cumulative bucket counts differenced)."""
+    from gofr_tpu_torch.metrics import Histogram, format_bucket_bound
+
+    cum = [after.get(f'{name}_bucket{{le="{format_bucket_bound(b)}"}}', 0.0)
+           - before.get(f'{name}_bucket{{le="{format_bucket_bound(b)}"}}',
+                        0.0) for b in buckets]
+    cum.append(after.get(f'{name}_bucket{{le="+Inf"}}', 0.0)
+               - before.get(f'{name}_bucket{{le="+Inf"}}', 0.0))
+    counts = [int(c - p) for c, p in zip(cum, [0.0] + cum[:-1])]
+    h = Histogram(name, name, buckets)
+    if sum(counts):
+        h.series[()] = {"counts": counts, "count": sum(counts),
+                        "sum": after.get(f"{name}_sum", 0.0)
+                        - before.get(f"{name}_sum", 0.0)}
+    return h
+
+
+def client_line(what, recs, card) -> dict:
+    """Client TTFT (first content chunk) and decode tok/s per stream."""
+    ttft = sorted(r["times"][0] * 1e3 for r in recs)
+    tps = sorted((len(r["times"]) - 1) / (r["times"][-1] - r["times"][0])
+                 for r in recs)
+    n = len(recs)
+    log(f"{what}: {n} concurrent streams x {OPENAI_TOKENS} tokens: ttft_ms "
+        f"p50={ttft[n // 2]:.1f} max={ttft[-1]:.1f}; decode tok/s per stream "
+        f"p50={tps[n // 2]:.1f} min={tps[0]:.1f} (client-side) [{card}]")
+    return {"ttft_p50": ttft[n // 2], "tps_p50": tps[n // 2]}
+
+
+def openai_phase(params, cfg, dev, card: str, gen_app, engine) -> None:
+    """The OpenAI server (gofr_tpu_torch/serve_openai.py) on a started
+    paged engine with sampling controls, WARMUP=wide and the scoring family
+    captured (warmup_scoring: a no-op after WARMUP_SCORE=true), its
+    container's metrics and its tracer's memory exporter; gen_app is the
+    same engine's /generate app. Boot: the score windows warmup_scoring
+    adds. Then (a) 7 chat prompts, rendered, as 7 concurrent streams
+    through POST /generate at temperature 0, then (b) 7 others of the same
+    lengths (no prefix-cache hit on (a)'s) as 7 concurrent streaming chat
+    completions (one with a traceparent), then
+    (c) at once: a non-streaming completion with logprobs=5 (with a
+    traceparent), an n=4 completion at temperature 0.8 and top_p 0.9, a
+    /v1/embeddings call with 2 inputs and GET /v1/models; then (d) a chat
+    completion with a stop string from stream 0's text, then (e) 7 more
+    /generate streams like (a), so that the two surfaces are timed in
+    turns. Gates, on (b)-(d):
+    every greedy request within MODEL_TOL of the teacher-forced oracle;
+    the logprobs and the embeddings against the oracle as score_phase
+    holds them; flash and the paged read launched; every decode block and
+    wave a graph replay, no capture after the boot; on /metrics,
+    app_tpu_requests_total grew by the engine requests, the
+    app_tpu_ttft_seconds count by those that emitted a token,
+    app_tpu_tokens_generated_total by the tokens delivered (before the
+    stop-string truncation), app_http_response has a series per route; a
+    traceparent comes back as X-Trace-Id, and its tpu.generate span is the
+    child of the route's server span, streamed and not. Logs the client
+    TTFT p50 and tok/s of (a), (b) and (e), the server histograms' TTFT and
+    TPOT p50 over (b) (Histogram.percentile), and the phase's seconds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import serve_openai
+    from gofr_tpu_torch.models.llama import init_kv_cache, llama_forward_hidden
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.tpu.device import TPOT_BUCKETS, TTFT_BUCKETS
+
+    t_phase = time.monotonic()
+    ex = engine.executor
+    t0 = time.monotonic()
+    added = ex.captures
+    engine.warmup_scoring()
+    boot = ex.captures
+    log(f"openai: warmup_scoring on the running engine: {boot - added} "
+        f"window graphs captured in {time.monotonic() - t0:.2f}s [{card}]")
+    app = serve_openai.build_app(OPENAI_ENV, engine=engine)
+    app.start()
+    tok = engine.tokenizer
+    exporter = engine.tracer.exporter
+    rec = record_tokens(engine)
+    try:
+        contents = [make_prompt(n, 600 + i)
+                    for i, n in enumerate(OPENAI_CHARS)]
+        rendered = [serve_openai._render_chat([{"role": "user",
+                                                "content": c}])
+                    for c in contents]
+        lens = [len(tok.encode(r)) for r in rendered]
+        require(max(lens) <= engine.admission_limit,
+                f"openai: a prompt of {max(lens)} tokens")
+
+        def burst(targets) -> float:
+            threads = [threading.Thread(target=f, args=a) for f, a in targets]
+            t0 = time.monotonic()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            require(all(not t.is_alive() for t in threads),
+                    "openai: requests hung")
+            return time.monotonic() - t0
+
+        # (a) /generate, the same engine and prompt lengths (other words:
+        # the prefix cache must not serve (b) what (a) left in it)
+        gen: dict = {}
+        wall_a = burst([(stream_request, (
+            gen_app.http_port, serve_openai._render_chat(
+                [{"role": "user", "content": make_prompt(n, 620 + i)}]),
+            OPENAI_TOKENS, gen, i)) for i, n in enumerate(OPENAI_CHARS)])
+        require(all(gen[i]["status"] == 200 for i in range(7)),
+                "openai: a /generate stream failed")
+        before_b = scrape(app.metrics_port)
+        rec.clear()
+        zero_counts(engine)
+        # (b) the chat streams
+        trace_b = "%032x" % 0xb
+        chats: dict = {}
+        wall_b = burst([(openai_call, (
+            app.http_port, "/v1/chat/completions",
+            {"messages": [{"role": "user", "content": c}],
+             "max_tokens": OPENAI_TOKENS, "temperature": 0, "stream": True},
+            chats, i, {"traceparent": TRACEPARENT.format(trace_b)}
+            if i == 0 else None)) for i, c in enumerate(contents)])
+        after_b = scrape(app.metrics_port)
+        # (c) logprobs, n=4, embeddings, models
+        trace_c = "%032x" % 0xc
+        lp_prompt, n_prompt = make_prompt(200, 610), make_prompt(180, 611)
+        emb_inputs = [make_prompt(100, 612), make_prompt(200, 613)]
+        other: dict = {}
+        wall_c = burst([
+            (openai_call, (app.http_port, "/v1/completions",
+                           {"prompt": lp_prompt, "max_tokens": OPENAI_TOKENS,
+                            "temperature": 0, "logprobs": 5}, other, "lp",
+                           {"traceparent": TRACEPARENT.format(trace_c)})),
+            (openai_call, (app.http_port, "/v1/completions",
+                           {"prompt": n_prompt, "max_tokens": OPENAI_TOKENS,
+                            "temperature": 0.8, "top_p": 0.9, "n": 4},
+                           other, "n")),
+            (openai_call, (app.http_port, "/v1/embeddings",
+                           {"input": emb_inputs}, other, "emb")),
+            (openai_call, (app.http_port, "/v1/models", None, other,
+                           "models"))])
+        # (d) a stop string from stream 0's text
+        stop = chats[0]["text"][4:6]
+        t0 = time.monotonic()
+        openai_call(app.http_port, "/v1/chat/completions",
+                    {"messages": [{"role": "user", "content": contents[0]}],
+                     "max_tokens": OPENAI_TOKENS, "temperature": 0,
+                     "stop": stop}, other, "stop")
+        wall_d = time.monotonic() - t0
+        after = scrape(app.metrics_port)
+        launches = launch_counts.counts()
+        dispatch = dispatch_counts(engine, boot)
+        delivered = list(rec.values())
+        # (e) /generate again, after the chat streams: (a) and (b) in turn
+        gen2: dict = {}
+        burst([(stream_request, (
+            gen_app.http_port, serve_openai._render_chat(
+                [{"role": "user", "content": make_prompt(n, 630 + i)}]),
+            OPENAI_TOKENS, gen2, i)) for i, n in enumerate(OPENAI_CHARS)])
+        require(all(gen2[i]["status"] == 200 for i in range(7)),
+                "openai: a /generate stream of (e) failed")
+        # the engine ends a request's tpu.generate span at its finish,
+        # which its client may see first
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and sum(
+                1 for sp in exporter.spans if sp.name == "tpu.generate"
+                and sp.trace_id in (trace_b, trace_c)) < 2:
+            time.sleep(0.01)
+        spans = [sp for sp in exporter.spans
+                 if sp.trace_id in (trace_b, trace_c)]
+        emb_vecs = [np.asarray(e["embedding"], dtype=np.float32)
+                    for e in other["emb"]["data"]["data"]]
+    finally:
+        del engine._emit_block
+        app.shutdown()
+    name = "openai"
+    # the responses
+    for i in range(7):
+        require(chats[i]["status"] == 200 and chats[i]["finish"] in (
+            "length", "stop"), f"{name}: chat stream {i} failed: {chats[i]}")
+    for key in ("lp", "n", "emb", "stop"):
+        require(other[key]["status"] == 201, f"{name}: {key} answered "
+                f"{other[key]['status']}: {other[key].get('data')}")
+    require(other["models"]["status"] == 200, f"{name}: /v1/models failed")
+    n_choices = other["n"]["data"]["choices"]
+    require(len(n_choices) == 4, f"{name}: n=4 returned {len(n_choices)}")
+    # what the engine delivered in (b)-(d), request by request
+    # (record_tokens): the 7 streams, the logprobs completion, the 4
+    # choices, the stop request
+    by_prompt: dict = {}
+    for prompt, ids in delivered:
+        by_prompt.setdefault(tuple(prompt), []).append(ids)
+    require(len(delivered) == 13, f"{name}: {len(delivered)} engine "
+            f"requests, want 13")
+    lp_ids = tok.encode(lp_prompt)
+    lp_comp = by_prompt[tuple(lp_ids)][0]
+    stop_full = by_prompt[tuple(tok.encode(rendered[0]))]
+    require(len(stop_full) == 2, f"{name}: stream 0's prompt ran "
+            f"{len(stop_full)} times, want 2")
+    stop_ids = stop_full[1]
+    full = tok.decode(stop_ids)
+    cut = full.find(stop)
+    got_stop = other["stop"]["data"]["choices"][0]
+    want_text = full[:cut] if cut >= 0 else full
+    require(got_stop["message"]["content"] == want_text
+            and got_stop["finish_reason"] == ("stop" if cut >= 0
+                                              else "length"),
+            f"{name}: the stop-string response does not match its tokens")
+    log(f"{name}: stop string {stop!r} (stream 0's text [4:6]) "
+        f"{'found' if cut >= 0 else 'NOT found'} in the stop request's "
+        f"{len(stop_ids)} tokens: text cut to {len(want_text)} of "
+        f"{len(full)} characters, finish_reason "
+        f"{got_stop['finish_reason']}: ok")
+    # greedy requests against the oracle: the streams, logprobs, stop
+    greedy = [ids for prompt, ids in delivered
+              if tuple(prompt) != tuple(tok.encode(n_prompt))]
+    require(len(greedy) == 9, f"{name}: {len(greedy)} greedy requests")
+    gaps, exact = [], []
+    for prompt, ids in delivered:
+        if tuple(prompt) == tuple(tok.encode(n_prompt)):
+            continue
+        g, e = oracle_gap(params, cfg, dev, list(prompt), ids)
+        gaps.append(g)
+        exact.append(e)
+    log(f"{name}: {len(gaps)} greedy requests against the teacher-forced "
+        f"plain oracle: exact argmax at {min(exact):.3f}-{max(exact):.3f} "
+        f"of positions, largest gap to the oracle's top logit "
+        f"{max(gaps):.3e} (tol {MODEL_TOL}) [{card}]")
+    require(max(gaps) <= MODEL_TOL, f"{name}: a stream leaves the oracle's")
+    # logprobs against the oracle (score_phase's rule)
+    lp = other["lp"]["data"]["choices"][0]["logprobs"]
+    P, C = len(lp_ids), len(lp_comp)
+    require(len(lp["token_logprobs"]) == C and lp["tokens"] == [
+        tok.decode_token(t) for t in lp_comp], f"{name}: logprobs cover "
+        f"{len(lp['token_logprobs'])} of {C} tokens")
+    lg = oracle_logits(params, cfg, dev, lp_ids + lp_comp)
+    lsm = torch.log_softmax(lg[P - 1:P - 1 + C].float(), dim=-1)
+    o_lps = torch.topk(lsm, 5, dim=-1).values.cpu().numpy()
+    o_chosen = torch.gather(lsm, 1, torch.tensor(
+        lp_comp, device=dev)[:, None])[:, 0].cpu().numpy()
+    del lg, lsm
+    d_chosen = float(np.abs(np.asarray(lp["token_logprobs"])
+                            - o_chosen).max())
+    d_top = max(float(np.abs(np.sort(list(row.values()))[::-1]
+                             - o_lps[j, :len(row)]).max())
+                for j, row in enumerate(lp["top_logprobs"]))
+    log(f"{name}: logprobs=5 over {C} tokens against the oracle: chosen "
+        f"max_abs_diff={d_chosen:.3e}, top-5 {d_top:.3e} (tol {MODEL_TOL}) "
+        f"{'ok' if max(d_chosen, d_top) <= MODEL_TOL else 'FAIL'}")
+    require(max(d_chosen, d_top) <= MODEL_TOL,
+            f"{name}: logprobs disagree with the oracle")
+    # the embeddings against the oracle
+    c = dataclasses.replace(cfg, attn_impl="flash")
+    cos = []
+    for text, got in zip(emb_inputs, emb_vecs):
+        ids = tok.encode(text)
+        with torch.no_grad():
+            k, v = init_kv_cache(c, 1, len(ids), device=dev)
+            hid = llama_forward_hidden(
+                params, c, torch.tensor([ids], device=dev),
+                torch.arange(len(ids), device=dev)[None], k, v)[0][0, -1]
+        o = hid.float().cpu().numpy()
+        cos.append(float(np.dot(got, o / np.linalg.norm(o))))
+        del k, v, hid
+    log(f"{name}: /v1/embeddings, 2 inputs: cosine to the oracle "
+        f"{min(cos):.6f}-{max(cos):.6f} (want >= 0.999) "
+        f"{'ok' if min(cos) >= 0.999 else 'FAIL'}")
+    require(min(cos) >= 0.999, f"{name}: an embedding disagrees")
+    # the dispatch layer and the kernels
+    check_dispatch(name, dispatch, card)
+    log(f"{name}: launches " + " ".join(f"{k}={v}" for k, v in
+                                         launches.items()))
+    require(launches["flash_attention"] > 0
+            and launches["paged_attention"] > 0,
+            f"{name}: flash or the paged read did not launch")
+    # /metrics
+    d = {k: after.get(k, 0.0) - before_b.get(k, 0.0)
+         for k in ("app_tpu_requests_total", "app_tpu_ttft_seconds_count",
+                   "app_tpu_tokens_generated_total")}
+    emitted = sum(1 for _, ids in delivered if ids)
+    tokens = sum(len(ids) for _, ids in delivered)
+    routes = {re.search(r'path="([^"]*)"', k).group(1)
+              for k in after if k.startswith("app_http_response_count")}
+    want_routes = {"/v1/chat/completions", "/v1/completions",
+                   "/v1/embeddings", "/v1/models", "/generate"}
+    log(f"{name}: /metrics over (b)-(d): app_tpu_requests_total "
+        f"+{d['app_tpu_requests_total']:.0f} (engine requests "
+        f"{len(delivered)}), app_tpu_ttft_seconds count "
+        f"+{d['app_tpu_ttft_seconds_count']:.0f} (requests that emitted "
+        f"{emitted}), app_tpu_tokens_generated_total "
+        f"+{d['app_tpu_tokens_generated_total']:.0f} (tokens delivered "
+        f"{tokens}); app_http_response routes {sorted(routes)}")
+    require(d["app_tpu_requests_total"] == len(delivered)
+            and d["app_tpu_ttft_seconds_count"] == emitted
+            and d["app_tpu_tokens_generated_total"] == tokens,
+            f"{name}: the engine's metrics disagree with its requests")
+    require(want_routes <= routes, f"{name}: app_http_response lacks "
+            f"{sorted(want_routes - routes)}")
+    # the traces
+    for trace, route, key in ((trace_b, "/v1/chat/completions", None),
+                              (trace_c, "/v1/completions", "lp")):
+        back = chats[0]["trace"] if key is None else other[key]["trace"]
+        server = [sp for sp in spans if sp.trace_id == trace
+                  and sp.name == f"POST {route}"]
+        gen_spans = [sp for sp in spans if sp.trace_id == trace
+                     and sp.name == "tpu.generate"]
+        ok = (back == trace and len(server) == 1 and len(gen_spans) == 1
+              and server[0].parent_id == "b7ad6b7169203331"
+              and gen_spans[0].parent_id == server[0].span_id)
+        log(f"{name}: traceparent on POST {route}: X-Trace-Id "
+            f"{'equal' if back == trace else back}; spans of the trace "
+            f"{sorted(sp.name for sp in spans if sp.trace_id == trace)}, "
+            f"tpu.generate the child of the server span: "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"{name}: the trace of POST {route} is wrong")
+    # the numbers
+    a = client_line(f"{name}: (a) POST /generate", [
+        {"times": gen[i]["times"]} for i in range(7)], card)
+    b = client_line(f"{name}: (b) POST /v1/chat/completions stream",
+                    [chats[i] for i in range(7)], card)
+    client_line(f"{name}: (e) POST /generate again", [
+        {"times": gen2[i]["times"]} for i in range(7)], card)
+    ttft_h = hist_between(before_b, after_b, "app_tpu_ttft_seconds",
+                          TTFT_BUCKETS)
+    tpot_h = hist_between(before_b, after_b, "app_tpu_tpot_seconds",
+                          TPOT_BUCKETS)
+    log(f"{name}: server histograms over (b): app_tpu_ttft_seconds p50="
+        f"{ttft_h.percentile(0.5) * 1e3:.1f} ms (bucket midpoint, "
+        f"{ttft_h.series[()]['count']} samples; client p50 "
+        f"{b['ttft_p50']:.1f}), app_tpu_tpot_seconds p50="
+        f"{tpot_h.percentile(0.5) * 1e3:.2f} ms ("
+        f"{tpot_h.series[()]['count']} samples; client 1000/tok/s "
+        f"{1e3 / b['tps_p50']:.2f}) [{card}]")
+    log(f"{name}: (a) {wall_a:.2f}s, (b) {wall_b:.2f}s, (c) {wall_c:.2f}s, "
+        f"(d) {wall_d:.2f}s; the phase {time.monotonic() - t_phase:.1f}s "
+        f"[{card}]")
     torch.cuda.empty_cache()
 
 
@@ -2646,7 +3112,7 @@ def tokenizer_check(app, engine, card: str, vocab_path: str) -> None:
     require(fast == slow, "the native core and the Python loop disagree")
     saved = engine.tokenizer
     engine.tokenizer = tok
-    app2 = build_app({"HTTP_PORT": "0", "VOCAB_PATH": vocab_path},
+    app2 = build_app({**QUIET, "HTTP_PORT": "0", "VOCAB_PATH": vocab_path},
                      engine=engine)
     app2.start()
     out: dict = {}
@@ -2792,7 +3258,7 @@ def w8_phase(params, cfg, dev, card: str, flush) -> None:
 SPEC_TOKENS = 48
 SPEC_CHARS = [150, 180, 200, 220, 240, 130, 160]
 SPEC_PLAIN_CHARS = 250
-SPEC_ENV = {"MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+SPEC_ENV = {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
             "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
             "PAGE_SIZE": "128", "PREFILL_BUCKETS": "16,32,64,128,256",
             "REQUEST_TIMEOUT": "600", "WARMUP": "wide",
@@ -3202,7 +3668,7 @@ def dense_spec_reduced(params, cfg, dev, card: str, n_layers: int = 4
             "dense spec at reduced depth failed")
 
 
-CHUNK_ENV = {"MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+CHUNK_ENV = {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
              "HTTP_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "2048",
              "PAGE_SIZE": "128",
              "PREFILL_BUCKETS": "16,32,64,128,256,512,1024",
@@ -3447,14 +3913,15 @@ def main(argv=()) -> int:
     speculation and chunked-prefill phases (10). --sc: build, then the
     main path's serve phase, its sampling-controls phase, the sort-skip
     phase and the scoring phase. --weights: build, then the weights phases
-    (w8_phase). The short modes print no ok line."""
+    (w8_phase). --openai: build, then the OpenAI phase on an engine of its
+    own (OPENAI_ENV). The short modes print no ok line."""
     import torch
 
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
-                    "--weights", "--spec"):
+                    "--weights", "--spec", "--openai"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc, --weights, --spec or none)")
+            f"--sc, --weights, --spec, --openai or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -3492,7 +3959,7 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode not in ("--prefill", "--weights", "--spec"):
+        if mode not in ("--prefill", "--weights", "--spec", "--openai"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -3521,6 +3988,19 @@ def main(argv=()) -> int:
             log(f"chunk phases: {time.monotonic() - t0:.1f}s")
             log(f"spec only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
+        if mode == "--openai":
+            from gofr_tpu_torch.serve import build_app, build_engine
+
+            engine = build_engine(OPENAI_ENV, device=dev, params=params)
+            boot_line(engine, "openai", card)
+            gen_app = build_app(OPENAI_ENV, engine=engine)
+            gen_app.start()
+            try:
+                openai_phase(params, cfg, dev, card, gen_app, engine)
+            finally:
+                gen_app.shutdown()
+            log(f"openai only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
         if mode == "--sc":
             ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
             serve_sc_phase(params, cfg, dev, card, "paged", ref)
@@ -3534,8 +4014,12 @@ def main(argv=()) -> int:
             served[config] = serve_phase(params, cfg, dev, card, config)
             torch.cuda.empty_cache()
         for config in SERVE_CONFIGS:
+            # the OpenAI phase on the main path's engine (its boot reused)
+            after = (None if config != "paged" else
+                     lambda app, eng: openai_phase(params, cfg, dev, card,
+                                                   app, eng))
             serve_sc_phase(params, cfg, dev, card, config,
-                           served[config]["sc_ref"])
+                           served[config]["sc_ref"], after=after)
             torch.cuda.empty_cache()
         warmup_true_phase(params, cfg, dev, card)
         torch.cuda.empty_cache()

@@ -1,0 +1,168 @@
+"""DI Container: the holder of the config, logger, metrics and tracer.
+
+Counterpart of ``gofr_tpu/container/__init__.py``, cut to what the port's
+servers use: ``Container`` with ``config``, ``logger`` (``LOG_LEVEL``),
+``metrics_manager``, ``tracer`` (``exporter_from_config``: ``TRACE_EXPORTER``,
+``TRACER_URL``), ``app_name`` (``APP_NAME``) and ``app_version``
+(``APP_VERSION``); ``create`` (the framework metrics of
+``register_framework_metrics`` and ``app_info``),
+``refresh_runtime_metrics`` (the runtime gauges, at every metrics scrape),
+the aggregate ``health`` over the contributors the serving engines
+register (``add_health_contributor``, with the reference's de-flap rule
+for DEGRADED) and ``close`` (drains the trace exporter). The scrape hooks
+wait with the stall gauge in ROADMAP A11.
+
+Waiting in ROADMAP A18b: the datasources the reference builds from config
+(``sql``, ``kv``, ``pubsub``, ``docstore``), the HTTP services and the
+``REMOTE_LOG_URL`` level poller (``create`` refuses a set
+``REMOTE_LOG_URL``). The reference's ``tpu`` datasource (a device client
+built under ``TPU_ENABLED`` / ``MODEL_NAME``) has no counterpart: the port's
+engines resolve their card themselves (``tpu/device.resolve_device``), and
+the engine's health reaches the aggregate as a contributor.
+"""
+
+from __future__ import annotations
+
+import gc
+import threading
+import time
+from typing import Any, Callable, Dict, Mapping, Optional, Union
+
+from ..config import Config, as_config
+from ..logging import Logger, new_logger, parse_level
+from ..metrics import Manager as MetricsManager
+from ..tracing import Tracer, exporter_from_config
+
+FRAMEWORK = "0.1.0-dev"
+
+STATUS_UP = "UP"
+STATUS_DOWN = "DOWN"
+STATUS_DEGRADED = "DEGRADED"
+
+# the reference's framework histogram buckets (seconds)
+HTTP_BUCKETS = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10, 30)
+SQL_BUCKETS = (5e-5, 1e-4, 3e-4, 1e-3, 2e-3, 3e-3, 5e-3, 7.5e-3, 1e-2)
+KV_BUCKETS = (5e-5, 1e-4, 3e-4, 5e-4, 1e-3, 2e-3, 3e-3)
+
+
+class Container:
+    def __init__(self, config: Config, logger: Optional[Logger] = None):
+        self.config = config
+        self.logger = logger or new_logger(
+            parse_level(config.get_or_default("LOG_LEVEL", "INFO")))
+        self.metrics_manager: Optional[MetricsManager] = None
+        self.tracer: Optional[Tracer] = None
+        # app-level components in the aggregate health report (the serving
+        # engines register here)
+        self._health_contributors: Dict[str, Callable[[], Any]] = {}
+        self.app_name = config.get_or_default("APP_NAME", "gofr-tpu-app")
+        self.app_version = config.get_or_default("APP_VERSION", "dev")
+        self._started_at = time.time()
+        # consecutive health() calls that saw a DEGRADED (not DOWN)
+        # contributor: see health() for the de-flap rule
+        self._degraded_streak = 0
+
+    @classmethod
+    def create(cls, config: Union[Config, Mapping[str, str], None]
+               ) -> "Container":
+        """The container of an App: its logger, its metrics manager with
+        the framework metrics, and its tracer. Raises ValueError on a set
+        REMOTE_LOG_URL (ROADMAP A18b)."""
+        config = as_config(config)
+        if config.get_or_default("REMOTE_LOG_URL", ""):
+            raise ValueError("REMOTE_LOG_URL is not supported by "
+                             "gofr_tpu_torch yet: the remote log-level "
+                             "poller waits in ROADMAP A18b")
+        c = cls(config)
+        c.logger.debugf("container created for app %s", c.app_name)
+        c.metrics_manager = MetricsManager(logger=c.logger)
+        c.register_framework_metrics()
+        c.metrics_manager.increment_counter(
+            "app_info", 1, app_name=c.app_name, app_version=c.app_version,
+            framework_version=FRAMEWORK)
+        exporter = exporter_from_config(config, c.logger)
+        if hasattr(exporter, "use_metrics"):
+            # the async exporters count queue-overflow drops in
+            # app_obs_dropped_spans_total (registered above)
+            exporter.use_metrics(c.metrics_manager)
+        c.tracer = Tracer(service_name=c.app_name, exporter=exporter)
+        return c
+
+    def register_framework_metrics(self) -> None:
+        m = self.metrics_manager
+        m.new_counter("app_info", "static app information")
+        m.new_gauge("app_python_threads", "live python threads")
+        m.new_gauge("app_python_gc_objects", "objects tracked by gc")
+        m.new_gauge("app_uptime_seconds", "seconds since container start")
+        m.new_histogram("app_http_response", "http response time in seconds", HTTP_BUCKETS)
+        m.new_histogram("app_http_service_response", "outbound http call time in seconds", HTTP_BUCKETS)
+        m.new_histogram("app_sql_stats", "sql query time in seconds", SQL_BUCKETS)
+        m.new_histogram("app_kv_stats", "kv command time in seconds", KV_BUCKETS)
+        m.new_histogram("app_doc_stats", "document store op time in seconds", SQL_BUCKETS)
+        m.new_counter("app_pubsub_publish_total_count", "messages published")
+        m.new_counter("app_pubsub_subscribe_total_count", "messages received")
+        m.new_counter("app_pubsub_commit_total_count", "messages committed")
+        m.new_counter("app_pubsub_subscribe_failure_count", "handler failures")
+        m.new_counter("app_obs_dropped_spans_total",
+                      "finished spans dropped by the async trace exporter's "
+                      "bounded queue (a dead/slow collector sheds spans "
+                      "instead of blocking the span-ending thread)")
+
+    def refresh_runtime_metrics(self) -> None:
+        """Refreshed per metrics scrape."""
+        m = self.metrics_manager
+        if m is None:
+            return
+        m.set_gauge("app_python_threads", threading.active_count())
+        m.set_gauge("app_python_gc_objects", len(gc.get_objects()) if gc.isenabled() else 0)
+        m.set_gauge("app_uptime_seconds", time.time() - self._started_at)
+
+    # -- aggregate health -----------------------------------------------------
+    def add_health_contributor(self, name: str, fn: Callable[[], Any]) -> None:
+        """Register a component in the aggregate health report. fn() returns
+        a dict with a "status" of UP, DOWN or DEGRADED."""
+        self._health_contributors[name] = fn
+
+    def health(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            "name": self.app_name,
+            "version": self.app_version,
+            "framework": FRAMEWORK,
+            "status": STATUS_UP,
+            "uptime_s": round(time.time() - self._started_at, 1),
+        }
+        details: Dict[str, Any] = {}
+        statuses = []
+        for name, fn in self._health_contributors.items():
+            try:
+                h = fn()
+            except Exception as exc:  # noqa: BLE001 - a broken probe is DOWN
+                h = {"status": STATUS_DOWN, "details": {"error": str(exc)}}
+            details[name] = h
+            statuses.append(h.get("status", STATUS_DOWN))
+        # DOWN degrades the aggregate at once; a DEGRADED contributor must
+        # persist across >= 2 consecutive checks
+        if any(s == STATUS_DOWN for s in statuses):
+            self._degraded_streak = 0
+            out["status"] = STATUS_DEGRADED
+        elif any(s == STATUS_DEGRADED for s in statuses):
+            self._degraded_streak += 1
+            if self._degraded_streak >= 2:
+                out["status"] = STATUS_DEGRADED
+            else:
+                out["degrading"] = True  # visible, but not yet actionable
+        else:
+            self._degraded_streak = 0
+        out["details"] = details
+        return out
+
+    def close(self) -> None:
+        """Drain the async trace exporter: what is queued reaches the
+        collector."""
+        tracer = self.tracer
+        if tracer is not None and hasattr(tracer.exporter, "close"):
+            try:
+                tracer.exporter.close()
+            except Exception:  # noqa: BLE001
+                pass
+

@@ -1,16 +1,19 @@
-"""HTTP transport: router, request/responder, threaded server with SSE.
+"""HTTP transport: router with its middleware chain, request/responder,
+threaded server with SSE.
 
 Own copies of ``gofr_tpu/http``'s stdlib-only modules, trimmed to what the
-port's ``/generate`` needs.
+port's servers need; ``middleware.py`` holds the default chain of
+``gofr_tpu/http/middleware/``.
 """
 
 from .errors import HTTPError, InvalidParam, RequestTimeout, ServiceUnavailable
 from .request import Request
-from .responder import Responder, Response, Stream
+from .responder import Raw, Responder, Response, Stream
 from .router import Router
 from .server import HTTPServer
 
 __all__ = [
     "HTTPError", "InvalidParam", "RequestTimeout", "ServiceUnavailable",
-    "Request", "Responder", "Response", "Stream", "Router", "HTTPServer",
+    "Request", "Raw", "Responder", "Response", "Stream", "Router",
+    "HTTPServer",
 ]

@@ -1,6 +1,7 @@
 """HTTP error types mapped to status codes by the Responder.
 
-A copy of ``gofr_tpu/http/errors.py``, trimmed to what ``/generate`` needs.
+A copy of ``gofr_tpu/http/errors.py``, trimmed to what the port's servers
+need.
 """
 
 from __future__ import annotations
@@ -33,6 +34,13 @@ class RequestTimeout(HTTPError):
 
     def __init__(self):
         super().__init__("request timed out")
+
+
+class PanicRecovery(HTTPError):
+    status_code = 500
+
+    def __init__(self):
+        super().__init__("some unexpected error has occurred")
 
 
 class ServiceUnavailable(HTTPError):

@@ -1,8 +1,9 @@
 """HTTP Request wrapper: method, path, headers, JSON bind.
 
-A copy of ``gofr_tpu/http/request.py``, trimmed to what ``/generate``
-needs (JSON bodies only; query params, multipart and dataclass binding
-are not ported).
+A copy of ``gofr_tpu/http/request.py``, trimmed to what the port's servers
+need: JSON bodies only (query params, multipart and dataclass binding are
+not ported), ``header()``, and the fields the router and the middleware
+set (``route_pattern``, ``span``, ``traceparent``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,12 @@ class Request:
         self.body = body or b""
         self.client_addr = client_addr
         self.path_params: Dict[str, str] = {}
+        self.route_pattern: Optional[str] = None  # set by the router on match
+        self.span = None  # set by the tracer middleware
+        self.traceparent: Optional[str] = None  # the raw W3C header, ditto
+
+    def header(self, key: str) -> str:
+        return self.headers.get(key.lower(), "")
 
     def bind(self) -> Any:
         """The parsed JSON body ({} when empty); 400 on malformed JSON."""

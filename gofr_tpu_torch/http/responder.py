@@ -1,8 +1,9 @@
 """Response types and the uniform JSON-envelope Responder, with SSE streams.
 
-A copy of ``gofr_tpu/http/responder.py``, trimmed to what ``/generate``
-needs: ``Response``, ``Stream`` (chunked or server-sent events) and the
-``{data}`` / ``{error}`` envelope with a Retry-After header for sheds.
+A copy of ``gofr_tpu/http/responder.py``, trimmed to what the port's
+servers need: ``Response``, ``Raw`` (JSON without the envelope, the OpenAI
+shapes), ``Stream`` (chunked or server-sent events) and the ``{data}`` /
+``{error}`` envelope with a Retry-After header for sheds.
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ class Response:
         self.headers = headers or {}
         self.body = body
         self.stream = stream  # when set, body is ignored and chunks are flushed as produced
+
+
+class Raw:
+    """Marshal `data` as JSON without the {data: ...} envelope."""
+
+    def __init__(self, data: Any):
+        self.data = data
 
 
 class Stream:
@@ -79,6 +87,8 @@ class Responder:
             return response
         if isinstance(data, Response):
             return data
+        if isinstance(data, Raw):
+            return self._json(status_from_method(self.method), data.data)
         if isinstance(data, Stream):
             return Response(status=200, headers={"Content-Type": data.content_type},
                             stream=data.iter_bytes())

@@ -95,7 +95,7 @@ class HTTPServer:
                                         name=f"http-server-{self.port}", daemon=True)
         self._thread.start()
         if self.logger is not None:
-            self.logger.info("HTTP server started on port %d", self.port)
+            self.logger.infof("HTTP server started on port %d", self.port)
 
     def serve_forever(self) -> None:
         if self._thread is not None:

@@ -313,7 +313,7 @@ def load_llama_safetensors(cfg, path: str,
 
     def log(msg, *args):
         if logger is not None:
-            logger.debug(msg, *args)
+            logger.debugf(msg, *args)
 
     def fetch(name: str) -> torch.Tensor:
         return reader.tensor(name).to(dev).to(dtype)

@@ -14,9 +14,11 @@ body and sends the same events.
     header, else the body's "class") that is not one of QOS_CLASSES. QoS is
     not ported (ROADMAP A11): a known class changes nothing.
 
-Run: ``python -m gofr_tpu_torch.serve`` (config from the environment).
-Every key the reference's llm-server reads is accounted for here: served
-(PORTED, read by build_engine), refused at boot where it asks for a
+Run: ``python -m gofr_tpu_torch.serve`` (config from .env files under
+GOFR_CONFIGS_DIR, the process environment over them). Every key the
+reference's llm-server and OpenAI server read, and every App-level key of
+the reference's App and container, is accounted for here: served (PORTED,
+read by build_engine or the App), refused at boot where it asks for a
 feature not ported yet (NOT_PORTED, naming its ROADMAP item), or inert,
 each for its stated reason (INERT). Keys: MODEL_PRESET (debug | llama1b | llama3-8b | llama3-70b, default
 debug), ATTN_IMPL (flash | xla, default flash), PAGED (true: the paged
@@ -58,25 +60,37 @@ between them; it must divide every larger bucket), SPECULATIVE_TOKENS (0;
 > 0: prompt-lookup speculation, up to this many drafts verified per
 dispatch, greedy output unchanged; it refuses KV_DTYPE=int8 and
 CHUNK_PREFILL_TOKENS, as the reference does).
+
+The App's keys (app.py, container/): HTTP_PORT (8000), METRICS_PORT (2121:
+GET /metrics with the engine's app_tpu_* series and app_http_response;
+0 picks a free port), REQUEST_TIMEOUT, MAX_CONCURRENT_REQUESTS (256 handler
+slots, a 503 when they are full), LOG_LEVEL (INFO; JSON lines, one per
+request), APP_NAME and APP_VERSION (app_info, the tracer's service name),
+TRACE_EXPORTER and TRACER_URL (zipkin | otlp | jaeger | otlp-grpc | http |
+gofr need the URL; log, memory; unset: none), GOFR_CONFIGS_DIR (where
+``main`` reads .env files when no config is passed; the process environment
+wins). The engine gets the container's metrics manager, tracer and logger:
+POST /generate threads its server span and the inbound traceparent into
+submit, so each request's tpu.generate span joins the caller's trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import logging
-import os
 import time
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 from .app import App, Stream
+from .config import Config, as_config
+from .container import Container
 from .http.errors import InvalidParam, RequestTimeout, ServiceUnavailable
 from .models.llama import LlamaConfig, llama_init, llama_init_quantized
 from .models.tokenizer import (BPETokenizer, ByteLevelBPETokenizer,
                                ByteTokenizer, DebugTokenizer,
                                StreamingDecoder)
 from .tpu.capacity import device_budget_bytes
-from .tpu.device import resolve_device
+from .tpu.device import register_metrics, resolve_device
 from .tpu.engine import LLMEngine
 from .tpu.paging import PagedLLMEngine
 
@@ -90,19 +104,22 @@ PRESETS = {
 _FALSE = ("0", "false", "no", "off", "")
 
 
-def _flag(env: Mapping[str, str], key: str, default: bool) -> bool:
+EnvLike = Union[Config, Mapping[str, str], None]
+
+
+def _flag(env: Config, key: str, default: bool) -> bool:
     value = env.get(key)
     if value is None:
         return default
     return value.strip().lower() not in _FALSE
 
 
-def _int(env: Mapping[str, str], key: str, default: int) -> int:
+def _int(env: Config, key: str, default: int) -> int:
     value = env.get(key)
     return default if value in (None, "") else int(value)
 
 
-def _float(env: Mapping[str, str], key: str, default: float) -> float:
+def _float(env: Config, key: str, default: float) -> float:
     value = env.get(key)
     return default if value in (None, "") else float(value)
 
@@ -116,6 +133,10 @@ PORTED = (
     "WARMUP_SCORE", "WEIGHTS_PATH", "WEIGHT_DTYPE", "VOCAB_PATH",
     "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT", "CHUNK_PREFILL_TOKENS",
     "SPECULATIVE_TOKENS",
+    # the App's and its container's (app.py, container/, tracing/)
+    "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
+    "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
+    "GOFR_CONFIGS_DIR",
 )
 
 
@@ -123,7 +144,8 @@ PORTED = (
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("DISAGG_MODE", lambda e: e.get("DISAGG_MODE", "off").lower() != "off",
+    ("DISAGG_MODE",
+     lambda e: e.get_or_default("DISAGG_MODE", "off").lower() != "off",
      "disaggregated prefill/decode waits in ROADMAP A11"),
     ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
      "the host KV tier waits in ROADMAP A11"),
@@ -133,6 +155,21 @@ NOT_PORTED = (
      "the warm boot behind a `warming` lifecycle waits in ROADMAP A11"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
+    # the container's
+    ("REMOTE_LOG_URL", lambda e: bool(e.get("REMOTE_LOG_URL")),
+     "the remote log-level poller waits in ROADMAP A18b"),
+    ("DB_DIALECT", lambda e: bool(e.get("DB_DIALECT")),
+     "the SQL datasource waits in ROADMAP A18b"),
+    ("DB_PATH", lambda e: bool(e.get("DB_PATH")),
+     "the SQL datasource waits in ROADMAP A18b"),
+    ("KV_STORE", lambda e: bool(e.get("KV_STORE")),
+     "the KV datasource waits in ROADMAP A18b"),
+    ("KV_ENABLED", lambda e: _flag(e, "KV_ENABLED", False),
+     "the KV datasource waits in ROADMAP A18b"),
+    ("PUBSUB_BACKEND", lambda e: bool(e.get("PUBSUB_BACKEND")),
+     "pub/sub waits in ROADMAP A18b"),
+    ("JAX_COORDINATOR_ADDR", lambda e: bool(e.get("JAX_COORDINATOR_ADDR")),
+     "multi-host serving waits in ROADMAP A14"),
 )
 
 # keys the reference reads that change nothing the port serves: (key, why)
@@ -179,6 +216,35 @@ INERT = (
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
+    ("TPU_ENABLED", "builds the reference container's device client; the "
+     "port's engines resolve their card themselves (tpu/device.py)"),
+    ("MODEL_NAME", "builds the reference container's device client; the "
+     "port's engines resolve their card themselves (tpu/device.py)"),
+    # the App's: no server binds it
+    ("GRPC_PORT", "the port serves no gRPC, so nothing binds it: the "
+     "llm-server's gRPC /generate waits in ROADMAP A18b, and the OpenAI "
+     "server registers no gRPC service"),
+    ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
+     "refused (A18b)"),
+    # they tune the App's enable_* planes, which the port does not serve
+    # (A11)
+    *((key, f"tunes {plane}, not served (A11)") for plane, keys in (
+        ("the flight recorder of /debug/requests",
+         ("FLIGHT_RECORDER_CAPACITY", "FLIGHT_RECORDER_MAX_EVENTS",
+          "SLO_TTFT_TARGET_S", "SLO_TPOT_TARGET_S")),
+        ("the engine snapshot's HBM sampler of /debug/engine",
+         ("ENGINE_HBM_SAMPLE_S",)),
+        ("the step ledger of /debug/steps",
+         ("STEP_LEDGER_CAPACITY", "STEP_STRAGGLER_K", "STEP_BASELINE_ALPHA",
+          "STEP_BASELINE_MIN_SAMPLES")),
+        ("the timeline of /debug/timeline", ("TIMELINE_STEPS",)),
+        ("the host profiler of /debug/hostprof",
+         ("HOSTPROF_HZ", "HOSTPROF_MAX_STACKS", "HOSTPROF_TOP_K")),
+        ("the profile captures of /debug/profile and the incident bundles",
+         ("PROFILE_DIR",)),
+        ("the drain-with-migration surface of /debug/drain and /migrate",
+         ("DRAIN_MIGRATE", "DRAIN_SHIP_TIMEOUT_S")),
+    ) for key in keys),
 )
 
 
@@ -205,10 +271,10 @@ def shed_to_503(exc: RuntimeError) -> ServiceUnavailable:
         str(exc), retry_after_s=getattr(exc, "retry_after_s", None) or 1.0)
 
 
-def _warmup_mode(env: Mapping[str, str]) -> str:
+def _warmup_mode(env: Config) -> str:
     """WARMUP as the reference reads it: "wide", a false value (no warm-up)
     or a true one; raises ValueError on anything else."""
-    value = env.get("WARMUP", "true").strip().lower()
+    value = env.get_or_default("WARMUP", "true").strip().lower()
     if value == "wide":
         return "wide"
     if value in _FALSE:
@@ -234,36 +300,47 @@ def check_qos_class(value) -> None:
                         f"(got {value!r})"])
 
 
-def check_config(env: Mapping[str, str]) -> None:
+def check_config(env: EnvLike) -> None:
     """Raise ValueError naming the ROADMAP item of the first config key that
     asks for a feature the port does not have yet."""
+    env = as_config(env)
     for key, asks, where in NOT_PORTED:
         if asks(env):
             raise ValueError(f"{key}={env.get(key)!r} is not supported by "
                              f"gofr_tpu_torch yet: {where}")
 
 
-def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
-                 params=None) -> LLMEngine:
-    """Engine from config keys (see the module docstring), warmed up and
-    started. device: None = the CUDA card (raises without one); "cpu" for
-    tests. params: an already-built params dict for the preset (default:
-    llama_init, seed 0). On the card the kernels are built here, at boot,
-    and then WARMUP captures the programs serving is expected to reach
-    (every one under wide) and WARMUP_SCORE the scoring family, so no
-    request pays the compiler or a capture. The engine's `warmup_seconds`
-    and `score_warmup_seconds` hold their times (0.0 when off)."""
-    env = dict(env or {})
+def build_engine(env: EnvLike = None, device=None, params=None,
+                 default_sampling_controls: bool = False,
+                 container: Optional[Container] = None) -> LLMEngine:
+    """Engine from config keys (a Config or a plain mapping; see the module
+    docstring), warmed up and started. device: None = the CUDA card
+    (raises without one); "cpu" for tests. params: an already-built params
+    dict for the preset (default: llama_init, seed 0).
+    default_sampling_controls: SAMPLING_CONTROLS when the key is unset (the
+    OpenAI server's is on). container: the App's (default: one made from
+    the config); the engine records into its metrics manager (the
+    app_tpu_* names registered here) and tracer and logs to its logger, as
+    the reference's build_engine hands them over, and rides on
+    ``engine.container`` for build_app. On the card the kernels are built
+    here, at boot, and then WARMUP captures the programs serving is
+    expected to reach (every one under wide) and WARMUP_SCORE the scoring
+    family, so no request pays the compiler or a capture. The engine's
+    `warmup_seconds` and `score_warmup_seconds` hold their times (0.0 when
+    off)."""
+    env = as_config(env)
     check_config(env)
     warm = _warmup_mode(env)
     dev = resolve_device(device)
-    preset = env.get("MODEL_PRESET", "debug")
+    if container is None:
+        container = Container.create(env)
+    preset = env.get_or_default("MODEL_PRESET", "debug")
     if preset not in PRESETS:
         raise ValueError(f"MODEL_PRESET must be one of {sorted(PRESETS)}, "
                          f"got {preset!r}")
-    attn_impl = env.get("ATTN_IMPL", "flash")
-    decode_attn = env.get("DECODE_ATTN", "xla")
-    kv_dtype = env.get("KV_DTYPE", "") or None
+    attn_impl = env.get_or_default("ATTN_IMPL", "flash")
+    decode_attn = env.get_or_default("DECODE_ATTN", "xla")
+    kv_dtype = env.get("KV_DTYPE") or None
     if attn_impl not in ("xla", "flash"):
         raise ValueError(f"ATTN_IMPL must be xla|flash, got {attn_impl!r}")
     if decode_attn not in ("xla", "kernel"):
@@ -273,16 +350,16 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
     cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
                               decode_attn=decode_attn, kv_dtype=kv_dtype)
-    weight_dtype = env.get("WEIGHT_DTYPE", "") or None
+    weight_dtype = env.get("WEIGHT_DTYPE") or None
     if weight_dtype not in (None, "int8"):
         raise ValueError(f"WEIGHT_DTYPE must be int8 or unset, got "
                          f"{weight_dtype!r}")
-    log = logging.getLogger("gofr_tpu_torch")
-    vocab_path = env.get("VOCAB_PATH", "")
+    log = container.logger
+    vocab_path = env.get("VOCAB_PATH") or ""
     if vocab_path:
         tokenizer = load_tokenizer(vocab_path)
-        log.info("loaded vocab from %s (%s, %d tokens)", vocab_path,
-                 type(tokenizer).__name__, tokenizer.vocab_size)
+        log.infof("loaded vocab from %s (%s, %d tokens)", vocab_path,
+                  type(tokenizer).__name__, tokenizer.vocab_size)
     elif cfg.vocab_size > ByteTokenizer.vocab_size:
         # synthetic vocabularies sample ids the byte tokenizer cannot
         # round-trip; DebugTokenizer decodes every id to one char
@@ -296,7 +373,7 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         from .ops import _build
 
         _build.build(*_build.KERNELS)
-    weights_path = env.get("WEIGHTS_PATH", "")
+    weights_path = env.get("WEIGHTS_PATH") or ""
     if params is None and weights_path:
         from .models.weights import load_llama_safetensors
 
@@ -304,25 +381,29 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
         params = load_llama_safetensors(cfg, weights_path,
                                         weight_dtype=weight_dtype,
                                         logger=log, device=dev)
-        log.info("loaded weights from %s in %.1fs (%s)", weights_path,
-                 time.monotonic() - t0, weight_dtype or cfg.dtype)
+        log.infof("loaded weights from %s in %.1fs (%s)", weights_path,
+                  time.monotonic() - t0, weight_dtype or cfg.dtype)
     elif params is None and weight_dtype == "int8":
         params = llama_init_quantized(cfg, seed=0, device=dev)
     elif params is None:
         params = llama_init(cfg, seed=0, device=dev)
     budget = _int(env, "HBM_BUDGET_BYTES", 0)
     budget = 0 if budget < 0 else budget or device_budget_bytes(dev)
+    metrics = container.metrics_manager
+    register_metrics(metrics)
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
               budget_bytes=budget or None,
+              metrics=metrics, tracer=container.tracer, logger=log,
               async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
-              sampling_controls=_flag(env, "SAMPLING_CONTROLS", False),
+              sampling_controls=_flag(env, "SAMPLING_CONTROLS",
+                                      default_sampling_controls),
               max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
               # >0 splits long prompts into bounded chunk dispatches (must
               # divide the buckets it splits); >0 verifies up to N
               # prompt-lookup drafts per dispatch (greedy output unchanged)
               chunk_prefill_tokens=_int(env, "CHUNK_PREFILL_TOKENS", 0),
               speculative_tokens=_int(env, "SPECULATIVE_TOKENS", 0),
-              prefill_buckets=tuple(int(b) for b in env.get(
+              prefill_buckets=tuple(int(b) for b in env.get_or_default(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
     if _flag(env, "PAGED", True):
         engine = PagedLLMEngine(params, cfg,
@@ -333,38 +414,55 @@ def build_engine(env: Optional[Mapping[str, str]] = None, device=None,
     else:
         engine = LLMEngine(params, cfg, **kw)
     engine.tokenizer = tokenizer
+    engine.container = container
     engine.warmup_seconds = engine.score_warmup_seconds = 0.0
     if warm != "false":
         t0 = time.monotonic()
         engine.warmup(k_variants=warm == "wide")
         engine.warmup_seconds = time.monotonic() - t0
-        log.info("engine warmed up in %.1fs%s", engine.warmup_seconds,
-                 " (wide)" if warm == "wide" else "")
+        log.infof("engine warmed up in %.1fs%s", engine.warmup_seconds,
+                  " (wide)" if warm == "wide" else "")
     if _flag(env, "WARMUP_SCORE", False):
         t0 = time.monotonic()
         n = engine.warmup_scoring()
         engine.score_warmup_seconds = time.monotonic() - t0
-        log.info("scoring warmed up in %.1fs (%d passes)",
-                 engine.score_warmup_seconds, n)
+        log.infof("scoring warmed up in %.1fs (%d passes)",
+                  engine.score_warmup_seconds, n)
     engine.start()
     return engine
 
 
-def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
-              device=None) -> App:
+def app_for(env: EnvLike, engine=None, device=None,
+            default_sampling_controls: bool = False) -> App:
+    """The App of a server and its engine, on ``app.engine``: a built
+    engine shares its container with the App (its metrics, tracer and
+    logger); else the engine is built on the App's container. The engine's
+    health joins the App's aggregate, and the App's shutdown drains it
+    (DRAIN_TIMEOUT: the active streams finish, queued and new requests get
+    503), then stops it. env: a Config, a mapping, or None (the App reads
+    .env files under GOFR_CONFIGS_DIR, the process environment over
+    them)."""
+    if engine is not None and getattr(engine, "container", None) is not None:
+        app = App(config=env, container=engine.container)
+    else:
+        app = App(config=env)
+    if engine is None:
+        engine = build_engine(
+            app.config, device=device, container=app.container,
+            default_sampling_controls=default_sampling_controls)
+    app.engine = engine
+    app.add_health_contributor("engine", engine.health_check)
+    drain_s = _float(app.config, "DRAIN_TIMEOUT", 30.0)
+    app.on_shutdown(lambda: (engine.drain(drain_s), engine.stop()))
+    return app
+
+
+def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     """App + engine + routes; the engine rides on ``app.engine``. Pass a
     built engine to wrap it in the serving surface."""
-    env = dict(env or {})
-    app = App(config=env)
-    if engine is None:
-        engine = build_engine(env, device=device)
-    app.engine = engine
+    app = app_for(env, engine, device)
+    engine = app.engine
     tokenizer = engine.tokenizer
-    app.add_health_contributor("engine", engine.health_check)
-    # graceful drain: the active streams finish (bounded), queued and new
-    # requests get 503, then the engine stops
-    drain_s = _float(env, "DRAIN_TIMEOUT", 30.0)
-    app.on_shutdown(lambda: (engine.drain(drain_s), engine.stop()))
 
     @app.post("/generate")
     def generate(ctx):
@@ -396,7 +494,8 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
                 tokenizer.encode(prompt), max_new_tokens=max_tokens,
                 temperature=temperature, stop_tokens={tokenizer.EOS},
                 priority=priority, min_tokens=min_tokens, top_p=top_p,
-                top_k=top_k)
+                top_k=top_k, span=ctx.span,
+                traceparent=ctx.request.traceparent)
         except ValueError as exc:
             raise InvalidParam([str(exc)]) from exc
         except RuntimeError as exc:   # draining or stopped
@@ -435,7 +534,7 @@ def build_app(env: Optional[Mapping[str, str]] = None, engine=None,
 
 
 def main() -> None:
-    build_app(os.environ).run()
+    build_app().run()
 
 
 if __name__ == "__main__":

@@ -81,6 +81,23 @@ rows the block will read with a control. Admission waves always run the
 filters (the identity on rows without controls). The post-hoc scoring
 passes (``score``, ``embed``, ``warmup_scoring``) are tpu/score.py's.
 
+Observability (ROADMAP A18a) is the reference's: ``LLMEngine(metrics=,
+tracer=, logger=)``, ``self._obs = MetricsHook(metrics)`` (tpu/obs.py; the
+names tpu/device.register_metrics registers), and ``submit(span=,
+traceparent=)``, which opens the request's ``tpu.generate`` span (with
+``tpu.prompt_tokens``) under the caller's span or traceparent; admission
+stamps ``batch.id``, ``tpu.slot`` and ``tpu.prefill_bucket`` on it, and its
+finish ``tpu.tokens``. A tracer also gets a ``tpu.prefill``/``tpu.decode``/
+``tpu.verify`` span per dispatch, ended at its sync. The recording sites
+are the reference's: requests and queue depth at submit; queue wait at
+admission (a chunk job's at its first chunk), queue depth and active slots
+after each admission round; drafts at a verify's dispatch; TTFT at a
+request's first token; tokens, TPOT (``hist_n``, one call per sync),
+batch size and execute seconds (dispatch to sync) at each decode sync; and
+accepted drafts, tokens, TPOT, batch size and execute seconds at each
+verify sync. Every one is host work at a sync the loop already makes:
+nothing is recorded inside a captured graph and no sync is added.
+
 Everything runs on ONE stream, the engine's, in dispatch order: prefills,
 decode replays, cache growth, the host copies. That order is what makes
 speculative decode of freed rows safe, as in the reference: a row freed at
@@ -105,12 +122,12 @@ import contextlib
 import gc
 import heapq
 import itertools
-import logging
 import math
 import queue
 import re
 import threading
 import time
+import traceback
 from typing import (Callable, Dict, Iterator, List, Optional, Sequence, Set,
                     Tuple)
 
@@ -118,6 +135,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..logging import Logger, new_logger
 from ..models.llama import (DTYPES, init_kv_cache_layers,
                             init_kv_scale_layers, llama_decode_step_unrolled,
                             llama_decode_step_unrolled_q8, llama_prefill_chunk,
@@ -126,10 +144,10 @@ from ..models.llama import (DTYPES, init_kv_cache_layers,
 from ..ops.decode_attention import quantize_kv
 from .device import resolve_device
 from .executor import Executor, next_bucket
+from .obs import MetricsHook
 from .sampling import pack_controls, sample_tokens, temperature_of
 
 _request_ids = itertools.count(1)
-_log = logging.getLogger(__name__)
 # the cache length a dense program is captured at, in its name
 _CACHE_LEN = re.compile(r"-S(\d+)(?:-|$)")
 
@@ -162,7 +180,7 @@ class GenerationRequest:
     def __init__(self, prompt_tokens: Sequence[int], max_new_tokens: int = 128,
                  temperature: float = 0.0, stop_tokens: Optional[Set[int]] = None,
                  priority: int = 0, min_tokens: int = 0, top_p: float = 0.0,
-                 top_k: int = 0):
+                 top_k: int = 0, span=None, traceparent: Optional[str] = None):
         self.id = next(_request_ids)
         # admission priority: LOWER admits first; ties resolve FIFO by id
         self.priority = int(priority)
@@ -175,10 +193,21 @@ class GenerationRequest:
         self.top_p = float(top_p)
         self.top_k = int(top_k)
         self.stop_tokens = stop_tokens or set()
+        # the caller's span (the HTTP server span) and its raw W3C header;
+        # a streamed response ends the caller's span before admission, so
+        # the engine's own tpu.generate span (gen_span, submit to finish)
+        # carries the admission attributes too
+        self.span = span
+        self.traceparent = traceparent
+        self.gen_span = None
         self.out_queue: "queue.Queue" = queue.Queue()
         self.cancelled = threading.Event()
         self.error: Optional[BaseException] = None
-        self.finished_at: Optional[float] = None   # monotonic clock
+        # monotonic stamps: queue wait and TTFT are intervals
+        self.enqueued_at = time.monotonic()
+        self.admitted_at: Optional[float] = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
         self.generated = 0
 
     def cancel(self) -> None:
@@ -330,11 +359,19 @@ class LLMEngine:
                  sampling_controls: bool = False, seed: int = 0,
                  budget_bytes: Optional[int] = None,
                  speculative_tokens: int = 0, chunk_prefill_tokens: int = 0,
-                 device=None, logger: Optional[logging.Logger] = None):
+                 device=None, metrics=None, tracer=None,
+                 logger: Optional[Logger] = None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
-        self.logger = logger or _log
+        self.logger = logger or new_logger()
+        # the metrics manager (tpu/device.register_metrics' names) and the
+        # tracer; either may be None
+        self.metrics = metrics
+        self.tracer = tracer
+        self._obs = MetricsHook(metrics, logger=self.logger)
+        # one id per dispatch, on its span and its requests' spans
+        self._batch_seq = itertools.count(1)
         self.n_slots = n_slots
         self.max_seq_len = min(max_seq_len or cfg.max_seq_len,
                                cfg.max_seq_len)
@@ -357,8 +394,8 @@ class LLMEngine:
             self.n_slots = self.plan.n_slots
             self.max_seq_len = self.plan.max_seq_len
             self.prefill_buckets = self.plan.prefill_buckets
-            (self.logger.warning if self.plan.clamped
-             else self.logger.info)("%s", self.plan.summary())
+            (self.logger.warnf if self.plan.clamped
+             else self.logger.infof)("%s", self.plan.summary())
         # the Pallas decode kernel reads the cache in min(512, S) blocks
         # and the reference rounds the cap down at boot so a grow clamped
         # to max_seq_len stays divisible; the CUDA kernel takes any S, but
@@ -366,7 +403,7 @@ class LLMEngine:
         if (cfg.decode_attn == "kernel" and not self._paged
                 and self.max_seq_len > 512 and self.max_seq_len % 512):
             rounded = (self.max_seq_len // 512) * 512
-            self.logger.warning(
+            self.logger.warnf(
                 "max_seq_len %d rounded down to %d: decode_attn='kernel' "
                 "keeps the reference's 512-aligned cap", self.max_seq_len,
                 rounded)
@@ -582,7 +619,7 @@ class LLMEngine:
                 layers[l] = new
                 del old
         self._cache_len = new_len
-        self.logger.debug("grew KV cache to %d", new_len)
+        self.logger.debugf("grew KV cache to %d", new_len)
 
     def _decode_need(self) -> int:
         """Cache length every active row needs after this dispatch.
@@ -981,17 +1018,22 @@ class LLMEngine:
             self._dispatch_decode()
             return
         self._spec_no_draft_streak = 0
+        started = time.monotonic()
         try:
             fetch = self._start_d2h(self._verify_call(drafts, lens))
         except Exception as exc:  # noqa: BLE001 - fail the rows, keep serving
-            self.logger.error("verify dispatch failed: %s", exc)
+            self.logger.errorf("verify dispatch failed: %s", exc)
             for i, request, _ in snapshot:
                 request.error = exc
                 self._finish_slot(self.slots[i])
             return
         self.verify_dispatches += 1
         self.spec_drafted += int(lens.sum())
-        self._push(("verify", fetch, snapshot, d))
+        self._obs.counter("app_tpu_spec_drafted_total", float(lens.sum()))
+        dspan = self._dispatch_span("tpu.verify", next(self._batch_seq),
+                                    **{"batch.size": len(snapshot),
+                                       "tpu.draft_tokens": int(lens.sum())})
+        self._push(("verify", fetch, snapshot, d, started, dspan))
 
     def _cool_off(self) -> None:
         """Pause verifies for SPEC_COOLOFF_DISPATCHES block decodes."""
@@ -1128,14 +1170,18 @@ class LLMEngine:
         try:
             self._dispatch_chunk(job)
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
-            self.logger.error("chunked admission of %d failed: %s",
-                              len(batch), exc)
+            self.logger.errorf("chunked admission of %d failed: %s",
+                               len(batch), exc)
             self._release_chunk_state(job)
             for request in batch:
                 self._abort_admission(request)
                 self._fail_request(request, exc)
             return
+        now = time.monotonic()
         for row, request in enumerate(batch):
+            request.admitted_at = now
+            self._obs.hist("app_tpu_queue_wait_seconds",
+                           now - request.enqueued_at)
             self.slots[slots_idx[row]].chunking = request
         self.chunk_jobs += 1
         self._chunk_jobs.append(job)
@@ -1160,7 +1206,7 @@ class LLMEngine:
         try:
             final = self._dispatch_chunk(job)
         except Exception as exc:  # noqa: BLE001 - fail the job, keep serving
-            self.logger.error("chunk dispatch failed: %s", exc)
+            self.logger.errorf("chunk dispatch failed: %s", exc)
             self._chunk_jobs.popleft()
             self._abort_chunk_job(job, exc)
             return
@@ -1229,7 +1275,8 @@ class LLMEngine:
         for slot_idx in job["slots_idx"]:
             self.slots[slot_idx].chunking = None
         self._assign_pages(job["slots_idx"], job["batch"])
-        self._bind_slots(job["slots_idx"], job["batch"], job["first_tok"])
+        self._bind_slots(job["slots_idx"], job["batch"], job["first_tok"],
+                         job["bucket"], chunked=True)
 
     def _abort_chunk_job(self, job: dict,
                          exc: Optional[BaseException]) -> None:
@@ -1420,12 +1467,15 @@ class LLMEngine:
                temperature: float = 0.0,
                stop_tokens: Optional[Set[int]] = None, priority: int = 0,
                min_tokens: int = 0, top_p: float = 0.0,
-               top_k: int = 0) -> GenerationRequest:
+               top_k: int = 0, span=None,
+               traceparent: Optional[str] = None) -> GenerationRequest:
         """priority: LOWER admits first when slots are contended (ties stay
         FIFO). min_tokens: stop tokens are ignored until this many tokens
         have been emitted. top_p/top_k truncate the sampled distribution
         per request (0 = off) — only on engines built with
-        sampling_controls=True."""
+        sampling_controls=True. span / traceparent: the caller's span, or
+        its raw W3C header, that the request's tpu.generate span parents
+        under (a new trace without either)."""
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
         if self._draining:
@@ -1448,13 +1498,21 @@ class LLMEngine:
         request = GenerationRequest(prompt_tokens, max_new_tokens, temperature,
                                     stop_tokens, priority=priority,
                                     min_tokens=min_tokens, top_p=top_p,
-                                    top_k=top_k)
+                                    top_k=top_k, span=span,
+                                    traceparent=traceparent)
+        if self.tracer is not None:
+            request.gen_span = self.tracer.start_span(
+                "tpu.generate", parent=span, traceparent=traceparent)
+            request.gen_span.set_attribute("tpu.prompt_tokens",
+                                           len(request.prompt_tokens))
+        self._obs.counter("app_tpu_requests_total")
         self._pending.put((request.priority, request.id, request))
         if self._stop.is_set():
             # stop() may have drained _pending between the check above and
             # the put; drain again so this request cannot strand its client
             self._drain_pending(RuntimeError("engine stopped"))
             raise RuntimeError("engine is stopped")
+        self._obs.gauge("app_tpu_queue_depth", self.queue_depth())
         self._wake.set()
         return request
 
@@ -1511,8 +1569,8 @@ class LLMEngine:
             if thread.is_alive():
                 # the loop is stuck inside a device call and still owns the
                 # slots: leave their teardown to it (it exits on the flag)
-                self.logger.error("engine loop did not exit within %.0fs",
-                                  self.STOP_JOIN_S)
+                self.logger.errorf("engine loop did not exit within %.0fs",
+                                   self.STOP_JOIN_S)
                 return
             self._thread = None
         self._drain_pending(RuntimeError("engine stopped"))
@@ -1545,7 +1603,8 @@ class LLMEngine:
             try:
                 synced = self._step()
             except Exception:  # noqa: BLE001 - the loop must keep serving
-                self.logger.exception("engine step failed")
+                self.logger.errorf("engine step failed: %s",
+                                   traceback.format_exc())
             if not synced and not self._inflight and not self._chunk_jobs:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -1556,7 +1615,8 @@ class LLMEngine:
                 try:
                     self._sync_oldest()
                 except Exception:  # noqa: BLE001 - fail the rest below
-                    self.logger.exception("engine sync failed at stop")
+                    self.logger.errorf("engine sync failed at stop: %s",
+                                       traceback.format_exc())
         stop_exc = RuntimeError("engine stopped")
         while self._chunk_jobs:   # mid-prefill requests must not block
             self._abort_chunk_job(self._chunk_jobs.popleft(), stop_exc)
@@ -1650,6 +1710,9 @@ class LLMEngine:
                     self._start_chunk_job(bucket, slots_idx, batch)
                 else:
                     self._prefill(bucket, slots_idx, batch)
+        self._obs.gauge("app_tpu_queue_depth", self.queue_depth())
+        self._obs.gauge("app_tpu_active_slots",
+                        sum(1 for s in self.slots if s.active))
 
     def _prefill(self, bucket: int, slots_idx: List[int],
                  batch: List[GenerationRequest]) -> None:
@@ -1660,7 +1723,8 @@ class LLMEngine:
         try:
             first = self._dispatch_prefill(bucket, slots_idx, batch)
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
-            self.logger.error("prefill wave of %d failed: %s", len(batch), exc)
+            self.logger.errorf("prefill wave of %d failed: %s", len(batch),
+                               exc)
             for request in batch:
                 self._abort_admission(request)
                 self._fail_request(request, exc)
@@ -1676,20 +1740,49 @@ class LLMEngine:
             self.prefill_dispatches += 1
             self.prefill_shapes[(len(batch), bucket)] += 1
         self._assign_pages(slots_idx, batch)
-        self._bind_slots(slots_idx, batch, first)
+        self._bind_slots(slots_idx, batch, first, bucket)
+
+    def _dispatch_span(self, name: str, batch_id: int, **attrs):
+        """A span over one dispatch, ended at its sync (None without a
+        tracer)."""
+        if self.tracer is None:
+            return None
+        span = self.tracer.start_span(name)
+        span.set_attribute("batch.id", batch_id)
+        for key, value in attrs.items():
+            span.set_attribute(key, value)
+        return span
 
     def _bind_slots(self, slots_idx: List[int],
-                    batch: List[GenerationRequest], first) -> None:
+                    batch: List[GenerationRequest], first, bucket: int,
+                    chunked: bool = False) -> None:
         """Bind a dispatched wave's rows to their slots (length: the prompt,
         whose KV the wave writes; remaining: the budget past the first
-        token) and queue it for sync, its D2H started."""
+        token) and queue it for sync, its D2H started. Records each row's
+        queue wait (a chunk job's rows were stamped at their first chunk)
+        and stamps the wave on the requests' spans."""
         fetch = self._start_d2h(first)
+        batch_id = next(self._batch_seq)
+        attrs = {"batch.size": len(batch), "tpu.prefill_bucket": bucket}
+        if chunked:
+            attrs["tpu.chunked"] = True
+        dspan = self._dispatch_span("tpu.prefill", batch_id, **attrs)
         admitted = []
+        now = time.monotonic()
         for row, request in enumerate(batch):
+            if request.admitted_at is None:
+                request.admitted_at = now
+                self._obs.hist("app_tpu_queue_wait_seconds",
+                               now - request.enqueued_at)
             slot = self.slots[slots_idx[row]]
             slot.request = request
             slot.length = len(request.prompt_tokens)
             slot.remaining = request.max_new_tokens - 1
+            for span in (request.span, request.gen_span):
+                if span is not None:
+                    span.set_attribute("batch.id", batch_id)
+                    span.set_attribute("tpu.slot", slots_idx[row])
+                    span.set_attribute("tpu.prefill_bucket", bucket)
             admitted.append((slots_idx[row], request))
         if self.speculative_tokens and self._spec_cooloff > 0:
             # fresh traffic probes at once: the cold streak belonged to
@@ -1698,7 +1791,7 @@ class LLMEngine:
             self._spec_cooloff = 0
             self._spec_accept_ema = max(self._spec_accept_ema,
                                         self.SPEC_PROBE_EMA)
-        self._push(("prefill", fetch, admitted, 1))
+        self._push(("prefill", fetch, admitted, 1, now, dspan))
 
     def _push(self, entry) -> None:
         self._inflight.append(entry)
@@ -1722,58 +1815,105 @@ class LLMEngine:
         block = self._decode_block_now()
         snapshot = [(i, slot.request) for i, slot in enumerate(self.slots)
                     if slot.active]
+        started = time.monotonic()
         try:
             fetch = self._start_d2h(self._run_decode(block))
         except Exception as exc:  # noqa: BLE001 - fail the block, keep serving
-            self.logger.error("decode block failed: %s", exc)
+            self.logger.errorf("decode block failed: %s", exc)
             for i, request in snapshot:
                 request.error = exc
                 self._finish_slot(self.slots[i])
             return
         self.decode_steps += block
         self.decode_blocks += 1
-        self._push(("decode", fetch, snapshot, block))
+        dspan = self._dispatch_span("tpu.decode", next(self._batch_seq),
+                                    **{"batch.size": len(snapshot),
+                                       "tpu.block": block})
+        self._push(("decode", fetch, snapshot, block, started, dspan))
 
     def _sync_oldest(self) -> None:
         """Wait for the oldest dispatch and deliver it: a prefill's first
         tokens, a decode block demuxed per row, or a verify's accepted
         tokens demuxed per row (then the acceptance EMA). Rows whose slot
-        was freed or re-bound since the dispatch are skipped."""
-        kind, fetch, rows, block = self._inflight.popleft()
+        was freed or re-bound since the dispatch are skipped. The metrics
+        of the sync are recorded here (the module docstring)."""
+        kind, fetch, rows, block, *stamp = self._inflight.popleft()
+        started, dspan = stamp if stamp else (None, None)
         try:
             tokens_host = self._fetch_host(fetch)
         except Exception as exc:  # noqa: BLE001 - fail its rows, keep serving
-            self.logger.error("%s dispatch failed at sync: %s", kind, exc)
+            self.logger.errorf("%s dispatch failed at sync: %s", kind, exc)
+            if dspan is not None:
+                dspan.set_status(False, str(exc))
+                dspan.end()
             for i, request, *_ in rows:
                 if self.slots[i].request is request:
                     request.error = exc
                     self._finish_slot(self.slots[i])
             return
+        if dspan is not None:
+            dspan.end()
+        synced = time.monotonic()
+        elapsed = synced - (started if started is not None else synced)
         if kind == "prefill":
+            n_first = 0
             for row, (slot_idx, request) in enumerate(rows):
                 slot = self.slots[slot_idx]
                 if slot.request is not request:  # cancelled since dispatch
                     continue
+                if request.first_token_at is None:
+                    request.first_token_at = synced
+                    self._obs.hist("app_tpu_ttft_seconds",
+                                   synced - request.enqueued_at,
+                                   exemplar=self._exemplar_of(request))
                 token = int(tokens_host[row])
                 if self.speculative_tokens:
                     slot.history = list(request.prompt_tokens) + [token]
                 self._emit_block(request, [token])
+                n_first += 1
                 if (request.hit_stop(token) or slot.remaining <= 0
                         or self._is_cancelled(request)):
                     self._finish_slot(slot)
+            if n_first:
+                self._obs.counter("app_tpu_tokens_generated_total",
+                                  float(n_first))
             return
         if kind == "verify":
-            self._sync_verify(tokens_host, rows)
+            self._sync_verify(tokens_host, rows, elapsed)
             return
+        self._obs.hist("app_tpu_execute_seconds", elapsed)
         live = [(i, r) for i, r in rows if self.slots[i].request is r]
-        self._demux(tokens_host, live, [block] * len(live))
+        slowest = max(live, key=lambda e: self.slots[e[0]].length,
+                      default=(None, None))[1]
+        emitted = self._demux(tokens_host, live, [block] * len(live))
+        if emitted:
+            self._obs.counter("app_tpu_tokens_generated_total",
+                              float(emitted))
+        # every token of this sync shares one measured step time: one
+        # record of n per sync, not one per token
+        self._obs.hist_n(
+            "app_tpu_tpot_seconds", elapsed / block, emitted,
+            exemplar=self._exemplar_of(slowest) if slowest else None)
+        self._obs.hist("app_tpu_batch_size", len(live))
 
-    def _demux(self, tokens_host, live, limits) -> None:
+    def _exemplar_of(self, request: GenerationRequest) -> Dict[str, str]:
+        """A histogram exemplar for `request`: its id and, with a span, its
+        trace id (OpenMetrics exposition only)."""
+        ex = {"request_id": str(request.id)}
+        span = request.gen_span or request.span
+        trace_id = getattr(span, "trace_id", None)
+        if trace_id:
+            ex["trace_id"] = trace_id
+        return ex
+
+    def _demux(self, tokens_host, live, limits) -> int:
         """Deliver a synced [B, W] token matrix to its live (slot, request)
         rows, each up to its limit (_demux_plan), extending the drafting
-        history of speculative rows (a cooloff's blocks too)."""
+        history of speculative rows (a cooloff's blocks too). Returns the
+        tokens emitted."""
         counts, finishes = self._demux_plan(
             tokens_host, [i for i, _ in live], [r for _, r in live], limits)
+        emitted = 0
         for j, (slot_idx, request) in enumerate(live):
             slot = self.slots[slot_idx]
             n = int(counts[j])
@@ -1783,24 +1923,39 @@ class LLMEngine:
             if slot.history is not None:
                 slot.history.extend(toks)
             self._emit_block(request, toks)
+            emitted += n
             if finishes[j]:
                 self._finish_slot(slot)
+        return emitted
 
-    def _sync_verify(self, synced, rows) -> None:
+    def _sync_verify(self, synced, rows, elapsed: float = 0.0) -> None:
         """A verify's [B, d+2] output: each live row emits out[b, :n_emit]
         (truncated at its stops and budget by _demux_plan); the acceptance
         counted on the device, before that truncation, is folded into the
         EMA per greedy-ELIGIBLE row (temperature rows can never accept, so
-        they must not read as rejection), and a cold EMA cools off."""
+        they must not read as rejection), and a cold EMA cools off.
+        elapsed: the verify's dispatch-to-sync seconds."""
         out, n_emit = synced[:, :-1], synced[:, -1]
         live = [(i, r) for i, r, _ in rows if self.slots[i].request is r]
         eligible = sum(1 for i, r, e in rows
                        if e and self.slots[i].request is r)
+        slowest = max(live, key=lambda e: self.slots[e[0]].length,
+                      default=(None, None))[1]
+        self._obs.hist("app_tpu_execute_seconds", elapsed)
         limits = [int(n_emit[i]) for i, _ in live]
         accepted = sum(max(0, n - 1) for n in limits)
         self.spec_accepted += accepted
         self.spec_eligible += eligible
-        self._demux(out, live, limits)
+        self._obs.counter("app_tpu_spec_accepted_total", float(accepted))
+        emitted = self._demux(out, live, limits)
+        if emitted:
+            self._obs.counter("app_tpu_tokens_generated_total",
+                              float(emitted))
+            self._obs.hist_n(
+                "app_tpu_tpot_seconds",
+                elapsed / (emitted / max(1, len(live))), emitted,
+                exemplar=self._exemplar_of(slowest) if slowest else None)
+        self._obs.hist("app_tpu_batch_size", len(live))
         if eligible:
             a = self.SPEC_EMA_ALPHA
             self._spec_accept_ema = ((1 - a) * self._spec_accept_ema
@@ -1886,8 +2041,16 @@ class LLMEngine:
             with self._stream_ctx():
                 self._temps[idx] = 0.0
             self._filter_rows.discard(idx)
+        self._obs.gauge("app_tpu_active_slots",
+                        sum(1 for s in self.slots if s.active))
         if request is not None:
             request.finished_at = time.monotonic()
+            if request.gen_span is not None:
+                request.gen_span.set_attribute("tpu.tokens",
+                                               request.generated)
+                if request.error is not None:
+                    request.gen_span.set_status(False, str(request.error))
+                request.gen_span.end()
             request.out_queue.put(None)
 
     def _fail_request(self, request: GenerationRequest,
@@ -1897,6 +2060,12 @@ class LLMEngine:
             request.error = exc
         if request.finished_at is None:
             request.finished_at = time.monotonic()
+        if request.gen_span is not None and request.gen_span.end_time is None:
+            if request.error is not None:
+                request.gen_span.set_status(False, str(request.error))
+            elif request.cancelled.is_set():
+                request.gen_span.set_attribute("cancelled", True)
+            request.gen_span.end()
         request.out_queue.put(None)
 
     def _drain_pending(self, exc: BaseException) -> None:

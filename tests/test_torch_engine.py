@@ -219,7 +219,9 @@ def test_sse_generate_end_to_end(served):
         conn = http.client.HTTPConnection("127.0.0.1", app.http_port,
                                           timeout=10)
         conn.request("GET", "/.well-known/health")
-        assert json.loads(conn.getresponse().read())["status"] == "UP"
+        health = json.loads(conn.getresponse().read())["data"]
+        assert health["status"] == "UP"
+        assert health["details"]["engine"]["status"] == "UP"
     finally:
         app.shutdown()
 
@@ -311,7 +313,12 @@ def test_generate_refuses_the_fields_the_reference_refuses(request, case):
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
     asks = {"DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
-            "QOS": "true", "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2"}
+            "QOS": "true", "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2",
+            "REMOTE_LOG_URL": "http://127.0.0.1:9/level",
+            "DB_DIALECT": "sqlite", "DB_PATH": ":memory:",
+            "KV_STORE": "redis", "KV_ENABLED": "true",
+            "PUBSUB_BACKEND": "inproc",
+            "JAX_COORDINATOR_ADDR": "127.0.0.1:9"}
     with pytest.raises(ValueError, match="ROADMAP A"):
         build_engine({key: asks[key]}, device="cpu")
 

@@ -96,6 +96,7 @@ def test_entry_points_without_a_device_raise_here():
 
     from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
     from gofr_tpu_torch.models.weights import params_from_numpy
+    from gofr_tpu_torch import serve_openai
     from gofr_tpu_torch.serve import build_engine
     from gofr_tpu_torch.tpu.device import resolve_device
     from gofr_tpu_torch.tpu.paging import PagedLLMEngine
@@ -111,4 +112,6 @@ def test_entry_points_without_a_device_raise_here():
         PagedLLMEngine(llama_init(cfg, device="cpu"), cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_engine({})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_openai.build_app({"METRICS_PORT": "0"})
     assert resolve_device("cpu").type == "cpu"

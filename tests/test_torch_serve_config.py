@@ -1,7 +1,9 @@
 """The port's server config against the reference llm-server's.
 
-Every key examples/llm-server/main.py reads (taken from its text, not by
-importing it) must be served (serve.PORTED, and read by build_engine),
+Every key examples/llm-server/main.py and examples/openai-server/main.py
+read, and every App-level key of gofr_tpu/app.py, gofr_tpu/container/ and
+gofr_tpu/tracing/ (taken from their text, not by importing them), must be
+served (serve.PORTED, and read by the port's server, App or container),
 refused at boot naming its ROADMAP item (NOT_PORTED) or inert with a
 stated reason (INERT); a new key there fails this file until it is
 accounted for. build_engine boots from WEIGHTS_PATH (file, directory,
@@ -40,6 +42,11 @@ from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MAIN = ROOT / "examples" / "llm-server" / "main.py"
+# the other sources whose config keys the port's servers account for
+KEY_SOURCES = [ROOT / "examples" / "openai-server" / "main.py",
+               ROOT / "gofr_tpu" / "app.py",
+               ROOT / "gofr_tpu" / "container" / "__init__.py",
+               ROOT / "gofr_tpu" / "tracing" / "__init__.py"]
 BASE = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
         "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
         "WARMUP": "false", "REQUEST_TIMEOUT": "120"}
@@ -61,14 +68,23 @@ class _QuietLogger:
 
 
 def _reference_keys():
-    text = MAIN.read_text()
-    return sorted(set(re.findall(r'config\.get_\w+\(\s*"([A-Z0-9_]+)"',
-                                 text)))
+    keys = set()
+    for path in [MAIN] + KEY_SOURCES:
+        keys.update(re.findall(r'config\.get_\w+\(\s*"([A-Z0-9_]+)"',
+                               path.read_text()))
+    # the App's config directory comes from the process environment
+    keys.update(re.findall(r'environ\.get\(\s*"([A-Z0-9_]+)"',
+                           KEY_SOURCES[1].read_text()))
+    return sorted(keys)
 
 
 def test_every_llm_server_key_is_accounted_for():
     keys = _reference_keys()
-    assert len(keys) >= 50
+    assert len(keys) >= 85
+    assert {"METRICS_PORT", "LOG_LEVEL", "APP_NAME", "APP_VERSION",
+            "TRACE_EXPORTER", "TRACER_URL", "REMOTE_LOG_URL",
+            "MAX_CONCURRENT_REQUESTS", "GOFR_CONFIGS_DIR",
+            "GRPC_PORT"} <= set(keys)
     ported = set(serve.PORTED)
     refused = {k for k, _, _ in serve.NOT_PORTED}
     inert = {k for k, _ in serve.INERT}
@@ -82,8 +98,12 @@ def test_every_llm_server_key_is_accounted_for():
 
 @pytest.mark.parametrize("key", serve.PORTED)
 def test_ported_keys_are_read_by_the_server(key):
+    from gofr_tpu_torch import app, container, tracing
+
     src = "".join(inspect.getsource(f) for f in (
-        serve.build_engine, serve.build_app, serve._warmup_mode))
+        serve.build_engine, serve.build_app, serve.app_for,
+        serve._warmup_mode, app.App, container.Container,
+        tracing.exporter_from_config))
     assert f'"{key}"' in src
 
 
