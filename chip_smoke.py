@@ -11,8 +11,10 @@ at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 host launches), ``--sc`` (build, the main path's serve phase, then its
 sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
 ``--weights`` (build, then phase 9 alone), ``--spec`` (build, then
-phase 10 alone) and ``--openai`` (build, then phase 7b on an engine booted
-for it, OPENAI_ENV).
+phase 10 alone), ``--openai`` (build, then phase 7b on an engine booted
+for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve phase with
+phase 4b and its cost measurements, then its decode profile with the
+utilization ledger beside it).
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -73,6 +75,22 @@ Phases, one or more lines each, any failure exits non-zero:
    prompts on an engine without the cache; each serve phase ends, after its
    counted run, with the sampling-controls burst's prompts all greedy in
    one wave, the reference of phase 7;
+4b. the observability planes (``obs_phase``), on the main path's engine
+   after its counted run: GET /debug/engine, /debug/steps,
+   /debug/requests, one /debug/requests/{id} and /debug/journey/{id},
+   /debug/trace, /debug/timeline?steps=64, /debug/hostprof, /stats and
+   /metrics each answer 200; the flight recorder holds every request of
+   the run with the tokens its client counted; the step ledger's prefill
+   and decode tokens since the run began equal the tokens delivered; the
+   timeline is Perfetto JSON with an llm-engine track and device slices;
+   the host profiler saw the loop; /stats says serving; the peaks are the
+   card's row of the utilization table (the placeholder on a card the
+   table does not hold); no MFU, MBU or duty cycle above 1.05 (logged: the
+   segments' shares of the step wall, the 60 s utilization window). Under
+   ``--obs`` only, then the planes' cost (``obs_cost``): the served loop's
+   decode step at B=8 and a lone request's TTFT with the recorder and the
+   host profiler on and off on the same engine (windows on, off, off,
+   on), and the two ledgers' own host cost per step (``ledger_cost``);
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
@@ -92,6 +110,9 @@ Phases, one or more lines each, any failure exits non-zero:
    them), the idle share, the host's launches per step and block, the
    kernels executed per step (no more than before the split reads), the
    decode read's time per step and the kernels that take it; then, on the
+   same engine, the utilization ledger's decode MFU, MBU and duty cycle
+   over the profiled window beside the profiler's busy share (none above
+   1.05; the ledger accounts the window's blocks); then, on the
    same engine, one block replayed from its graph against the same block
    run eagerly from copies of the same state: equal greedy tokens, the KV
    left within MODEL_TOL (max_abs_diff logged), n_layers decode reads per
@@ -827,10 +848,13 @@ ALL_CONFIGS = {**SERVE_CONFIGS, **W8_CONFIGS}
 
 
 def serve_phase(params, cfg, dev, card: str, config: str,
-                preset: str = "llama3-8b", after=None) -> dict:
+                preset: str = "llama3-8b", after=None,
+                obs: bool = False, obs_costs: bool = False) -> dict:
     """Drive the port's /generate in one serving configuration; returns
     what the timing phase needs. after(app, engine), when given, runs on
-    the served engine after the counted run, before the shutdown."""
+    the served engine after the counted run, before the shutdown. obs: run
+    phase 4b's checks (obs_phase) after the counted run; obs_costs: then
+    its cost measurements (obs_cost, ledger_cost; --obs)."""
     from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
@@ -848,6 +872,11 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         warm = {}
         stream_request(app.http_port, make_prompt(40, 99), 4, warm, "w")
         require(warm["w"]["status"] == 200, f"{config}: warm-up failed")
+        wait_idle(engine)
+        first_id = max((r["id"] for r in engine.recorder.snapshot()["recent"]),
+                       default=0) if engine.recorder is not None else 0
+        last = engine.steps.records(1)
+        seq_before = last[-1].seq if engine.steps.steps_total else 0
 
         zero_counts(engine)
         n_tok, n_plain = 32, 16
@@ -882,6 +911,20 @@ def serve_phase(params, cfg, dev, card: str, config: str,
                                dict(engine.prefix_shapes))
         cache_len = getattr(engine, "_cache_len", None)
         paged = getattr(engine, "prefix", None) is not None
+        if obs:
+            t_obs = time.monotonic()
+            enc = engine.tokenizer.encode
+            counted = [(len(enc(p)), out[i]["done"]["tokens"])
+                       for i, p in enumerate(prompts)]
+            counted.append((len(enc(plain_prompt)),
+                            out["plain"]["data"]["tokens"]))
+            counted += [(len(enc(prompts[0])), rep[k]["done"]["tokens"])
+                        for k in ("r1", "r2")]
+            obs_phase(app, engine, card, counted, first_id, seq_before)
+            if obs_costs:
+                obs_cost(engine, card)
+                ledger_cost(card)
+            log(f"obs: phase 4b {time.monotonic() - t_obs:.1f}s")
         # after the counted run: the sampling-controls phase's prompts, all
         # greedy, in the same one wave, its greedy reference
         sc_ref = sc_burst(app.http_port, engine, greedy=True)
@@ -1043,6 +1086,314 @@ def check_dispatch(config, d, card):
 def wave_list(shapes) -> str:
     return ", ".join(f"[{k}, {b}] x {n}"
                      for (k, b), n in sorted(shapes.items()))
+
+
+# -- the observability planes (phase 4b) --------------------------------------
+UTIL_CAP = 1.05      # no card runs above its peak: a share past this is a bug
+
+
+def get_json(port, path) -> dict:
+    """GET `path`: 200 required; the {data} envelope unwrapped."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    require(resp.status == 200, f"GET {path} answered {resp.status}")
+    body = json.loads(raw)
+    return body.get("data", body) if isinstance(body, dict) else body
+
+
+def wait_idle(engine, timeout_s: float = 60.0) -> None:
+    """Until nothing is queued, active or in flight, and the loop has closed
+    the step that synced last."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if (not engine._inflight and not engine.queue_depth()
+                and not any(s.active for s in engine.slots)):
+            break
+        time.sleep(0.01)
+    time.sleep(0.2)
+
+
+def check_shares(what: str, stats: dict, card: str) -> None:
+    """Fail on any MFU, MBU or duty cycle above UTIL_CAP."""
+    shares = {f"mfu.{k}": v for k, v in stats["mfu"].items()}
+    shares.update({f"mbu.{k}": v for k, v in stats["mbu"].items()})
+    shares["duty_cycle"] = stats["duty_cycle"]
+    bad = {k: v for k, v in shares.items() if v > UTIL_CAP}
+    require(not bad, f"{what}: a utilization share above {UTIL_CAP}: {bad} "
+            f"(peaks {stats['peak_flops']:.4g} FLOP/s, "
+            f"{stats['peak_hbm_bw']:.4g} B/s, {stats['peak_source']}) "
+            f"[{card}]")
+
+
+def obs_phase(app, engine, card: str, counted: list, first_id: int,
+              seq_before: int) -> None:
+    """Phase 4b, on the main path's engine after its counted run: every
+    debug route answers 200; the recorder holds every request of the run,
+    each with `generated` equal to what its client counted (`counted`:
+    (prompt tokens, tokens) per request); the step ledger's prefill and
+    decode tokens since the run began equal the tokens delivered; the
+    timeline is Perfetto JSON with an llm-engine track and device slices;
+    the host profiler saw the loop; /stats says serving; the peaks are the
+    card's row of the table (or the placeholder for a card the table does
+    not hold); no utilization share above UTIL_CAP."""
+    from gofr_tpu_torch.tpu.utilization import PEAK_TABLE
+
+    wait_idle(engine)
+    port = app.http_port
+    t0 = time.monotonic()
+    snap = get_json(port, "/debug/engine")
+    steps = get_json(port, "/debug/steps?recent=8")
+    reqs = get_json(port, "/debug/requests")
+    recent = [r for r in reqs["recent"] if r["id"] > first_id]
+    require(recent, "obs: the recorder holds no request of the run")
+    rid = recent[0]["id"]
+    detail = get_json(port, f"/debug/requests/{rid}")
+    journey = get_json(port, f"/debug/journey/{rid}")
+    trace = get_json(port, "/debug/trace")
+    timeline = get_json(port, "/debug/timeline?steps=64")
+    hostprof = get_json(port, "/debug/hostprof")
+    stats = get_json(port, "/stats")
+    metrics = scrape(app.metrics_port)
+    routes_s = time.monotonic() - t0
+    got = sorted((r["prompt_tokens"], r["generated"]) for r in recent)
+    require(got == sorted(counted),
+            f"obs: the recorder's (prompt, generated) {got} != the "
+            f"clients' {sorted(counted)}")
+    require(all(r.get("outcome") in ("length", "stop") for r in recent),
+            "obs: a request of the run did not finish cleanly")
+    require([e["event"] for e in detail["events"]][:3]
+            == ["enqueued", "admitted", "first_token"]
+            and detail["events"][-1]["event"] == "finished",
+            f"obs: request {rid}'s events {detail['events']}")
+    require([h["hop"] for h in journey["hops"]][:3]
+            == ["queue", "prefill", "decode"], f"obs: journey {journey}")
+    require(len(trace["events"]) >= len(counted), "obs: /debug/trace short")
+    recs = [r for r in engine.steps.records(recent=engine.steps.capacity)
+            if r.seq > seq_before]
+    require(recs and recs[0].seq == seq_before + 1,
+            "obs: the step ledger's ring lost steps of the run")
+    by_phase = {}
+    for r in recs:
+        by_phase[r.phase] = by_phase.get(r.phase, 0) + r.tokens
+    delivered = sum(n for _, n in counted)
+    ledger_tokens = by_phase.get("prefill", 0) + by_phase.get("decode", 0)
+    require(ledger_tokens == delivered,
+            f"obs: the step ledger's prefill + decode tokens "
+            f"{ledger_tokens} != {delivered} delivered ({by_phase})")
+    events = timeline["traceEvents"]
+    names = {e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    device = [e for e in events if e.get("cat") == "device"]
+    require("llm-engine" in names and device,
+            f"obs: the timeline has no llm-engine track or device slices "
+            f"({sorted(names)}, {len(device)} device events)")
+    json.loads(json.dumps(timeline))     # plain JSON, as Perfetto loads it
+    loop = hostprof["threads"]["loop"]["samples"]
+    require(loop > 0, f"obs: the host profiler saw no loop sample "
+            f"{hostprof['threads']}")
+    require(stats["fleet"]["lifecycle"] == "serving",
+            f"obs: /stats lifecycle {stats['fleet']}")
+    util = snap["utilization"]
+    kind = torch_device_name()
+    in_table = any(needle in kind.lower() for needle, _ in PEAK_TABLE)
+    require(util["peak_source"] == ("table" if in_table else "default"),
+            f"obs: peak_source {util['peak_source']} for {kind!r}")
+    check_shares("obs /debug/engine", util, card)
+    require(metrics.get("app_tpu_engine_stall_seconds", -1.0) == 0.0,
+            "obs: app_tpu_engine_stall_seconds is not 0 at rest")
+    seg = {}
+    for r in recs:
+        for k, v in r.segments.items():
+            seg[k] = seg.get(k, 0.0) + v
+    wall = sum(r.wall_s for r in recs)
+    log(f"obs: 11 routes 200 in {routes_s:.3f}s; recorder {len(recent)} "
+        f"requests = the clients' (prompt, tokens); step ledger "
+        f"{len(recs)} steps, tokens {by_phase} = {delivered} delivered; "
+        f"segments share of step wall "
+        + " ".join(f"{k}={v / wall:.4f}" for k, v in
+                   sorted(seg.items(), key=lambda kv: -kv[1]))
+        + f"; timeline {len(events)} events ({len(device)} device); "
+        f"hostprof loop samples {loop}, overhead share "
+        f"{hostprof['overhead']['share']} at {hostprof['hz']} Hz [{card}]")
+    log(f"obs: /debug/engine utilization over {util['window_s']}s: "
+        f"mfu {json.dumps(util['mfu'])} mbu {json.dumps(util['mbu'])} "
+        f"duty_cycle={util['duty_cycle']} host_overhead_s="
+        f"{util['host_overhead_s']} peak_source={util['peak_source']} "
+        f"({util['peak_flops']:.4g} FLOP/s, {util['peak_hbm_bw']:.4g} B/s) "
+        f"[{card}]")
+
+
+def torch_device_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
+def _decode_wall(engine, seed: int, tokens: int = 300,
+                 settle_s: float = 0.2, span_s: float = 1.5) -> float:
+    """Milliseconds per decode step of the served loop at B=8: 8 greedy
+    requests submitted at once; once every row decodes, the decode syncs
+    of the next `span_s` (one block each, from the utilization ledger,
+    which is on in every state), sync to sync over the steps between;
+    then the rest let run out."""
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+
+    tok = engine.tokenizer or DebugTokenizer(engine.cfg.vocab_size)
+    reqs = [engine.submit(tok.encode(make_prompt(200, seed + i)),
+                          max_new_tokens=tokens) for i in range(8)]
+    deadline = time.monotonic() + 60
+    while (any(r.first_token_at is None for r in reqs)
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    time.sleep(settle_s)
+    t0 = time.monotonic()
+    time.sleep(span_s)
+    t1 = time.monotonic()
+    for r in reqs:
+        r.result(timeout_s=120)
+    wait_idle(engine)
+    util = engine.util
+    with util._lock:
+        syncs = sorted(e[0] for e in util._entries
+                       if e[1] == "decode" and t0 <= e[0] <= t1)
+    require(len(syncs) >= 3, f"obs cost: {len(syncs)} decode syncs in the "
+            f"window")
+    return (syncs[-1] - syncs[0]) * 1e3 / (
+        (len(syncs) - 1) * engine.decode_block_size)
+
+
+def _lone_ttft(engine, seed: int, n: int = 3) -> float:
+    """The median TTFT, ms, of `n` lone 200-token requests on the idle
+    engine (submit to first token, as the engine stamps them)."""
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+
+    tok = engine.tokenizer or DebugTokenizer(engine.cfg.vocab_size)
+    out = []
+    for i in range(n):
+        r = engine.submit(tok.encode(make_prompt(200, seed + i)),
+                          max_new_tokens=2)
+        r.result(timeout_s=60)
+        out.append((r.first_token_at - r.enqueued_at) * 1e3)
+        wait_idle(engine)
+    return sorted(out)[len(out) // 2]
+
+
+def obs_cost(engine, card: str) -> None:
+    """The planes' cost on the served main-path engine: the decode step's
+    wall at B=8 and a lone request's TTFT as served (the flight recorder
+    on, the host profiler sampling) and with both off on the same engine
+    (recorder None, sampler stopped; the two ledgers are always on, as in
+    the reference), in windows taken on, off, off, on."""
+    recorder, prof = engine.recorder, engine.hostprof
+    require(recorder is not None and prof is not None and prof.running,
+            "obs cost: the recorder or the host profiler is not on")
+    step = {True: [], False: []}
+    ttft = {True: [], False: []}
+    # prompts of seeds no other phase uses, new in every window: a page
+    # shared with an earlier prompt would hit the prefix cache (a shorter
+    # prefill here, or a tail-only wave in a later phase's burst)
+    for k, served in enumerate((True, False, False, True)):
+        if served:
+            engine.recorder = recorder
+            prof.start()
+        else:
+            engine.recorder = None
+            prof.stop()
+        step[served].append(_decode_wall(engine, 1000 + 10 * k))
+        ttft[served].append(_lone_ttft(engine, 1100 + 10 * k))
+    engine.recorder = recorder
+    if not prof.running:
+        prof.start()
+    on, off = sum(step[True]) / 2, sum(step[False]) / 2
+    t_on, t_off = sum(ttft[True]) / 2, sum(ttft[False]) / 2
+    log(f"obs cost: decode step at B=8 (untraced, served loop): "
+        f"{on:.4f} ms as served (recorder + hostprof at {prof.hz} Hz), "
+        f"{off:.4f} ms with both off, added {on - off:+.4f} ms "
+        f"({(on - off) / off:+.4f}); windows "
+        f"{[round(x, 4) for x in step[True]]} / "
+        f"{[round(x, 4) for x in step[False]]}; lone-request TTFT "
+        f"(200 tokens, median of 3) {t_on:.2f} ms as served, {t_off:.2f} ms "
+        f"off, added {t_on - t_off:+.2f} ms [{card}]")
+
+
+def ledger_cost(card: str, n: int = 20000) -> None:
+    """The two ledgers' own host cost per step: a decode step's ledger
+    calls (the step's segments, a dispatch and a sync noted, the
+    utilization record and host note, the step closed with its histogram
+    samples into a metrics manager as served), n times on this host, no
+    device work. The utilization records are stamped one served decode
+    block apart (BLOCK_S), so its 60 s window holds what serving holds."""
+    from gofr_tpu_torch.metrics import Manager
+    from gofr_tpu_torch.models.llama import LlamaConfig
+    from gofr_tpu_torch.tpu.device import register_metrics
+    from gofr_tpu_torch.tpu.stepledger import StepLedger
+    from gofr_tpu_torch.tpu.utilization import UtilizationLedger
+
+    m = Manager()
+    register_metrics(m)
+    steps = StepLedger(metrics=m)
+    util = UtilizationLedger(LlamaConfig.llama3_8b(), metrics=m,
+                             platform="gpu", device_kind=torch_device_name())
+    block_s = 0.165          # a 16-step block at ~10.3 ms per step
+    t = 1000.0
+    for _ in range(400):     # fill the window as serving does
+        t += block_s
+        util.record_decode(8, 16, 3000, t - block_s, t, 0.001)
+    t0 = time.perf_counter()
+    for i in range(n):
+        steps.step_start()
+        with steps.seg("admission"):
+            pass
+        steps.note_dispatch("decode")
+        with steps.seg("host_prep"):
+            pass
+        with steps.seg("dispatch"):
+            pass
+        with steps.seg("emit"):
+            with steps.seg("device_sync"):
+                pass
+            with steps.seg("demux"):
+                pass
+        t += block_s
+        util.record_decode(8, 16, 3000, t - block_s, t, 0.001)
+        util.note_host(0.002, now=t)
+        steps.note_sync("decode", tokens=128, slowest_request_id=i)
+        steps.step_end(active_slots=8, inflight=3)
+    per = (time.perf_counter() - t0) / n * 1e6
+    window = util.window_stats(now=t)["dispatches"]
+    log(f"obs cost: the two ledgers' calls of one decode step, host only "
+        f"({n} steps, a utilization window of {window} dispatches, metrics "
+        f"recorded): {per:.2f} us per step (the card's host CPU) [{card}]")
+
+
+def ledger_window(util, t0: float, t1: float, skip: int) -> dict:
+    """The utilization ledger's decode MFU, MBU and duty cycle over [t0, t1]
+    by its own convention. MFU and MBU: the decode dispatches synced from
+    t0 on less the first `skip` (those dispatched before the window), over
+    the window's span. Duty cycle: the union of every accounted busy
+    interval, clipped to the window (the watermark keeps them disjoint); a
+    dispatch's interval runs from the later of its dispatch stamp and the
+    previous sync to its own sync, so a sync the host makes late moves
+    busy time between dispatches, never out of the union."""
+    with util._lock:
+        synced = sorted(e for e in util._entries
+                        if e[1] == "decode" and e[0] >= t0)
+    entries = synced[skip:]
+    peak_flops, peak_bw, source = util.peaks()
+    span = t1 - t0
+    busy = sum(max(0.0, min(s, t1) - max(s - b, t0))
+               for s, _, _, _, b, _, _ in synced)
+    return {"dispatches": len(entries),
+            # (sync, busy start) of each synced from t0 on, ms from t0
+            "intervals": [(round((s - t0) * 1e3, 3),
+                           round((s - b - t0) * 1e3, 3))
+                          for s, _, _, _, b, _, _ in synced],
+            "mfu": sum(e[2] for e in entries) / (peak_flops * span),
+            "mbu": sum(e[3] for e in entries) / (peak_bw * span),
+            "duty_cycle": busy / span, "peak_source": source}
 
 
 # prefix-cache configuration -> (env beside the common keys, its decode
@@ -1650,10 +2001,10 @@ def decode_engine(params, cfg, dev, config: str):
     return eng
 
 
-def _window(eng, n_steps: int) -> float:
+def _window(eng, n_steps: int, stamps=None) -> float:
     """n_steps loop steps (each dispatches a block and syncs the oldest),
     the card idle at the start and waited for at the end; returns the wall
-    ms."""
+    ms (and appends the window's monotonic start and end to `stamps`)."""
     import torch
 
     torch.cuda.synchronize()
@@ -1661,7 +2012,10 @@ def _window(eng, n_steps: int) -> float:
     for _ in range(n_steps):
         eng._step()
     torch.cuda.synchronize()
-    return (time.monotonic() - t0) * 1e3
+    t1 = time.monotonic()
+    if stamps is not None:
+        stamps += [t0, t1]
+    return (t1 - t0) * 1e3
 
 
 def profile_decode(eng, card: str, config: str) -> None:
@@ -1707,9 +2061,16 @@ def profile_decode(eng, card: str, config: str) -> None:
     extra, _ = ALL_CONFIGS[config]
     ran = eng.decode_steps
     torch.cuda.synchronize()
+    before = len(eng._inflight)
+    stamps: list = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms = _window(eng, 4)
+        wall_ms = _window(eng, 4, stamps)
+    # the blocks the window dispatched and left in flight ran in it (the
+    # card was drained): their syncs, now, close the ledger's account
+    with torch.no_grad(), eng._stream_ctx():
+        while eng._inflight:
+            eng._sync_oldest()
     # every step dispatched in the window ran in it: the card was drained
     ran = eng.decode_steps - ran
     ctx += [s.length for s in eng.slots if s.active]
@@ -1754,6 +2115,19 @@ def profile_decode(eng, card: str, config: str) -> None:
     require(round(per_step) <= LAUNCHES_PER_STEP[config],
             f"{config}: {per_step:.3f} kernels per decode step, more than "
             f"{LAUNCHES_PER_STEP[config]}")
+    lw = ledger_window(eng.util, stamps[0], stamps[1], before)
+    log(f"profile decode {config}: utilization ledger over the window: "
+        f"decode mfu={lw['mfu']:.5f} mbu={lw['mbu']:.5f} duty_cycle="
+        f"{lw['duty_cycle']:.5f} ({lw['dispatches']} blocks, peaks "
+        f"{lw['peak_source']}) beside the profiler's busy share "
+        f"{busy_ms / wall_ms:.5f}; (sync, busy start) ms from the window's "
+        f"start of the blocks synced from it on {lw['intervals']}, its end "
+        f"{wall_ms:.3f} [{card}]")
+    require(lw["dispatches"] * block == ran,
+            f"{config}: the ledger accounted {lw['dispatches']} blocks of "
+            f"the window's {ran // block}")
+    require(max(lw["mfu"], lw["mbu"], lw["duty_cycle"]) <= UTIL_CAP,
+            f"{config}: a utilization share above {UTIL_CAP}: {lw}")
     log(f"profile decode {config}: decode read: ms_per_step="
         f"{sum(e.self_device_time_total for e in read) / 1e3 / ran:.4f} "
         f"calls_per_step={sum(e.count for e in read) / ran:.0f}")
@@ -3914,14 +4288,16 @@ def main(argv=()) -> int:
     main path's serve phase, its sampling-controls phase, the sort-skip
     phase and the scoring phase. --weights: build, then the weights phases
     (w8_phase). --openai: build, then the OpenAI phase on an engine of its
-    own (OPENAI_ENV). The short modes print no ok line."""
+    own (OPENAI_ENV). --obs: build, then the main path's serve phase with
+    phase 4b and its cost measurements, and its decode profile with the
+    utilization ledger beside the profiler. The short modes print no ok line."""
     import torch
 
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
-                    "--weights", "--spec", "--openai"):
+                    "--weights", "--spec", "--openai", "--obs"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc, --weights, --spec, --openai or none)")
+            f"--sc, --weights, --spec, --openai, --obs or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -3959,7 +4335,8 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode not in ("--prefill", "--weights", "--spec", "--openai"):
+        if mode not in ("--prefill", "--weights", "--spec", "--openai",
+                        "--obs"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -4001,6 +4378,14 @@ def main(argv=()) -> int:
                 gen_app.shutdown()
             log(f"openai only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
+        if mode == "--obs":
+            serve_phase(params, cfg, dev, card, "paged", obs=True,
+                        obs_costs=True)
+            torch.cuda.empty_cache()
+            eng = decode_engine(params, cfg, dev, "paged")
+            profile_decode(eng, card, "paged")
+            log(f"obs only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
         if mode == "--sc":
             ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
             serve_sc_phase(params, cfg, dev, card, "paged", ref)
@@ -4011,7 +4396,8 @@ def main(argv=()) -> int:
         check_model(params, cfg, dev)
         served = {}
         for config in SERVE_CONFIGS:
-            served[config] = serve_phase(params, cfg, dev, card, config)
+            served[config] = serve_phase(params, cfg, dev, card, config,
+                                         obs=config == "paged")
             torch.cuda.empty_cache()
         for config in SERVE_CONFIGS:
             # the OpenAI phase on the main path's engine (its boot reused)

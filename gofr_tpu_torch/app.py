@@ -20,10 +20,20 @@ hooks (run first, LIFO) and ``add_health_contributor``.
 
 A handler runs on its connection's server thread; ``REQUEST_TIMEOUT``
 (seconds, default 5, <= 0 for none) sets the deadline it reads through
-``ctx.remaining()``. Waiting in ROADMAP A11: the ``enable_*`` planes
-(flight recorder, step ledger, timeline, SLO, QoS and the rest). Waiting in
-ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub subscriptions,
-static files and the OpenAPI routes.
+``ctx.remaining()``. The metrics server runs the container's scrape hooks
+at every scrape.
+
+The observability planes, with the reference's config keys and defaults
+(``gofr_tpu/app.py``): ``enable_flight_recorder`` (``/debug/requests``),
+``enable_journey`` (``/debug/journey``), ``enable_engine_snapshot``
+(``/debug/engine``, the utilization gauges and the memory sampler),
+``enable_step_ledger`` (``/debug/steps``), ``enable_timeline``
+(``/debug/timeline``) and ``enable_hostprof`` (``/debug/hostprof``); each
+returns what the reference's returns and stops its thread on shutdown.
+Waiting: the incident autopsy, SLO burn, capacity and profiler planes
+(ROADMAP A11d), fault injection and QoS (A11e), drain with migration
+(A11f). Waiting in ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub
+subscriptions, static files and the OpenAPI routes.
 """
 
 from __future__ import annotations
@@ -171,6 +181,158 @@ class App:
                     self._handler_slots.release()
 
         return wire_handler
+
+    # -- the observability planes ---------------------------------------------
+    def enable_flight_recorder(self, engine, path: str = "/debug/requests"):
+        """Attach a per-request flight recorder to `engine` and serve GET
+        /debug/requests and /debug/requests/{id} (tpu/flightrecorder.py),
+        with the app_tpu_slo_*_goodput gauges. Config:
+        FLIGHT_RECORDER_CAPACITY (completed-request ring, 256),
+        FLIGHT_RECORDER_MAX_EVENTS (per request, 512), SLO_TTFT_TARGET_S /
+        SLO_TPOT_TARGET_S (goodput targets, 0.15 / 0.05). An engine that
+        already has a recorder keeps it; only the app's metrics and tracer
+        are wired then. Returns the recorder."""
+        from .tpu.flightrecorder import (FlightRecorder, install_routes,
+                                         register_slo_gauges)
+
+        recorder = getattr(engine, "recorder", None)
+        if recorder is None:
+            recorder = FlightRecorder(
+                capacity=self.config.get_int("FLIGHT_RECORDER_CAPACITY", 256),
+                max_events=self.config.get_int(
+                    "FLIGHT_RECORDER_MAX_EVENTS", 512),
+                slo_ttft_s=self.config.get_float("SLO_TTFT_TARGET_S", 0.150),
+                slo_tpot_s=self.config.get_float("SLO_TPOT_TARGET_S", 0.050),
+                metrics=self.container.metrics_manager,
+                tracer=self.container.tracer)
+            engine.recorder = recorder
+        else:
+            recorder.use_metrics(self.container.metrics_manager)
+            recorder.use_tracer(self.container.tracer)
+        if self.container.metrics_manager is not None:
+            register_slo_gauges(self.container.metrics_manager)
+        install_routes(self, recorder, path)
+        return recorder
+
+    def enable_journey(self, engine, path: str = "/debug/journey"):
+        """Serve GET /debug/journey (recent index) and /debug/journey/{id}
+        (one hop waterfall; id = engine request id or 32-hex trace id),
+        from the engine's flight recorder (tpu/journey.py). Returns the
+        recorder, or None without one (enable_flight_recorder first)."""
+        if getattr(engine, "recorder", None) is None:
+            return None
+        from .tpu.journey import install_routes
+
+        install_routes(self, engine, path)
+        return engine.recorder
+
+    def enable_engine_snapshot(self, engine, path: str = "/debug/engine"):
+        """Serve GET /debug/engine (slots, buckets, page pool, utilization
+        window, program table, card memory; tpu/utilization.py), publish
+        the utilization gauges (app_tpu_mfu / app_tpu_mbu /
+        app_tpu_device_duty_cycle / app_tpu_host_overhead_seconds) at every
+        dispatch sync and every scrape, refresh the card-memory gauges at
+        every scrape, and start the background memory / page-pool sampler.
+        Config: ENGINE_HBM_SAMPLE_S (sampler cadence, 10 s; <= 0: no thread,
+        the scrape still refreshes). TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW in the
+        process environment override the peaks MFU and MBU divide by.
+        Returns the engine's UtilizationLedger (None without one)."""
+        from .tpu.device import refresh_memory_metrics
+        from .tpu.utilization import (MemorySampler, install_routes,
+                                      register_utilization_metrics)
+
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_utilization_metrics(metrics)
+        util = getattr(engine, "util", None)
+        if util is not None:
+            util.use_metrics(metrics)
+            # scrape-time republish: an idle engine's duty cycle decays to
+            # zero instead of freezing at the last dispatch's value
+            self.container.add_scrape_hook("engine_util", util.publish)
+        device = getattr(engine, "device", None)
+        if metrics is not None:
+            self.container.add_scrape_hook(
+                "engine_hbm", lambda: refresh_memory_metrics(metrics, device))
+        install_routes(self, engine, path)
+        interval = self.config.get_float("ENGINE_HBM_SAMPLE_S", 10.0)
+        if interval > 0:
+            sampler = MemorySampler(metrics, engine=engine,
+                                    interval_s=interval, logger=self.logger)
+            sampler.start()
+            self.on_shutdown(sampler.stop)
+        return util
+
+    def enable_step_ledger(self, engine, path: str = "/debug/steps"):
+        """Serve GET /debug/steps (tpu/stepledger.py) and record the
+        app_tpu_step_seconds{phase,segment} histograms and
+        app_tpu_step_stragglers_total{cause}. Config: STEP_LEDGER_CAPACITY
+        (ring, 512), STEP_STRAGGLER_K (3.0), STEP_BASELINE_ALPHA (0.1),
+        STEP_BASELINE_MIN_SAMPLES (16). Returns the ledger (None for an
+        engine without one)."""
+        from .tpu.stepledger import install_routes, register_step_metrics
+
+        ledger = getattr(engine, "steps", None)
+        if ledger is None:
+            return None
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_step_metrics(metrics)
+            ledger.use_metrics(metrics)
+        ledger.configure(
+            capacity=self.config.get_int("STEP_LEDGER_CAPACITY", 512),
+            straggler_k=self.config.get_float("STEP_STRAGGLER_K", 3.0),
+            baseline_alpha=self.config.get_float("STEP_BASELINE_ALPHA", 0.1),
+            min_samples=self.config.get_int("STEP_BASELINE_MIN_SAMPLES", 16))
+        install_routes(self, ledger, path)
+        return ledger
+
+    def enable_timeline(self, engine, path: str = "/debug/timeline"):
+        """Serve GET /debug/timeline[?steps=N]: the step ledger, flight
+        recorder, utilization ledger and program captures as one Perfetto
+        trace (tpu/timeline.py). Config: TIMELINE_STEPS (the default step
+        window, 128). Returns the TimelineExporter, also on
+        engine.timeline."""
+        from .tpu.timeline import (TimelineExporter, install_routes,
+                                   register_timeline_metrics)
+
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_timeline_metrics(metrics)
+        exporter = TimelineExporter(
+            engine, process_name=self.container.app_name,
+            max_steps=self.config.get_int("TIMELINE_STEPS", 128),
+            metrics=metrics)
+        engine.timeline = exporter
+        install_routes(self, exporter, path)
+        return exporter
+
+    def enable_hostprof(self, engine=None, path: str = "/debug/hostprof"):
+        """Start the host sampling profiler and serve GET /debug/hostprof
+        (tpu/hostprof.py); its thread stops on shutdown. Config:
+        HOSTPROF_HZ (50; <= 0: nothing starts, None is returned),
+        HOSTPROF_MAX_STACKS (256 per class), HOSTPROF_TOP_K (5). Returns the
+        HostProfiler, also on engine.hostprof."""
+        from .tpu.hostprof import (HostProfiler, install_routes,
+                                   register_hostprof_metrics)
+
+        hz = self.config.get_float("HOSTPROF_HZ", 50.0)
+        if hz <= 0:
+            return None
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_hostprof_metrics(metrics)
+        prof = HostProfiler(
+            hz=hz,
+            max_stacks=self.config.get_int("HOSTPROF_MAX_STACKS", 256),
+            top_k=self.config.get_int("HOSTPROF_TOP_K", 5),
+            metrics=metrics, logger=self.logger)
+        prof.start()
+        self.on_shutdown(prof.stop)
+        if engine is not None:
+            engine.hostprof = prof
+        install_routes(self, prof, path)
+        return prof
 
     # -- health ---------------------------------------------------------------
     def add_health_contributor(self, name: str,

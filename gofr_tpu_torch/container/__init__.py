@@ -6,11 +6,13 @@ servers use: ``Container`` with ``config``, ``logger`` (``LOG_LEVEL``),
 ``TRACER_URL``), ``app_name`` (``APP_NAME``) and ``app_version``
 (``APP_VERSION``); ``create`` (the framework metrics of
 ``register_framework_metrics`` and ``app_info``),
-``refresh_runtime_metrics`` (the runtime gauges, at every metrics scrape),
-the aggregate ``health`` over the contributors the serving engines
-register (``add_health_contributor``, with the reference's de-flap rule
-for DEGRADED) and ``close`` (drains the trace exporter). The scrape hooks
-wait with the stall gauge in ROADMAP A11.
+``refresh_runtime_metrics`` (the runtime gauges, then every hook of
+``add_scrape_hook``, at every metrics scrape: the engine's stall gauge, the
+utilization republish, the card-memory refresh), the aggregate ``health``
+over the contributors the serving engines register
+(``add_health_contributor``: a ``Health`` or a dict with a "status"; the
+reference's de-flap rule for DEGRADED) and ``close`` (drains the trace
+exporter).
 
 Waiting in ROADMAP A18b: the datasources the reference builds from config
 (``sql``, ``kv``, ``pubsub``, ``docstore``), the HTTP services and the
@@ -26,6 +28,7 @@ from __future__ import annotations
 import gc
 import threading
 import time
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 from ..config import Config, as_config
@@ -38,6 +41,18 @@ FRAMEWORK = "0.1.0-dev"
 STATUS_UP = "UP"
 STATUS_DOWN = "DOWN"
 STATUS_DEGRADED = "DEGRADED"
+
+@dataclass
+class Health:
+    """A health contributor's report (the reference's
+    ``gofr_tpu.datasource.Health``)."""
+
+    status: str = STATUS_UP
+    details: Dict[str, Any] = field(default_factory=dict)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"status": self.status, "details": self.details}
+
 
 # the reference's framework histogram buckets (seconds)
 HTTP_BUCKETS = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10, 30)
@@ -55,6 +70,8 @@ class Container:
         # app-level components in the aggregate health report (the serving
         # engines register here)
         self._health_contributors: Dict[str, Callable[[], Any]] = {}
+        # name -> fn run at every metrics scrape (add_scrape_hook)
+        self._scrape_hooks: Dict[str, Callable[[], Any]] = {}
         self.app_name = config.get_or_default("APP_NAME", "gofr-tpu-app")
         self.app_version = config.get_or_default("APP_VERSION", "dev")
         self._started_at = time.time()
@@ -108,14 +125,27 @@ class Container:
                       "bounded queue (a dead/slow collector sheds spans "
                       "instead of blocking the span-ending thread)")
 
+    def add_scrape_hook(self, name: str, fn: Callable[[], Any]) -> None:
+        """fn() runs at every metrics scrape: for gauges whose owner cannot
+        push them (a loop stuck inside a wedged device call cannot update
+        its own stall gauge, so the scrape pulls the host-side reading).
+        Name-keyed: registering a name again replaces its hook."""
+        self._scrape_hooks[name] = fn
+
     def refresh_runtime_metrics(self) -> None:
-        """Refreshed per metrics scrape."""
+        """Refreshed per metrics scrape; a hook that raises is logged and
+        the scrape goes on."""
         m = self.metrics_manager
         if m is None:
             return
         m.set_gauge("app_python_threads", threading.active_count())
         m.set_gauge("app_python_gc_objects", len(gc.get_objects()) if gc.isenabled() else 0)
         m.set_gauge("app_uptime_seconds", time.time() - self._started_at)
+        for hook in list(self._scrape_hooks.values()):
+            try:
+                hook()
+            except Exception as exc:  # noqa: BLE001 - never break the scrape
+                self.logger.errorf("scrape hook failed: %s", exc)
 
     # -- aggregate health -----------------------------------------------------
     def add_health_contributor(self, name: str, fn: Callable[[], Any]) -> None:
@@ -138,6 +168,8 @@ class Container:
                 h = fn()
             except Exception as exc:  # noqa: BLE001 - a broken probe is DOWN
                 h = {"status": STATUS_DOWN, "details": {"error": str(exc)}}
+            if isinstance(h, Health):
+                h = h.to_dict()
             details[name] = h
             statuses.append(h.get("status", STATUS_DOWN))
         # DOWN degrades the aggregate at once; a DEGRADED contributor must

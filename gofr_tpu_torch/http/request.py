@@ -1,16 +1,17 @@
 """HTTP Request wrapper: method, path, headers, JSON bind.
 
 A copy of ``gofr_tpu/http/request.py``, trimmed to what the port's servers
-need: JSON bodies only (query params, multipart and dataclass binding are
-not ported), ``header()``, and the fields the router and the middleware
-set (``route_pattern``, ``span``, ``traceparent``).
+need: JSON bodies (multipart and dataclass binding are not ported),
+``header()``, ``param()`` (the first value of a query parameter, the debug
+routes' ``?steps=N``), ``path_param()``, and the fields the router and the
+middleware set (``route_pattern``, ``span``, ``traceparent``).
 """
 
 from __future__ import annotations
 
 import json
 from typing import Any, Dict, Optional
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 from .errors import HTTPError
 
@@ -29,7 +30,9 @@ class Request:
                  headers: Optional[Dict[str, str]] = None, body: bytes = b"",
                  client_addr: str = ""):
         self.method = method.upper()
-        self.path = urlsplit(target).path or "/"
+        parts = urlsplit(target)
+        self.path = parts.path or "/"
+        self.query = parse_qs(parts.query)
         self.headers = {k.lower(): v for k, v in (headers or {}).items()}
         self.body = body or b""
         self.client_addr = client_addr
@@ -40,6 +43,14 @@ class Request:
 
     def header(self, key: str) -> str:
         return self.headers.get(key.lower(), "")
+
+    def param(self, key: str) -> str:
+        """The first value of query parameter `key`, "" when absent."""
+        values = self.query.get(key)
+        return values[0] if values else ""
+
+    def path_param(self, key: str) -> str:
+        return self.path_params.get(key, "")
 
     def bind(self) -> Any:
         """The parsed JSON body ({} when empty); 400 on malformed JSON."""

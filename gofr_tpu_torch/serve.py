@@ -12,7 +12,13 @@ body and sends the same events.
     reference's 400 answers them without it or out of range (the engine
     refuses them), non-numeric values, and a QoS class (the X-QoS-Class
     header, else the body's "class") that is not one of QOS_CLASSES. QoS is
-    not ported (ROADMAP A11): a known class changes nothing.
+    not ported (ROADMAP A11e): a known class changes nothing. While the
+    engine's lifecycle is ``draining`` it answers 503.
+
+    GET /stats -> the reference's fleet probe: active_slots, queue_depth,
+    compiled_programs, stall_seconds, spec (under SPECULATIVE_TOKENS),
+    pages and prefix_cache (paged), slo (with the flight recorder) and
+    fleet {affinity digest, lifecycle, duty_cycle}.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from .env files under
 GOFR_CONFIGS_DIR, the process environment over them). Every key the
@@ -72,6 +78,24 @@ gofr need the URL; log, memory; unset: none), GOFR_CONFIGS_DIR (where
 wins). The engine gets the container's metrics manager, tracer and logger:
 POST /generate threads its server span and the inbound traceparent into
 submit, so each request's tpu.generate span joins the caller's trace.
+
+The observability planes, on by default as in the reference (``app_for``,
+both servers; each key set to false removes its routes): FLIGHT_RECORDER
+(GET /debug/requests[/{id}], the engine's child spans, the SLO goodput
+gauges; with it GET /debug/journey[/{id}] and, unless FLIGHT_TRACE_EXPORT
+is false, GET /debug/trace), ENGINE_SNAPSHOT (GET /debug/engine, the
+utilization gauges and the memory sampler), STEP_LEDGER (GET /debug/steps
+and the step histograms), TIMELINE (GET /debug/timeline) and HOSTPROF (GET
+/debug/hostprof; HOSTPROF_HZ <= 0 also turns it off), tuned by
+FLIGHT_RECORDER_CAPACITY, FLIGHT_RECORDER_MAX_EVENTS, SLO_TTFT_TARGET_S,
+SLO_TPOT_TARGET_S, ENGINE_HBM_SAMPLE_S, STEP_LEDGER_CAPACITY,
+STEP_STRAGGLER_K, STEP_BASELINE_ALPHA, STEP_BASELINE_MIN_SAMPLES,
+TIMELINE_STEPS, HOSTPROF_HZ, HOSTPROF_MAX_STACKS and HOSTPROF_TOP_K (app.py).
+The engine's stall gauge (app_tpu_engine_stall_seconds) is refreshed at
+every scrape, and a stalled engine answers 503 (EngineStalledError).
+FLEET_AFFINITY_BLOCK sizes the affinity digest of /stats. The peak
+overrides TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW are read from the process
+environment, as the reference reads them (tpu/utilization.py).
 """
 
 from __future__ import annotations
@@ -84,6 +108,7 @@ from typing import Mapping, Optional, Union
 from .app import App, Stream
 from .config import Config, as_config
 from .container import Container
+from .fleet.affinity import AffinityRecorder
 from .http.errors import InvalidParam, RequestTimeout, ServiceUnavailable
 from .models.llama import LlamaConfig, llama_init, llama_init_quantized
 from .models.tokenizer import (BPETokenizer, ByteLevelBPETokenizer,
@@ -132,7 +157,14 @@ PORTED = (
     "PREFILL_BUCKETS", "ENGINE_ASYNC_D2H", "SAMPLING_CONTROLS", "WARMUP",
     "WARMUP_SCORE", "WEIGHTS_PATH", "WEIGHT_DTYPE", "VOCAB_PATH",
     "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT", "CHUNK_PREFILL_TOKENS",
-    "SPECULATIVE_TOKENS",
+    "SPECULATIVE_TOKENS", "FLEET_AFFINITY_BLOCK",
+    # the observability planes (app_for) and their App tuning keys
+    "FLIGHT_RECORDER", "FLIGHT_TRACE_EXPORT", "ENGINE_SNAPSHOT",
+    "STEP_LEDGER", "TIMELINE", "HOSTPROF", "FLIGHT_RECORDER_CAPACITY",
+    "FLIGHT_RECORDER_MAX_EVENTS", "SLO_TTFT_TARGET_S", "SLO_TPOT_TARGET_S",
+    "ENGINE_HBM_SAMPLE_S", "STEP_LEDGER_CAPACITY", "STEP_STRAGGLER_K",
+    "STEP_BASELINE_ALPHA", "STEP_BASELINE_MIN_SAMPLES", "TIMELINE_STEPS",
+    "HOSTPROF_HZ", "HOSTPROF_MAX_STACKS", "HOSTPROF_TOP_K",
     # the App's and its container's (app.py, container/, tracing/)
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
@@ -146,13 +178,13 @@ PORTED = (
 NOT_PORTED = (
     ("DISAGG_MODE",
      lambda e: e.get_or_default("DISAGG_MODE", "off").lower() != "off",
-     "disaggregated prefill/decode waits in ROADMAP A11"),
+     "disaggregated prefill/decode waits in ROADMAP A11f"),
     ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
-     "the host KV tier waits in ROADMAP A11"),
+     "the host KV tier waits in ROADMAP A11f"),
     ("QOS", lambda e: _flag(e, "QOS", False),
-     "the QoS serving plane waits in ROADMAP A11"),
+     "the QoS serving plane waits in ROADMAP A11e"),
     ("ELASTIC_WARM_BOOT", lambda e: _flag(e, "ELASTIC_WARM_BOOT", False),
-     "the warm boot behind a `warming` lifecycle waits in ROADMAP A11"),
+     "the warm boot behind a `warming` lifecycle waits in ROADMAP A11f"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
     # the container's
@@ -176,43 +208,36 @@ NOT_PORTED = (
 INERT = (
     # they act only on paths that are refused above or absent here
     ("DISAGG_PREFILL_SLOTS", "sizes the prefill pool of DISAGG_MODE=both, "
-     "refused (A11)"),
+     "refused (A11f)"),
     ("DISAGG_TRANSPORT", "the hand-off transport of DISAGG_MODE, refused "
-     "(A11)"),
+     "(A11f)"),
     ("DISAGG_QUEUE_DEPTH", "the hand-off queue of DISAGG_MODE, refused "
-     "(A11)"),
+     "(A11f)"),
     ("DISAGG_HANDOFF_TIMEOUT_S", "the hand-off timeout of DISAGG_MODE, "
-     "refused (A11)"),
+     "refused (A11f)"),
     ("KV_REDIS_TIER", "the Redis tier under KV_HOST_TIER_BYTES, refused "
-     "(A11)"),
+     "(A11f)"),
     ("KV_REDIS_TTL_S", "the Redis tier under KV_HOST_TIER_BYTES, refused "
-     "(A11)"),
+     "(A11f)"),
     ("CONVERSATION_PIN_S", "pins host-tier pages of KV_HOST_TIER_BYTES, "
-     "refused (A11)"),
+     "refused (A11f)"),
     ("ELASTIC_PREWARM_PEERS", "the KV pre-warm of ELASTIC_WARM_BOOT, "
-     "refused (A11)"),
+     "refused (A11f)"),
     ("ELASTIC_PREWARM_PAGES", "the KV pre-warm of ELASTIC_WARM_BOOT, "
-     "refused (A11)"),
+     "refused (A11f)"),
     ("ENGINE_RETRY_BUDGET", "replay after a device reset; the port has no "
-     "reset path (A11)"),
-    ("RESET_STORM_MAX", "the reset-storm breaker; no reset path (A11)"),
+     "reset path (A11e)"),
+    ("RESET_STORM_MAX", "the reset-storm breaker; no reset path (A11e)"),
     ("RESET_STORM_WINDOW_S", "the reset-storm breaker; no reset path "
-     "(A11)"),
-    ("BREAKER_COOLDOWN_S", "the reset-storm breaker; no reset path (A11)"),
+     "(A11e)"),
+    ("BREAKER_COOLDOWN_S", "the reset-storm breaker; no reset path "
+     "(A11e)"),
     ("ENGINE_FINISHER_QUEUE", "the off-loop finisher; the port finishes "
-     "on the loop thread (A11)"),
-    ("FLEET_AFFINITY_BLOCK", "the /stats fleet digest; the port serves no "
-     "/stats (A11)"),
-    # they opt out of observability routes the port does not serve (A11)
-    ("FLIGHT_RECORDER", "opts out of /debug/requests, not served (A11)"),
-    ("FLIGHT_TRACE_EXPORT", "opts out of /debug/trace, not served (A11)"),
-    ("ENGINE_SNAPSHOT", "opts out of /debug/engine, not served (A11)"),
-    ("STEP_LEDGER", "opts out of /debug/steps, not served (A11)"),
-    ("TIMELINE", "opts out of /debug/timeline, not served (A11)"),
-    ("HOSTPROF", "opts out of /debug/hostprof, not served (A11)"),
+     "on the loop thread (A11e)"),
+    # they opt out of observability routes the port does not serve yet
     ("INCIDENT_AUTOPSY", "opts out of /debug/slo and /debug/incidents, not "
-     "served (A11)"),
-    ("CAPACITY", "opts out of /debug/capacity, not served (A11)"),
+     "served (A11d)"),
+    ("CAPACITY", "opts out of /debug/capacity, not served (A11d)"),
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
@@ -226,25 +251,13 @@ INERT = (
      "server registers no gRPC service"),
     ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
      "refused (A18b)"),
-    # they tune the App's enable_* planes, which the port does not serve
-    # (A11)
-    *((key, f"tunes {plane}, not served (A11)") for plane, keys in (
-        ("the flight recorder of /debug/requests",
-         ("FLIGHT_RECORDER_CAPACITY", "FLIGHT_RECORDER_MAX_EVENTS",
-          "SLO_TTFT_TARGET_S", "SLO_TPOT_TARGET_S")),
-        ("the engine snapshot's HBM sampler of /debug/engine",
-         ("ENGINE_HBM_SAMPLE_S",)),
-        ("the step ledger of /debug/steps",
-         ("STEP_LEDGER_CAPACITY", "STEP_STRAGGLER_K", "STEP_BASELINE_ALPHA",
-          "STEP_BASELINE_MIN_SAMPLES")),
-        ("the timeline of /debug/timeline", ("TIMELINE_STEPS",)),
-        ("the host profiler of /debug/hostprof",
-         ("HOSTPROF_HZ", "HOSTPROF_MAX_STACKS", "HOSTPROF_TOP_K")),
-        ("the profile captures of /debug/profile and the incident bundles",
-         ("PROFILE_DIR",)),
-        ("the drain-with-migration surface of /debug/drain and /migrate",
-         ("DRAIN_MIGRATE", "DRAIN_SHIP_TIMEOUT_S")),
-    ) for key in keys),
+    # they tune App planes the port does not serve yet
+    ("PROFILE_DIR", "tunes the profile captures of /debug/profile and the "
+     "incident bundles, not served (A11d)"),
+    ("DRAIN_MIGRATE", "tunes the drain-with-migration surface of "
+     "/debug/drain and /migrate, not served (A11f)"),
+    ("DRAIN_SHIP_TIMEOUT_S", "tunes the drain-with-migration surface of "
+     "/debug/drain and /migrate, not served (A11f)"),
 )
 
 
@@ -263,10 +276,11 @@ def load_tokenizer(path: str):
 
 
 def shed_to_503(exc: RuntimeError) -> ServiceUnavailable:
-    """The reference's ``_raise_for_shed``: a draining engine's error
-    (EngineDrainingError, which carries status_code 503 and its
-    retry_after_s) as a 503 with a Retry-After hint; a stopped engine's
-    RuntimeError too (the reference answers it with a 500)."""
+    """The reference's ``_raise_for_shed``: a draining or stalled engine's
+    error (EngineDrainingError, EngineStalledError: each carries
+    status_code 503 and its retry_after_s) as a 503 with a Retry-After
+    hint; a stopped engine's RuntimeError too (the reference answers it
+    with a 500)."""
     return ServiceUnavailable(
         str(exc), retry_after_s=getattr(exc, "retry_after_s", None) or 1.0)
 
@@ -441,7 +455,9 @@ def app_for(env: EnvLike, engine=None, device=None,
     (DRAIN_TIMEOUT: the active streams finish, queued and new requests get
     503), then stops it. env: a Config, a mapping, or None (the App reads
     .env files under GOFR_CONFIGS_DIR, the process environment over
-    them)."""
+    them). The observability planes are enabled here, for both servers, as
+    the reference's build_app does (the module docstring); the stall
+    gauge is refreshed at every scrape."""
     if engine is not None and getattr(engine, "container", None) is not None:
         app = App(config=env, container=engine.container)
     else:
@@ -452,8 +468,30 @@ def app_for(env: EnvLike, engine=None, device=None,
             default_sampling_controls=default_sampling_controls)
     app.engine = engine
     app.add_health_contributor("engine", engine.health_check)
+    metrics = app.container.metrics_manager
+    if metrics is not None:
+        register_metrics(metrics)
+        # a wedged loop cannot push its own gauge: the scrape pulls it
+        app.container.add_scrape_hook("engine_stall", lambda: metrics.set_gauge(
+            "app_tpu_engine_stall_seconds", round(engine.stall_seconds, 1)))
     drain_s = _float(app.config, "DRAIN_TIMEOUT", 30.0)
     app.on_shutdown(lambda: (engine.drain(drain_s), engine.stop()))
+    config = app.config
+    if _flag(config, "FLIGHT_RECORDER", True):
+        recorder = app.enable_flight_recorder(engine)
+        app.enable_journey(engine)
+        if _flag(config, "FLIGHT_TRACE_EXPORT", True):
+            from .loadgen.capture import install_recorder_trace_route
+
+            install_recorder_trace_route(app, recorder)
+    if _flag(config, "ENGINE_SNAPSHOT", True):
+        app.enable_engine_snapshot(engine)
+    if _flag(config, "STEP_LEDGER", True):
+        app.enable_step_ledger(engine)
+    if _flag(config, "TIMELINE", True):
+        app.enable_timeline(engine)
+    if _flag(config, "HOSTPROF", True):
+        app.enable_hostprof(engine)
     return app
 
 
@@ -463,9 +501,18 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     app = app_for(env, engine, device)
     engine = app.engine
     tokenizer = engine.tokenizer
+    # the /stats fleet digest of the prefixes this replica served, with a
+    # per-boot generation id
+    affinity = AffinityRecorder(
+        block=_int(app.config, "FLEET_AFFINITY_BLOCK", 256))
+    app.fleet_affinity = affinity
 
     @app.post("/generate")
     def generate(ctx):
+        if engine.lifecycle.state == "draining":
+            # new sessions belong on a peer; streams in flight go on
+            raise ServiceUnavailable("replica is draining",
+                                     retry_after_s=1.0)
         body = ctx.bind()
         if not isinstance(body, dict):
             raise InvalidParam(["body"])
@@ -498,8 +545,9 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                 traceparent=ctx.request.traceparent)
         except ValueError as exc:
             raise InvalidParam([str(exc)]) from exc
-        except RuntimeError as exc:   # draining or stopped
+        except RuntimeError as exc:   # draining, stalled or stopped
             raise shed_to_503(exc) from exc
+        affinity.record(prompt)   # admitted: its prefix now lives here
 
         if not stream:
             start = time.monotonic()
@@ -529,6 +577,40 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                                                   1e-6), 1)}
 
         return Stream(chunks(), sse=True, on_close=request.cancel)
+
+    @app.get("/stats")
+    def stats(ctx):
+        out = {
+            "active_slots": sum(1 for s in engine.slots if s.active),
+            "queue_depth": engine._pending.qsize(),
+            "compiled_programs": engine.executor.cache_size(),
+            "stall_seconds": round(engine.stall_seconds, 1),
+        }
+        if engine.speculative_tokens:
+            out["spec"] = {
+                "accept_ema": round(engine._spec_accept_ema, 3),
+                "cooloff_dispatches": engine._spec_cooloff,
+            }
+        allocator = getattr(engine, "allocator", None)
+        if allocator is not None:
+            out["pages"] = {"used": allocator.used_pages,
+                            "free": allocator.free_pages,
+                            "page_size": allocator.page_size}
+        prefix = getattr(engine, "prefix", None)
+        if prefix is not None:
+            out["prefix_cache"] = prefix.stats()
+        recorder = getattr(engine, "recorder", None)
+        if recorder is not None:
+            out["slo"] = recorder.slo_stats()
+        # the cheap fleet probe: an O(k) affinity digest and the duty
+        # cycle, not the page-pool dump of /debug/engine
+        fleet = {"affinity": affinity.digest(),
+                 "lifecycle": engine.lifecycle.state}
+        util = getattr(engine, "util", None)
+        if util is not None:
+            fleet["duty_cycle"] = util.window_stats()["duty_cycle"]
+        out["fleet"] = fleet
+        return out
 
     return app
 

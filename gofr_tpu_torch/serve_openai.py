@@ -29,17 +29,19 @@ on completions, top_logprobs 0..20 on chat, refused with stream, refused
 at admission past the largest scoring bucket by ``_check_scoreable``,
 clipped to the returned text by ``_tokens_for_text``, with the
 reference's ``text_offset`` accounting); ``conversation_id`` checked for
-its type (its pin is a no-op: the port has no host KV tier, ROADMAP A11,
+its type (its pin is a no-op: the port has no host KV tier, ROADMAP A11f,
 as the reference without KV_HOST_TIER_BYTES); a draining engine answers
 503 with Retry-After (a stopped one too, as on /generate, where the
 reference answers 500). Each request's span and traceparent reach
 ``engine.submit``, so its ``tpu.generate`` span joins the caller's trace.
 
-Not ported: ``/stats`` and the ``enable_*`` planes the reference wires
-(flight recorder, journey, engine snapshot, step ledger, timeline, host
-profiler, incident autopsy, fault injection, QoS, capacity, disaggregation,
-drain with migration) wait in ROADMAP A11; their keys are INERT or
-NOT_PORTED as on serve.py.
+``GET /stats`` is the reference's: active_slots, queue_depth,
+stall_seconds and fleet {lifecycle, duty_cycle}. The observability planes
+(flight recorder, journey, /debug/trace, engine snapshot, step ledger,
+timeline, host profiler) are ``serve.app_for``'s, under the same keys. Not
+ported: the incident autopsy and capacity planes (ROADMAP A11d), fault
+injection and QoS (A11e), disaggregation and drain with migration (A11f);
+their keys are INERT or NOT_PORTED as on serve.py.
 
 Run: ``python -m gofr_tpu_torch.serve_openai`` (config from .env files
 under GOFR_CONFIGS_DIR and the process environment; ``device="cpu"`` only
@@ -345,6 +347,19 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                       "total_tokens": len(prompt_toks) + total_out},
         })
 
+    @app.get("/stats")
+    def stats(ctx):
+        fleet = {"lifecycle": engine.lifecycle.state}
+        util = getattr(engine, "util", None)
+        if util is not None:
+            fleet["duty_cycle"] = util.window_stats()["duty_cycle"]
+        return {
+            "active_slots": sum(1 for s in engine.slots if s.active),
+            "queue_depth": engine._pending.qsize(),
+            "stall_seconds": round(engine.stall_seconds, 1),
+            "fleet": fleet,
+        }
+
     @app.get("/v1/models")
     def models(ctx):
         return Raw({"object": "list",
@@ -353,7 +368,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
 
     def _pin_conversation(conversation_id, prompt_toks, out_tokens):
         """Pin a conversation's trunk pages in the host KV tier; a no-op
-        without one (the port's engines have none yet, ROADMAP A11), and
+        without one (the port's engines have none yet, ROADMAP A11f), and
         it never fails the response."""
         pin = getattr(engine, "pin_conversation", None)
         if not conversation_id or pin is None:

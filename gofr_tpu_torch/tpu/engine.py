@@ -34,11 +34,47 @@ named as the reference names it: each decode block
 one launch, on the CPU the eager function. A program's inputs are static
 buffers, typed views into one device block per program, filled before each
 call by one host-to-device copy from a pinned staging ring
-(``_static_inputs``, ``_upload``). Waiting for A11: QoS, the step ledger,
-flight recorder and utilization ledger, fault injection, replay-after-reset
-and the reset-storm breaker, the off-loop finisher and disaggregated
-hand-off. A failed dispatch here (a failed capture included) fails the
-requests it carried and the loop keeps serving.
+(``_static_inputs``, ``_upload``). A failed dispatch here (a failed capture
+included) fails the requests it carried and the loop keeps serving.
+
+The observability planes (ROADMAP A11c) are the reference's, at its sites:
+
+  * the step ledger (``self.steps``, tpu/stepledger.py): ``_step`` opens a
+    record and closes it (``_finish_step``, which records a flagged
+    straggler as a ``step_straggler`` engine event) before the loop's idle
+    park, or aborts it when the step raises; the segments are
+    ``admission`` (``_admit``), ``page_alloc`` (the paged reservation),
+    ``host_prep`` (``_prep_admission``, page tables, drafts),
+    ``dispatch`` (``_call`` and the dense decode call: the upload and the
+    launch or replay), ``cache_grow``, ``device_sync`` (``_fetch_host``: the
+    wait on the D2H copy's CUDA event), ``demux`` (``_demux_plan``) and
+    ``emit`` (the rest of ``_sync_oldest``), with ``note_dispatch`` /
+    ``note_sync`` at each dispatch and sync, and ``compile`` re-attributed
+    from the executor's ``on_compile`` (``_note_compile``; captures on other
+    threads, warm-up's and the scoring passes', are ignored by the ledger's
+    thread guard);
+  * the utilization ledger (``self.util``, tpu/utilization.py), built here
+    with the served tree's ``params_nbytes``: ``record_prefill`` /
+    ``record_decode`` at each sync with the dispatch stamp its in-flight
+    entry carries, ``note_host`` with the loop's host time per step;
+  * the flight recorder (``self.recorder``, None until
+    ``App.enable_flight_recorder``): ``record_enqueued`` at submit,
+    ``record_admitted`` at binding (a chunk job's at its first chunk),
+    ``record_event("prefill_chunk")``, ``record_first_token``,
+    ``record_decode_block`` per row per sync, ``record_finished`` at
+    ``_finish_slot`` / ``_fail_request`` and the engine events
+    ``cache_grow``, ``step_straggler`` and ``stall_shed``;
+  * the stall watchdog: the loop stamps ``_last_step_at`` every iteration;
+    ``stall_seconds`` past ``STALL_REJECT_S`` (150 s) makes ``submit``
+    raise ``EngineStalledError`` (503) and ``health_check`` answer
+    DEGRADED with the stall age;
+  * ``lifecycle`` (tpu/migrate.py): ``serving`` from construction,
+    ``draining`` from ``drain()``;
+  * ``app_tpu_tokens_per_second`` over a 5 s window of synced tokens.
+
+Waiting: QoS, fault injection, replay after a reset and the reset-storm
+breaker, the off-loop finisher (ROADMAP A11e), disaggregated hand-off and
+migration (A11f).
 
 Speculative decoding and chunked prefill (ROADMAP A10) are the reference's:
 ``spec_accept_epilogue`` (shared with the paged engine), the SPEC_* class
@@ -142,10 +178,15 @@ from ..models.llama import (DTYPES, init_kv_cache_layers,
                             llama_prefill_chunk_q8, llama_prefill_last,
                             llama_verify_step)
 from ..ops.decode_attention import quantize_kv
+from ..container import STATUS_DEGRADED, STATUS_DOWN, STATUS_UP, Health
 from .device import resolve_device
 from .executor import Executor, next_bucket
+from .migrate import Lifecycle
 from .obs import MetricsHook
+from .ownership import loop_only
 from .sampling import pack_controls, sample_tokens, temperature_of
+from .stepledger import StepLedger
+from .utilization import UtilizationLedger
 
 _request_ids = itertools.count(1)
 # the cache length a dense program is captured at, in its name
@@ -163,6 +204,22 @@ class EngineDrainingError(RuntimeError):
 
     def __init__(self):
         super().__init__("engine draining: not accepting new requests")
+
+
+class EngineStalledError(RuntimeError):
+    """Submitted while the engine loop is stuck inside one device call
+    past ``STALL_REJECT_S``. The server answers 503 at once (status_code
+    and retry_after_s are duck-typed for the HTTP surface) instead of
+    queueing the request behind a dispatch that may never complete, while
+    health reports the engine DEGRADED with the stall age."""
+
+    status_code = 503
+    retry_after_s = 15.0
+
+    def __init__(self, stall_s: float):
+        super().__init__(
+            f"engine loop stuck in a device call for {stall_s:.0f}s "
+            f"(device not answering); shedding new requests")
 
 
 def _aligned(nbytes: int) -> int:
@@ -337,6 +394,9 @@ class LLMEngine:
     controls; see the module docstring)."""
 
     STOP_JOIN_S = 30.0
+    # the stall watchdog: a loop stuck this long inside one device call
+    # sheds new requests (EngineStalledError) and degrades health
+    STALL_REJECT_S = 150.0
     # adaptive speculation (class attributes, so tests can tighten them):
     # the EMA smoothing of accepted tokens per eligible row, the floor below
     # which verify dispatches pause, how many block-decode dispatches a
@@ -508,6 +568,28 @@ class LLMEngine:
                         if self.device.type == "cuda" else None)
         # the program cache, on this engine's device and stream
         self.executor = Executor(self.device, stream=self._stream)
+        self.executor.metrics = metrics
+        # the observability planes (the module docstring): the two ledgers
+        # are always on; the recorder, timeline and host profiler are wired
+        # by the App's enable_* methods
+        from ..models.llama import params_nbytes
+
+        on_card = self.device.type == "cuda"
+        self.util = UtilizationLedger(
+            cfg, metrics=metrics, params_nbytes=params_nbytes(params),
+            platform="gpu" if on_card else "cpu",
+            device_kind=(torch.cuda.get_device_name(self.device)
+                         if on_card else None))
+        self.steps = StepLedger(metrics=metrics, logger=self.logger)
+        self.executor.on_compile = self._note_compile
+        self.recorder = None
+        self.timeline = None
+        self.hostprof = None
+        self.lifecycle = Lifecycle("serving")
+        # the watchdog's heartbeat, stamped at the top of every iteration
+        self._last_step_at = time.monotonic()
+        # (synced_at, tokens) of the last 5 s: app_tpu_tokens_per_second
+        self._tok_window: collections.deque = collections.deque()
         # pinned [n_slots * decode_block_size] int64 buffers free for a
         # token copy (taken at dispatch, given back at sync)
         self._host_free: List[torch.Tensor] = []
@@ -600,6 +682,12 @@ class LLMEngine:
                       1 << (max(needed, 16) - 1).bit_length())
         if new_len <= self._cache_len:
             return
+        with self.steps.seg("cache_grow"):
+            self._grow_cache_to(new_len)
+        if self.recorder is not None:
+            self.recorder.record_engine_event("cache_grow", new_len=new_len)
+
+    def _grow_cache_to(self, new_len: int) -> None:
         if self._stream is not None:
             # the in-flight blocks read the old buffers, which were made
             # on another stream: let them finish before the buffers go
@@ -643,20 +731,22 @@ class LLMEngine:
         tokens, [K] int32 lengths, [K] f32 temperatures ([K, 3] f32 row
         controls under sampling_controls). starts: per row,
         the first prompt position the window holds (a prefix hit's tail;
-        default 0); lengths are the full prompts'."""
-        ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
-        for row, request in enumerate(batch):
-            window = request.prompt_tokens[starts[row] if starts else 0:]
-            ptokens[row, :len(window)] = window
-        lengths = np.asarray([len(r.prompt_tokens) for r in batch],
-                             dtype=np.int32)
-        if self.sampling_controls:
-            temps = pack_controls([r.temperature for r in batch],
-                                  [r.top_p for r in batch],
-                                  [r.top_k for r in batch])
-        else:
-            temps = np.asarray([r.temperature for r in batch],
-                               dtype=np.float32)
+        default 0); lengths are the full prompts'. The step ledger's
+        host_prep."""
+        with self.steps.seg("host_prep"):
+            ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
+            for row, request in enumerate(batch):
+                window = request.prompt_tokens[starts[row] if starts else 0:]
+                ptokens[row, :len(window)] = window
+            lengths = np.asarray([len(r.prompt_tokens) for r in batch],
+                                 dtype=np.int32)
+            if self.sampling_controls:
+                temps = pack_controls([r.temperature for r in batch],
+                                      [r.top_p for r in batch],
+                                      [r.top_k for r in batch])
+            else:
+                temps = np.asarray([r.temperature for r in batch],
+                                   dtype=np.float32)
         return ptokens, lengths, temps
 
     def _prefill_window(self, ptokens, lengths):
@@ -993,21 +1083,22 @@ class LLMEngine:
         drafts = np.zeros((B, d), dtype=np.int64)
         lens = np.zeros((B,), dtype=np.int32)
         snapshot = []
-        for i, slot in enumerate(self.slots):
-            if not slot.active:
-                continue
-            # acceptance is exact-match against the argmax, so only greedy
-            # rows draft; a temperature row rides along as a one-token step.
-            # Eligibility travels with the snapshot: the acceptance EMA
-            # divides by the rows that COULD accept
-            eligible = bool(slot.request.temperature <= 0.0 and slot.history
-                            and slot.remaining > 0)
-            snapshot.append((i, slot.request, eligible))
-            if eligible:
-                cont = self._propose_draft(slot.history)
-                if cont:
-                    drafts[i, :len(cont)] = cont
-                    lens[i] = len(cont)
+        with self.steps.seg("host_prep"):
+            for i, slot in enumerate(self.slots):
+                if not slot.active:
+                    continue
+                # acceptance is exact-match against the argmax, so only
+                # greedy rows draft; a temperature row rides along as a
+                # one-token step. Eligibility travels with the snapshot:
+                # the acceptance EMA divides by the rows that COULD accept
+                eligible = bool(slot.request.temperature <= 0.0
+                                and slot.history and slot.remaining > 0)
+                snapshot.append((i, slot.request, eligible))
+                if eligible:
+                    cont = self._propose_draft(slot.history)
+                    if cont:
+                        drafts[i, :len(cont)] = cont
+                        lens[i] = len(cont)
         if not lens.any():
             # zero drafts is no acceptance signal (the EMA stays), but two
             # draftless rounds in a row let block decodes pipeline again
@@ -1018,6 +1109,7 @@ class LLMEngine:
             self._dispatch_decode()
             return
         self._spec_no_draft_streak = 0
+        self.steps.note_dispatch("verify")
         started = time.monotonic()
         try:
             fetch = self._start_d2h(self._verify_call(drafts, lens))
@@ -1183,6 +1275,9 @@ class LLMEngine:
             self._obs.hist("app_tpu_queue_wait_seconds",
                            now - request.enqueued_at)
             self.slots[slots_idx[row]].chunking = request
+            if self.recorder is not None:
+                self.recorder.record_admitted(request, slots_idx[row],
+                                              bucket, chunked=True)
         self.chunk_jobs += 1
         self._chunk_jobs.append(job)
 
@@ -1252,6 +1347,7 @@ class LLMEngine:
         self._swap_chunk_state(job)
         positions = np.tile(np.arange(start, start + chunk, dtype=np.int64),
                             (K, 1))
+        self.steps.note_dispatch("chunk")
         out = self._call(program, (
             job["ptokens"][:, start:start + chunk], positions, *job["extra"],
             np.asarray([start], dtype=np.int64),
@@ -1259,6 +1355,10 @@ class LLMEngine:
             job["new_temps"]))
         self.chunk_dispatches += 1
         job["next_start"] = start + chunk
+        if self.recorder is not None:
+            for request in batch:
+                self.recorder.record_event(request.id, "prefill_chunk",
+                                           start=start, final=final)
         if final:
             # the final chunk writes these rows' controls before any block
             # dispatched after it reads them
@@ -1370,9 +1470,10 @@ class LLMEngine:
         """Fill `program`'s static inputs from host `arrays` and run it;
         returns its output, which its next call overwrites (_bind_slots and
         _dispatch_decode start its copy out before anything else is
-        dispatched)."""
-        self._upload(program.inputs, arrays)
-        return program()
+        dispatched). The step ledger's dispatch."""
+        with self.steps.seg("dispatch"):
+            self._upload(program.inputs, arrays)
+            return program()
 
     def _start_d2h(self, out: torch.Tensor):
         """Start a dispatch output's copy to the host at enqueue time (the
@@ -1425,7 +1526,9 @@ class LLMEngine:
         need = self._decode_need()
         if need > self._cache_len:
             self._grow_cache(need)
-        return self._decode_program(block, self._row_filter_now())()
+        program = self._decode_program(block, self._row_filter_now())
+        with self.steps.seg("dispatch"):
+            return program()
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True
@@ -1457,11 +1560,41 @@ class LLMEngine:
     def queue_depth(self) -> int:
         return self._pending.qsize() + len(self._admission_heap)
 
-    def health_check(self) -> Dict[str, object]:
-        alive = self._thread is not None and self._thread.is_alive()
-        return {"status": "UP" if alive else "DOWN",
-                "active_slots": sum(1 for s in self.slots if s.active),
-                "queue_depth": self.queue_depth()}
+    @property
+    def stall_seconds(self) -> float:
+        """Seconds the loop thread has been stuck inside ONE device call,
+        0.0 when healthy or not running. Host-side only: reading it never
+        touches the device. An idle engine parks in 50 ms waits, so the
+        stamp stops moving only while a dispatch or sync is blocked."""
+        if self._thread is None or not self._thread.is_alive():
+            return 0.0
+        return max(0.0, time.monotonic() - self._last_step_at)
+
+    def _stall_over_threshold(self) -> float:
+        """The shed policy, read once: 0.0 when healthy, else the stall age
+        that tripped it (the 503 and the health report carry the same
+        reading)."""
+        stall = self.stall_seconds
+        return stall if stall > self.STALL_REJECT_S else 0.0
+
+    def wedged(self) -> bool:
+        return self._stall_over_threshold() > 0.0
+
+    def health_check(self) -> Health:
+        """The container's health contributor: UP while the loop runs,
+        DEGRADED with ``stall_seconds`` once it stalls past STALL_REJECT_S
+        (already-dispatched work could still complete, and a load balancer
+        should stop routing here either way), DOWN when the loop is not
+        running."""
+        details = {"active_slots": sum(1 for s in self.slots if s.active),
+                   "queue_depth": self.queue_depth()}
+        if self._thread is None or not self._thread.is_alive():
+            return Health(status=STATUS_DOWN, details=details)
+        stall = self._stall_over_threshold()
+        if stall:
+            details["stall_seconds"] = round(stall, 1)
+            return Health(status=STATUS_DEGRADED, details=details)
+        return Health(status=STATUS_UP, details=details)
 
     def submit(self, prompt_tokens: Sequence[int], max_new_tokens: int = 128,
                temperature: float = 0.0,
@@ -1480,6 +1613,12 @@ class LLMEngine:
             raise RuntimeError("engine is stopped")
         if self._draining:
             raise EngineDrainingError()
+        stall = self._stall_over_threshold()
+        if stall:
+            if self.recorder is not None:
+                self.recorder.record_engine_event("stall_shed",
+                                                  stall_s=round(stall, 1))
+            raise EngineStalledError(stall)
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
         if (top_p or top_k) and not self.sampling_controls:
@@ -1505,6 +1644,8 @@ class LLMEngine:
                 "tpu.generate", parent=span, traceparent=traceparent)
             request.gen_span.set_attribute("tpu.prompt_tokens",
                                            len(request.prompt_tokens))
+        if self.recorder is not None:   # after gen_span: it carries the
+            self.recorder.record_enqueued(request)   # inbound trace ids
         self._obs.counter("app_tpu_requests_total")
         self._pending.put((request.priority, request.id, request))
         if self._stop.is_set():
@@ -1556,6 +1697,9 @@ class LLMEngine:
             return
         self._stop.clear()
         self._draining = False   # a drained engine may be restarted
+        if self.lifecycle.state == "draining":
+            self.lifecycle = Lifecycle("serving")   # a fresh boot
+        self._last_step_at = time.monotonic()
         self._thread = threading.Thread(target=self._loop, name="llm-engine",
                                         daemon=True)
         self._thread.start()
@@ -1581,8 +1725,10 @@ class LLMEngine:
         with it), and let the active generations run to completion, bounded
         by timeout_s. True when every one finished, False on timeout; call
         stop() either way, which fails whatever remains. Only sets the flag
-        and waits: the queue is mutated by the loop thread alone."""
+        and waits: the queue is mutated by the loop thread alone. The
+        lifecycle moves to ``draining``."""
         self._draining = True
+        self.lifecycle.to("draining")
         self._wake.set()
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
@@ -1599,12 +1745,17 @@ class LLMEngine:
     # -- loop -----------------------------------------------------------------
     def _loop(self) -> None:
         while not self._stop.is_set():
+            self._last_step_at = time.monotonic()
             synced = False
             try:
                 synced = self._step()
             except Exception:  # noqa: BLE001 - the loop must keep serving
+                # a step that died mid-flight must not feed the baselines
+                self.steps.step_abort()
                 self.logger.errorf("engine step failed: %s",
                                    traceback.format_exc())
+            # the step closed before this park: the wait is the next
+            # step's idle_gap, not this one's wall
             if not synced and not self._inflight and not self._chunk_jobs:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -1633,9 +1784,16 @@ class LLMEngine:
         otherwise decode blocks while fewer than pipeline_depth dispatches
         are in flight, each counting a cooloff down (its end raises the EMA
         to the probe value); sync the oldest dispatch. Returns whether it
-        synced one."""
+        synced one. One step ledger record per call (the module
+        docstring): its host time (everything before the sync) goes to the
+        utilization ledger too."""
+        steps = self.steps
+        steps.step_start()
+        host_t0 = time.monotonic()
+        synced = False
         with torch.no_grad(), self._stream_ctx():
-            self._admit()
+            with steps.seg("admission"):
+                self._admit()
             self._advance_chunk_job()
             if self.speculative_tokens and self._spec_cooloff <= 0:
                 if (any(slot.active for slot in self.slots)
@@ -1652,10 +1810,40 @@ class LLMEngine:
                             self._spec_accept_ema = max(
                                 self._spec_accept_ema, self.SPEC_PROBE_EMA)
                             break
-            if not self._inflight:
-                return False
-            self._sync_oldest()
-            return True
+            # scheduler, prep and enqueue time of this iteration (nothing
+            # above waits on the card); sub-millisecond idle iterations are
+            # noise, not overhead
+            host_s = time.monotonic() - host_t0
+            if host_s >= 1e-3:
+                self.util.note_host(host_s)
+            if self._inflight:
+                with steps.seg("emit"):
+                    self._sync_oldest()
+                synced = True
+        self._finish_step()
+        return synced
+
+    @loop_only
+    def _note_compile(self, name: str, seconds: float) -> None:
+        """The executor's cache-miss callback: re-attribute the capture's
+        time out of the step segment it elapsed under. A capture on another
+        thread (warm-up, the scoring passes) is ignored by the ledger's
+        thread guard."""
+        self.steps.note_stolen("compile", seconds)
+
+    @loop_only
+    def _finish_step(self) -> None:
+        """Close the step ledger's record; a flagged straggler becomes a
+        flight-recorder engine event carrying its dominant segment."""
+        rec = self.steps.step_end(
+            active_slots=sum(1 for s in self.slots if s.active),
+            inflight=len(self._inflight), queue_depth=self.queue_depth())
+        if rec is not None and rec.straggler and self.recorder is not None:
+            self.recorder.record_engine_event(
+                "step_straggler", step=rec.seq, phase=rec.phase,
+                wall_s=round(rec.wall_s, 6), cause=rec.cause,
+                baseline_s=round(rec.baseline_s or 0.0, 6),
+                request_id=rec.slowest_request_id)
 
     def _is_cancelled(self, request: GenerationRequest) -> bool:
         return request.cancelled.is_set()
@@ -1720,6 +1908,7 @@ class LLMEngine:
         the first tokens are emitted at its sync. A failure at dispatch
         fails this wave only."""
         tail_only = self._tail_only(batch)
+        self.steps.note_dispatch("prefill")
         try:
             first = self._dispatch_prefill(bucket, slots_idx, batch)
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
@@ -1783,6 +1972,9 @@ class LLMEngine:
                     span.set_attribute("batch.id", batch_id)
                     span.set_attribute("tpu.slot", slots_idx[row])
                     span.set_attribute("tpu.prefill_bucket", bucket)
+            if self.recorder is not None:
+                self.recorder.record_admitted(request, slots_idx[row],
+                                              bucket, batch_id=batch_id)
             admitted.append((slots_idx[row], request))
         if self.speculative_tokens and self._spec_cooloff > 0:
             # fresh traffic probes at once: the cold streak belonged to
@@ -1815,6 +2007,7 @@ class LLMEngine:
         block = self._decode_block_now()
         snapshot = [(i, slot.request) for i, slot in enumerate(self.slots)
                     if slot.active]
+        self.steps.note_dispatch("decode")
         started = time.monotonic()
         try:
             fetch = self._start_d2h(self._run_decode(block))
@@ -1839,8 +2032,10 @@ class LLMEngine:
         of the sync are recorded here (the module docstring)."""
         kind, fetch, rows, block, *stamp = self._inflight.popleft()
         started, dspan = stamp if stamp else (None, None)
+        sync_t0 = time.monotonic()
         try:
-            tokens_host = self._fetch_host(fetch)
+            with self.steps.seg("device_sync"):
+                tokens_host = self._fetch_host(fetch)
         except Exception as exc:  # noqa: BLE001 - fail its rows, keep serving
             self.logger.errorf("%s dispatch failed at sync: %s", kind, exc)
             if dspan is not None:
@@ -1854,8 +2049,20 @@ class LLMEngine:
         if dspan is not None:
             dspan.end()
         synced = time.monotonic()
-        elapsed = synced - (started if started is not None else synced)
+        if started is None:
+            started = synced
+        elapsed = synced - started
         if kind == "prefill":
+            self.util.record_prefill(
+                tokens=sum(len(r.prompt_tokens) for _, r in rows),
+                dispatched_at=started, synced_at=synced,
+                sync_wait_s=synced - sync_t0)
+            # the step's cost driver: the wave's longest prompt
+            slowest = max(rows, key=lambda e: len(e[1].prompt_tokens),
+                          default=(None, None))[1]
+            self.steps.note_sync(
+                "prefill", tokens=len(rows),
+                slowest_request_id=slowest.id if slowest else None)
             n_first = 0
             for row, (slot_idx, request) in enumerate(rows):
                 slot = self.slots[slot_idx]
@@ -1863,6 +2070,8 @@ class LLMEngine:
                     continue
                 if request.first_token_at is None:
                     request.first_token_at = synced
+                    if self.recorder is not None:
+                        self.recorder.record_first_token(request)
                     self._obs.hist("app_tpu_ttft_seconds",
                                    synced - request.enqueued_at,
                                    exemplar=self._exemplar_of(request))
@@ -1879,16 +2088,29 @@ class LLMEngine:
                                   float(n_first))
             return
         if kind == "verify":
-            self._sync_verify(tokens_host, rows, elapsed)
+            self._sync_verify(tokens_host, rows, block, started, synced,
+                              sync_t0)
             return
         self._obs.hist("app_tpu_execute_seconds", elapsed)
         live = [(i, r) for i, r in rows if self.slots[i].request is r]
+        # slot lengths are pre-demux here: the context this dispatch read
+        # each step (the MBU KV term)
+        self.util.record_decode(
+            rows=len(rows), steps=block,
+            kv_tokens=sum(self.slots[i].length for i, _ in live),
+            dispatched_at=started, synced_at=synced,
+            sync_wait_s=synced - sync_t0)
         slowest = max(live, key=lambda e: self.slots[e[0]].length,
                       default=(None, None))[1]
-        emitted = self._demux(tokens_host, live, [block] * len(live))
+        emitted = self._demux(tokens_host, live, [block] * len(live),
+                              step_s=elapsed / block)
         if emitted:
             self._obs.counter("app_tpu_tokens_generated_total",
                               float(emitted))
+        self.steps.note_sync(
+            "decode", tokens=emitted,
+            slowest_request_id=slowest.id if slowest else None)
+        self._track_throughput(emitted)
         # every token of this sync shares one measured step time: one
         # record of n per sync, not one per token
         self._obs.hist_n(
@@ -1906,13 +2128,17 @@ class LLMEngine:
             ex["trace_id"] = trace_id
         return ex
 
-    def _demux(self, tokens_host, live, limits) -> int:
+    def _demux(self, tokens_host, live, limits,
+               step_s: Optional[float] = None, elapsed: float = 0.0) -> int:
         """Deliver a synced [B, W] token matrix to its live (slot, request)
         rows, each up to its limit (_demux_plan), extending the drafting
-        history of speculative rows (a cooloff's blocks too). Returns the
-        tokens emitted."""
-        counts, finishes = self._demux_plan(
-            tokens_host, [i for i, _ in live], [r for _, r in live], limits)
+        history of speculative rows (a cooloff's blocks too), with one
+        recorder decode_block per row (step_s per token, or elapsed / n for
+        a verify's rows). Returns the tokens emitted."""
+        with self.steps.seg("demux"):
+            counts, finishes = self._demux_plan(
+                tokens_host, [i for i, _ in live], [r for _, r in live],
+                limits)
         emitted = 0
         for j, (slot_idx, request) in enumerate(live):
             slot = self.slots[slot_idx]
@@ -1924,19 +2150,35 @@ class LLMEngine:
                 slot.history.extend(toks)
             self._emit_block(request, toks)
             emitted += n
+            if self.recorder is not None and n:
+                # one batched event per request per sync, recorded before
+                # the slot can go terminal
+                self.recorder.record_decode_block(
+                    request.id, n, step_s if step_s is not None
+                    else elapsed / n)
             if finishes[j]:
                 self._finish_slot(slot)
         return emitted
 
-    def _sync_verify(self, synced, rows, elapsed: float = 0.0) -> None:
+    def _sync_verify(self, host, rows, d: int, started: float,
+                     synced: float, sync_t0: float) -> None:
         """A verify's [B, d+2] output: each live row emits out[b, :n_emit]
         (truncated at its stops and budget by _demux_plan); the acceptance
         counted on the device, before that truncation, is folded into the
         EMA per greedy-ELIGIBLE row (temperature rows can never accept, so
         they must not read as rejection), and a cold EMA cools off.
-        elapsed: the verify's dispatch-to-sync seconds."""
-        out, n_emit = synced[:, :-1], synced[:, -1]
+        started / synced / sync_t0: the dispatch stamp, the sync's end and
+        the wait's start."""
+        elapsed = synced - started
+        out, n_emit = host[:, :-1], host[:, -1]
         live = [(i, r) for i, r, _ in rows if self.slots[i].request is r]
+        # a verify scores d + 1 positions per row over the dispatched
+        # (pre-demux) context
+        self.util.record_decode(
+            rows=len(rows), steps=d + 1,
+            kv_tokens=sum(self.slots[i].length for i, _ in live),
+            dispatched_at=started, synced_at=synced,
+            sync_wait_s=synced - sync_t0)
         eligible = sum(1 for i, r, e in rows
                        if e and self.slots[i].request is r)
         slowest = max(live, key=lambda e: self.slots[e[0]].length,
@@ -1947,7 +2189,11 @@ class LLMEngine:
         self.spec_accepted += accepted
         self.spec_eligible += eligible
         self._obs.counter("app_tpu_spec_accepted_total", float(accepted))
-        emitted = self._demux(out, live, limits)
+        emitted = self._demux(out, live, limits, elapsed=elapsed)
+        self.steps.note_sync(
+            "verify", tokens=emitted,
+            slowest_request_id=slowest.id if slowest else None)
+        self._track_throughput(emitted)
         if emitted:
             self._obs.counter("app_tpu_tokens_generated_total",
                               float(emitted))
@@ -1962,6 +2208,19 @@ class LLMEngine:
                                      + a * accepted / eligible)
             if self._spec_accept_ema < self.SPEC_MIN_ACCEPT:
                 self._cool_off()
+
+    def _track_throughput(self, tokens: int) -> None:
+        """app_tpu_tokens_per_second over the syncs of the last 5 s."""
+        now = time.monotonic()
+        self._tok_window.append((now, tokens))
+        cutoff = now - 5.0
+        while self._tok_window and self._tok_window[0][0] < cutoff:
+            self._tok_window.popleft()
+        if len(self._tok_window) >= 2:
+            span = now - self._tok_window[0][0]
+            if span > 0:
+                self._obs.gauge("app_tpu_tokens_per_second",
+                                sum(t for _, t in self._tok_window) / span)
 
     def _emit_block(self, request: GenerationRequest,
                     tokens: List[int]) -> None:
@@ -2029,6 +2288,19 @@ class LLMEngine:
 
     def _finish_slot(self, slot: _Slot) -> None:
         request = slot.request
+        # the terminal reason, read before the slot resets: error > cancel
+        # > budget or context cap ("length") > stop token
+        reason = None
+        if request is not None:
+            if request.error is not None:
+                reason = "error"
+            elif self._is_cancelled(request):
+                reason = "cancelled"
+            elif (slot.remaining <= 0
+                  or slot.length >= self.max_seq_len - 1):
+                reason = "length"
+            else:
+                reason = "stop"
         slot.request = None
         slot.length = 0
         slot.remaining = 0
@@ -2051,6 +2323,8 @@ class LLMEngine:
                 if request.error is not None:
                     request.gen_span.set_status(False, str(request.error))
                 request.gen_span.end()
+            if self.recorder is not None:
+                self.recorder.record_finished(request, reason)
             request.out_queue.put(None)
 
     def _fail_request(self, request: GenerationRequest,
@@ -2066,6 +2340,11 @@ class LLMEngine:
             elif request.cancelled.is_set():
                 request.gen_span.set_attribute("cancelled", True)
             request.gen_span.end()
+        if self.recorder is not None:
+            self.recorder.record_finished(
+                request, "error" if request.error is not None
+                else ("cancelled" if request.cancelled.is_set()
+                      else "aborted"))
         request.out_queue.put(None)
 
     def _drain_pending(self, exc: BaseException) -> None:

@@ -2,8 +2,15 @@
 
 Ports ``next_bucket`` and ``DEFAULT_BUCKETS`` from
 ``gofr_tpu/tpu/executor.py``, and of its ``Executor`` what the engines use:
-``compile(name, fn, static_inputs)``, calling the program, ``cache_size()``
-and ``cache_info()``. The JAX executor compiles one XLA program per name and
+``compile(name, fn, static_inputs)``, calling the program, ``cache_size()``,
+``cache_info()``, ``compile_table()`` (the ``/debug/engine`` program table,
+with the reference's row keys: ``executions`` are calls, ``compile_seconds``
+capture seconds, ``disk_loads`` always 0), the ``on_compile(name, seconds)``
+callback after every cache miss (the engine re-attributes the time to the
+step ledger's ``compile`` segment; the timeline chains it), and, with
+``metrics`` set, the reference's ``app_tpu_compile_total`` (misses),
+``app_tpu_compile_cache_hits`` (lookups that found the program) and
+``app_tpu_execute_total`` (calls). The JAX executor compiles one XLA program per name and
 shape; here a program is, on ``cuda``, a ``torch.cuda.CUDAGraph`` captured
 once per name and replayed, and on ``cpu`` (only ever the tests' explicit
 choice) the eager callable itself.
@@ -54,7 +61,7 @@ import contextlib
 import gc
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,13 +88,18 @@ class Program:
         self._run = run
         self._owner = owner
         self.calls = 0
+        # compile() lookups that found this program cached
+        self.hits = 0
         # seconds of the capture, its eager warm-up run included
         self.capture_seconds = 0.0
 
     def __call__(self) -> torch.Tensor:
         out = self._run()
         self.calls += 1
-        self._owner.calls += 1
+        owner = self._owner
+        owner.calls += 1
+        if owner.metrics is not None:
+            owner._count("app_tpu_execute_total")
         return out
 
 
@@ -148,6 +160,11 @@ class Executor:
         self.compiled: List[str] = []
         self.captures = 0
         self.capture_seconds = 0.0
+        # on_compile(name, seconds) after every cache miss (the engine's
+        # step-ledger re-attribution; best-effort); metrics: a Manager for
+        # the compile / cache-hit / execute counters, or None
+        self.on_compile: Optional[Callable[[str, float], None]] = None
+        self.metrics = None
 
     @property
     def captured(self) -> bool:
@@ -169,21 +186,38 @@ class Executor:
         with self._lock:
             program = self._cache.get(name)
             if program is not None:
+                program.hits += 1
+                if self.metrics is not None:
+                    self._count("app_tpu_compile_cache_hits")
                 return program
             inputs = tuple(static_inputs)
+            t0 = time.monotonic()
             if not self.captured:
                 program = Program(name, inputs, lambda: fn(*inputs), self)
             else:
-                t0 = time.monotonic()
                 program = self._capture_program(name, fn, inputs, warmup,
                                                 generators,
                                                 stream or self.stream)
                 program.capture_seconds = time.monotonic() - t0
                 self.captures += 1
                 self.capture_seconds += program.capture_seconds
+            elapsed = time.monotonic() - t0
             self._cache[name] = program
             self.compiled.append(name)
-            return program
+        if self.metrics is not None:
+            self._count("app_tpu_compile_total")
+        if self.on_compile is not None:
+            try:
+                self.on_compile(name, elapsed)
+            except Exception:  # noqa: BLE001 - attribution is best-effort
+                pass
+        return program
+
+    def _count(self, name: str) -> None:
+        try:
+            self.metrics.increment_counter(name)
+        except Exception:  # noqa: BLE001 - an unregistered name in a bare
+            pass           # Manager must not fail a dispatch
 
     def _capture_program(self, name, fn, inputs, warmup, generators, stream):
         with warmup() if warmup is not None else contextlib.nullcontext():
@@ -213,3 +247,30 @@ class Executor:
         """{program name: calls}."""
         with self._lock:
             return {name: p.calls for name, p in self._cache.items()}
+
+    def compile_table(self) -> Dict[str, Any]:
+        """The program cache as an operator table (``/debug/engine``), with
+        the reference's keys: one row per program (``variants`` is 1 here:
+        a name is one shape), calls as ``executions``, its lookups that
+        hit as ``cache_hits``, capture seconds (its eager warm-up run
+        included; 0 where programs are eager) as ``compile_seconds``;
+        ``disk_loads`` and ``disk_hits_total`` are 0 (a CUDA graph has no
+        disk cache). Heaviest capture first."""
+        with self._lock:
+            programs = list(self._cache.values())
+        rows = sorted(({"name": p.name, "variants": 1,
+                        "executions": p.calls, "cache_hits": p.hits,
+                        "compile_seconds": round(p.capture_seconds, 3),
+                        "disk_loads": 0} for p in programs),
+                      key=lambda r: (-r["compile_seconds"], r["name"]))
+        hits = sum(r["cache_hits"] for r in rows)
+        lookups = hits + len(programs)
+        return {
+            "programs": rows,
+            "distinct_programs": len(programs),
+            "compile_seconds_total": round(
+                sum(p.capture_seconds for p in programs), 3),
+            "cache_hits_total": hits,
+            "disk_hits_total": 0,
+            "hit_ratio": round(hits / lookups, 4) if lookups else 0.0,
+        }

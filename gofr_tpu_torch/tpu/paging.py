@@ -54,7 +54,14 @@ with ``_chunk_fn_paged_q8_final`` as its int8 branch,
 ``_chunk_program_paged``, the job's page table), and
 ``_tail_routes_to_chunk``, which drops a prefix hit whose tail would still
 chunk. Not ported yet: KV tiering, disaggregated hand-off and migration
-(A11), and with them the restore from a KV tier.
+(A11f), and with them the restore from a KV tier.
+
+The observability planes (tpu/engine.py's docstring) reach the paged
+engine at the reference's sites: the reservation is the step ledger's
+``page_alloc`` (a pool too short to reserve counts
+``app_tpu_page_waits_total`` and records one ``page_wait`` event per
+request), the page tables are ``host_prep``, and ``_finish_slot`` sets
+``app_tpu_pages_used`` and ``app_tpu_kv_pool_pages{kind=used|free}``.
 """
 
 from __future__ import annotations
@@ -191,6 +198,10 @@ class PagedLLMEngine(LLMEngine):
         parking the request."""
         if request.id in self._reservations:
             return True
+        with self.steps.seg("page_alloc"):
+            return self._reserve_pages(request)
+
+    def _reserve_pages(self, request: GenerationRequest) -> bool:
         shared: List[int] = []
         if self.prefix is not None:
             if request.id not in self._prefix_hits:
@@ -211,6 +222,12 @@ class PagedLLMEngine(LLMEngine):
                 self.prefix.evict(need - self.allocator.free_pages))
             pages = self.allocator.alloc(need)
         if pages is None:
+            self._obs.counter("app_tpu_page_waits_total")
+            if self.recorder is not None:
+                # once per request: admission retries at loop speed while
+                # the pool is exhausted
+                self.recorder.record_event(request.id, "page_wait",
+                                           once=True, need=need)
             return False
         self._reservations[request.id] = pages
         return True
@@ -275,6 +292,10 @@ class PagedLLMEngine(LLMEngine):
     def _finish_slot(self, slot: _Slot) -> None:
         self._release_slot_pages(slot)
         super()._finish_slot(slot)
+        used, free = self.allocator.used_pages, self.allocator.free_pages
+        self._obs.gauge("app_tpu_pages_used", used)
+        self._obs.gauge("app_tpu_kv_pool_pages", used, kind="used")
+        self._obs.gauge("app_tpu_kv_pool_pages", free, kind="free")
 
     # -- programs -------------------------------------------------------------
     def _prefill_fn(self, ptokens, ptable, slots, lengths, new_temps):
@@ -573,13 +594,14 @@ class PagedLLMEngine(LLMEngine):
         """Block table for the active slots, padded to a power-of-two width
         with one extra garbage column: a position past a row's pages clamps
         to the LAST column, which is 0 (garbage) for every row."""
-        active = [(i, slot) for i, slot in enumerate(self.slots)
-                  if slot.active]
-        widest = max(len(slot.pages) for _, slot in active)
-        table = np.zeros((self.n_slots, _pow2_at_least(widest + 1)),
-                         dtype=np.int32)
-        for i, slot in active:
-            table[i, :len(slot.pages)] = slot.pages
+        with self.steps.seg("host_prep"):
+            active = [(i, slot) for i, slot in enumerate(self.slots)
+                      if slot.active]
+            widest = max(len(slot.pages) for _, slot in active)
+            table = np.zeros((self.n_slots, _pow2_at_least(widest + 1)),
+                             dtype=np.int32)
+            for i, slot in active:
+                table[i, :len(slot.pages)] = slot.pages
         return table
 
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
@@ -588,10 +610,11 @@ class PagedLLMEngine(LLMEngine):
             # `bucket` is already the group's tail bucket (_admission_bucket)
             return self._dispatch_prefill_prefix(bucket, slots_idx, batch)
         n_ptable = max(1, math.ceil(bucket / self.page_size))
-        ptable = np.zeros((len(batch), n_ptable), dtype=np.int32)
-        for row, request in enumerate(batch):
-            prompt_pages = self._reservations[request.id][:n_ptable]
-            ptable[row, :len(prompt_pages)] = prompt_pages
+        with self.steps.seg("host_prep"):
+            ptable = np.zeros((len(batch), n_ptable), dtype=np.int32)
+            for row, request in enumerate(batch):
+                prompt_pages = self._reservations[request.id][:n_ptable]
+                ptable[row, :len(prompt_pages)] = prompt_pages
         program = self._prefill_program(bucket, len(batch), slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
         return self._call(program, (ptokens, ptable,
@@ -608,10 +631,12 @@ class PagedLLMEngine(LLMEngine):
         # wide enough for every row's full PROMPT page span
         n_table = _pow2_at_least(max(
             self.allocator.pages_for(len(r.prompt_tokens)) for r in batch))
-        ptable = np.zeros((len(batch), n_table), dtype=np.int32)
-        for row, request in enumerate(batch):
-            pages = (hits[row] + self._reservations[request.id])[:n_table]
-            ptable[row, :len(pages)] = pages
+        with self.steps.seg("host_prep"):
+            ptable = np.zeros((len(batch), n_table), dtype=np.int32)
+            for row, request in enumerate(batch):
+                pages = (hits[row]
+                         + self._reservations[request.id])[:n_table]
+                ptable[row, :len(pages)] = pages
         program = self._prefix_program(bucket, len(batch), n_table,
                                        slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch,

@@ -189,7 +189,8 @@ def _post(port, body, headers=None):
 def test_sse_generate_end_to_end(served):
     goldens, params = served
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
-           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8"}
+           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
+           "REQUEST_TIMEOUT": "60"}
     app = build_app(env, engine=build_engine(env, device="cpu",
                                              params=params))
     app.start()

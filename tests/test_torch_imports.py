@@ -1,6 +1,7 @@
 """The port stands alone: no jax, no gofr_tpu, and no silent CPU fallback.
 
-- every gofr_tpu_torch module (native/ included) and chip_smoke.py imports
+- every gofr_tpu_torch module (native/ and the observability planes
+  included) and chip_smoke.py imports
   in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
   packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
   `transformers`, `tokenizers`) are blocked;
@@ -43,6 +44,14 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
     assert {"gofr_tpu_torch.native", "gofr_tpu_torch.models.weights",
             "gofr_tpu_torch.models.tokenizer",
             "gofr_tpu_torch.tpu.capacity"} <= set(mods)
+    # the observability planes
+    assert {"gofr_tpu_torch.tpu.ownership", "gofr_tpu_torch.tpu.stepledger",
+            "gofr_tpu_torch.tpu.utilization",
+            "gofr_tpu_torch.tpu.flightrecorder",
+            "gofr_tpu_torch.tpu.journey", "gofr_tpu_torch.tpu.timeline",
+            "gofr_tpu_torch.tpu.hostprof", "gofr_tpu_torch.tpu.migrate",
+            "gofr_tpu_torch.fleet.affinity", "gofr_tpu_torch.loadgen.trace",
+            "gofr_tpu_torch.loadgen.capture"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -321,3 +321,22 @@ def test_a_draining_engine_answers_503_with_retry_after(servers):
         answers.append((status, headers.get("Retry-After"),
                         "error" in _json(text)))
     assert answers[1] == answers[0] == (503, "1", True)
+
+
+def test_stats_and_debug_routes_have_the_reference_keys(servers):
+    """/stats answers the reference's keys, fleet {lifecycle, duty_cycle}
+    among them, and the observability planes serve their routes on this
+    server too."""
+    payloads = []
+    for app in servers:
+        status, _, text = _call(app, "/stats")
+        assert status == 200
+        payloads.append(_json(text)["data"])
+        for path in ("/debug/engine", "/debug/steps", "/debug/requests",
+                     "/debug/journey", "/debug/trace", "/debug/timeline",
+                     "/debug/hostprof"):
+            assert _call(app, path)[0] == 200, path
+    want, got = payloads
+    assert set(got) == set(want)
+    assert set(got["fleet"]) == set(want["fleet"])
+    assert 0.0 <= got["fleet"]["duty_cycle"] <= 1.0
