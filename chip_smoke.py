@@ -14,7 +14,8 @@ sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
 phase 10 alone), ``--openai`` (build, then phase 7b on an engine booted
 for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve phase with
 phase 4b and its cost measurements, then its decode profile with the
-utilization ledger beside it).
+utilization ledger beside it). ``--faults`` (build, then phase 11) ends with
+the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -91,6 +92,20 @@ Phases, one or more lines each, any failure exits non-zero:
    decode step at B=8 and a lone request's TTFT with the recorder and the
    host profiler on and off on the same engine (windows on, off, off,
    on), and the two ledgers' own host cost per step (``ledger_cost``);
+4c. crash-only serving (``drill_phase``), on the same engine after 4b:
+   7 greedy streams x 48 tokens (prompts of seeds no other phase uses,
+   admitted in one round, the prefix cache emptied first) unfaulted, then
+   again with the fault plane attached and engine.decode armed, on the
+   loop thread, to raise at the first dispatch after every stream has
+   delivered half its tokens: one reset, every stream replayed at prompt +
+   delivered and complete with its replay ledger equal to what it got, no
+   graph captured (the restore is in place), flash (the replay's
+   re-prefill) and the paged read (the resumed blocks) launched; the
+   streams equal the unfaulted run's token for token, or leave them at a
+   bf16 tie: the unfaulted run's top-2 logit margin at the first differing
+   token, from the scoring pass, under TIE_MARGIN; then a decode graph's
+   draws after manual_seed of its registered generator (the reset's
+   re-seed) must repeat per seed and change with it; at most 45 s;
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
@@ -165,8 +180,8 @@ Phases, one or more lines each, any failure exits non-zero:
    come out as without it, with no capture after boot).
 
 9. checkpoints, int8 weights and the tokenizers (``w8_phase``): a
-   Llama-3-8B-width checkpoint written with export_llama_safetensors (full
-   depth where the temp dir's free space holds it, else 4 layers) and
+   Llama-3-8B-width checkpoint of CKPT_DEPTH layers written with
+   export_llama_safetensors and
    loaded in bf16 and with weight_dtype="int8", each bit-equal to the
    exported tree (or quantize_weights of it) in its leaves and its
    logits, with its seconds, GB/s and peak card memory; llama_init_quantized
@@ -201,6 +216,26 @@ Phases, one or more lines each, any failure exits non-zero:
    the long stream against the oracle, the middle and final chunk graphs
    against eager (graphcheck.chunk_graph_vs_eager), and the int8-KV paged
    engine's chunks (the q8-final program) once.
+
+11. crash-only serving and the incident plane (``--faults``,
+   ``faults_phase``): the main path's engine booted with FAULT_INJECTION,
+   BREAKER_COOLDOWN_S=1 and a temporary INCIDENT_DIR / PROFILE_DIR: a reset
+   storm armed over POST /debug/faults (3 raises, 2 requests in flight)
+   opens the breaker (503 with Retry-After on /generate, the engine's
+   health DOWN), the half-open probe closes it, the requests complete
+   through their replays and a new one gets 201; a request alone across two
+   resets is quarantined; the breaker_open incident bundle holds the step
+   ring, the /debug/engine payload, the slowest requests, the recorder's
+   events and the config fingerprint, written under INCIDENT_DIR;
+   /debug/capacity conserves against /debug/steps; the planes' cost
+   (``planes_cost``): the served decode step and a lone TTFT with the SLO
+   burn engine, the meter and the finisher on against all three off
+   (windows on, off, off, on), before any profile in the process; last, a
+   2 s POST /debug/profile capture (its window from the moment it records)
+   while 2 streams x 17 tokens are admitted and decode holds flash and
+   paged-read kernel events (graph replays), and beside this script's own
+   torch.profiler a capture is refused in last_error; no graph captured
+   after boot.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -849,12 +884,14 @@ ALL_CONFIGS = {**SERVE_CONFIGS, **W8_CONFIGS}
 
 def serve_phase(params, cfg, dev, card: str, config: str,
                 preset: str = "llama3-8b", after=None,
-                obs: bool = False, obs_costs: bool = False) -> dict:
+                obs: bool = False, obs_costs: bool = False,
+                drill: bool = False) -> dict:
     """Drive the port's /generate in one serving configuration; returns
     what the timing phase needs. after(app, engine), when given, runs on
     the served engine after the counted run, before the shutdown. obs: run
     phase 4b's checks (obs_phase) after the counted run; obs_costs: then
-    its cost measurements (obs_cost, ledger_cost; --obs)."""
+    its cost measurements (obs_cost, ledger_cost; --obs); drill: then
+    phase 4c, the mid-stream reset drill (drill_phase)."""
     from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
@@ -925,6 +962,8 @@ def serve_phase(params, cfg, dev, card: str, config: str,
                 obs_cost(engine, card)
                 ledger_cost(card)
             log(f"obs: phase 4b {time.monotonic() - t_obs:.1f}s")
+        if drill:
+            drill_phase(engine, card, boot)
         # after the counted run: the sampling-controls phase's prompts, all
         # greedy, in the same one wave, its greedy reference
         sc_ref = sc_burst(app.http_port, engine, greedy=True)
@@ -1202,6 +1241,14 @@ def obs_phase(app, engine, card: str, counted: list, first_id: int,
     require(util["peak_source"] == ("table" if in_table else "default"),
             f"obs: peak_source {util['peak_source']} for {kind!r}")
     check_shares("obs /debug/engine", util, card)
+    # the gauge is round(stall, 1) at each scrape, and an idle loop stamps
+    # its step once per ~50 ms park: a scrape late in a park, or on a late
+    # wake, reads 0.1 at rest, so scrape until it reads 0.0
+    deadline = time.monotonic() + 5
+    while (metrics.get("app_tpu_engine_stall_seconds", -1.0) != 0.0
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+        metrics = scrape(app.metrics_port)
     require(metrics.get("app_tpu_engine_stall_seconds", -1.0) == 0.0,
             "obs: app_tpu_engine_stall_seconds is not 0 at rest")
     seg = {}
@@ -1281,42 +1328,55 @@ def _lone_ttft(engine, seed: int, n: int = 3) -> float:
     return sorted(out)[len(out) // 2]
 
 
+def cost_windows(engine, toggle, seed: int) -> str:
+    """A plane's cost on the served main-path engine: the decode step's
+    wall at B=8 and a lone request's TTFT with the plane on (toggle(True),
+    as served) and off (toggle(False)) on the same engine, in windows
+    taken on, off, off, on, the plane left on. Prompts of seeds from
+    `seed` on, new in every window: a page shared with an earlier prompt
+    would hit the prefix cache (a shorter prefill here, or a tail-only
+    wave in a later phase's burst). Returns the log line's figures."""
+    step = {True: [], False: []}
+    ttft = {True: [], False: []}
+    try:
+        for k, on in enumerate((True, False, False, True)):
+            toggle(on)
+            step[on].append(_decode_wall(engine, seed + 10 * k))
+            ttft[on].append(_lone_ttft(engine, seed + 100 + 10 * k))
+    finally:
+        toggle(True)
+    on, off = sum(step[True]) / 2, sum(step[False]) / 2
+    t_on, t_off = sum(ttft[True]) / 2, sum(ttft[False]) / 2
+    require(all(math.isfinite(x) for x in (on, off, t_on, t_off)),
+            "cost: a non-finite time")
+    return (f"decode step at B=8 (served loop) {on:.4f} ms on, {off:.4f} "
+            f"ms off, added {on - off:+.4f} ms ({(on - off) / off:+.4f}); "
+            f"windows {[round(x, 4) for x in step[True]]} / "
+            f"{[round(x, 4) for x in step[False]]}; lone-request TTFT (200 "
+            f"tokens, median of 3) {t_on:.2f} ms on, {t_off:.2f} ms off, "
+            f"added {t_on - t_off:+.2f} ms; windows "
+            f"{[round(x, 2) for x in ttft[True]]} / "
+            f"{[round(x, 2) for x in ttft[False]]}")
+
+
 def obs_cost(engine, card: str) -> None:
-    """The planes' cost on the served main-path engine: the decode step's
-    wall at B=8 and a lone request's TTFT as served (the flight recorder
-    on, the host profiler sampling) and with both off on the same engine
-    (recorder None, sampler stopped; the two ledgers are always on, as in
-    the reference), in windows taken on, off, off, on."""
+    """The planes' cost (cost_windows): as served (the flight recorder on,
+    the host profiler sampling) against both off (recorder None, sampler
+    stopped; the two ledgers are always on, as in the reference)."""
     recorder, prof = engine.recorder, engine.hostprof
     require(recorder is not None and prof is not None and prof.running,
             "obs cost: the recorder or the host profiler is not on")
-    step = {True: [], False: []}
-    ttft = {True: [], False: []}
-    # prompts of seeds no other phase uses, new in every window: a page
-    # shared with an earlier prompt would hit the prefix cache (a shorter
-    # prefill here, or a tail-only wave in a later phase's burst)
-    for k, served in enumerate((True, False, False, True)):
-        if served:
-            engine.recorder = recorder
+
+    def toggle(on: bool) -> None:
+        engine.recorder = recorder if on else None
+        if on and not prof.running:
             prof.start()
-        else:
-            engine.recorder = None
+        elif not on:
             prof.stop()
-        step[served].append(_decode_wall(engine, 1000 + 10 * k))
-        ttft[served].append(_lone_ttft(engine, 1100 + 10 * k))
-    engine.recorder = recorder
-    if not prof.running:
-        prof.start()
-    on, off = sum(step[True]) / 2, sum(step[False]) / 2
-    t_on, t_off = sum(ttft[True]) / 2, sum(ttft[False]) / 2
-    log(f"obs cost: decode step at B=8 (untraced, served loop): "
-        f"{on:.4f} ms as served (recorder + hostprof at {prof.hz} Hz), "
-        f"{off:.4f} ms with both off, added {on - off:+.4f} ms "
-        f"({(on - off) / off:+.4f}); windows "
-        f"{[round(x, 4) for x in step[True]]} / "
-        f"{[round(x, 4) for x in step[False]]}; lone-request TTFT "
-        f"(200 tokens, median of 3) {t_on:.2f} ms as served, {t_off:.2f} ms "
-        f"off, added {t_on - t_off:+.2f} ms [{card}]")
+
+    figures = cost_windows(engine, toggle, 1000)
+    log(f"obs cost (recorder + hostprof at {prof.hz} Hz): {figures} "
+        f"[{card}]")
 
 
 def ledger_cost(card: str, n: int = 20000) -> None:
@@ -3238,10 +3298,10 @@ def openai_phase(params, cfg, dev, card: str, gen_app, engine) -> None:
 
 
 # -- checkpoints, int8 weights and the tokenizers ---------------------------
-# full depth's checkpoint needs this much more free space than its bytes
-DISK_MARGIN = 1.25
-# the depth written when the temp dir cannot hold the full model
-SHORT_DEPTH = 4
+# the checkpoint's depth, at Llama-3-8B's full width: a full-depth one
+# (16 GB) takes ~35 s on an H100 host to write and load twice, which the
+# default run's time budget no longer holds
+CKPT_DEPTH = 4
 SPECIALS = ("<|begin_of_text|>", "<|end_of_text|>")
 
 
@@ -3314,10 +3374,10 @@ def trees_equal(got, want) -> list:
 
 
 def weights_phase(params, cfg, dev, card: str):
-    """A Llama-3-8B-width checkpoint written with export_llama_safetensors
-    (full depth where the temp dir's free space holds it, else SHORT_DEPTH
-    layers), loaded in bf16 (the tree bit-equal to the exported one, and
-    so are the logits of a 16-token prompt) and with weight_dtype="int8"
+    """A Llama-3-8B-width checkpoint of CKPT_DEPTH layers written with
+    export_llama_safetensors, loaded in bf16 (the tree bit-equal to the
+    exported one, and so are the logits of a 16-token prompt) and with
+    weight_dtype="int8"
     (bit-equal to quantize_weights of the same tree, and its logits), each
     load's seconds, GB/s and peak card memory beside the tree's bytes;
     then llama_init_quantized at full size, bit-equal to
@@ -3345,15 +3405,13 @@ def weights_phase(params, cfg, dev, card: str):
     tmp = tempfile.mkdtemp(prefix="gofr-ckpt-")
     try:
         free = shutil.disk_usage(tmp).free
-        depth = (cfg.n_layers if free >= DISK_MARGIN * full_bytes
-                 else SHORT_DEPTH)
+        depth = CKPT_DEPTH
         c = dataclasses.replace(cfg, n_layers=depth, attn_impl="xla",
                                 decode_attn="xla")
 
         def cut(tree):
-            return tree if depth == cfg.n_layers else {
-                **tree, "layers": {k: v[:depth]
-                                   for k, v in tree["layers"].items()}}
+            return {**tree, "layers": {k: v[:depth]
+                                       for k, v in tree["layers"].items()}}
 
         tree, q_tree = cut(params), cut(q_full)
         nbytes = params_nbytes(tree)
@@ -4254,6 +4312,540 @@ def check_chunk_graph(eng, config: str, final: bool, card: str) -> None:
     require(ok, f"{config}: the {kind} chunk's graph differs from eager")
 
 
+# -- crash-only serving (phases 4c and 11) ------------------------------------
+DRILL_CHARS = (100, 120, 140, 160, 180, 110, 130)
+DRILL_SEED = 2000        # prompt seeds no other phase uses
+DRILL_TOKENS = 48
+DRILL_LIMIT_S = 45.0
+# a stream that leaves the unfaulted run's tokens after its replay must do
+# so at a tie of the bf16 logits: the unfaulted run's top-2 logit margin at
+# the first differing position, from the scoring pass, under this
+TIE_MARGIN = 1e-2
+
+
+def drill_streams(engine, ids, n_tok, fault=False) -> tuple:
+    """The drill's greedy streams, admitted in one round (gate_admission,
+    so both runs have the same waves); returns (requests, token lists).
+    fault: at the sync after which every stream has delivered half its
+    tokens (and none has finished), arm engine.decode to raise at its next
+    dispatch, on the loop thread, so the reset lands mid-stream whatever
+    the waves' schedule."""
+    reqs: list = []
+    sync = engine._sync_oldest
+    if fault:
+        def armed_sync():
+            sync()
+            if (reqs and not engine.faults.snapshot()["rules"]
+                    and min(len(r.emitted) for r in reqs) >= n_tok // 2
+                    and all(r.finished_at is None for r in reqs)):
+                engine.faults.arm([{"site": "engine.decode", "nth": 1}])
+        engine._sync_oldest = armed_sync
+    try:
+        gate_admission(engine, len(ids))
+        reqs.extend(engine.submit(x, max_new_tokens=n_tok) for x in ids)
+        out = [r.result(timeout_s=300) for r in reqs]
+        wait_idle(engine)
+    finally:
+        engine._sync_oldest = sync
+    return reqs, out
+
+
+def drill_phase(engine, card: str, boot: int) -> None:
+    """Phase 4c on the main path's served engine: the drill's 7 greedy
+    streams run unfaulted, then again with engine.decode armed to raise
+    once mid-stream, at the first decode dispatch after every stream has
+    delivered half its tokens (the prefix cache emptied before each run,
+    so both admit full waves). The faulted run must reset once and replay,
+    every stream reach its count, and no graph be captured. Its counts,
+    zeroed just before it and read at the reset and after the run, must be
+    exact on both sides of the reset: flash n_layers per full admission
+    wave and no tail-only wave, the paged read n_layers per decode step;
+    after the reset at least one full wave (the replay's re-prefill) and
+    one decode step (its resumed blocks). A stream whose tokens leave the
+    unfaulted run's must do so at a bf16 tie (TIE_MARGIN). Then
+    check_reseed."""
+    from gofr_tpu_torch.tpu.faults import FaultPlane
+
+    t0 = time.monotonic()
+    tok = engine.tokenizer
+    ids = [tok.encode(make_prompt(n, DRILL_SEED + i))
+           for i, n in enumerate(DRILL_CHARS)]
+    with engine._state_lock:
+        drop_prefix(engine)
+    _, ref = drill_streams(engine, ids, DRILL_TOKENS)
+    with engine._state_lock:
+        drop_prefix(engine)
+    counts0 = (engine.resets_total, engine.replays_total,
+               engine.replayed_tokens_total)
+    captures0 = engine.executor.captures
+    # the counts at the reset (the loop thread, after the restore: the
+    # dispatches in flight at the fault have run and are counted)
+    at_reset: list = []
+    reset = engine._reset_device_state
+
+    def counted_reset(exc):
+        reset(exc)
+        at_reset.append(drill_counts(engine))
+
+    zero_counts(engine)
+    engine.faults = FaultPlane()     # attached disarmed, armed mid-stream
+    engine._reset_device_state = counted_reset
+    t1 = time.monotonic()
+    try:
+        reqs, got = drill_streams(engine, ids, DRILL_TOKENS, fault=True)
+    finally:
+        engine.faults = None
+        del engine._reset_device_state
+    wall = time.monotonic() - t1
+    total = drill_counts(engine)
+    resets = engine.resets_total - counts0[0]
+    replays = engine.replays_total - counts0[1]
+    replayed = engine.replayed_tokens_total - counts0[2]
+    captured = engine.executor.captures - captures0
+    L = engine.cfg.n_layers
+    require(len(at_reset) == 1, f"drill: {len(at_reset)} resets counted")
+    before = at_reset[0]
+    after = {k: total[k] - before[k] for k in total}
+    log(f"drill: engine.decode raised mid-stream: resets "
+        f"{resets}, replays {replays}, replayed tokens {replayed}, graphs "
+        f"captured {captured} (after boot {engine.executor.captures - boot})"
+        f"; the faulted run up to the reset {before}, after it {after} "
+        f"(n_layers={L}); 7 streams x {DRILL_TOKENS} tokens in {wall:.2f}s "
+        f"[{card}]")
+    require(resets == 1 and replays >= 1 and replayed > 0,
+            "drill: the mid-stream fault was not reset and replayed")
+    require(captured == 0 and engine.executor.captures == boot,
+            "drill: a graph was captured by the reset or the replay")
+    for what, c in (("up to the reset", before), ("after the reset", after)):
+        require(c["flash_attention"] == L * c["waves"]
+                and c["paged_attention"] == L * c["steps"]
+                and c["tail_waves"] == 0,
+                f"drill: {what}, launches {c} are not n_layers per full "
+                f"admission wave and per decode step")
+    require(after["waves"] > 0 and after["steps"] > 0,
+            "drill: the replay did not re-prefill through flash and resume "
+            "through the paged read")
+    for i, toks in enumerate(got):
+        require(len(toks) == DRILL_TOKENS,
+                f"drill: stream {i} delivered {len(toks)} tokens of "
+                f"{DRILL_TOKENS}")
+    at = {}
+    if engine.recorder is not None:
+        for i, r in enumerate(reqs):
+            rec = engine.recorder.lookup(r.id) or {}
+            for e in rec.get("events", []):
+                if e["event"] == "replayed":
+                    at[i] = e.get("replayed_tokens")
+    matched = sum(g == w for g, w in zip(got, ref))
+    log(f"drill: {matched} of {len(ref)} streams equal the unfaulted run "
+        f"token for token; replayed at delivered tokens {at}")
+    for i, (g, w) in enumerate(zip(got, ref)):
+        if g == w:
+            continue
+        p = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        _, top_ids, top_lps = engine.score(ids[i], w[:p + 1], top=2)
+        margin = float(top_lps[p][0] - top_lps[p][1])
+        log(f"drill: stream {i} first differs at token {p} (replayed at "
+            f"{at.get(i)}): unfaulted top-2 {top_ids[p].tolist()} margin "
+            f"{margin:.6f} (a tie below {TIE_MARGIN})")
+        require(margin < TIE_MARGIN,
+                f"drill: stream {i} differs at token {p} beyond a bf16 "
+                f"tie (margin {margin:.6f})")
+    check_reseed(engine, card)
+    took = time.monotonic() - t0
+    log(f"drill: phase 4c {took:.1f}s")
+    require(took < DRILL_LIMIT_S, f"drill: {took:.1f}s over "
+            f"{DRILL_LIMIT_S}s")
+
+
+def drill_counts(engine) -> dict:
+    """The drill's launch counts (synced) and the dispatches they answer
+    to: full admission waves, tail-only waves, decode steps."""
+    from gofr_tpu_torch.ops import launch_counts
+
+    launches = launch_counts.counts()
+    return {"flash_attention": launches["flash_attention"],
+            "paged_attention": launches["paged_attention"],
+            "waves": engine.prefill_dispatches,
+            "tail_waves": engine.prefix_dispatches,
+            "steps": engine.decode_steps}
+
+
+def check_reseed(engine, card: str) -> None:
+    """The in-place restore re-seeds the generator the decode graphs
+    registered: with the engine idle (its admission held by the state
+    lock), one decode block graph replayed at temperature 1 from the same
+    state after manual_seed(s) twice must draw the same tokens, and after
+    manual_seed(s + 1) other ones. Each row reads and writes two free pages
+    of its own (a row's draws must not read another's writes); the pages,
+    the loop state and the generator are restored after."""
+    import numpy as np
+    import torch
+
+    with engine._state_lock, torch.no_grad(), engine._stream_ctx():
+        require(not engine._inflight and not any(s.active
+                                                 for s in engine.slots),
+                "reseed: the engine is not idle")
+        program = engine._decode_program_paged(2, engine.decode_block_size,
+                                               engine._row_filter_now())
+        pages = engine.allocator.alloc(2 * engine.n_slots)
+        require(pages is not None, "reseed: no free pages")
+        table = np.asarray(pages, dtype=np.int32).reshape(engine.n_slots, 2)
+        saved = [t.clone() for t in (engine._tokens, engine._positions,
+                                     engine._temps)]
+        rng = engine.generator.get_state()
+        draws = []
+        try:
+            for seed in (1234, 1234, 1235):
+                engine._tokens.fill_(7)
+                engine._positions.fill_(3)
+                engine._temps.fill_(1.0)
+                engine.generator.manual_seed(seed)
+                draws.append(engine._call(program, (table,)).cpu())
+        finally:
+            for t, v in zip((engine._tokens, engine._positions,
+                             engine._temps), saved):
+                t.copy_(v)
+            engine.generator.set_state(rng)
+            torch.cuda.synchronize()
+            engine.allocator.release(pages)
+    same = torch.equal(draws[0], draws[1])
+    other = not torch.equal(draws[0], draws[2])
+    log(f"reseed: a decode graph's draws after manual_seed of its "
+        f"registered generator: same seed equal {same}, next seed "
+        f"different {other} [{card}]")
+    require(same and other, "reseed: the graph did not draw from the "
+            "re-seeded generator")
+
+
+FAULTS_CHARS = 160
+FAULTS_SEED = 3000       # prompt seeds no other phase uses
+
+
+def faults_env(tmp: str) -> dict:
+    """The main path's serve config with the chaos plane armed, a 1 s
+    breaker cooldown, a retry budget the storm's 3 resets leave room in,
+    incident bundles and profiles in `tmp`, every incident captured."""
+    return {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "MAX_BATCH": "8",
+            "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+            "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
+            "WARMUP": "wide", "FAULT_INJECTION": "true",
+            "BREAKER_COOLDOWN_S": "1", "RESET_STORM_MAX": "3",
+            "ENGINE_RETRY_BUDGET": "3", "INCIDENT_COOLDOWN_S": "0",
+            "INCIDENT_DIR": f"{tmp}/incidents",
+            "PROFILE_DIR": f"{tmp}/profiles"}
+
+
+def post_json(port, path, body) -> tuple:
+    """POST `path`: (status, headers, the {data} or error envelope)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", path, body=json.dumps(body),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, dict(resp.getheaders()), json.loads(raw or b"null")
+
+
+def wait_for(cond, what: str, timeout_s: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    require(cond(), f"faults: timed out waiting for {what}")
+
+
+def faults_phase(params, cfg, dev, card: str) -> None:
+    """Phase 11 (--faults), on the main path's engine with FAULT_INJECTION:
+    the reset storm and the breaker, a quarantine, the breaker_open
+    incident bundle, a /debug/profile capture while streams are served, the
+    capacity meter against /debug/steps, and the planes' cost."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="gofr-faults-")
+    env = faults_env(tmp)
+    engine = build_engine(env, device=dev, params=params)
+    boot = boot_line(engine, "paged faults", card)
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        tok = engine.tokenizer
+        seed = iter(range(FAULTS_SEED, FAULTS_SEED + 1000))
+
+        def prompt(n=FAULTS_CHARS):
+            return tok.encode(make_prompt(n, next(seed)))
+
+        # the profile last: a process that has profiled keeps CUPTI
+        # attached, which costs its graph launches host time
+        for step in (storm_drill, quarantine_drill, incident_check,
+                     capacity_check, planes_cost, profile_drill):
+            t0 = time.monotonic()
+            step(app, engine, card, prompt, tmp)
+            log(f"faults: {step.__name__} {time.monotonic() - t0:.1f}s")
+        require(engine.executor.captures == boot,
+                "faults: a graph was captured after boot")
+    finally:
+        app.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"faults: phase 11 {time.monotonic() - t_all:.1f}s")
+
+
+def storm_drill(app, engine, card, prompt, tmp) -> None:
+    """engine.decode armed to raise 3 times over POST /debug/faults; two
+    requests in flight (neither alone, so no quarantine): 3 resets open
+    the breaker; /generate answers 503 with Retry-After and the engine's
+    health reads DOWN; the half-open probe after BREAKER_COOLDOWN_S closes
+    it, the two requests complete through their replays, and a new
+    request gets its 201."""
+    # healthy traffic first: the bundle's step ring holds real records (the
+    # storm's own steps abort)
+    require(len(engine.generate(prompt(), max_new_tokens=8)) == 8,
+            "faults: the engine did not serve before the storm")
+    status, _, body = post_json(app.http_port, "/debug/faults", {
+        "plan": [{"site": "engine.decode", "every": 1, "times": 3}]})
+    require(status == 201, f"faults: arming the storm answered {status}")
+    resets0 = engine.resets_total
+    reqs = [engine.submit(prompt(), max_new_tokens=16) for _ in range(2)]
+    wait_for(lambda: engine.breaker.state == "open", "the breaker to open")
+    status, headers, body = post_json(app.http_port, "/generate", {
+        "prompt": "storm", "max_tokens": 4, "stream": False})
+    retry = headers.get("Retry-After")
+    health = get_json(app.http_port, "/.well-known/health")
+    engine_health = health["details"]["engine"]
+    log(f"faults: storm: {engine.resets_total - resets0} resets opened the "
+        f"breaker; /generate answered {status} Retry-After {retry} "
+        f"({body['error']['message'][:60]}); engine health "
+        f"{engine_health['status']} [{card}]")
+    require(status == 503 and retry is not None,
+            "faults: an open breaker did not shed /generate with a 503")
+    require(engine_health["status"] == "DOWN",
+            "faults: an open breaker left the engine's health up")
+    t0 = time.monotonic()
+    wait_for(lambda: engine.breaker.state == "closed",
+             "the half-open probe to close the breaker")
+    closed_s = time.monotonic() - t0
+    outs = [r.result(timeout_s=120) for r in reqs]
+    require(all(len(o) == 16 for o in outs),
+            "faults: the storm's requests did not complete")
+    status, _, body = post_json(app.http_port, "/generate", {
+        "prompt": "after the storm", "max_tokens": 4, "stream": False})
+    require(status == 201 and body["data"]["tokens"] == 4,
+            f"faults: /generate after the breaker closed answered {status}")
+    events = [e["event"] for e in
+              engine.recorder.snapshot()["engine_events"]]
+    log(f"faults: storm: breaker closed {closed_s:.2f}s later; the 2 "
+        f"requests completed through {engine.replays_total} replays; a new "
+        f"request got 201; engine events "
+        f"{[e for e in events if e.startswith(('breaker', 'device'))]}")
+    for name in ("device_reset", "breaker_open", "breaker_shed",
+                 "breaker_closed"):
+        require(name in events, f"faults: no {name} engine event")
+
+
+def quarantine_drill(app, engine, card, prompt, tmp) -> None:
+    """A request alone in flight across two resets in a row is quarantined:
+    it fails with the device error, and the engine serves on."""
+    from gofr_tpu_torch.tpu.engine import CacheLostError
+
+    status, _, _ = post_json(app.http_port, "/debug/faults", {
+        "plan": [{"site": "engine.decode", "every": 1, "times": 2}]})
+    require(status == 201, "faults: arming the quarantine failed")
+    q0, r0 = engine.quarantined_total, engine.resets_total
+    req = engine.submit(prompt(), max_new_tokens=16)
+    failed = None
+    try:
+        req.result(timeout_s=120)
+    except CacheLostError as exc:
+        failed = exc
+    post_json(app.http_port, "/debug/faults", {"disarm": True})
+    names = [e["event"] for e in
+             engine.recorder.lookup(req.id)["events"]]
+    log(f"faults: quarantine: {engine.resets_total - r0} resets, "
+        f"quarantined {engine.quarantined_total - q0}, the request "
+        f"{'failed: ' + str(failed)[:50] if failed else 'completed'}; its "
+        f"events {[n for n in names if n in ('replayed', 'quarantined')]}; "
+        f"breaker {engine.breaker.state}")
+    require(failed is not None and engine.quarantined_total - q0 == 1
+            and "quarantined" in names,
+            "faults: the poison request was not quarantined")
+    require(len(engine.generate(prompt(), max_new_tokens=4)) == 4,
+            "faults: the engine did not serve after the quarantine")
+
+
+BUNDLE_SECTIONS = ("steps", "engine", "slowest_requests", "engine_events",
+                   "config_fingerprint")
+
+
+def incident_check(app, engine, card, prompt, tmp) -> None:
+    """The storm's breaker_open bundle (and the quarantine's), written to
+    the temporary INCIDENT_DIR, with the reference's sections."""
+    import os
+
+    require(engine.incidents.wait_idle(30.0), "faults: a capture hung")
+    index = get_json(app.http_port, "/debug/incidents")
+    by_trigger = {b["trigger"]: b for b in index["incidents"]}
+    require("breaker_open" in by_trigger and "quarantine" in by_trigger,
+            f"faults: bundles {sorted(by_trigger)}")
+    bundle = get_json(app.http_port,
+                      f"/debug/incidents/{by_trigger['breaker_open']['id']}")
+    missing = [k for k in BUNDLE_SECTIONS if k not in bundle]
+    on_disk = bundle.get("path") and os.path.exists(bundle["path"])
+    log(f"faults: incidents: {index['captured_total']} bundles "
+        f"({sorted(by_trigger)}); breaker_open bundle sections "
+        f"{sorted(k for k in bundle if k in BUNDLE_SECTIONS)}, "
+        f"{len(bundle.get('steps', {}).get('recent', []))} steps, "
+        f"{len(bundle.get('slowest_requests', []))} slowest requests, "
+        f"resets {bundle['engine']['recovery']['resets_total']}, context "
+        f"breaker {bundle['context']['breaker']['state']}, written "
+        f"{bool(on_disk)} under INCIDENT_DIR")
+    require(not missing and bundle["steps"].get("recent")
+            and bundle["slowest_requests"],
+            f"faults: the bundle lacks {missing} or holds no records")
+    require(on_disk and bundle["path"].startswith(tmp),
+            "faults: the bundle was not written to INCIDENT_DIR")
+    require(bundle["context"]["breaker"]["state"] == "open"
+            and bundle["engine"]["recovery"]["resets_total"] >= 3,
+            "faults: the bundle did not freeze the storm")
+
+
+def trace_kernels(trace_dir: str) -> dict:
+    """The kernel events of a capture's Chrome trace: flash and the paged
+    bf16 read (decode_split_kernel over KvBf16 and Paged)."""
+    import os
+
+    from gofr_tpu_torch.tpu.profiler import TRACE_FILE
+
+    with open(os.path.join(trace_dir, TRACE_FILE)) as fp:
+        events = json.load(fp)["traceEvents"]
+    out = {"flash": 0, "paged_read": 0, "kernels": 0}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        out["kernels"] += 1
+        # the trace's names are demangled: the template's arguments spelled
+        name = e.get("name", "")
+        if "flash_fwd_kernel" in name:
+            out["flash"] += 1
+        if ("decode_split_kernel" in name and "KvBf16" in name
+                and "Paged" in name):
+            out["paged_read"] += 1
+    return out
+
+
+def profile_drill(app, engine, card, prompt, tmp) -> None:
+    """POST /debug/profile (2 s) while 2 streams of 17 tokens are admitted
+    and decode, 0.5 s into the window: 202 at once, the capture's trace
+    holds flash and paged-read kernel events, all from graph replays (a
+    decode step is ~2600 kernels, so ~160k events; stopping and writing
+    them takes ~10 s, during which the capture thread holds the GIL: the
+    traffic is kept small); then, with a torch.profiler of this
+    script's own running, a capture is refused in last_error and the
+    engine's loop serves on."""
+    import torch
+
+    from gofr_tpu_torch.tpu import profiler
+
+    t0 = time.monotonic()
+    status, _, body = post_json(app.http_port, "/debug/profile",
+                                {"seconds": 2.0})
+    require(status == 202 and time.monotonic() - t0 < 1.0,
+            f"faults: POST /debug/profile answered {status}")
+    trace_dir = body["data"]["trace_dir"]
+    # the process's first capture initializes CUPTI before its window
+    wait_for(profiler.recording, "the capture to record")
+    init_s = time.monotonic() - t0
+    time.sleep(0.5)
+    reqs = [engine.submit(prompt(), max_new_tokens=17) for _ in range(2)]
+    for r in reqs:
+        r.result(timeout_s=120)
+    t0 = time.monotonic()
+    wait_for(lambda: not get_json(app.http_port, "/debug/profile")["active"],
+             "the capture to end", timeout_s=180)
+    ended = time.monotonic() - t0
+    status = get_json(app.http_port, "/debug/profile")
+    require(status["last_error"] is None,
+            f"faults: the capture failed: {status['last_error']}")
+    kern = trace_kernels(trace_dir)
+    log(f"faults: profile: 2 s capture during 2 streams x 17 tokens: "
+        f"{kern['kernels']} kernel events, flash {kern['flash']}, paged read "
+        f"{kern['paged_read']}; recording {init_s:.1f}s after the POST "
+        f"(CUPTI's first start), ended {ended:.1f}s after the streams (stop "
+        f"and write; duration {status['last_duration_s']}s); "
+        f"trace at {status['last_rel']} under PROFILE_DIR [{card}]")
+    require(kern["flash"] > 0 and kern["paged_read"] > 0,
+            "faults: the capture lost the graph replays' kernels")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        status, _, _ = post_json(app.http_port, "/debug/profile",
+                                 {"seconds": 0.5})
+        require(status == 202, "faults: the second capture was not taken")
+        wait_for(lambda: not get_json(app.http_port,
+                                      "/debug/profile")["active"],
+                 "the refused capture to end")
+    err = get_json(app.http_port, "/debug/profile")["last_error"]
+    require(err and "another torch.profiler" in err,
+            f"faults: a capture beside another profiler gave {err!r}")
+    require(engine._thread.is_alive()
+            and len(engine.generate(prompt(), max_new_tokens=4)) == 4,
+            "faults: the engine did not serve after the refused capture")
+    log(f"faults: profile: beside this script's own torch.profiler the "
+        f"capture was refused ({err[:70]}); the engine serves on")
+
+
+def capacity_check(app, engine, card, prompt, tmp) -> None:
+    """/debug/capacity after the streams: each metered step's attributed
+    device seconds equal its measured ones (1e-9 relative) and those the
+    step's /debug/steps record shows (to its 1 us rounding); rho, headroom
+    and the TTFT forecast finite."""
+    snap = get_json(app.http_port, "/debug/capacity")
+    steps = get_json(app.http_port, "/debug/steps?recent=512")
+    by_step = {s["step"]: s for s in steps["recent"]}
+    metered = [s for s in snap["steps"] if s["seq"] in by_step]
+    worst_rel = worst_abs = 0.0
+    for s in metered:
+        seg = by_step[s["seq"]]["segments"]
+        measured = seg.get("device_sync", 0.0) + seg.get("dispatch", 0.0)
+        worst_rel = max(worst_rel, abs(s["attributed_s"] - s["device_s"])
+                        / max(s["device_s"], 1e-12))
+        worst_abs = max(worst_abs, abs(s["device_s"] - measured))
+    fc = snap["forecast"]
+    log(f"faults: capacity: {len(metered)} metered steps beside "
+        f"/debug/steps: attributed vs measured worst {worst_rel:.3g} "
+        f"relative, vs the steps' segments worst {worst_abs:.3g} s (they "
+        f"round to 1e-6 s); totals device_s {snap['totals']['device_s']}, "
+        f"rho {fc['rho']}, headroom {fc['headroom_tok_s']} tok/s, mu "
+        f"{fc['mu_tok_s']} tok/s, predicted TTFT {fc['predicted_ttft_ms']} "
+        f"ms [{card}]")
+    require(metered, "faults: no metered step in /debug/steps' window")
+    require(worst_rel <= 1e-9 and worst_abs <= 1.01e-6,
+            "faults: the meter did not conserve the steps' device time")
+    require(all(math.isfinite(fc[k]) for k in
+                ("rho", "headroom_tok_s", "predicted_ttft_ms")),
+            "faults: a non-finite forecast")
+
+
+def planes_cost(app, engine, card, prompt, tmp) -> None:
+    """The planes this slice adds (cost_windows): the SLO burn engine (the
+    recorder's tap), the capacity meter and the off-loop finisher on, as
+    served, against all three off."""
+    recorder = engine.recorder
+    burn, meter, finisher = recorder.burn, engine.meter, engine._finisher
+    require(burn is not None and meter is not None and finisher is not None,
+            "planes cost: burn, meter or finisher is not on")
+
+    def toggle(on: bool) -> None:
+        recorder.burn = burn if on else None
+        engine.meter = meter if on else None
+        engine._finisher = finisher if on else None
+
+    figures = cost_windows(engine, toggle, 4000)
+    log(f"planes cost (burn, meter and finisher): {figures} [{card}]")
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -4290,14 +4882,16 @@ def main(argv=()) -> int:
     (w8_phase). --openai: build, then the OpenAI phase on an engine of its
     own (OPENAI_ENV). --obs: build, then the main path's serve phase with
     phase 4b and its cost measurements, and its decode profile with the
-    utilization ledger beside the profiler. The short modes print no ok line."""
+    utilization ledger beside the profiler. --faults: build, then phase 11
+    (faults_phase), ending with the ok line. The other short modes print no
+    ok line."""
     import torch
 
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
-                    "--weights", "--spec", "--openai", "--obs"):
+                    "--weights", "--spec", "--openai", "--obs", "--faults"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc, --weights, --spec, --openai, --obs or none)")
+            f"--sc, --weights, --spec, --openai, --obs, --faults or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -4336,7 +4930,7 @@ def main(argv=()) -> int:
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         if mode not in ("--prefill", "--weights", "--spec", "--openai",
-                        "--obs"):
+                        "--obs", "--faults"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -4386,6 +4980,14 @@ def main(argv=()) -> int:
             profile_decode(eng, card, "paged")
             log(f"obs only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
+        if mode == "--faults":
+            faults_phase(params, cfg, dev, card)
+            log(f"faults only: ok, total {time.monotonic() - t_all:.1f}s")
+            print(card, flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+            return 0
         if mode == "--sc":
             ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
             serve_sc_phase(params, cfg, dev, card, "paged", ref)
@@ -4397,7 +4999,8 @@ def main(argv=()) -> int:
         served = {}
         for config in SERVE_CONFIGS:
             served[config] = serve_phase(params, cfg, dev, card, config,
-                                         obs=config == "paged")
+                                         obs=config == "paged",
+                                         drill=config == "paged")
             torch.cuda.empty_cache()
         for config in SERVE_CONFIGS:
             # the OpenAI phase on the main path's engine (its boot reused)

@@ -28,11 +28,13 @@ The observability planes, with the reference's config keys and defaults
 ``enable_journey`` (``/debug/journey``), ``enable_engine_snapshot``
 (``/debug/engine``, the utilization gauges and the memory sampler),
 ``enable_step_ledger`` (``/debug/steps``), ``enable_timeline``
-(``/debug/timeline``) and ``enable_hostprof`` (``/debug/hostprof``); each
+(``/debug/timeline``), ``enable_hostprof`` (``/debug/hostprof``),
+``enable_profiler`` (``/debug/profile``, torch.profiler under
+``PROFILE_DIR``), ``enable_fault_injection`` (``/debug/faults``, only under
+``FAULT_INJECTION=true``), ``enable_incident_autopsy`` (``/debug/slo``,
+``/debug/incidents``) and ``enable_capacity`` (``/debug/capacity``); each
 returns what the reference's returns and stops its thread on shutdown.
-Waiting: the incident autopsy, SLO burn, capacity and profiler planes
-(ROADMAP A11d), fault injection and QoS (A11e), drain with migration
-(A11f). Waiting in ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub
+Waiting: QoS (ROADMAP A11e), drain with migration (A11f). Waiting in ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub
 subscriptions, static files and the OpenAPI routes.
 """
 
@@ -333,6 +335,144 @@ class App:
             engine.hostprof = prof
         install_routes(self, prof, path)
         return prof
+
+    def enable_profiler(self, path: str = "/debug/profile") -> None:
+        """Serve on-demand torch.profiler captures (tpu/profiler.py): POST
+        /debug/profile (202, the capture on a daemon thread, 409 while one
+        runs) and GET /debug/profile (status). Config: PROFILE_DIR (the
+        capture root for POSTs without "dir" and for incident captures,
+        ./profiles); status reports paths relative to it."""
+        from .tpu.profiler import configure, install_routes
+
+        configure(self.config.get_or_default("PROFILE_DIR", "./profiles"))
+        install_routes(self, path)
+
+    def enable_fault_injection(self, engine, path: str = "/debug/faults"):
+        """Arm the chaos plane (tpu/faults.py) on an engine and its executor
+        and serve POST/GET /debug/faults, HARD-gated on FAULT_INJECTION=true:
+        otherwise this returns None, registers no route (404) and leaves
+        the engine's ``faults=None``. Config: FAULT_INJECTION,
+        FAULT_INJECTION_PLAN (inline JSON or ``@/path/to/plan.json``),
+        FAULT_INJECTION_SEED. Returns the FaultPlane when enabled."""
+        from .tpu.faults import install_routes, plane_from_config
+
+        plane = plane_from_config(self.config, logger=self.logger)
+        if plane is None:
+            return None
+        engine.faults = plane
+        executor = getattr(engine, "executor", None)
+        if executor is not None:
+            executor.faults = plane
+        install_routes(self, plane, path)
+        self.logger.warnf(
+            "FAULT INJECTION ENABLED: chaos plane armed on the engine and "
+            "executor; POST %s drives drills", path)
+        return plane
+
+    def enable_incident_autopsy(self, engine, slo_path: str = "/debug/slo",
+                                incidents_path: str = "/debug/incidents"):
+        """Wire the incident plane (tpu/incidents.py) onto an engine: the
+        SLO burn engine (fed by the flight recorder, app_tpu_slo_burn_rate /
+        app_tpu_slo_alert_state, GET /debug/slo, republished at every
+        scrape so burn decays when idle) and the IncidentManager (bundles on
+        burn pages, straggler streaks, breaker opens and quarantines, GET
+        /debug/incidents[/{id}[/trace]]). Config: SLO_BURN_FAST_WINDOW_S /
+        SLO_BURN_SLOW_WINDOW_S (300 / 3600), SLO_BURN_PAGE / SLO_BURN_WARN
+        (14.4 / 6.0), SLO_BURN_OBJECTIVE_{TTFT,TPOT,AVAILABILITY} (0.99 /
+        0.99 / 0.999), SLO_BURN_MIN_EVENTS (12), SLO_TTFT_TARGET_S /
+        SLO_TPOT_TARGET_S; INCIDENT_DIR (./incidents), INCIDENT_RING (32),
+        INCIDENT_COOLDOWN_S / INCIDENT_MAX_PER_HOUR (300 / 6),
+        INCIDENT_SLOWEST_K (5), INCIDENT_PROFILE_S (a torch.profiler capture
+        per bundle; 0 = off), INCIDENT_STRAGGLER_STREAK /
+        INCIDENT_STRAGGLER_WINDOW (3 / 32), PROFILE_DIR (where those
+        captures go; default INCIDENT_DIR/profiles). Returns
+        (burn_engine, incident_manager)."""
+        from .tpu.incidents import (IncidentManager, SLOBurnEngine,
+                                    install_routes,
+                                    register_incident_metrics)
+
+        cfg = self.config
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_incident_metrics(metrics)
+        recorder = getattr(engine, "recorder", None)
+        burn = SLOBurnEngine(
+            slo_ttft_s=cfg.get_float("SLO_TTFT_TARGET_S", 0.150),
+            slo_tpot_s=cfg.get_float("SLO_TPOT_TARGET_S", 0.050),
+            objectives={
+                "ttft": cfg.get_float("SLO_BURN_OBJECTIVE_TTFT", 0.99),
+                "tpot": cfg.get_float("SLO_BURN_OBJECTIVE_TPOT", 0.99),
+                "availability": cfg.get_float(
+                    "SLO_BURN_OBJECTIVE_AVAILABILITY", 0.999)},
+            fast_window_s=cfg.get_float("SLO_BURN_FAST_WINDOW_S", 300.0),
+            slow_window_s=cfg.get_float("SLO_BURN_SLOW_WINDOW_S", 3600.0),
+            page_burn=cfg.get_float("SLO_BURN_PAGE", 14.4),
+            warn_burn=cfg.get_float("SLO_BURN_WARN", 6.0),
+            min_events=cfg.get_int("SLO_BURN_MIN_EVENTS", 12),
+            metrics=metrics, logger=self.logger)
+        incident_dir = cfg.get_or_default("INCIDENT_DIR", "./incidents")
+        incidents = IncidentManager(
+            engine=engine, recorder=recorder, dir=incident_dir,
+            capacity=cfg.get_int("INCIDENT_RING", 32),
+            cooldown_s=cfg.get_float("INCIDENT_COOLDOWN_S", 300.0),
+            max_per_hour=cfg.get_int("INCIDENT_MAX_PER_HOUR", 6),
+            slowest_k=cfg.get_int("INCIDENT_SLOWEST_K", 5),
+            profile_seconds=cfg.get_float("INCIDENT_PROFILE_S", 0.0),
+            profile_dir=(cfg.get("PROFILE_DIR")
+                         or os.path.join(incident_dir, "profiles")),
+            straggler_streak=cfg.get_int("INCIDENT_STRAGGLER_STREAK", 3),
+            straggler_window=cfg.get_int("INCIDENT_STRAGGLER_WINDOW", 32),
+            fingerprint={"app": self.container.app_name,
+                         "version": self.container.app_version},
+            metrics=metrics, logger=self.logger)
+        burn.on_page = incidents.on_slo_page
+        if recorder is not None:
+            recorder.use_burn_engine(burn)
+        engine.incidents = incidents
+        # scrape-time re-evaluation: burn must DECAY while the server idles
+        self.container.add_scrape_hook("slo_burn", burn.publish)
+        install_routes(self, burn, incidents, slo_path, incidents_path)
+        return burn, incidents
+
+    def enable_capacity(self, engine, path: str = "/debug/capacity"):
+        """Wire the capacity observatory (tpu/meter.py) onto an engine: the
+        TPUMeter (per-tenant / per-class / per-phase device seconds, FLOPs,
+        KV page-seconds and queue wait, the app_tpu_meter_*_total counters)
+        and the HeadroomForecaster (λ, μ, ρ, headroom, fluid TTFT, the
+        app_tpu_capacity_* gauges, re-evaluated at every scrape), served at
+        GET /debug/capacity. Config: METER_PAGE_TOKENS (the dense engine's
+        KV page granularity, 16; a paged engine bills its own page size),
+        METER_WINDOW_S (300), METER_REQUESTS (512), METER_TOP_K (10),
+        CAPACITY_WINDOW_S (60), CAPACITY_RHO_WARN (0.85),
+        CAPACITY_COLLAPSE_EVALS (3). Returns the TPUMeter (the forecaster
+        on meter.forecaster)."""
+        from .tpu.meter import (HeadroomForecaster, TPUMeter,
+                                install_routes, register_meter_metrics)
+
+        cfg = self.config
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_meter_metrics(metrics)
+        page_tokens = getattr(getattr(engine, "allocator", None),
+                              "page_size", None) \
+            or cfg.get_int("METER_PAGE_TOKENS", 16)
+        meter = TPUMeter(
+            cfg=getattr(engine, "cfg", None), page_tokens=page_tokens,
+            window_s=cfg.get_float("METER_WINDOW_S", 300.0),
+            done_capacity=cfg.get_int("METER_REQUESTS", 512),
+            top_k=cfg.get_int("METER_TOP_K", 10),
+            metrics=metrics, logger=self.logger)
+        meter.forecaster = HeadroomForecaster(
+            engine=engine,
+            window_s=cfg.get_float("CAPACITY_WINDOW_S", 60.0),
+            rho_warn=cfg.get_float("CAPACITY_RHO_WARN", 0.85),
+            collapse_evals=cfg.get_int("CAPACITY_COLLAPSE_EVALS", 3),
+            metrics=metrics, logger=self.logger)
+        engine.meter = meter
+        # an idle replica's λ window drains at the scrape
+        self.container.add_scrape_hook("capacity", meter.forecaster.publish)
+        install_routes(self, meter, path)
+        return meter
 
     # -- health ---------------------------------------------------------------
     def add_health_contributor(self, name: str,

@@ -1,11 +1,12 @@
 """The versioned trace format, as far as ``GET /debug/trace`` needs it.
 
-Ports of ``gofr_tpu/loadgen/trace.py``: ``TRACE_VERSION``, ``make_event``
-and ``events_from_requests``. A trace event describes one arrival with
+Ports of ``gofr_tpu/loadgen/trace.py``: ``TRACE_VERSION``, ``make_event``,
+``events_from_requests`` and ``events_from_incident`` (the incident
+bundles' ``/debug/incidents/{id}/trace``). A trace event describes one arrival with
 what a replay needs and nothing it must not carry: the prompt is a spec (a
 token count plus a deterministic seed), never the text. The rest of the
-format (``prompt_text``, ``dump_trace`` / ``load_trace``, the incident
-exporter) and the load generator wait in ROADMAP A18b.
+format (``prompt_text``, ``dump_trace`` / ``load_trace``) and the load
+generator wait in ROADMAP A18b.
 """
 
 from __future__ import annotations
@@ -71,3 +72,9 @@ def events_from_requests(rows: Iterable[Dict[str, Any]]
         for event in out:
             event["t"] = round(event["t"] - t0, 6)
     return out
+
+
+def events_from_incident(bundle: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """An ``/debug/incidents/{id}`` bundle -> trace events: its
+    ``slowest_requests`` become the replayable arrival process."""
+    return events_from_requests(bundle.get("slowest_requests") or [])

@@ -65,7 +65,13 @@ is larger is admitted in chunks of this many tokens, decode blocks running
 between them; it must divide every larger bucket), SPECULATIVE_TOKENS (0;
 > 0: prompt-lookup speculation, up to this many drafts verified per
 dispatch, greedy output unchanged; it refuses KV_DTYPE=int8 and
-CHUNK_PREFILL_TOKENS, as the reference does).
+CHUNK_PREFILL_TOKENS, as the reference does). ENGINE_RETRY_BUDGET (2:
+replays a request may take after device resets), RESET_STORM_MAX (3) and
+RESET_STORM_WINDOW_S (60: that many resets inside the window open the
+breaker: 503 with Retry-After and health DOWN) and BREAKER_COOLDOWN_S (5:
+then the loop's half-open probe closes or re-opens it),
+ENGINE_FINISHER_QUEUE (256: terminal teardown on the bounded llm-finisher
+thread; 0 keeps it on the loop).
 
 The App's keys (app.py, container/): HTTP_PORT (8000), METRICS_PORT (2121:
 GET /metrics with the engine's app_tpu_* series and app_http_response;
@@ -93,6 +99,22 @@ STEP_STRAGGLER_K, STEP_BASELINE_ALPHA, STEP_BASELINE_MIN_SAMPLES,
 TIMELINE_STEPS, HOSTPROF_HZ, HOSTPROF_MAX_STACKS and HOSTPROF_TOP_K (app.py).
 The engine's stall gauge (app_tpu_engine_stall_seconds) is refreshed at
 every scrape, and a stalled engine answers 503 (EngineStalledError).
+INCIDENT_AUTOPSY (GET /debug/slo and /debug/incidents[/{id}[/trace]]: the
+SLO burn engine over the recorder's completions and sheds, incident
+bundles on burn pages, straggler streaks, breaker opens and quarantines;
+tuned by SLO_BURN_FAST_WINDOW_S, SLO_BURN_SLOW_WINDOW_S, SLO_BURN_PAGE,
+SLO_BURN_WARN, SLO_BURN_OBJECTIVE_TTFT, SLO_BURN_OBJECTIVE_TPOT,
+SLO_BURN_OBJECTIVE_AVAILABILITY, SLO_BURN_MIN_EVENTS, INCIDENT_DIR,
+INCIDENT_RING, INCIDENT_COOLDOWN_S, INCIDENT_MAX_PER_HOUR,
+INCIDENT_SLOWEST_K, INCIDENT_PROFILE_S, INCIDENT_STRAGGLER_STREAK and
+INCIDENT_STRAGGLER_WINDOW) and CAPACITY (GET /debug/capacity: the
+attribution meter and the headroom forecast, tuned by METER_PAGE_TOKENS,
+METER_WINDOW_S, METER_REQUESTS, METER_TOP_K, CAPACITY_WINDOW_S,
+CAPACITY_RHO_WARN and CAPACITY_COLLAPSE_EVALS), on by default as in the
+reference; POST/GET /debug/profile (torch.profiler captures under
+PROFILE_DIR) on both servers; and, only under FAULT_INJECTION=true,
+POST/GET /debug/faults (FAULT_INJECTION_PLAN, FAULT_INJECTION_SEED) with
+the plane armed on the engine and its executor (app.py).
 FLEET_AFFINITY_BLOCK sizes the affinity digest of /stats. The peak
 overrides TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW are read from the process
 environment, as the reference reads them (tpu/utilization.py).
@@ -165,6 +187,19 @@ PORTED = (
     "ENGINE_HBM_SAMPLE_S", "STEP_LEDGER_CAPACITY", "STEP_STRAGGLER_K",
     "STEP_BASELINE_ALPHA", "STEP_BASELINE_MIN_SAMPLES", "TIMELINE_STEPS",
     "HOSTPROF_HZ", "HOSTPROF_MAX_STACKS", "HOSTPROF_TOP_K",
+    # crash-only serving (build_engine) and the planes over it (app_for)
+    "ENGINE_RETRY_BUDGET", "RESET_STORM_MAX", "RESET_STORM_WINDOW_S",
+    "BREAKER_COOLDOWN_S", "ENGINE_FINISHER_QUEUE", "INCIDENT_AUTOPSY",
+    "CAPACITY", "PROFILE_DIR", "FAULT_INJECTION", "FAULT_INJECTION_PLAN",
+    "FAULT_INJECTION_SEED", "SLO_BURN_FAST_WINDOW_S",
+    "SLO_BURN_SLOW_WINDOW_S", "SLO_BURN_PAGE", "SLO_BURN_WARN",
+    "SLO_BURN_OBJECTIVE_TTFT", "SLO_BURN_OBJECTIVE_TPOT",
+    "SLO_BURN_OBJECTIVE_AVAILABILITY", "SLO_BURN_MIN_EVENTS", "INCIDENT_DIR",
+    "INCIDENT_RING", "INCIDENT_COOLDOWN_S", "INCIDENT_MAX_PER_HOUR",
+    "INCIDENT_SLOWEST_K", "INCIDENT_PROFILE_S", "INCIDENT_STRAGGLER_STREAK",
+    "INCIDENT_STRAGGLER_WINDOW", "METER_PAGE_TOKENS", "METER_WINDOW_S",
+    "METER_REQUESTS", "METER_TOP_K", "CAPACITY_WINDOW_S",
+    "CAPACITY_RHO_WARN", "CAPACITY_COLLAPSE_EVALS",
     # the App's and its container's (app.py, container/, tracing/)
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
@@ -182,7 +217,9 @@ NOT_PORTED = (
     ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
      "the host KV tier waits in ROADMAP A11f"),
     ("QOS", lambda e: _flag(e, "QOS", False),
-     "the QoS serving plane waits in ROADMAP A11e"),
+     "the QoS serving plane (tpu/qos.py: classes, quotas, the shed ladder "
+     "on the SLO burn engine, preemption through the replay contract, "
+     "/debug/qos) waits in ROADMAP A11e, the next item"),
     ("ELASTIC_WARM_BOOT", lambda e: _flag(e, "ELASTIC_WARM_BOOT", False),
      "the warm boot behind a `warming` lifecycle waits in ROADMAP A11f"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
@@ -225,19 +262,16 @@ INERT = (
      "refused (A11f)"),
     ("ELASTIC_PREWARM_PAGES", "the KV pre-warm of ELASTIC_WARM_BOOT, "
      "refused (A11f)"),
-    ("ENGINE_RETRY_BUDGET", "replay after a device reset; the port has no "
-     "reset path (A11e)"),
-    ("RESET_STORM_MAX", "the reset-storm breaker; no reset path (A11e)"),
-    ("RESET_STORM_WINDOW_S", "the reset-storm breaker; no reset path "
-     "(A11e)"),
-    ("BREAKER_COOLDOWN_S", "the reset-storm breaker; no reset path "
-     "(A11e)"),
-    ("ENGINE_FINISHER_QUEUE", "the off-loop finisher; the port finishes "
-     "on the loop thread (A11e)"),
-    # they opt out of observability routes the port does not serve yet
-    ("INCIDENT_AUTOPSY", "opts out of /debug/slo and /debug/incidents, not "
-     "served (A11d)"),
-    ("CAPACITY", "opts out of /debug/capacity, not served (A11d)"),
+    # they tune the QoS plane of QOS=true, refused (A11e)
+    *((key, "tunes the QoS plane of QOS=true, refused at boot (A11e)")
+      for key in ("QOS_BATCH_PAGE_FRACTION", "QOS_BATCH_RESULT_TOPIC",
+                  "QOS_BATCH_TOPIC", "QOS_DEADLINE_BATCH_S",
+                  "QOS_DEADLINE_INTERACTIVE_S", "QOS_DEADLINE_STANDARD_S",
+                  "QOS_ESCALATE_HOLD_S", "QOS_EVAL_S",
+                  "QOS_INTERACTIVE_RESERVED_SLOTS", "QOS_LANE",
+                  "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT",
+                  "QOS_RECOVER_HOLD_S", "QOS_SHED_RETRY_AFTER_S",
+                  "QOS_SHED_TRACKS")),
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
@@ -252,8 +286,6 @@ INERT = (
     ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
      "refused (A18b)"),
     # they tune App planes the port does not serve yet
-    ("PROFILE_DIR", "tunes the profile captures of /debug/profile and the "
-     "incident bundles, not served (A11d)"),
     ("DRAIN_MIGRATE", "tunes the drain-with-migration surface of "
      "/debug/drain and /migrate, not served (A11f)"),
     ("DRAIN_SHIP_TIMEOUT_S", "tunes the drain-with-migration surface of "
@@ -276,11 +308,11 @@ def load_tokenizer(path: str):
 
 
 def shed_to_503(exc: RuntimeError) -> ServiceUnavailable:
-    """The reference's ``_raise_for_shed``: a draining or stalled engine's
-    error (EngineDrainingError, EngineStalledError: each carries
-    status_code 503 and its retry_after_s) as a 503 with a Retry-After
-    hint; a stopped engine's RuntimeError too (the reference answers it
-    with a 500)."""
+    """The reference's ``_raise_for_shed``: a draining, stalled or
+    breaker-open engine's error (EngineDrainingError, EngineStalledError,
+    DeviceLostError: each carries status_code 503 and its retry_after_s)
+    as a 503 with a Retry-After hint; a stopped engine's RuntimeError too
+    (the reference answers it with a 500)."""
     return ServiceUnavailable(
         str(exc), retry_after_s=getattr(exc, "retry_after_s", None) or 1.0)
 
@@ -417,6 +449,14 @@ def build_engine(env: EnvLike = None, device=None, params=None,
               # prompt-lookup drafts per dispatch (greedy output unchanged)
               chunk_prefill_tokens=_int(env, "CHUNK_PREFILL_TOKENS", 0),
               speculative_tokens=_int(env, "SPECULATIVE_TOKENS", 0),
+              # crash-only recovery: replay after a reset (bounded per
+              # request) and the reset-storm breaker (503 + health DOWN)
+              retry_budget=_int(env, "ENGINE_RETRY_BUDGET", 2),
+              reset_storm_max=_int(env, "RESET_STORM_MAX", 3),
+              reset_storm_window_s=_float(env, "RESET_STORM_WINDOW_S", 60.0),
+              breaker_cooldown_s=_float(env, "BREAKER_COOLDOWN_S", 5.0),
+              # terminal teardown off the loop (0: inline)
+              finisher_queue=_int(env, "ENGINE_FINISHER_QUEUE", 256),
               prefill_buckets=tuple(int(b) for b in env.get_or_default(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
     if _flag(env, "PAGED", True):
@@ -492,6 +532,15 @@ def app_for(env: EnvLike, engine=None, device=None,
         app.enable_timeline(engine)
     if _flag(config, "HOSTPROF", True):
         app.enable_hostprof(engine)
+    if _flag(config, "INCIDENT_AUTOPSY", True):
+        burn, _ = app.enable_incident_autopsy(engine)
+        # harnesses re-target the SLOs through it, as the reference's
+        app.slo_burn = burn
+    # 404 unless FAULT_INJECTION=true
+    app.enable_fault_injection(engine)
+    if _flag(config, "CAPACITY", True):
+        app.enable_capacity(engine)
+    app.enable_profiler()
     return app
 
 

@@ -38,10 +38,13 @@ reference answers 500). Each request's span and traceparent reach
 ``GET /stats`` is the reference's: active_slots, queue_depth,
 stall_seconds and fleet {lifecycle, duty_cycle}. The observability planes
 (flight recorder, journey, /debug/trace, engine snapshot, step ledger,
-timeline, host profiler) are ``serve.app_for``'s, under the same keys. Not
-ported: the incident autopsy and capacity planes (ROADMAP A11d), fault
-injection and QoS (A11e), disaggregation and drain with migration (A11f);
-their keys are INERT or NOT_PORTED as on serve.py.
+timeline, host profiler, the incident plane's /debug/slo and
+/debug/incidents, /debug/capacity, /debug/profile and, under
+FAULT_INJECTION=true, /debug/faults) and crash-only serving (replay after a
+reset, the reset-storm breaker: a 503 with Retry-After while it is open)
+are ``serve.app_for``'s and ``serve.build_engine``'s, under the same keys.
+Not ported: QoS (ROADMAP A11e), disaggregation and drain with migration
+(A11f); their keys are INERT or NOT_PORTED as on serve.py.
 
 Run: ``python -m gofr_tpu_torch.serve_openai`` (config from .env files
 under GOFR_CONFIGS_DIR and the process environment; ``device="cpu"`` only

@@ -10,11 +10,11 @@ port records, with the reference's names, descriptions and buckets
 (``TTFT_BUCKETS``, ``TPOT_BUCKETS``, ``BATCH_BUCKETS`` and the step
 ledger's ``STEP_SECONDS_BUCKETS``): the engines' series, the executor's
 capture counters, the page pool's, the step ledger's, the card memory's,
-the stall gauge, the SLO goodput and the utilization gauges.
+the stall gauge, the SLO goodput and the utilization gauges, the reset,
+replay, quarantine and breaker series of crash-only serving, and the
+incident, burn-rate and alert series of the incident plane.
 ``app_tpu_compile_disk_hits`` is registered and stays 0: a CUDA graph is
-captured per process and has no disk cache. Waiting: the reset, replay and
-breaker series (ROADMAP A11e), the incident, burn-rate and alert series
-(A11d).
+captured per process and has no disk cache.
 
 ``device_memory_stats`` / ``refresh_memory_metrics`` are the reference's
 ``TPUClient.memory_stats`` / ``refresh_memory_metrics`` for one card:
@@ -66,9 +66,24 @@ COUNTERS = (
     ("app_tpu_spec_drafted_total", "speculative draft tokens proposed"),
     ("app_tpu_spec_accepted_total", "speculative draft tokens accepted"),
     ("app_tpu_page_waits_total", "admissions deferred on page-pool exhaustion"),
+    # crash-only recovery (tpu/faults.py and the engine's replay)
+    ("app_tpu_device_resets_total",
+     "device-state resets after a failed donated-cache program"),
+    ("app_tpu_request_replays_total",
+     "interrupted requests requeued for replay after a device reset"),
+    ("app_tpu_replayed_tokens_total",
+     "already-delivered tokens re-prefilled by replay admissions"),
+    ("app_tpu_requests_quarantined_total",
+     "poison requests failed after repeatedly reset-looping the engine"),
     ("app_tpu_step_stragglers_total",
      "engine steps flagged slower than the rolling per-phase "
      "baseline, by dominant-segment cause"),
+    # the incident plane (tpu/incidents.py)
+    ("app_tpu_incidents_total",
+     "incident evidence bundles captured, by trigger"),
+    ("app_tpu_incidents_suppressed_total",
+     "incident triggers suppressed by the capture rate limit "
+     "(cooldown / max-per-hour), by trigger"),
     ("app_obs_dropped_metrics_total",
      "metric recordings swallowed by best-effort hooks, by metric "
      "name (a non-zero series is a wiring bug)"),
@@ -90,6 +105,12 @@ GAUGES = (
     ("app_tpu_slo_tpot_goodput",
      "fraction of recent requests meeting the TPOT target "
      "(flight recorder rolling window)"),
+    ("app_tpu_slo_burn_rate",
+     "SLO error-budget burn rate (error rate / budget) by slo "
+     "and window (fast/slow)"),
+    ("app_tpu_slo_alert_state",
+     "SLO alert state by slo: 0 ok, 1 warn, 2 page "
+     "(both-windows burn rule)"),
     ("app_tpu_device_duty_cycle",
      "fraction of the rolling window the device spent executing "
      "dispatched programs"),
@@ -102,6 +123,8 @@ GAUGES = (
      "HBM bandwidth utilization vs the platform peak, by phase"),
     ("app_tpu_hbm_bytes", "HBM bytes per device (kind=in_use|limit)"),
     ("app_tpu_kv_pool_pages", "KV page-pool occupancy (kind=used|free)"),
+    ("app_tpu_breaker_state",
+     "reset-storm breaker state (0=closed, 1=half_open, 2=open)"),
 )
 HISTOGRAMS = (
     ("app_tpu_ttft_seconds", "time to first token", TTFT_BUCKETS),

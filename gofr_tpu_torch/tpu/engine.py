@@ -34,8 +34,50 @@ named as the reference names it: each decode block
 one launch, on the CPU the eager function. A program's inputs are static
 buffers, typed views into one device block per program, filled before each
 call by one host-to-device copy from a pinned staging ring
-(``_static_inputs``, ``_upload``). A failed dispatch here (a failed capture
-included) fails the requests it carried and the loop keeps serving.
+(``_static_inputs``, ``_upload``).
+
+Crash-only serving (ROADMAP A11e) is the reference's: ``CacheLostError``
+and ``DeviceLostError``; a launch or sync that raises (``_call``, the dense
+decode call, ``_grow_cache``, ``_fetch_host``) raises ``CacheLostError``
+out of the step, and the loop's catch (the stop path's too) goes to
+``_reset_device_state``, which counts the reset, feeds the reset-storm
+breaker (tpu/faults.py), evacuates every active slot and chunk job WITHOUT
+terminating them and ``_replay_or_fail`` requeues each survivor at prompt +
+emitted (``GenerationRequest.resume_tokens``, priority ``min(priority,
+-1)``), bounded by ``retry_budget``, with poison quarantine (the sole
+request in flight across two consecutive resets fails). Admission buckets
+and prefills by ``resume_tokens``, so a replay rebuilds its whole context
+in one admission wave. A host-side failure before a wave's launch (its
+preparation, a failed capture) fails that wave only, as in the reference.
+Where the reference rebuilds its donated device state, the port restores
+it IN PLACE (``_restore_device_state``): a captured CUDA graph reads and
+writes fixed addresses, so the caches, the loop state, the programs'
+static inputs and the generator are kept, the loop state is zeroed and
+the same generator re-seeded (a generator registered with a graph reads
+its seed and offset at each replay), the host structures are rebuilt, and
+every captured program survives; the dense engine keeps its grown cache
+length and its graphs (the reference shrinks it to the smallest bucket).
+A rebuild that raises (a sticky CUDA error poisons the context) counts as
+one more reset and never leaves the loop. The breaker's half-open probe
+(``_breaker_probe``, the reference's ``float(jnp.asarray(1.0) + 1.0)``) is
+one tiny launch and a ``torch.cuda.synchronize()``: on a dead context it
+fails, the breaker stays open, health reads DOWN and ``submit`` sheds with
+``DeviceLostError`` (503), which is the crash-only answer: the process is
+restarted. The fault-injection plane (``self.faults``, None by default)
+hits the reference's sites ``engine.prefill``, ``.decode``, ``.verify``,
+``.chunk``, ``.sync``, ``.cache_grow`` and ``.probe``; an armed raise
+takes the same path as a real failure. ``resets_total``,
+``replays_total``, ``replayed_tokens_total`` and ``quarantined_total``
+count it, with the recorder events ``device_reset``, ``breaker_open``,
+``breaker_closed``, ``breaker_probe_failed``, ``replayed`` and
+``quarantined``; the incident plane (``self.incidents``) is triggered on
+``breaker_open`` and ``quarantine`` and fed straggler streaks, and the
+capacity meter (``self.meter``) is charged each synced batch at
+``_finish_step``. Terminal teardown (span end, recorder record, meter,
+the client's final None) runs on the bounded ``llm-finisher`` thread
+(``_Finisher``, ``finisher_queue``; 0 or a full queue: inline), in the
+reference's order: tokens, then None, and ``result()`` returning means the
+recorder holds the record; ``stop`` drains it.
 
 The observability planes (ROADMAP A11c) are the reference's, at its sites:
 
@@ -72,9 +114,7 @@ The observability planes (ROADMAP A11c) are the reference's, at its sites:
     ``draining`` from ``drain()``;
   * ``app_tpu_tokens_per_second`` over a 5 s window of synced tokens.
 
-Waiting: QoS, fault injection, replay after a reset and the reset-storm
-breaker, the off-loop finisher (ROADMAP A11e), disaggregated hand-off and
-migration (A11f).
+Waiting: QoS (ROADMAP A11e), disaggregated hand-off and migration (A11f).
 
 Speculative decoding and chunked prefill (ROADMAP A10) are the reference's:
 ``spec_accept_epilogue`` (shared with the paged engine), the SPEC_* class
@@ -206,6 +246,27 @@ class EngineDrainingError(RuntimeError):
         super().__init__("engine draining: not accepting new requests")
 
 
+class CacheLostError(RuntimeError):
+    """A program failed at its launch or its sync: the device state it was
+    updating in place may be half-written, so the engine must restore its
+    device state before serving again (_reset_device_state)."""
+
+
+class DeviceLostError(RuntimeError):
+    """Submitted while the reset-storm breaker is open: the device reset
+    repeatedly inside the storm window and the engine refuses work until a
+    half-open probe proves it sane. 503 duck-typed like the other sheds;
+    retry_after_s carries the breaker's remaining cooldown."""
+
+    status_code = 503
+
+    def __init__(self, retry_after_s: float = 1.0):
+        self.retry_after_s = float(retry_after_s)
+        super().__init__(
+            f"device lost: reset-storm breaker open; retry in "
+            f"{self.retry_after_s:.1f}s or on another backend")
+
+
 class EngineStalledError(RuntimeError):
     """Submitted while the engine loop is stuck inside one device call
     past ``STALL_REJECT_S``. The server answers 503 at once (status_code
@@ -266,6 +327,22 @@ class GenerationRequest:
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
         self.generated = 0
+        # every token already delivered, in order: the replay ledger. After
+        # a device reset the request re-admits with prompt + emitted as its
+        # window and the rest of its budget, so no position is re-emitted
+        # or dropped; len(emitted) == generated always
+        self.emitted: List[int] = []
+        # reset re-admissions consumed (bounded by the engine's
+        # retry_budget; crossing it fails the request)
+        self.replays = 0
+
+    @property
+    def resume_tokens(self) -> List[int]:
+        """The admission window: the prompt, plus the delivered tokens on
+        a replay after a reset."""
+        if not self.emitted:
+            return self.prompt_tokens
+        return self.prompt_tokens + self.emitted
 
     def cancel(self) -> None:
         self.cancelled.set()
@@ -324,6 +401,65 @@ class _Slot:
     @property
     def active(self) -> bool:
         return self.request is not None
+
+
+class _Finisher:
+    """Bounded off-loop worker for terminal-slot teardown (the
+    reference's). Each job is a zero-argument callable whose inputs were
+    captured on the loop thread. Jobs run FIFO on one ``llm-finisher``
+    thread, and a request's job is made after its tokens were enqueued, so
+    a client sees tokens, then None, and a returned ``result()`` means the
+    recorder holds the record. A full queue (or a dead worker) makes
+    submit() return False and the caller runs the job inline: jobs are
+    never dropped. close() drains what is queued, bounded by its
+    timeout."""
+
+    def __init__(self, maxsize: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, int(maxsize)))
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def submit(self, job) -> bool:
+        try:
+            self._q.put_nowait(job)
+        except queue.Full:
+            return False
+        if self._thread is None or not self._thread.is_alive():
+            with self._lock:
+                if self._thread is None or not self._thread.is_alive():
+                    self._thread = threading.Thread(
+                        target=self._run, name="llm-finisher", daemon=True)
+                    self._thread.start()
+        return True
+
+    def _run(self) -> None:
+        while True:
+            job = self._q.get()
+            if job is None:   # close()'s sentinel, after the queue's jobs
+                return
+            try:
+                job()
+            except Exception:  # noqa: BLE001 - teardown is best-effort;
+                pass           # the worker must not die
+
+    def close(self, timeout_s: float = 10.0) -> None:
+        """Drain the queued jobs, then stop the worker (the engine loop is
+        joined: nothing new races the sentinel)."""
+        thread = self._thread
+        if thread is None or not thread.is_alive():
+            while True:   # no worker: run the backlog inline
+                try:
+                    job = self._q.get_nowait()
+                except queue.Empty:
+                    return
+                if job is None:
+                    continue
+                try:
+                    job()
+                except Exception:  # noqa: BLE001
+                    pass
+        self._q.put(None)
+        thread.join(timeout=timeout_s)
 
 
 def _admission_split(n: int, cap: int) -> List[int]:
@@ -391,7 +527,11 @@ class LLMEngine:
     pipeline_depth: dispatches kept in flight (the reference's default 4).
     async_d2h: start each dispatch's device-to-host token copy at enqueue
     time. sampling_controls: per-request top_p / top_k ([B, 3] row
-    controls; see the module docstring)."""
+    controls; see the module docstring). retry_budget: replays a request
+    may take after device resets; reset_storm_max / reset_storm_window_s /
+    breaker_cooldown_s: the reset-storm breaker (tpu/faults.py); faults: a
+    FaultPlane, or None; finisher_queue: the off-loop finisher's bound (0:
+    teardown inline)."""
 
     STOP_JOIN_S = 30.0
     # the stall watchdog: a loop stuck this long inside one device call
@@ -420,7 +560,11 @@ class LLMEngine:
                  budget_bytes: Optional[int] = None,
                  speculative_tokens: int = 0, chunk_prefill_tokens: int = 0,
                  device=None, metrics=None, tracer=None,
-                 logger: Optional[Logger] = None):
+                 logger: Optional[Logger] = None, retry_budget: int = 2,
+                 reset_storm_max: int = 3,
+                 reset_storm_window_s: float = 60.0,
+                 breaker_cooldown_s: float = 5.0, faults=None,
+                 finisher_queue: int = 256):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -544,6 +688,8 @@ class LLMEngine:
         self._post_hoc_lock = threading.Lock()
         self._post_hoc = None
         self._seed = seed
+        # the generator's seed at boot, then one more at each reset
+        self._reset_counter = itertools.count(seed)
         self.slots = [_Slot() for _ in range(self.n_slots)]
         # arrivals (thread-safe) and the loop-owned admission heap of
         # (priority, id, request): requests parked on a subclass resource
@@ -632,6 +778,35 @@ class LLMEngine:
         self.chunk_jobs = 0
         self.chunk_swaps = 0
         self.chunk_swap_bytes = 0
+        # the fault-injection plane (tpu/faults.py): None in production,
+        # every site one attribute check; the incident plane
+        # (tpu/incidents.py) and the capacity meter (tpu/meter.py): None
+        # until App.enable_incident_autopsy / enable_capacity. _meter_rows
+        # stages one sync's rows until _finish_step charges them
+        self.faults = faults
+        self.incidents = None
+        self.meter = None
+        self._meter_rows = None
+        # crash-only recovery: replay after a reset and the reset-storm
+        # breaker (the module docstring)
+        from .faults import ResetStormBreaker
+
+        self.retry_budget = max(0, int(retry_budget))
+        self.breaker = ResetStormBreaker(max_resets=reset_storm_max,
+                                         window_s=reset_storm_window_s,
+                                         cooldown_s=breaker_cooldown_s)
+        # (request id, consecutive resets) while that request was the SOLE
+        # work in flight: two in a row quarantine it
+        self._sole_reset_id: Optional[int] = None
+        self._sole_reset_streak = 0
+        # recovery evidence (loop-thread writes)
+        self.resets_total = 0
+        self.replays_total = 0
+        self.replayed_tokens_total = 0
+        self.quarantined_total = 0
+        # terminal teardown off the loop (finisher_queue=0: inline)
+        self._finisher: Optional[_Finisher] = (
+            _Finisher(finisher_queue) if finisher_queue > 0 else None)
         self._init_device_state()
         if self._stream is not None:   # the state was made on the default one
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -664,7 +839,7 @@ class LLMEngine:
         self._positions = torch.zeros((B,), dtype=torch.long, device=dev)
         self._temps = self._temps_init(B)
         self.generator = torch.Generator(device=dev)
-        self.generator.manual_seed(self._seed)
+        self.generator.manual_seed(next(self._reset_counter))
 
     def _temps_init(self, rows: int) -> torch.Tensor:
         """Zeroed per-row sampling state: [rows] temperatures, or [rows, 3]
@@ -682,8 +857,16 @@ class LLMEngine:
                       1 << (max(needed, 16) - 1).bit_length())
         if new_len <= self._cache_len:
             return
-        with self.steps.seg("cache_grow"):
-            self._grow_cache_to(new_len)
+        try:
+            with self.steps.seg("cache_grow"):
+                if self.faults is not None:
+                    self.faults.hit("engine.cache_grow")
+                self._grow_cache_to(new_len)
+        except Exception as exc:
+            # the copy was under way on the caches the programs update: a
+            # device-state loss, not a host failure of one wave
+            raise CacheLostError(
+                f"cache growth to {new_len} failed: {exc}") from exc
         if self.recorder is not None:
             self.recorder.record_engine_event("cache_grow", new_len=new_len)
 
@@ -727,18 +910,18 @@ class LLMEngine:
     # -- programs -------------------------------------------------------------
     def _prep_admission(self, bucket: int, batch: List[GenerationRequest],
                         starts: Optional[Sequence[int]] = None):
-        """The host arrays of one fused admission: [K, bucket] int64 prompt
+        """The host arrays of one fused admission: [K, bucket] int64 window
         tokens, [K] int32 lengths, [K] f32 temperatures ([K, 3] f32 row
-        controls under sampling_controls). starts: per row,
-        the first prompt position the window holds (a prefix hit's tail;
-        default 0); lengths are the full prompts'. The step ledger's
-        host_prep."""
+        controls under sampling_controls). The windows are resume_tokens: a
+        replayed request rebuilds its whole context. starts: per row, the
+        first position the window holds (a prefix hit's tail; default 0);
+        lengths are the full windows'. The step ledger's host_prep."""
         with self.steps.seg("host_prep"):
             ptokens = np.zeros((len(batch), bucket), dtype=np.int64)
             for row, request in enumerate(batch):
-                window = request.prompt_tokens[starts[row] if starts else 0:]
+                window = request.resume_tokens[starts[row] if starts else 0:]
                 ptokens[row, :len(window)] = window
-            lengths = np.asarray([len(r.prompt_tokens) for r in batch],
+            lengths = np.asarray([len(r.resume_tokens) for r in batch],
                                  dtype=np.int32)
             if self.sampling_controls:
                 temps = pack_controls([r.temperature for r in batch],
@@ -1071,14 +1254,13 @@ class LLMEngine:
         if need > self._cache_len:
             self._grow_cache(need)
         return self._call(self._verify_program(self._row_filter_now()),
-                          (drafts, lens))
+                          (drafts, lens), "engine.verify")
 
     def _dispatch_verify(self) -> None:
         """Propose drafts for the greedy rows and dispatch one verify, its
         D2H started. With no draft at all, a block decode goes instead (a
         verify would be an unpipelined one-token step); two such rounds in
-        a row cool speculation off. A failure at dispatch fails the rows it
-        carried."""
+        a row cool speculation off."""
         d, B = self.speculative_tokens, self.n_slots
         drafts = np.zeros((B, d), dtype=np.int64)
         lens = np.zeros((B,), dtype=np.int32)
@@ -1111,14 +1293,8 @@ class LLMEngine:
         self._spec_no_draft_streak = 0
         self.steps.note_dispatch("verify")
         started = time.monotonic()
-        try:
-            fetch = self._start_d2h(self._verify_call(drafts, lens))
-        except Exception as exc:  # noqa: BLE001 - fail the rows, keep serving
-            self.logger.errorf("verify dispatch failed: %s", exc)
-            for i, request, _ in snapshot:
-                request.error = exc
-                self._finish_slot(self.slots[i])
-            return
+        # a failure raises out of the step: the loop resets and replays
+        fetch = self._start_d2h(self._verify_call(drafts, lens))
         self.verify_dispatches += 1
         self.spec_drafted += int(lens.sum())
         self._obs.counter("app_tpu_spec_drafted_total", float(lens.sum()))
@@ -1252,7 +1428,8 @@ class LLMEngine:
         its first chunk is dispatched now (its parking lands before any
         later decode block), its slots are reserved and the job queued;
         _advance_chunk_job runs the rest, one chunk per loop iteration. A
-        failure at the first dispatch fails this wave only."""
+        host-side failure before the first launch fails this wave only; a
+        failed launch raises CacheLostError (the loop resets)."""
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
         job = {"batch": batch, "slots_idx": slots_idx, "bucket": bucket,
                "chunk": self.chunk_prefill_tokens, "next_start": 0,
@@ -1261,6 +1438,9 @@ class LLMEngine:
                "extra": self._chunk_extra(bucket, batch)}
         try:
             self._dispatch_chunk(job)
+        except CacheLostError:
+            self._release_chunk_state(job)
+            raise
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
             self.logger.errorf("chunked admission of %d failed: %s",
                                len(batch), exc)
@@ -1290,7 +1470,8 @@ class LLMEngine:
     def _advance_chunk_job(self) -> None:
         """Dispatch ONE chunk of the oldest job (decode blocks fill the
         pipeline between calls, which is the point); a job whose requests
-        were all cancelled is dropped, a failed dispatch fails its job."""
+        were all cancelled is dropped. A failure raises out of the step
+        with the job still queued: the reset replays its requests."""
         if not self._chunk_jobs:
             return
         job = self._chunk_jobs[0]
@@ -1298,13 +1479,7 @@ class LLMEngine:
             self._chunk_jobs.popleft()
             self._abort_chunk_job(job, None)
             return
-        try:
-            final = self._dispatch_chunk(job)
-        except Exception as exc:  # noqa: BLE001 - fail the job, keep serving
-            self.logger.errorf("chunk dispatch failed: %s", exc)
-            self._chunk_jobs.popleft()
-            self._abort_chunk_job(job, exc)
-            return
+        final = self._dispatch_chunk(job)
         if final:
             self._chunk_jobs.popleft()
             self._finish_chunk_job(job)
@@ -1352,7 +1527,7 @@ class LLMEngine:
             job["ptokens"][:, start:start + chunk], positions, *job["extra"],
             np.asarray([start], dtype=np.int64),
             np.asarray(job["slots_idx"], np.int64), job["lengths"],
-            job["new_temps"]))
+            job["new_temps"]), "engine.chunk")
         self.chunk_dispatches += 1
         job["next_start"] = start + chunk
         if self.recorder is not None:
@@ -1466,14 +1641,24 @@ class LLMEngine:
         block.copy_(buf[:block.numel()], non_blocking=True)
         done.record(self._stream)
 
-    def _call(self, program, arrays: Sequence[np.ndarray]) -> torch.Tensor:
+    def _call(self, program, arrays: Sequence[np.ndarray],
+              site: Optional[str] = None) -> torch.Tensor:
         """Fill `program`'s static inputs from host `arrays` and run it;
         returns its output, which its next call overwrites (_bind_slots and
         _dispatch_decode start its copy out before anything else is
-        dispatched). The step ledger's dispatch."""
+        dispatched). The step ledger's dispatch. site: the fault plane's
+        site of this dispatch (engine.prefill, ...). A failed upload or
+        launch raises CacheLostError."""
         with self.steps.seg("dispatch"):
-            self._upload(program.inputs, arrays)
-            return program()
+            try:
+                if site is not None and self.faults is not None:
+                    self.faults.hit(site)
+                self._upload(program.inputs, arrays)
+                return program()
+            except Exception as exc:
+                raise CacheLostError(
+                    f"{(site or program.name).rpartition('.')[2]} dispatch "
+                    f"failed: {exc}") from exc
 
     def _start_d2h(self, out: torch.Tensor):
         """Start a dispatch output's copy to the host at enqueue time (the
@@ -1517,7 +1702,7 @@ class LLMEngine:
         program = self._prefill_program(bucket, len(batch), slots_idx)
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
         return self._call(program, (ptokens, np.asarray(slots_idx, np.int64),
-                                    lengths, temps))
+                                    lengths, temps), "engine.prefill")
 
     def _run_decode(self, block: int) -> torch.Tensor:
         """Dispatch one `block`-step decode program over the dense caches
@@ -1528,16 +1713,23 @@ class LLMEngine:
             self._grow_cache(need)
         program = self._decode_program(block, self._row_filter_now())
         with self.steps.seg("dispatch"):
-            return program()
+            try:
+                if self.faults is not None:
+                    self.faults.hit("engine.decode")
+                return program()
+            except Exception as exc:
+                raise CacheLostError(f"decode dispatch failed: {exc}") \
+                    from exc
 
     def _admission_ready(self, request: GenerationRequest) -> bool:
         return True
 
     def _admission_bucket(self, request: GenerationRequest) -> int:
-        """The prefill bucket a request admits under: its prompt's. The
-        paged engine overrides it to the un-cached tail's bucket on a
-        prefix hit."""
-        return next_bucket(len(request.prompt_tokens), self.prefill_buckets)
+        """The prefill bucket a request admits under: its resume_tokens'
+        (the prompt, plus the delivered tokens on a replay). The paged
+        engine overrides it to the un-cached tail's bucket on a prefix
+        hit."""
+        return next_bucket(len(request.resume_tokens), self.prefill_buckets)
 
     def _tail_only(self, batch: List[GenerationRequest]) -> bool:
         """True when the wave prefills only un-cached tails (the paged
@@ -1585,10 +1777,14 @@ class LLMEngine:
         DEGRADED with ``stall_seconds`` once it stalls past STALL_REJECT_S
         (already-dispatched work could still complete, and a load balancer
         should stop routing here either way), DOWN when the loop is not
-        running."""
+        running or the reset-storm breaker is open or half-open (with its
+        snapshot: the probe, not routed traffic, decides recovery)."""
         details = {"active_slots": sum(1 for s in self.slots if s.active),
                    "queue_depth": self.queue_depth()}
         if self._thread is None or not self._thread.is_alive():
+            return Health(status=STATUS_DOWN, details=details)
+        if self.breaker.blocked():
+            details["breaker"] = self.breaker.snapshot()
             return Health(status=STATUS_DOWN, details=details)
         stall = self._stall_over_threshold()
         if stall:
@@ -1619,6 +1815,12 @@ class LLMEngine:
                 self.recorder.record_engine_event("stall_shed",
                                                   stall_s=round(stall, 1))
             raise EngineStalledError(stall)
+        retry_after = self.breaker.reject_for()
+        if retry_after is not None:
+            if self.recorder is not None:
+                self.recorder.record_engine_event(
+                    "breaker_shed", state=self.breaker.state)
+            raise DeviceLostError(retry_after)
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
         if (top_p or top_k) and not self.sampling_controls:
@@ -1647,6 +1849,9 @@ class LLMEngine:
         if self.recorder is not None:   # after gen_span: it carries the
             self.recorder.record_enqueued(request)   # inbound trace ids
         self._obs.counter("app_tpu_requests_total")
+        if self.meter is not None:
+            # the forecaster's arrival stamp (thread-safe, best-effort)
+            self.meter.note_arrival(request)
         self._pending.put((request.priority, request.id, request))
         if self._stop.is_set():
             # stop() may have drained _pending between the check above and
@@ -1718,6 +1923,11 @@ class LLMEngine:
                 return
             self._thread = None
         self._drain_pending(RuntimeError("engine stopped"))
+        if self._finisher is not None:
+            # the loop is joined, so its last finish jobs are queued: run
+            # them before returning (a wedged loop returned above and keeps
+            # the finisher for itself)
+            self._finisher.close()
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful shutdown, phase 1: stop admitting (submit raises
@@ -1749,11 +1959,15 @@ class LLMEngine:
             synced = False
             try:
                 synced = self._step()
-            except Exception:  # noqa: BLE001 - the loop must keep serving
+            except Exception as exc:  # noqa: BLE001 - reset, keep serving
                 # a step that died mid-flight must not feed the baselines
                 self.steps.step_abort()
-                self.logger.errorf("engine step failed: %s",
-                                   traceback.format_exc())
+                # a failed launch or sync is the expected failure: its
+                # message says where; anything else gets its traceback
+                self.logger.errorf("engine step failed: %s", exc
+                                   if isinstance(exc, CacheLostError)
+                                   else traceback.format_exc())
+                self._reset_device_state(exc)
             # the step closed before this park: the wait is the next
             # step's idle_gap, not this one's wall
             if not synced and not self._inflight and not self._chunk_jobs:
@@ -1765,9 +1979,10 @@ class LLMEngine:
             while self._inflight:
                 try:
                     self._sync_oldest()
-                except Exception:  # noqa: BLE001 - fail the rest below
+                except Exception as exc:  # noqa: BLE001
                     self.logger.errorf("engine sync failed at stop: %s",
                                        traceback.format_exc())
+                    self._reset_device_state(exc)
         stop_exc = RuntimeError("engine stopped")
         while self._chunk_jobs:   # mid-prefill requests must not block
             self._abort_chunk_job(self._chunk_jobs.popleft(), stop_exc)
@@ -1777,7 +1992,8 @@ class LLMEngine:
                 self._finish_slot(slot)
 
     def _step(self) -> bool:
-        """One loop iteration in the reference's order: admit; advance the
+        """One loop iteration in the reference's order: the breaker's
+        half-open probe when its cooldown is over; admit; advance the
         oldest chunk job by one chunk; then, while speculation is not
         cooling off, one verify, only when no verify or decode is in flight
         (drafts come from host state that must not lag the device);
@@ -1792,6 +2008,8 @@ class LLMEngine:
         host_t0 = time.monotonic()
         synced = False
         with torch.no_grad(), self._stream_ctx():
+            if self.breaker.probe_due():
+                self._breaker_probe()
             with steps.seg("admission"):
                 self._admit()
             self._advance_chunk_job()
@@ -1833,17 +2051,31 @@ class LLMEngine:
 
     @loop_only
     def _finish_step(self) -> None:
-        """Close the step ledger's record; a flagged straggler becomes a
-        flight-recorder engine event carrying its dominant segment."""
+        """Close the step ledger's record; charge the capacity meter with
+        the batch this step synced (its measured device segments, so the
+        attribution conserves against /debug/steps); a flagged straggler
+        becomes a flight-recorder engine event carrying its dominant
+        segment, and feeds the incident plane's streak count."""
         rec = self.steps.step_end(
             active_slots=sum(1 for s in self.slots if s.active),
             inflight=len(self._inflight), queue_depth=self.queue_depth())
-        if rec is not None and rec.straggler and self.recorder is not None:
-            self.recorder.record_engine_event(
-                "step_straggler", step=rec.seq, phase=rec.phase,
-                wall_s=round(rec.wall_s, 6), cause=rec.cause,
-                baseline_s=round(rec.baseline_s or 0.0, 6),
-                request_id=rec.slowest_request_id)
+        staged, self._meter_rows = self._meter_rows, None
+        if self.meter is not None and staged is not None and rec is not None:
+            phase, rows, queued = staged
+            self.meter.account_step(rec, phase, rows, queued)
+        if rec is not None and rec.straggler:
+            if self.recorder is not None:
+                self.recorder.record_engine_event(
+                    "step_straggler", step=rec.seq, phase=rec.phase,
+                    wall_s=round(rec.wall_s, 6), cause=rec.cause,
+                    baseline_s=round(rec.baseline_s or 0.0, 6),
+                    request_id=rec.slowest_request_id)
+            if self.incidents is not None:
+                # a streak of flagged steps, not one, is an incident
+                self.incidents.note_straggler(
+                    step=rec.seq, phase=rec.phase, cause=rec.cause,
+                    wall_s=round(rec.wall_s, 6),
+                    request_id=rec.slowest_request_id)
 
     def _is_cancelled(self, request: GenerationRequest) -> bool:
         return request.cancelled.is_set()
@@ -1851,10 +2083,14 @@ class LLMEngine:
     def _admit(self) -> None:
         """Fuse pending requests into batched prefill dispatches, one per
         (bucket, K) group, while free slots last; while draining, fail
-        every queued request with EngineDrainingError instead."""
+        every queued request with EngineDrainingError instead. While the
+        breaker is open or half-open nothing admits: queued and replayed
+        requests stay parked until the probe closes it."""
         with self._state_lock:
             if self._draining:
                 self._drain_pending(EngineDrainingError())
+                return
+            if self.breaker.blocked():
                 return
             self._admit_locked()
 
@@ -1888,16 +2124,28 @@ class LLMEngine:
             by_bucket.setdefault(self._admission_bucket(request),
                                  []).append(request)
         free_iter = iter(free)
-        for bucket, group in by_bucket.items():
-            offset = 0
-            for K in _admission_split(len(group), self.n_slots):
-                batch = group[offset:offset + K]
-                offset += K
-                slots_idx = [next(free_iter) for _ in batch]
-                if self._chunked(bucket):
-                    self._start_chunk_job(bucket, slots_idx, batch)
-                else:
-                    self._prefill(bucket, slots_idx, batch)
+        dispatched: Set[int] = set()
+        try:
+            for bucket, group in by_bucket.items():
+                offset = 0
+                for K in _admission_split(len(group), self.n_slots):
+                    batch = group[offset:offset + K]
+                    offset += K
+                    slots_idx = [next(free_iter) for _ in batch]
+                    if self._chunked(bucket):
+                        self._start_chunk_job(bucket, slots_idx, batch)
+                    else:
+                        self._prefill(bucket, slots_idx, batch)
+                    dispatched.update(r.id for r in batch)
+        except Exception as exc:
+            # requests that reached no dispatch are in no queue and no
+            # slot: fail them here (the dispatched ones hold slots and
+            # replay through the reset), as the reference does
+            for request in taken:
+                if request.id not in dispatched:
+                    self._abort_admission(request)
+                    self._fail_request(request, exc)
+            raise
         self._obs.gauge("app_tpu_queue_depth", self.queue_depth())
         self._obs.gauge("app_tpu_active_slots",
                         sum(1 for s in self.slots if s.active))
@@ -1905,15 +2153,18 @@ class LLMEngine:
     def _prefill(self, bucket: int, slots_idx: List[int],
                  batch: List[GenerationRequest]) -> None:
         """One fused prefill dispatch: bind the slots and their pages now;
-        the first tokens are emitted at its sync. A failure at dispatch
-        fails this wave only."""
+        the first tokens are emitted at its sync. A host-side failure
+        before the launch (preparation, a capture) fails this wave only; a
+        failed launch raises CacheLostError out of the step."""
         tail_only = self._tail_only(batch)
         self.steps.note_dispatch("prefill")
         try:
             first = self._dispatch_prefill(bucket, slots_idx, batch)
+        except CacheLostError:
+            raise   # device state suspect: the loop resets
         except Exception as exc:  # noqa: BLE001 - fail the wave, keep serving
-            self.logger.errorf("prefill wave of %d failed: %s", len(batch),
-                               exc)
+            self.logger.errorf("prefill wave of %d failed pre-dispatch: %s",
+                               len(batch), exc)
             for request in batch:
                 self._abort_admission(request)
                 self._fail_request(request, exc)
@@ -1945,9 +2196,10 @@ class LLMEngine:
     def _bind_slots(self, slots_idx: List[int],
                     batch: List[GenerationRequest], first, bucket: int,
                     chunked: bool = False) -> None:
-        """Bind a dispatched wave's rows to their slots (length: the prompt,
-        whose KV the wave writes; remaining: the budget past the first
-        token) and queue it for sync, its D2H started. Records each row's
+        """Bind a dispatched wave's rows to their slots (length: the
+        window, prompt plus delivered tokens, whose KV the wave writes;
+        remaining: the budget past the next token, so a replay resumes with
+        what it has left) and queue it for sync, its D2H started. Records each row's
         queue wait (a chunk job's rows were stamped at their first chunk)
         and stamps the wave on the requests' spans."""
         fetch = self._start_d2h(first)
@@ -1965,8 +2217,8 @@ class LLMEngine:
                                now - request.enqueued_at)
             slot = self.slots[slots_idx[row]]
             slot.request = request
-            slot.length = len(request.prompt_tokens)
-            slot.remaining = request.max_new_tokens - 1
+            slot.length = len(request.resume_tokens)
+            slot.remaining = request.max_new_tokens - request.generated - 1
             for span in (request.span, request.gen_span):
                 if span is not None:
                     span.set_attribute("batch.id", batch_id)
@@ -2003,20 +2255,13 @@ class LLMEngine:
 
     def _dispatch_decode(self) -> None:
         """Dispatch one decode block over the active rows, its D2H started.
-        A failure at dispatch fails the rows it carried."""
+        A failure raises out of the step (the loop resets and replays)."""
         block = self._decode_block_now()
         snapshot = [(i, slot.request) for i, slot in enumerate(self.slots)
                     if slot.active]
         self.steps.note_dispatch("decode")
         started = time.monotonic()
-        try:
-            fetch = self._start_d2h(self._run_decode(block))
-        except Exception as exc:  # noqa: BLE001 - fail the block, keep serving
-            self.logger.errorf("decode block failed: %s", exc)
-            for i, request in snapshot:
-                request.error = exc
-                self._finish_slot(self.slots[i])
-            return
+        fetch = self._start_d2h(self._run_decode(block))
         self.decode_steps += block
         self.decode_blocks += 1
         dspan = self._dispatch_span("tpu.decode", next(self._batch_seq),
@@ -2029,23 +2274,23 @@ class LLMEngine:
         tokens, a decode block demuxed per row, or a verify's accepted
         tokens demuxed per row (then the acceptance EMA). Rows whose slot
         was freed or re-bound since the dispatch are skipped. The metrics
-        of the sync are recorded here (the module docstring)."""
+        of the sync are recorded here (the module docstring). A failed
+        sync raises CacheLostError (the loop resets and replays)."""
+        if self.faults is not None:
+            # sync-site chaos: latency (delay rules) or a failure (raise)
+            with self.steps.seg("device_sync"):
+                self.faults.hit("engine.sync")
         kind, fetch, rows, block, *stamp = self._inflight.popleft()
         started, dspan = stamp if stamp else (None, None)
         sync_t0 = time.monotonic()
         try:
             with self.steps.seg("device_sync"):
                 tokens_host = self._fetch_host(fetch)
-        except Exception as exc:  # noqa: BLE001 - fail its rows, keep serving
-            self.logger.errorf("%s dispatch failed at sync: %s", kind, exc)
+        except Exception as exc:
             if dspan is not None:
                 dspan.set_status(False, str(exc))
                 dspan.end()
-            for i, request, *_ in rows:
-                if self.slots[i].request is request:
-                    request.error = exc
-                    self._finish_slot(self.slots[i])
-            return
+            raise CacheLostError(f"{kind} execution failed: {exc}") from exc
         if dspan is not None:
             dspan.end()
         synced = time.monotonic()
@@ -2054,15 +2299,25 @@ class LLMEngine:
         elapsed = synced - started
         if kind == "prefill":
             self.util.record_prefill(
-                tokens=sum(len(r.prompt_tokens) for _, r in rows),
+                tokens=sum(len(r.resume_tokens) for _, r in rows),
                 dispatched_at=started, synced_at=synced,
                 sync_wait_s=synced - sync_t0)
-            # the step's cost driver: the wave's longest prompt
-            slowest = max(rows, key=lambda e: len(e[1].prompt_tokens),
+            # what sets the step's cost: the wave's longest window
+            slowest = max(rows, key=lambda e: len(e[1].resume_tokens),
                           default=(None, None))[1]
             self.steps.note_sync(
                 "prefill", tokens=len(rows),
                 slowest_request_id=slowest.id if slowest else None)
+            if self.meter is not None:
+                # staged for _finish_step: every dispatched row is billed
+                # (a cancel after dispatch still used the card), and rows
+                # awaiting their first token carry their queue wait
+                self._meter_rows = (
+                    "prefill",
+                    [(r, len(r.resume_tokens), len(r.resume_tokens))
+                     for _, r in rows],
+                    [(r, started - r.enqueued_at) for _, r in rows
+                     if r.first_token_at is None])
             n_first = 0
             for row, (slot_idx, request) in enumerate(rows):
                 slot = self.slots[slot_idx]
@@ -2077,7 +2332,8 @@ class LLMEngine:
                                    exemplar=self._exemplar_of(request))
                 token = int(tokens_host[row])
                 if self.speculative_tokens:
-                    slot.history = list(request.prompt_tokens) + [token]
+                    # resume_tokens read before the emit below extends it
+                    slot.history = list(request.resume_tokens) + [token]
                 self._emit_block(request, [token])
                 n_first += 1
                 if (request.hit_stop(token) or slot.remaining <= 0
@@ -2102,6 +2358,12 @@ class LLMEngine:
             sync_wait_s=synced - sync_t0)
         slowest = max(live, key=lambda e: self.slots[e[0]].length,
                       default=(None, None))[1]
+        if self.meter is not None:
+            # block positions per live row, whatever the demux emits (a
+            # stop truncates emission, not device work); pre-demux context
+            self._meter_rows = (
+                "decode",
+                [(r, block, self.slots[i].length) for i, r in live], None)
         emitted = self._demux(tokens_host, live, [block] * len(live),
                               step_s=elapsed / block)
         if emitted:
@@ -2183,6 +2445,11 @@ class LLMEngine:
                        if e and self.slots[i].request is r)
         slowest = max(live, key=lambda e: self.slots[e[0]].length,
                       default=(None, None))[1]
+        if self.meter is not None:
+            # d + 1 positions scored per live row, pre-demux context
+            self._meter_rows = (
+                "verify",
+                [(r, d + 1, self.slots[i].length) for i, r in live], None)
         self._obs.hist("app_tpu_execute_seconds", elapsed)
         limits = [int(n_emit[i]) for i, _ in live]
         accepted = sum(max(0, n - 1) for n in limits)
@@ -2228,6 +2495,7 @@ class LLMEngine:
         if not tokens:
             return
         request.generated += len(tokens)
+        request.emitted.extend(tokens)   # the replay ledger, before the put
         request.out_queue.put(tokens[0] if len(tokens) == 1 else tokens)
 
     def _demux_plan(self, tokens_host, rows: List[int],
@@ -2313,10 +2581,23 @@ class LLMEngine:
             with self._stream_ctx():
                 self._temps[idx] = 0.0
             self._filter_rows.discard(idx)
-        self._obs.gauge("app_tpu_active_slots",
-                        sum(1 for s in self.slots if s.active))
-        if request is not None:
-            request.finished_at = time.monotonic()
+        if request is None:
+            self._obs.gauge("app_tpu_active_slots",
+                            sum(1 for s in self.slots if s.active))
+            return
+        # stamped here, not in the job: _fail_request's double-finish guard
+        # reads it on the loop thread
+        request.finished_at = time.monotonic()
+        # the slow tail (span end, recorder, meter, gauge, the client's
+        # None) runs off the loop, its inputs captured now; the None goes
+        # last, so a returned result() means the recorder holds the record
+        active_now = sum(1 for s in self.slots if s.active)
+        self._run_off_loop(
+            self._finish_request_job(request, reason, active_now))
+
+    def _finish_request_job(self, request: GenerationRequest, reason: str,
+                            active_now: int) -> Callable[[], None]:
+        def job() -> None:
             if request.gen_span is not None:
                 request.gen_span.set_attribute("tpu.tokens",
                                                request.generated)
@@ -2325,7 +2606,19 @@ class LLMEngine:
                 request.gen_span.end()
             if self.recorder is not None:
                 self.recorder.record_finished(request, reason)
+            if self.meter is not None:
+                self.meter.note_finished(request, ok=request.error is None)
+            self._obs.gauge("app_tpu_active_slots", active_now)
             request.out_queue.put(None)
+        return job
+
+    def _run_off_loop(self, job: Callable[[], None]) -> None:
+        """Hand a teardown job to the finisher; run it inline when there is
+        none (finisher_queue=0) or its queue is full. Jobs are never
+        dropped, and a request has one terminal job made after its tokens
+        were enqueued, so the inline fallback keeps its order."""
+        if self._finisher is None or not self._finisher.submit(job):
+            job()
 
     def _fail_request(self, request: GenerationRequest,
                       exc: Optional[BaseException] = None) -> None:
@@ -2345,6 +2638,8 @@ class LLMEngine:
                 request, "error" if request.error is not None
                 else ("cancelled" if request.cancelled.is_set()
                       else "aborted"))
+        if self.meter is not None:
+            self.meter.note_finished(request, ok=request.error is None)
         request.out_queue.put(None)
 
     def _drain_pending(self, exc: BaseException) -> None:
@@ -2358,3 +2653,181 @@ class LLMEngine:
         for _, _, request in entries:
             self._abort_admission(request)
             self._fail_request(request, exc)
+
+    # -- crash-only recovery --------------------------------------------------
+    def _breaker_probe(self) -> None:
+        """The breaker's half-open probe: ONE tiny device round trip
+        decides whether the storm is over (the reference's
+        ``float(jnp.asarray(1.0) + 1.0)``). On the card: one launch and a
+        ``torch.cuda.synchronize()``, which raises on a dead context.
+        Success closes the breaker, failure re-opens it for another
+        cooldown. Runs on the loop thread, so a wedged probe shows as a
+        stall."""
+        try:
+            if self.faults is not None:
+                self.faults.hit("engine.probe")
+            if self.device.type == "cuda":
+                float((torch.ones(1, device=self.device) + 1.0).item())
+                torch.cuda.synchronize(self.device)
+            else:
+                float(torch.ones(1) + 1.0)
+        except Exception as exc:  # noqa: BLE001 - the device is still sick
+            self.breaker.probe_failed()
+            self._obs.gauge("app_tpu_breaker_state", self.breaker.state_code)
+            if self.recorder is not None:
+                self.recorder.record_engine_event("breaker_probe_failed",
+                                                  error=str(exc))
+            self.logger.errorf("breaker half-open probe failed: %s", exc)
+        else:
+            if self.breaker.probe_ok():
+                self._obs.gauge("app_tpu_breaker_state",
+                                self.breaker.state_code)
+                if self.recorder is not None:
+                    self.recorder.record_engine_event("breaker_closed")
+                self.logger.warnf("breaker closed: the device answered the "
+                                  "half-open probe; resuming admission")
+                self._wake.set()
+
+    def _count_reset(self, exc: BaseException) -> None:
+        """One device reset: the counters, the recorder's device_reset, and
+        the breaker (its opening is an incident)."""
+        self.resets_total += 1
+        self._obs.counter("app_tpu_device_resets_total")
+        if self.recorder is not None:
+            self.recorder.record_engine_event("device_reset", error=str(exc))
+        if self.breaker.record_reset():
+            if self.recorder is not None:
+                self.recorder.record_engine_event(
+                    "breaker_open", **self.breaker.snapshot())
+            if self.incidents is not None:
+                # captured off the loop while the evidence is in the rings
+                self.incidents.trigger("breaker_open", error=str(exc),
+                                       breaker=self.breaker.snapshot())
+            self.logger.errorf(
+                "reset storm: %d resets inside %.0fs - breaker OPEN, "
+                "shedding submits until the half-open probe passes",
+                self.breaker.max_resets, self.breaker.window_s)
+        self._obs.gauge("app_tpu_breaker_state", self.breaker.state_code)
+
+    def _reset_device_state(self, exc: BaseException) -> None:
+        """After a failed launch or sync: restore the device state in place
+        and REPLAY the interrupted requests instead of failing them (the
+        reference's ``_reset_device_state``). The host holds each one's
+        prompt and every token it delivered, so the survivors (active
+        slots and chunk jobs) re-admit at prompt + emitted with the rest of
+        their budget: the client's stream pauses, no position is emitted
+        twice or dropped. Bounded by retry_budget, with poison quarantine;
+        every pass counts toward the reset-storm breaker. Never raises: a
+        restore that raises counts as one more reset."""
+        try:
+            self._count_reset(exc)
+            with self._state_lock, torch.no_grad(), self._stream_ctx():
+                # the dispatch spans of the window the failure destroyed
+                for entry in self._inflight:
+                    dspan = entry[5] if len(entry) > 5 else None
+                    if dspan is not None and dspan.end_time is None:
+                        dspan.set_status(False, str(exc))
+                        dspan.end()
+                    if isinstance(entry[1], tuple):
+                        self._host_free.append(entry[1][0])
+                self._inflight.clear()
+                survivors: List[GenerationRequest] = []
+                while self._chunk_jobs:   # nothing emitted yet: replay too
+                    job = self._chunk_jobs.popleft()
+                    for slot_idx in job["slots_idx"]:
+                        self.slots[slot_idx].chunking = None
+                    survivors.extend(job["batch"])
+                for slot in self.slots:
+                    if slot.active:
+                        # evacuated WITHOUT terminating: no None, no span
+                        # end; the request lives on in the replay queue.
+                        # Paged: the allocator is rebuilt wholesale below
+                        survivors.append(slot.request)
+                        slot.request = None
+                        slot.length = 0
+                        slot.remaining = 0
+                        slot.history = None
+                        slot.pages = None
+                try:
+                    self._restore_device_state()
+                except Exception as rexc:  # noqa: BLE001 - a dead context
+                    self.logger.errorf("device state restore failed: %s",
+                                       rexc)
+                    self._count_reset(rexc)
+                self._replay_or_fail(survivors, exc)
+        except Exception:  # noqa: BLE001 - the loop must survive its reset
+            self.logger.errorf("device reset failed: %s",
+                               traceback.format_exc())
+
+    def _restore_device_state(self) -> None:
+        """The reference rebuilds its device state after a reset; here it
+        is restored in place, because every captured graph reads and writes
+        its tensors at fixed addresses: no chunk job's state is resident,
+        no row has controls, the loop state is zeroed and the same
+        generator re-seeded (seed + resets so far), on the engine's stream
+        behind the work in flight. The caches, the programs' static
+        inputs and every captured program are kept; the dense caches keep
+        their grown length. Replayed rows re-prefill what they read."""
+        self._chunk_resident.clear()
+        self._filter_rows.clear()
+        self._tokens.zero_()
+        self._positions.zero_()
+        self._temps.zero_()
+        self.generator.manual_seed(next(self._reset_counter))
+
+    @loop_only
+    def _replay_or_fail(self, survivors: List[GenerationRequest],
+                        exc: BaseException) -> None:
+        """Requeue each reset survivor for replay, or fail it when it is out
+        of budget, poisoned, cancelled or no longer admissible. Under the
+        state lock, after the device state was restored."""
+        if len(survivors) == 1 and self._sole_reset_id == survivors[0].id:
+            self._sole_reset_streak += 1
+        else:
+            self._sole_reset_id = (survivors[0].id if len(survivors) == 1
+                                   else None)
+            self._sole_reset_streak = 1 if self._sole_reset_id else 0
+        for request in survivors:
+            if self._is_cancelled(request):
+                self._fail_request(request)
+                continue
+            if (request.id == self._sole_reset_id
+                    and self._sole_reset_streak >= 2):
+                self.quarantined_total += 1
+                self._obs.counter("app_tpu_requests_quarantined_total")
+                if self.recorder is not None:
+                    self.recorder.record_event(
+                        request.id, "quarantined",
+                        consecutive_sole_resets=self._sole_reset_streak)
+                if self.incidents is not None:
+                    self.incidents.trigger(
+                        "quarantine", request_id=request.id,
+                        consecutive_sole_resets=self._sole_reset_streak)
+                self.logger.errorf(
+                    "request %d quarantined: sole in-flight work across %d "
+                    "consecutive device resets", request.id,
+                    self._sole_reset_streak)
+                self._fail_request(request, exc)
+                continue
+            budget_left = request.max_new_tokens - request.generated
+            if (request.replays >= self.retry_budget or budget_left <= 0
+                    or len(request.resume_tokens) > self.admission_limit):
+                self._fail_request(request, exc)
+                continue
+            request.replays += 1
+            # replays outrank queued arrivals (LOWER admits first, clients
+            # are clamped to >= 0): an interrupted stream resumes first
+            request.priority = min(request.priority, -1)
+            request.admitted_at = None   # stamped again at re-admission
+            self.replays_total += 1
+            self.replayed_tokens_total += len(request.emitted)
+            self._obs.counter("app_tpu_request_replays_total")
+            self._obs.counter("app_tpu_replayed_tokens_total",
+                              float(len(request.emitted)))
+            if self.recorder is not None:
+                self.recorder.record_event(
+                    request.id, "replayed", attempt=request.replays,
+                    replayed_tokens=len(request.emitted))
+            heapq.heappush(self._admission_heap,
+                           (request.priority, request.id, request))
+        self._wake.set()

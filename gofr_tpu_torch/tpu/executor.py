@@ -10,7 +10,9 @@ callback after every cache miss (the engine re-attributes the time to the
 step ledger's ``compile`` segment; the timeline chains it), and, with
 ``metrics`` set, the reference's ``app_tpu_compile_total`` (misses),
 ``app_tpu_compile_cache_hits`` (lookups that found the program) and
-``app_tpu_execute_total`` (calls). The JAX executor compiles one XLA program per name and
+``app_tpu_execute_total`` (calls), and the fault-injection site
+``executor.compile`` (tpu/faults.py), hit at every compile-or-hit lookup
+when a plane is armed (``faults``, None by default). The JAX executor compiles one XLA program per name and
 shape; here a program is, on ``cuda``, a ``torch.cuda.CUDAGraph`` captured
 once per name and replayed, and on ``cpu`` (only ever the tests' explicit
 choice) the eager callable itself.
@@ -165,6 +167,8 @@ class Executor:
         # the compile / cache-hit / execute counters, or None
         self.on_compile: Optional[Callable[[str, float], None]] = None
         self.metrics = None
+        # the fault-injection plane (tpu/faults.py): None in production
+        self.faults = None
 
     @property
     def captured(self) -> bool:
@@ -183,6 +187,8 @@ class Executor:
         where this program is captured and replayed, if not the executor's
         stream (the caller makes it current around the compile and the
         calls)."""
+        if self.faults is not None:   # chaos drills: slow or failed lookups
+            self.faults.hit("executor.compile", name=name)
         with self._lock:
             program = self._cache.get(name)
             if program is not None:

@@ -21,8 +21,10 @@ Every public call is best-effort: one short lock, O(1) work, failures
 swallowed. Decode events are batched per dispatch sync, never per token;
 memory is capped by ``capacity`` records of ``max_events`` events. The
 ``handoff`` fields (a disaggregated decode half) stay for the schema; no
-port engine sets them yet (ROADMAP A11f). The SLO burn engine's tap
-(``use_burn_engine``) waits with it in A11d.
+port engine sets them yet (ROADMAP A11f). ``use_burn_engine`` taps the SLO
+burn engine (tpu/incidents.py): every completion is observed at
+``record_finished``, and every ``stall_shed`` / ``breaker_shed`` engine
+event counts as an availability failure.
 """
 
 from __future__ import annotations
@@ -204,7 +206,7 @@ class FlightRecorder:
             maxlen=64)
         self._obs = MetricsHook(metrics)
         self.tracer = tracer
-        # the SLO burn-rate engine's tap (ROADMAP A11d): None until then
+        # the SLO burn-rate engine (tpu/incidents.py): None until wired
         self.burn = None
         # terminal events ever recorded: ring eviction never decrements
         # it, so tests (and operators) can assert none were lost

@@ -12,7 +12,7 @@ with the standard library only:
   * each sampled thread is classified by its name, then by the ownership
     registry (tpu/ownership.py): ``llm-engine`` (the engine's loop
     thread), or any stack holding a ``@loop_only`` function, is the loop;
-    ``llm-finisher`` the finisher (the port has none yet: ROADMAP A11e);
+    ``llm-finisher`` the finisher (the engine's off-loop teardown);
     the HTTP server's threads (``http-server-{port}`` and the
     ``Thread-N`` handler threads of ``ThreadingHTTPServer``,
     http/server.py) ``http``; everything else ``other``;

@@ -171,6 +171,20 @@ class PagedLLMEngine(LLMEngine):
             self.v_scale = torch.zeros_like(self.k_scale)
         self._init_loop_state()
 
+    def _restore_device_state(self) -> None:
+        """The host structures rebuilt wholesale, as the reference's reset
+        does (``_reservations`` and ``_prefix_hits`` cleared, a fresh
+        allocator and prefix cache: every cached page is invalid), then the
+        loop state restored in place; the pools are kept (replayed rows
+        re-prefill their pages, re-reserved against the fresh allocator at
+        re-admission)."""
+        self._reservations.clear()
+        self._prefix_hits.clear()
+        self.allocator = PageAllocator(self.allocator.n_pages, self.page_size)
+        self.prefix = (PrefixCache(self.page_size) if self._prefix_enabled
+                       else None)
+        super()._restore_device_state()
+
     # -- admission: page reservation ------------------------------------------
     def submit(self, prompt_tokens, max_new_tokens: int = 128, **kw
                ) -> GenerationRequest:
@@ -187,7 +201,10 @@ class PagedLLMEngine(LLMEngine):
         return super().submit(prompt_tokens, max_new_tokens, **kw)
 
     def _request_pages(self, request: GenerationRequest) -> int:
-        total = min(len(request.prompt_tokens) + request.max_new_tokens,
+        # window + remaining budget: prompt + max_new for a fresh request
+        # and for a replay alike, so a reservation is reset-stable
+        total = min(len(request.resume_tokens)
+                    + (request.max_new_tokens - request.generated),
                     self.max_seq_len)
         return self.allocator.pages_for(total)
 
@@ -205,7 +222,7 @@ class PagedLLMEngine(LLMEngine):
         shared: List[int] = []
         if self.prefix is not None:
             if request.id not in self._prefix_hits:
-                hit = self.prefix.match(request.prompt_tokens)
+                hit = self.prefix.match(request.resume_tokens)
                 if hit and self._tail_routes_to_chunk(request, hit):
                     # the tail would still chunk: drop the hit before the
                     # reservation is sized (the finished chunk job still
@@ -241,7 +258,7 @@ class PagedLLMEngine(LLMEngine):
 
     def _tail_bucket(self, request: GenerationRequest,
                      shared: List[int]) -> int:
-        tail = len(request.prompt_tokens) - len(shared) * self.page_size
+        tail = len(request.resume_tokens) - len(shared) * self.page_size
         return next_bucket(max(1, tail), self.prefill_buckets)
 
     def _tail_routes_to_chunk(self, request: GenerationRequest,
@@ -271,7 +288,7 @@ class PagedLLMEngine(LLMEngine):
             slot = self.slots[slots_idx[row]]
             slot.pages = shared + fresh
             if self.prefix is not None:
-                self.prefix.insert(request.prompt_tokens, slot.pages)
+                self.prefix.insert(request.resume_tokens, slot.pages)
 
     def _release_slot_pages(self, slot: _Slot) -> None:
         """Return a slot's pages to the allocator; pages the prefix cache
@@ -416,7 +433,7 @@ class PagedLLMEngine(LLMEngine):
         table = self._build_table()
         return self._call(self._verify_program(table.shape[1],
                                                self._row_filter_now()),
-                          (table, drafts, lens))
+                          (table, drafts, lens), "engine.verify")
 
     # -- chunked prefill into per-job temps -----------------------------------
     # A job's chunks run against temps of its bucket's width, [L, K, Hkv, dh,
@@ -619,7 +636,7 @@ class PagedLLMEngine(LLMEngine):
         ptokens, lengths, temps = self._prep_admission(bucket, batch)
         return self._call(program, (ptokens, ptable,
                                     np.asarray(slots_idx, np.int64),
-                                    lengths, temps))
+                                    lengths, temps), "engine.prefill")
 
     def _dispatch_prefill_prefix(self, bucket: int, slots_idx: List[int],
                                  batch: List[GenerationRequest]
@@ -630,7 +647,7 @@ class PagedLLMEngine(LLMEngine):
         # table: shared prefix pages, then the reservation's fresh pages,
         # wide enough for every row's full PROMPT page span
         n_table = _pow2_at_least(max(
-            self.allocator.pages_for(len(r.prompt_tokens)) for r in batch))
+            self.allocator.pages_for(len(r.resume_tokens)) for r in batch))
         with self.steps.seg("host_prep"):
             ptable = np.zeros((len(batch), n_table), dtype=np.int32)
             for row, request in enumerate(batch):
@@ -644,9 +661,10 @@ class PagedLLMEngine(LLMEngine):
         return self._call(program, (ptokens, ptable,
                                     np.asarray(prefix_lens, np.int32),
                                     np.asarray(slots_idx, np.int64),
-                                    lengths, temps))
+                                    lengths, temps), "engine.prefill")
 
     def _run_decode(self, block: int) -> torch.Tensor:
         table = self._build_table()
         return self._call(self._decode_program_paged(
-            table.shape[1], block, self._row_filter_now()), (table,))
+            table.shape[1], block, self._row_filter_now()), (table,),
+            "engine.decode")

@@ -7,8 +7,8 @@ step ledger and the utilization ledger into ONE Chrome trace-event JSON
 payload (what Perfetto and chrome://tracing load):
 
   * one track per real thread: the engine loop (``llm-engine``), the
-    finisher (``llm-finisher``; the port finishes on the loop until ROADMAP
-    A11e), the HTTP server; the loop track carries the
+    finisher (``llm-finisher``, the engine's off-loop teardown), the HTTP
+    server; the loop track carries the
     ``LOOP_ONLY_REGISTRY`` (tpu/ownership.py) in its metadata;
   * every step-ledger record as a ``B``/``E`` slice on the loop track, its
     segments tiled inside in the ledger's canonical order, so the

@@ -24,8 +24,11 @@ changes is where the device facts come from:
   * **Programs.** ``engine_snapshot``'s ``compile`` table is the executor's
     (``Executor.compile_table``): per program its calls and capture seconds.
 
-Waiting: the KV tier's gauges and snapshot fields (ROADMAP A11f), the
-breaker, recovery and fault sections (A11e).
+``engine_snapshot`` carries the reference's ``breaker`` (the reset-storm
+breaker's snapshot), ``recovery`` (resets, replays, replayed tokens,
+quarantines, retry budget) and, with a fault plane armed, ``faults``
+sections. Waiting: the KV tier's gauges and snapshot fields (ROADMAP
+A11f).
 
 Accounting conventions (host-side, O(1) per dispatch):
 
@@ -446,6 +449,22 @@ def engine_snapshot(engine) -> Dict[str, Any]:
                 out["page_pool"]["prefix_digest"] = prefix.digest()
             except Exception:  # noqa: BLE001
                 pass
+
+    breaker = getattr(engine, "breaker", None)
+    if breaker is not None:
+        out["breaker"] = breaker.snapshot()
+    # crash-only recovery evidence (plain engine counters, metrics-free)
+    if hasattr(engine, "resets_total"):
+        out["recovery"] = {
+            "resets_total": engine.resets_total,
+            "replays_total": engine.replays_total,
+            "replayed_tokens_total": engine.replayed_tokens_total,
+            "quarantined_total": engine.quarantined_total,
+            "retry_budget": getattr(engine, "retry_budget", None),
+        }
+    faults = getattr(engine, "faults", None)
+    if faults is not None:
+        out["faults"] = faults.snapshot()
 
     util = getattr(engine, "util", None)
     if util is not None:

@@ -9,6 +9,7 @@ bridge. Engine shape: 4 slots, max_seq_len 64, buckets (8, 16), page size 8.
 import collections
 import http.client
 import json
+import os
 
 import jax
 import pytest
@@ -22,6 +23,8 @@ from gofr_tpu_torch.models.tokenizer import DebugTokenizer
 from gofr_tpu_torch.models.weights import params_from_numpy
 from gofr_tpu_torch.serve import NOT_PORTED, build_app, build_engine
 from gofr_tpu_torch.tpu.paging import PageAllocator, PagedLLMEngine
+
+from _torch_env import INCIDENT_DIR
 
 CFG = LlamaConfig.debug()
 ENGINE = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16), page_size=8)
@@ -190,7 +193,7 @@ def test_sse_generate_end_to_end(served):
     goldens, params = served
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
-           "REQUEST_TIMEOUT": "60"}
+           "REQUEST_TIMEOUT": "60", "INCIDENT_DIR": INCIDENT_DIR}
     app = build_app(env, engine=build_engine(env, device="cpu",
                                              params=params))
     app.start()
@@ -260,10 +263,11 @@ def _server_pair(served, controls: str):
     ref = module.build_app(config=MockConfig({
         "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "example",
         "TPU_PLATFORM": "cpu", "MODEL_PRESET": "debug", "WARMUP": "false",
-        "REQUEST_TIMEOUT": "60", "SAMPLING_CONTROLS": controls}))
+        "REQUEST_TIMEOUT": "60", "SAMPLING_CONTROLS": controls,
+        "INCIDENT_DIR": INCIDENT_DIR}))
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
-           "SAMPLING_CONTROLS": controls}
+           "SAMPLING_CONTROLS": controls, "INCIDENT_DIR": INCIDENT_DIR}
     port = build_app(env, engine=build_engine(env, device="cpu",
                                               params=served[1]))
     ref.start()
@@ -354,7 +358,7 @@ PORTED = {
 def test_ported_config_keys_boot_and_serve(served, key):
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
-           **PORTED[key]}
+           "INCIDENT_DIR": INCIDENT_DIR, **PORTED[key]}
     engine = build_engine(env, device="cpu", params=served[1])
     app = build_app(env, engine=engine)
     app.start()

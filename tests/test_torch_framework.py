@@ -56,6 +56,8 @@ from gofr_tpu_torch.serve import build_app, build_engine
 from gofr_tpu_torch.tpu.device import register_metrics
 from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
+from _torch_env import INCIDENT_DIR
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -416,7 +418,8 @@ def test_engine_metric_series_match():
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
        "MAX_BATCH": "2", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16",
        "PAGE_SIZE": "8", "WARMUP": "false", "TRACE_EXPORTER": "memory",
-       "LOG_LEVEL": "WARN", "FLIGHT_RECORDER": "false"}
+       "LOG_LEVEL": "WARN", "FLIGHT_RECORDER": "false",
+       "INCIDENT_DIR": INCIDENT_DIR}
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
 """The port stands alone: no jax, no gofr_tpu, and no silent CPU fallback.
 
-- every gofr_tpu_torch module (native/ and the observability planes
-  included) and chip_smoke.py imports
+- every gofr_tpu_torch module (native/, the observability planes and the
+  incident plane included) and chip_smoke.py imports
   in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
   packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
   `transformers`, `tokenizers`) are blocked;
@@ -52,6 +52,10 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
             "gofr_tpu_torch.tpu.hostprof", "gofr_tpu_torch.tpu.migrate",
             "gofr_tpu_torch.fleet.affinity", "gofr_tpu_torch.loadgen.trace",
             "gofr_tpu_torch.loadgen.capture"} <= set(mods)
+    # crash-only serving and the incident plane
+    assert {"gofr_tpu_torch.tpu.faults", "gofr_tpu_torch.tpu.incidents",
+            "gofr_tpu_torch.tpu.meter",
+            "gofr_tpu_torch.tpu.profiler"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -531,16 +531,18 @@ ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
 
 
 @pytest.fixture(scope="module")
-def servers():
+def servers(tmp_path_factory):
     spec = importlib.util.spec_from_file_location(
         "example_llm_server_torch_obs",
         ROOT / "examples" / "llm-server" / "main.py")
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    ref = module.build_app(config=MockConfig({**ENV, "TPU_PLATFORM": "cpu"}))
+    # incident bundles (none is expected) land in a temporary directory
+    env = {**ENV, "INCIDENT_DIR": str(tmp_path_factory.mktemp("incidents"))}
+    ref = module.build_app(config=MockConfig({**env, "TPU_PLATFORM": "cpu"}))
     params = params_from_numpy(jax.device_get(ref.engine.params),
                                device="cpu")
-    port = build_app(ENV, engine=build_engine(ENV, device="cpu",
+    port = build_app(env, engine=build_engine(env, device="cpu",
                                               params=params))
     ref.start()
     try:
@@ -587,7 +589,7 @@ def _keys(obj, depth):
 # (route, depth of the key tree compared, top-level keys only the reference
 # has, and why)
 ROUTES = {
-    "engine": ("/debug/engine", 1, {"breaker", "recovery", "hbm"}),
+    "engine": ("/debug/engine", 1, {"hbm"}),
     "steps": ("/debug/steps", 2, set()),
     "requests": ("/debug/requests", 2, set()),
     "journey": ("/debug/journey", 3, set()),
@@ -595,15 +597,17 @@ ROUTES = {
     "timeline": ("/debug/timeline?steps=64", 1, set()),
     "hostprof": ("/debug/hostprof", 2, set()),
     "stats": ("/stats", 2, set()),
+    "slo": ("/debug/slo", 2, set()),
+    "incidents": ("/debug/incidents", 2, set()),
+    "capacity": ("/debug/capacity", 2, set()),
 }
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_debug_routes_have_the_reference_keys(servers, route):
-    """/debug/engine: "breaker" and "recovery" are the reset-storm breaker
-    and replay (ROADMAP A11e); "hbm" is the device memory, which the
-    reference's CPU client lists with zeros and the port's CPU engine does
-    not have (on the card it is there)."""
+    """/debug/engine: "hbm" is the device memory, which the reference's
+    CPU client lists with zeros and the port's CPU engine does not have (on
+    the card it is there)."""
     path, depth, ref_only = ROUTES[route]
     ref, port = servers
     (ws, want), (gs, got) = (_call(ref, "GET", path),

@@ -39,6 +39,8 @@ from gofr_tpu_torch.tpu.engine import LLMEngine
 from gofr_tpu_torch.tpu.executor import Executor
 from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
+from _torch_env import INCIDENT_DIR
+
 ENGINE = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16, 32),
               decode_block_size=4)
 PAGED = dict(page_size=8, prefix_cache=True)
@@ -378,7 +380,7 @@ def test_dispatch_keys_boot_and_serve(weights, paged, keys):
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "REQUEST_TIMEOUT": "120", "PAGED": paged, "DECODE_ATTN": "kernel",
-           **keys}
+           "INCIDENT_DIR": INCIDENT_DIR, **keys}
     engine = build_engine(env, device="cpu", params=weights[1])
     booted = set(engine.executor.cache_info())
     app = build_app(env, engine=engine)

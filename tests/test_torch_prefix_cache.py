@@ -44,6 +44,8 @@ from gofr_tpu_torch.serve import build_app, build_engine
 from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 from gofr_tpu_torch.tpu.prefixcache import PrefixCache
 
+from _torch_env import INCIDENT_DIR
+
 CFG_J = jl.LlamaConfig.debug()
 CFG_T = tl.LlamaConfig.debug()
 PS = 8
@@ -501,7 +503,8 @@ def test_generate_serves_a_shared_prefix_from_the_cache(weights):
     whose prompts share a full page; the second hits it, prefills only its
     tail, and returns what an engine without the cache returns."""
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
-           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8"}
+           "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
+           "INCIDENT_DIR": INCIDENT_DIR}
     texts = {}
     for cache in ("true", "false"):
         run = dict(env, PREFIX_CACHE=cache)

@@ -1,8 +1,9 @@
 """The port's server config against the reference llm-server's.
 
 Every key examples/llm-server/main.py and examples/openai-server/main.py
-read, and every App-level key of gofr_tpu/app.py, gofr_tpu/container/ and
-gofr_tpu/tracing/ (taken from their text, not by importing them), must be
+read, and every App-level key of gofr_tpu/app.py, gofr_tpu/container/,
+gofr_tpu/tracing/ and gofr_tpu/tpu/faults.py (taken from their text, not by
+importing them), must be
 served (serve.PORTED, and read by the port's server, App or container),
 refused at boot naming its ROADMAP item (NOT_PORTED) or inert with a
 stated reason (INERT); a new key there fails this file until it is
@@ -40,16 +41,20 @@ from gofr_tpu_torch.models.weights import params_from_numpy
 from gofr_tpu_torch.tpu.engine import EngineDrainingError, LLMEngine
 from gofr_tpu_torch.tpu.paging import PagedLLMEngine
 
+from _torch_env import INCIDENT_DIR
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MAIN = ROOT / "examples" / "llm-server" / "main.py"
 # the other sources whose config keys the port's servers account for
 KEY_SOURCES = [ROOT / "examples" / "openai-server" / "main.py",
                ROOT / "gofr_tpu" / "app.py",
                ROOT / "gofr_tpu" / "container" / "__init__.py",
-               ROOT / "gofr_tpu" / "tracing" / "__init__.py"]
+               ROOT / "gofr_tpu" / "tracing" / "__init__.py",
+               ROOT / "gofr_tpu" / "tpu" / "faults.py"]
 BASE = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
         "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
-        "WARMUP": "false", "REQUEST_TIMEOUT": "120"}
+        "WARMUP": "false", "REQUEST_TIMEOUT": "120",
+        "INCIDENT_DIR": INCIDENT_DIR}
 CONFIGS = {
     "paged": {},
     "paged-int8": {"KV_DTYPE": "int8"},
@@ -70,8 +75,10 @@ class _QuietLogger:
 def _reference_keys():
     keys = set()
     for path in [MAIN] + KEY_SOURCES:
-        keys.update(re.findall(r'config\.get_\w+\(\s*"([A-Z0-9_]+)"',
-                               path.read_text()))
+        # config.get_*("KEY") and the App's cfg = self.config reads
+        keys.update(re.findall(
+            r'(?:config|cfg)\.get(?:_\w+)?\(\s*"([A-Z0-9_]+)"',
+            path.read_text()))
     # the App's config directory comes from the process environment
     keys.update(re.findall(r'environ\.get\(\s*"([A-Z0-9_]+)"',
                            KEY_SOURCES[1].read_text()))
@@ -99,11 +106,12 @@ def test_every_llm_server_key_is_accounted_for():
 @pytest.mark.parametrize("key", serve.PORTED)
 def test_ported_keys_are_read_by_the_server(key):
     from gofr_tpu_torch import app, container, tracing
+    from gofr_tpu_torch.tpu import faults
 
     src = "".join(inspect.getsource(f) for f in (
         serve.build_engine, serve.build_app, serve.app_for,
         serve._warmup_mode, app.App, container.Container,
-        tracing.exporter_from_config))
+        tracing.exporter_from_config, faults.plane_from_config))
     assert f'"{key}"' in src
 
 

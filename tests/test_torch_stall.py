@@ -28,11 +28,14 @@ from gofr_tpu_torch.serve import build_app, build_engine, shed_to_503
 from gofr_tpu_torch.tpu.engine import (EngineDrainingError,
                                        EngineStalledError, LLMEngine)
 
+from _torch_env import INCIDENT_DIR
+
 CFG = LlamaConfig.debug()
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
        "MAX_BATCH": "2", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "16",
        "PAGE_SIZE": "8", "WARMUP": "false", "LOG_LEVEL": "WARN",
-       "REQUEST_TIMEOUT": "60", "ENGINE_HBM_SAMPLE_S": "0"}
+       "REQUEST_TIMEOUT": "60", "ENGINE_HBM_SAMPLE_S": "0",
+       "INCIDENT_DIR": INCIDENT_DIR}
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +106,19 @@ def test_wedged_engine_sheds_and_degrades_then_recovers(engine):
     gate.set()
     engine._sync_oldest = orig
     assert len(first.result(timeout_s=60)) == 4
+    # the stall clock resets once the loop runs again: under the 0.3 s
+    # threshold, it falls below it and health reads UP (polled, since an
+    # idle loop parks in 50 ms waits and a loaded CPU may wake it late)
+    deadline = time.monotonic() + 10
+    while ((engine.stall_seconds >= 0.3
+            or engine.health_check().status != STATUS_UP)
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    assert engine.stall_seconds < 0.3
+    assert engine.health_check().status == STATUS_UP
+    # the class default again before the next request (as the reference's
+    # twin has it): one slow eager step on a loaded CPU must not shed it
+    engine.STALL_REJECT_S = type(engine).STALL_REJECT_S
     assert len(engine.generate([7, 8], max_new_tokens=3)) == 3
     assert engine.health_check().status == STATUS_UP
 
@@ -193,7 +209,7 @@ def test_wedged_server_answers_503_and_reports_the_stall(params):
         engine = app.engine
         gate, orig = _wedge(engine)
         try:
-            engine.submit([1, 2, 3], max_new_tokens=4)
+            first = engine.submit([1, 2, 3], max_new_tokens=4)
             _wait_stalled(engine, 0.6)
             status, retry, raw = _call(app.http_port, "POST", "/generate",
                                        {"prompt": "hi", "max_tokens": 4})
@@ -215,10 +231,22 @@ def test_wedged_server_answers_503_and_reports_the_stall(params):
         finally:
             gate.set()
             engine._sync_oldest = orig
+        # as the reference's twin: the wedged request finishes, and the
+        # threshold is the class default again, before the next request
+        assert len(first.result(timeout_s=60)) == 4
+        engine.STALL_REJECT_S = type(engine).STALL_REJECT_S
         status, _, _ = _call(app.http_port, "POST", "/generate",
                              {"prompt": "hi", "max_tokens": 4})
         assert status == 200
-        _, _, metrics = _call(app.metrics_port, "GET", "/metrics")
+        # the gauge is round(stall, 1) at each scrape: a loop that wakes
+        # late from its 50 ms park may read 0.1 once, so poll for 0.0
+        deadline = time.monotonic() + 10
+        while True:
+            _, _, metrics = _call(app.metrics_port, "GET", "/metrics")
+            if ("app_tpu_engine_stall_seconds 0.0" in metrics
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
         assert "app_tpu_engine_stall_seconds 0.0" in metrics
     finally:
         app.shutdown()
