@@ -8,14 +8,14 @@ flash times at B=1 T=S 16 / 80 / 256 / 1024 / 16384 and B=4 T=S=256),
 at B=8 over ~200-token contexts, B=8 x 8192 and B=1 x 8192) and
 ``--prefill`` (build, the main path's admission wave at [1, 256] and
 [4, 256], eager and as its graph's replay: host wall, card busy time and
-host launches), ``--sc`` (build, the main path's serve phase, then its
-sampling-controls, sort-skip and scoring phases, 7 and 8 below) and
-``--weights`` (build, then phase 9 alone), ``--spec`` (build, then
-phase 10 alone), ``--openai`` (build, then phase 7b on an engine booted
-for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve phase with
-phase 4b and its cost measurements, then its decode profile with the
-utilization ledger beside it). ``--faults`` (build, then phase 11) ends with
-the ok line.
+host launches), ``--sc`` (build, the main path's sampling-controls
+phase at CUT_DEPTH layers, then the sort-skip and scoring phases, 7 and 8
+below) and ``--weights`` (build, then phase 9 alone), ``--spec`` (build,
+then phase 10 alone), ``--openai`` (build, then phase 7b on an engine
+booted for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve
+phase with phase 4b and its cost measurements, then its decode profile
+with the utilization ledger beside it). ``--faults`` (build, then phase
+11) and ``--qos`` (build, then phase 12) end with the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -69,13 +69,12 @@ Phases, one or more lines each, any failure exits non-zero:
    whose graph is captured on the loop thread (logged: that stall beside
    the burst's TTFT); then
    two prefix phases, paged-prefix and paged-int8-prefix (PREFIX_CACHE=true,
-   buckets 16..512): a 384-token system prompt seeded by one request, then
-   8 concurrent requests on it with distinct tails, each hitting its 3
-   pages and prefilling only its tail (no flash), a hit prompt served twice
-   alike, and, logged, the tokens' agreement with and the TTFT of the same
-   prompts on an engine without the cache; each serve phase ends, after its
-   counted run, with the sampling-controls burst's prompts all greedy in
-   one wave, the reference of phase 7;
+   buckets 16..512), at CUT_DEPTH layers and full width: a 384-token system
+   prompt seeded by one request, then 8 concurrent requests on it with
+   distinct tails, each hitting its 3 pages and prefilling only its tail
+   (no flash), a hit prompt served twice alike, and, logged, the tokens'
+   agreement with and the TTFT of the same prompts on an engine without
+   the cache;
 4b. the observability planes (``obs_phase``), on the main path's engine
    after its counted run: GET /debug/engine, /debug/steps,
    /debug/requests, one /debug/requests/{id} and /debug/journey/{id},
@@ -106,6 +105,21 @@ Phases, one or more lines each, any failure exits non-zero:
    token, from the scoring pass, under TIE_MARGIN; then a decode graph's
    draws after manual_seed of its registered generator (the reset's
    re-seed) must repeat per seed and change with it; at most 45 s;
+4d. the QoS plane (``qos_phase``), on the same engine after 4c: QoS enabled
+   on its App, the ladder moved only by force_level; 7 greedy batch
+   streams x 64 tokens of tenant acme (prompts of one full page and a
+   tail) and an interactive stream in the reserved slot, undisturbed, then
+   again with preempt_batch pinned at mid-stream and 0 at the sync after:
+   every batch row preempted at the first loop step at preempt_batch,
+   queued again while the blocks that decoded its old row were in flight,
+   re-admitted by a tail-only wave on its cached page, its stream equal to
+   the undisturbed run or leaving it at a bf16 tie (TIE_MARGIN), nothing
+   repeated or dropped, no graph captured, flash n_layers per full wave
+   and the paged read n_layers per decode step; at shed_standard a
+   standard /generate gets 503 with Retry-After and an interactive one
+   200; at park_batch a batch submit waits until 0; /debug/qos and the
+   app_tpu_qos_* series equal the counts; /debug/capacity bills acme; at
+   most 25 s;
 5. timings: each kernel beside its bound, its plain version and, where one
    PyTorch call computes the same function (flash, dense bf16 decode), the
    library's scaled_dot_product_attention, at the shapes serving gave it
@@ -140,17 +154,20 @@ Phases, one or more lines each, any failure exits non-zero:
 7. sampling controls (``serve <config> sc``, after the serve phases): the
    four configurations again with SAMPLING_CONTROLS=true and WARMUP=wide
    (two decode graphs per shape, with and without the per-row filters,
-   -sc names), 7 streams and 1 non-streaming request of 32 tokens admitted
-   as one wave with rows greedy, top_k=1, top_p=1e-6, top_k=40, top_p=0.9
-   and both at temperature 0.8: counted as the serve phases are; the
-   greedy, top_k=1 and tiny top_p rows equal the greedy rows of phase 4's
-   reference (or leave them only at a tie of the served bf16 logits, where
-   top_k=1 keeps every tied token as the reference does), and score within
-   MODEL_TOL as top-1 (engine.score); every token of a filtered row lies in
-   its filtered set by the teacher-forced full logits;
+   -sc names), at CUT_DEPTH layers and full width, 7 streams and 1
+   non-streaming request of 32 tokens admitted as one wave with rows
+   greedy, top_k=1, top_p=1e-6, top_k=40, top_p=0.9 and both at
+   temperature 0.8: counted as the serve phases are; the greedy, top_k=1
+   and tiny top_p rows take the teacher-forced oracle's argmax at that
+   depth wherever its top two are more than 2 * MODEL_TOL apart (a closer
+   pair is a tie of the served bf16 logits, where top_k=1 keeps every tied
+   token as the reference does), and score within MODEL_TOL as top-1
+   (engine.score); every token of a filtered row lies in its filtered set
+   by the teacher-forced logits;
 7b. the OpenAI server (``openai_phase``, gofr_tpu_torch/serve_openai.py),
-   on the main path's sampling-controls engine of phase 7 before its
-   shutdown (its WARMUP=wide boot reused, the score windows added by
+   on the main path's sampling-controls engine of phase 7 (CUT_DEPTH
+   layers, its oracle at that depth) before its shutdown (its WARMUP=wide
+   boot reused, the score windows added by
    warmup_scoring), with its metrics server (METRICS_PORT) and the memory
    trace exporter: the 7 chat prompts as 7 concurrent POST /generate
    streams, then as 7 concurrent streaming chat completions (32 tokens,
@@ -231,11 +248,29 @@ Phases, one or more lines each, any failure exits non-zero:
    (``planes_cost``): the served decode step and a lone TTFT with the SLO
    burn engine, the meter and the finisher on against all three off
    (windows on, off, off, on), before any profile in the process; last, a
-   2 s POST /debug/profile capture (its window from the moment it records)
+   2 s POST /debug/profile capture (the route enabled on this phase's App:
+   the servers serve none; its window from the moment it records)
    while 2 streams x 17 tokens are admitted and decode holds flash and
    paged-read kernel events (graph replays), and beside this script's own
    torch.profiler a capture is refused in last_error; no graph captured
    after boot.
+
+12. the QoS plane (``--qos``, ``qos_mode_phase``): the main path's engine
+   booted with qos_env (QOS=true, a 1 ms TTFT target, 5 s burn windows,
+   0.3 s / 0.5 s ladder holds, QOS_BATCH_PAGE_FRACTION=0.1,
+   QOS_DEADLINE_STANDARD_S=0.5): the ladder climbs on the real burn engine
+   to shed_standard (503 + Retry-After for standard, interactive served,
+   /stats asking for a replica) and walks back to ok once the target is
+   relaxed; the preemption figures (an interactive request's TTFT with the
+   7 batch rows decoding and with them preempted, the batch streams'
+   largest gap between tokens, the re-admission waves' card time, the qos
+   segment's share of the loop steps), streams equal or at a tie; batch
+   parked at its page share; a queued standard request expiring with 503;
+   the OpenAI server's classes and tenants over headers in /debug/qos and
+   /debug/capacity; then the dense engine (PAGED=false DECODE_ATTN=kernel)
+   at CUT_DEPTH layers preempting and re-admitting its batch rows (full
+   waves), counted and held as phase 4d. Every figure with the card's name
+   and power limit.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -891,7 +926,8 @@ def serve_phase(params, cfg, dev, card: str, config: str,
     the served engine after the counted run, before the shutdown. obs: run
     phase 4b's checks (obs_phase) after the counted run; obs_costs: then
     its cost measurements (obs_cost, ledger_cost; --obs); drill: then
-    phase 4c, the mid-stream reset drill (drill_phase)."""
+    phase 4c, the mid-stream reset drill (drill_phase), and phase 4d, the
+    QoS plane's preemption on the same engine (qos_phase)."""
     from gofr_tpu_torch.ops import launch_counts
     from gofr_tpu_torch.serve import build_app, build_engine
 
@@ -964,9 +1000,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
             log(f"obs: phase 4b {time.monotonic() - t_obs:.1f}s")
         if drill:
             drill_phase(engine, card, boot)
-        # after the counted run: the sampling-controls phase's prompts, all
-        # greedy, in the same one wave, its greedy reference
-        sc_ref = sc_burst(app.http_port, engine, greedy=True)
+            qos_phase(app, engine, card, boot)
         if after is not None:
             after(app, engine)
     finally:
@@ -1022,7 +1056,7 @@ def serve_phase(params, cfg, dev, card: str, config: str,
         f"tok/s={(len(solo) - 1) / (solo[-1] - solo[0]):.1f} [{card}]")
     return {"launches": launches, "prefill_shapes": shapes,
             "prompt_lens": [len(engine.tokenizer.encode(p)) for p in prompts],
-            "max_tokens": n_tok, "cache_len": cache_len, "sc_ref": sc_ref}
+            "max_tokens": n_tok, "cache_len": cache_len}
 
 
 def zero_counts(engine) -> None:
@@ -1468,8 +1502,9 @@ TAIL_CHARS = [16, 120, 40, 64, 90, 24, 100, 56]
 
 def prefix_phase(params, cfg, dev, card: str, config: str,
                  preset: str = "llama3-8b") -> dict:
-    """Serve shared-system-prompt traffic with the prefix cache on: one
-    request alone seeds the cache with a 384-token system prompt (3 full
+    """Serve shared-system-prompt traffic with the prefix cache on, at the
+    depth of `params` (CUT_DEPTH layers in the full run): one request alone
+    seeds the cache with a 384-token system prompt (3 full
     pages), then 7 concurrent streams and 1 non-streaming request, each the
     system prompt and a distinct 16-120 token tail, must each hit the 3
     pages and prefill only their tails (tail buckets <= 128; flash only in
@@ -2348,18 +2383,17 @@ def gate_admission(engine, n: int) -> None:
     engine._admit = gated
 
 
-def sc_burst(port, engine, greedy: bool) -> dict:
+def sc_burst(port, engine) -> dict:
     """The SC_CHARS prompts, 7 streams and 1 non-streaming request of
-    SC_TOKENS tokens, admitted together as one wave with their rows in a
-    fixed order (priority = row): with SC_ROWS's sampling controls, or
-    every row greedy with none. Returns {row: its client record}."""
+    SC_TOKENS tokens with SC_ROWS's sampling controls, admitted together
+    as one wave with their rows in a fixed order (priority = row). Returns
+    {row: its client record}."""
     out: dict = {}
     threads = []
     for row, (n, (temp, top_p, top_k, _)) in enumerate(zip(SC_CHARS,
                                                            SC_ROWS)):
-        extra = {"priority": row}
-        if not greedy:
-            extra.update(temperature=temp, top_p=top_p, top_k=top_k)
+        extra = {"priority": row, "temperature": temp, "top_p": top_p,
+                 "top_k": top_k}
         target = stream_request if row < 7 else plain_request
         threads.append(threading.Thread(
             target=target, args=(port, make_prompt(n, 300 + row), SC_TOKENS,
@@ -2420,22 +2454,35 @@ def in_filter(logits, tokens, temperature, top_p, top_k, boost=0.0) -> int:
     return n
 
 
-def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
+def cut_tree(params, depth: int):
+    """The first `depth` layers of a params tree, at full width (views)."""
+    return {**params, "layers": {k: v[:depth]
+                                 for k, v in params["layers"].items()}}
+
+
+# the depth the sampling-controls and prefix phases serve at: their checks
+# hold a stream against the teacher-forced oracle at its own depth, and a
+# WARMUP=wide boot's captures scale with the layers
+CUT_DEPTH = 4
+
+
+def serve_sc_phase(params, cfg, dev, card: str, config: str,
                    preset: str = "llama3-8b", after=None) -> dict:
     """One serving configuration with SAMPLING_CONTROLS=true and
-    WARMUP=wide: the boot (two decode graphs per shape, -sc names), then
-    the SC_ROWS burst through POST /generate in one wave (7 streams, 1
-    non-streaming), counted as the serve phases count: flash n_layers per
-    full wave, the decode kernel n_layers per step, every dispatch a graph
-    replay, no capture after boot. The greedy, top_k=1 and tiny top_p rows
-    must equal `ref` (the same prompts greedy on the engine without
-    controls, serve_phase); every token of the filtered rows must lie in
-    its set by the teacher-forced full logits (oracle_logits; strictly,
-    logged, and within MODEL_TOL of the logits, required); and
-    engine.score(top=20) must rank each greedy-equal row's token first
-    where the scored top two are more than 2 * MODEL_TOL apart.
-    after(app, engine), when given, runs on the served engine after those
-    checks, before the shutdown (the OpenAI phase)."""
+    WARMUP=wide, served at the depth of `params` (CUT_DEPTH layers in the
+    full run; `cfg` of that depth): the boot (two decode graphs per shape,
+    -sc names), then the SC_ROWS burst through POST /generate in one wave
+    (7 streams, 1 non-streaming), counted as the serve phases count: flash
+    n_layers per full wave, the decode kernel n_layers per step, every
+    dispatch a graph replay, no capture after boot. The greedy, top_k=1
+    and tiny top_p rows must take the teacher-forced oracle's argmax
+    (oracle_logits at the same depth, over the row's own tokens) wherever
+    its top two logits are more than 2 * MODEL_TOL apart; every token of
+    the filtered rows must lie in its set by the oracle's logits
+    (strictly, logged, and within MODEL_TOL of the logits, required); and
+    engine.score(top=20) must rank each greedy row's token first within
+    MODEL_TOL. after(app, engine), when given, runs on the served engine
+    after those checks, before the shutdown (the OpenAI phase)."""
     import numpy as np
     import torch
 
@@ -2466,7 +2513,7 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
         require(warm["w"]["status"] == 200, f"{name}: warm-up failed")
         zero_counts(engine)
         t0 = time.monotonic()
-        out = sc_burst(app.http_port, engine, greedy=False)
+        out = sc_burst(app.http_port, engine)
         wall = time.monotonic() - t0
         launches = launch_counts.counts()
         prefills, steps = engine.prefill_dispatches, engine.decode_steps
@@ -2505,33 +2552,27 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
             f"decode step")
     same = [row for row, r in enumerate(SC_ROWS) if r[3]]
     for row in same:
+        # the oracle at this depth, teacher-forced on the row's own tokens:
+        # a greedy, top_k=1 or tiny top_p row must take its argmax wherever
+        # the top two are further apart than the served bf16 logits can
+        # move (a closer pair is a tie, where top_k=1 keeps both)
         prompt, got = rows[row]
-        want = tok.encode(burst_text(ref[row]), bos=False)
-        if got == want:
-            log(f"serve {name}: row {row} {SC_ROWS[row][:3]}: its "
-                f"{len(got)} tokens equal the same prompt's greedy tokens on "
-                f"the engine without controls, in the same wave")
-            continue
-        # the logits are bf16 values: a step whose largest logit is tied
-        # keeps every tied token under top_k=1 or a tiny top_p (as in the
-        # reference) and draws one, where greedy takes the first
-        require(SC_ROWS[row][1] or SC_ROWS[row][2], f"{name}: greedy row "
-                f"{row} differs from the engine without controls")
-        p = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
-                 min(len(got), len(want)))
-        x = got[p] if p < len(got) else tok.EOS
-        y = want[p] if p < len(want) else tok.EOS
-        lg = oracle_logits(params, cfg, dev, prompt + want[:p])[-1].float()
-        top = float(lg.max())
-        gx, gy = top - float(lg[x]), top - float(lg[y])
-        tie = max(gx, gy) <= 2 * MODEL_TOL
-        log(f"serve {name}: row {row} {SC_ROWS[row][:3]}: equal to the "
-            f"greedy tokens for {p} tokens, then token {x} where greedy took "
-            f"{y}: below the largest teacher-forced logit by {gx:.4f} and "
-            f"{gy:.4f} (a tie in the served bf16 logits if both are within "
-            f"{2 * MODEL_TOL}) {'ok' if tie else 'FAIL'}")
-        require(tie, f"{name}: row {row} left the greedy tokens at a step "
-                f"without a tie")
+        P = len(prompt)
+        top2 = oracle_logits(params, cfg, dev, prompt + got)[
+            P - 1:P - 1 + len(got)].float().topk(2, dim=-1)
+        margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+        argmax = top2.indices[:, 0].cpu().numpy()
+        clear = margin > 2 * MODEL_TOL
+        wrong = [j for j in range(len(got))
+                 if clear[j] and argmax[j] != got[j]]
+        log(f"serve {name}: row {row} {SC_ROWS[row][:3]}: {len(got)} "
+            f"tokens, the oracle's argmax at {int(clear.sum())} positions "
+            f"whose top two are more than {2 * MODEL_TOL} apart: "
+            f"{'every one' if not wrong else f'missed at {wrong}'}; "
+            f"smallest top-2 margin {float(margin.min()):.4f} "
+            f"{'ok' if not wrong else 'FAIL'}")
+        require(not wrong, f"{name}: row {row} left the oracle's argmax at "
+                f"a step without a tie: {wrong}")
     first = total = 0
     worst = 0.0
     for row in same:
@@ -2540,12 +2581,12 @@ def serve_sc_phase(params, cfg, dev, card: str, config: str, ref: dict,
         first += int((ids[:, 0] == comp).sum())
         total += len(comp)
         worst = max(worst, float((lps[:, 0] - chosen).max()))
-    log(f"serve {name}: engine.score(top=20) over the greedy-equal rows: "
+    log(f"serve {name}: engine.score(top=20) over the greedy rows: "
         f"their token scored top-1 at {first} of {total} positions; the "
         f"largest gap between a token's scored logprob and the top one "
         f"{worst:.4f} (tol {MODEL_TOL}) "
         f"{'ok' if worst <= MODEL_TOL else 'FAIL'}")
-    require(worst <= MODEL_TOL, f"{name}: a greedy-equal row's token is not "
+    require(worst <= MODEL_TOL, f"{name}: a greedy row's token is not "
             f"the scored top-1 within {MODEL_TOL}")
     for row, (temp, top_p, top_k, one) in enumerate(SC_ROWS):
         if one:
@@ -2940,6 +2981,16 @@ def openai_call(port, path, body, out, key, headers=None) -> None:
     out[key] = rec
 
 
+def series_of(text: str) -> dict:
+    """Prometheus exposition text as {name{labels}: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
 def scrape(port) -> dict:
     """The metrics server's series: {name{labels}: value}."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
@@ -2948,12 +2999,7 @@ def scrape(port) -> dict:
     text = resp.read().decode()
     conn.close()
     require(resp.status == 200, f"GET /metrics answered {resp.status}")
-    out = {}
-    for line in text.splitlines():
-        if line and not line.startswith("#"):
-            key, _, value = line.rpartition(" ")
-            out[key] = float(value)
-    return out
+    return series_of(text)
 
 
 def hist_between(before: dict, after: dict, name: str, buckets):
@@ -4076,8 +4122,7 @@ def dense_spec_reduced(params, cfg, dev, card: str, n_layers: int = 4
 
     c = dataclasses.replace(cfg, n_layers=n_layers, attn_impl="flash",
                             decode_attn="kernel")
-    p = {**params, "layers": {k: v[:n_layers]
-                              for k, v in params["layers"].items()}}
+    p = cut_tree(params, n_layers)
     eng = LLMEngine(p, c, device=dev, n_slots=4, max_seq_len=512,
                     prefill_buckets=(256,), speculative_tokens=4)
     eng.warmup()
@@ -4518,6 +4563,696 @@ def check_reseed(engine, card: str) -> None:
             "re-seeded generator")
 
 
+# -- the QoS plane (phases 4d and 12) -------------------------------------------
+QOS_CHARS = (130, 150, 170, 190, 140, 160, 180)  # + BOS: past one 128-token page
+QOS_INTER_CHARS = 120
+QOS_SEED = 5000          # prompt seeds no other phase uses
+QOS_TOKENS = 64
+QOS_LIMIT_S = 25.0
+# a resume recomputes the delivered tokens' K/V by the tail prefill (paged)
+# or a full wave (dense), where the undisturbed run wrote them one decode
+# step at a time: another attention path, whose logits check_model holds
+# within MODEL_TOL of a plain recompute (0.094 on an NVIDIA H100 80GB HBM3
+# at 700 W: three bf16 steps at the logits' magnitude, 4-8). A preempted
+# stream may leave the undisturbed one only where the latter's top two
+# logits, from the scoring pass, are at most this many bf16 steps apart
+QOS_TIE_STEPS = 4
+
+
+def bf16_step(x: float) -> float:
+    """The gap between adjacent bfloat16 values at |x| (8 bits of
+    precision)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def qos_prompts(tok, seed: int) -> tuple:
+    """The 7 batch prompts (each one full page and a tail: a paged resume
+    is a tail-only prefix hit) and the interactive one."""
+    ids = [tok.encode(make_prompt(n, seed + i))
+           for i, n in enumerate(QOS_CHARS)]
+    return ids, tok.encode(make_prompt(QOS_INTER_CHARS, seed + 50))
+
+
+def pin_ladder(ctl) -> None:
+    """Let the ladder move only by force_level: a burn probe that reads
+    calm, and holds no phase reaches (no unclassified request of another
+    phase is ever shed)."""
+    ctl._burn_probe = lambda: {}
+    ctl.escalate_hold_s = ctl.recover_hold_s = 3600.0
+
+
+def qos_streams(engine, ctl, ids, inter_ids, n_tok, inter_at: int,
+                pin_at=None, release: str = "preempted") -> dict:
+    """7 greedy batch streams of tenant acme (admitted in one round,
+    gate_admission) and one interactive stream, submitted on the loop
+    thread at the sync after which every batch stream has delivered
+    `inter_at` tokens; it takes the slot the reservation keeps. pin_at:
+    at the sync after which every batch stream has delivered that many,
+    the ladder is pinned at preempt_batch (before the interactive submit
+    when both fall on one sync), and back at 0 at the sync after the
+    preemption (release="preempted") or after the interactive's first
+    token ("first_token"). Records each stream's token arrival times, the
+    rows each loop step at preempt_batch preempted, the loop steps of the
+    run, the graphs it captured, and the card time of each re-admission
+    wave (CUDA events on the engine's stream around its dispatch, upload
+    included)."""
+    import torch
+
+    reqs: list = []
+    state: dict = {"inter": None, "pinned": None, "released": None}
+    acts: list = []
+    waves: list = []
+    p0, c0 = engine.preemptions_total, engine.executor.captures
+    sync, actuate, prefill = (engine._sync_oldest, engine._qos_actuate,
+                              engine._prefill)
+
+    def armed_sync():
+        sync()
+        if len(reqs) < len(ids):
+            return
+        low = min(len(r.emitted) for r in reqs)
+        if (pin_at is not None and state["pinned"] is None
+                and low >= pin_at):
+            ctl.force_level(2)
+            state["pinned"] = engine.steps.steps_total
+        if state["inter"] is None and low >= inter_at:
+            state["inter"] = engine.submit(
+                inter_ids, max_new_tokens=n_tok, qos_class="interactive",
+                tenant="acme")
+        if state["pinned"] is not None and state["released"] is None:
+            inter = state["inter"]
+            if (engine.preemptions_total - p0 >= len(reqs)
+                    if release == "preempted"
+                    else inter is not None
+                    and inter.first_token_at is not None):
+                ctl.force_level(0)
+                state["released"] = engine.steps.steps_total
+
+    def counted_actuate():
+        before = engine.preemptions_total
+        actuate()
+        if ctl.level >= 2:
+            acts.append(engine.preemptions_total - before)
+
+    def timed_prefill(bucket, slots_idx, batch):
+        if not any(r.preemptions for r in batch):
+            return prefill(bucket, slots_idx, batch)
+        tail = engine._tail_only(batch)
+        if engine._stream is None:   # a dry run on the CPU: no card time
+            prefill(bucket, slots_idx, batch)
+            waves.append((len(batch), bucket, tail, None, None))
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(engine._stream)
+        prefill(bucket, slots_idx, batch)
+        end.record(engine._stream)
+        waves.append((len(batch), bucket, tail, start, end))
+
+    times: dict = {}
+    tokens: dict = {}
+
+    def consume(key, req):
+        t, toks = [], []
+        for token in req.stream(timeout_s=300):
+            t.append(time.monotonic())
+            toks.append(token)
+        times[key], tokens[key] = t, toks
+
+    engine._sync_oldest = armed_sync
+    engine._qos_actuate = counted_actuate
+    engine._prefill = timed_prefill
+    seq0 = engine.steps.steps_total
+    threads = []
+    try:
+        gate_admission(engine, len(ids))
+        for i, x in enumerate(ids):
+            reqs.append(engine.submit(x, max_new_tokens=n_tok,
+                                      qos_class="batch", tenant="acme"))
+            threads.append(threading.Thread(target=consume,
+                                            args=(i, reqs[-1])))
+            threads[-1].start()
+        for th in threads:
+            th.join(timeout=600)
+        require(len(tokens) == len(ids), "qos: a batch stream hung")
+        out = [tokens[i] for i in range(len(ids))]
+        require(state["inter"] is not None,
+                "qos: the interactive request was never submitted")
+        inter_out = state["inter"].result(timeout_s=300)
+        wait_idle(engine)
+    finally:
+        for name in ("_sync_oldest", "_qos_actuate", "_prefill"):
+            engine.__dict__.pop(name, None)
+    if engine._stream is not None:
+        torch.cuda.synchronize()
+    return {"reqs": reqs, "out": out, "inter": state["inter"],
+            "inter_out": inter_out, "times": times, "acts": acts,
+            "state": state, "steps": (seq0, engine.steps.steps_total),
+            "captured": engine.executor.captures - c0,
+            "waves": [(k, b, tail, s.elapsed_time(e) if s else math.nan)
+                      for k, b, tail, s, e in waves]}
+
+
+def check_ties(engine, what: str, ids, got, ref) -> int:
+    """Each stream of `got` equal to its `ref` token for token, or leaving it
+    where the ref's top-2 logit margin at the first differing token, from
+    the scoring pass, is at most QOS_TIE_STEPS bf16 steps at the top
+    logit's magnitude (read from the teacher-forced oracle); returns how
+    many were equal."""
+    matched = 0
+    for i, (g, w) in enumerate(zip(got, ref)):
+        if g == w:
+            matched += 1
+            continue
+        p = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+        _, top_ids, top_lps = engine.score(ids[i], w[:p + 1], top=2)
+        margin = float(top_lps[p][0] - top_lps[p][1])
+        top = float(oracle_logits(engine.params, engine.cfg, engine.device,
+                                  list(ids[i]) + w[:p])[-1].float().max())
+        bound = QOS_TIE_STEPS * bf16_step(top)
+        log(f"{what}: stream {i} first differs at token {p}: the "
+            f"undisturbed run's top-2 {top_ids[p].tolist()} margin "
+            f"{margin:.6f} = {margin / bf16_step(top):.1f} bf16 steps at "
+            f"its top logit {top:.3f} (at most {QOS_TIE_STEPS}: {bound})")
+        require(margin <= bound, f"{what}: stream {i} differs at token {p} "
+                f"beyond {QOS_TIE_STEPS} bf16 steps (margin {margin:.6f})")
+    return matched
+
+
+def check_preempted(what: str, run: dict, n_tok: int) -> None:
+    """Every batch row preempted once, at the first loop step at
+    preempt_batch, and re-admitted: each stream delivered n_tok tokens,
+    its replay ledger equal to them (nothing repeated or dropped), no
+    replay taken; no graph captured by the run."""
+    n = len(run["reqs"])
+    require(run["captured"] == 0, f"{what}: the run captured "
+            f"{run['captured']} graphs (a preemption or a resume)")
+    require(run["acts"][:1] == [n] and sum(run["acts"]) == n,
+            f"{what}: the loop steps at preempt_batch preempted "
+            f"{run['acts']}, not all {n} rows at the first")
+    for i, (r, toks) in enumerate(zip(run["reqs"], run["out"])):
+        require(r.preemptions == 1 and r.replays == 0
+                and r.admitted_at is not None,
+                f"{what}: stream {i} preemptions {r.preemptions}, replays "
+                f"{r.replays}")
+        require(len(toks) == n_tok and r.emitted == toks,
+                f"{what}: stream {i} delivered {len(toks)} tokens of "
+                f"{n_tok}, or a token twice")
+
+
+def qos_phase(app, engine, card: str, boot: int) -> None:
+    """Phase 4d on the main path's served engine, after 4c: the QoS plane
+    enabled on its App, the ladder moved only by force_level (pin_ladder).
+    qos_streams' traffic (7 batch streams x 64 tokens, tenant acme, and an
+    interactive one in the reserved slot) run with the ladder at 0, then
+    again pinned at preempt_batch at mid-stream and back at 0 at the sync
+    after the preemption (the prefix cache emptied before each run, so
+    both admit full waves): every batch row preempted at the first loop
+    step, queued again and re-admitted (a tail-only wave on its prompt's
+    cached page), each stream equal to the unpreempted run or leaving it
+    at a bf16 tie, nothing repeated or dropped; no graph captured; flash
+    n_layers per full wave and the paged read n_layers per decode step
+    over the run. Then at shed_standard a standard /generate gets 503 with
+    Retry-After and an interactive one 200; at park_batch a batch submit
+    waits until the ladder is back at 0; /debug/qos and the app_tpu_qos_*
+    series equal the counts; /debug/capacity bills acme."""
+    t0 = time.monotonic()
+    tok = engine.tokenizer
+    ids, inter_ids = qos_prompts(tok, QOS_SEED)
+    ctl = app.enable_qos(engine)
+    pin_ladder(ctl)
+    L = engine.cfg.n_layers
+    with engine._state_lock:
+        drop_prefix(engine)
+    ref = qos_streams(engine, ctl, ids, inter_ids, QOS_TOKENS,
+                      inter_at=QOS_TOKENS // 4)
+    with engine._state_lock:
+        drop_prefix(engine)
+    zero_counts(engine)
+    t1 = time.monotonic()
+    run = qos_streams(engine, ctl, ids, inter_ids, QOS_TOKENS,
+                      inter_at=QOS_TOKENS // 4, pin_at=QOS_TOKENS // 2)
+    wall = time.monotonic() - t1
+    c = drill_counts(engine)
+    log(f"qos: 7 batch streams x {QOS_TOKENS} (tenant acme) and 1 "
+        f"interactive, preempt_batch pinned at {QOS_TOKENS // 2} delivered "
+        f"tokens: rows preempted per loop step at preempt_batch "
+        f"{run['acts']}, preemptions_total {engine.preemptions_total}; the "
+        f"run's counts {c} (n_layers={L}); re-admission waves [K, bucket, "
+        f"tail-only] {[w[:3] for w in run['waves']]}; graphs captured by "
+        f"the run {run['captured']} (after boot "
+        f"{engine.executor.captures - boot}, scoring passes included); in "
+        f"{wall:.2f}s [{card}]")
+    check_preempted("qos", run, QOS_TOKENS)
+    require(c["flash_attention"] == L * c["waves"]
+            and c["paged_attention"] == L * c["steps"] and c["waves"] > 0,
+            f"qos: launches {c} are not n_layers per full wave and per "
+            f"decode step")
+    require(c["tail_waves"] > 0 and all(w[2] for w in run["waves"]),
+            "qos: a resume was not a tail-only prefix hit")
+    matched = check_ties(engine, "qos", ids, run["out"], ref["out"])
+    same_inter = check_ties(engine, "qos interactive", [inter_ids],
+                            [run["inter_out"]], [ref["inter_out"]])
+    log(f"qos: {matched} of {len(ids)} batch streams equal the unpreempted "
+        f"run token for token (the interactive one: {bool(same_inter)})")
+    # the door at shed_standard, over HTTP
+    ctl.force_level(4)
+    status, headers, body = post_json(
+        app.http_port, "/generate",
+        {"prompt": "shed me", "max_tokens": 4, "stream": False},
+        {"X-QoS-Class": "standard", "X-Tenant": "acme"})
+    inter: dict = {}
+    stream_request(app.http_port, make_prompt(60, QOS_SEED + 60), 4, inter,
+                   "i", {"class": "interactive", "tenant": "acme"})
+    ctl.force_level(0)
+    retry = headers.get("Retry-After")
+    log(f"qos: at shed_standard a standard /generate answered {status} "
+        f"Retry-After {retry}, an interactive one {inter['i']['status']} "
+        f"with {inter['i']['done'] and inter['i']['done']['tokens']} tokens")
+    require(status == 503 and retry is not None,
+            "qos: shed_standard did not shed a standard request with 503")
+    require(inter["i"]["status"] == 200 and inter["i"]["done"]["tokens"] == 4,
+            "qos: shed_standard refused an interactive request")
+    # park_batch: a batch submit waits until the ladder is back at 0
+    ctl.force_level(1)
+    parked = engine.submit(ids[0], max_new_tokens=8, qos_class="batch",
+                           tenant="acme")
+    time.sleep(0.3)
+    waited = parked.admitted_at is None
+    ctl.force_level(0)
+    t_released = time.monotonic()
+    got = parked.result(timeout_s=60)
+    log(f"qos: at park_batch a batch submit waited 0.3 s unadmitted "
+        f"{waited}; at 0 it admitted and delivered {len(got)} tokens "
+        f"{time.monotonic() - t_released:.3f}s later")
+    require(waited and len(got) == 8, "qos: park_batch did not park batch")
+    wait_idle(engine)
+    snap = get_json(app.http_port, "/debug/qos")
+    n = len(ids)
+    want = {"batch": {"submitted": 2 * n + 1, "admitted": n + 2 * n + 1,
+                      "preempted": n, "finished": 2 * n + 1, "errors": 0},
+            "interactive": {"submitted": 3, "admitted": 3, "finished": 3},
+            "standard": {"shed": 1}}
+    got_counts = {cls: {k: snap["classes"][cls][k] for k in fields}
+                  for cls, fields in want.items()}
+    series = series_of(app.container.metrics_manager.expose())
+    metric = {cls: {k: series.get(f'app_tpu_qos_{k}_total{{class="{cls}"}}')
+                    for k in fields if k in ("submitted", "admitted",
+                                             "preempted", "shed")}
+              for cls, fields in want.items()}
+    log(f"qos: /debug/qos {got_counts}, preemptions_total "
+        f"{snap['preemptions_total']}, tenants {snap['tenants']}; "
+        f"app_tpu_qos_* {metric}, shed level "
+        f"{series.get('app_tpu_qos_shed_level')}")
+    require(got_counts == want and snap["preemptions_total"] == n
+            and snap["tenants"].get("batch", {}).get("acme") == 2 * n + 1,
+            f"qos: /debug/qos {got_counts} is not {want}")
+    require(all(v == float(want[cls][k]) for cls, row in metric.items()
+                for k, v in row.items()),
+            f"qos: the app_tpu_qos_* series {metric} are not {want}")
+    cap = get_json(app.http_port, "/debug/capacity")
+    acme = [a for a in cap["accounts"] if a["tenant"] == "acme"]
+    log(f"qos: /debug/capacity bills acme: "
+        f"{[(a['class'], a['device_s'], a['requests']) for a in acme]}")
+    require(any(a["class"] == "batch" and a["device_s"] > 0 for a in acme)
+            and any(a["class"] == "interactive" for a in acme),
+            "qos: /debug/capacity does not bill acme")
+    took = time.monotonic() - t0
+    log(f"qos: phase 4d {took:.1f}s")
+    require(took < QOS_LIMIT_S, f"qos: {took:.1f}s over {QOS_LIMIT_S}s")
+
+
+def qos_env(tmp: str) -> dict:
+    """The main path's serve config with QOS=true, and an SLO burn engine
+    the ladder climbs on at once: a TTFT target every request misses, 4
+    events enough, 5 s windows, 0.3 s escalation and 0.5 s recovery holds,
+    the ladder evaluated every 0.1 s; batch held to a tenth of the page
+    pool, a standard request's queue deadline 0.5 s; incident bundles in
+    `tmp`."""
+    return {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "MAX_BATCH": "8",
+            "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+            "PREFILL_BUCKETS": "16,32,64,128,256", "REQUEST_TIMEOUT": "600",
+            "WARMUP": "wide", "QOS": "true", "QOS_SHED_TRACKS": "ttft",
+            "QOS_ESCALATE_HOLD_S": "0.3", "QOS_RECOVER_HOLD_S": "0.5",
+            "QOS_EVAL_S": "0.1", "QOS_BATCH_PAGE_FRACTION": "0.1",
+            "QOS_DEADLINE_STANDARD_S": "0.5", "QOS_SHED_RETRY_AFTER_S": "2",
+            "SLO_TTFT_TARGET_S": "0.001", "SLO_BURN_MIN_EVENTS": "4",
+            "SLO_BURN_FAST_WINDOW_S": "5", "SLO_BURN_SLOW_WINDOW_S": "5",
+            "INCIDENT_DIR": f"{tmp}/incidents",
+            "PROFILE_DIR": f"{tmp}/profiles"}
+
+
+def qos_mode_phase(params, cfg, dev, card: str) -> None:
+    """Phase 12 (--qos): the main path's engine booted with qos_env: the
+    ladder's climb and recovery on the real burn engine (ladder_climb),
+    the figures of a preemption (preempt_figures), batch parked at its
+    page share (page_share_parking), a standard request expiring at its
+    deadline (deadline_expiry), the OpenAI server's classes and tenants
+    (openai_classes, whose shutdown stops the engine); then the dense
+    engine's preemption at CUT_DEPTH layers (dense_preemption)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="gofr-qos-")
+    env = qos_env(tmp)
+    engine = build_engine(env, device=dev, params=params)
+    boot_line(engine, "paged qos", card)
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        for step in (ladder_climb, preempt_figures, page_share_parking,
+                     deadline_expiry):
+            t0 = time.monotonic()
+            step(app, engine, card)
+            log(f"qos: {step.__name__} {time.monotonic() - t0:.1f}s")
+        t0 = time.monotonic()
+        openai_classes(env, engine, card)
+        log(f"qos: openai_classes {time.monotonic() - t0:.1f}s")
+    finally:
+        app.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del engine, app
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dense_preemption(cut_tree(params, CUT_DEPTH),
+                     dataclasses.replace(cfg, n_layers=CUT_DEPTH), dev, card)
+    log(f"qos: dense_preemption {time.monotonic() - t0:.1f}s")
+    log(f"qos: phase 12 {time.monotonic() - t_all:.1f}s")
+
+
+def ladder_climb(app, engine, card) -> None:
+    """The ladder on the real SLO burn engine (adopted from
+    enable_incident_autopsy): interactive requests miss the 1 ms TTFT
+    target until the ttft track pages; the ladder steps ok -> park_batch at
+    once, then one rung per 0.3 s hold up to shed_standard, where /stats
+    asks for a replica and a standard /generate gets 503 with Retry-After
+    while an interactive one is served; with the target re-set to 60 s the
+    windows drain and the ladder walks back down to ok, one rung per 0.5
+    s."""
+    ctl = engine.qos
+    require(ctl._burn is app.slo_burn and ctl.level == 0,
+            "qos: the controller did not adopt the burn engine")
+    tok = engine.tokenizer
+    t0 = time.monotonic()
+    sent = 0
+    while ctl.level < 4 and time.monotonic() - t0 < 30.0:
+        engine.submit(tok.encode(make_prompt(40, QOS_SEED + 200 + sent)),
+                      max_new_tokens=4, qos_class="interactive",
+                      tenant="climb").result(timeout_s=60)
+        sent += 1
+    climbed = time.monotonic() - t0
+    require(ctl.level == 4, f"qos: the ladder reached {ctl.level}, not 4, "
+            f"after {sent} requests")
+    stats = get_json(app.http_port, "/stats")
+    status, headers, _ = post_json(
+        app.http_port, "/generate",
+        {"prompt": "shed me", "max_tokens": 4, "stream": False},
+        {"X-QoS-Class": "standard"})
+    inter_status, _, _ = post_json(
+        app.http_port, "/generate",
+        {"prompt": "serve me", "max_tokens": 4, "stream": False},
+        {"X-QoS-Class": "interactive"})
+    app.slo_burn.slo_ttft_s = 60.0
+    t1 = time.monotonic()
+    wait_for(lambda: ctl.level == 0, "the ladder to recover", timeout_s=30.0)
+    recovered = time.monotonic() - t1
+    trail = get_json(app.http_port, "/debug/qos")["ladder"]["transitions"]
+    start = trail[0]["t"]
+    log(f"qos: ladder: {sent} interactive requests over a 1 ms TTFT target "
+        f"climbed it to shed_standard in {climbed:.2f}s; /stats scaleout "
+        f"{stats['fleet']['qos']}; a standard /generate {status} Retry-After "
+        f"{headers.get('Retry-After')}, an interactive one {inter_status}; "
+        f"target 60 s: back at ok {recovered:.2f}s later; trail "
+        + ", ".join(f"{t['to']}@{t['t'] - start:.2f}s" for t in trail)
+        + f" [{card}]")
+    require([t["to"] for t in trail][-8:] ==
+            ["park_batch", "preempt_batch", "request_replica",
+             "shed_standard", "request_replica", "preempt_batch",
+             "park_batch", "ok"], "qos: the ladder's trail does not end "
+            "with the climb and the walk back")
+    require(stats["fleet"]["qos"] == {"scaleout_wanted": True},
+            "qos: /stats did not ask for a replica at shed_standard")
+    require(status == 503 and headers.get("Retry-After") == "2"
+            and inter_status == 201,
+            "qos: shed_standard did not shed standard and serve interactive")
+    pin_ladder(ctl)
+
+
+def gap_ms(times) -> float:
+    """The largest gap between a stream's token arrivals, ms."""
+    return max((b - a) * 1e3 for a, b in zip(times, times[1:]))
+
+
+def preempt_figures(app, engine, card) -> None:
+    """qos_streams' traffic twice with batch's page share lifted: the
+    interactive request submitted while the 7 batch rows decode, then with
+    preempt_batch pinned at the same sync and back at 0 at its first token
+    (the batch rows queued behind it meanwhile). Logged: its TTFT in each,
+    the batch streams' largest gap between tokens in each, the
+    re-admission waves' card time, the qos segment's share of the loop
+    steps of the run; every row preempted once and re-admitted, each
+    stream equal to the undisturbed run or leaving it at a bf16 tie."""
+    ctl = engine.qos
+    ids, inter_ids = qos_prompts(engine.tokenizer, QOS_SEED + 100)
+    fraction, ctl.batch_page_fraction = ctl.batch_page_fraction, 1.0
+    try:
+        runs = []
+        for pin in (None, QOS_TOKENS // 4):
+            with engine._state_lock:
+                drop_prefix(engine)
+            runs.append(qos_streams(engine, ctl, ids, inter_ids, QOS_TOKENS,
+                                    inter_at=QOS_TOKENS // 4, pin_at=pin,
+                                    release="first_token"))
+    finally:
+        ctl.batch_page_fraction = fraction
+    calm, hit = runs
+    check_preempted("qos figures", hit, QOS_TOKENS)
+    ttft = [(r["inter"].first_token_at - r["inter"].enqueued_at) * 1e3
+            for r in runs]
+    gaps = [sorted(gap_ms(r["times"][i]) for i in range(len(ids)))
+            for r in runs]
+    seq0, seq1 = hit["steps"]
+    recs = [r for r in engine.steps.records(512) if seq0 < r.seq <= seq1]
+    qos_s = sum(r.segments.get("qos", 0.0) for r in recs)
+    wall = sum(r.wall_s for r in recs)
+    preempting = max((r.segments.get("qos", 0.0) for r in recs), default=0)
+    waves = hit["waves"]
+    log(f"qos: figures: the interactive request's TTFT {ttft[0]:.2f} ms with "
+        f"the 7 batch rows decoding, {ttft[1]:.2f} ms with them preempted at "
+        f"its submit [{card}]")
+    log(f"qos: figures: the batch streams' largest gap between tokens "
+        f"p50 {gaps[0][3]:.1f} / max {gaps[0][-1]:.1f} ms undisturbed, p50 "
+        f"{gaps[1][3]:.1f} / max {gaps[1][-1]:.1f} ms across the preemption "
+        f"[{card}]")
+    log(f"qos: figures: re-admission waves [K, bucket, tail-only, card ms] "
+        f"{[(k, b, t, round(ms, 3)) for k, b, t, ms in waves]}, "
+        f"{sum(w[3] for w in waves):.3f} ms of card in all (CUDA events on "
+        f"the engine's stream, upload included) [{card}]")
+    log(f"qos: figures: the qos segment {qos_s * 1e3:.3f} ms of "
+        f"{wall * 1e3:.1f} ms over the run's {len(recs)} loop steps, share "
+        f"{qos_s / wall:.6f}; the preempting step's {preempting * 1e3:.3f} "
+        f"ms [{card}]")
+    require(waves and all(w[2] for w in waves),
+            "qos: a resume was not a tail-only prefix hit")
+    matched = check_ties(engine, "qos figures", ids, hit["out"], calm["out"])
+    log(f"qos: figures: {matched} of {len(ids)} batch streams equal the "
+        f"undisturbed run token for token")
+
+
+def page_share_parking(app, engine, card) -> None:
+    """QOS_BATCH_PAGE_FRACTION=0.1 of the 64-page pool: 8 batch requests of
+    2 pages each (a 161-token prompt and 64 new tokens), each submitted
+    once the one before is bound to its slot or has waited 0.3 s (the
+    first floor(0.1 * 64 / 2) = 3 should admit at once and the fourth
+    park, logged); every admission decision on them saw the share batch
+    would hold: each admit at or under the fraction, each park over it,
+    at least one park; all complete. The share counts the pages of bound
+    slots only, so one admission round that takes several parked requests
+    may go past it, as the reference's does (logged: the most decoding at
+    once)."""
+    ctl = engine.qos
+    tok = engine.tokenizer
+    pool = engine.allocator.n_pages - 1
+    ids = [tok.encode(make_prompt(160, QOS_SEED + 300 + i)) for i in range(8)]
+    need = engine.allocator.pages_for(len(ids[0]) + QOS_TOKENS)
+    cap = int(ctl.batch_page_fraction * pool // need)
+    require(cap > 0, f"qos: a batch request of {need} pages can never fit "
+            f"the share of a {pool}-page pool")
+    peak = [0]
+    sync = engine._sync_oldest
+
+    def counted_sync():
+        sync()
+        peak[0] = max(peak[0], sum(1 for s in engine.slots
+                                   if s.request is not None
+                                   and s.request.qos_class == "batch"))
+
+    shares = []
+    share_of = ctl._batch_page_share
+
+    def recorded(request, eng):
+        shares.append(share_of(request, eng))
+        return shares[-1]
+
+    with engine._state_lock:
+        drop_prefix(engine)
+    engine._sync_oldest = counted_sync
+    ctl._batch_page_share = recorded
+    try:
+        reqs, at_once = [], []
+        for x in ids:
+            reqs.append(engine.submit(x, max_new_tokens=QOS_TOKENS,
+                                      qos_class="batch", tenant="parked"))
+            deadline = time.monotonic() + 0.3
+            while (reqs[-1].admitted_at is None
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            at_once.append(reqs[-1].admitted_at is not None)
+        out = [r.result(timeout_s=300) for r in reqs]
+    finally:
+        del engine._sync_oldest, ctl._batch_page_share
+    fraction = ctl.batch_page_fraction
+    parks = [x for x in shares if x > fraction]
+    log(f"qos: page share: QOS_BATCH_PAGE_FRACTION {ctl.batch_page_fraction}"
+        f" of {pool} pages, 8 batch requests of {need} pages submitted one "
+        f"by one: admitted at once {at_once} (the first {cap} expected, "
+        f"then a park); {len(shares)} admission decisions, {len(parks)} "
+        f"parks over the share, the largest share admitted "
+        f"{max(x for x in shares if x <= fraction):.4f}; at most {peak[0]} "
+        f"decoding at once; all {QOS_TOKENS} tokens "
+        f"{all(len(o) == QOS_TOKENS for o in out)}")
+    require(parks and all(len(o) == QOS_TOKENS for o in out),
+            "qos: batch did not park at its page share")
+
+
+def deadline_expiry(app, engine, card) -> None:
+    """A standard /generate queued past QOS_DEADLINE_STANDARD_S (admission
+    held 1 s) answers 503 with Retry-After; /debug/qos counts it."""
+    out = {}
+
+    def ask():
+        out["r"] = post_json(app.http_port, "/generate",
+                             {"prompt": "late", "max_tokens": 4,
+                              "stream": False},
+                             {"X-QoS-Class": "standard", "X-Tenant": "late"})
+
+    engine._admit = lambda: None
+    th = threading.Thread(target=ask)
+    try:
+        th.start()
+        time.sleep(1.0)
+    finally:
+        del engine._admit
+    th.join(timeout=60)
+    status, headers, body = out["r"]
+    expired = get_json(app.http_port, "/debug/qos")["classes"]["standard"][
+        "expired"]
+    log(f"qos: deadline: a standard request queued 1 s past its 0.5 s "
+        f"deadline answered {status} Retry-After {headers.get('Retry-After')}"
+        f" ({body['error']['message'][:60]}); expired {expired}")
+    require(status == 503 and headers.get("Retry-After") and expired == 1,
+            "qos: the standard request did not expire at its deadline")
+
+
+def openai_classes(env, engine, card) -> None:
+    """The OpenAI server on the same engine (its own App: QoS, the meter
+    and the recorder wired again): chat completions with X-QoS-Class and
+    X-Tenant land in their class and tenant in /debug/qos and
+    /debug/capacity; an unknown class is a 400. Its shutdown stops the
+    engine."""
+    from gofr_tpu_torch import serve_openai
+
+    app = serve_openai.build_app(env, engine=engine)
+    app.start()
+    try:
+        pin_ladder(engine.qos)
+        sent = {"interactive": "tenant-i", "standard": "tenant-s",
+                "batch": "tenant-b"}
+        statuses = {}
+        for cls, tenant in sent.items():
+            status, _, _ = post_json(
+                app.http_port, "/v1/chat/completions",
+                {"messages": [{"role": "user", "content": f"hi {cls}"}],
+                 "max_tokens": 4, "temperature": 0},
+                {"X-QoS-Class": cls, "X-Tenant": tenant})
+            statuses[cls] = status
+        bad, _, _ = post_json(
+            app.http_port, "/v1/chat/completions",
+            {"messages": [{"role": "user", "content": "hi"}],
+             "max_tokens": 4}, {"X-QoS-Class": "platinum"})
+        snap = get_json(app.http_port, "/debug/qos")
+        cap = get_json(app.http_port, "/debug/capacity")
+    finally:
+        app.shutdown()
+    billed = {a["class"]: a["tenant"] for a in cap["accounts"]}
+    log(f"qos: openai: chat completions by class {statuses}, unknown class "
+        f"{bad}; /debug/qos tenants {snap['tenants']}; /debug/capacity "
+        f"accounts {billed}")
+    require(all(s == 201 for s in statuses.values()) and bad == 400,
+            "qos: the OpenAI server's classes were not served")
+    require(snap["tenants"] == {c: {t: 1} for c, t in sent.items()}
+            and billed == {c: t for c, t in sent.items()},
+            "qos: the OpenAI server's classes or tenants were lost")
+
+
+def dense_preemption(params, cfg, dev, card,
+                     preset: str = "llama3-8b") -> None:
+    """The dense engine (PAGED=false DECODE_ATTN=kernel) at the depth of
+    `params`, QOS=true, WARMUP=wide: qos_streams' traffic undisturbed and
+    then pinned at preempt_batch at mid-stream: every row preempted and
+    re-admitted (a full wave at its resume bucket), each stream equal or
+    at a tie, flash n_layers per wave and the dense read n_layers per
+    decode step, no graph captured by the preempted run."""
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    env = {**QUIET, "MODEL_PRESET": preset, "ATTN_IMPL": "flash",
+           "PAGED": "false", "DECODE_ATTN": "kernel", "HTTP_PORT": "0",
+           "METRICS_PORT": "0", "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+           "PREFILL_BUCKETS": "16,32,64,128,256", "WARMUP": "wide",
+           "QOS": "true"}
+    engine = build_engine(env, device=dev, params=params)
+    boot = boot_line(engine, f"dense qos ({cfg.n_layers} layers)", card)
+    app = build_app(env, engine=engine)
+    app.start()
+    try:
+        ctl = engine.qos
+        pin_ladder(ctl)
+        ids, inter_ids = qos_prompts(engine.tokenizer, QOS_SEED + 400)
+        ref = qos_streams(engine, ctl, ids, inter_ids, QOS_TOKENS,
+                          inter_at=QOS_TOKENS // 4)
+        zero_counts(engine)
+        run = qos_streams(engine, ctl, ids, inter_ids, QOS_TOKENS,
+                          inter_at=QOS_TOKENS // 4, pin_at=QOS_TOKENS // 2)
+        launches = launch_counts.counts()
+        waves, steps = engine.prefill_dispatches, engine.decode_steps
+        L = engine.cfg.n_layers
+        log(f"qos: dense ({L} layers): rows preempted per loop step at "
+            f"preempt_batch {run['acts']}; flash {launches['flash_attention']}"
+            f" over {waves} waves, decode_attention "
+            f"{launches['decode_attention']} over {steps} steps; "
+            f"re-admission waves {[w[:3] for w in run['waves']]} "
+            f"{sum(w[3] for w in run['waves']):.3f} card ms; graphs "
+            f"captured by the run {run['captured']} (after boot "
+            f"{engine.executor.captures - boot}) [{card}]")
+        check_preempted("qos dense", run, QOS_TOKENS)
+        require(launches["flash_attention"] == L * waves
+                and launches["decode_attention"] == L * steps
+                and waves > 0 and steps > 0,
+                "qos dense: launches are not n_layers per wave and step")
+        matched = check_ties(engine, "qos dense", ids, run["out"], ref["out"])
+        log(f"qos: dense: {matched} of {len(ids)} batch streams equal the "
+            f"unpreempted run token for token")
+    finally:
+        app.shutdown()
+
+
 FAULTS_CHARS = 160
 FAULTS_SEED = 3000       # prompt seeds no other phase uses
 
@@ -4537,11 +5272,12 @@ def faults_env(tmp: str) -> dict:
             "PROFILE_DIR": f"{tmp}/profiles"}
 
 
-def post_json(port, path, body) -> tuple:
+def post_json(port, path, body, headers=None) -> tuple:
     """POST `path`: (status, headers, the {data} or error envelope)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     conn.request("POST", path, body=json.dumps(body),
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json",
+                          **(headers or {})})
     resp = conn.getresponse()
     raw = resp.read()
     conn.close()
@@ -4558,7 +5294,8 @@ def wait_for(cond, what: str, timeout_s: float = 60.0) -> None:
 def faults_phase(params, cfg, dev, card: str) -> None:
     """Phase 11 (--faults), on the main path's engine with FAULT_INJECTION:
     the reset storm and the breaker, a quarantine, the breaker_open
-    incident bundle, a /debug/profile capture while streams are served, the
+    incident bundle, a /debug/profile capture (the route enabled on this
+    App: the servers serve none) while streams are served, the
     capacity meter against /debug/steps, and the planes' cost."""
     import shutil
     import tempfile
@@ -4571,6 +5308,9 @@ def faults_phase(params, cfg, dev, card: str) -> None:
     engine = build_engine(env, device=dev, params=params)
     boot = boot_line(engine, "paged faults", card)
     app = build_app(env, engine=engine)
+    # the servers serve no /debug/profile, as the reference's: this
+    # harness enables it on its own App
+    app.enable_profiler()
     app.start()
     try:
         tok = engine.tokenizer
@@ -4877,21 +5617,26 @@ def main(argv=()) -> int:
     only the decode-read checks and times. --prefill: build, then only the
     model's prefill times at [1, 256] and [4, 256]. --spec: build, then the
     speculation and chunked-prefill phases (10). --sc: build, then the
-    main path's serve phase, its sampling-controls phase, the sort-skip
+    main path's sampling-controls phase at CUT_DEPTH layers, the sort-skip
     phase and the scoring phase. --weights: build, then the weights phases
     (w8_phase). --openai: build, then the OpenAI phase on an engine of its
     own (OPENAI_ENV). --obs: build, then the main path's serve phase with
     phase 4b and its cost measurements, and its decode profile with the
     utilization ledger beside the profiler. --faults: build, then phase 11
-    (faults_phase), ending with the ok line. The other short modes print no
-    ok line."""
+    (faults_phase), ending with the ok line. --qos: build, then phase 12
+    (qos_mode_phase), ending with the ok line. The other short modes print
+    no ok line."""
+    import dataclasses
+
     import torch
 
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
-                    "--weights", "--spec", "--openai", "--obs", "--faults"):
+                    "--weights", "--spec", "--openai", "--obs", "--faults",
+                    "--qos"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
-            f"--sc, --weights, --spec, --openai, --obs, --faults or none)")
+            f"--sc, --weights, --spec, --openai, --obs, --faults, --qos or "
+            f"none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -4930,7 +5675,7 @@ def main(argv=()) -> int:
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
         if mode not in ("--prefill", "--weights", "--spec", "--openai",
-                        "--obs", "--faults"):
+                        "--obs", "--faults", "--qos"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -4980,17 +5725,21 @@ def main(argv=()) -> int:
             profile_decode(eng, card, "paged")
             log(f"obs only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode == "--faults":
-            faults_phase(params, cfg, dev, card)
-            log(f"faults only: ok, total {time.monotonic() - t_all:.1f}s")
+        if mode in ("--faults", "--qos"):
+            if mode == "--faults":
+                faults_phase(params, cfg, dev, card)
+            else:
+                qos_mode_phase(params, cfg, dev, card)
+            log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
             print(card, flush=True)
             print(json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": torch.cuda.get_device_name(0),
                 "count": torch.cuda.device_count()}}), flush=True)
             return 0
         if mode == "--sc":
-            ref = serve_phase(params, cfg, dev, card, "paged")["sc_ref"]
-            serve_sc_phase(params, cfg, dev, card, "paged", ref)
+            serve_sc_phase(cut_tree(params, CUT_DEPTH),
+                           dataclasses.replace(cfg, n_layers=CUT_DEPTH), dev,
+                           card, "paged")
             sort_skip_phase(params, cfg, dev, card)
             score_phase(params, cfg, dev, card)
             log(f"sc only: ok, total {time.monotonic() - t_all:.1f}s")
@@ -5002,18 +5751,21 @@ def main(argv=()) -> int:
                                          obs=config == "paged",
                                          drill=config == "paged")
             torch.cuda.empty_cache()
+        # the sampling-controls and prefix phases at CUT_DEPTH layers, full
+        # width, each held to the oracle at that depth
+        cut, cut_cfg = (cut_tree(params, CUT_DEPTH),
+                        dataclasses.replace(cfg, n_layers=CUT_DEPTH))
         for config in SERVE_CONFIGS:
             # the OpenAI phase on the main path's engine (its boot reused)
             after = (None if config != "paged" else
-                     lambda app, eng: openai_phase(params, cfg, dev, card,
+                     lambda app, eng: openai_phase(cut, cut_cfg, dev, card,
                                                    app, eng))
-            serve_sc_phase(params, cfg, dev, card, config,
-                           served[config]["sc_ref"], after=after)
+            serve_sc_phase(cut, cut_cfg, dev, card, config, after=after)
             torch.cuda.empty_cache()
         warmup_true_phase(params, cfg, dev, card)
         torch.cuda.empty_cache()
         for config in PREFIX_CONFIGS:
-            served[config] = prefix_phase(params, cfg, dev, card, config)
+            served[config] = prefix_phase(cut, cut_cfg, dev, card, config)
 
         flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
         # flash at every [K, bucket] window the main path dispatched; the

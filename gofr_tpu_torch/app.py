@@ -32,10 +32,12 @@ The observability planes, with the reference's config keys and defaults
 ``enable_profiler`` (``/debug/profile``, torch.profiler under
 ``PROFILE_DIR``), ``enable_fault_injection`` (``/debug/faults``, only under
 ``FAULT_INJECTION=true``), ``enable_incident_autopsy`` (``/debug/slo``,
-``/debug/incidents``) and ``enable_capacity`` (``/debug/capacity``); each
-returns what the reference's returns and stops its thread on shutdown.
-Waiting: QoS (ROADMAP A11e), drain with migration (A11f). Waiting in ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub
-subscriptions, static files and the OpenAPI routes.
+``/debug/incidents``), ``enable_capacity`` (``/debug/capacity``) and
+``enable_qos`` (``/debug/qos``, the QoS plane; its batch lane waits with
+pub/sub); each returns what the reference's returns and stops its thread
+on shutdown. Waiting: drain with migration (ROADMAP A11f). Waiting in
+ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub subscriptions
+(and with them the QoS batch lane), static files and the OpenAPI routes.
 """
 
 from __future__ import annotations
@@ -433,6 +435,60 @@ class App:
         self.container.add_scrape_hook("slo_burn", burn.publish)
         install_routes(self, burn, incidents, slo_path, incidents_path)
         return burn, incidents
+
+    def enable_qos(self, engine, burn=None, path: str = "/debug/qos"):
+        """Wire the QoS plane (tpu/qos.py) onto an engine: request classes
+        on priority bands, per-class deadlines, the interactive slot
+        reservation and the batch page share, and the shed ladder (park
+        batch, preempt batch through the replay contract, ask for a
+        replica, 503 standard) driven by the SLO burn engine: `burn`, else
+        the one enable_incident_autopsy gave the engine's recorder (call
+        that first; without one the ladder never moves by itself, and the
+        classes, quotas and deadlines still apply). Its eval thread stops
+        at shutdown; the metrics scrape re-evaluates the ladder, so it
+        recovers while the server idles. Config: QOS_INTERACTIVE_RESERVED_
+        SLOTS (1), QOS_BATCH_PAGE_FRACTION (0.5), QOS_DEADLINE_{INTERACTIVE,
+        STANDARD,BATCH}_S (0 = none), QOS_SHED_TRACKS ("ttft,tpot"),
+        QOS_ESCALATE_HOLD_S / QOS_RECOVER_HOLD_S (5 / 10), QOS_EVAL_S (1.0),
+        QOS_SHED_RETRY_AFTER_S (2.0). The reference's batch lane
+        (QOS_LANE, QOS_LANE_CRON, QOS_LANE_MAX_INFLIGHT, QOS_BATCH_TOPIC,
+        QOS_BATCH_RESULT_TOPIC) needs a pub/sub broker (ROADMAP A18b), and
+        the reference starts it only with one. Returns the QoSController."""
+        from .tpu.qos import (QoSController, install_routes,
+                              register_qos_metrics)
+
+        cfg = self.config
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_qos_metrics(metrics)
+        tracks = [t.strip() for t in cfg.get_or_default(
+            "QOS_SHED_TRACKS", "ttft,tpot").split(",") if t.strip()]
+        controller = QoSController(
+            interactive_reserved_slots=cfg.get_int(
+                "QOS_INTERACTIVE_RESERVED_SLOTS", 1),
+            batch_page_fraction=cfg.get_float("QOS_BATCH_PAGE_FRACTION",
+                                              0.5),
+            deadlines={
+                "interactive": cfg.get_float("QOS_DEADLINE_INTERACTIVE_S",
+                                             0.0),
+                "standard": cfg.get_float("QOS_DEADLINE_STANDARD_S", 0.0),
+                "batch": cfg.get_float("QOS_DEADLINE_BATCH_S", 0.0)},
+            shed_tracks=tuple(tracks),
+            escalate_hold_s=cfg.get_float("QOS_ESCALATE_HOLD_S", 5.0),
+            recover_hold_s=cfg.get_float("QOS_RECOVER_HOLD_S", 10.0),
+            retry_after_s=cfg.get_float("QOS_SHED_RETRY_AFTER_S", 2.0),
+            metrics=metrics, logger=self.logger,
+            recorder=getattr(engine, "recorder", None))
+        if burn is None:
+            burn = getattr(getattr(engine, "recorder", None), "burn", None)
+        controller.use_burn_engine(burn)
+        controller.engine = engine
+        engine.qos = controller
+        controller.start_eval_loop(cfg.get_float("QOS_EVAL_S", 1.0))
+        self.on_shutdown(controller.stop)
+        self.container.add_scrape_hook("qos", controller.publish)
+        install_routes(self, controller, path)
+        return controller
 
     def enable_capacity(self, engine, path: str = "/debug/capacity"):
         """Wire the capacity observatory (tpu/meter.py) onto an engine: the

@@ -11,14 +11,21 @@ body and sends the same events.
     the sampled distribution per request under SAMPLING_CONTROLS=true. The
     reference's 400 answers them without it or out of range (the engine
     refuses them), non-numeric values, and a QoS class (the X-QoS-Class
-    header, else the body's "class") that is not one of QOS_CLASSES. QoS is
-    not ported (ROADMAP A11e): a known class changes nothing. While the
-    engine's lifecycle is ``draining`` it answers 503.
+    header, else the body's "class") that is not one of tpu/qos.py's
+    CLASSES. The class and the tenant (the X-Tenant header, else the body's
+    "tenant") go into submit, QoS on or off: the capacity meter bills each
+    (tenant, class), and under QOS=true the class bands the admission and
+    the ladder acts on it. A ladder shed or a queued request past its
+    class's deadline is a 503 with Retry-After, as a draining, stalled or
+    breaker-open engine's is. max_tokens below 1 serves one token, as the
+    reference's does. While the engine's lifecycle is ``draining`` it
+    answers 503.
 
     GET /stats -> the reference's fleet probe: active_slots, queue_depth,
     compiled_programs, stall_seconds, spec (under SPECULATIVE_TOKENS),
     pages and prefix_cache (paged), slo (with the flight recorder) and
-    fleet {affinity digest, lifecycle, duty_cycle}.
+    fleet {affinity digest, lifecycle, qos {scaleout_wanted} (under QOS),
+    duty_cycle}.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from .env files under
 GOFR_CONFIGS_DIR, the process environment over them). Every key the
@@ -106,15 +113,25 @@ tuned by SLO_BURN_FAST_WINDOW_S, SLO_BURN_SLOW_WINDOW_S, SLO_BURN_PAGE,
 SLO_BURN_WARN, SLO_BURN_OBJECTIVE_TTFT, SLO_BURN_OBJECTIVE_TPOT,
 SLO_BURN_OBJECTIVE_AVAILABILITY, SLO_BURN_MIN_EVENTS, INCIDENT_DIR,
 INCIDENT_RING, INCIDENT_COOLDOWN_S, INCIDENT_MAX_PER_HOUR,
-INCIDENT_SLOWEST_K, INCIDENT_PROFILE_S, INCIDENT_STRAGGLER_STREAK and
+INCIDENT_SLOWEST_K, INCIDENT_PROFILE_S (with PROFILE_DIR, where a bundle's
+torch.profiler capture goes), INCIDENT_STRAGGLER_STREAK and
 INCIDENT_STRAGGLER_WINDOW) and CAPACITY (GET /debug/capacity: the
 attribution meter and the headroom forecast, tuned by METER_PAGE_TOKENS,
 METER_WINDOW_S, METER_REQUESTS, METER_TOP_K, CAPACITY_WINDOW_S,
 CAPACITY_RHO_WARN and CAPACITY_COLLAPSE_EVALS), on by default as in the
-reference; POST/GET /debug/profile (torch.profiler captures under
-PROFILE_DIR) on both servers; and, only under FAULT_INJECTION=true,
-POST/GET /debug/faults (FAULT_INJECTION_PLAN, FAULT_INJECTION_SEED) with
-the plane armed on the engine and its executor (app.py).
+reference; only under FAULT_INJECTION=true, POST/GET /debug/faults
+(FAULT_INJECTION_PLAN, FAULT_INJECTION_SEED) with the plane armed on the
+engine and its executor; and, only under QOS=true, as in the reference,
+the QoS plane (tpu/qos.py: class bands, the interactive slot reservation,
+the batch page share, per-class deadlines and the shed ladder on the SLO
+burn engine, with preemption of batch rows; GET /debug/qos and the
+app_tpu_qos_* series), tuned by QOS_INTERACTIVE_RESERVED_SLOTS,
+QOS_BATCH_PAGE_FRACTION, QOS_DEADLINE_INTERACTIVE_S,
+QOS_DEADLINE_STANDARD_S, QOS_DEADLINE_BATCH_S, QOS_SHED_TRACKS,
+QOS_ESCALATE_HOLD_S, QOS_RECOVER_HOLD_S, QOS_EVAL_S and
+QOS_SHED_RETRY_AFTER_S (app.py). As in the reference's servers, neither
+serves /debug/profile: ``App.enable_profiler`` is there for a harness that
+wants it.
 FLEET_AFFINITY_BLOCK sizes the affinity digest of /stats. The peak
 overrides TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW are read from the process
 environment, as the reference reads them (tpu/utilization.py).
@@ -200,6 +217,11 @@ PORTED = (
     "INCIDENT_STRAGGLER_WINDOW", "METER_PAGE_TOKENS", "METER_WINDOW_S",
     "METER_REQUESTS", "METER_TOP_K", "CAPACITY_WINDOW_S",
     "CAPACITY_RHO_WARN", "CAPACITY_COLLAPSE_EVALS",
+    # the QoS plane (app_for, App.enable_qos)
+    "QOS", "QOS_INTERACTIVE_RESERVED_SLOTS", "QOS_BATCH_PAGE_FRACTION",
+    "QOS_DEADLINE_INTERACTIVE_S", "QOS_DEADLINE_STANDARD_S",
+    "QOS_DEADLINE_BATCH_S", "QOS_SHED_TRACKS", "QOS_ESCALATE_HOLD_S",
+    "QOS_RECOVER_HOLD_S", "QOS_EVAL_S", "QOS_SHED_RETRY_AFTER_S",
     # the App's and its container's (app.py, container/, tracing/)
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
@@ -216,10 +238,6 @@ NOT_PORTED = (
      "disaggregated prefill/decode waits in ROADMAP A11f"),
     ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
      "the host KV tier waits in ROADMAP A11f"),
-    ("QOS", lambda e: _flag(e, "QOS", False),
-     "the QoS serving plane (tpu/qos.py: classes, quotas, the shed ladder "
-     "on the SLO burn engine, preemption through the replay contract, "
-     "/debug/qos) waits in ROADMAP A11e, the next item"),
     ("ELASTIC_WARM_BOOT", lambda e: _flag(e, "ELASTIC_WARM_BOOT", False),
      "the warm boot behind a `warming` lifecycle waits in ROADMAP A11f"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
@@ -262,16 +280,12 @@ INERT = (
      "refused (A11f)"),
     ("ELASTIC_PREWARM_PAGES", "the KV pre-warm of ELASTIC_WARM_BOOT, "
      "refused (A11f)"),
-    # they tune the QoS plane of QOS=true, refused (A11e)
-    *((key, "tunes the QoS plane of QOS=true, refused at boot (A11e)")
-      for key in ("QOS_BATCH_PAGE_FRACTION", "QOS_BATCH_RESULT_TOPIC",
-                  "QOS_BATCH_TOPIC", "QOS_DEADLINE_BATCH_S",
-                  "QOS_DEADLINE_INTERACTIVE_S", "QOS_DEADLINE_STANDARD_S",
-                  "QOS_ESCALATE_HOLD_S", "QOS_EVAL_S",
-                  "QOS_INTERACTIVE_RESERVED_SLOTS", "QOS_LANE",
-                  "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT",
-                  "QOS_RECOVER_HOLD_S", "QOS_SHED_RETRY_AFTER_S",
-                  "QOS_SHED_TRACKS")),
+    # they tune the QoS batch lane, which the reference starts only with a
+    # pub/sub broker: PUBSUB_BACKEND is refused (A18b)
+    *((key, "tunes the QoS batch lane, which needs the pub/sub broker of "
+      "PUBSUB_BACKEND, refused (A18b)")
+      for key in ("QOS_LANE", "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT",
+                  "QOS_BATCH_TOPIC", "QOS_BATCH_RESULT_TOPIC")),
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
@@ -307,14 +321,22 @@ def load_tokenizer(path: str):
     return BPETokenizer.from_file(path)
 
 
-def shed_to_503(exc: RuntimeError) -> ServiceUnavailable:
-    """The reference's ``_raise_for_shed``: a draining, stalled or
-    breaker-open engine's error (EngineDrainingError, EngineStalledError,
-    DeviceLostError: each carries status_code 503 and its retry_after_s)
-    as a 503 with a Retry-After hint; a stopped engine's RuntimeError too
-    (the reference answers it with a 500)."""
+def shed_to_503(exc: Exception) -> ServiceUnavailable:
+    """The reference's ``_raise_for_shed``: a shed error (a draining,
+    stalled or breaker-open engine's EngineDrainingError,
+    EngineStalledError or DeviceLostError, a QoS ladder's QoSShedError, a
+    queued request's QoSDeadlineError: each carries status_code 503 and
+    its retry_after_s) as a 503 with a Retry-After hint; a stopped engine's
+    RuntimeError too (the reference answers it with a 500)."""
     return ServiceUnavailable(
         str(exc), retry_after_s=getattr(exc, "retry_after_s", None) or 1.0)
+
+
+def is_shed(exc: BaseException) -> bool:
+    """Whether shed_to_503 answers `exc`: a duck-typed 503, or a stopped
+    engine's RuntimeError."""
+    return (getattr(exc, "status_code", None) == 503
+            or isinstance(exc, RuntimeError))
 
 
 def _warmup_mode(env: Config) -> str:
@@ -329,21 +351,6 @@ def _warmup_mode(env: Config) -> str:
         return "true"
     raise ValueError(f"WARMUP must be true, wide or false, got "
                      f"{env.get('WARMUP')!r}")
-
-
-# the reference's request classes (gofr_tpu/tpu/qos.py CLASSES); with QoS
-# off a known class is accepted and changes nothing
-QOS_CLASSES = ("interactive", "standard", "batch")
-
-
-def check_qos_class(value) -> None:
-    """Raise InvalidParam unless `value` (header, else body) is empty or
-    names one of QOS_CLASSES, case and surrounding blanks aside."""
-    if value is None or (isinstance(value, str)
-                         and value.strip().lower() in ("", *QOS_CLASSES)):
-        return
-    raise InvalidParam([f"class must be one of {', '.join(QOS_CLASSES)} "
-                        f"(got {value!r})"])
 
 
 def check_config(env: EnvLike) -> None:
@@ -368,7 +375,9 @@ def build_engine(env: EnvLike = None, device=None, params=None,
     the config); the engine records into its metrics manager (the
     app_tpu_* names registered here) and tracer and logs to its logger, as
     the reference's build_engine hands them over, and rides on
-    ``engine.container`` for build_app. On the card the kernels are built
+    ``engine.container`` for build_app. A `params` tree of fewer layers
+    than MODEL_PRESET's (its first layers, say) is served at its own depth,
+    at the preset's width. On the card the kernels are built
     here, at boot, and then WARMUP captures the programs serving is
     expected to reach (every one under wide) and WARMUP_SCORE the scoring
     family, so no request pays the compiler or a capture. The engine's
@@ -396,6 +405,10 @@ def build_engine(env: EnvLike = None, device=None, params=None,
         raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
     cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
                               decode_attn=decode_attn, kv_dtype=kv_dtype)
+    if params is not None:
+        # the depth of the tree given: every layer leaf is stacked [L, ...]
+        depth = next(iter(params["layers"].values())).shape[0]
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     weight_dtype = env.get("WEIGHT_DTYPE") or None
     if weight_dtype not in (None, "int8"):
         raise ValueError(f"WEIGHT_DTYPE must be int8 or unset, got "
@@ -496,8 +509,8 @@ def app_for(env: EnvLike, engine=None, device=None,
     503), then stops it. env: a Config, a mapping, or None (the App reads
     .env files under GOFR_CONFIGS_DIR, the process environment over
     them). The observability planes are enabled here, for both servers, as
-    the reference's build_app does (the module docstring); the stall
-    gauge is refreshed at every scrape."""
+    the reference's build_app does, and the QoS plane under QOS=true (the
+    module docstring); the stall gauge is refreshed at every scrape."""
     if engine is not None and getattr(engine, "container", None) is not None:
         app = App(config=env, container=engine.container)
     else:
@@ -538,9 +551,11 @@ def app_for(env: EnvLike, engine=None, device=None,
         app.slo_burn = burn
     # 404 unless FAULT_INJECTION=true
     app.enable_fault_injection(engine)
+    # opt-in, as in the reference: the ladder acts on the burn engine above
+    if _flag(config, "QOS", False):
+        app.enable_qos(engine)
     if _flag(config, "CAPACITY", True):
         app.enable_capacity(engine)
-    app.enable_profiler()
     return app
 
 
@@ -582,8 +597,12 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
         except (TypeError, ValueError) as exc:
             raise InvalidParam(["max_tokens", "temperature", "priority",
                                 "min_tokens", "top_p", "top_k"]) from exc
-        check_qos_class(ctx.request.headers.get("x-qos-class")
-                        or body.get("class") or None)
+        # the class and the tenant: the header wins over the body; an
+        # unknown class is submit's 400, never a silent default
+        qos_class = (ctx.request.header("X-QoS-Class")
+                     or body.get("class") or None)
+        tenant = str(ctx.request.header("X-Tenant")
+                     or body.get("tenant") or "")
         stream = bool(body.get("stream", True))
         try:
             request = engine.submit(
@@ -591,10 +610,15 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                 temperature=temperature, stop_tokens={tokenizer.EOS},
                 priority=priority, min_tokens=min_tokens, top_p=top_p,
                 top_k=top_k, span=ctx.span,
-                traceparent=ctx.request.traceparent)
+                traceparent=ctx.request.traceparent, qos_class=qos_class,
+                tenant=tenant)
+        except InvalidParam:
+            raise
         except ValueError as exc:
             raise InvalidParam([str(exc)]) from exc
-        except RuntimeError as exc:   # draining, stalled or stopped
+        except Exception as exc:  # noqa: BLE001 - sheds: 503 + Retry-After
+            if not is_shed(exc):
+                raise
             raise shed_to_503(exc) from exc
         affinity.record(prompt)   # admitted: its prefix now lives here
 
@@ -604,7 +628,9 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                 tokens = request.result(timeout_s=ctx.remaining())
             except TimeoutError as exc:   # slot already freed by result()
                 raise RequestTimeout() from exc
-            except RuntimeError as exc:   # failed in the queue by a drain
+            except Exception as exc:  # noqa: BLE001 - failed in the queue
+                if not is_shed(exc):   # by a drain or its deadline
+                    raise
                 raise shed_to_503(exc) from exc
             return {"text": tokenizer.decode(tokens), "tokens": len(tokens),
                     "seconds": round(time.monotonic() - start, 3)}
@@ -655,6 +681,10 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
         # cycle, not the page-pool dump of /debug/engine
         fleet = {"affinity": affinity.digest(),
                  "lifecycle": engine.lifecycle.state}
+        qos_ctl = getattr(engine, "qos", None)
+        if qos_ctl is not None:
+            # the ladder's request_replica rung, for the fleet's autoscaler
+            fleet["qos"] = {"scaleout_wanted": qos_ctl.scaleout_wanted}
         util = getattr(engine, "util", None)
         if util is not None:
             fleet["duty_cycle"] = util.window_stats()["duty_cycle"]

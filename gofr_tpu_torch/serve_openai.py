@@ -35,16 +35,21 @@ as the reference without KV_HOST_TIER_BYTES); a draining engine answers
 reference answers 500). Each request's span and traceparent reach
 ``engine.submit``, so its ``tpu.generate`` span joins the caller's trace.
 
-``GET /stats`` is the reference's: active_slots, queue_depth,
-stall_seconds and fleet {lifecycle, duty_cycle}. The observability planes
-(flight recorder, journey, /debug/trace, engine snapshot, step ledger,
-timeline, host profiler, the incident plane's /debug/slo and
-/debug/incidents, /debug/capacity, /debug/profile and, under
-FAULT_INJECTION=true, /debug/faults) and crash-only serving (replay after a
-reset, the reset-storm breaker: a 503 with Retry-After while it is open)
-are ``serve.app_for``'s and ``serve.build_engine``'s, under the same keys.
-Not ported: QoS (ROADMAP A11e), disaggregation and drain with migration
-(A11f); their keys are INERT or NOT_PORTED as on serve.py.
+The QoS class and tenant come from the X-QoS-Class and X-Tenant headers
+(the OpenAI bodies have no field for them) and go into submit, QoS on or
+off, as the reference's do: an unknown class is a 400, a ladder shed or a
+deadline's expiry a 503 with Retry-After. ``GET /stats`` is the
+reference's: active_slots, queue_depth, stall_seconds and fleet
+{lifecycle, qos {scaleout_wanted} (under QOS), duty_cycle}. The
+observability planes (flight recorder, journey, /debug/trace, engine
+snapshot, step ledger, timeline, host profiler, the incident plane's
+/debug/slo and /debug/incidents, /debug/capacity and, under
+FAULT_INJECTION=true, /debug/faults), the QoS plane under QOS=true
+(/debug/qos) and crash-only serving (replay after a reset, the reset-storm
+breaker: a 503 with Retry-After while it is open) are ``serve.app_for``'s
+and ``serve.build_engine``'s, under the same keys. Not ported:
+disaggregation and drain with migration (ROADMAP A11f); their keys are
+INERT or NOT_PORTED as on serve.py.
 
 Run: ``python -m gofr_tpu_torch.serve_openai`` (config from .env files
 under GOFR_CONFIGS_DIR and the process environment; ``device="cpu"`` only
@@ -61,7 +66,7 @@ from .app import App, Stream
 from .http.errors import InvalidParam, RequestTimeout
 from .http.responder import Raw
 from .models.tokenizer import StreamingDecoder
-from .serve import EnvLike, app_for, shed_to_503
+from .serve import EnvLike, app_for, is_shed, shed_to_503
 
 
 def _render_chat(messages) -> str:
@@ -153,7 +158,13 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                        min_tokens: int = 0, top_p: float = 0.0,
                        top_k: int = 0, ctx=None):
         # ctx threads the caller's trace context to the engine: the
-        # request's tpu.generate span shares the inbound trace id
+        # request's tpu.generate span shares the inbound trace id. The QoS
+        # class and tenant come from the headers; an unknown class is
+        # submit's 400
+        qos_class = (ctx.request.header("X-QoS-Class") or None
+                     if ctx is not None else None)
+        tenant = (str(ctx.request.header("X-Tenant") or "")
+                  if ctx is not None else "")
         try:
             return engine.submit(
                 prompt_tokens, max_new_tokens=max_tokens,
@@ -161,8 +172,11 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                 span=ctx.span if ctx is not None else None,
                 traceparent=(ctx.request.traceparent
                              if ctx is not None else None),
-                min_tokens=min_tokens, top_p=top_p, top_k=top_k)
-        except RuntimeError as exc:   # draining or stopped
+                min_tokens=min_tokens, top_p=top_p, top_k=top_k,
+                qos_class=qos_class, tenant=tenant)
+        except Exception as exc:  # noqa: BLE001 - sheds: 503 + Retry-After
+            if not is_shed(exc):
+                raise
             raise shed_to_503(exc) from exc
 
     def _finish_reason(n_emitted: int, max_tokens: int) -> str:
@@ -353,6 +367,9 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     @app.get("/stats")
     def stats(ctx):
         fleet = {"lifecycle": engine.lifecycle.state}
+        qos_ctl = getattr(engine, "qos", None)
+        if qos_ctl is not None:
+            fleet["qos"] = {"scaleout_wanted": qos_ctl.scaleout_wanted}
         util = getattr(engine, "util", None)
         if util is not None:
             fleet["duty_cycle"] = util.window_stats()["duty_cycle"]

@@ -114,7 +114,23 @@ The observability planes (ROADMAP A11c) are the reference's, at its sites:
     ``draining`` from ``drain()``;
   * ``app_tpu_tokens_per_second`` over a 5 s window of synced tokens.
 
-Waiting: QoS (ROADMAP A11e), disaggregated hand-off and migration (A11f).
+The QoS plane (ROADMAP A11e, tpu/qos.py) is the reference's: ``submit``'s
+``qos_class`` (``normalize_class``: an unknown class is refused even with
+no controller) and ``tenant`` ride on ``GenerationRequest``; with a
+controller (``self.qos``, None until ``App.enable_qos``) submit takes the
+ladder's door (``check_submit``) and bands the priority; the loop's
+``_qos_actuate`` (segment ``qos``) preempts batch rows at preempt_batch
+(``_preempt_slots``, ``_release_slot_for_preempt``: the replay contract,
+counted in ``preemptions`` and ``preemptions_total`` apart from the
+retry_budget); the admission gate takes ``admission_decision`` (expire:
+``QoSDeadlineError`` and a ``qos_expired`` event; park: the entry goes back
+and the round ends) and ``note_admitted``; both finish sites
+``note_finished``. One guard is the port's own: a preempted request stays
+queued while a dispatch in flight still holds it (``_in_flight``), so a
+block that decoded its old row cannot be demuxed to it once it is bound to
+the same slot again.
+
+Waiting: disaggregated hand-off and migration (ROADMAP A11f).
 
 Speculative decoding and chunked prefill (ROADMAP A10) are the reference's:
 ``spec_accept_epilogue`` (shared with the paged engine), the SPEC_* class
@@ -223,6 +239,7 @@ from .device import resolve_device
 from .executor import Executor, next_bucket
 from .migrate import Lifecycle
 from .obs import MetricsHook
+from . import qos
 from .ownership import loop_only
 from .sampling import pack_controls, sample_tokens, temperature_of
 from .stepledger import StepLedger
@@ -298,8 +315,14 @@ class GenerationRequest:
     def __init__(self, prompt_tokens: Sequence[int], max_new_tokens: int = 128,
                  temperature: float = 0.0, stop_tokens: Optional[Set[int]] = None,
                  priority: int = 0, min_tokens: int = 0, top_p: float = 0.0,
-                 top_k: int = 0, span=None, traceparent: Optional[str] = None):
+                 top_k: int = 0, span=None, traceparent: Optional[str] = None,
+                 qos_class: Optional[str] = None, tenant: str = ""):
         self.id = next(_request_ids)
+        # the QoS plane's class (tpu/qos.py; None: unclassified) and the
+        # tenant, for quotas, preemption and per-tenant accounting; the
+        # class is already folded into `priority` by submit
+        self.qos_class = qos_class
+        self.tenant = tenant
         # admission priority: LOWER admits first; ties resolve FIFO by id
         self.priority = int(priority)
         # stop_tokens are ignored until this many tokens have been emitted
@@ -335,6 +358,10 @@ class GenerationRequest:
         # reset re-admissions consumed (bounded by the engine's
         # retry_budget; crossing it fails the request)
         self.replays = 0
+        # QoS preemptions survived: each evacuates the slot and requeues at
+        # prompt + emitted as a replay does, counted apart from replays and
+        # outside the retry_budget
+        self.preemptions = 0
 
     @property
     def resume_tokens(self) -> List[int]:
@@ -549,6 +576,10 @@ class LLMEngine:
     # the paged subclass reads through its paged kernel whatever
     # cfg.decode_attn says, so the dense-only rules below skip it
     _paged = False
+    # a chunk job records its admission at its first chunk and an event per
+    # chunk, as the reference's dense engine does (its paged engine records
+    # neither: the admission comes at the final chunk's binding)
+    _records_chunks = True
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -780,12 +811,14 @@ class LLMEngine:
         self.chunk_swap_bytes = 0
         # the fault-injection plane (tpu/faults.py): None in production,
         # every site one attribute check; the incident plane
-        # (tpu/incidents.py) and the capacity meter (tpu/meter.py): None
-        # until App.enable_incident_autopsy / enable_capacity. _meter_rows
-        # stages one sync's rows until _finish_step charges them
+        # (tpu/incidents.py), the capacity meter (tpu/meter.py) and the QoS
+        # controller (tpu/qos.py): None until App.enable_incident_autopsy /
+        # enable_capacity / enable_qos. _meter_rows stages one sync's rows
+        # until _finish_step charges them
         self.faults = faults
         self.incidents = None
         self.meter = None
+        self.qos = None
         self._meter_rows = None
         # crash-only recovery: replay after a reset and the reset-storm
         # breaker (the module docstring)
@@ -804,6 +837,8 @@ class LLMEngine:
         self.replays_total = 0
         self.replayed_tokens_total = 0
         self.quarantined_total = 0
+        # QoS preemptions (loop-thread writes)
+        self.preemptions_total = 0
         # terminal teardown off the loop (finisher_queue=0: inline)
         self._finisher: Optional[_Finisher] = (
             _Finisher(finisher_queue) if finisher_queue > 0 else None)
@@ -1455,7 +1490,7 @@ class LLMEngine:
             self._obs.hist("app_tpu_queue_wait_seconds",
                            now - request.enqueued_at)
             self.slots[slots_idx[row]].chunking = request
-            if self.recorder is not None:
+            if self.recorder is not None and self._records_chunks:
                 self.recorder.record_admitted(request, slots_idx[row],
                                               bucket, chunked=True)
         self.chunk_jobs += 1
@@ -1530,7 +1565,7 @@ class LLMEngine:
             job["new_temps"]), "engine.chunk")
         self.chunk_dispatches += 1
         job["next_start"] = start + chunk
-        if self.recorder is not None:
+        if self.recorder is not None and self._records_chunks:
             for request in batch:
                 self.recorder.record_event(request.id, "prefill_chunk",
                                            start=start, final=final)
@@ -1797,14 +1832,25 @@ class LLMEngine:
                stop_tokens: Optional[Set[int]] = None, priority: int = 0,
                min_tokens: int = 0, top_p: float = 0.0,
                top_k: int = 0, span=None,
-               traceparent: Optional[str] = None) -> GenerationRequest:
+               traceparent: Optional[str] = None,
+               qos_class: Optional[str] = None,
+               tenant: str = "") -> GenerationRequest:
         """priority: LOWER admits first when slots are contended (ties stay
-        FIFO). min_tokens: stop tokens are ignored until this many tokens
-        have been emitted. top_p/top_k truncate the sampled distribution
-        per request (0 = off) — only on engines built with
+        FIFO); running generations are never preempted, except batch-class
+        ones under the QoS ladder, which resume through the replay
+        contract. min_tokens: stop tokens are ignored until this many
+        tokens have been emitted. top_p/top_k truncate the sampled
+        distribution per request (0 = off) — only on engines built with
         sampling_controls=True. span / traceparent: the caller's span, or
         its raw W3C header, that the request's tpu.generate span parents
-        under (a new trace without either)."""
+        under (a new trace without either). qos_class: 'interactive',
+        'standard' or 'batch' (tpu/qos.py) bands the priority and subjects
+        the request to its class's quotas and deadline; None keeps the
+        unclassified behaviour; an unknown class raises UnknownClassError
+        (a ValueError, the servers' 400) even with no controller. tenant:
+        the accounting tenant (the capacity meter, /debug/qos). As in the
+        reference, max_new_tokens below 1 still emits the first token."""
+        qos_class = qos.normalize_class(qos_class)
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
         if self._draining:
@@ -1830,17 +1876,21 @@ class LLMEngine:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
-        if max_new_tokens < 1:
-            raise ValueError("max_new_tokens must be >= 1")
         limit = self.admission_limit
         if len(prompt_tokens) > limit:
             raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds the "
                              f"admission limit ({limit})")
+        if self.qos is not None:
+            # the ladder's door (shed_standard sheds standard with 503 +
+            # Retry-After), then the class's band
+            self.qos.check_submit(qos_class, tenant)
+            priority = qos.banded_priority(qos_class, priority)
         request = GenerationRequest(prompt_tokens, max_new_tokens, temperature,
                                     stop_tokens, priority=priority,
                                     min_tokens=min_tokens, top_p=top_p,
                                     top_k=top_k, span=span,
-                                    traceparent=traceparent)
+                                    traceparent=traceparent,
+                                    qos_class=qos_class, tenant=tenant)
         if self.tracer is not None:
             request.gen_span = self.tracer.start_span(
                 "tpu.generate", parent=span, traceparent=traceparent)
@@ -1849,6 +1899,8 @@ class LLMEngine:
         if self.recorder is not None:   # after gen_span: it carries the
             self.recorder.record_enqueued(request)   # inbound trace ids
         self._obs.counter("app_tpu_requests_total")
+        if self.qos is not None:
+            self.qos.note_submitted(request)
         if self.meter is not None:
             # the forecaster's arrival stamp (thread-safe, best-effort)
             self.meter.note_arrival(request)
@@ -1993,7 +2045,8 @@ class LLMEngine:
 
     def _step(self) -> bool:
         """One loop iteration in the reference's order: the breaker's
-        half-open probe when its cooldown is over; admit; advance the
+        half-open probe when its cooldown is over; the QoS ladder's action
+        (_qos_actuate, segment ``qos``); admit; advance the
         oldest chunk job by one chunk; then, while speculation is not
         cooling off, one verify, only when no verify or decode is in flight
         (drafts come from host state that must not lag the device);
@@ -2010,6 +2063,11 @@ class LLMEngine:
         with torch.no_grad(), self._stream_ctx():
             if self.breaker.probe_due():
                 self._breaker_probe()
+            if self.qos is not None:
+                # the ladder acts before admission, so the slots a
+                # preemption frees admit this round
+                with steps.seg("qos"):
+                    self._qos_actuate()
             with steps.seg("admission"):
                 self._admit()
             self._advance_chunk_job()
@@ -2112,12 +2170,27 @@ class LLMEngine:
                 self._abort_admission(request)
                 self._fail_request(request)
                 continue
+            if self.qos is not None:
+                # the class gates (tpu/qos.py): an expired request fails
+                # before it costs a prefill; a park keeps the heap's order,
+                # as a page wait does
+                decision = self.qos.admission_decision(request, self,
+                                                       taken=len(taken))
+                if decision == "expire":
+                    self._expire(request)
+                    continue
+                if decision == "park" or self._in_flight(request):
+                    heapq.heappush(self._admission_heap, entry)
+                    break
             if not self._admission_ready(request):
                 # parked on its resource: no same-priority request may
                 # leapfrog it, so the round stops here
                 heapq.heappush(self._admission_heap, entry)
                 break
             taken.append(request)
+        if self.qos is not None:
+            for request in taken:
+                self.qos.note_admitted(request)
         # grouped by admission bucket: a prefix hit admits at its tail's
         by_bucket: Dict[int, List[GenerationRequest]] = {}
         for request in taken:
@@ -2573,14 +2646,7 @@ class LLMEngine:
         slot.length = 0
         slot.remaining = 0
         slot.history = None
-        idx = self.slots.index(slot)
-        if idx in self._filter_rows:
-            # zero the freed row's controls behind the blocks in flight
-            # (they read them at their fixed address), so the blocks
-            # dispatched from now on may skip the filters
-            with self._stream_ctx():
-                self._temps[idx] = 0.0
-            self._filter_rows.discard(idx)
+        self._forget_row_controls(self.slots.index(slot))
         if request is None:
             self._obs.gauge("app_tpu_active_slots",
                             sum(1 for s in self.slots if s.active))
@@ -2595,6 +2661,15 @@ class LLMEngine:
         self._run_off_loop(
             self._finish_request_job(request, reason, active_now))
 
+    def _forget_row_controls(self, idx: int) -> None:
+        """Zero a freed row's controls behind the blocks in flight (they
+        read them at their fixed address), so the blocks dispatched from
+        now on may skip the filters (``-sc-nosort``)."""
+        if idx in self._filter_rows:
+            with self._stream_ctx():
+                self._temps[idx] = 0.0
+            self._filter_rows.discard(idx)
+
     def _finish_request_job(self, request: GenerationRequest, reason: str,
                             active_now: int) -> Callable[[], None]:
         def job() -> None:
@@ -2606,6 +2681,8 @@ class LLMEngine:
                 request.gen_span.end()
             if self.recorder is not None:
                 self.recorder.record_finished(request, reason)
+            if self.qos is not None:
+                self.qos.note_finished(request, ok=request.error is None)
             if self.meter is not None:
                 self.meter.note_finished(request, ok=request.error is None)
             self._obs.gauge("app_tpu_active_slots", active_now)
@@ -2638,6 +2715,8 @@ class LLMEngine:
                 request, "error" if request.error is not None
                 else ("cancelled" if request.cancelled.is_set()
                       else "aborted"))
+        if self.qos is not None:
+            self.qos.note_finished(request, ok=request.error is None)
         if self.meter is not None:
             self.meter.note_finished(request, ok=request.error is None)
         request.out_queue.put(None)
@@ -2831,3 +2910,108 @@ class LLMEngine:
             heapq.heappush(self._admission_heap,
                            (request.priority, request.id, request))
         self._wake.set()
+
+    # -- the QoS plane --------------------------------------------------------
+    @loop_only
+    def _qos_actuate(self) -> None:
+        """Act on the QoS ladder (tpu/qos.py) from the loop, under the state
+        lock, just before admission: at preempt_batch and above, evacuate
+        the running batch rows through the replay contract, so their slots
+        (and, paged, their pages) go to the work the ladder protects.
+        Parking and the standard shed act at the admission gate and the
+        submit door."""
+        if self.qos.level < 2:
+            return
+        with self._state_lock:
+            self._preempt_slots(("batch",))
+
+    @loop_only
+    def _preempt_slots(self, classes) -> int:
+        """Preempt every running generation of `classes` that can resume
+        (the reference's ``_preempt_slots``): evacuate its slot without
+        terminating it (no None to its client, no span end: a reset
+        survivor's recipe) and requeue it at prompt + emitted with its own
+        banded priority, behind the interactive work, where a replay after
+        a reset goes ahead of everything. The client's stream pauses;
+        nothing is emitted twice or dropped: the blocks in flight that
+        still decode its old row are dropped at their sync by the ``slot.
+        request is not request`` guards, and the admission gate keeps the
+        request queued until they have synced (_in_flight). Skipped: a slot
+        in the middle of a chunk job, a cancelled request, an exhausted
+        budget, a resume window over admission_limit. Counted in
+        ``preemptions`` / ``preemptions_total``, apart from the
+        retry_budget. Returns how many were preempted."""
+        preempted = 0
+        for slot in self.slots:
+            request = slot.request
+            if request is None or slot.chunking is not None:
+                continue
+            if request.qos_class not in classes:
+                continue
+            if self._is_cancelled(request):
+                continue   # the demux's finish owns cancellation
+            if request.max_new_tokens - request.generated <= 0:
+                continue   # about to finish on its own
+            if len(request.resume_tokens) > self.admission_limit:
+                continue   # could never re-admit: finishing is cheaper
+            self._release_slot_for_preempt(slot)
+            request.preemptions += 1
+            request.admitted_at = None   # stamped again at re-admission
+            self.preemptions_total += 1
+            preempted += 1
+            self.qos.note_preempted(request)
+            if self.recorder is not None:
+                self.recorder.record_event(
+                    request.id, "preempted", emitted=len(request.emitted),
+                    preemptions=request.preemptions)
+            heapq.heappush(self._admission_heap,
+                           (request.priority, request.id, request))
+        if preempted:
+            if self.recorder is not None:
+                self.recorder.record_engine_event(
+                    "qos_preempt", preempted=preempted, level=self.qos.level)
+            self.logger.warnf("qos ladder level %d: preempted %d batch "
+                              "generation(s) for replay", self.qos.level,
+                              preempted)
+            self._obs.gauge("app_tpu_active_slots",
+                            sum(1 for s in self.slots if s.active))
+        return preempted
+
+    def _release_slot_for_preempt(self, slot: _Slot) -> None:
+        """Evacuate one slot for a preemption: the reset survivor's recipe
+        (the request lives on, its stream open) and the freed row's
+        controls forgotten as at a finish (the reference zeroes a filtered
+        row's temperature): the row leaves ``_filter_rows``, so the blocks
+        dispatched from now on may run ``-sc-nosort``. The paged engine
+        returns the slot's pages first."""
+        slot.request = None
+        slot.length = 0
+        slot.remaining = 0
+        slot.history = None
+        slot.pages = None
+        self._forget_row_controls(self.slots.index(slot))
+
+    def _in_flight(self, request: GenerationRequest) -> bool:
+        """Whether a dispatch in flight still holds `request` in one of its
+        rows: only a preempted request, queued again before the blocks that
+        decoded its old row synced. Bound again to the same slot, it would
+        pass their sync's guard and take their tokens, so the admission
+        gate keeps it queued until they have synced (a few loop steps)."""
+        if not request.preemptions:
+            return False
+        return any(row[1] is request for entry in self._inflight
+                   for row in entry[2])
+
+    def _expire(self, request: GenerationRequest) -> None:
+        """Fail a queued request past its class's deadline (the admission
+        gate's "expire") with QoSDeadlineError (503), recording a
+        ``qos_expired`` event."""
+        self._abort_admission(request)
+        self.qos.note_expired(request)
+        waited = time.monotonic() - request.enqueued_at
+        if self.recorder is not None:
+            self.recorder.record_event(request.id, "qos_expired",
+                                       waited_s=round(waited, 2))
+        cls = qos.effective_class(request)
+        self._fail_request(request, qos.QoSDeadlineError(
+            cls, waited, self.qos.deadlines.get(cls, 0.0)))

@@ -27,9 +27,8 @@ A copy of ``gofr_tpu/tpu/meter.py``, whole: ``TPUMeter``,
     collapse_warning}`` gauges from the metrics scrape hook.
 
 The tenant helpers ``_MAX_TENANTS``, ``_TENANT_OVERFLOW`` and
-``effective_class`` are this module's own copies of the reference's
-``tpu/qos.py`` ones, until the port's QoS plane owns them (ROADMAP A11e).
-The fleet half (``gofr_tpu/fleet/capacity.py``, the router's rollup and
+``effective_class`` are tpu/qos.py's, imported as the reference imports
+them. The fleet half (``gofr_tpu/fleet/capacity.py``, the router's rollup and
 ``replicas_needed``) waits with ``fleet/`` in A18b.
 
 Threading: ``account_step`` runs on the engine loop thread,
@@ -48,17 +47,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from .obs import MetricsHook
+from .qos import _MAX_TENANTS, _TENANT_OVERFLOW, effective_class
 from .utilization import decode_flops, prefill_flops
-
-# the reference's tpu/qos.py tenant bound and accounting class (see the
-# module docstring)
-_MAX_TENANTS = 32          # per-class tenant table bound (overflow pools)
-_TENANT_OVERFLOW = "_other"
-
-
-def effective_class(request) -> str:
-    """Accounting class: unclassified requests count as ``standard``."""
-    return getattr(request, "qos_class", None) or "standard"
 
 DEFAULT_PAGE_TOKENS = 16      # dense engines: KV billed in 16-token pages
 DEFAULT_WINDOW_S = 300.0      # bounded-window spend horizon

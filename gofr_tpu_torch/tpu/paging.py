@@ -53,8 +53,14 @@ programs per (chunk, K, bucket) over per-job temps (``_chunk_fn_paged``
 with ``_chunk_fn_paged_q8_final`` as its int8 branch,
 ``_chunk_program_paged``, the job's page table), and
 ``_tail_routes_to_chunk``, which drops a prefix hit whose tail would still
-chunk. Not ported yet: KV tiering, disaggregated hand-off and migration
-(A11f), and with them the restore from a KV tier.
+chunk; the chunk path records what the reference's paged engine records
+(no ``prefill_chunk`` event; ``admitted`` at the final chunk's binding).
+A QoS preemption (``_release_slot_for_preempt``, the reference's override)
+returns the slot's pages as a finish does, prefix-owned pages staying
+cache-resident, so the resume at prompt + emitted is a tail-only wave on
+the prompt's pages (inserted at its first admission). Not ported yet: KV
+tiering, disaggregated hand-off and migration (A11f), and with them the
+restore from a KV tier.
 
 The observability planes (tpu/engine.py's docstring) reach the paged
 engine at the reference's sites: the reservation is the step ledger's
@@ -136,6 +142,9 @@ class PagedLLMEngine(LLMEngine):
     them)."""
 
     _paged = True
+    # the reference's paged chunk path records no prefill_chunk event and
+    # admits at the final chunk's binding (chunked false)
+    _records_chunks = False
 
     def __init__(self, params, cfg, *, page_size: int = 128,
                  n_pages: Optional[int] = None, prefix_cache: bool = False,
@@ -305,6 +314,15 @@ class PagedLLMEngine(LLMEngine):
                     free.append(page_id)
         self.allocator.release(free)
         slot.pages = None
+
+    def _release_slot_for_preempt(self, slot: _Slot) -> None:
+        """A QoS preemption on the paged engine: unlike a reset, which
+        rebuilds the allocator, the pool survives, so the slot's pages go
+        back first, as at a finish; pages the prefix cache owns stay
+        resident, so the resume's prefill is mostly a prefix hit (its
+        prompt's full pages were inserted at admission)."""
+        self._release_slot_pages(slot)
+        super()._release_slot_for_preempt(slot)
 
     def _finish_slot(self, slot: _Slot) -> None:
         self._release_slot_pages(slot)

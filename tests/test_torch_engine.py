@@ -315,10 +315,54 @@ def test_generate_refuses_the_fields_the_reference_refuses(request, case):
         assert want == 200
 
 
+def _sse_tokens(body: str) -> int:
+    events = [json.loads(line[len("data: "):])
+              for line in body.splitlines() if line.startswith("data: ")]
+    assert events[-1]["done"] is True
+    return events[-1]["tokens"]
+
+
+def test_generate_max_tokens_zero_as_the_reference(both_servers):
+    """max_tokens 0 is served, not refused: a 200 stream with the JAX
+    server's token count (one: the first token comes with the prefill)."""
+    body = {"prompt": "hello", "max_tokens": 0}
+    want, want_body = _post(both_servers[0].http_port, body)
+    got, got_body = _post(both_servers[1].http_port, body)
+    assert want == got == 200, got_body
+    assert _sse_tokens(got_body) == _sse_tokens(want_body) == 1
+
+
+@pytest.mark.parametrize("budget", [0, -3])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_budget_below_one_streams_as_the_reference(served, paged, budget):
+    """max_new_tokens 0 and -3: each engine streams what the JAX engine of
+    its kind streams for the same prompts (the first token only)."""
+    from gofr_tpu.tpu.engine import LLMEngine as JEngine
+    from gofr_tpu_torch.tpu.engine import LLMEngine
+
+    jparams = jax_init(JConfig.debug(), seed=0)
+    kw = dict(ENGINE) if paged else {k: v for k, v in ENGINE.items()
+                                     if k != "page_size"}
+    jeng = (JPaged if paged else JEngine)(jparams, JConfig.debug(),
+                                          logger=_QuietLogger(), **kw)
+    teng = (PagedLLMEngine if paged else LLMEngine)(served[1], CFG,
+                                                     device="cpu", **kw)
+    streams = []
+    for eng in (jeng, teng):
+        eng.start()
+        try:
+            reqs = [eng.submit(p, max_new_tokens=budget) for p, _ in REQUESTS]
+            streams.append([r.result(timeout_s=120) for r in reqs])
+        finally:
+            eng.stop()
+    assert streams[1] == streams[0]
+    assert all(len(s) == 1 for s in streams[1])
+
+
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
     asks = {"DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
-            "QOS": "true", "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2",
+            "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2",
             "REMOTE_LOG_URL": "http://127.0.0.1:9/level",
             "DB_DIALECT": "sqlite", "DB_PATH": ":memory:",
             "KV_STORE": "redis", "KV_ENABLED": "true",
@@ -351,6 +395,8 @@ PORTED = {
     "SPECULATIVE_TOKENS": {"SPECULATIVE_TOKENS": "4"},
     "SPECULATIVE_TOKENS-dense": {"PAGED": "false",
                                  "SPECULATIVE_TOKENS": "4"},
+    "QOS": {"QOS": "true"},
+    "QOS-dense": {"PAGED": "false", "QOS": "true"},
 }
 
 
@@ -374,6 +420,7 @@ def test_ported_config_keys_boot_and_serve(served, key):
             env.get("CHUNK_PREFILL_TOKENS", 0))
         assert engine.speculative_tokens == int(
             env.get("SPECULATIVE_TOKENS", 0))
+        assert (engine.qos is not None) == ("QOS" in env)
         status, body = _post(app.http_port, {"prompt": "hello",
                                              "max_tokens": 6,
                                              "stream": False})

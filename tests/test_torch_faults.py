@@ -556,19 +556,38 @@ PLANS = {
     "prefill": [{"site": "engine.prefill", "nth": 1}],
     "two-resets": [{"site": "engine.decode", "nth": 3},
                    {"site": "engine.sync", "nth": 9}],
+    # a chunk job's second chunk (the 9- and 12-token prompts admit as two
+    # jobs of two chunks of 8), a speculative verify, and the dense cache's
+    # growth at a decode dispatch (its first growth is at the 16-token
+    # wave's admission; the paged pool never grows: no hit, no reset)
+    "chunk": [{"site": "engine.chunk", "nth": 3}],
+    "verify": [{"site": "engine.verify", "nth": 2}],
+    "cache_grow": [{"site": "engine.cache_grow", "nth": 2}],
 }
+# the engines whose dispatches reach a plan's site
+PLAN_ENGINES = {"chunk": dict(chunk_prefill_tokens=8),
+                "verify": dict(speculative_tokens=2)}
+# tests/test_speculative.py's prompts, with self-repetition (prompt-lookup
+# drafts exist) and without, and their budgets
+PLAN_PROMPTS = {"verify": ([[5, 6, 7, 8, 5, 6, 7, 8, 5, 6], [9, 8, 7, 6, 5],
+                            [11, 12, 11, 12, 11, 12, 11],
+                            [3, 1, 4, 1, 5, 9, 2, 6, 3, 1, 4, 1, 5]],
+                           [24, 24, 24, 24])}
 
 
 @pytest.mark.parametrize("plan", sorted(PLANS))
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_fault_plan_replays_as_the_reference(weights, paged, plan):
-    jeng, teng = _pair(weights, paged, PLANS[plan])
-    want, got = _serve(jeng), _serve(teng)
+    jeng, teng = _pair(weights, paged, PLANS[plan],
+                       **PLAN_ENGINES.get(plan, {}))
+    prompts, budgets = PLAN_PROMPTS.get(plan, (PROMPTS, BUDGETS))
+    want = _serve(jeng, prompts, budgets)
+    got = _serve(teng, prompts, budgets)
     assert got == want
-    if plan != "prefill":
+    if plan != "prefill" and not (paged and plan == "cache_grow"):
         assert got["counts"][0] >= 1 and got["counts"][1] >= 1
         assert all(isinstance(s, list) and len(s) == n
-                   for s, n in zip(got["streams"], BUDGETS))
+                   for s, n in zip(got["streams"], budgets))
     if plan == "decode-mid":
         assert got["counts"][2] > 0     # delivered tokens re-prefilled
 

@@ -6,9 +6,10 @@ The twins of tests/test_meter.py's replica half (12 of its 16) on the
 port's modules and its debug engine (on the CPU), with the payloads of the
 meter and the forecaster held equal to the reference's for the same event
 sequence on a fake clock, and the served ``/debug/capacity`` conserving
-against ``/debug/steps``. The conservation run sets each request's class
-and tenant by hand: the port's submit takes neither until QoS (ROADMAP
-A11e). Left out: the four fleet-rollup tests
+against ``/debug/steps``. The conservation run's classes and tenants go
+through submit, as the reference's do, and its served twin sends them over
+HTTP (headers and body fields) to both servers, which bill each request to
+its own (tenant, class). Left out: the four fleet-rollup tests
 (``test_fleet_rollup_merges_and_sizes_the_fleet``,
 ``test_fleet_rollup_cold_fleet_recommends_what_it_has``,
 ``test_replicas_needed_scales_with_offered_load``,
@@ -225,14 +226,12 @@ def test_conservation_live_multi_tenant_engine():
     meter = TPUMeter(cfg=CFG, steps_capacity=8192, done_capacity=256)
     meter.forecaster = HeadroomForecaster(engine=eng)
     eng.meter = meter
-    # the port's submit takes no class or tenant yet (QoS, ROADMAP A11e):
-    # they are set on each request before the loop can meter it
     reqs = []
     for i in range(12):
-        r = eng.submit([1 + (i % 5), 2, 3, 4 + (i % 3)], max_new_tokens=6)
-        r.qos_class = ("interactive", "standard", "batch")[i % 3]
-        r.tenant = f"tenant{i % 4}"
-        reqs.append(r)
+        reqs.append(eng.submit(
+            [1 + (i % 5), 2, 3, 4 + (i % 3)], max_new_tokens=6,
+            qos_class=("interactive", "standard", "batch")[i % 3],
+            tenant=f"tenant{i % 4}"))
     eng.start()
     try:
         for r in reqs:
@@ -397,3 +396,78 @@ def test_debug_capacity_conserves_against_debug_steps(tmp_path):
         assert off.engine.meter is None
     finally:
         off.shutdown()
+
+
+def _send(port, path, body, headers):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **headers})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status
+
+
+@pytest.mark.parametrize("server", ["generate", "openai"])
+def test_conservation_live_multi_tenant_served(server, tmp_path):
+    """The served twin of the conservation run: 12 requests whose classes
+    and tenants travel over HTTP (/generate: the X-QoS-Class and X-Tenant
+    headers, or the body's class and tenant; the OpenAI routes: the
+    headers), QoS off as by default. The meter bills each request to the
+    (tenant, class) it was sent with, its tenant totals equal the sums of
+    their requests, and the steps' attribution conserves."""
+    from gofr_tpu_torch.serve import build_app, build_engine
+    from gofr_tpu_torch.serve_openai import build_app as build_openai
+
+    env = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+           "WARMUP": "false", "MAX_BATCH": "4", "MAX_SEQ_LEN": "64",
+           "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8", "LOG_LEVEL": "WARN",
+           "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false",
+           "INCIDENT_DIR": str(tmp_path), "REQUEST_TIMEOUT": "120"}
+    build = build_app if server == "generate" else build_openai
+    app = build(env, engine=build_engine(
+        env, device="cpu", params=llama_init(CFG, seed=0, device="cpu")))
+    app.start()
+    sent = []
+    try:
+        meter = app.engine.meter
+        for i in range(12):
+            cls = ("interactive", "standard", "batch")[i % 3]
+            tenant = f"tenant{i % 4}"
+            sent.append((tenant, cls))
+            if server == "openai":
+                status = _send(app.http_port, "/v1/completions",
+                               {"prompt": f"hi {i}", "max_tokens": 6,
+                                "temperature": 0},
+                               {"X-QoS-Class": cls, "X-Tenant": tenant})
+            elif i % 2:
+                status = _send(app.http_port, "/generate",
+                               {"prompt": f"hi {i}", "max_tokens": 6,
+                                "stream": False, "class": cls,
+                                "tenant": tenant}, {})
+            else:
+                status = _send(app.http_port, "/generate",
+                               {"prompt": f"hi {i}", "max_tokens": 6,
+                                "stream": False},
+                               {"X-QoS-Class": cls, "X-Tenant": tenant})
+            assert status in (200, 201)
+        snap = _get(app.http_port, "/debug/capacity")
+    finally:
+        app.shutdown()
+    assert snap["requests_total"] == 12
+    assert not meter._live
+    billed = sorted((acct.tenant, acct.cls) for acct in meter._done)
+    assert billed == sorted(sent)
+    per = {}
+    for acct in meter._done:
+        key = (acct.tenant, acct.cls)
+        per[key] = per.get(key, 0.0) + acct.device_s
+    assert set(meter._accounts) == set(sent)
+    for key, tacct in meter._accounts.items():
+        assert tacct.device_s == pytest.approx(per[key], abs=1e-9), key
+    steps = list(meter._steps)
+    total_attr = sum(s["attributed_s"] for s in steps)
+    total_meas = sum(s["device_s"] for s in steps)
+    assert total_meas > 0
+    assert abs(total_attr - total_meas) <= 0.05 * total_meas
+    assert {row["tenant"] for row in snap["tenants"]} <= {
+        t for t, _ in sent}

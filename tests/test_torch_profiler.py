@@ -10,10 +10,12 @@ the capture root that status() reports paths relative to. Beyond them: a
 POSTed dir must lie under that root (400 otherwise; the reference takes
 any); the status payload has the reference's keys; a capture asked for while another
 torch.profiler runs in the process is refused in ``last_error`` and raises
-nowhere; and both servers serve /debug/profile while the engine serves
-(the kernels of the card's graph replays in such a capture are checked on
-the card, by ``chip_smoke.py --faults``). Every trace goes to pytest's
-tmp_path.
+nowhere; and neither server serves /debug/profile (404), as the
+reference's servers serve none, while ``App.enable_profiler`` on a served
+App captures while the engine serves (the kernels of the card's graph
+replays in such a capture are checked on the card, by ``chip_smoke.py
+--faults``, which enables the route on its own App). Every trace goes to
+pytest's tmp_path.
 """
 
 import json
@@ -211,6 +213,12 @@ def test_both_servers_serve_debug_profile_while_serving(server, tmp_path):
     app = build(env, engine=build_engine(env, device="cpu", params=params))
     app.start()
     try:
+        # the reference's servers never enable the profiler: 404
+        for method, body in (("POST", {"seconds": 1.0}), ("GET", None)):
+            status, _ = _call(app.http_port, "/debug/profile", method, body)
+            assert status == 404, method
+        # a harness that wants captures enables the route on its App
+        app.enable_profiler()
         status, body = _call(app.http_port, "/debug/profile", "POST",
                              {"seconds": 1.0})
         assert status == 202

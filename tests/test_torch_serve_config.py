@@ -133,6 +133,83 @@ def test_inert_keys_boot_and_change_nothing(key, served):
         eng.stop()
 
 
+# the QoS plane's tuning keys (App.enable_qos) and a value each
+QOS_TUNING = {"QOS_INTERACTIVE_RESERVED_SLOTS": "2",
+              "QOS_BATCH_PAGE_FRACTION": "0.25",
+              "QOS_DEADLINE_INTERACTIVE_S": "1.5",
+              "QOS_DEADLINE_STANDARD_S": "4", "QOS_DEADLINE_BATCH_S": "30",
+              "QOS_SHED_TRACKS": "ttft, availability",
+              "QOS_ESCALATE_HOLD_S": "7", "QOS_RECOVER_HOLD_S": "11",
+              "QOS_EVAL_S": "0.5", "QOS_SHED_RETRY_AFTER_S": "4"}
+QOS_LANE_KEYS = ("QOS_LANE", "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT",
+                 "QOS_BATCH_TOPIC", "QOS_BATCH_RESULT_TOPIC")
+
+
+def _controller_settings(ctl) -> dict:
+    snap = ctl.snapshot()
+    return {"quotas": snap["quotas"],
+            "deadlines": {c: v["deadline_s"]
+                          for c, v in snap["classes"].items()},
+            "tracks": snap["ladder"]["shed_tracks"],
+            "holds": (ctl.escalate_hold_s, ctl.recover_hold_s),
+            "retry_after_s": ctl.retry_after_s}
+
+
+@pytest.mark.parametrize("tuned", [False, True], ids=["defaults", "tuned"])
+def test_qos_keys_tune_the_controller_as_the_reference(served, tuned):
+    """QOS=true, with its defaults and with every tuning key set: the
+    port's controller holds the settings the reference's App.enable_qos
+    gives it from the same config, its eval thread runs at QOS_EVAL_S and
+    stops at shutdown; the batch lane's keys are inert, naming the pub/sub
+    broker they need (ROADMAP A18b), and start no lane."""
+    import types
+
+    from gofr_tpu.app import App as JApp
+    from gofr_tpu.config import MockConfig
+
+    env = {**BASE, "QOS": "true", **(QOS_TUNING if tuned else {})}
+    assert set(QOS_TUNING) | {"QOS"} <= set(serve.PORTED)
+    inert = dict(serve.INERT)
+    for key in QOS_LANE_KEYS:
+        assert "A18b" in inert[key] and "pub/sub" in inert[key]
+    app = serve.build_app({**env, "QOS_LANE": "true"},
+                          engine=serve.build_engine(
+                              env, device="cpu", params=served["float"][1]))
+    ref = JApp(config=MockConfig({**env, "HTTP_PORT": "0",
+                                  "METRICS_PORT": "0"}))
+    stub = types.SimpleNamespace(recorder=None)
+    try:
+        ctl = app.engine.qos
+        want = ref.enable_qos(stub)
+        assert _controller_settings(ctl) == _controller_settings(want)
+        assert ctl._eval_thread is not None and ctl._eval_thread.is_alive()
+        assert not hasattr(ctl, "lane") and want.lane is None
+        if tuned:
+            assert ctl.interactive_reserved_slots == 2
+            assert ctl.shed_tracks == ("ttft", "availability")
+    finally:
+        app.shutdown()
+        want.stop()
+        ref.shutdown()
+    assert ctl._eval_thread is None
+
+
+def test_build_engine_serves_a_cut_tree_at_its_depth(served):
+    """A params tree of the preset's first layer: build_engine serves it at
+    that depth and the preset's width, with the JAX engine's greedy
+    streams on the same cut tree."""
+    jtree, ttree = served["float"][0], served["float"][1]
+    cut_j = {**jtree, "layers": {k: v[:1] for k, v in jtree["layers"].items()}}
+    cut_t = {**ttree, "layers": {k: v[:1] for k, v in ttree["layers"].items()}}
+    want = _jax_goldens(cut_j, {"n_layers": 1}, True)
+    eng = serve.build_engine(BASE, device="cpu", params=cut_t)
+    try:
+        assert eng.cfg.n_layers == 1 and eng.cfg.dim == 64
+        assert [eng.generate(p, max_new_tokens=6) for p in PROMPTS] == want
+    finally:
+        eng.stop()
+
+
 def test_elastic_warm_boot_refused_naming_a11():
     with pytest.raises(ValueError, match="ROADMAP A11"):
         serve.build_engine({"ELASTIC_WARM_BOOT": "true"}, device="cpu")
