@@ -35,7 +35,10 @@ The observability planes, with the reference's config keys and defaults
 ``/debug/incidents``), ``enable_capacity`` (``/debug/capacity``) and
 ``enable_qos`` (``/debug/qos``, the QoS plane; its batch lane waits with
 pub/sub); each returns what the reference's returns and stops its thread
-on shutdown. Waiting: drain with migration (ROADMAP A11f). Waiting in
+on shutdown; ``enable_drain_migration`` (``POST /migrate``, ``POST|GET
+/debug/drain``, ``GET /debug/kvtier``, gated on ``DRAIN_MIGRATE``), and
+under ``DISAGG_MODE=both`` ``enable_flight_recorder`` gives the prefill
+pool its own recorder. Waiting in
 ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub subscriptions
 (and with them the QoS batch lane), static files and the OpenAPI routes.
 """
@@ -213,6 +216,19 @@ class App:
         else:
             recorder.use_metrics(self.container.metrics_manager)
             recorder.use_tracer(self.container.tracer)
+        # DISAGG_MODE=both: the prefill pool gets its own recorder, so the
+        # prefill half of every hand-off is seen by the journey and emits
+        # engine spans on the shared trace; no metrics (the goodput gauges
+        # are the serving engine's alone)
+        disagg = getattr(engine, "disagg_router", None)
+        prefill = (getattr(disagg, "prefill_engine", None)
+                   if disagg is not None else None)
+        if prefill is not None and getattr(prefill, "recorder", None) is None:
+            prefill.recorder = FlightRecorder(
+                capacity=self.config.get_int("FLIGHT_RECORDER_CAPACITY", 256),
+                max_events=self.config.get_int(
+                    "FLIGHT_RECORDER_MAX_EVENTS", 512),
+                tracer=self.container.tracer)
         if self.container.metrics_manager is not None:
             register_slo_gauges(self.container.metrics_manager)
         install_routes(self, recorder, path)
@@ -529,6 +545,37 @@ class App:
         self.container.add_scrape_hook("capacity", meter.forecaster.publish)
         install_routes(self, meter, path)
         return meter
+
+    def enable_drain_migration(self, engine):
+        """Wire the elastic replica surface (tpu/migrate.py) onto an engine:
+        its lifecycle (warming / serving / draining, in /stats), the
+        MigrationCoordinator behind POST /debug/drain (live sessions export
+        as hand-off envelopes and continue on a peer, the replay ladder
+        under any failure), POST /migrate (a peer's session landing here)
+        and GET /debug/kvtier (the host tier's inventory for warm-booting
+        peers). Gated on DRAIN_MIGRATE (default true); DRAIN_SHIP_TIMEOUT_S
+        (60) bounds each session's ship and relay. Returns the coordinator
+        (None when gated off), also on ``app.drain_coordinator``."""
+        from .tpu.migrate import (Lifecycle, MigrationCoordinator,
+                                  install_migration_routes,
+                                  register_migration_metrics)
+
+        lifecycle = getattr(engine, "lifecycle", None)
+        if lifecycle is None:
+            lifecycle = Lifecycle("serving")
+            engine.lifecycle = lifecycle
+        if not self.config.get_bool("DRAIN_MIGRATE", True):
+            return None
+        metrics = self.container.metrics_manager
+        if metrics is not None:
+            register_migration_metrics(metrics)
+        coordinator = MigrationCoordinator(
+            engine, lifecycle, metrics=metrics, logger=self.logger,
+            ship_timeout_s=self.config.get_float("DRAIN_SHIP_TIMEOUT_S",
+                                                 60.0))
+        self.drain_coordinator = coordinator
+        install_migration_routes(self, engine, coordinator)
+        return coordinator
 
     # -- health ---------------------------------------------------------------
     def add_health_contributor(self, name: str,

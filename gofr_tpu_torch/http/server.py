@@ -23,6 +23,16 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt: str, *args) -> None:
         pass
 
+    def handle(self) -> None:
+        # a keep-alive client that closes with the end of a stream unread
+        # (an SSE relay that stops at its done event) resets the socket
+        # while the next request line is awaited: nothing to serve, and
+        # nothing to report
+        try:
+            super().handle()
+        except (ConnectionResetError, BrokenPipeError):
+            pass
+
     def _dispatch(self) -> None:
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""

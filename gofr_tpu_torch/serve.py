@@ -23,9 +23,9 @@ body and sends the same events.
 
     GET /stats -> the reference's fleet probe: active_slots, queue_depth,
     compiled_programs, stall_seconds, spec (under SPECULATIVE_TOKENS),
-    pages and prefix_cache (paged), slo (with the flight recorder) and
-    fleet {affinity digest, lifecycle, qos {scaleout_wanted} (under QOS),
-    duty_cycle}.
+    pages, prefix_cache and kv_tier (paged), slo (with the flight
+    recorder) and fleet {affinity digest, lifecycle, warm_boot_s (after a
+    warm boot), qos {scaleout_wanted} (under QOS), duty_cycle}.
 
 Run: ``python -m gofr_tpu_torch.serve`` (config from .env files under
 GOFR_CONFIGS_DIR, the process environment over them). Every key the
@@ -132,6 +132,27 @@ QOS_ESCALATE_HOLD_S, QOS_RECOVER_HOLD_S, QOS_EVAL_S and
 QOS_SHED_RETRY_AFTER_S (app.py). As in the reference's servers, neither
 serves /debug/profile: ``App.enable_profiler`` is there for a harness that
 wants it.
+The KV tier, the disaggregated pair, the warm boot and drain with migration
+(ROADMAP A11f): KV_HOST_TIER_BYTES (0; > 0: a host-RAM tier of that many
+bytes under the prefix cache, tpu/kvtier.py: evicted prefix pages spill
+there and a re-sent prefix is restored by one copy; /stats gains
+``kv_tier``), CONVERSATION_PIN_S (600: how long the OpenAI server's
+``conversation_id`` pins a trunk's tier pages), DISAGG_MODE (off | prefill
+| decode | both, PAGED only: both builds a prefill twin over the same
+params tree and a tpu/disagg.DisaggRouter in front of the pair, the
+submitter of both servers, with GET /debug/disagg; prefill or decode build
+one engine in that role), DISAGG_PREFILL_SLOTS (0: the twin gets
+MAX_BATCH), DISAGG_QUEUE_DEPTH (64) and DISAGG_HANDOFF_TIMEOUT_S (10, the
+stale reaper's), DISAGG_TRANSPORT (queue, the in-process hand-off queue;
+pubsub is refused, A18b), ELASTIC_WARM_BOOT (false; true: the server comes
+up ``warming``, a thread captures, then the engine starts and /stats
+shows ``serving`` and ``warm_boot_s``), DRAIN_MIGRATE (true: POST /migrate, POST|GET
+/debug/drain and GET /debug/kvtier, tpu/migrate.py) and
+DRAIN_SHIP_TIMEOUT_S (60). The Redis cold tier (KV_REDIS_TIER=true, and
+with it KV_REDIS_TTL_S and the warm boot's pre-warm from
+ELASTIC_PREWARM_PEERS' /debug/kvtier, up to ELASTIC_PREWARM_PAGES pages,
+which loads pages only through that shared store) waits with the
+datasources in A18b.
 FLEET_AFFINITY_BLOCK sizes the affinity digest of /stats. The peak
 overrides TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW are read from the process
 environment, as the reference reads them (tpu/utilization.py).
@@ -141,6 +162,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 import time
 from typing import Mapping, Optional, Union
 
@@ -156,6 +178,7 @@ from .models.tokenizer import (BPETokenizer, ByteLevelBPETokenizer,
 from .tpu.capacity import device_budget_bytes
 from .tpu.device import register_metrics, resolve_device
 from .tpu.engine import LLMEngine
+from .tpu.migrate import Lifecycle
 from .tpu.paging import PagedLLMEngine
 
 PRESETS = {
@@ -217,6 +240,11 @@ PORTED = (
     "INCIDENT_STRAGGLER_WINDOW", "METER_PAGE_TOKENS", "METER_WINDOW_S",
     "METER_REQUESTS", "METER_TOP_K", "CAPACITY_WINDOW_S",
     "CAPACITY_RHO_WARN", "CAPACITY_COLLAPSE_EVALS",
+    # the KV tier, the disaggregated pair, the warm boot and drain with
+    # migration (build_engine, app_for)
+    "KV_HOST_TIER_BYTES", "CONVERSATION_PIN_S", "DISAGG_MODE",
+    "DISAGG_PREFILL_SLOTS", "DISAGG_QUEUE_DEPTH", "DISAGG_HANDOFF_TIMEOUT_S",
+    "ELASTIC_WARM_BOOT", "DRAIN_MIGRATE", "DRAIN_SHIP_TIMEOUT_S",
     # the QoS plane (app_for, App.enable_qos)
     "QOS", "QOS_INTERACTIVE_RESERVED_SLOTS", "QOS_BATCH_PAGE_FRACTION",
     "QOS_DEADLINE_INTERACTIVE_S", "QOS_DEADLINE_STANDARD_S",
@@ -233,13 +261,17 @@ PORTED = (
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("DISAGG_MODE",
-     lambda e: e.get_or_default("DISAGG_MODE", "off").lower() != "off",
-     "disaggregated prefill/decode waits in ROADMAP A11f"),
-    ("KV_HOST_TIER_BYTES", lambda e: _int(e, "KV_HOST_TIER_BYTES", 0) > 0,
-     "the host KV tier waits in ROADMAP A11f"),
-    ("ELASTIC_WARM_BOOT", lambda e: _flag(e, "ELASTIC_WARM_BOOT", False),
-     "the warm boot behind a `warming` lifecycle waits in ROADMAP A11f"),
+    ("KV_REDIS_TIER",
+     lambda e: (_int(e, "KV_HOST_TIER_BYTES", 0) > 0
+                and _flag(e, "KV_REDIS_TIER", False)),
+     "the Redis cold tier under serving needs datasource/kvredis.py, which "
+     "waits in ROADMAP A18b"),
+    ("DISAGG_TRANSPORT",
+     lambda e: (e.get_or_default("DISAGG_MODE", "off").lower() == "both"
+                and e.get_or_default("DISAGG_TRANSPORT", "queue").lower()
+                == "pubsub"),
+     "the pub/sub hand-off transport needs pubsub/, which waits in ROADMAP "
+     "A18b"),
     ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
      "tensor-parallel serving waits in ROADMAP A14"),
     # the container's
@@ -261,25 +293,15 @@ NOT_PORTED = (
 
 # keys the reference reads that change nothing the port serves: (key, why)
 INERT = (
-    # they act only on paths that are refused above or absent here
-    ("DISAGG_PREFILL_SLOTS", "sizes the prefill pool of DISAGG_MODE=both, "
-     "refused (A11f)"),
-    ("DISAGG_TRANSPORT", "the hand-off transport of DISAGG_MODE, refused "
-     "(A11f)"),
-    ("DISAGG_QUEUE_DEPTH", "the hand-off queue of DISAGG_MODE, refused "
-     "(A11f)"),
-    ("DISAGG_HANDOFF_TIMEOUT_S", "the hand-off timeout of DISAGG_MODE, "
-     "refused (A11f)"),
-    ("KV_REDIS_TIER", "the Redis tier under KV_HOST_TIER_BYTES, refused "
-     "(A11f)"),
-    ("KV_REDIS_TTL_S", "the Redis tier under KV_HOST_TIER_BYTES, refused "
-     "(A11f)"),
-    ("CONVERSATION_PIN_S", "pins host-tier pages of KV_HOST_TIER_BYTES, "
-     "refused (A11f)"),
-    ("ELASTIC_PREWARM_PEERS", "the KV pre-warm of ELASTIC_WARM_BOOT, "
-     "refused (A11f)"),
-    ("ELASTIC_PREWARM_PAGES", "the KV pre-warm of ELASTIC_WARM_BOOT, "
-     "refused (A11f)"),
+    # they act only on a path refused above
+    ("KV_REDIS_TTL_S", "the TTL of the Redis cold tier of KV_REDIS_TIER, "
+     "refused (A18b)"),
+    # the pre-warm reads the peers' pages through the tier's shared cold
+    # store; a booting replica's host tier is empty, so without
+    # KV_REDIS_TIER no page can load
+    *((key, "the warm boot's KV pre-warm, which loads pages only through "
+      "the Redis cold tier of KV_REDIS_TIER, refused (A18b)")
+      for key in ("ELASTIC_PREWARM_PEERS", "ELASTIC_PREWARM_PAGES")),
     # they tune the QoS batch lane, which the reference starts only with a
     # pub/sub broker: PUBSUB_BACKEND is refused (A18b)
     *((key, "tunes the QoS batch lane, which needs the pub/sub broker of "
@@ -299,11 +321,6 @@ INERT = (
      "server registers no gRPC service"),
     ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
      "refused (A18b)"),
-    # they tune App planes the port does not serve yet
-    ("DRAIN_MIGRATE", "tunes the drain-with-migration surface of "
-     "/debug/drain and /migrate, not served (A11f)"),
-    ("DRAIN_SHIP_TIMEOUT_S", "tunes the drain-with-migration surface of "
-     "/debug/drain and /migrate, not served (A11f)"),
 )
 
 
@@ -365,7 +382,8 @@ def check_config(env: EnvLike) -> None:
 
 def build_engine(env: EnvLike = None, device=None, params=None,
                  default_sampling_controls: bool = False,
-                 container: Optional[Container] = None) -> LLMEngine:
+                 container: Optional[Container] = None,
+                 kv_cold_store=None) -> LLMEngine:
     """Engine from config keys (a Config or a plain mapping; see the module
     docstring), warmed up and started. device: None = the CUDA card
     (raises without one); "cpu" for tests. params: an already-built params
@@ -382,7 +400,12 @@ def build_engine(env: EnvLike = None, device=None, params=None,
     expected to reach (every one under wide) and WARMUP_SCORE the scoring
     family, so no request pays the compiler or a capture. The engine's
     `warmup_seconds` and `score_warmup_seconds` hold their times (0.0 when
-    off)."""
+    off). kv_cold_store: a store with the Redis datasource's set / get /
+    delete surface under the KV tier (KV_REDIS_TIER, which would build one
+    from config, waits in A18b), for a harness that shares one between
+    replicas. DISAGG_MODE=both also builds the prefill twin and the router,
+    on ``engine.disagg_router`` (``_build_pair``); ELASTIC_WARM_BOOT=true
+    returns at once with the engine ``warming`` (``_warm_boot``)."""
     env = as_config(env)
     check_config(env)
     warm = _warmup_mode(env)
@@ -403,6 +426,13 @@ def build_engine(env: EnvLike = None, device=None, params=None,
                          f"{decode_attn!r}")
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
+    disagg_mode = env.get_or_default("DISAGG_MODE", "off").lower()
+    if disagg_mode not in ("off", "prefill", "decode", "both"):
+        raise ValueError(f"DISAGG_MODE must be off|prefill|decode|both, "
+                         f"got {disagg_mode!r}")
+    paged = _flag(env, "PAGED", True)
+    if disagg_mode != "off" and not paged:
+        raise ValueError("DISAGG_MODE requires PAGED=true")
     cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
                               decode_attn=decode_attn, kv_dtype=kv_dtype)
     if params is not None:
@@ -446,8 +476,8 @@ def build_engine(env: EnvLike = None, device=None, params=None,
         params = llama_init_quantized(cfg, seed=0, device=dev)
     elif params is None:
         params = llama_init(cfg, seed=0, device=dev)
-    budget = _int(env, "HBM_BUDGET_BYTES", 0)
-    budget = 0 if budget < 0 else budget or device_budget_bytes(dev)
+    budget_cfg = _int(env, "HBM_BUDGET_BYTES", 0)
+    budget = 0 if budget_cfg < 0 else budget_cfg or device_budget_bytes(dev)
     metrics = container.metrics_manager
     register_metrics(metrics)
     kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
@@ -472,31 +502,149 @@ def build_engine(env: EnvLike = None, device=None, params=None,
               finisher_queue=_int(env, "ENGINE_FINISHER_QUEUE", 256),
               prefill_buckets=tuple(int(b) for b in env.get_or_default(
                   "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
-    if _flag(env, "PAGED", True):
-        engine = PagedLLMEngine(params, cfg,
-                                page_size=_int(env, "PAGE_SIZE", 128),
-                                n_pages=_int(env, "N_PAGES", 0) or None,
-                                prefix_cache=_flag(env, "PREFIX_CACHE", True),
-                                **kw)
+    if paged:
+        kw.update(page_size=_int(env, "PAGE_SIZE", 128),
+                  n_pages=_int(env, "N_PAGES", 0) or None,
+                  prefix_cache=_flag(env, "PREFIX_CACHE", True))
+        # a host-RAM tier under the prefix cache: evicted pages spill to
+        # host blobs and a re-sent prefix is restored by one copy instead
+        # of a prefill (tpu/kvtier.py)
+        tier_bytes = _int(env, "KV_HOST_TIER_BYTES", 0)
+        if tier_bytes > 0:
+            kw.update(kv_host_tier_bytes=tier_bytes, kv_redis=kv_cold_store,
+                      conversation_pin_s=_float(env, "CONVERSATION_PIN_S",
+                                                600.0))
+        if disagg_mode != "off":
+            kw["disagg_role"] = ("decode" if disagg_mode == "both"
+                                 else disagg_mode)
+        engine = PagedLLMEngine(params, cfg, **kw)
     else:
         engine = LLMEngine(params, cfg, **kw)
     engine.tokenizer = tokenizer
     engine.container = container
     engine.warmup_seconds = engine.score_warmup_seconds = 0.0
+    engine.warm_boot_s = None
+    engine.disagg_router = None
+    score = _flag(env, "WARMUP_SCORE", False)
+    if _flag(env, "ELASTIC_WARM_BOOT", False):
+        engine.lifecycle = Lifecycle("warming")
+    else:
+        _warm(engine, warm, score, log)
+    if disagg_mode == "both":
+        _build_pair(engine, warm, kw, params, budget_cfg, log,
+                    n_slots=_int(env, "DISAGG_PREFILL_SLOTS", 0),
+                    queue_depth=_int(env, "DISAGG_QUEUE_DEPTH", 64),
+                    handoff_timeout_s=_float(env, "DISAGG_HANDOFF_TIMEOUT_S",
+                                             10.0))
+    if engine.lifecycle.state == "warming":
+        # the pre-warm's keys are inert without a cold store to load from,
+        # which only a harness's kv_cold_store gives until A18b
+        peers = [p.strip() for p in env.get_or_default(
+            "ELASTIC_PREWARM_PEERS", "").split(",")
+            if p.strip()] if kv_cold_store is not None else []
+        _warm_boot(engine, warm, score, log, peers=peers,
+                   prewarm_pages=_int(env, "ELASTIC_PREWARM_PAGES", 64))
+    else:
+        engine.start()
+    return engine
+
+
+def _warm(engine, warm: str, score: bool, log) -> None:
+    """WARMUP's captures, then WARMUP_SCORE's, before the engine starts."""
     if warm != "false":
         t0 = time.monotonic()
         engine.warmup(k_variants=warm == "wide")
         engine.warmup_seconds = time.monotonic() - t0
         log.infof("engine warmed up in %.1fs%s", engine.warmup_seconds,
                   " (wide)" if warm == "wide" else "")
-    if _flag(env, "WARMUP_SCORE", False):
+    if score:
         t0 = time.monotonic()
         n = engine.warmup_scoring()
         engine.score_warmup_seconds = time.monotonic() - t0
         log.infof("scoring warmed up in %.1fs (%d passes)",
                   engine.score_warmup_seconds, n)
-    engine.start()
-    return engine
+
+
+def _warm_boot(engine, warm: str, score: bool, log, peers,
+               prewarm_pages: int) -> None:
+    """ELASTIC_WARM_BOOT=true: the HTTP surface comes up at once with the
+    lifecycle ``warming`` (in /stats; routers hold traffic), and a thread
+    runs the warm-up and the KV pre-warm from ELASTIC_PREWARM_PEERS'
+    /debug/kvtier inventories (up to ELASTIC_PREWARM_PAGES pages; `peers`
+    is empty unless a kv_cold_store was given), then starts the engine and moves to ``serving`` with ``warm_boot_s``. Where
+    the reference warms a running engine, the port's captures run before
+    the loop starts (a capture must not share the stream with dispatches);
+    a request submitted meanwhile waits in the queue."""
+
+    def boot() -> None:
+        from .tpu.migrate import prewarm_from_peers
+
+        t0 = time.monotonic()
+        warmed = 0
+        try:
+            _warm(engine, warm, score, log)
+            if peers:
+                warmed = prewarm_from_peers(engine, peers,
+                                            limit=prewarm_pages, logger=log)
+        except Exception as exc:  # noqa: BLE001 - serving cold beats never
+            log.errorf("warm boot: %s", exc)
+        engine.prewarmed_pages = warmed
+        if engine.lifecycle.state == "draining":
+            return   # shut down while warming: nothing to serve
+        engine.start()
+        engine.warm_boot_s = round(time.monotonic() - t0, 3)
+        engine.lifecycle.to("serving")
+        log.infof("warm boot: serving after %.1fs (%d pages pre-warmed)",
+                  engine.warm_boot_s, warmed)
+
+    engine.prewarmed_pages = 0
+    engine.warm_boot_thread = threading.Thread(target=boot, name="warm-boot",
+                                               daemon=True)
+    engine.warm_boot_thread.start()
+
+
+def _build_pair(engine, warm: str, kw: dict, params, budget_cfg: int, log,
+                n_slots: int, queue_depth: int,
+                handoff_timeout_s: float) -> None:
+    """DISAGG_MODE=both on one card: a prefill twin over the SAME params
+    tensors (no second copy of the weights) and the router in front of the
+    pair, on ``engine.disagg_router``. Each engine has its own stream,
+    program cache, graph pool and generator. The twin's capacity plan is
+    sized from what the card has free once the decode engine is built
+    (capacity.twin_budget_bytes, less the decode engine's graph pools when
+    its captures are still to come); an explicit HBM_BUDGET_BYTES goes to
+    both, as in the reference. n_slots (DISAGG_PREFILL_SLOTS, 0: the
+    decode engine's) sizes its slots."""
+    from .models.llama import params_nbytes
+    from .tpu.capacity import twin_budget_bytes
+    from .tpu.disagg import DisaggRouter, register_disagg_metrics
+
+    prefill_kw = dict(kw, disagg_role="prefill")
+    if n_slots:
+        prefill_kw["n_slots"] = n_slots
+    if budget_cfg == 0:
+        budget = twin_budget_bytes(engine.device, params_nbytes(params))
+        if budget and not engine.graph_pool_bytes and engine.plan is not None:
+            budget -= engine.plan.graph_pool_bytes
+        prefill_kw["budget_bytes"] = budget or None
+    prefill = PagedLLMEngine(params, engine.cfg, **prefill_kw)
+    prefill.tokenizer = engine.tokenizer
+    prefill.container = engine.container
+    prefill.warmup_seconds = prefill.score_warmup_seconds = 0.0
+    if warm != "false":
+        t0 = time.monotonic()
+        prefill.warmup(k_variants=warm == "wide")
+        prefill.warmup_seconds = time.monotonic() - t0
+        log.infof("prefill pool warmed up in %.1fs", prefill.warmup_seconds)
+    prefill.start()
+    metrics = engine.container.metrics_manager
+    router = DisaggRouter(prefill, engine, metrics=metrics,
+                          queue_depth=queue_depth,
+                          handoff_timeout_s=handoff_timeout_s)
+    if metrics is not None:
+        register_disagg_metrics(metrics)
+    router.start()
+    engine.disagg_router = router
 
 
 def app_for(env: EnvLike, engine=None, device=None,
@@ -556,6 +704,22 @@ def app_for(env: EnvLike, engine=None, device=None,
         app.enable_qos(engine)
     if _flag(config, "CAPACITY", True):
         app.enable_capacity(engine)
+    # the disaggregated pair (DISAGG_MODE=both): the router is the front
+    # door (app.submitter) and reports at GET /debug/disagg; the prefill
+    # pool's health joins the aggregate and the shutdown stops it first
+    router = getattr(engine, "disagg_router", None)
+    app.submitter = router if router is not None else engine
+    if router is not None:
+        from .tpu.disagg import install_routes as install_disagg_routes
+
+        install_disagg_routes(app, router)
+        prefill = router.prefill_engine
+        app.add_health_contributor("prefill_engine", prefill.health_check)
+        app.on_shutdown(lambda: (router.stop(), prefill.drain(drain_s),
+                                 prefill.stop()))
+    # the lifecycle in /stats and, unless DRAIN_MIGRATE=false, POST
+    # /migrate, POST|GET /debug/drain and GET /debug/kvtier
+    app.enable_drain_migration(engine)
     return app
 
 
@@ -564,6 +728,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     built engine to wrap it in the serving surface."""
     app = app_for(env, engine, device)
     engine = app.engine
+    submitter = app.submitter   # the engine, or the pair's router
     tokenizer = engine.tokenizer
     # the /stats fleet digest of the prefixes this replica served, with a
     # per-boot generation id
@@ -605,7 +770,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
                      or body.get("tenant") or "")
         stream = bool(body.get("stream", True))
         try:
-            request = engine.submit(
+            request = submitter.submit(
                 tokenizer.encode(prompt), max_new_tokens=max_tokens,
                 temperature=temperature, stop_tokens={tokenizer.EOS},
                 priority=priority, min_tokens=min_tokens, top_p=top_p,
@@ -674,6 +839,12 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
         prefix = getattr(engine, "prefix", None)
         if prefix is not None:
             out["prefix_cache"] = prefix.stats()
+        kv_tier = getattr(engine, "kv_tier", None)
+        if kv_tier is not None:
+            tier = kv_tier.stats()
+            tier["spilled_pages"] = engine._kv_spilled
+            tier["restored_pages"] = engine._kv_restored
+            out["kv_tier"] = tier
         recorder = getattr(engine, "recorder", None)
         if recorder is not None:
             out["slo"] = recorder.slo_stats()
@@ -681,6 +852,9 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
         # cycle, not the page-pool dump of /debug/engine
         fleet = {"affinity": affinity.digest(),
                  "lifecycle": engine.lifecycle.state}
+        warm_boot_s = getattr(engine, "warm_boot_s", None)
+        if warm_boot_s is not None:
+            fleet["warm_boot_s"] = warm_boot_s
         qos_ctl = getattr(engine, "qos", None)
         if qos_ctl is not None:
             # the ladder's request_replica rung, for the fleet's autoscaler

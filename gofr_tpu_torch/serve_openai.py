@@ -29,8 +29,9 @@ on completions, top_logprobs 0..20 on chat, refused with stream, refused
 at admission past the largest scoring bucket by ``_check_scoreable``,
 clipped to the returned text by ``_tokens_for_text``, with the
 reference's ``text_offset`` accounting); ``conversation_id`` checked for
-its type (its pin is a no-op: the port has no host KV tier, ROADMAP A11f,
-as the reference without KV_HOST_TIER_BYTES); a draining engine answers
+its type and pinning the conversation's trunk in the host KV tier for
+CONVERSATION_PIN_S (a no-op without KV_HOST_TIER_BYTES, as in the
+reference); a draining engine answers
 503 with Retry-After (a stopped one too, as on /generate, where the
 reference answers 500). Each request's span and traceparent reach
 ``engine.submit``, so its ``tpu.generate`` span joins the caller's trace.
@@ -47,9 +48,10 @@ snapshot, step ledger, timeline, host profiler, the incident plane's
 FAULT_INJECTION=true, /debug/faults), the QoS plane under QOS=true
 (/debug/qos) and crash-only serving (replay after a reset, the reset-storm
 breaker: a 503 with Retry-After while it is open) are ``serve.app_for``'s
-and ``serve.build_engine``'s, under the same keys. Not ported:
-disaggregation and drain with migration (ROADMAP A11f); their keys are
-INERT or NOT_PORTED as on serve.py.
+and ``serve.build_engine``'s, under the same keys, and so are the KV
+tier, the disaggregated pair (DISAGG_MODE=both: requests go through the
+router, GET /debug/disagg) and the elastic surface (POST /migrate, POST|GET
+/debug/drain, GET /debug/kvtier, the warm boot).
 
 Run: ``python -m gofr_tpu_torch.serve_openai`` (config from .env files
 under GOFR_CONFIGS_DIR and the process environment; ``device="cpu"`` only
@@ -98,6 +100,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     device: None = the CUDA card (raises without one); "cpu" for tests."""
     app = app_for(env, engine, device, default_sampling_controls=True)
     engine = app.engine
+    submitter = app.submitter   # the engine, or the pair's router
     tokenizer = engine.tokenizer
     model_id = app.config.get_or_default("MODEL_PRESET", "debug")
 
@@ -166,7 +169,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
         tenant = (str(ctx.request.header("X-Tenant") or "")
                   if ctx is not None else "")
         try:
-            return engine.submit(
+            return submitter.submit(
                 prompt_tokens, max_new_tokens=max_tokens,
                 temperature=temperature, stop_tokens={tokenizer.EOS},
                 span=ctx.span if ctx is not None else None,
@@ -388,8 +391,7 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
 
     def _pin_conversation(conversation_id, prompt_toks, out_tokens):
         """Pin a conversation's trunk pages in the host KV tier; a no-op
-        without one (the port's engines have none yet, ROADMAP A11f), and
-        it never fails the response."""
+        without one, and it never fails the response."""
         pin = getattr(engine, "pin_conversation", None)
         if not conversation_id or pin is None:
             return

@@ -19,6 +19,9 @@ testable with a fake budget. Two differences:
   pool). ``plan_capacity`` adds ``graph_pool_bytes`` (0 by default, the
   reference's plan) to the peak; the engines pass the margin on the card
   only, where graphs are captured.
+- ``twin_budget_bytes`` sizes the second engine of a pair on one card
+  (``DISAGG_MODE=both``) from the memory the first left free, where the
+  reference hands both the device's whole limit.
 """
 
 from __future__ import annotations
@@ -197,3 +200,20 @@ def device_budget_bytes(device=None) -> int:
     if dev is None or dev.type != "cuda" or not torch.cuda.is_available():
         return 0
     return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def twin_budget_bytes(device, params_nbytes: int) -> int:
+    """The budget of a second engine built on a card where one already
+    serves over the same params tree (DISAGG_MODE=both's prefill pool): the
+    card's free memory now, plus the shared weights, which the plan counts
+    but the twin does not allocate again. Where the reference gives both
+    engines the device's whole limit, each plan here would claim the card
+    (``device_budget_bytes`` reads its total), so the second is sized from
+    what the first left free. 0 on the CPU (no plan)."""
+    import torch
+
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda" or not torch.cuda.is_available():
+        return 0
+    free, _ = torch.cuda.mem_get_info(dev)
+    return int(free) + int(params_nbytes)

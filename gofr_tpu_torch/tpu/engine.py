@@ -130,7 +130,25 @@ queued while a dispatch in flight still holds it (``_in_flight``), so a
 block that decoded its old row cannot be demuxed to it once it is bound to
 the same slot again.
 
-Waiting: disaggregated hand-off and migration (ROADMAP A11f).
+Disaggregated prefill/decode and migration (ROADMAP A11f, tpu/disagg.py,
+tpu/migrate.py) are the reference's: ``GenerationRequest.disagg_handoff``
+and ``handoff_blobs``; ``disagg_role`` ("", "prefill" or "decode", paged
+only), the prefill role's ``_handoff_sink`` (called at the prefill's sync,
+``_handoff_slot``) and ``_handoff_fail`` (offered every failure first by
+``_fail_request``); ``submit_handoff`` (admission at prompt + emitted,
+priority ``min(priority, -1)``, the client's queue and cancel event
+shared), whose blob-carrying requests ``_admit`` splits off to
+``_admit_handoff`` and whose failed landings ``_handoff_fallback`` parks
+again for a recompute; ``request_migration`` / ``migration_pending`` and
+the loop's export round ``_migrate_active_slots`` at a quiesced boundary
+(``_export_slot_kv``: blob-less on the dense engine). Two gates sit in
+front of the decode dispatch (``_decode_wanted``): none while a migration
+round waits for the pipeline to drain, and none on a prefill pool for a
+slot whose prefill is in flight. Hand-off counters: ``handoffs_total``,
+``handoff_fallbacks_total``, ``migrations_total``. Host copies of pages
+go through ``_pull_host`` and ``_h2d``, on the engine's stream, the
+pinned staging of a landing held until its event passes
+(``_keep_staging``).
 
 Speculative decoding and chunked prefill (ROADMAP A10) are the reference's:
 ``spec_accept_epilogue`` (shared with the paged engine), the SPEC_* class
@@ -215,6 +233,7 @@ import gc
 import heapq
 import itertools
 import math
+import operator
 import queue
 import re
 import threading
@@ -305,6 +324,23 @@ def _aligned(nbytes: int) -> int:
     return -(-nbytes // 16) * 16
 
 
+def _np_plane(t: torch.Tensor) -> np.ndarray:
+    """A host tensor as numpy; bf16 as its uint16 bit patterns (numpy has
+    no bfloat16 without ml_dtypes, see tpu/kvtier.py)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _torch_plane(array: np.ndarray) -> torch.Tensor:
+    """_np_plane's inverse: a uint16 array is bf16 patterns."""
+    array = np.ascontiguousarray(array)
+    if array.dtype == np.uint16:
+        return torch.from_numpy(array.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(array)
+
+
 def _cache_len_of(name: str) -> Optional[int]:
     """The cache length in a dense program's name; None for the others."""
     m = _CACHE_LEN.search(name)
@@ -362,6 +398,13 @@ class GenerationRequest:
         # prompt + emitted as a replay does, counted apart from replays and
         # outside the retry_budget
         self.preemptions = 0
+        # disaggregated serving (tpu/disagg.py) and migration: True on a
+        # request admitted through submit_handoff, whose prefill (and first
+        # token) ran on another engine. handoff_blobs holds the shipped
+        # per-page KV (kvtier.PageBlob list) until admission lands it in
+        # the pool; None: recompute the resume window (the degraded path)
+        self.disagg_handoff = False
+        self.handoff_blobs = None
 
     @property
     def resume_tokens(self) -> List[int]:
@@ -580,6 +623,10 @@ class LLMEngine:
     # chunk, as the reference's dense engine does (its paged engine records
     # neither: the admission comes at the final chunk's binding)
     _records_chunks = True
+    # KV hand-off landing: the paged subclass can restore shipped page
+    # blobs (kvtier.PageBlob) into its pool, for disaggregated decode pools
+    # and for migration; the dense engine always replays from tokens
+    supports_kv_handoff = False
 
     def __init__(self, params, cfg, n_slots: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -595,7 +642,8 @@ class LLMEngine:
                  reset_storm_max: int = 3,
                  reset_storm_window_s: float = 60.0,
                  breaker_cooldown_s: float = 5.0, faults=None,
-                 finisher_queue: int = 256):
+                 finisher_queue: int = 256, disagg_role: str = "",
+                 handoff_sink=None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -839,6 +887,35 @@ class LLMEngine:
         self.quarantined_total = 0
         # QoS preemptions (loop-thread writes)
         self.preemptions_total = 0
+        # disaggregated prefill/decode (tpu/disagg.py): "" = colocated,
+        # "prefill" = prompt ingestion only, each finished prompt's KV
+        # exported to the hand-off sink instead of entering decode,
+        # "decode" = admissions through submit_handoff, a prefill only as
+        # the recompute fallback. KV ships as pages: the paged engine only
+        self.disagg_role = str(disagg_role or "")
+        if self.disagg_role not in ("", "prefill", "decode"):
+            raise ValueError(f"disagg_role={disagg_role!r}: "
+                             f"use '', 'prefill' or 'decode'")
+        if self.disagg_role and not self.supports_kv_handoff:
+            raise ValueError("disaggregated serving requires the paged "
+                             "engine (KV hands off as page blobs)")
+        # prefill role: sink(request, blobs, n_ctx) on the loop thread right
+        # after the first token; True when delivered (False: the sink
+        # arranged the fallback). _handoff_fail: a failing request is
+        # offered to it first; True means the worker took the stream (no
+        # error, no terminal None here). Both wired by disagg.PrefillWorker
+        self._handoff_sink = handoff_sink
+        self._handoff_fail = None
+        self.handoffs_total = 0
+        self.handoff_fallbacks_total = 0
+        # drain with migration (tpu/migrate.py): a one-shot export round of
+        # every live decode slot, run by the loop at a quiesced boundary
+        self._migrate_sink = None
+        self._migrate_request = False
+        self.migrations_total = 0
+        # pinned host staging of landings still in flight on the card:
+        # (event, tensors), kept until the event says the copy is done
+        self._landings: collections.deque = collections.deque()
         # terminal teardown off the loop (finisher_queue=0: inline)
         self._finisher: Optional[_Finisher] = (
             _Finisher(finisher_queue) if finisher_queue > 0 else None)
@@ -1727,6 +1804,49 @@ class LLMEngine:
             return out
         return fetch.cpu().numpy()
 
+    def _pull_host(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """Copy device tensors (gathers of the pools: a spill, an export, a
+        hand-off) to the host as numpy, bf16 as its uint16 patterns
+        (tpu/kvtier.py). On the card each copy is enqueued on the ENGINE's
+        stream, behind every dispatch that wrote the pages, into pinned
+        memory, and waited for by an event: never ``_fetch_host``'s
+        ``.cpu()``, which would run on whatever stream is current."""
+        if self._stream is None:
+            return [_np_plane(t) for t in tensors]
+        with self._stream_ctx():
+            hosts = []
+            for t in tensors:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                hosts.append(host)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        done.synchronize()
+        return [_np_plane(h) for h in hosts]
+
+    def _h2d(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """Host arrays (bf16 as uint16 patterns) as device tensors, copied
+        on the engine's stream from pinned staging that is kept until the
+        copies are done (``_keep_staging``)."""
+        hosts = [_torch_plane(a) for a in arrays]
+        if self._stream is None:
+            return [h.clone() for h in hosts]
+        hosts = [h.pin_memory() for h in hosts]
+        with self._stream_ctx():
+            devs = [h.to(self.device, non_blocking=True) for h in hosts]
+        self._keep_staging(*hosts)
+        return devs
+
+    def _keep_staging(self, *hosts: torch.Tensor) -> None:
+        """Hold pinned staging until the engine's stream has passed the
+        copies enqueued from it (an event per call), dropping the
+        landings whose events have completed."""
+        while self._landings and self._landings[0][0].query():
+            self._landings.popleft()
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        self._landings.append((done, hosts))
+
     # -- dispatch -------------------------------------------------------------
     def _dispatch_prefill(self, bucket: int, slots_idx: List[int],
                           batch: List[GenerationRequest]) -> torch.Tensor:
@@ -1851,6 +1971,39 @@ class LLMEngine:
         the accounting tenant (the capacity meter, /debug/qos). As in the
         reference, max_new_tokens below 1 still emits the first token."""
         qos_class = qos.normalize_class(qos_class)
+        self._admit_gate(prompt_tokens, top_p, top_k)
+        limit = self.admission_limit
+        if len(prompt_tokens) > limit:
+            raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds the "
+                             f"admission limit ({limit})")
+        if self.qos is not None:
+            # the ladder's door (shed_standard sheds standard with 503 +
+            # Retry-After), then the class's band
+            self.qos.check_submit(qos_class, tenant)
+            priority = qos.banded_priority(qos_class, priority)
+        request = GenerationRequest(prompt_tokens, max_new_tokens, temperature,
+                                    stop_tokens, priority=priority,
+                                    min_tokens=min_tokens, top_p=top_p,
+                                    top_k=top_k, span=span,
+                                    traceparent=traceparent,
+                                    qos_class=qos_class, tenant=tenant)
+        self._open_span(request, span, traceparent)
+        self._obs.counter("app_tpu_requests_total")
+        if self.qos is not None:
+            self.qos.note_submitted(request)
+        if self.meter is not None:
+            # the forecaster's arrival stamp (thread-safe, best-effort)
+            self.meter.note_arrival(request)
+        return self._enqueue(request)
+
+    def _admit_gate(self, prompt_tokens: Sequence[int], top_p: float,
+                    top_k: int) -> None:
+        """The door that submit and submit_handoff both pass: the stopped,
+        draining, stall and breaker sheds, then the request's own checks.
+        Every prompt id must lie in the vocabulary: an id past it reaches
+        the embedding gather on the card, where it fires a device-side
+        assert that loses the CUDA context for good (JAX clamps the
+        gather, so the reference never needed this check)."""
         if self._stop.is_set():
             raise RuntimeError("engine is stopped")
         if self._draining:
@@ -1869,6 +2022,7 @@ class LLMEngine:
             raise DeviceLostError(retry_after)
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
+        self._check_token_ids(prompt_tokens, "prompt_tokens")
         if (top_p or top_k) and not self.sampling_controls:
             raise ValueError("per-request top_p/top_k need an engine built "
                              "with sampling_controls=True")
@@ -1876,21 +2030,21 @@ class LLMEngine:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
         if top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {top_k}")
-        limit = self.admission_limit
-        if len(prompt_tokens) > limit:
-            raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds the "
-                             f"admission limit ({limit})")
-        if self.qos is not None:
-            # the ladder's door (shed_standard sheds standard with 503 +
-            # Retry-After), then the class's band
-            self.qos.check_submit(qos_class, tenant)
-            priority = qos.banded_priority(qos_class, priority)
-        request = GenerationRequest(prompt_tokens, max_new_tokens, temperature,
-                                    stop_tokens, priority=priority,
-                                    min_tokens=min_tokens, top_p=top_p,
-                                    top_k=top_k, span=span,
-                                    traceparent=traceparent,
-                                    qos_class=qos_class, tenant=tenant)
+
+    def _check_token_ids(self, ids: Sequence[int], what: str) -> None:
+        """ValueError (the servers' 400) unless every id is an integer in
+        [0, vocab_size)."""
+        vocab = self.cfg.vocab_size
+        try:
+            bad = [t for t in ids if not 0 <= operator.index(t) < vocab]
+        except TypeError as exc:
+            raise ValueError(f"{what} must be integer token ids") from exc
+        if bad:
+            raise ValueError(f"{what} holds token id {bad[0]} outside the "
+                             f"vocabulary [0, {vocab})")
+
+    def _open_span(self, request: GenerationRequest, span,
+                   traceparent: Optional[str]) -> None:
         if self.tracer is not None:
             request.gen_span = self.tracer.start_span(
                 "tpu.generate", parent=span, traceparent=traceparent)
@@ -1898,16 +2052,12 @@ class LLMEngine:
                                            len(request.prompt_tokens))
         if self.recorder is not None:   # after gen_span: it carries the
             self.recorder.record_enqueued(request)   # inbound trace ids
-        self._obs.counter("app_tpu_requests_total")
-        if self.qos is not None:
-            self.qos.note_submitted(request)
-        if self.meter is not None:
-            # the forecaster's arrival stamp (thread-safe, best-effort)
-            self.meter.note_arrival(request)
+
+    def _enqueue(self, request: GenerationRequest) -> GenerationRequest:
         self._pending.put((request.priority, request.id, request))
         if self._stop.is_set():
-            # stop() may have drained _pending between the check above and
-            # the put; drain again so this request cannot strand its client
+            # stop() may have drained _pending between the gate and the
+            # put; drain again so this request cannot strand its client
             self._drain_pending(RuntimeError("engine stopped"))
             raise RuntimeError("engine is stopped")
         self._obs.gauge("app_tpu_queue_depth", self.queue_depth())
@@ -1916,6 +2066,211 @@ class LLMEngine:
 
     def generate(self, prompt_tokens: Sequence[int], **kw) -> List[int]:
         return self.submit(prompt_tokens, **kw).result()
+
+    def submit_handoff(self, prompt_tokens: Sequence[int],
+                       emitted: Sequence[int], *,
+                       max_new_tokens: int = 128, temperature: float = 0.0,
+                       stop_tokens: Optional[Set[int]] = None,
+                       priority: int = 0, min_tokens: int = 0,
+                       top_p: float = 0.0, top_k: int = 0,
+                       traceparent: Optional[str] = None,
+                       out_queue=None, cancelled=None,
+                       blobs=None, qos_class: Optional[str] = None,
+                       tenant: str = "") -> GenerationRequest:
+        """Admit a generation whose prefill (and first token) ran on another
+        engine: the decode half of disaggregated serving and the landing of
+        a migration, on the replay contract (the request admits at prompt +
+        emitted with its remaining budget; nothing delivered is emitted
+        again). blobs (one kvtier.PageBlob per page of the resume window
+        but its last token, paged engines outside the prefill role) skip
+        the prefill: admission checks them against this pool and lands the
+        KV under the ``kv_handoff`` segment, and the slot binds straight
+        into decode. blobs=None recomputes the resume window (a replay).
+        out_queue / cancelled: the client-facing request's, so the stream
+        continues across the hop; traceparent keeps one trace. The emitted ids, the stop set and
+        the temperature are checked too: a migration's spec arrives raw
+        from the network (POST /migrate)."""
+        self._admit_gate(prompt_tokens, top_p, top_k)
+        if blobs is not None and not self._lands_handoffs:
+            raise ValueError("KV blobs require a paged engine outside the "
+                             "prefill role")
+        emitted = list(emitted)
+        self._check_token_ids(emitted, "emitted")
+        stop_tokens = set(stop_tokens or ())
+        self._check_token_ids(stop_tokens, "stop_tokens")
+        if not 0.0 <= temperature < math.inf:
+            raise ValueError(f"temperature must be finite and >= 0, got "
+                             f"{temperature}")
+        if max_new_tokens - len(emitted) <= 0:
+            raise ValueError("hand-off carries no remaining budget; the "
+                             "prefill pool should have finished it")
+        if len(prompt_tokens) + len(emitted) > self.admission_limit:
+            raise ValueError(
+                f"resume window of {len(prompt_tokens) + len(emitted)} "
+                f"tokens exceeds the admission limit "
+                f"({self.admission_limit})")
+        # a hand-off outranks queued arrivals (LOWER admits first) as a
+        # replay does: its client is mid-stream. The class and tenant ride
+        # along for accounting, not banding
+        request = GenerationRequest(prompt_tokens, max_new_tokens,
+                                    temperature, stop_tokens,
+                                    priority=min(int(priority), -1),
+                                    min_tokens=min_tokens, top_p=top_p,
+                                    top_k=top_k, traceparent=traceparent,
+                                    qos_class=qos.normalize_class(qos_class),
+                                    tenant=tenant)
+        request.disagg_handoff = True
+        request.handoff_blobs = blobs
+        request.generated = len(emitted)
+        request.emitted = emitted
+        if emitted:
+            # the client saw its first token on the other engine: TTFT
+            # stays single-counted, decode TPOT anchors at the receipt
+            request.first_token_at = request.enqueued_at
+        if out_queue is not None:
+            request.out_queue = out_queue
+        if cancelled is not None:
+            request.cancelled = cancelled
+        self._open_span(request, None, traceparent)
+        if request.gen_span is not None:
+            request.gen_span.set_attribute("disagg.handoff", True)
+        if self.recorder is not None:
+            self.recorder.record_event(
+                request.id, "handoff_received",
+                pages=len(blobs) if blobs else 0,
+                resume_tokens=len(request.resume_tokens))
+        return self._enqueue(request)
+
+    @property
+    def _lands_handoffs(self) -> bool:
+        """Whether admission can land shipped KV page blobs: the paged pool
+        outside the prefill role (a decode pool lands hand-offs, any
+        colocated paged replica lands migrations)."""
+        return self.supports_kv_handoff and self.disagg_role != "prefill"
+
+    def request_migration(self, sink) -> None:
+        """Ask the loop to export every live decode session to ``sink``
+        (drain with migration, tpu/migrate.py). Thread-safe; returns at
+        once. The loop stops dispatching decode, waits for the dispatches
+        in flight to sync (pipeline_depth of them at most), then calls
+        ``sink(request, blobs, n_ctx)`` once per active slot at that
+        quiesced boundary: True means the sink took the stream (the slot
+        evacuates, nothing more is emitted here); False or a raise leaves
+        the slot decoding here. One-shot: slots admitted after the round
+        are not offered."""
+        self._migrate_sink = sink
+        self._migrate_request = True
+        self._wake.set()
+
+    @property
+    def migration_pending(self) -> bool:
+        """True while a requested export round has not run yet."""
+        return self._migrate_request
+
+    @loop_only
+    def _migrate_active_slots(self) -> None:
+        """One migration round at a quiesced boundary (loop thread, nothing
+        in flight, so each slot's length and its request's resume window
+        agree and the export is exact). Export order is slot order; a
+        session the sink takes is evacuated with the preemption primitive
+        (the request and its client stream live on, owned by the sink).
+        _migrate_request clears at the END of the round: the coordinator
+        polls it to know every sink call has happened."""
+        sink, self._migrate_sink = self._migrate_sink, None
+        if sink is None:
+            self._migrate_request = False
+            return
+        try:
+            for slot in self.slots:
+                if not slot.active or slot.chunking is not None:
+                    continue
+                request = slot.request
+                if self._is_cancelled(request):
+                    continue   # the cancel teardown owns it
+                if request.max_new_tokens - request.generated <= 0:
+                    continue   # finishing this step
+                blobs, n_ctx = self._export_slot_kv(slot, request)
+                try:
+                    took = bool(sink(request, blobs, n_ctx))
+                except Exception as exc:  # noqa: BLE001 - a broken sink must not kill serving
+                    self.logger.errorf("migration sink failed for %s: %s",
+                                       request.id, exc)
+                    took = False
+                if not took:
+                    continue   # the slot stays: local decode is the floor
+                self._release_slot_for_preempt(slot)
+                request.finished_at = time.monotonic()
+                self.migrations_total += 1
+                self._obs.counter("app_tpu_elastic_migrations_total",
+                                  phase="export")
+                if request.gen_span is not None:
+                    request.gen_span.set_attribute("elastic.migrated", True)
+                    request.gen_span.set_attribute(
+                        "elastic.pages", len(blobs) if blobs else 0)
+                    request.gen_span.end()
+                    request.gen_span = None
+                if self.recorder is not None:
+                    self.recorder.record_event(
+                        request.id, "migrated",
+                        pages=len(blobs) if blobs else 0,
+                        emitted=len(request.emitted))
+                    self.recorder.record_finished(request, "migrated")
+        finally:
+            self._migrate_request = False
+        self._obs.gauge("app_tpu_active_slots",
+                        sum(1 for s in self.slots if s.active))
+
+    def _export_slot_kv(self, slot: _Slot, request: GenerationRequest):
+        """(blobs, n_ctx) of a migration export. The dense engine ships no
+        KV: blobs=None and the peer replays prompt + emitted (the crash-only
+        recompute contract). The paged engine pulls its pages."""
+        return None, max(0, len(request.resume_tokens) - 1)
+
+    def _admit_handoff(self, batch: List[GenerationRequest], free_iter,
+                       dispatched: Set[int]) -> None:
+        """The paged engine lands page blobs; submit_handoff refuses blobs
+        anywhere else."""
+        raise NotImplementedError(
+            "page-blob hand-off admission needs the paged engine")
+
+    def _handoff_slot(self, slot: _Slot, request: GenerationRequest) -> None:
+        """The paged engine's prefill-role export (the constructor keeps the
+        role to paged engines)."""
+        raise NotImplementedError(
+            "page-blob KV export needs the paged engine")
+
+    @loop_only
+    def _handoff_fallback(self, request: GenerationRequest,
+                          reason: str) -> None:
+        """A hand-off this pool cannot land (page count, shape, content, a
+        failed landing) degrades to a recompute, never a failed stream: the
+        blobs and the reservation go, the request is parked again and the
+        next admission round prefills its resume window as a replay's.
+        Counted in ``app_tpu_disagg_fallback_total{reason}``."""
+        self._abort_admission(request)
+        request.handoff_blobs = None
+        self.handoff_fallbacks_total += 1
+        self._obs.counter("app_tpu_disagg_fallback_total", reason=reason)
+        if self.recorder is not None:
+            self.recorder.record_event(request.id, "disagg_fallback",
+                                       reason=reason)
+        heapq.heappush(self._admission_heap,
+                       (request.priority, request.id, request))
+
+    def _decode_wanted(self) -> bool:
+        """Whether the loop should dispatch decode (or a verify) now: some
+        slot is active, no migration round is pending (the pipeline must
+        drain to the quiesced boundary), and on a prefill pool the slot has
+        no prefill in flight (it evacuates at that sync, so decode behind
+        it would be junk; only a slot whose export failed decodes here)."""
+        if self._migrate_request:
+            return False
+        if self.disagg_role == "prefill":
+            pending = {i for e in self._inflight if e[0] == "prefill"
+                       for i, _ in e[2]}
+            return any(slot.active and i not in pending
+                       for i, slot in enumerate(self.slots))
+        return any(slot.active for slot in self.slots)
 
     def score(self, prompt_tokens: Sequence[int],
               completion_tokens: Sequence[int], top: int = 5):
@@ -2071,14 +2426,19 @@ class LLMEngine:
             with steps.seg("admission"):
                 self._admit()
             self._advance_chunk_job()
+            if (self._migrate_request and not self._inflight
+                    and not self._chunk_jobs):
+                # quiesced: every dispatch synced, the export is exact
+                with steps.seg("kv_handoff"), self._state_lock:
+                    self._migrate_active_slots()
             if self.speculative_tokens and self._spec_cooloff <= 0:
-                if (any(slot.active for slot in self.slots)
+                if (self._decode_wanted()
                         and not any(e[0] in ("verify", "decode")
                                     for e in self._inflight)):
                     self._dispatch_verify()
             else:
                 while (len(self._inflight) < self.pipeline_depth
-                       and any(slot.active for slot in self.slots)):
+                       and self._decode_wanted()):
                     self._dispatch_decode()
                     if self._spec_cooloff > 0:
                         self._spec_cooloff -= 1
@@ -2188,8 +2548,17 @@ class LLMEngine:
                 heapq.heappush(self._admission_heap, entry)
                 break
             taken.append(request)
+        # a hand-off with page blobs skips the prefill: its KV lands under
+        # kv_handoff and its slot binds straight into decode
+        # (_admit_handoff); a fallback there parks it again blob-less, so a
+        # later round admits it below as a recompute
+        handed: List[GenerationRequest] = []
+        if self._lands_handoffs:
+            handed = [r for r in taken if r.handoff_blobs is not None]
+            if handed:
+                taken = [r for r in taken if r.handoff_blobs is None]
         if self.qos is not None:
-            for request in taken:
+            for request in itertools.chain(taken, handed):
                 self.qos.note_admitted(request)
         # grouped by admission bucket: a prefix hit admits at its tail's
         by_bucket: Dict[int, List[GenerationRequest]] = {}
@@ -2199,6 +2568,8 @@ class LLMEngine:
         free_iter = iter(free)
         dispatched: Set[int] = set()
         try:
+            if handed:
+                self._admit_handoff(handed, free_iter, dispatched)
             for bucket, group in by_bucket.items():
                 offset = 0
                 for K in _admission_split(len(group), self.n_slots):
@@ -2214,7 +2585,7 @@ class LLMEngine:
             # requests that reached no dispatch are in no queue and no
             # slot: fail them here (the dispatched ones hold slots and
             # replay through the reset), as the reference does
-            for request in taken:
+            for request in itertools.chain(taken, handed):
                 if request.id not in dispatched:
                     self._abort_admission(request)
                     self._fail_request(request, exc)
@@ -2392,6 +2763,7 @@ class LLMEngine:
                     [(r, started - r.enqueued_at) for _, r in rows
                      if r.first_token_at is None])
             n_first = 0
+            handoffs = []
             for row, (slot_idx, request) in enumerate(rows):
                 slot = self.slots[slot_idx]
                 if slot.request is not request:  # cancelled since dispatch
@@ -2412,6 +2784,16 @@ class LLMEngine:
                 if (request.hit_stop(token) or slot.remaining <= 0
                         or self._is_cancelled(request)):
                     self._finish_slot(slot)
+                elif self.disagg_role == "prefill":
+                    # the slot never enters decode here: its KV goes to the
+                    # decode pool with the stream (the first token above was
+                    # this pool's whole job)
+                    handoffs.append((slot, request))
+            # after every first token of the wave: where the reference
+            # exports each row as its token is emitted, a row's first token
+            # here never waits for another row's export
+            for slot, request in handoffs:
+                self._handoff_slot(slot, request)
             if n_first:
                 self._obs.counter("app_tpu_tokens_generated_total",
                                   float(n_first))
@@ -2699,8 +3081,15 @@ class LLMEngine:
 
     def _fail_request(self, request: GenerationRequest,
                       exc: Optional[BaseException] = None) -> None:
-        """Terminate a request that never reached a slot."""
-        if exc is not None:
+        """Terminate a request that never reached (or lost) a slot. On a
+        prefill pool the failure is offered to the hand-off fail hook first
+        (disagg.PrefillWorker): when it takes the request, the stream is not
+        over (the decode pool recomputes prompt + emitted), so no error
+        lands on the request the client shares and no None is delivered;
+        this pool's span and record still close."""
+        handled = (self._handoff_fail is not None
+                   and self._handoff_fail(request, exc))
+        if exc is not None and not handled:
             request.error = exc
         if request.finished_at is None:
             request.finished_at = time.monotonic()
@@ -2709,12 +3098,17 @@ class LLMEngine:
                 request.gen_span.set_status(False, str(request.error))
             elif request.cancelled.is_set():
                 request.gen_span.set_attribute("cancelled", True)
+            if handled:
+                request.gen_span.set_attribute("disagg.fallback", True)
             request.gen_span.end()
         if self.recorder is not None:
             self.recorder.record_finished(
-                request, "error" if request.error is not None
-                else ("cancelled" if request.cancelled.is_set()
-                      else "aborted"))
+                request, "handoff" if handled
+                else ("error" if request.error is not None
+                      else ("cancelled" if request.cancelled.is_set()
+                            else "aborted")))
+        if handled:
+            return
         if self.qos is not None:
             self.qos.note_finished(request, ok=request.error is None)
         if self.meter is not None:

@@ -19,9 +19,11 @@ blocks, finished), and at each completion:
 
 Every public call is best-effort: one short lock, O(1) work, failures
 swallowed. Decode events are batched per dispatch sync, never per token;
-memory is capped by ``capacity`` records of ``max_events`` events. The
-``handoff`` fields (a disaggregated decode half) stay for the schema; no
-port engine sets them yet (ROADMAP A11f). ``use_burn_engine`` taps the SLO
+memory is capped by ``capacity`` records of ``max_events`` events. A
+record of a request admitted through ``submit_handoff`` (a disaggregated
+decode half, or a migration's landing) carries ``handoff``, and its
+engine spans start with one ``engine.handoff`` span over the hop.
+``use_burn_engine`` taps the SLO
 burn engine (tpu/incidents.py): every completion is observed at
 ``record_finished``, and every ``stall_shed`` / ``breaker_shed`` engine
 event counts as an availability failure.

@@ -11,9 +11,11 @@ on this replica into the uniform hop schema
      "duration_s": ..., "request_id": ..., ...detail}
 
 where the id is an engine request id or a 32-hex trace id. A port replica
-has one recorder (the serving engine's); the prefill pool's of a
-disaggregated pair joins it when that exists (ROADMAP A11f), as does the
-router's cross-replica assembly (A18b).
+has the serving engine's recorder and, under DISAGG_MODE=both, the prefill
+pool's (App.enable_flight_recorder gives it one): the prefill half gives
+queue and prefill, the decode half kv_handoff and decode, and the
+hand-off's finish is ``handoff``. The router's cross-replica assembly
+waits in A18b.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def order_hops(hops: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
 def _recorders(engine) -> List[tuple]:
     """(recorder, actor, role) pairs this replica owns: the front
     engine's, plus a disaggregated pair's prefill pool's where one is
-    wired (ROADMAP A11f)."""
+    wired (DISAGG_MODE=both)."""
     out = []
     recorder = getattr(engine, "recorder", None)
     role = getattr(engine, "disagg_role", "") or ""

@@ -58,9 +58,29 @@ chunk; the chunk path records what the reference's paged engine records
 A QoS preemption (``_release_slot_for_preempt``, the reference's override)
 returns the slot's pages as a finish does, prefix-owned pages staying
 cache-resident, so the resume at prompt + emitted is a tail-only wave on
-the prompt's pages (inserted at its first admission). Not ported yet: KV
-tiering, disaggregated hand-off and migration (A11f), and with them the
-restore from a KV tier.
+the prompt's pages (inserted at its first admission).
+
+The KV tier, the hand-off and migration (ROADMAP A11f) are the reference's:
+``kv_host_tier_bytes`` / ``kv_redis`` / ``conversation_pin_s`` build a
+``kvtier.HostKVTier`` outside the device state (it survives a reset);
+``_evict_prefix_pages`` spills evicted prefix pages to it before their ids
+return to the allocator (``_spill_pages``); ``_restore_from_tier`` extends
+a prefix hit from it under the ``kv_restore`` segment, with the
+config-skew guard (``_blob_fits``); ``pin_conversation``,
+``tier_inventory`` and ``prewarm_from_tier``; the migration export of a
+live slot (``_export_slot_kv``), the prefill pool's export at the
+prefill's sync (``_handoff_slot``) and the landing of page blobs at
+admission (``_admit_handoff``, with ``submit_handoff``'s never-fits
+refusal), both under ``kv_handoff``. Where the reference runs donated
+scatter programs that return new pools, the port's landing
+(``_h2d_restore``) index-copies into the same pools and splices the loop
+state by indexed writes, in place, on the engine's stream, from pinned
+staging held until an event passes; the pulls (``_page_blobs``) gather on
+the same stream, behind the wave that wrote the pages. A landing needs
+that order: a finished row's junk blocks may still write into pages a
+hand-off's reservation was given, and land before it. Counted in
+``app_tpu_kv_tier_*``, ``app_tpu_disagg_*`` and the recorder's
+``kv_restore`` / ``kv_handoff`` events.
 
 The observability planes (tpu/engine.py's docstring) reach the paged
 engine at the reference's sites: the reservation is the step ledger's
@@ -73,6 +93,7 @@ request), the page tables are ``host_prep``, and ``_finish_slot`` sets
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -87,9 +108,12 @@ from ..ops.decode_attention import quantize_kv
 from ..ops.paged_attention import (paged_write_prefill_scales,
                                    paged_write_prefill_stacked)
 from .engine import (GenerationRequest, LLMEngine, _admission_split, _Slot,
-                     check_kernel_config)
+                     _np_plane, check_kernel_config)
 from .executor import next_bucket
+from .kvtier import HostKVTier, PageBlob, RedisKVTier
+from .ownership import loop_only
 from .prefixcache import PrefixCache
+from .sampling import pack_controls
 
 
 class PageAllocator:
@@ -145,13 +169,36 @@ class PagedLLMEngine(LLMEngine):
     # the reference's paged chunk path records no prefill_chunk event and
     # admits at the final chunk's binding (chunked false)
     _records_chunks = False
+    supports_kv_handoff = True   # _admit_handoff lands shipped PageBlobs
 
     def __init__(self, params, cfg, *, page_size: int = 128,
                  n_pages: Optional[int] = None, prefix_cache: bool = False,
-                 **kw):
+                 kv_host_tier_bytes: int = 0, kv_redis=None,
+                 kv_redis_ttl_s: Optional[float] = None,
+                 conversation_pin_s: float = 600.0, **kw):
         self.page_size = page_size
         self._requested_pages = n_pages
         self._prefix_enabled = bool(prefix_cache)
+        # the KV tier (tpu/kvtier.py): prefix pages evicted from the pool
+        # spill to a host-RAM LRU (optionally write-behind to a cold store)
+        # and come back by one copy on the next hit instead of a prefill.
+        # Built outside the device state: the blobs are content-keyed host
+        # copies of deterministic KV, valid across a reset
+        self.kv_tier = None
+        self.conversation_pin_s = float(conversation_pin_s)
+        self._kv_spilled = 0    # lifetime page counts, for /stats and
+        self._kv_restored = 0   # /debug/engine
+        if kv_host_tier_bytes:
+            if not self._prefix_enabled:
+                raise ValueError(
+                    "kv_host_tier_bytes requires prefix_cache=True: tier "
+                    "blobs are addressed by the prefix cache's chain keys")
+            cold = None
+            if kv_redis is not None:
+                cold = (kv_redis if isinstance(kv_redis, RedisKVTier)
+                        else RedisKVTier(kv_redis, ttl_s=kv_redis_ttl_s))
+            self.kv_tier = HostKVTier(kv_host_tier_bytes, page_size,
+                                      cold=cold)
         super().__init__(params, cfg, **kw)
 
     # -- device state ---------------------------------------------------------
@@ -209,6 +256,21 @@ class PagedLLMEngine(LLMEngine):
                 f"usable pages; shrink max_new_tokens or grow n_pages")
         return super().submit(prompt_tokens, max_new_tokens, **kw)
 
+    def submit_handoff(self, prompt_tokens, emitted, **kw
+                       ) -> GenerationRequest:
+        """submit()'s never-fits refusal on the hand-off path: refused at
+        the edge (the sender then falls back), not parked forever."""
+        total = min(len(prompt_tokens) + kw.get("max_new_tokens", 128),
+                    self.max_seq_len)
+        need = self.allocator.pages_for(total)
+        usable = self.allocator.n_pages - 1
+        if need > usable:
+            raise ValueError(
+                f"hand-off needs {need} pages ({total} tokens at page_size="
+                f"{self.allocator.page_size}) but the pool has only {usable} "
+                f"usable pages; shrink max_new_tokens or grow n_pages")
+        return super().submit_handoff(prompt_tokens, emitted, **kw)
+
     def _request_pages(self, request: GenerationRequest) -> int:
         # window + remaining budget: prompt + max_new for a fresh request
         # and for a replay alike, so a reservation is reset-stable
@@ -229,9 +291,19 @@ class PagedLLMEngine(LLMEngine):
 
     def _reserve_pages(self, request: GenerationRequest) -> bool:
         shared: List[int] = []
-        if self.prefix is not None:
+        # a hand-off skips the prefix walk: its KV arrives as page blobs,
+        # landed into the plain reservation by _admit_handoff, so a match
+        # would provide the same positions twice (a fallback drops the
+        # blobs before parking again: the recompute gets the full walk)
+        if self.prefix is not None and request.handoff_blobs is None:
             if request.id not in self._prefix_hits:
                 hit = self.prefix.match(request.resume_tokens)
+                if self.kv_tier is not None:
+                    # extend the pool's hit from the tiers: a restored page
+                    # costs one host-to-device page copy, not a page of
+                    # prefill. Its own segment, nested in page_alloc
+                    with self.steps.seg("kv_restore"):
+                        hit = self._restore_from_tier(request, hit)
                 if hit and self._tail_routes_to_chunk(request, hit):
                     # the tail would still chunk: drop the hit before the
                     # reservation is sized (the finished chunk job still
@@ -244,8 +316,10 @@ class PagedLLMEngine(LLMEngine):
         need = self._request_pages(request) - len(shared)
         pages = self.allocator.alloc(need)
         if pages is None and self.prefix is not None:
+            # idle cache pages are reclaimable: evict (spilling their KV to
+            # the tier first when there is one) and retry before parking
             self.allocator.release(
-                self.prefix.evict(need - self.allocator.free_pages))
+                self._evict_prefix_pages(need - self.allocator.free_pages))
             pages = self.allocator.alloc(need)
         if pages is None:
             self._obs.counter("app_tpu_page_waits_total")
@@ -331,6 +405,399 @@ class PagedLLMEngine(LLMEngine):
         self._obs.gauge("app_tpu_pages_used", used)
         self._obs.gauge("app_tpu_kv_pool_pages", used, kind="used")
         self._obs.gauge("app_tpu_kv_pool_pages", free, kind="free")
+
+    # -- pages to and from the host -------------------------------------------
+    # A spill, an export and a hand-off read pages the wave that wrote them
+    # may still be computing, and a landing writes pages whose previous
+    # owner's junk decode blocks may still be queued (the module docstring):
+    # both are enqueued on the engine's stream, behind that work, and the
+    # landing writes the pools IN PLACE (index_copy_ along the page axis):
+    # every captured graph reads them at fixed addresses, so no pool is ever
+    # rebound, where the reference's donated programs return new arrays.
+    def _pool_planes(self) -> List[torch.Tensor]:
+        planes = [self.k_cache, self.v_cache]
+        if self._q8:
+            planes += [self.k_scale, self.v_scale]
+        return planes
+
+    def _plane_dtype(self) -> np.dtype:
+        """The numpy dtype a blob of this pool carries (bf16 as uint16)."""
+        if self.k_cache.dtype == torch.bfloat16:
+            return np.dtype(np.uint16)
+        return np.dtype(str(self.k_cache.dtype).replace("torch.", ""))
+
+    def _page_blobs(self, page_ids: Sequence[int],
+                    windows: Sequence[Sequence[int]]) -> List[PageBlob]:
+        """PageBlobs of `page_ids` (the pools' planes gathered on the engine's
+        stream and pulled to pinned host memory), each with its token
+        window."""
+        with self._stream_ctx():
+            (ids,) = self._h2d(np.asarray(page_ids, dtype=np.int64))
+            host = self._pull_host(*[p.index_select(1, ids)
+                                     for p in self._pool_planes()])
+        k, v = host[0], host[1]
+        ks, vs = (host[2], host[3]) if self._q8 else (None, None)
+        return [PageBlob(toks, k[:, i], v[:, i],
+                         None if ks is None else ks[:, i],
+                         None if vs is None else vs[:, i])
+                for i, toks in enumerate(windows)]
+
+    def _h2d_restore(self, pages: Sequence[int], blobs) -> None:
+        """Land blobs into `pages` of the pools, in place (see above): each
+        plane's pages are staged straight into one pinned host tensor,
+        copied on the engine's stream and index-copied along the page axis
+        of k_cache / v_cache (and the scale pools under int8); the staging
+        is kept until the copies are done. No padding page: nothing here is
+        a compiled program."""
+        names = ("k", "v", "k_scale", "v_scale")
+        on_card = self._stream is not None
+        hosts = []
+        for pool, name in zip(self._pool_planes(), names):
+            host = torch.empty((pool.shape[0], len(pages)) + pool.shape[2:],
+                               dtype=pool.dtype, pin_memory=on_card)
+            view = _np_plane(host)   # shares the staging's memory
+            for i, blob in enumerate(blobs):
+                view[:, i] = getattr(blob, name)
+            hosts.append(host)
+        with self._stream_ctx():
+            (ids,) = self._h2d(np.asarray(pages, dtype=np.int64))
+            if on_card:
+                planes = [h.to(self.device, non_blocking=True)
+                          for h in hosts]
+                self._keep_staging(*hosts)
+            else:
+                planes = hosts
+            for pool, plane in zip(self._pool_planes(), planes):
+                pool.index_copy_(1, ids, plane)
+
+    def _blob_fits(self, blob: PageBlob) -> bool:
+        """The config-skew guard: a blob of another pool's shape or dtype
+        (a cold-tier blob can outlive the process that wrote it, a peer can
+        run another config) is a miss, not a crash."""
+        L, _, Hkv, dh, ps = self.k_cache.shape
+        return (blob.k.shape == (L, Hkv, dh, ps)
+                and blob.k.dtype == self._plane_dtype()
+                and (not self._q8 or blob.k_scale is not None))
+
+    # -- the KV tier: spill on evict, restore on a hit ------------------------
+    @loop_only
+    def _evict_prefix_pages(self, n: int) -> List[int]:
+        """prefix.evict_entries plus the spill: the evicted pages' KV goes
+        to the tier BEFORE their ids return to the allocator (once handed
+        out again, the pages are overwritten)."""
+        entries = self.prefix.evict_entries(n)
+        if entries and self.kv_tier is not None:
+            try:
+                self._spill_pages(entries)
+            except Exception as exc:  # noqa: BLE001 - losing a spill costs
+                # a later recompute; a device loss resurfaces at dispatch
+                self.logger.debugf("KV spill failed: %s", exc)
+        return [page_id for _, page_id, _ in entries]
+
+    def _spill_pages(self, entries) -> None:
+        blobs = self._page_blobs([pid for _, pid, _ in entries],
+                                 [toks for _, _, toks in entries])
+        stored = sum(1 for (key, _, _), blob in zip(entries, blobs)
+                     if self.kv_tier.put(key, blob))
+        if stored:
+            self._kv_spilled += stored
+            self._obs.counter("app_tpu_kv_tier_spilled_total", stored)
+
+    def _restore_from_tier(self, request: GenerationRequest,
+                           hit: List[int]) -> List[int]:
+        """Continue the prefix walk past the pool's hit through the tiers:
+        consecutive verified tier hits get fresh pages and are landed by
+        _h2d_restore, so only the un-cached tail is prefilled. Returns the
+        extended hit, the restored pages ref'd as matched ones are (insert
+        grants the owner ref; finish and abort release it)."""
+        tokens = request.resume_tokens
+        ps = self.page_size
+        matchable = max(0, (len(tokens) - 1) // ps)
+        start = len(hit)
+        if start >= matchable:
+            return hit
+        tier = self.kv_tier
+
+        def corrupt_count() -> int:
+            return tier.corrupt + (tier.cold.corrupt if tier.cold else 0)
+
+        corrupt0 = corrupt_count()
+        keys = self.prefix.keys_for(tokens, matchable)
+        blobs = []
+        for i in range(start, matchable):
+            blob = tier.get(keys[i], tokens[i * ps:(i + 1) * ps])
+            if blob is None or not self._blob_fits(blob):
+                break
+            blobs.append(blob)
+        corrupt = corrupt_count() - corrupt0
+        if corrupt:
+            self._obs.counter("app_tpu_kv_tier_corrupt_total", corrupt)
+        if blobs:
+            self._obs.counter("app_tpu_kv_tier_hits_total", len(blobs))
+        missed = matchable - start - len(blobs)
+        if missed:
+            self._obs.counter("app_tpu_kv_tier_misses_total", missed)
+        if not blobs:
+            return hit
+        need = len(blobs)
+        pages = self.allocator.alloc(need)
+        if pages is None:
+            self.allocator.release(
+                self._evict_prefix_pages(need - self.allocator.free_pages))
+            pages = self.allocator.alloc(need)
+        if pages is None:
+            # too tight to hold them: recompute rather than deadlock
+            return hit
+        try:
+            self._h2d_restore(pages, blobs)
+        except Exception as exc:  # noqa: BLE001 - the restore is optional:
+            # recompute; a real device loss resurfaces at dispatch
+            self.logger.debugf("KV restore failed: %s", exc)
+            self.allocator.release(pages)
+            return hit
+        # registered under their chain keys: insert skips the `start`
+        # cached ones and grants the owner ref on the new ones, the same
+        # release discipline as freshly prefilled pages
+        self.prefix.insert(list(tokens[:(start + need) * ps + 1]),
+                           list(hit) + pages)
+        self._kv_restored += need
+        self._obs.counter("app_tpu_kv_tier_restored_total", need)
+        if self.recorder is not None:
+            self.recorder.record_event(request.id, "kv_restore", pages=need)
+        return list(hit) + pages
+
+    def pin_conversation(self, conversation_id: str,
+                         tokens: Sequence[int]) -> int:
+        """Pin a conversation trunk's chain keys in the host tier for
+        conversation_pin_s seconds (callable from handler threads: the keys
+        are pure, the tier locks). Pins protect host-tier residency only:
+        pool eviction stays unconditional (a pool that cannot evict cannot
+        admit), and the spill keeps the trunk on its way down.
+        conversation_id is context for the logs."""
+        if self.kv_tier is None or self.prefix is None:
+            return 0
+        n_full = len(tokens) // self.page_size
+        if n_full <= 0:
+            return 0
+        keys = self.prefix.keys_for(tokens, n_full)
+        pinned = self.kv_tier.pin(keys, self.conversation_pin_s)
+        if pinned:
+            self._obs.counter("app_tpu_kv_tier_pinned_total", pinned)
+        return pinned
+
+    def tier_inventory(self, limit: int = 64):
+        """The host tier's newest pages as {key, tokens} rows: served at
+        /debug/kvtier for peers' warm-boot pre-warm."""
+        if self.kv_tier is None:
+            return []
+        return self.kv_tier.inventory(limit)
+
+    def prewarm_from_tier(self, entries, limit: int = 64) -> int:
+        """The warm boot's pre-warm: pull peer-advertised pages into host
+        RAM through the tier's own get() (a shared cold tier's hits
+        promote; every page is verified against its window). Off the
+        serving path; returns the pages now resident."""
+        if self.kv_tier is None:
+            return 0
+        warmed = 0
+        for row in list(entries)[:max(0, int(limit))]:
+            try:
+                key = int(row["key"])
+                tokens = [int(t) for t in row["tokens"]]
+            except (KeyError, TypeError, ValueError):
+                continue
+            if self.kv_tier.get(key, tokens) is not None:
+                warmed += 1
+        if warmed:
+            self._obs.counter("app_tpu_elastic_prewarm_pages_total", warmed)
+        return warmed
+
+    # -- hand-off and migration (tpu/disagg.py, tpu/migrate.py) ---------------
+    def _export_slot_kv(self, slot: _Slot, request: GenerationRequest):
+        """A migration export of a LIVE decode slot: the pages hold
+        slot.length positions (prompt + every emitted token but the last),
+        the window the peer's _admit_handoff checks. Anything else (no
+        pages, a mismatch) degrades to the blob-less export: the peer
+        recomputes, never reads a wrong blob."""
+        n_ctx = slot.length
+        if (slot.pages is None or n_ctx <= 0
+                or n_ctx != len(request.resume_tokens) - 1):
+            return None, max(0, len(request.resume_tokens) - 1)
+        ps = self.page_size
+        window = request.resume_tokens[:n_ctx]
+        n_kv = self.allocator.pages_for(n_ctx)
+        try:
+            blobs = self._page_blobs(
+                slot.pages[:n_kv],
+                [window[i * ps:(i + 1) * ps] for i in range(n_kv)])
+        except Exception as exc:  # noqa: BLE001 - a failed pull: replay
+            self.logger.errorf("migration KV pull failed for %s: %s",
+                               request.id, exc)
+            return None, n_ctx
+        return blobs, n_ctx
+
+    @loop_only
+    def _handoff_slot(self, slot: _Slot, request: GenerationRequest) -> None:
+        """The prefill pool's export, at the prefill's sync right after the
+        first token: pull the slot's prompt pages (the window the decode
+        pool checks; the last page is usually partial), give them and the
+        stream to the hand-off sink, then evacuate the slot WITHOUT a
+        terminal None: the decode pool owns the stream. If the sink raises
+        even for a blob-less hand-off, the slot stays and decodes here,
+        degraded but never dropped."""
+        if self._handoff_sink is None:
+            return   # no worker wired: the slot decodes here
+        ps = self.page_size
+        n_ctx = slot.length
+        window = request.resume_tokens[:n_ctx]
+        n_kv = self.allocator.pages_for(n_ctx)
+        handled, delivered = True, False
+        try:
+            with self.steps.seg("kv_handoff"):
+                blobs = self._page_blobs(
+                    slot.pages[:n_kv],
+                    [window[i * ps:(i + 1) * ps] for i in range(n_kv)])
+                delivered = bool(self._handoff_sink(request, blobs, n_ctx))
+        except Exception:  # noqa: BLE001 - losing the export must not lose
+            # the stream: offer the sink a blob-less (recompute) hand-off
+            try:
+                delivered = bool(self._handoff_sink(request, None, n_ctx))
+            except Exception:  # noqa: BLE001
+                handled = False
+        if not handled:
+            return   # the slot stays bound: local decode is the last resort
+        if delivered:
+            self.handoffs_total += 1
+            self._obs.counter("app_tpu_disagg_handoffs_total")
+        else:
+            # the sink took the stream and arranged its own fallback
+            self.handoff_fallbacks_total += 1
+            self._obs.counter("app_tpu_disagg_fallback_total",
+                              reason="export")
+        # evacuated as a finish is, minus the terminal None
+        self._release_slot_pages(slot)
+        slot.request = None
+        slot.length = 0
+        slot.remaining = 0
+        slot.history = None
+        self._forget_row_controls(self.slots.index(slot))
+        request.finished_at = time.monotonic()
+        active_now = sum(1 for s in self.slots if s.active)
+        used, free = self.allocator.used_pages, self.allocator.free_pages
+
+        def job() -> None:
+            if request.gen_span is not None:
+                request.gen_span.set_attribute("tpu.tokens",
+                                               request.generated)
+                request.gen_span.set_attribute("disagg.handoff", True)
+                request.gen_span.end()
+            if self.recorder is not None:
+                self.recorder.record_finished(request, "handoff")
+            self._obs.gauge("app_tpu_active_slots", active_now)
+            self._obs.gauge("app_tpu_pages_used", used)
+            self._obs.gauge("app_tpu_kv_pool_pages", used, kind="used")
+            self._obs.gauge("app_tpu_kv_pool_pages", free, kind="free")
+
+        self._run_off_loop(job)
+
+    def _admit_handoff(self, batch: List[GenerationRequest], free_iter,
+                       dispatched) -> None:
+        """Admit hand-offs with page blobs: check each request's blobs
+        against THIS pool (page count, shape and dtype, the scale planes,
+        the tokens against its resume window), land the wave's pages in one
+        _h2d_restore into the head of each reservation, and splice the
+        loop state in place, so the next decode block continues each
+        stream: no prefill on this pool. A blob that fails a check parks
+        its request again for a recompute (_handoff_fallback), as the
+        tier's restore does."""
+        ready = []
+        with self.steps.seg("kv_handoff"):
+            for request in batch:
+                blobs = request.handoff_blobs
+                # the KV covers the resume window but its last token, whose
+                # KV this pool's first decode step writes: the state of a
+                # colocated slot that just emitted its first token
+                window = request.resume_tokens[:-1]
+                reason = None
+                if len(blobs) != self.allocator.pages_for(len(window)):
+                    reason = "page_count"
+                elif not all(self._blob_fits(b) for b in blobs):
+                    reason = "shape"
+                elif [t for b in blobs for t in b.tokens] != list(window):
+                    reason = "content"
+                if reason is not None:
+                    self._handoff_fallback(request, reason)
+                    dispatched.add(request.id)   # parked, not failed
+                    continue
+                ready.append(request)
+            if not ready:
+                return
+            pages_all, blobs_all = [], []
+            for request in ready:
+                n_kv = len(request.handoff_blobs)
+                pages_all.extend(self._reservations[request.id][:n_kv])
+                blobs_all.extend(request.handoff_blobs)
+            try:
+                self._h2d_restore(pages_all, blobs_all)
+            except Exception as exc:  # noqa: BLE001 - recoverable by a
+                # recompute; a real device loss resurfaces at dispatch
+                self.logger.errorf("hand-off landing failed: %s", exc)
+                for request in ready:
+                    self._handoff_fallback(request, "restore")
+                    dispatched.add(request.id)
+                return
+        with self.steps.seg("host_prep"):
+            if self.sampling_controls:
+                new_temps = pack_controls([r.temperature for r in ready],
+                                          [r.top_p for r in ready],
+                                          [r.top_k for r in ready])
+            else:
+                new_temps = np.asarray([r.temperature for r in ready],
+                                       dtype=np.float32)
+            batch_id = next(self._batch_seq)
+            now = time.monotonic()
+            idxs, last_toks, lengths = [], [], []
+            for request in ready:
+                slot_idx = next(free_iter)
+                slot = self.slots[slot_idx]
+                n_kv = len(request.handoff_blobs)
+                slot.request = request
+                slot.length = len(request.resume_tokens) - 1
+                # no -1: nothing emits at this binding (the other engine's
+                # emissions are already in `generated`)
+                slot.remaining = request.max_new_tokens - request.generated
+                slot.pages = self._reservations.pop(request.id)
+                slot.history = (list(request.resume_tokens)
+                                if self.speculative_tokens else None)
+                request.handoff_blobs = None   # free the host copies
+                request.admitted_at = now
+                self._obs.hist("app_tpu_queue_wait_seconds",
+                               now - request.enqueued_at)
+                idxs.append(slot_idx)
+                last_toks.append(request.resume_tokens[-1])
+                lengths.append(slot.length)
+                for span in (request.span, request.gen_span):
+                    if span is not None:
+                        span.set_attribute("batch.id", batch_id)
+                        span.set_attribute("tpu.slot", slot_idx)
+                if self.recorder is not None:
+                    self.recorder.record_admitted(request, slot_idx, 0,
+                                                  batch_id=batch_id)
+                    self.recorder.record_event(request.id, "kv_handoff",
+                                               pages=n_kv)
+                dispatched.add(request.id)
+        # the loop state, spliced in place on the engine's stream: each slot
+        # is fed its last emitted token at the position after its landed KV
+        with self._stream_ctx():
+            sl, toks, pos, temps = self._h2d(
+                np.asarray(idxs, dtype=np.int64),
+                np.asarray(last_toks, dtype=np.int64),
+                np.asarray(lengths, dtype=np.int64), new_temps)
+            self._tokens[sl] = toks
+            self._positions[sl] = pos
+            self._temps[sl] = temps
+        self._filter_rows.update(i for i, r in zip(idxs, ready)
+                                 if r.top_p or r.top_k)
 
     # -- programs -------------------------------------------------------------
     def _prefill_fn(self, ptokens, ptable, slots, lengths, new_temps):

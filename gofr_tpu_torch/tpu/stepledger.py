@@ -3,10 +3,10 @@
 A copy of ``gofr_tpu/tpu/stepledger.py``, whole: ``SEGMENTS``, ``PHASES``,
 ``STEP_SECONDS_BUCKETS``, ``StepRecord``, the straggler sentinel
 (``_PhaseBaseline``), ``StepLedger``, ``register_step_metrics`` and
-``install_routes`` (``GET /debug/steps``). Of the segments, the port's
-engines have no ``kv_restore`` or ``kv_handoff`` sites yet (the KV tier and
-disaggregated hand-off wait in ROADMAP A11f); the names stay so the
-payloads keep the reference's schema.
+``install_routes`` (``GET /debug/steps``). The paged engine opens
+``kv_restore`` around a tier restore inside ``page_alloc``, and
+``kv_handoff`` around a prefill pool's export, a decode pool's landing and
+a migration round, at the reference's sites.
 
 Every engine loop iteration that does work becomes one ``StepRecord`` in a
 bounded ring, its measured wall-clock split into named, mutually exclusive
@@ -18,7 +18,8 @@ nothing can hide):
   ``admission``    ``_admit``: queue drain, heap ordering, wave grouping
   ``page_alloc``   paged engines: page reservation, prefix-cache match and
                    eviction inside admission (an exhausted pool shows here)
-  ``kv_restore``   / ``kv_handoff``: the KV tier and the hand-off (A11f)
+  ``kv_restore``   a KV tier restore (paged, inside page_alloc)
+  ``kv_handoff``   a hand-off's export or landing, a migration round
   ``host_prep``    batch array prep: padding, lengths, sampling controls,
                    block tables, draft proposals
   ``compile``      program captures after boot, re-attributed out of

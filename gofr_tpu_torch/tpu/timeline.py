@@ -27,8 +27,8 @@ payload (what Perfetto and chrome://tracing load):
 
 Every ``ts`` is the monotonic clock in microseconds; the payload carries
 one wall/monotonic anchor pair so another process can map it onto the
-wall clock with one shift. A disaggregated pair's prefill engine (its own
-tid block at ``PREFILL_BASE``) joins when that exists (A11f).
+wall clock with one shift. A disaggregated pair's prefill engine (DISAGG_MODE=both) joins with its
+own tid block at ``PREFILL_BASE``.
 """
 
 from __future__ import annotations

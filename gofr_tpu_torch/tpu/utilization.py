@@ -27,8 +27,11 @@ changes is where the device facts come from:
 ``engine_snapshot`` carries the reference's ``breaker`` (the reset-storm
 breaker's snapshot), ``recovery`` (resets, replays, replayed tokens,
 quarantines, retry budget) and, with a fault plane armed, ``faults``
-sections. Waiting: the KV tier's gauges and snapshot fields (ROADMAP
-A11f).
+sections, and the KV tier's stats under ``page_pool.kv_tier`` (with the
+spilled and restored page counts); the memory sampler adds
+``app_tpu_kv_tier_bytes{kind=used|capacity}`` and
+``app_tpu_kv_tier_pages``, and a ledger of one pool of a disaggregated
+pair (``pool``) ``app_tpu_disagg_pool_duty_cycle{pool}``.
 
 Accounting conventions (host-side, O(1) per dispatch):
 
@@ -169,6 +172,9 @@ class UtilizationLedger:
                             else time.monotonic())
         self._obs = MetricsHook(metrics)
         self.dispatches_total = 0
+        # one pool of a disaggregated pair (tpu/disagg.py): tags a per-pool
+        # duty-cycle gauge so both halves show side by side
+        self.pool = ""
 
     # -- wiring ---------------------------------------------------------------
     def use_metrics(self, metrics) -> None:
@@ -296,6 +302,9 @@ class UtilizationLedger:
         an idle engine decays toward zero instead of freezing stale)."""
         stats = self.window_stats(now=now)
         self._obs.gauge("app_tpu_device_duty_cycle", stats["duty_cycle"])
+        if self.pool:
+            self._obs.gauge("app_tpu_disagg_pool_duty_cycle",
+                            stats["duty_cycle"], pool=self.pool)
         self._obs.gauge("app_tpu_host_overhead_seconds",
                         stats["host_overhead_s"])
         for phase in ("prefill", "decode"):
@@ -321,10 +330,36 @@ def register_utilization_metrics(metrics) -> None:
          "HBM bytes per device (kind=in_use|limit)"),
         ("app_tpu_kv_pool_pages",
          "KV page-pool occupancy (kind=used|free)"),
+        ("app_tpu_kv_tier_bytes",
+         "host KV tier occupancy in bytes (kind=used|capacity)"),
+        ("app_tpu_kv_tier_pages",
+         "page blobs resident in the host KV tier"),
     ):
         try:
             if metrics.get(name) is None:
                 metrics.new_gauge(name, desc)
+        except Exception:  # noqa: BLE001 - already registered
+            pass
+    for name, desc in (
+        ("app_tpu_kv_tier_spilled_total",
+         "KV pages spilled from the pool to the host tier on eviction"),
+        ("app_tpu_kv_tier_restored_total",
+         "KV pages restored into the pool from the tiers by H2D copy"),
+        ("app_tpu_kv_tier_hits_total",
+         "tier lookups during the admission prefix walk that found a "
+         "verified page blob"),
+        ("app_tpu_kv_tier_misses_total",
+         "prefix pages past the pool's hit the tiers could not supply "
+         "(re-prefilled instead)"),
+        ("app_tpu_kv_tier_corrupt_total",
+         "tier blobs dropped on checksum/content verification failure "
+         "(degraded to a miss)"),
+        ("app_tpu_kv_tier_pinned_total",
+         "conversation-trunk chain keys pinned in the host tier"),
+    ):
+        try:
+            if metrics.get(name) is None:
+                metrics.new_counter(name, desc)
         except Exception:  # noqa: BLE001 - already registered
             pass
 
@@ -364,6 +399,14 @@ class MemorySampler:
                             kind="used")
             self._obs.gauge("app_tpu_kv_pool_pages", allocator.free_pages,
                             kind="free")
+        kv_tier = getattr(self.engine, "kv_tier", None)
+        if kv_tier is not None:
+            tier_stats = kv_tier.stats()
+            self._obs.gauge("app_tpu_kv_tier_bytes",
+                            tier_stats["used_bytes"], kind="used")
+            self._obs.gauge("app_tpu_kv_tier_bytes",
+                            tier_stats["capacity_bytes"], kind="capacity")
+            self._obs.gauge("app_tpu_kv_tier_pages", tier_stats["pages"])
 
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -449,6 +492,12 @@ def engine_snapshot(engine) -> Dict[str, Any]:
                 out["page_pool"]["prefix_digest"] = prefix.digest()
             except Exception:  # noqa: BLE001
                 pass
+        kv_tier = getattr(engine, "kv_tier", None)
+        if kv_tier is not None:
+            tier = kv_tier.stats()
+            tier["spilled_pages"] = getattr(engine, "_kv_spilled", 0)
+            tier["restored_pages"] = getattr(engine, "_kv_restored", 0)
+            out["page_pool"]["kv_tier"] = tier
 
     breaker = getattr(engine, "breaker", None)
     if breaker is not None:

@@ -610,3 +610,69 @@ def test_chunk_graph_matches_eager(cuda, paged, kw):
         got = chunk_graph_vs_eager(eng, 2, 32, final, temperature=0.8)
         assert torch.equal(got["graph"], got["eager"])
         assert got["state_diff"] == 0.0
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_landing_under_captured_decode_graphs_reads_the_landed_pages(cuda,
+                                                                    kv):
+    """A stream exported mid-generation from engine A (its pages pulled on
+    A's stream) and landed on engine B, whose every decode graph was
+    captured over its pools before: B continues the stream exactly as it
+    serves the prompt itself, with no prefill, no capture, no fallback, its
+    pools and loop state the same tensors (the landing writes in place),
+    and the paged read counted n_layers per decode step."""
+    import time
+
+    from gofr_tpu_torch.tpu.faults import FaultPlane
+
+    cfg = _small_cfg(**({"kv_dtype": "int8"} if kv == "int8" else {}))
+    # buckets to 32: the resume window (prompt + what was delivered by the
+    # round) must stay inside the admission limit
+    engine = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16, 32),
+                  page_size=8)
+    params = llama_init(cfg, seed=0, device=cuda)
+    counter = "paged_attention_q8" if kv == "int8" else "paged_attention"
+    slow = FaultPlane([{"site": "engine.decode", "action": "delay",
+                        "every": 1, "times": 0, "delay_s": 0.02}])
+    a = PagedLLMEngine(params, cfg, device=cuda, decode_block_size=1,
+                       faults=slow, **engine)
+    b = PagedLLMEngine(params, cfg, device=cuda, **engine)
+    b.warmup()
+    tensors = [b.k_cache, b.v_cache, b._tokens, b._positions, b._temps]
+    if kv == "int8":
+        tensors += [b.k_scale, b.v_scale]
+    ptrs = [t.data_ptr() for t in tensors]
+    captures = b.executor.captures
+    a.start()
+    b.start()
+    try:
+        prompt = list(range(3, 14))
+        want = b.generate(prompt, max_new_tokens=24)
+        req = a.submit(prompt, max_new_tokens=24)
+        stream = req.stream(timeout_s=120)
+        got = [next(stream), next(stream)]
+        exported = []
+        a.request_migration(lambda r, blobs, n: exported.append(blobs)
+                            or True)
+        deadline = time.monotonic() + 60
+        while a.migration_pending and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert len(exported) == 1 and exported[0]
+        waves = b.prefill_dispatches + b.prefix_dispatches
+        steps = b.decode_steps
+        before = launch_counts()
+        b.submit_handoff(prompt, list(req.emitted), max_new_tokens=24,
+                         out_queue=req.out_queue, cancelled=req.cancelled,
+                         blobs=exported[0])
+        got.extend(stream)
+        after = launch_counts()
+    finally:
+        a.stop()
+        b.stop()
+    assert got == want
+    assert b.prefill_dispatches + b.prefix_dispatches == waves
+    assert b.handoff_fallbacks_total == 0
+    assert b.executor.captures == captures
+    assert [t.data_ptr() for t in tensors] == ptrs
+    assert (after[counter] - before[counter]
+            == cfg.n_layers * (b.decode_steps - steps))

@@ -361,15 +361,21 @@ def test_budget_below_one_streams_as_the_reference(served, paged, budget):
 
 @pytest.mark.parametrize("key", [k for k, _, _ in NOT_PORTED])
 def test_unported_config_keys_refuse_to_boot(key):
-    asks = {"DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
-            "ELASTIC_WARM_BOOT": "true", "TP_SHARDS": "2",
+    # a key refused only beside the feature it tunes asks with both (the
+    # Redis tier under a host tier, the pub/sub transport of a pair)
+    asks = {"KV_REDIS_TIER": {"KV_HOST_TIER_BYTES": "1048576",
+                              "KV_REDIS_TIER": "true"},
+            "DISAGG_TRANSPORT": {"DISAGG_MODE": "both",
+                                 "DISAGG_TRANSPORT": "pubsub"},
+            "TP_SHARDS": "2",
             "REMOTE_LOG_URL": "http://127.0.0.1:9/level",
             "DB_DIALECT": "sqlite", "DB_PATH": ":memory:",
             "KV_STORE": "redis", "KV_ENABLED": "true",
             "PUBSUB_BACKEND": "inproc",
             "JAX_COORDINATOR_ADDR": "127.0.0.1:9"}
+    env = asks[key] if isinstance(asks[key], dict) else {key: asks[key]}
     with pytest.raises(ValueError, match="ROADMAP A"):
-        build_engine({key: asks[key]}, device="cpu")
+        build_engine(env, device="cpu")
 
 
 # config keys whose features are ported, each with an env that asks for it;
@@ -397,6 +403,9 @@ PORTED = {
                                  "SPECULATIVE_TOKENS": "4"},
     "QOS": {"QOS": "true"},
     "QOS-dense": {"PAGED": "false", "QOS": "true"},
+    "DISAGG_MODE": {"DISAGG_MODE": "both"},
+    "KV_HOST_TIER_BYTES": {"KV_HOST_TIER_BYTES": "1048576"},
+    "ELASTIC_WARM_BOOT": {"ELASTIC_WARM_BOOT": "true"},
 }
 
 
@@ -421,6 +430,9 @@ def test_ported_config_keys_boot_and_serve(served, key):
         assert engine.speculative_tokens == int(
             env.get("SPECULATIVE_TOKENS", 0))
         assert (engine.qos is not None) == ("QOS" in env)
+        assert (engine.disagg_router is not None) == ("DISAGG_MODE" in env)
+        assert ((getattr(engine, "kv_tier", None) is not None)
+                == ("KV_HOST_TIER_BYTES" in env))
         status, body = _post(app.http_port, {"prompt": "hello",
                                              "max_tokens": 6,
                                              "stream": False})

@@ -1,7 +1,8 @@
 """The port stands alone: no jax, no gofr_tpu, and no silent CPU fallback.
 
-- every gofr_tpu_torch module (native/, the observability planes and the
-  incident plane included) and chip_smoke.py imports
+- every gofr_tpu_torch module (native/, the observability planes, the
+  incident plane, the KV tier, the disaggregated pair, migration and
+  service/ included) and chip_smoke.py imports
   in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
   packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
   `transformers`, `tokenizers`) are blocked;
@@ -56,6 +57,11 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
     assert {"gofr_tpu_torch.tpu.faults", "gofr_tpu_torch.tpu.incidents",
             "gofr_tpu_torch.tpu.meter",
             "gofr_tpu_torch.tpu.profiler"} <= set(mods)
+    # the KV tier, the disaggregated pair, migration and the peer client
+    # (bf16 blob planes without ml_dtypes, which FORBIDDEN blocks)
+    assert {"gofr_tpu_torch.tpu.kvtier", "gofr_tpu_torch.tpu.disagg",
+            "gofr_tpu_torch.tpu.migrate",
+            "gofr_tpu_torch.service"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

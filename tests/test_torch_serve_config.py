@@ -210,10 +210,80 @@ def test_build_engine_serves_a_cut_tree_at_its_depth(served):
         eng.stop()
 
 
-def test_elastic_warm_boot_refused_naming_a11():
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        serve.build_engine({"ELASTIC_WARM_BOOT": "true"}, device="cpu")
+def test_elastic_warm_boot_refused_naming_a11(served):
+    """The warm boot is served now (ROADMAP A11f): ELASTIC_WARM_BOOT=true
+    boots ``warming`` and then serves the JAX engine's streams; what stays
+    refused names its ROADMAP item: the Redis cold tier under the KV tier
+    and the pub/sub hand-off transport (A18b)."""
+    eng = serve.build_engine({**BASE, "ELASTIC_WARM_BOOT": "true"},
+                             device="cpu", params=served["float"][1])
+    try:
+        eng.warm_boot_thread.join(timeout=60)
+        assert eng.lifecycle.state == "serving"
+        assert eng.warm_boot_s is not None and eng.prewarmed_pages == 0
+        assert [eng.generate(p, max_new_tokens=6) for p in PROMPTS] == \
+            served["float"][2]["paged"]
+    finally:
+        eng.stop()
+    for env in ({"KV_HOST_TIER_BYTES": "1048576", "KV_REDIS_TIER": "true"},
+                {"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "pubsub"}):
+        with pytest.raises(ValueError, match="ROADMAP A18b"):
+            serve.build_engine({**BASE, **env}, device="cpu")
     serve.check_config({"ELASTIC_WARM_BOOT": "false"})
+    serve.check_config({"KV_REDIS_TIER": "true"})   # no tier: nothing asked
+    serve.check_config({"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "queue"})
+
+
+@pytest.mark.parametrize("extra", [
+    {"DISAGG_MODE": "both"},
+    {"KV_HOST_TIER_BYTES": "1048576", "CONVERSATION_PIN_S": "30"},
+    {"DISAGG_MODE": "both", "KV_HOST_TIER_BYTES": "1048576",
+     "DISAGG_PREFILL_SLOTS": "2", "DISAGG_QUEUE_DEPTH": "8",
+     "DISAGG_HANDOFF_TIMEOUT_S": "5", "DISAGG_TRANSPORT": "queue"},
+], ids=["pair", "tier", "pair-tier"])
+def test_disagg_pair_and_kv_tier_boot_and_serve(served, extra):
+    """DISAGG_MODE=both (two engines over one params tree, the router in
+    front, GET /debug/disagg) and KV_HOST_TIER_BYTES boot through
+    build_app and serve the JAX engine's streams; the pair hands every
+    request off with no prefill on the decode pool."""
+    env = {**BASE, **extra}
+    app = serve.build_app(env, engine=serve.build_engine(
+        env, device="cpu", params=served["float"][1]))
+    try:
+        eng = app.engine
+        got = [app.submitter.submit(p, max_new_tokens=6).result(timeout_s=60)
+               for p in PROMPTS]
+        assert got == served["float"][2]["paged"]
+        router = eng.disagg_router
+        if "DISAGG_MODE" in env:
+            pre = router.prefill_engine
+            assert app.submitter is router and eng.disagg_role == "decode"
+            assert pre.params is eng.params and pre.disagg_role == "prefill"
+            assert pre.n_slots == int(env.get("DISAGG_PREFILL_SLOTS", 4))
+            assert router.handoff_timeout_s == float(
+                env.get("DISAGG_HANDOFF_TIMEOUT_S", 10))
+            assert pre.handoffs_total == len(PROMPTS)
+            assert eng.prefill_dispatches + eng.prefix_dispatches == 0
+            assert pre.recorder is not None and pre.recorder is not \
+                eng.recorder
+            assert any(r.pattern == "/debug/disagg"
+                       for r in app.router._routes)
+        else:
+            assert router is None and app.submitter is eng
+        if "KV_HOST_TIER_BYTES" in env:
+            assert eng.kv_tier.capacity_bytes == 1048576
+            assert eng.conversation_pin_s == float(
+                env.get("CONVERSATION_PIN_S", 600))
+    finally:
+        app.shutdown()
+
+
+def test_disagg_mode_values_and_paged_only():
+    with pytest.raises(ValueError, match="off|prefill|decode|both"):
+        serve.build_engine({**BASE, "DISAGG_MODE": "split"}, device="cpu")
+    with pytest.raises(ValueError, match="PAGED=true"):
+        serve.build_engine({**BASE, "DISAGG_MODE": "both", "PAGED": "false",
+                            "DECODE_ATTN": "kernel"}, device="cpu")
 
 
 def test_weight_dtype_other_than_int8_refused():
