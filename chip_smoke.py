@@ -15,8 +15,9 @@ then phase 10 alone), ``--openai`` (build, then phase 7b on an engine
 booted for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve
 phase with phase 4b and its cost measurements, then its decode profile
 with the utilization ledger beside it). ``--faults`` (build, then phase
-11), ``--qos`` (build, then phase 12) and ``--elastic`` (build, then
-phase 13) end with the ok line.
+11), ``--qos`` (build, then phase 12), ``--elastic`` (build, then phase
+13), ``--train`` (build, then phase 14) and ``--models`` (build, then phase
+15) end with the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -310,6 +311,43 @@ Phases, one or more lines each, any failure exits non-zero:
    App drained over POST /debug/drain into the pair's App: every session
    shipped, the relay's first-token gap, streams across the hop equal or at
    a tie; a refused peer degrades to local_resume with the stream complete.
+
+14. training (``--train``, ``train_phase``): the gradient check at
+   [1, 2048] and [2, 2048] (H=32, Hkv=8, dh=128, bf16): the port's
+   ``FlashAttention`` (the kernel forward, the oracle's VJP backward)
+   against torch.autograd.grad through attention_reference (GRAD_RTOL, the
+   bit-equal share logged), its forward against the plain version, the
+   backward's recompute ms a layer; Llama-3-8B at full width and
+   TRAIN_DEPTH of 32 layers (random weights, seed 0), B=2, T=2048,
+   ATTN_IMPL=flash, remat on, the reference's AdamW, TRAIN_STEPS steps on
+   one batch: per step loss, grad norm, wall and card ms, tokens/s, MFU,
+   peak memory and the flash launches counted on the card, which must be 2
+   per layer (the forward and remat's recompute), the loss falling; the
+   update's ms; flash's own times at [2, 2048] beside its bound, its plain
+   version and SDPA; a 2-layer step with the kernel against the same step
+   with the oracle (TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL); a checkpoint
+   resume (2 layers, saved at step 3 of 6, restored into fresh tensors,
+   bit-equal on restore, the final params within RESUME_ATOL of the
+   uninterrupted run under deterministic algorithms); the MoE at
+   Llama-3-8B widths (2 layers, 8 experts, top-2, B=1, T=1024), its loss
+   falling, aux finite, 4 flash launches a step. Every figure with the
+   depth and the card's name and power limit.
+
+15. the batcher servers (``--models``, ``models_phase``):
+   ``serve_mnist`` and ``serve_bert`` (BERT_PRESET=base, 768 wide, 12
+   layers) booted on the card with their reference warm-ups, then every
+   (batch, sequence) program they can reach captured; 64 concurrent
+   /predict bodies and 64 /embed texts of mixed lengths, each answer
+   against the same example's unbatched forward on the card (MNIST_TOL;
+   BERT_TOL and BERT_COS), embeddings of unit norm, a text alone and
+   padded into the largest bucket alike, batches larger than 1 formed, no
+   capture after the warm-up; client p50 / p99 and the batches by program.
+
+The default run ends with phases 14 and 15 in short
+(``short_train_models_phase``): the gradient check at [1, 1024], 2 steps
+of a 2-layer full-width Llama with the launch check, and 8 /predict and 8
+/embed on the debug presets; the kernels JSON's flash launches count
+training's too (``train_launches``).
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -6371,6 +6409,591 @@ def elastic_phase(params, cfg, dev, card: str) -> None:
         f"{time.monotonic() - t0:.1f}s [{card}]")
 
 
+# -- phase 14: training (--train, and the default run's short phase) ----------
+# the on-card gradient check: FlashAttention's backward is the VJP of
+# attention_reference recomputed from the same q, k, v, so its gradients and
+# autograd's through the oracle come from one function on the same inputs;
+# they are held to GRAD_RTOL of the largest reference gradient (the bit-equal
+# share is logged). Its forward is the kernel, held to its plain version as
+# every flash check is (check_agreement, per row).
+GRAD_RTOL = 1e-3
+# the 2-layer step with the kernel against the same step with the oracle:
+# the two forwards differ only by the kernel's bf16 rounding of each
+# attention output (one bf16 ulp, 2**-8 relative), so the mean loss over
+# B*T positions within 1e-2 relative and the global gradient norm within
+# 5e-2 relative
+TRAIN_LOSS_RTOL = 1e-2
+TRAIN_GNORM_RTOL = 5e-2
+TRAIN_SEED = 11000       # token seeds no other phase uses
+# the resumed run against the uninterrupted one: the same steps on the same
+# state, run under torch.use_deterministic_algorithms (warn_only); any
+# element may differ by at most one Adam step's sign flip, 2 * lr, and the
+# bit-equal share is logged
+RESUME_ATOL = 2 * 3e-4
+
+
+def train_tokens(cfg, B: int, T: int, dev, seed: int):
+    """(tokens [B, T], targets [B, T]) of one random sequence batch: the
+    targets are the next tokens."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    seq = torch.randint(1, cfg.vocab_size, (B, T + 1), generator=gen,
+                        device=dev)
+    return seq[:, :-1], seq[:, 1:]
+
+
+def grad_check(dev, card: str, B: int, T: int, H: int = 32, Hkv: int = 8,
+               dh: int = 128) -> float:
+    """FlashAttention's gradients on the card against torch.autograd.grad
+    through attention_reference, causal, bf16, [B, T, H, dh] / Hkv; the
+    forward against the plain version. Returns the backward's recompute ms
+    (attention_reference's forward and VJP) at this shape."""
+    import torch
+
+    from gofr_tpu_torch.ops.flash_attention import (
+        KERNEL_BLOCK_KV, attention_reference, flash_attention,
+        flash_attention_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(TRAIN_SEED + T)
+    q, g = (_randn((B, T, H, dh), gen, dev) for _ in range(2))
+    k, v = (_randn((B, T, Hkv, dh), gen, dev) for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, True)
+    require(out.grad_fn is not None, "flash output without grad_fn on the "
+            "card")
+    got = torch.autograd.grad(out, leaves, g)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_reference(*ref_leaves, causal=True),
+                               ref_leaves, g)
+    check_agreement(f"flash fwd for the gradient B={B} T={T}", out.detach(
+    ).transpose(1, 2), flash_attention_plain(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True,
+        KERNEL_BLOCK_KV), per_row=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        equal = float((a == b).float().mean())
+        ok = math.isfinite(err) and err <= GRAD_RTOL * scale
+        log(f"check flash grad {name} B={B} T={T} H={H} Hkv={Hkv} dh={dh} "
+            f"bf16: max_abs_err={err:.3e} max|ref|={scale:.3e} (tol "
+            f"{GRAD_RTOL}*max|ref|) bit-equal share={equal:.6f} "
+            f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"flash gradient {name} disagrees with the oracle's VJP")
+
+    def recompute():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        torch.autograd.grad(attention_reference(qd, kd, vd, causal=True),
+                            (qd, kd, vd), g)
+
+    ms = time_events(recompute, 3)
+    log(f"time flash backward (attention_reference recompute + VJP) B={B} "
+        f"T={T}: ms={ms:.3f} per layer [{card}]")
+    del q, k, v, g, leaves, ref_leaves, got, want, out
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _n_params(params) -> int:
+    from gofr_tpu_torch import tree
+
+    return sum(t.numel() for t in tree.leaves(params))
+
+
+def train_flops(cfg, n_params: int, B: int, T: int) -> float:
+    """6 * params * tokens plus the causal attention products, 3x their
+    forward's 2 * B * H * T^2 * dh per layer: the model FLOPs of a step
+    (remat's recompute is not counted)."""
+    return (6.0 * n_params * B * T
+            + 6.0 * B * cfg.n_heads * T * T * cfg.head_dim * cfg.n_layers)
+
+
+def run_train(what: str, cfg, params, dev, card: str, B: int, T: int,
+              steps: int, moe: bool = False, seed: int = TRAIN_SEED,
+              optimizer=None) -> dict:
+    """`steps` train steps on one repeated batch through make_train_step
+    (remat on, the reference's AdamW unless `optimizer`), each timed by the
+    host clock and CUDA events, its flash launches counted on the card
+    (launch_counts, zeroed before the step) and required to be 2 per layer
+    (the forward and remat's recompute); the loss must fall and grad_norm
+    be finite and non-zero. Returns losses, grad norms, launches and the
+    last step's figures."""
+    import torch
+
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.train import make_train_step
+
+    if moe:
+        from gofr_tpu_torch.models.moe import moe_llama_forward_nocache as fwd
+    else:
+        from gofr_tpu_torch.models.llama import llama_forward_nocache as fwd
+    init, step = make_train_step(lambda p, t: fwd(p, cfg, t),
+                                 optimizer=optimizer, has_aux_loss=moe)
+    state = init(params)
+    toks, tgts = train_tokens(cfg, B, T, dev, seed)
+    n_params = _n_params(params)
+    flops = train_flops(cfg, n_params, B, T)
+    out = {"loss": [], "aux": [], "grad_norm": [], "launches": 0}
+    flash = cfg.attn_impl == "flash"
+    for i in range(steps):
+        launch_counts.zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.monotonic()
+        start.record()
+        params, state, m = step(params, state, toks, tgts)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        card_ms = start.elapsed_time(end)
+        n = launch_counts.counts()["flash_attention"]
+        out["launches"] += n
+        loss, aux, gn = (float(m[k]) for k in ("loss", "aux_loss",
+                                                "grad_norm"))
+        out["loss"].append(loss)
+        out["aux"].append(aux)
+        out["grad_norm"].append(gn)
+        peak = torch.cuda.max_memory_allocated()
+        out.update(wall_s=wall, card_ms=card_ms, peak=peak,
+                   tok_s=B * T / wall, mfu=flops / (card_ms / 1e3)
+                   / H100_BF16_FLOPS)
+        log(f"train {what} step {i}: loss={loss:.5f} aux={aux:.5f} "
+            f"grad_norm={gn:.5f} wall={wall * 1e3:.1f}ms card={card_ms:.1f}ms "
+            f"tok/s={B * T / wall:.0f} MFU={out['mfu']:.4f} "
+            f"peak_mem={peak / 2**30:.2f}GiB flash_launches={n} "
+            f"[{cfg.n_layers} layers, B={B} T={T}, {n_params / 1e9:.3f}B "
+            f"params; {card}]")
+        if flash:
+            require(n == 2 * cfg.n_layers,
+                    f"train {what}: {n} flash launches in a step, want "
+                    f"{2 * cfg.n_layers} (forward + remat recompute)")
+        require(math.isfinite(gn) and gn > 0,
+                f"train {what}: grad_norm {gn}")
+        require(math.isfinite(loss) and math.isfinite(aux),
+                f"train {what}: loss {loss} aux {aux}")
+    if steps > 1:
+        require(out["loss"][-1] < out["loss"][0],
+                f"train {what}: the loss did not fall {out['loss']}")
+    out.update(params=params, state=state, n_params=n_params, flops=flops)
+    return out
+
+
+def train_step_check(dev, card: str, B: int, T: int) -> None:
+    """One step of a 2-layer full-width Llama with the kernel against the
+    same step with the oracle (attn_impl="xla"), from the same weights:
+    loss and grad_norm within TRAIN_LOSS_RTOL / TRAIN_GNORM_RTOL."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              attn_impl="flash")
+    got = run_train("2-layer flash", cfg, llama_init(cfg, 0, dev), dev,
+                    card, B, T, 1)
+    del got["params"], got["state"]
+    torch.cuda.empty_cache()
+    ocfg = dataclasses.replace(cfg, attn_impl="xla")
+    want = run_train("2-layer oracle", ocfg, llama_init(ocfg, 0, dev), dev,
+                     card, B, T, 1)
+    del want["params"], want["state"]
+    torch.cuda.empty_cache()
+    dl = abs(got["loss"][0] - want["loss"][0]) / want["loss"][0]
+    dg = abs(got["grad_norm"][0] - want["grad_norm"][0]) / want["grad_norm"][0]
+    ok = dl <= TRAIN_LOSS_RTOL and dg <= TRAIN_GNORM_RTOL
+    log(f"check train flash vs oracle (2 layers, B={B} T={T}): loss "
+        f"{got['loss'][0]:.6f} vs {want['loss'][0]:.6f} (rel {dl:.2e}, tol "
+        f"{TRAIN_LOSS_RTOL}), grad_norm {got['grad_norm'][0]:.6f} vs "
+        f"{want['grad_norm'][0]:.6f} (rel {dg:.2e}, tol {TRAIN_GNORM_RTOL}) "
+        f"{'ok' if ok else 'FAIL'} [{card}]")
+    require(ok, "train step with the flash kernel disagrees with the oracle")
+
+
+def resume_check(dev, card: str, B: int, T: int, steps: int = 6,
+                 at: int = 3) -> None:
+    """A 2-layer full-width Llama trained `steps` steps straight through,
+    and again with a checkpoint (gofr_tpu_torch.checkpoint) saved after
+    `at` steps and restored into fresh tensors before the rest: the
+    restored tensors equal the saved ones bit for bit, and the final
+    parameters equal the uninterrupted run's within RESUME_ATOL (both under
+    torch.use_deterministic_algorithms(warn_only=True); the bit-equal share
+    is logged)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from gofr_tpu_torch import tree
+    from gofr_tpu_torch.checkpoint import CheckpointManager
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.train import make_train_step
+
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              attn_impl="flash")
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+
+    init, step = make_train_step(
+        lambda p, t: llama_forward_nocache(p, cfg, t))
+    toks, tgts = train_tokens(cfg, B, T, dev, TRAIN_SEED + 1)
+    root = tempfile.mkdtemp(prefix="gofr-resume-")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            ref = llama_init(cfg, 0, dev)
+            state = init(ref)
+            for _ in range(steps):
+                ref, state, _ = step(ref, state, toks, tgts)
+            del state
+            params = llama_init(cfg, 0, dev)
+            state = init(params)
+            for _ in range(at):
+                params, state, _ = step(params, state, toks, tgts)
+            mgr = CheckpointManager(root)
+            t0 = time.monotonic()
+            mgr.save(at, {"params": params, "opt": state})
+            save_s = time.monotonic() - t0
+            fresh = tree.tree_map(torch.empty_like, {"params": params,
+                                                     "opt": state})
+            t0 = time.monotonic()
+            restored = mgr.restore(like=fresh)
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t0
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree.leaves(restored), tree.leaves({"params": params,
+                                                    "opt": state})))
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree.leaves(restored))
+            del params, state, fresh
+            params, state = restored["params"], restored["opt"]
+            del restored
+            for _ in range(steps - at):
+                params, state, _ = step(params, state, toks, tgts)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    worst, equal, n = 0.0, 0, 0
+    for a, b in zip(tree.leaves(params), tree.leaves(ref)):
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        equal += int((a == b).sum())
+        n += a.numel()
+    log(f"check resume (2 layers, B={B} T={T}, saved at step {at} of "
+        f"{steps}): restored bit-equal={same}, {nbytes / 1e9:.2f} GB saved in "
+        f"{save_s:.1f}s, restored in {load_s:.1f}s; final params max_abs_diff="
+        f"{worst:.3e} (tol {RESUME_ATOL}) bit-equal share={equal / n:.6f} "
+        f"[{card}]")
+    require(same, "resume: a restored tensor differs from the saved one")
+    require(worst <= RESUME_ATOL, "resume: the resumed run left the "
+            "uninterrupted one")
+    del params, state, ref
+    torch.cuda.empty_cache()
+
+
+def time_update(optimizer, params, state, card: str, what: str) -> float:
+    """ms of one optimizer update (its moments as the gradients) and its
+    application, by CUDA events; nothing is kept."""
+    import torch
+
+    from gofr_tpu_torch import tree
+
+    def once():
+        updates, _ = optimizer.update(state.mu, state, params)
+        for p, u in zip(tree.leaves(params), tree.leaves(updates)):
+            torch.add(p, u)
+
+    ms = time_events(once, 2)
+    log(f"time optimizer update ({what}): ms={ms:.2f} [{card}]")
+    torch.cuda.empty_cache()
+    return ms
+
+
+# --train: Llama-3-8B at full width and TRAIN_DEPTH of its 32 layers, B=2,
+# T=2048, ATTN_IMPL=flash, remat on, TRAIN_STEPS steps on one batch
+TRAIN_DEPTH = 8
+TRAIN_STEPS = 6
+
+
+def train_phase(dev, card: str) -> int:
+    """--train: the gradient check at [1, 2048], Llama-3-8B at TRAIN_DEPTH
+    layers (B=2, T=2048, 6 steps), the optimizer update's time, flash's own
+    times at [2, 2048], the 2-layer flash-vs-oracle step, the checkpoint
+    resume, then the MoE at Llama-3-8B widths (2 layers, 8 experts, top-2,
+    B=1, T=1024). Returns the flash launches of the training runs."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.models.moe import MoELlamaConfig, moe_llama_init
+    from gofr_tpu_torch.train import adamw
+
+    grad_check(dev, card, 1, 2048)
+    recompute_ms = grad_check(dev, card, 2, 2048)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=TRAIN_DEPTH,
+                              attn_impl="flash")
+    t0 = time.monotonic()
+    params = llama_init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    log(f"train llama3-8b: {TRAIN_DEPTH} of 32 layers, "
+        f"{_n_params(params) / 1e9:.3f}B params bf16, init "
+        f"{time.monotonic() - t0:.1f}s")
+    opt = adamw(3e-4, weight_decay=0.01, b1=0.9, b2=0.95)
+    run = run_train(f"llama3-8b {TRAIN_DEPTH}L", cfg, params, dev, card, 2,
+                    2048, TRAIN_STEPS, optimizer=opt)
+    launches = run["launches"]
+    update_ms = time_update(opt, run["params"], run["state"], card,
+                            f"llama3-8b {TRAIN_DEPTH}L")
+    log(f"train summary llama3-8b {TRAIN_DEPTH}L B=2 T=2048: last step "
+        f"wall={run['wall_s'] * 1e3:.1f}ms card={run['card_ms']:.1f}ms "
+        f"tok/s={run['tok_s']:.0f} MFU={run['mfu']:.4f} (6*params*tokens + "
+        f"causal attention over the card ms at {H100_BF16_FLOPS:.3g}) "
+        f"peak_mem={run['peak'] / 2**30:.2f}GiB update={update_ms:.2f}ms "
+        f"attention backward recompute={recompute_ms:.3f}ms/layer "
+        f"(x{TRAIN_DEPTH}) loss {run['loss'][0]:.4f} -> {run['loss'][-1]:.4f} "
+        f"[{card}]")
+    del run, params
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.float32, device=dev)
+    log_flash_time(2, 2048, time_flash(dev, 2, 2048, True, 10, flush), card)
+    del flush
+    torch.cuda.empty_cache()
+    train_step_check(dev, card, 2, 2048)
+    resume_check(dev, card, 1, 512)
+    # the MoE defaults are Llama-3-8B's widths with 8 experts, top-2
+    mcfg = dataclasses.replace(MoELlamaConfig(), n_layers=2,
+                               attn_impl="flash")
+    mparams = moe_llama_init(mcfg, 0, dev)
+    log(f"train moe: llama3-8b widths, 2 layers, {mcfg.n_experts} experts "
+        f"top-{mcfg.experts_per_token}, {_n_params(mparams) / 1e9:.3f}B params "
+        f"bf16")
+    mrun = run_train("moe 2L", mcfg, mparams, dev, card, 1, 1024, 4,
+                     moe=True)
+    launches += mrun["launches"]
+    log(f"train summary moe 2L B=1 T=1024: last step wall="
+        f"{mrun['wall_s'] * 1e3:.1f}ms card={mrun['card_ms']:.1f}ms tok/s="
+        f"{mrun['tok_s']:.0f} MFU={mrun['mfu']:.4f} (dense dispatch: every "
+        f"expert computes every token, counted) peak_mem="
+        f"{mrun['peak'] / 2**30:.2f}GiB aux {mrun['aux'][0]:.4f} -> "
+        f"{mrun['aux'][-1]:.4f} loss {mrun['loss'][0]:.4f} -> "
+        f"{mrun['loss'][-1]:.4f} [{card}]")
+    del mrun, mparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 15: the batcher servers (--models, and the default short phase) ---
+# a batched answer against the same example's unbatched forward on the card:
+# MNIST in f32 (TF32 off), the served probs rounded to 4 places; BERT in
+# bf16 over 12 layers, where a batch of another shape takes other GEMM
+# kernels, whose bf16 roundings move a unit embedding's elements (~0.036
+# rms at D=768) by up to ~1e-3: BERT_TOL absolute per element and cosine
+# similarity at least BERT_COS
+MNIST_TOL = 1.5e-4           # 4-place rounding of the probs + 1e-4
+BERT_TOL = 1e-2
+BERT_COS = 0.999
+MODELS_SEED = 12000      # input seeds no other phase uses
+
+
+def models_texts(n: int, seed: int, max_chars: int):
+    """n texts of mixed lengths, 1..max_chars characters."""
+    import random
+
+    rnd = random.Random(seed)
+    return [make_prompt(rnd.randint(1, max_chars), seed + i)
+            for i in range(n)]
+
+
+def _timed_post(port, path, body, out, key):
+    t0 = time.monotonic()
+    status, _, data = post_json(port, path, body)
+    out[key] = (status, data, time.monotonic() - t0)
+
+
+def _burst(port, path, bodies) -> list:
+    out = {}
+    threads = [threading.Thread(target=_timed_post,
+                                args=(port, path, b, out, i))
+               for i, b in enumerate(bodies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    require(len(out) == len(bodies), f"{path}: {len(bodies) - len(out)} "
+            f"requests never answered")
+    return [out[i] for i in range(len(bodies))]
+
+
+def _lat(recs) -> str:
+    lat = sorted(r[2] for r in recs)
+    p = lambda q: lat[min(len(lat) - 1, int(q * len(lat)))] * 1e3  # noqa: E731
+    return f"p50={p(0.5):.1f}ms p99={p(0.99):.1f}ms"
+
+
+def warm_all(batcher, example_len: int = None) -> int:
+    """Capture every (batch bucket, sequence bucket) program the batcher can
+    reach, beside the server's own warm-up."""
+    import numpy as np
+
+    captured = 0
+    seqs = batcher.seq_buckets if batcher.seq_axis is not None else [None]
+    for s in seqs:
+        example = (np.zeros((s,), dtype=np.int32) if s is not None
+                   else np.zeros((example_len,), dtype=np.float32))
+        captured += batcher.warmup(batcher.batch_buckets, example)
+    return captured
+
+
+def models_phase(dev, card: str, n: int, bert_preset: str) -> None:
+    """serve_mnist and serve_bert (BERT_PRESET=bert_preset) booted on the
+    card, every program they can reach captured, then `n` concurrent
+    /predict bodies and `n` /embed texts of mixed lengths: each answer
+    against the same example's unbatched forward on the card, embeddings of
+    unit norm, a text embedded alone and padded into the largest bucket
+    alike, batches larger than 1 formed, no capture after the warm-up."""
+    import numpy as np
+    import torch
+
+    from gofr_tpu_torch import serve_bert, serve_mnist
+    from gofr_tpu_torch.models.bert import bert_embed
+    from gofr_tpu_torch.models.mlp import mlp_forward
+
+    env = {**QUIET, "HTTP_PORT": "0", "METRICS_PORT": "0",
+           "REQUEST_TIMEOUT": "120"}
+    t0 = time.monotonic()
+    mnist = serve_mnist.build_app(env, device=dev)
+    boot = mnist.batcher.executor.captures
+    extra = warm_all(mnist.batcher, 784)
+    mnist.start()
+    log(f"models mnist: boot {time.monotonic() - t0:.1f}s, {boot} programs "
+        f"captured at boot (the reference's sizes 1, 8, 64), {extra} more "
+        f"warmed by the smoke")
+    try:
+        captured = mnist.batcher.executor.captures
+        rng = np.random.default_rng(MODELS_SEED)
+        images = rng.random((n, 784), dtype=np.float32)
+        t1 = time.monotonic()
+        recs = _burst(mnist.http_port, "/predict",
+                      [{"image": img.tolist()} for img in images])
+        wall = time.monotonic() - t1
+        worst = 0.0
+        with torch.no_grad():
+            for (status, body, _), img in zip(recs, images):
+                require(status == 201, f"/predict: {status} {body}")
+                logits = mlp_forward(mnist.params, torch.from_numpy(
+                    img[None]).to(dev))[0].cpu().numpy()
+                probs = np.exp(logits - logits.max())
+                probs /= probs.sum()
+                worst = max(worst, float(np.abs(
+                    np.asarray(body["data"]["probs"]) - probs).max()))
+                top2 = np.sort(logits)[-2:]
+                require(body["data"]["digit"] == int(np.argmax(logits))
+                        or top2[1] - top2[0] < 1e-4,
+                        "/predict digit differs from the unbatched forward")
+        batches = dict(mnist.batcher.batches)
+        largest = max(int(k.split("-")[-1].split("x")[0]) for k in batches)
+        log(f"models mnist: {n} concurrent /predict in {wall:.2f}s, client "
+            f"{_lat(recs)}; batches by program {json.dumps(batches)}; probs "
+            f"vs the unbatched forward max_abs_diff={worst:.2e} (tol "
+            f"{MNIST_TOL}); captures after warm-up="
+            f"{mnist.batcher.executor.captures - captured} [{card}]")
+        require(worst <= MNIST_TOL, "/predict differs from the unbatched "
+                "forward")
+        require(largest > 1, "/predict: no batch larger than 1 formed")
+        require(mnist.batcher.executor.captures == captured,
+                "/predict: a program was captured after warm-up")
+    finally:
+        mnist.shutdown()
+
+    t0 = time.monotonic()
+    bert = serve_bert.build_app({**env, "BERT_PRESET": bert_preset},
+                                device=dev)
+    extra = warm_all(bert.batcher)
+    bert.start()
+    cfg = bert.bert_cfg
+    log(f"models bert-embed: BERT_PRESET={bert_preset} ({cfg.dim} wide, "
+        f"{cfg.n_layers} layers, {cfg.dtype}), boot + warm-up "
+        f"{time.monotonic() - t0:.1f}s, {extra} programs captured by the "
+        f"smoke (the reference warms none)")
+    try:
+        captured = bert.batcher.executor.captures
+        max_len = bert.batcher.seq_buckets[-1]
+        texts = models_texts(n, MODELS_SEED, max_len)
+        t1 = time.monotonic()
+        recs = _burst(bert.http_port, "/embed", [{"text": t} for t in texts])
+        wall = time.monotonic() - t1
+        worst, cos_min, norm_err = 0.0, 1.0, 0.0
+        with torch.no_grad():
+            for (status, body, _), text in zip(recs, texts):
+                require(status == 201, f"/embed: {status} {body}")
+                got = np.asarray(body["data"]["embedding"])
+                ids = torch.tensor([[b + 1 for b in text.encode()][:max_len]],
+                                   device=dev)
+                want = bert_embed(bert.params, cfg, ids)[0].cpu().numpy()
+                worst = max(worst, float(np.abs(got - want).max()))
+                cos_min = min(cos_min, float(got @ want / np.linalg.norm(got)
+                                             / np.linalg.norm(want)))
+                norm_err = max(norm_err, abs(float(np.linalg.norm(got)) - 1))
+            # padding invariance: a short text alone and padded into the
+            # largest bucket
+            ids = [b + 1 for b in texts[0].encode()][:8]
+            padded = torch.zeros((1, max_len), dtype=torch.int64, device=dev)
+            padded[0, :len(ids)] = torch.tensor(ids, device=dev)
+            alone = bert_embed(bert.params, cfg, torch.tensor([ids],
+                                                              device=dev))
+            pad_err = float((bert_embed(bert.params, cfg, padded)
+                             - alone).abs().max())
+        batches = dict(bert.batcher.batches)
+        largest = max(int(k.split("-")[-1].split("x")[0]) for k in batches)
+        log(f"models bert-embed: {n} concurrent /embed in {wall:.2f}s, client "
+            f"{_lat(recs)}; batches by program {json.dumps(batches)}; vs the "
+            f"unbatched forward max_abs_diff={worst:.2e} (tol {BERT_TOL}) "
+            f"min cosine={cos_min:.6f} (tol {BERT_COS}); | |e| - 1 | max="
+            f"{norm_err:.2e}; padded to {max_len} vs alone max_abs_diff="
+            f"{pad_err:.2e}; captures after warm-up="
+            f"{bert.batcher.executor.captures - captured} [{card}]")
+        require(worst <= BERT_TOL and cos_min >= BERT_COS,
+                "/embed differs from the unbatched forward")
+        require(norm_err <= 1e-4, "/embed: an embedding is not unit norm")
+        require(pad_err <= BERT_TOL, "/embed: padding moved an embedding")
+        require(largest > 1, "/embed: no batch larger than 1 formed")
+        require(bert.batcher.executor.captures == captured,
+                "/embed: a program was captured after warm-up")
+    finally:
+        bert.shutdown()
+    torch.cuda.empty_cache()
+
+
+def short_train_models_phase(dev, card: str) -> int:
+    """The default run's phase 14/15 in short: the gradient check at
+    [1, 1024], 2 steps of a 2-layer full-width Llama with the launch check,
+    8 /predict and 8 /embed on the debug presets. Returns the training
+    flash launches."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    t0 = time.monotonic()
+    grad_check(dev, card, 1, 1024)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=2,
+                              attn_impl="flash")
+    run = run_train("2L short", cfg, llama_init(cfg, 0, dev), dev, card, 1,
+                    1024, 2)
+    launches = run["launches"]
+    del run
+    torch.cuda.empty_cache()
+    models_phase(dev, card, 8, "debug")
+    log(f"train and models short phase: {time.monotonic() - t0:.1f}s")
+    return launches
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -6410,8 +7033,10 @@ def main(argv=()) -> int:
     utilization ledger beside the profiler. --faults: build, then phase 11
     (faults_phase), ending with the ok line. --qos: build, then phase 12
     (qos_mode_phase), ending with the ok line. --elastic: build, then
-    phase 13 (elastic_phase), ending with the ok line. The other short
-    modes print no ok line."""
+    phase 13 (elastic_phase), ending with the ok line. --train: build,
+    then phase 14 (train_phase); --models: build, then phase 15
+    (models_phase), each ending with the ok line. The other short modes
+    print no ok line."""
     import dataclasses
 
     import torch
@@ -6419,10 +7044,10 @@ def main(argv=()) -> int:
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
                     "--weights", "--spec", "--openai", "--obs", "--faults",
-                    "--qos", "--elastic"):
+                    "--qos", "--elastic", "--train", "--models"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
             f"--sc, --weights, --spec, --openai, --obs, --faults, --qos, "
-            f"--elastic or none)")
+            f"--elastic, --train, --models or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -6459,6 +7084,17 @@ def main(argv=()) -> int:
         if mode == "--decode":
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
+            return 0
+        if mode in ("--train", "--models"):
+            if mode == "--train":
+                train_phase(dev, card)
+            else:
+                models_phase(dev, card, 64, "base")
+            log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
+            print(card, flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
             return 0
         if mode not in ("--prefill", "--weights", "--spec", "--openai",
                         "--obs", "--faults", "--qos", "--elastic"):
@@ -6633,6 +7269,13 @@ def main(argv=()) -> int:
         spec_phase(cut, cut_cfg, dev, card)
         chunk_phase(cut, cut_cfg, dev, card)
         log(f"spec and chunk phases: {time.monotonic() - t0:.1f}s")
+        # training and the batcher servers, short (--train and --models run
+        # them in full); training's flash launches join the kernels line
+        del params, cut
+        torch.cuda.empty_cache()
+        train_launches = short_train_models_phase(dev, card)
+        kernels[0]["launches"] += train_launches
+        kernels[0]["train_launches"] = train_launches
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

@@ -16,7 +16,11 @@ prefix-cache tail prefill ``llama_prefill_paged_prefix`` and
 ``llama_prefill_paged_prefix_q8``, and the cache-free
 ``_attention_block_nocache``, ``forward_nocache_at`` and
 ``llama_forward_nocache`` (flash or the f32 oracle; the reference's
-``attn_fn`` hook for ring/Ulysses attention waits in ROADMAP A14).
+``attn_fn`` hook for ring/Ulysses attention waits in ROADMAP A14). The
+cache-free forward is the training forward (``gofr_tpu_torch/train``): it
+runs under autograd on both devices, writes into no tensor in place, and
+its flash attention carries the reference's gradient
+(``ops/flash_attention.FlashAttention``).
 
 The params tree keeps the JAX layout — a dict with stacked [L, in, out]
 layer weights and ``x @ W`` — so the weight bridge (models/weights.py) is
@@ -140,17 +144,11 @@ class LlamaConfig:
         return 2 * embed + self.n_layers * per_layer + self.dim
 
 
-def _drawn_leaves(cfg: LlamaConfig, seed: int, dev: torch.device):
-    """The random matrices of llama_init, in its draw order: (name, leaf)
-    with name a top-level key or a layer leaf's. Each leaf is drawn one
-    [in, out] slice at a time, so an 8B model never holds a full f32 copy
-    of its largest leaf; no leaf is kept here once yielded."""
-    dtype = DTYPES[cfg.dtype]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    L, D, H, Hkv, dh, F_, V = (cfg.n_layers, cfg.dim, cfg.n_heads,
-                               cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
-                               cfg.vocab_size)
+def scaled_normal(gen: torch.Generator, dtype, dev):
+    """init(shape, fan_in): a `dtype` tensor on `dev` of normal draws from
+    `gen` times 1/sqrt(fan_in) (the JAX recipe), drawn one [in, out] slice
+    at a time, so no full f32 copy of a large stacked leaf is ever held.
+    The other models' inits (moe, bert, mlp) share it."""
 
     def init(shape, fan_in):
         out = torch.empty(shape, dtype=dtype, device=dev)
@@ -160,6 +158,20 @@ def _drawn_leaves(cfg: LlamaConfig, seed: int, dev: torch.device):
                                dtype=torch.float32)
             slices[i].copy_(draw.mul_(1.0 / math.sqrt(fan_in)))
         return out
+    return init
+
+
+def _drawn_leaves(cfg: LlamaConfig, seed: int, dev: torch.device):
+    """The random matrices of llama_init, in its draw order: (name, leaf)
+    with name a top-level key or a layer leaf's (scaled_normal: an 8B
+    model never holds a full f32 copy of its largest leaf); no leaf is kept
+    here once yielded."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    init = scaled_normal(gen, DTYPES[cfg.dtype], dev)
+    L, D, H, Hkv, dh, F_, V = (cfg.n_layers, cfg.dim, cfg.n_heads,
+                               cfg.n_kv_heads, cfg.head_dim, cfg.ffn_dim,
+                               cfg.vocab_size)
 
     yield "tok_emb", init((V, D), D)
     yield "wq", init((L, D, H * dh), D)

@@ -9,7 +9,9 @@ tensor) and ``export_llama_safetensors``; ``_stack_layers`` becomes the
 per-layer placement below. Beside them ``params_from_numpy``, the bridge
 that carries a JAX params tree across (``jax.device_get`` of a
 ``llama_init`` tree gives numpy leaves, bf16 as ml_dtypes' ``bfloat16``),
-one copy per leaf: every parity test uses it.
+one copy per leaf: every parity test uses it (dicts, lists and tuples, as
+the MLP's list of layers), and ``adam_state_from_numpy``, which carries
+optax's adam state across into the port's optimizer state.
 
 Pure numpy and torch: no ``safetensors`` package and no ``ml_dtypes`` (the
 reference decodes BF16 through ml_dtypes, which the card's machine lacks).
@@ -54,14 +56,29 @@ _TAGS = {dt: tag for tag, dt in _DTYPES.items()}
 
 
 def params_from_numpy(tree: Any, device=None, dtype=None) -> Any:
-    """The same nested dict with every numpy leaf as a torch tensor on
-    `device` (None = the CUDA card, as every entry point), cast to `dtype`
-    when given."""
+    """The same nested dicts, lists and tuples with every numpy leaf as a
+    torch tensor on `device` (None = the CUDA card, as every entry point),
+    cast to `dtype` when given."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, dev, dtype) for v in tree)
     t = _as_tensor(tree)
     return (t if dtype is None else t.to(dtype)).to(dev)
+
+
+def adam_state_from_numpy(count, mu, nu, device=None):
+    """optax's adam state (``ScaleByAdamState``'s count, mu and nu, as
+    ``jax.device_get`` gives them) as the port's ``train.AdamWState`` on
+    `device`: the count an int32 0-d tensor, the moments in their own
+    dtypes."""
+    from ..train import AdamWState
+
+    dev = resolve_device(device)
+    return AdamWState(
+        count=torch.as_tensor(np.array(count), dtype=torch.int32).to(dev),
+        mu=params_from_numpy(mu, dev), nu=params_from_numpy(nu, dev))
 
 
 def _as_tensor(x) -> torch.Tensor:

@@ -14,8 +14,15 @@ Ports ``gofr_tpu/ops/flash_attention.py``:
 On the card the model's [B, T, H, dh] tensors reach the kernel as strided
 views and the output is allocated as [B, T, H, dh]: no copy on either side.
 
-The backward pass (a recompute through the reference in JAX) is not ported:
-the serving path runs forward only.
+The backward pass is the reference's ``_flash_bwd`` (its ``flash_attention``
+is a ``jax.custom_vjp``): ``FlashAttention``, an autograd Function whose
+forward is the dispatch above (the kernel on the card, the plain version on
+the CPU) and whose backward recomputes ``attention_reference`` from the
+saved q, k, v and returns its VJP, on both devices. ``flash_attention``
+goes through it whenever an input requires grad, so the kernel's output,
+written through raw pointers, still carries the gradient; a kernel that
+fails to build or launch raises there too (the forward, and the recompute of
+a checkpointed forward, alike).
 """
 
 from __future__ import annotations
@@ -148,15 +155,10 @@ def flash_attention_cuda(q, k, v, causal: bool, out=None):
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True):
-    """Flash attention on [B, T, H, dh] q and [B, S, Hkv, dh] k/v (GQA folds
-    query head h onto kv head h // (H // Hkv)). Returns a contiguous
-    [B, T, H, dh] tensor in q.dtype. Mixed-length causal takes the exact
-    oracle; everything else runs the CUDA kernel on a CUDA tensor (q, k, v
-    read in place through transposed views, the output written in place)
-    and the plain version on a CPU tensor."""
-    if causal and q.shape[1] != k.shape[1]:
-        return attention_reference(q, k, v, causal=causal)
+def _forward(q, k, v, causal: bool):
+    """The kernel on a CUDA tensor (q, k, v read in place through transposed
+    views, the output written in place), the plain version on a CPU tensor:
+    a contiguous [B, T, H, dh] result without autograd history."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if q.is_cuda:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
@@ -166,3 +168,41 @@ def flash_attention(q, k, v, causal: bool = True):
         return flash_attention_plain(qt, kt, vt, causal).transpose(
             1, 2).contiguous()
     raise ValueError(f"unsupported device {q.device}")
+
+
+class FlashAttention(torch.autograd.Function):
+    """The reference's custom_vjp pair (``_flash_fwd`` / ``_flash_bwd``):
+    forward through ``_forward`` with (q, k, v) saved; backward the VJP of
+    ``attention_reference`` recomputed from them in f32, as ``jax.vjp`` of
+    the oracle gives it. Apply as ``FlashAttention.apply(q, k, v, causal)``
+    on [B, T, H, dh] q and [B, S, Hkv, dh] k/v with T == S under causal."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = attention_reference(qd, kd, vd, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Flash attention on [B, T, H, dh] q and [B, S, Hkv, dh] k/v (GQA folds
+    query head h onto kv head h // (H // Hkv)). Returns a contiguous
+    [B, T, H, dh] tensor in q.dtype. Mixed-length causal takes the exact
+    oracle (autograd differentiates it as it is); everything else runs the
+    CUDA kernel on a CUDA tensor and the plain version on a CPU tensor,
+    through ``FlashAttention`` when grad is on and an input requires it."""
+    if causal and q.shape[1] != k.shape[1]:
+        return attention_reference(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)

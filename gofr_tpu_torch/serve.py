@@ -370,11 +370,12 @@ def _warmup_mode(env: Config) -> str:
                      f"{env.get('WARMUP')!r}")
 
 
-def check_config(env: EnvLike) -> None:
+def check_config(env: EnvLike, not_ported=None) -> None:
     """Raise ValueError naming the ROADMAP item of the first config key that
-    asks for a feature the port does not have yet."""
+    asks for a feature the port does not have yet (`not_ported`: a server's
+    table of them, default this server's NOT_PORTED)."""
     env = as_config(env)
-    for key, asks, where in NOT_PORTED:
+    for key, asks, where in NOT_PORTED if not_ported is None else not_ported:
         if asks(env):
             raise ValueError(f"{key}={env.get(key)!r} is not supported by "
                              f"gofr_tpu_torch yet: {where}")

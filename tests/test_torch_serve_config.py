@@ -630,3 +630,67 @@ def test_module_docstring_names_every_ported_key():
     for key in serve.PORTED:
         assert key in doc, key
     assert os.path.exists(MAIN)
+
+
+# -- the batcher servers (serve_mnist, serve_bert) ---------------------------------
+def _app_ctor_keys():
+    """The keys the reference App's constructor reads (the batcher servers
+    enable none of its planes, whose keys the rest of app.py reads)."""
+    import ast
+
+    src = KEY_SOURCES[1].read_text()
+    app_cls = next(n for n in ast.parse(src).body
+                   if isinstance(n, ast.ClassDef) and n.name == "App")
+    init = next(n for n in app_cls.body
+                if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    text = ast.get_source_segment(src, init)
+    return set(re.findall(r'(?:config|cfg)\.get(?:_\w+)?\(\s*"([A-Z0-9_]+)"',
+                          text)) | set(re.findall(
+                              r'environ\.get\(\s*"([A-Z0-9_]+)"', text))
+
+
+def _batcher_server_keys(example: str):
+    """Every key the reference batcher server reads: its main.py, its App's
+    constructor, its container's and tracer's, and its device client's."""
+    keys = _app_ctor_keys()
+    for path in (ROOT / "examples" / example / "main.py",
+                 KEY_SOURCES[2], KEY_SOURCES[3],
+                 ROOT / "gofr_tpu" / "tpu" / "device.py"):
+        keys.update(re.findall(
+            r'(?:config|cfg)\.get(?:_\w+)?\(\s*"([A-Z0-9_]+)"',
+            path.read_text()))
+    return keys
+
+
+@pytest.mark.parametrize("example,module", [("mnist-server", "serve_mnist"),
+                                            ("bert-embed", "serve_bert")])
+def test_every_batcher_server_key_is_accounted_for(example, module):
+    from gofr_tpu_torch import serve_bert, serve_mnist
+
+    mod = {"serve_mnist": serve_mnist, "serve_bert": serve_bert}[module]
+    keys = _batcher_server_keys(example)
+    assert {"MAX_BATCH", "BATCH_WINDOW_S", "HTTP_PORT", "GRPC_PORT",
+            "TPU_ENABLED", "TPU_PLATFORM", "GOFR_CONFIGS_DIR"} <= keys
+    if module == "serve_bert":
+        assert {"BERT_PRESET", "SEQ_BUCKETS"} <= keys
+    ported = set(mod.PORTED)
+    refused = {k for k, _, _ in mod.NOT_PORTED}
+    inert = {k for k, _ in mod.INERT}
+    assert not (ported & refused) and not (ported & inert) \
+        and not (refused & inert)
+    missing = sorted(keys - (ported | refused | inert))
+    assert not missing, f"unaccounted {example} keys: {missing}"
+    # and nothing listed that the reference server does not read
+    assert not (ported | refused | inert) - keys
+    assert all(len(why) > 20 for _, why in mod.INERT)
+    # every served key is read by the server, its App, container or tracer
+    from gofr_tpu_torch import app, container, tracing
+
+    src = "".join(inspect.getsource(f) for f in (
+        mod.build_app, serve_mnist.batcher_app, app.App, container.Container,
+        tracing.exporter_from_config))
+    for key in ported:
+        assert f'"{key}"' in src, key
+    doc = mod.__doc__
+    for key in set(mod.PORTED) - set(serve_mnist.APP_PORTED):
+        assert key in doc, key
