@@ -16,8 +16,8 @@ booted for it, OPENAI_ENV) and ``--obs`` (build, the main path's serve
 phase with phase 4b and its cost measurements, then its decode profile
 with the utilization ledger beside it). ``--faults`` (build, then phase
 11), ``--qos`` (build, then phase 12), ``--elastic`` (build, then phase
-13), ``--train`` (build, then phase 14) and ``--models`` (build, then phase
-15) end with the ok line.
+13), ``--train`` (build, then phase 14), ``--models`` (build, then phase
+15) and ``--parallel`` (build, then phase 16) end with the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -349,6 +349,33 @@ of a 2-layer full-width Llama with the launch check, and 8 /predict and 8
 /embed on the debug presets; the kernels JSON's flash launches count
 training's too (``train_launches``).
 
+16. parallelism (``--parallel``, ``parallel_mode``; ROADMAP A14a): the
+   process joins a one-rank NCCL job through the JAX_* keys and builds the
+   five-axis mesh; (a) the paged engine on that tp=1 mesh and the engine
+   without a mesh, Llama-3-8B whole (PAR_DEPTH), WARMUP=wide at boot, one
+   greedy burst of 8 x 48 tokens: no capture after boot, flash and the
+   paged read launched, 64 all-reduces and 1 all-gather per decode step
+   (inside the graphs), the streams equal token for token, and the decode
+   step's card busy ms at B=8 (with its NCCL kernels) on both; (d)
+   sp_llama_forward at sp=1, ring and Ulysses, against
+   llama_forward_nocache at 4 layers [1, 256] and 32 layers [1, 1024]
+   (SP_TOL), Ulysses launching flash once a layer; (c) flash and the four
+   reads at the heads one rank holds (RANK_HEADS: Llama-3-8B and
+   Llama-3-70B at tp = 2, 4, 8; Ulysses' G = 1), each against its plain
+   version, launched, timed beside its plain version and its bound; (b)
+   two processes on the card, each with its own engine (4 layers), rank 0
+   the HTTP ingress and rank 1 replaying its waves over a TCPStore, 6
+   staggered streams with one client leaving mid-stream: rank 1's streams
+   equal rank 0's token for token, the cancelled one cut at the same
+   token; (e) with n > 1 cards visible, TP=n serving through serve.py
+   (TP_SHARDS), 8 concurrent streams held to the teacher-forced oracle,
+   with the client's TTFT and tok/s per stream, then the App's shutdown,
+   bounded (``shutdown_bounded``, ROADMAP C8).
+
+The default run ends, after them, with phase 16 in short
+(``parallel_short``): (a) at CUT_DEPTH layers (4 streams x 16 tokens, no
+step profile) and (d) at [1, 128].
+
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
 """
@@ -359,6 +386,7 @@ import http.client
 import json
 import math
 import re
+import socket
 import sys
 import threading
 import time
@@ -6994,6 +7022,625 @@ def short_train_models_phase(dev, card: str) -> int:
     return launches
 
 
+# -- phase 16: tensor and sequence parallelism (ROADMAP A14a) ----------------
+PAR_DEPTH = 32           # --parallel's TP engine phase: Llama-3-8B whole
+PAR_SEED = 13000         # prompt seeds no other phase uses
+PAR_CHARS = (150, 180, 200, 220, 240, 130, 160, 170)
+PAR_TOKENS = 48
+# phase (c)'s per-rank (H, Hkv): Llama-3-8B (32/8) and Llama-3-70B (64/8)
+# at tp = 2, 4 and 8, and Ulysses' G = 1 (KV heads repeated up to H / sp)
+RANK_HEADS = (("8b", 2, 16, 4), ("8b", 4, 8, 2), ("8b", 8, 4, 1),
+              ("70b", 2, 32, 4), ("70b", 4, 16, 2), ("70b", 8, 8, 1),
+              ("ulysses-g1", 8, 4, 4), ("ulysses-g1", 4, 8, 8))
+# the sp=1 forwards against the dense one: ring attends in f32 and the
+# dense forward through flash, so the bf16 model tolerance applies
+SP_TOL = MODEL_TOL
+
+
+def join_world_of_one():
+    """This process as rank 0 of a one-rank job (NCCL on cuda:0) through
+    the JAX_* keys, and the all-axes mesh over it (tp = sp = 1)."""
+    from gofr_tpu_torch.config import as_config
+    from gofr_tpu_torch.parallel import MeshPlan, make_mesh
+    from gofr_tpu_torch.parallel.multihost import initialize_from_config
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.monotonic()
+    initialize_from_config(as_config({
+        "JAX_COORDINATOR_ADDR": f"127.0.0.1:{port}",
+        "JAX_NUM_PROCESSES": "1", "JAX_PROCESS_ID": "0",
+        "JAX_COORDINATOR_TIMEOUT_S": "60"}))
+    mesh = make_mesh(MeshPlan())
+    log(f"parallel: joined a one-rank NCCL job and built the 5-axis mesh "
+        f"in {time.monotonic() - t0:.2f}s")
+    return mesh
+
+
+def par_prompts(tok, n: int):
+    return [tok.encode(make_prompt(PAR_CHARS[i % len(PAR_CHARS)],
+                                   PAR_SEED + i)) for i in range(n)]
+
+
+def drive(eng, prompts, n_tok):
+    """The prompts as one burst on an engine whose loop this thread plays;
+    every request's tokens."""
+    reqs = [eng.submit(p, max_new_tokens=n_tok, temperature=0.0)
+            for p in prompts]
+    deadline = time.monotonic() + 300
+    while not all(r.finished_at is not None for r in reqs):
+        require(time.monotonic() < deadline, "parallel: a burst never ended")
+        eng._step()
+    return [list(r.emitted) for r in reqs]
+
+
+def step_card_ms(eng, prompts) -> dict:
+    """The pipelined decode step at B=8 (decode_engine's recipe on this
+    engine): the card's busy ms per decode step over 4 loop steps under
+    torch.profiler, and its NCCL kernels per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=600)
+    for _ in range(eng.pipeline_depth + 1):
+        eng._step()
+    ran = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _window(eng, 4)
+    ran = eng.decode_steps - ran
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    out = {"busy_ms": sum(e.self_device_time_total for e in kernels)
+           / 1e3 / ran,
+           "nccl_kernels": sum(e.count for e in nccl) / ran,
+           "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3 / ran,
+           "steps": ran}
+    eng.stop()
+    return out
+
+
+def tp_engine_phase(params, cfg, dev, card: str, mesh, depth: int,
+                    n_req: int = 8, n_tok: int = PAR_TOKENS,
+                    profile_steps: bool = True) -> dict:
+    """(a) The paged engine on a one-rank NCCL mesh (tp=1: the TP path,
+    its all-reduces and vocab all-gather inside the captured graphs) and
+    the engine without a mesh, on the same weights at `depth` layers:
+    WARMUP=wide's captures at boot, one greedy burst of n_req prompts with
+    no capture after boot, flash and the paged read launched, the streams
+    equal token for token; the collectives per decode step (the host calls
+    while one decode step runs eagerly, which a graph replays), and the
+    decode step's card ms on both."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_decode_step_paged
+    from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.parallel import collectives
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    t_phase = time.monotonic()
+    cut = cut_tree(params, depth)
+    c = dataclasses.replace(cfg, n_layers=depth, attn_impl="flash")
+    prompts = par_prompts(DebugTokenizer(cfg.vocab_size), n_req)
+    out = {}
+    for name, m in (("no mesh", None), ("tp=1 NCCL mesh", mesh)):
+        eng = PagedLLMEngine(cut, c, device=dev, n_slots=8,
+                             max_seq_len=1024, prefill_buckets=(128, 256),
+                             page_size=128, prefix_cache=False, mesh=m)
+        t0 = time.monotonic()
+        eng.warmup(k_variants=True)
+        boot = eng.executor.captures
+        warm_s = time.monotonic() - t0
+        launch_counts.zero()
+        streams = drive(eng, prompts, n_tok)
+        launches = launch_counts.counts()
+        require(eng.executor.captures == boot,
+                f"parallel {name}: a graph was captured after boot")
+        require(launches["flash_attention"] > 0
+                and launches["paged_attention"] > 0,
+                f"parallel {name}: flash or the paged read not launched "
+                f"({launches})")
+        with torch.no_grad(), collectives.counting() as calls:
+            B = 8
+            table = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+            llama_decode_step_paged(
+                eng.params, eng.cfg,
+                torch.zeros(B, dtype=torch.long, device=dev),
+                torch.zeros(B, dtype=torch.long, device=dev),
+                eng.k_cache, eng.v_cache, table)
+            torch.cuda.synchronize()
+        per_step = dict(calls)
+        if m is not None:
+            require(per_step.get("all_reduce") == 2 * depth
+                    and per_step.get("all_gather") == 1,
+                    f"parallel {name}: collectives per decode step "
+                    f"{per_step}, want {2 * depth} all-reduces and 1 "
+                    f"all-gather")
+        step = (step_card_ms(eng, prompts) if profile_steps else None)
+        if not profile_steps:
+            eng.stop()
+        out[name] = {"streams": streams, "launches": launches,
+                     "warm_s": warm_s, "graphs": boot, "calls": per_step,
+                     "step": step}
+        cut_note = (f"{depth} of 32 layers (cut for time)" if depth < 32
+                    else "all 32 layers")
+        log(f"parallel {name}: Llama-3-8B width, {cut_note}, paged bf16: "
+            f"{boot} graphs captured at boot in "
+            f"{warm_s:.2f}s, none after; burst of {n_req} x {n_tok} tokens; "
+            f"launches flash {launches['flash_attention']} paged "
+            f"{launches['paged_attention']}; collectives per decode step "
+            f"{per_step or 'none'}"
+            + (f"; decode step at B=8 card busy {step['busy_ms']:.4f} ms "
+               f"(NCCL kernels {step['nccl_kernels']:.1f} per step, "
+               f"{step['nccl_ms']:.4f} ms)" if step else "")
+            + f" [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+    same = out["no mesh"]["streams"] == out["tp=1 NCCL mesh"]["streams"]
+    require(same, "parallel: the tp=1 mesh engine's greedy streams differ "
+            "from the engine without a mesh")
+    log(f"parallel tp=1: {n_req} greedy streams equal token for token to "
+        f"the engine without a mesh; phase {time.monotonic() - t_phase:.1f}s "
+        f"[{card}]")
+    return out
+
+
+def par_follower(port: int, depth: int, result) -> None:
+    """Phase (b)'s second process: rank 1's engine on the same card, the
+    same weights (llama_init seed 0 at `depth` layers), replaying rank 0's
+    waves from the TCPStore at `port`; puts its shadow streams (id ->
+    tokens) on `result`."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.tpu.admission import AdmissionPlane, StoreKV
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    try:
+        dev = torch.device("cuda", 0)
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=depth,
+                                  attn_impl="flash")
+        params = llama_init(cfg, seed=0, device=dev)
+        store = dist.TCPStore("127.0.0.1", port, 2, is_master=False,
+                              wait_for_workers=False)
+        plane = AdmissionPlane(process_id=1, kv=StoreKV(store))
+        shadows = []
+        plane.on_shadow = shadows.append
+        eng = PagedLLMEngine(params, cfg, device=dev, n_slots=8,
+                             max_seq_len=1024, prefill_buckets=(128, 256),
+                             page_size=128, prefix_cache=False,
+                             admission_plane=plane)
+        eng.warmup(k_variants=True)
+        store.set("par/follower_ready", "1")
+        eng.start()
+        deadline = time.monotonic() + 600
+        while not plane.closed and time.monotonic() < deadline:
+            time.sleep(0.05)
+        eng.stop()
+        result.put({"shadows": {s.id: list(s.emitted) for s in shadows},
+                    "errors": sum(s.error is not None for s in shadows),
+                    "closed": plane.closed})
+    except BaseException as exc:  # noqa: BLE001 - reported to rank 0
+        import traceback
+
+        result.put({"error": f"{exc!r}\n{traceback.format_exc()}"})
+
+
+def follower_phase(dev, card: str, depth: int) -> None:
+    """(b) Two processes on the card, each with its own engine (no tp
+    group: they share only a TCPStore): rank 0 is the HTTP ingress, rank 1
+    replays its admission waves. Staggered streaming arrivals and one
+    client that disconnects mid-stream (a cancel); rank 1's streams must
+    equal rank 0's token for token, the cancelled one cut at the same
+    token."""
+    import dataclasses
+    import multiprocessing as mp
+    import threading
+
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serve import build_app
+    from gofr_tpu_torch.tpu.admission import AdmissionPlane, StoreKV
+    from gofr_tpu_torch.tpu.paging import PagedLLMEngine
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=depth,
+                              attn_impl="flash")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    store = dist.TCPStore("127.0.0.1", port, 2, is_master=True,
+                          wait_for_workers=False)
+    ctx = mp.get_context("spawn")
+    result = ctx.Queue()
+    proc = ctx.Process(target=par_follower, args=(port, depth, result),
+                       daemon=True)
+    proc.start()
+    app = None
+    try:
+        params = llama_init(cfg, seed=0, device=dev)
+        plane = AdmissionPlane(process_id=0, kv=StoreKV(store))
+        eng = PagedLLMEngine(params, cfg, device=dev, n_slots=8,
+                             max_seq_len=1024, prefill_buckets=(128, 256),
+                             page_size=128, prefix_cache=False,
+                             admission_plane=plane)
+        eng.warmup(k_variants=True)
+        from gofr_tpu_torch.models.tokenizer import DebugTokenizer
+
+        eng.tokenizer = DebugTokenizer(cfg.vocab_size)
+        requests = []
+        submit = eng.submit
+
+        def recording_submit(*a, **kw):
+            r = submit(*a, **kw)
+            requests.append(r)
+            return r
+
+        eng.submit = recording_submit
+        store.wait(["par/follower_ready"])
+        eng.start()
+        app = build_app({**QUIET, "HTTP_PORT": "0", "METRICS_PORT": "0"},
+                        engine=eng)
+        app.start()
+        http_port = app.http_port
+        replies = {}
+
+        def cut_short(prompt, key, after):
+            conn = http.client.HTTPConnection("127.0.0.1", http_port,
+                                              timeout=600)
+            conn.request("POST", "/generate", body=json.dumps(
+                {"prompt": prompt, "max_tokens": 200, "stream": True}),
+                headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            n = 0
+            while n < after:
+                line = resp.readline()
+                if not line:
+                    break
+                n += line.startswith(b"data: ")
+            conn.close()   # the client leaves: the stream's cancel
+            replies[key] = {"events": n}
+
+        threads = []
+        for i in range(6):
+            prompt = make_prompt(PAR_CHARS[i], PAR_SEED + 100 + i)
+            if i == 3:
+                t = threading.Thread(target=cut_short,
+                                     args=(prompt, i, 8))
+            else:
+                t = threading.Thread(target=stream_request,
+                                     args=(http_port, prompt, PAR_TOKENS,
+                                           replies, i))
+            t.start()
+            threads.append(t)
+            time.sleep(0.15)   # staggered: the arrivals span many waves
+        for t in threads:
+            t.join(timeout=300)
+        deadline = time.monotonic() + 120
+        while not all(r.finished_at is not None for r in requests):
+            require(time.monotonic() < deadline,
+                    "parallel follower: a leader stream never finished")
+            time.sleep(0.05)
+        app.shutdown()   # the engine's stop publishes the stop sentinel
+        app = None
+        got = result.get(timeout=300)
+        require("error" not in got, f"parallel follower: rank 1 failed: "
+                f"{got.get('error')}")
+        leader = {r.id: list(r.emitted) for r in requests}
+        require(got["shadows"] == leader,
+                "parallel follower: rank 1's streams differ from rank 0's")
+        victim = requests[3]
+        require(victim.cancelled.is_set() and len(victim.emitted) < 200,
+                "parallel follower: the disconnected stream was not "
+                "cancelled")
+        log(f"parallel follower: 2 processes on one card, rank 0 the HTTP "
+            f"ingress, rank 1 replaying its waves ({plane._seq} waves): "
+            f"{len(leader)} streams equal token for token, the one "
+            f"cancelled mid-stream cut at {len(victim.emitted)} tokens on "
+            f"both; {depth} layers; phase {time.monotonic() - t_phase:.1f}s "
+            f"[{card}]")
+    finally:
+        if app is not None:
+            app.shutdown()
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+        del store
+        torch.cuda.empty_cache()
+
+
+def rank_kernels_phase(dev, card: str) -> list:
+    """(c) flash, the paged reads and the dense reads, bf16 and int8, at the
+    heads one rank holds (RANK_HEADS), each against its plain version on
+    the same inputs, its launches counted, with its time (CUDA events),
+    its plain version's and its bound."""
+    import torch
+
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.ops.decode_attention import (decode_attention_cuda,
+                                                     decode_attention_plain,
+                                                     decode_attention_q8_cuda,
+                                                     quantize_kv)
+    from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
+                                                    flash_attention_cuda,
+                                                    flash_attention_plain)
+    from gofr_tpu_torch.ops.paged_attention import (paged_attention_cuda,
+                                                    paged_attention_plain,
+                                                    paged_attention_q8_cuda,
+                                                    paged_attention_reference)
+
+    rows = []
+    ctx = [150 + 24 * i for i in range(8)]   # mid-decode contexts at B=8
+    for model, n, H, Hkv in RANK_HEADS:
+        what = f"{model} {'sp' if model.startswith('ulysses') else 'tp'}={n}"
+        launch_counts.zero()
+        q, k, v = flash_inputs(4, H, Hkv, 256, 256, 128, dev, seed=H + Hkv)
+        err = check_agreement(f"rank flash {what} H={H} Hkv={Hkv} [4, 256]",
+                              flash_attention_cuda(q, k, v, True),
+                              flash_attention_plain(q, k, v, True,
+                                                    KERNEL_BLOCK_KV),
+                              per_row=True)
+        ms = time_events(lambda: flash_attention_cuda(q, k, v, True), 20)
+        plain = time_events(lambda: flash_attention_plain(
+            q, k, v, True, KERNEL_BLOCK_KV), 5)
+        bound, by = flash_bound(4, H, Hkv, 256, 256, 128, True)
+        rows.append(("flash_attention", what, H, Hkv, err, ms, plain, bound,
+                     by))
+        if model.startswith("ulysses"):
+            require(launch_counts.counts()["flash_attention"] > 0,
+                    f"rank {what}: flash not launched")
+            continue
+        qd, kp, vp, table, lens = paged_inputs(ctx, H, Hkv, 128, 128, dev,
+                                               seed=H * Hkv)
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+        _, kd, vd, dlens = dense_inputs(ctx, H, Hkv, 128, 1024, dev,
+                                        seed=H * Hkv + 1)
+        (dk8, dks), (dv8, dvs) = quantize_kv(kd), quantize_kv(vd)
+        cases = (
+            ("paged_attention",
+             lambda: paged_attention_cuda(qd, kp, vp, table, lens),
+             lambda: paged_attention_reference(qd, kp, vp, table, lens),
+             paged_bound(ctx, H, Hkv, 128, 128)),
+            ("paged_attention_q8",
+             lambda: paged_attention_q8_cuda(qd, k8, v8, ks, vs, table, lens),
+             lambda: paged_attention_plain(qd, k8, v8, table, lens, ks, vs),
+             paged_bound(ctx, H, Hkv, 128, 128, True)),
+            ("decode_attention",
+             lambda: decode_attention_cuda(qd, kd, vd, dlens),
+             lambda: decode_attention_plain(qd, kd, vd, dlens),
+             read_bound(ctx, H, Hkv, 128, False, 4 * len(ctx))),
+            ("decode_attention_q8",
+             lambda: decode_attention_q8_cuda(qd, dk8, dv8, dks, dvs, dlens),
+             lambda: decode_attention_plain(qd, dk8, dv8, dlens, dks, dvs),
+             read_bound(ctx, H, Hkv, 128, True, 4 * len(ctx))))
+        for name, kernel, plain_fn, (bound, by) in cases:
+            err = check_agreement(f"rank {name} {what} H={H} Hkv={Hkv} B=8",
+                                  kernel(), plain_fn())
+            rows.append((name, what, H, Hkv, err, time_events(kernel, 50),
+                         time_events(plain_fn, 5), bound, by))
+        counts = launch_counts.counts()
+        require(all(counts[k] > 0 for k in launch_counts.KERNELS),
+                f"rank {what}: a kernel was not launched ({counts})")
+        del q, k, v, qd, kp, vp, table, lens, kd, vd, dlens
+        torch.cuda.empty_cache()
+    for name, what, H, Hkv, err, ms, plain, bound, by in rows:
+        log(f"rank kernel {name} {what} (H={H}, Hkv={Hkv}, G={H // Hkv}): "
+            f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={bound:.4f} ({by}) [{card}]")
+    return rows
+
+
+def sp_phase(params, cfg, dev, card: str, mesh, depth: int,
+             T: int = 256) -> None:
+    """(d) sp_llama_forward at sp = 1 on the mesh, with ring and with
+    Ulysses, against llama_forward_nocache on the same weights at `depth`
+    layers ([1, T] random tokens); Ulysses must launch flash."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.parallel import sp_llama_forward
+
+    cut = cut_tree(params, depth)
+    c = dataclasses.replace(cfg, n_layers=depth, attn_impl="flash")
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        want = llama_forward_nocache(cut, c, tokens)
+        for attn in ("ring", "ulysses"):
+            launch_counts.zero()
+            t0 = time.monotonic()
+            got = sp_llama_forward(cut, c, tokens, mesh, attn=attn)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            flash = launch_counts.counts()["flash_attention"]
+            gap = float((got - want).abs().max())
+            log(f"parallel sp=1 {attn}: [1, {T}] x {depth} layers, max "
+                f"|logit gap| {gap:.4f} against llama_forward_nocache (tol "
+                f"{SP_TOL}); flash launches {flash}; wall {wall:.3f}s "
+                f"[{card}]")
+            require(bool(torch.isfinite(got).all()) and got.shape
+                    == want.shape and gap <= SP_TOL,
+                    f"parallel sp=1 {attn}: off the dense forward")
+            require(attn != "ulysses" or flash == depth,
+                    f"parallel sp=1 ulysses: flash launched {flash} times, "
+                    f"want {depth}")
+
+
+def multi_card_phase(dev, card: str, n: int) -> None:
+    """(e) With n > 1 cards visible: TP = n serving through serve.py
+    (TP_SHARDS=n: this process rank 0 on cuda:0 and the HTTP ingress, the
+    n-1 followers spawned on the other cards), Llama-3-8B whole, random
+    weights from seed 0 on every rank: 8 concurrent streams, each held to
+    the single-card teacher-forced oracle on the same weights within
+    MODEL_TOL (check_streams), with the client's TTFT and tok/s per
+    stream."""
+    import threading
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+    from gofr_tpu_torch.serve import build_app
+
+    cfg = LlamaConfig.llama3_8b()
+    prompts = [make_prompt(PAR_CHARS[i], PAR_SEED + 200 + i)
+               for i in range(len(PAR_CHARS))]
+    env = {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+           "TP_SHARDS": str(n), "HTTP_PORT": "0", "METRICS_PORT": "0",
+           "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024",
+           "PREFILL_BUCKETS": "128,256", "WARMUP": "wide",
+           "PREFIX_CACHE": "false"}
+    t0 = time.monotonic()
+    app = build_app(env)
+    boot_s = time.monotonic() - t0
+    try:
+        engine = app.engine
+        rec = record_tokens(engine)
+        app.start()
+        out = {}
+        threads = [threading.Thread(target=stream_request,
+                                    args=(app.http_port, p, PAR_TOKENS, out,
+                                          i))
+                   for i, p in enumerate(prompts)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.monotonic() - t0
+        n_req = len(prompts)
+        ttft = [out[i]["times"][0] for i in range(n_req)]
+        tps = [(len(out[i]["times"]) - 1) / max(
+            out[i]["times"][-1] - out[i]["times"][0], 1e-9)
+            for i in range(n_req)]
+        log(f"parallel TP={n}: boot {boot_s:.1f}s ({engine.executor.captures}"
+            f" graphs on rank 0); {n_req} concurrent streams x {PAR_TOKENS} "
+            f"tokens in {wall:.2f}s; client TTFT s "
+            f"{[round(x, 4) for x in ttft]}; tok/s per stream "
+            f"{[round(x, 1) for x in tps]} [{card}]")
+        params = llama_init(cfg, seed=0, device=dev)
+        check_streams(f"parallel TP={n}", params, cfg, dev, rec, PAR_TOKENS,
+                      card)
+        del params
+    finally:
+        shutdown_bounded(app, n)
+        torch.cuda.empty_cache()
+
+
+def shutdown_bounded(app, n: int, limit_s: float = 180.0) -> None:
+    """The TP App's shutdown with a bound (ROADMAP C8: on 4 cards it has
+    hung): past `limit_s`, log what is still alive (rank 0's loop, the
+    follower processes, the process group) and end this process with exit
+    code 1, so the call ends instead of waiting out its limit."""
+    import os
+
+    import torch.distributed as dist
+
+    done = threading.Event()
+    t0 = time.monotonic()
+    threading.Thread(target=lambda: (app.shutdown(), done.set()),
+                     daemon=True).start()
+    if done.wait(limit_s):
+        log(f"parallel TP={n}: shutdown in {time.monotonic() - t0:.1f}s")
+        return
+    engine = app.engine
+    loop = engine._thread
+    log(f"FAIL parallel TP={n}: the App's shutdown did not finish in "
+        f"{limit_s:.0f}s; rank 0's loop alive: "
+        f"{loop is not None and loop.is_alive()}; followers alive: "
+        f"{[p.is_alive() for p in getattr(engine, 'followers', ())]}; "
+        f"process group still up: {dist.is_initialized()}")
+    sys.stdout.flush()
+    for proc in getattr(engine, "followers", ()):
+        proc.kill()
+    os._exit(1)
+
+
+def leave_job() -> None:
+    from gofr_tpu_torch.parallel.multihost import leave
+
+    leave()
+
+
+def parallel_mode(dev, card: str) -> None:
+    """--parallel: phases (a) to (d) on the card, and (e) with more than
+    one card visible."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    t0 = time.monotonic()
+    mesh = join_world_of_one()
+    try:
+        cfg = LlamaConfig.llama3_8b()
+        params = llama_init(cfg, seed=0, device=dev)
+        tp_engine_phase(params, cfg, dev, card, mesh, PAR_DEPTH)
+        log(f"parallel (a): {time.monotonic() - t0:.1f}s")
+        t1 = time.monotonic()
+        sp_phase(params, cfg, dev, card, mesh, CUT_DEPTH)
+        sp_phase(params, cfg, dev, card, mesh, PAR_DEPTH, T=1024)
+        log(f"parallel (d): {time.monotonic() - t1:.1f}s")
+        del params
+        torch.cuda.empty_cache()
+        t1 = time.monotonic()
+        rank_kernels_phase(dev, card)
+        log(f"parallel (c): {time.monotonic() - t1:.1f}s")
+        t1 = time.monotonic()
+        follower_phase(dev, card, CUT_DEPTH)
+        log(f"parallel (b): {time.monotonic() - t1:.1f}s")
+    finally:
+        leave_job()
+    n = torch.cuda.device_count()
+    if n > 1:
+        t1 = time.monotonic()
+        multi_card_phase(dev, card, n)
+        log(f"parallel (e): {time.monotonic() - t1:.1f}s")
+    else:
+        log("parallel (e): one card visible, TP > 1 serving not run")
+    del dataclasses
+
+
+def parallel_short(dev, card: str) -> None:
+    """The default run's short parallel phase: (a) at CUT_DEPTH layers (4
+    greedy streams x 16 tokens on the tp=1 NCCL mesh engine and on the
+    engine without a mesh, equal) and (d) at [1, 128]."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
+
+    t0 = time.monotonic()
+    mesh = join_world_of_one()
+    try:
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(),
+                                  n_layers=CUT_DEPTH)
+        params = llama_init(cfg, seed=0, device=dev)
+        tp_engine_phase(params, cfg, dev, card, mesh, CUT_DEPTH, n_req=4,
+                        n_tok=16, profile_steps=False)
+        sp_phase(params, cfg, dev, card, mesh, CUT_DEPTH, T=128)
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        leave_job()
+    log(f"parallel short phase: {time.monotonic() - t0:.1f}s")
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -7035,8 +7682,9 @@ def main(argv=()) -> int:
     (qos_mode_phase), ending with the ok line. --elastic: build, then
     phase 13 (elastic_phase), ending with the ok line. --train: build,
     then phase 14 (train_phase); --models: build, then phase 15
-    (models_phase), each ending with the ok line. The other short modes
-    print no ok line."""
+    (models_phase), each ending with the ok line; --parallel: build, then
+    phase 16 (parallel_mode), ending with the ok line. The other short
+    modes print no ok line."""
     import dataclasses
 
     import torch
@@ -7044,10 +7692,11 @@ def main(argv=()) -> int:
     mode = argv[0] if argv else None
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
                     "--weights", "--spec", "--openai", "--obs", "--faults",
-                    "--qos", "--elastic", "--train", "--models"):
+                    "--qos", "--elastic", "--train", "--models",
+                    "--parallel"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
             f"--sc, --weights, --spec, --openai, --obs, --faults, --qos, "
-            f"--elastic, --train, --models or none)")
+            f"--elastic, --train, --models, --parallel or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -7085,9 +7734,11 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode in ("--train", "--models"):
+        if mode in ("--train", "--models", "--parallel"):
             if mode == "--train":
                 train_phase(dev, card)
+            elif mode == "--parallel":
+                parallel_mode(dev, card)
             else:
                 models_phase(dev, card, 64, "base")
             log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
@@ -7276,6 +7927,9 @@ def main(argv=()) -> int:
         train_launches = short_train_models_phase(dev, card)
         kernels[0]["launches"] += train_launches
         kernels[0]["train_launches"] = train_launches
+        # the TP path on a one-rank NCCL mesh and the sp=1 forwards, short
+        # (--parallel runs them in full)
+        parallel_short(dev, card)
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

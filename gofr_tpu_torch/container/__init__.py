@@ -14,6 +14,13 @@ over the contributors the serving engines register
 reference's de-flap rule for DEGRADED) and ``close`` (drains the trace
 exporter).
 
+``join_job`` joins the multi-process job the config's JAX_* keys name
+(parallel/multihost.py), as the reference's ``create`` does for its device
+client: once, before the first CUDA call, so a configured rank that cannot
+join fails boot loudly instead of serving alone. The port calls it from
+``serve.build_engine``, which knows the device (NCCL on the card, gloo
+when the caller asks for the CPU).
+
 Waiting in ROADMAP A18b: the datasources the reference builds from config
 (``sql``, ``kv``, ``pubsub``, ``docstore``), the HTTP services and the
 ``REMOTE_LOG_URL`` level poller (``create`` refuses a set
@@ -104,6 +111,27 @@ class Container:
             exporter.use_metrics(c.metrics_manager)
         c.tracer = Tracer(service_name=c.app_name, exporter=exporter)
         return c
+
+    def join_job(self, device=None, config: Optional[Config] = None):
+        """Join the job of the config's JAX_COORDINATOR_ADDR (and the other
+        JAX_* keys) unless this process already has. Returns (spec, this
+        rank's device), or None without a coordinator. config: read the
+        keys there instead (serve.py's local TP job sets them over the
+        App's)."""
+        import torch
+        import torch.distributed as dist
+
+        from ..parallel.multihost import MultiHostSpec, join
+
+        config = config or self.config
+        if not config.get_or_default("JAX_COORDINATOR_ADDR", ""):
+            return None
+        spec = MultiHostSpec.from_config(config)
+        if not dist.is_initialized():
+            return spec, join(spec, device=device, logger=self.logger)
+        if device is not None and torch.device(device).type == "cpu":
+            return spec, torch.device("cpu")
+        return spec, torch.device("cuda", torch.cuda.current_device())
 
     def register_framework_metrics(self) -> None:
         m = self.metrics_manager

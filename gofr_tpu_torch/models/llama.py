@@ -15,8 +15,9 @@ paged ``llama_decode_step_paged`` and ``llama_decode_step_paged_q8``, the
 prefix-cache tail prefill ``llama_prefill_paged_prefix`` and
 ``llama_prefill_paged_prefix_q8``, and the cache-free
 ``_attention_block_nocache``, ``forward_nocache_at`` and
-``llama_forward_nocache`` (flash or the f32 oracle; the reference's
-``attn_fn`` hook for ring/Ulysses attention waits in ROADMAP A14). The
+``llama_forward_nocache`` (flash or the f32 oracle, or the ``attn_fn``
+hook through which parallel/longcontext.py swaps in ring or Ulysses
+attention, as the reference's does). The
 cache-free forward is the training forward (``gofr_tpu_torch/train``): it
 runs under autograd on both devices, writes into no tensor in place, and
 its flash attention carries the reference's gradient
@@ -47,6 +48,31 @@ column-major: the leaf keeps the JAX shape [.., in, out], as a transposed
 view of [.., out, in] storage, instead of the row-major layout, never beside
 it. ``tok_emb`` (gathered by rows) stays row-major.
 
+Tensor parallelism (ROADMAP A14a): where XLA inserts the collectives of
+the reference from its sharding annotations, the port issues them itself
+(parallel/collectives.py), from the config. A ``ShardConfig`` is one
+rank's view of a LlamaConfig: ``n_heads`` and ``n_kv_heads`` are the heads
+this rank holds (head_dim stays the model's), ``tp`` the tensor-parallel
+axis and ``sp`` the sequence axis of the mesh forward
+(parallel/sharding.shard_config). Under a tp axis every function here runs
+the rank's block of the program over the rank's block of the params
+(parallel/sharding.shard_params) and adds the Megatron collectives:
+
+- an all-reduce over tp after each row-parallel product (``wo`` and
+  ``w_down``, ``_mm_rows``); in int8 (``_q_matmul``) an all-reduce MAX of
+  the row absmax before the activations quantize, since the reference's
+  absmax is over the whole contraction row (a local one gives other int8
+  activations), then an all-reduce of the exact int32 products before the
+  f32 epilogue, which is what XLA partitions the reference's int32
+  ``dot_general`` into;
+- an all-gather over the vocab after the column-parallel ``lm_head``
+  (``_head``), so every rank samples from the same whole row;
+- under llama_param_specs' vocab-sharded ``tok_emb``, a masked local
+  gather then an all-reduce (``_embed``); the serving specs replicate it.
+
+With no tp axis (a LlamaConfig) nothing changes. The collectives are
+forward only (the sharded training step waits in ROADMAP A14b).
+
 Speculative verify and chunked prefill (ROADMAP A10): ``llama_verify_step``
 and ``llama_verify_step_paged`` (the window [tokens | drafts] in one
 forward, the plain masked read over the cache or the gathered pages, the
@@ -73,6 +99,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_gather, all_reduce
 from ..tpu.device import resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -142,6 +169,37 @@ class LlamaConfig:
                      + 3 * self.dim * self.ffn_dim                     # gate/up/down
                      + 2 * self.dim)                                   # norms
         return 2 * embed + self.n_layers * per_layer + self.dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardConfig(LlamaConfig):
+    """One rank's view of a LlamaConfig under a mesh (the module
+    docstring): n_heads / n_kv_heads are this rank's heads, `tp` the
+    tensor-parallel axis (parallel/collectives.Axis) and `sp` the sequence
+    axis of the mesh forward, either None. parallel/sharding.shard_config
+    makes one."""
+    tp: Any = None
+    sp: Any = None
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.tp.size
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // (self.n_heads * self.tp_size)
+
+    def param_count(self) -> int:
+        """This rank's parameters under the serving specs: its heads and
+        FFN columns, the replicated tok_emb and norms, its lm_head block."""
+        n = self.tp_size
+        per_layer = (self.dim * self.n_heads * self.head_dim
+                     + 2 * self.dim * self.n_kv_heads * self.head_dim
+                     + self.n_heads * self.head_dim * self.dim
+                     + 3 * self.dim * self.ffn_dim // n
+                     + 2 * self.dim)
+        return (self.vocab_size * self.dim * (n + 1) // n
+                + self.n_layers * per_layer + self.dim)
 
 
 def scaled_normal(gen: torch.Generator, dtype, dev):
@@ -240,7 +298,7 @@ _INT_MM_MIN_ROWS = 17
 _INT_MM_ROWS = 32
 
 
-def _q_matmul(x, w8, s, out_dtype=None):
+def _q_matmul(x, w8, s, out_dtype=None, axis=None):
     """Weight-only int8 matmul with dynamic per-row activation quantization.
 
     x: [..., Din] float; w8: [Din, Dout] int8 (column-major from the port's
@@ -248,20 +306,29 @@ def _q_matmul(x, w8, s, out_dtype=None):
     [..., Dout] in out_dtype (default x.dtype): the reference's
     round(x * 127 / absmax) int8 rows, the exact int32 product, then
     acc * (absmax / 127) * s in f32 before the cast, in its order (the
-    division as XLA compiles it, see _INV127)."""
-    x8, ax = _quantize_rows(x)
+    division as XLA compiles it, see _INV127). axis: the tp axis when Din
+    is this rank's block of a sharded contraction: the absmax is the MAX
+    over the axis and the int32 products are summed over it (the module
+    docstring)."""
+    x8, ax = _quantize_rows(x, axis)
+    acc = _int_matmul(x8, w8)
+    if axis is not None:
+        all_reduce(acc, axis)
     # int32 * f32 promotes as acc.float() does, in one kernel
-    out = (_int_matmul(x8, w8) * (ax * _INV127)).mul_(s)
+    out = (acc * (ax * _INV127)).mul_(s)
     return out.to(out_dtype or x.dtype)
 
 
-def _quantize_rows(x):
+def _quantize_rows(x, axis=None):
     """(x8, absmax): x's rows as int8, round(x * 127 / absmax), and their
     [..., 1] f32 absmax, as the reference quantizes activations (in as few
-    kernels as give its bits: the inf-norm is the abs-max)."""
+    kernels as give its bits: the inf-norm is the abs-max). axis: the row
+    is sharded over it, and the absmax is its MAX over the axis."""
     xf = x.float()
-    ax = torch.linalg.vector_norm(xf, ord=math.inf, dim=-1,
-                                  keepdim=True).clamp_min_(1e-12)
+    ax = torch.linalg.vector_norm(xf, ord=math.inf, dim=-1, keepdim=True)
+    if axis is not None:
+        all_reduce(ax, axis, op="max")
+    ax = ax.clamp_min_(1e-12)
     # a true division: torch computes `127.0 / ax` as 127 * (1 / ax), which
     # rounds twice; a CPU scalar tensor is a kernel argument, also in a
     # captured graph
@@ -287,21 +354,53 @@ def _mm(x, tree, name):
     return x @ w
 
 
+def _tp(cfg):
+    """The config's tensor-parallel axis, or None (a LlamaConfig)."""
+    return getattr(cfg, "tp", None)
+
+
+def _mm_rows(x, tree, name, cfg):
+    """x @ tree[name] for a row-parallel weight (wo, w_down): under a tp
+    axis the contraction is this rank's block, and the partial products are
+    summed over tp (int8: inside _q_matmul)."""
+    w, tp = tree[name], _tp(cfg)
+    if w.dtype == torch.int8:
+        return _q_matmul(x, w, tree[name + "_s"], axis=tp)
+    out = x @ w
+    return out if tp is None else all_reduce(out, tp)
+
+
 def _embed(params, cfg: LlamaConfig, tokens):
-    """Token embedding gather; dequantizes per row when tok_emb is int8."""
-    e = params["tok_emb"][tokens]
+    """Token embedding gather; dequantizes per row when tok_emb is int8. A
+    vocab-sharded tok_emb (llama_param_specs under a tp axis: this rank
+    holds ids [rank * n, (rank + 1) * n)) gathers its own ids, zeros the
+    rest, and sums over tp."""
+    table, tp = params["tok_emb"], _tp(cfg)
+    sharded = tp is not None and table.shape[0] != cfg.vocab_size
+    if sharded:
+        n = table.shape[0]
+        local = tokens - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        tokens = local.clamp(0, n - 1)
+    e = table[tokens]
     if e.dtype == torch.int8:
         scale = params["tok_emb_s"][tokens]
-        return (e.float() * scale[..., None]).to(DTYPES[cfg.dtype])
+        e = (e.float() * scale[..., None]).to(DTYPES[cfg.dtype])
+    if sharded:
+        e = all_reduce(torch.where(inside[..., None], e, 0).to(e.dtype), tp)
     return e
 
 
-def _head(x, params):
-    """lm_head projection to float32 logits (int8-aware)."""
+def _head(x, params, cfg=None):
+    """lm_head projection to float32 logits (int8-aware); under a tp axis
+    this rank's vocab block, all-gathered into the whole row."""
     w = params["lm_head"]
     if w.dtype == torch.int8:
-        return _q_matmul(x, w, params["lm_head_s"], out_dtype=torch.float32)
-    return (x @ w).float()
+        out = _q_matmul(x, w, params["lm_head_s"], out_dtype=torch.float32)
+    else:
+        out = (x @ w).float()
+    tp = _tp(cfg)
+    return out if tp is None else all_gather(out, tp)
 
 
 def _quantize_leaf(w, axis: int):
@@ -437,7 +536,7 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
         # [B, T, H, dh]: the kernel reads and writes strided, so neither side
         # is copied and the view below is free
         attn = flash_attention(q, k, v, True)
-        return (_mm(attn.view(B, T, H * dh), layer, "wo"), k_cache_l,
+        return (_mm_rows(attn.view(B, T, H * dh), layer, "wo", cfg), k_cache_l,
                 v_cache_l)
 
     if T == 1 and cfg.decode_attn == "kernel":
@@ -447,18 +546,18 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
         # window is [0, positions] inclusive
         attn = decode_attention(q[:, 0].contiguous(), k_cache_l, v_cache_l,
                                 (pos[:, 0] + 1).to(torch.int32))
-        return (_mm(attn.reshape(B, 1, H * dh), layer, "wo"), k_cache_l,
-                v_cache_l)
+        return (_mm_rows(attn.reshape(B, 1, H * dh), layer, "wo", cfg),
+                k_cache_l, v_cache_l)
 
-    return (_mm(_masked_read(q, k_cache_l, v_cache_l, pos, cfg), layer,
-                "wo"), k_cache_l, v_cache_l)
+    return (_mm_rows(_masked_read(q, k_cache_l, v_cache_l, pos, cfg),
+                     layer, "wo", cfg), k_cache_l, v_cache_l)
 
 
 def _ffn_block(x, layer, cfg: LlamaConfig):
     normed = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
     gate = F.silu(_mm(normed, layer, "w_gate"))
     up = _mm(normed, layer, "w_up")
-    return _mm(gate * up, layer, "w_down")
+    return _mm_rows(gate * up, layer, "w_down", cfg)
 
 
 def llama_forward_hidden(params, cfg: LlamaConfig, tokens, positions,
@@ -489,7 +588,7 @@ def llama_prefill_last(params, cfg: LlamaConfig, tokens, positions, lengths,
         params, cfg, tokens, positions, k_cache, v_cache)
     B = hidden.shape[0]
     last = hidden[torch.arange(B, device=hidden.device), lengths.long() - 1]
-    return _head(last, params), k_cache, v_cache
+    return _head(last, params, cfg), k_cache, v_cache
 
 
 def llama_forward(params, cfg: LlamaConfig, tokens, positions, k_cache,
@@ -499,7 +598,7 @@ def llama_forward(params, cfg: LlamaConfig, tokens, positions, k_cache,
     [B, T, V] float32, k_cache, v_cache)."""
     hidden, k_cache, v_cache = llama_forward_hidden(
         params, cfg, tokens, positions, k_cache, v_cache)
-    return _head(hidden, params), k_cache, v_cache
+    return _head(hidden, params, cfg), k_cache, v_cache
 
 
 def llama_prefill(params, cfg: LlamaConfig, tokens, k_cache, v_cache):
@@ -590,7 +689,7 @@ def llama_decode_step_unrolled(params, cfg: LlamaConfig, tokens, positions,
         x = x + attn
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head(x[:, 0], params), k_layers, v_layers
+    return _head(x[:, 0], params, cfg), k_layers, v_layers
 
 
 def _qkv_decode(x, layer, pos_grid, cfg: LlamaConfig):
@@ -639,10 +738,11 @@ def llama_decode_step_unrolled_q8(params, cfg: LlamaConfig, tokens, positions,
         vs_layers[l][rows, :, write_pos] = vs
         attn = decode_attention(q, k_layers[l], v_layers[l], lengths,
                                 ks_layers[l], vs_layers[l])
-        x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
+        x = x + _mm_rows(attn.reshape(B, 1, H * dh), layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head(x[:, 0], params), k_layers, v_layers, ks_layers, vs_layers
+    return (_head(x[:, 0], params, cfg), k_layers, v_layers, ks_layers,
+            vs_layers)
 
 
 def llama_decode_step_paged(params, cfg: LlamaConfig, tokens, positions,
@@ -667,10 +767,10 @@ def llama_decode_step_paged(params, cfg: LlamaConfig, tokens, positions,
         q, k, v = _qkv_decode(x, layer, pos_grid, cfg)
         paged_write_decode(k_pool[l], v_pool[l], k, v, table, positions)
         attn = paged_attention(q, k_pool[l], v_pool[l], table, lengths)
-        x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
+        x = x + _mm_rows(attn.reshape(B, 1, H * dh), layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head(x[:, 0], params), k_pool, v_pool
+    return _head(x[:, 0], params, cfg), k_pool, v_pool
 
 
 def llama_decode_step_paged_q8(params, cfg: LlamaConfig, tokens, positions,
@@ -702,10 +802,10 @@ def llama_decode_step_paged_q8(params, cfg: LlamaConfig, tokens, positions,
                                   positions)
         attn = paged_attention(q, k_pool[l], v_pool[l], table, lengths,
                                ks_pool[l], vs_pool[l])
-        x = x + _mm(attn.reshape(B, 1, H * dh), layer, "wo")
+        x = x + _mm_rows(attn.reshape(B, 1, H * dh), layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return (_head(x[:, 0], params), k_pool, v_pool, ks_pool, vs_pool)
+    return (_head(x[:, 0], params, cfg), k_pool, v_pool, ks_pool, vs_pool)
 
 
 def _gather_rows(pool_l, table):
@@ -743,7 +843,7 @@ def _project_last(x, params, cfg: LlamaConfig, project_last):
     project_last[k]: [K, V] f32."""
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     rows = torch.arange(x.shape[0], device=x.device)
-    return _head(x[rows, project_last.long()], params)
+    return _head(x[rows, project_last.long()], params, cfg)
 
 
 def llama_prefill_chunk(params, cfg: LlamaConfig, tokens, positions,
@@ -824,7 +924,7 @@ def llama_prefill_chunk_q8(params, cfg: LlamaConfig, tokens, positions,
         k_deq = (k_rows8.float() * ks_rows[:, :, None, :]).to(dt)
         v_deq = (v_rows8.float() * vs_rows[:, :, None, :]).to(dt)
         attn = _masked_read(q, k_deq, v_deq, positions, cfg)
-        x = x + _mm(attn, layer, "wo")
+        x = x + _mm_rows(attn, layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
         k_layers[l][slots] = k_rows8
         v_layers[l][slots] = v_rows8
@@ -835,7 +935,7 @@ def llama_prefill_chunk_q8(params, cfg: LlamaConfig, tokens, positions,
     return logits, k_layers, v_layers, ks_layers, vs_layers
 
 
-def _verify_head(x, params):
+def _verify_head(x, params, cfg=None):
     """The verify window's lm_head: x [B, W, D] final-norm hidden states ->
     (greedy [B, W] int64, the position-0 logits [B, V] f32). One [B * W, D]
     @ [D, V] product, which reads the head once; the reference projects
@@ -846,7 +946,7 @@ def _verify_head(x, params):
     events, NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py --spec, PERF.md
     §5)."""
     B, W, D = x.shape
-    logits = _head(x.reshape(B * W, D), params).view(B, W, -1)
+    logits = _head(x.reshape(B * W, D), params, cfg).view(B, W, -1)
     return logits.argmax(dim=-1), logits[:, 0]
 
 
@@ -887,7 +987,7 @@ def llama_verify_step(params, cfg: LlamaConfig, tokens, drafts, positions,
         x = x + attn
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    greedy, logits0 = _verify_head(x, params)
+    greedy, logits0 = _verify_head(x, params, cfg)
     return greedy, logits0, k_layers, v_layers
 
 
@@ -927,10 +1027,10 @@ def llama_verify_step_paged(params, cfg: LlamaConfig, tokens, drafts,
                                pos_grid[:, i])
         attn = _masked_read(q, _gather_rows(k_pool[l], table_l),
                             _gather_rows(v_pool[l], table_l), pos_grid, cfg)
-        x = x + _mm(attn, layer, "wo")
+        x = x + _mm_rows(attn, layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    greedy, logits0 = _verify_head(x, params)
+    greedy, logits0 = _verify_head(x, params, cfg)
     return greedy, logits0, k_pool, v_pool
 
 
@@ -985,11 +1085,11 @@ def _prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
                       * _gather_rows(vs_pool[l], table)[:, :, None]
                       ).to(x.dtype)
         attn = _masked_read(q, k_rows, v_rows, pos_grid, cfg)
-        x = x + _mm(attn, layer, "wo")
+        x = x + _mm_rows(attn, layer, "wo", cfg)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     last = x[torch.arange(K, device=dev), project_last.long()]     # [K, D]
-    return _head(last, params)
+    return _head(last, params, cfg)
 
 
 def llama_prefill_paged_prefix(params, cfg: LlamaConfig, tokens, prefix_lens,
@@ -1037,10 +1137,14 @@ def llama_prefill_paged_prefix_q8(params, cfg: LlamaConfig, tokens,
     return logits, k_pool, v_pool, ks_pool, vs_pool
 
 
-def _attention_block_nocache(x, layer, positions, cfg: LlamaConfig):
+def _attention_block_nocache(x, layer, positions, cfg: LlamaConfig,
+                             attn_fn=None):
     """Plain causal attention sublayer without a cache: x [B, T, D] ->
-    [B, T, D]. Flash (ops/flash_attention) under attn_impl="flash", else
-    the f32 oracle attention_reference."""
+    [B, T, D]. attn_fn overrides the attention primitive (q, k, v) ->
+    [B, T, H, dh]: how the sequence-parallel forward swaps in ring or
+    Ulysses attention while sharing every projection with the dense path.
+    Else flash (ops/flash_attention) under attn_impl="flash", or the f32
+    oracle attention_reference."""
     from ..ops.flash_attention import attention_reference, flash_attention
 
     B, T, _ = x.shape
@@ -1051,28 +1155,47 @@ def _attention_block_nocache(x, layer, positions, cfg: LlamaConfig):
     k = rope(_mm(normed, layer, "wk").reshape(B, T, Hkv, dh), positions,
              cfg.rope_theta)
     v = _mm(normed, layer, "wv").reshape(B, T, Hkv, dh)
-    if cfg.attn_impl == "flash":
+    if attn_fn is not None:
+        attn = attn_fn(q, k, v)
+    elif cfg.attn_impl == "flash":
         attn = flash_attention(q, k, v, True)
     else:
         attn = attention_reference(q, k, v, causal=True)
-    return _mm(attn.reshape(B, T, H * dh), layer, "wo")
+    return _mm_rows(attn.reshape(B, T, H * dh), layer, "wo", cfg)
 
 
-def forward_nocache_at(params, cfg: LlamaConfig, tokens, positions):
+def forward_nocache_at(params, cfg: LlamaConfig, tokens, positions,
+                       attn_fn=None):
     """Cache-free forward over a token chunk at explicit absolute positions
-    [B, T]. Returns logits [B, T, V] float32."""
+    [B, T]: the shared body of llama_forward_nocache and the
+    sequence-parallel forward (parallel/longcontext.py), which calls it per
+    rank with its chunk's position offset and a collective attention
+    primitive as attn_fn. Returns logits [B, T, V] float32."""
     x = _embed(params, cfg, tokens)
     for l in range(cfg.n_layers):
         layer = _layer(params, l)
-        x = x + _attention_block_nocache(x, layer, positions, cfg)
+        x = x + _attention_block_nocache(x, layer, positions, cfg, attn_fn)
         x = x + _ffn_block(x, layer, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return _head(x, params)
+    return _head(x, params, cfg)
 
 
 def llama_forward_nocache(params, cfg: LlamaConfig, tokens):
     """Training/eval forward without a cache: plain causal attention over
-    positions [0, T). Returns logits [B, T, V] float32."""
+    positions [0, T). Returns logits [B, T, V] float32.
+
+    Under a ShardConfig with an sp axis (the mesh forward, whose batch is
+    split by parallel/sharding.batch_spec) `tokens` is this rank's
+    sequence chunk: its positions start at sp index * T, and attention
+    reads the K/V of every chunk, all-gathered over sp
+    (parallel/longcontext.gathered_attention)."""
     B, T = tokens.shape
-    positions = torch.arange(T, device=tokens.device).expand(B, T)
-    return forward_nocache_at(params, cfg, tokens, positions)
+    sp = getattr(cfg, "sp", None)
+    start, attn_fn = 0, None
+    if sp is not None:
+        from ..parallel.longcontext import gathered_attention
+
+        start = sp.rank * T
+        attn_fn = lambda q, k, v: gathered_attention(q, k, v, sp)  # noqa: E731
+    positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
+    return forward_nocache_at(params, cfg, tokens, positions, attn_fn)

@@ -80,6 +80,29 @@ then the loop's half-open probe closes or re-opens it),
 ENGINE_FINISHER_QUEUE (256: terminal teardown on the bounded llm-finisher
 thread; 0 keeps it on the loop).
 
+Tensor parallelism (ROADMAP A14a): TP_SHARDS (1; n > 1 serves the model
+tensor-parallel over n cards, one process per card, each holding its block
+of the weights (parallel/sharding.serving_param_specs) and its heads of the
+KV cache, with the Megatron collectives in the model, models/llama.py).
+PyTorch runs one controller per card, so every TP group is a
+multi-controller job: rank 0 is the only HTTP ingress and the other ranks
+replay its admission waves (tpu/admission.py) so that every rank dispatches
+the same programs in the same order. Without JAX_COORDINATOR_ADDR this
+process is rank 0 of a job on one host: it starts n-1 follower processes
+(``spawn``, ``serve_follower``), rank r on ``cuda:r``, over a TCPStore on a
+free localhost port, and the App's shutdown stops them (``end_job``).
+Fewer visible cards than TP_SHARDS raise at boot: two ranks never share a
+card and no smaller TP is served in their place. JAX_COORDINATOR_ADDR (with
+the reference's JAX_NUM_PROCESSES, JAX_PROCESS_ID, JAX_LOCAL_DEVICE_IDS and
+JAX_COORDINATOR_TIMEOUT_S, parallel/multihost.py) instead names a job the
+operator launches, one ``python -m gofr_tpu_torch.serve`` per rank:
+TP_SHARDS must equal JAX_NUM_PROCESSES, rank 0 serves HTTP and the other
+ranks follow (``main``). The container joins the job before the first CUDA
+call (``Container.join_job``). Under TP the post-hoc scoring passes, the
+disaggregated pair, migration and the warm boot are refused (single-
+controller only), and QoS and the breaker are off, as under the
+reference's admission plane.
+
 The App's keys (app.py, container/): HTTP_PORT (8000), METRICS_PORT (2121:
 GET /metrics with the engine's app_tpu_* series and app_http_response;
 0 picks a free port), REQUEST_TIMEOUT, MAX_CONCURRENT_REQUESTS (256 handler
@@ -162,6 +185,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import socket
 import threading
 import time
 from typing import Mapping, Optional, Union
@@ -220,6 +244,9 @@ PORTED = (
     "WARMUP_SCORE", "WEIGHTS_PATH", "WEIGHT_DTYPE", "VOCAB_PATH",
     "HBM_BUDGET_BYTES", "DRAIN_TIMEOUT", "CHUNK_PREFILL_TOKENS",
     "SPECULATIVE_TOKENS", "FLEET_AFFINITY_BLOCK",
+    # tensor-parallel serving and the multi-process job (build_engine,
+    # Container.join_job)
+    "TP_SHARDS", "JAX_COORDINATOR_ADDR",
     # the observability planes (app_for) and their App tuning keys
     "FLIGHT_RECORDER", "FLIGHT_TRACE_EXPORT", "ENGINE_SNAPSHOT",
     "STEP_LEDGER", "TIMELINE", "HOSTPROF", "FLIGHT_RECORDER_CAPACITY",
@@ -272,8 +299,6 @@ NOT_PORTED = (
                 == "pubsub"),
      "the pub/sub hand-off transport needs pubsub/, which waits in ROADMAP "
      "A18b"),
-    ("TP_SHARDS", lambda e: _int(e, "TP_SHARDS", 1) > 1,
-     "tensor-parallel serving waits in ROADMAP A14"),
     # the container's
     ("REMOTE_LOG_URL", lambda e: bool(e.get("REMOTE_LOG_URL")),
      "the remote log-level poller waits in ROADMAP A18b"),
@@ -287,8 +312,6 @@ NOT_PORTED = (
      "the KV datasource waits in ROADMAP A18b"),
     ("PUBSUB_BACKEND", lambda e: bool(e.get("PUBSUB_BACKEND")),
      "pub/sub waits in ROADMAP A18b"),
-    ("JAX_COORDINATOR_ADDR", lambda e: bool(e.get("JAX_COORDINATOR_ADDR")),
-     "multi-host serving waits in ROADMAP A14"),
 )
 
 # keys the reference reads that change nothing the port serves: (key, why)
@@ -381,6 +404,170 @@ def check_config(env: EnvLike, not_ported=None) -> None:
                              f"gofr_tpu_torch yet: {where}")
 
 
+class _Over(Config):
+    """A config with some keys set over another's."""
+
+    def __init__(self, base: Config, values: Mapping[str, str]):
+        self.base = base
+        self.values = dict(values)
+
+    def get(self, key: str) -> Optional[str]:
+        if key in self.values:
+            return self.values[key]
+        return self.base.get(key)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _local_tp_job(env: Config, dev, tp: int):
+    """TP_SHARDS=tp > 1 without a coordinator: this process becomes rank 0
+    of a job on this host. Starts the tp-1 followers (``serve_follower``,
+    spawned, rank r on cuda:r or on the CPU) and returns (this process's
+    config over the job's JAX_* keys, the follower processes)."""
+    import multiprocessing as mp
+
+    import torch
+
+    if dev.type == "cuda" and torch.cuda.device_count() < tp:
+        raise ValueError(
+            f"TP_SHARDS={tp} needs {tp} cards, {torch.cuda.device_count()} "
+            f"visible: a rank never shares a card, and no smaller TP is "
+            f"served in its place")
+    job = {"JAX_COORDINATOR_ADDR": f"127.0.0.1:{_free_port()}",
+           "JAX_NUM_PROCESSES": str(tp)}
+    ctx = mp.get_context("spawn")
+    procs = []
+    for rank in range(1, tp):
+        proc = ctx.Process(
+            target=serve_follower, name=f"tp-follower-{rank}", daemon=True,
+            args=(_Over(env, {**job, "JAX_PROCESS_ID": str(rank)}),
+                  "cpu" if dev.type == "cpu" else None))
+        proc.start()
+        procs.append(proc)
+    return _Over(env, {**job, "JAX_PROCESS_ID": "0"}), procs
+
+
+def _tp_setup(env: Config, container: Container, dev, tp: int):
+    """(device, mesh, admission plane, followers) of this process: all
+    None but the device without TP_SHARDS > 1 or a coordinator; else this
+    rank's card (or the CPU), the job's tp mesh and the plane over the
+    job's store, rank 0 leading."""
+    followers = []
+    if tp > 1 and not env.get("JAX_COORDINATOR_ADDR"):
+        env, followers = _local_tp_job(env, dev, tp)
+    try:
+        joined = container.join_job(dev, config=env)
+    except BaseException:
+        stop_followers(followers)
+        raise
+    if joined is None:
+        return dev, None, None, followers
+    from .parallel import MeshPlan, make_mesh
+    from .tpu.admission import AdmissionPlane, StoreKV
+
+    spec, dev = joined
+    if spec.num_processes != tp:
+        stop_followers(followers)
+        raise ValueError(
+            f"TP_SHARDS={tp} but the job has {spec.num_processes} "
+            f"processes: the port's job is one tensor-parallel group")
+    mesh = make_mesh(MeshPlan(tp=tp), device=dev)
+    plane = AdmissionPlane(process_id=spec.process_id, kv=StoreKV())
+    return dev, mesh, plane, followers
+
+
+def _left_key(plane, rank: int) -> str:
+    return f"{plane.prefix}/left/{rank}"
+
+
+def _drop_graphs(engine) -> None:
+    """Forget the engine's captured programs, and sync the card, before the
+    job's communicators are torn down: a CUDA graph that captured a NCCL
+    collective holds that communicator, which must outlive the graph."""
+    import gc
+
+    import torch
+
+    engine.executor.drop(lambda name: True)
+    gc.collect()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+
+
+def end_job(engine, followers=(), timeout_s: float = 60.0) -> None:
+    """Rank 0's end of a TP job, after its engine's stop (whose stop
+    sentinel the followers exit on): wait until every follower has said it
+    is leaving, then leave the job with them (parallel/multihost.leave:
+    NCCL's teardown may wait for every rank, so no rank leaves alone), then
+    join the follower processes this process started, killing what
+    outlives `timeout_s`. A follower that never says so is not waited for
+    in the teardown (this rank keeps its group until it exits)."""
+    import torch.distributed as dist
+
+    from .parallel.multihost import leave
+
+    plane = engine._plane
+    deadline = time.monotonic() + timeout_s
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    left = True
+    for rank in range(1, world):
+        try:
+            plane.kv.get_blocking(_left_key(plane, rank), max(
+                0.1, deadline - time.monotonic()))
+        except (TimeoutError, ConnectionError):
+            left = False
+    if left:
+        _drop_graphs(engine)
+        leave()
+    else:
+        engine.logger.errorf("a follower never left the job; rank 0 keeps "
+                             "its process group")
+    for proc in followers:
+        proc.join(timeout=max(0.1, deadline - time.monotonic()))
+    for proc in followers:
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+
+
+def stop_followers(followers, timeout_s: float = 5.0) -> None:
+    """Kill the follower processes of a boot that failed."""
+    for proc in followers:
+        proc.join(timeout=timeout_s)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+
+
+def follow(engine, poll_s: float = 0.1) -> None:
+    """A follower rank's life after boot: its engine replays the leader's
+    waves until the leader stops (the plane's stop sentinel), then stops,
+    says so in the store, and leaves the job with the other ranks."""
+    from .parallel.multihost import leave
+
+    plane = engine._plane
+    while (not plane.closed and engine._thread is not None
+           and engine._thread.is_alive()):
+        time.sleep(poll_s)
+    engine.stop()
+    _drop_graphs(engine)
+    try:
+        plane.kv.set(_left_key(plane, plane.process_id), "1")
+    except Exception:  # noqa: BLE001 - the leader's store may be gone
+        return
+    leave()
+
+
+def serve_follower(env, device=None) -> None:
+    """The body of a follower process (rank r > 0 of a TP job): its engine,
+    then ``follow``."""
+    follow(build_engine(env, device=device))
+
+
 def build_engine(env: EnvLike = None, device=None, params=None,
                  default_sampling_controls: bool = False,
                  container: Optional[Container] = None,
@@ -406,147 +593,166 @@ def build_engine(env: EnvLike = None, device=None, params=None,
     from config, waits in A18b), for a harness that shares one between
     replicas. DISAGG_MODE=both also builds the prefill twin and the router,
     on ``engine.disagg_router`` (``_build_pair``); ELASTIC_WARM_BOOT=true
-    returns at once with the engine ``warming`` (``_warm_boot``)."""
+    returns at once with the engine ``warming`` (``_warm_boot``).
+    TP_SHARDS > 1 or JAX_COORDINATOR_ADDR: this rank's engine of the TP
+    job (the module docstring), on ``engine.followers`` the follower
+    processes this leader started (empty elsewhere)."""
     env = as_config(env)
     check_config(env)
     warm = _warmup_mode(env)
     dev = resolve_device(device)
     if container is None:
         container = Container.create(env)
-    preset = env.get_or_default("MODEL_PRESET", "debug")
-    if preset not in PRESETS:
-        raise ValueError(f"MODEL_PRESET must be one of {sorted(PRESETS)}, "
-                         f"got {preset!r}")
-    attn_impl = env.get_or_default("ATTN_IMPL", "flash")
-    decode_attn = env.get_or_default("DECODE_ATTN", "xla")
-    kv_dtype = env.get("KV_DTYPE") or None
-    if attn_impl not in ("xla", "flash"):
-        raise ValueError(f"ATTN_IMPL must be xla|flash, got {attn_impl!r}")
-    if decode_attn not in ("xla", "kernel"):
-        raise ValueError(f"DECODE_ATTN must be xla|kernel, got "
-                         f"{decode_attn!r}")
-    if kv_dtype not in (None, "int8"):
-        raise ValueError(f"KV_DTYPE must be int8 or unset, got {kv_dtype!r}")
-    disagg_mode = env.get_or_default("DISAGG_MODE", "off").lower()
-    if disagg_mode not in ("off", "prefill", "decode", "both"):
-        raise ValueError(f"DISAGG_MODE must be off|prefill|decode|both, "
-                         f"got {disagg_mode!r}")
-    paged = _flag(env, "PAGED", True)
-    if disagg_mode != "off" and not paged:
-        raise ValueError("DISAGG_MODE requires PAGED=true")
-    cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
-                              decode_attn=decode_attn, kv_dtype=kv_dtype)
-    if params is not None:
-        # the depth of the tree given: every layer leaf is stacked [L, ...]
-        depth = next(iter(params["layers"].values())).shape[0]
-        cfg = dataclasses.replace(cfg, n_layers=depth)
-    weight_dtype = env.get("WEIGHT_DTYPE") or None
-    if weight_dtype not in (None, "int8"):
-        raise ValueError(f"WEIGHT_DTYPE must be int8 or unset, got "
-                         f"{weight_dtype!r}")
-    log = container.logger
-    vocab_path = env.get("VOCAB_PATH") or ""
-    if vocab_path:
-        tokenizer = load_tokenizer(vocab_path)
-        log.infof("loaded vocab from %s (%s, %d tokens)", vocab_path,
-                  type(tokenizer).__name__, tokenizer.vocab_size)
-    elif cfg.vocab_size > ByteTokenizer.vocab_size:
-        # synthetic vocabularies sample ids the byte tokenizer cannot
-        # round-trip; DebugTokenizer decodes every id to one char
-        tokenizer = DebugTokenizer(cfg.vocab_size)
-    else:
-        tokenizer = ByteTokenizer()
-    if cfg.vocab_size < tokenizer.vocab_size:
-        raise ValueError(f"model vocab ({cfg.vocab_size}) too small for "
-                         f"tokenizer ({tokenizer.vocab_size})")
-    if dev.type == "cuda":
-        from .ops import _build
+    tp = _int(env, "TP_SHARDS", 1)
+    if tp > 1 and _flag(env, "ELASTIC_WARM_BOOT", False):
+        raise ValueError("ELASTIC_WARM_BOOT with TP_SHARDS > 1: the warm "
+                         "boot is single-controller only")
+    # before the first CUDA call: join the job (and start the followers)
+    dev, mesh, plane, followers = _tp_setup(env, container, dev, tp)
+    try:
+        preset = env.get_or_default("MODEL_PRESET", "debug")
+        if preset not in PRESETS:
+            raise ValueError(f"MODEL_PRESET must be one of {sorted(PRESETS)}, "
+                             f"got {preset!r}")
+        attn_impl = env.get_or_default("ATTN_IMPL", "flash")
+        decode_attn = env.get_or_default("DECODE_ATTN", "xla")
+        kv_dtype = env.get("KV_DTYPE") or None
+        if attn_impl not in ("xla", "flash"):
+            raise ValueError(f"ATTN_IMPL must be xla|flash, got {attn_impl!r}")
+        if decode_attn not in ("xla", "kernel"):
+            raise ValueError(f"DECODE_ATTN must be xla|kernel, got "
+                             f"{decode_attn!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"KV_DTYPE must be int8 or unset, got "
+                             f"{kv_dtype!r}")
+        disagg_mode = env.get_or_default("DISAGG_MODE", "off").lower()
+        if disagg_mode not in ("off", "prefill", "decode", "both"):
+            raise ValueError(f"DISAGG_MODE must be off|prefill|decode|both, "
+                             f"got {disagg_mode!r}")
+        paged = _flag(env, "PAGED", True)
+        if disagg_mode != "off" and not paged:
+            raise ValueError("DISAGG_MODE requires PAGED=true")
+        cfg = dataclasses.replace(PRESETS[preset](), attn_impl=attn_impl,
+                                  decode_attn=decode_attn, kv_dtype=kv_dtype)
+        if params is not None:
+            # the depth of the tree given: every layer leaf is stacked [L, ...]
+            depth = next(iter(params["layers"].values())).shape[0]
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        weight_dtype = env.get("WEIGHT_DTYPE") or None
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(f"WEIGHT_DTYPE must be int8 or unset, got "
+                             f"{weight_dtype!r}")
+        log = container.logger
+        vocab_path = env.get("VOCAB_PATH") or ""
+        if vocab_path:
+            tokenizer = load_tokenizer(vocab_path)
+            log.infof("loaded vocab from %s (%s, %d tokens)", vocab_path,
+                      type(tokenizer).__name__, tokenizer.vocab_size)
+        elif cfg.vocab_size > ByteTokenizer.vocab_size:
+            # synthetic vocabularies sample ids the byte tokenizer cannot
+            # round-trip; DebugTokenizer decodes every id to one char
+            tokenizer = DebugTokenizer(cfg.vocab_size)
+        else:
+            tokenizer = ByteTokenizer()
+        if cfg.vocab_size < tokenizer.vocab_size:
+            raise ValueError(f"model vocab ({cfg.vocab_size}) too small for "
+                             f"tokenizer ({tokenizer.vocab_size})")
+        if dev.type == "cuda":
+            from .ops import _build
 
-        _build.build(*_build.KERNELS)
-    weights_path = env.get("WEIGHTS_PATH") or ""
-    if params is None and weights_path:
-        from .models.weights import load_llama_safetensors
+            _build.build(*_build.KERNELS)
+        weights_path = env.get("WEIGHTS_PATH") or ""
+        if params is None and weights_path:
+            from .models.weights import load_llama_safetensors
 
-        t0 = time.monotonic()
-        params = load_llama_safetensors(cfg, weights_path,
-                                        weight_dtype=weight_dtype,
-                                        logger=log, device=dev)
-        log.infof("loaded weights from %s in %.1fs (%s)", weights_path,
-                  time.monotonic() - t0, weight_dtype or cfg.dtype)
-    elif params is None and weight_dtype == "int8":
-        params = llama_init_quantized(cfg, seed=0, device=dev)
-    elif params is None:
-        params = llama_init(cfg, seed=0, device=dev)
-    budget_cfg = _int(env, "HBM_BUDGET_BYTES", 0)
-    budget = 0 if budget_cfg < 0 else budget_cfg or device_budget_bytes(dev)
-    metrics = container.metrics_manager
-    register_metrics(metrics)
-    kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
-              budget_bytes=budget or None,
-              metrics=metrics, tracer=container.tracer, logger=log,
-              async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
-              sampling_controls=_flag(env, "SAMPLING_CONTROLS",
-                                      default_sampling_controls),
-              max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
-              # >0 splits long prompts into bounded chunk dispatches (must
-              # divide the buckets it splits); >0 verifies up to N
-              # prompt-lookup drafts per dispatch (greedy output unchanged)
-              chunk_prefill_tokens=_int(env, "CHUNK_PREFILL_TOKENS", 0),
-              speculative_tokens=_int(env, "SPECULATIVE_TOKENS", 0),
-              # crash-only recovery: replay after a reset (bounded per
-              # request) and the reset-storm breaker (503 + health DOWN)
-              retry_budget=_int(env, "ENGINE_RETRY_BUDGET", 2),
-              reset_storm_max=_int(env, "RESET_STORM_MAX", 3),
-              reset_storm_window_s=_float(env, "RESET_STORM_WINDOW_S", 60.0),
-              breaker_cooldown_s=_float(env, "BREAKER_COOLDOWN_S", 5.0),
-              # terminal teardown off the loop (0: inline)
-              finisher_queue=_int(env, "ENGINE_FINISHER_QUEUE", 256),
-              prefill_buckets=tuple(int(b) for b in env.get_or_default(
-                  "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
-    if paged:
-        kw.update(page_size=_int(env, "PAGE_SIZE", 128),
-                  n_pages=_int(env, "N_PAGES", 0) or None,
-                  prefix_cache=_flag(env, "PREFIX_CACHE", True))
-        # a host-RAM tier under the prefix cache: evicted pages spill to
-        # host blobs and a re-sent prefix is restored by one copy instead
-        # of a prefill (tpu/kvtier.py)
-        tier_bytes = _int(env, "KV_HOST_TIER_BYTES", 0)
-        if tier_bytes > 0:
-            kw.update(kv_host_tier_bytes=tier_bytes, kv_redis=kv_cold_store,
-                      conversation_pin_s=_float(env, "CONVERSATION_PIN_S",
-                                                600.0))
-        if disagg_mode != "off":
-            kw["disagg_role"] = ("decode" if disagg_mode == "both"
-                                 else disagg_mode)
-        engine = PagedLLMEngine(params, cfg, **kw)
-    else:
-        engine = LLMEngine(params, cfg, **kw)
-    engine.tokenizer = tokenizer
-    engine.container = container
-    engine.warmup_seconds = engine.score_warmup_seconds = 0.0
-    engine.warm_boot_s = None
-    engine.disagg_router = None
-    score = _flag(env, "WARMUP_SCORE", False)
-    if _flag(env, "ELASTIC_WARM_BOOT", False):
-        engine.lifecycle = Lifecycle("warming")
-    else:
-        _warm(engine, warm, score, log)
-    if disagg_mode == "both":
-        _build_pair(engine, warm, kw, params, budget_cfg, log,
-                    n_slots=_int(env, "DISAGG_PREFILL_SLOTS", 0),
-                    queue_depth=_int(env, "DISAGG_QUEUE_DEPTH", 64),
-                    handoff_timeout_s=_float(env, "DISAGG_HANDOFF_TIMEOUT_S",
-                                             10.0))
-    if engine.lifecycle.state == "warming":
-        # the pre-warm's keys are inert without a cold store to load from,
-        # which only a harness's kv_cold_store gives until A18b
-        peers = [p.strip() for p in env.get_or_default(
-            "ELASTIC_PREWARM_PEERS", "").split(",")
-            if p.strip()] if kv_cold_store is not None else []
-        _warm_boot(engine, warm, score, log, peers=peers,
-                   prewarm_pages=_int(env, "ELASTIC_PREWARM_PAGES", 64))
-    else:
-        engine.start()
+            t0 = time.monotonic()
+            params = load_llama_safetensors(cfg, weights_path,
+                                            weight_dtype=weight_dtype,
+                                            logger=log, device=dev)
+            log.infof("loaded weights from %s in %.1fs (%s)", weights_path,
+                      time.monotonic() - t0, weight_dtype or cfg.dtype)
+        elif params is None and weight_dtype == "int8":
+            params = llama_init_quantized(cfg, seed=0, device=dev)
+        elif params is None:
+            params = llama_init(cfg, seed=0, device=dev)
+        budget_cfg = _int(env, "HBM_BUDGET_BYTES", 0)
+        budget = (0 if budget_cfg < 0
+                  else budget_cfg or device_budget_bytes(dev))
+        metrics = container.metrics_manager
+        register_metrics(metrics)
+        kw = dict(device=dev, n_slots=_int(env, "MAX_BATCH", 8),
+                  budget_bytes=budget or None,
+                  metrics=metrics, tracer=container.tracer, logger=log,
+                  async_d2h=_flag(env, "ENGINE_ASYNC_D2H", True),
+                  sampling_controls=_flag(env, "SAMPLING_CONTROLS",
+                                          default_sampling_controls),
+                  max_seq_len=_int(env, "MAX_SEQ_LEN", 1024),
+                  # >0 splits long prompts into bounded chunk dispatches (must
+                  # divide the buckets it splits); >0 verifies up to N
+                  # prompt-lookup drafts per dispatch (greedy output unchanged)
+                  chunk_prefill_tokens=_int(env, "CHUNK_PREFILL_TOKENS", 0),
+                  speculative_tokens=_int(env, "SPECULATIVE_TOKENS", 0),
+                  # crash-only recovery: replay after a reset (bounded per
+                  # request) and the reset-storm breaker (503 + health DOWN)
+                  retry_budget=_int(env, "ENGINE_RETRY_BUDGET", 2),
+                  reset_storm_max=_int(env, "RESET_STORM_MAX", 3),
+                  reset_storm_window_s=_float(env, "RESET_STORM_WINDOW_S",
+                                              60.0),
+                  breaker_cooldown_s=_float(env, "BREAKER_COOLDOWN_S", 5.0),
+                  # terminal teardown off the loop (0: inline)
+                  finisher_queue=_int(env, "ENGINE_FINISHER_QUEUE", 256),
+                  mesh=mesh, admission_plane=plane,
+                  prefill_buckets=tuple(int(b) for b in env.get_or_default(
+                      "PREFILL_BUCKETS", "16,32,64,128,256").split(",")))
+        if paged:
+            kw.update(page_size=_int(env, "PAGE_SIZE", 128),
+                      n_pages=_int(env, "N_PAGES", 0) or None,
+                      prefix_cache=_flag(env, "PREFIX_CACHE", True))
+            # a host-RAM tier under the prefix cache: evicted pages spill to
+            # host blobs and a re-sent prefix is restored by one copy instead
+            # of a prefill (tpu/kvtier.py)
+            tier_bytes = _int(env, "KV_HOST_TIER_BYTES", 0)
+            if tier_bytes > 0:
+                kw.update(kv_host_tier_bytes=tier_bytes,
+                          kv_redis=kv_cold_store,
+                          conversation_pin_s=_float(env, "CONVERSATION_PIN_S",
+                                                    600.0))
+            if disagg_mode != "off":
+                kw["disagg_role"] = ("decode" if disagg_mode == "both"
+                                     else disagg_mode)
+            engine = PagedLLMEngine(params, cfg, **kw)
+        else:
+            engine = LLMEngine(params, cfg, **kw)
+        engine.tokenizer = tokenizer
+        engine.container = container
+        engine.warmup_seconds = engine.score_warmup_seconds = 0.0
+        engine.warm_boot_s = None
+        engine.disagg_router = None
+        score = _flag(env, "WARMUP_SCORE", False)
+        if _flag(env, "ELASTIC_WARM_BOOT", False):
+            engine.lifecycle = Lifecycle("warming")
+        else:
+            _warm(engine, warm, score, log)
+        if disagg_mode == "both":
+            _build_pair(engine, warm, kw, params, budget_cfg, log,
+                        n_slots=_int(env, "DISAGG_PREFILL_SLOTS", 0),
+                        queue_depth=_int(env, "DISAGG_QUEUE_DEPTH", 64),
+                        handoff_timeout_s=_float(
+                            env, "DISAGG_HANDOFF_TIMEOUT_S", 10.0))
+        if engine.lifecycle.state == "warming":
+            # the pre-warm's keys are inert without a cold store to load from,
+            # which only a harness's kv_cold_store gives until A18b
+            peers = [p.strip() for p in env.get_or_default(
+                "ELASTIC_PREWARM_PEERS", "").split(",")
+                if p.strip()] if kv_cold_store is not None else []
+            _warm_boot(engine, warm, score, log, peers=peers,
+                       prewarm_pages=_int(env, "ELASTIC_PREWARM_PAGES", 64))
+        else:
+            engine.start()
+    except BaseException:
+        stop_followers(followers)
+        raise
+    engine.followers = followers
     return engine
 
 
@@ -677,6 +883,12 @@ def app_for(env: EnvLike, engine=None, device=None,
         app.container.add_scrape_hook("engine_stall", lambda: metrics.set_gauge(
             "app_tpu_engine_stall_seconds", round(engine.stall_seconds, 1)))
     drain_s = _float(app.config, "DRAIN_TIMEOUT", 30.0)
+    plane = getattr(engine, "_plane", None)
+    if plane is not None and plane.is_leader:
+        # the hooks run last in, first out: this one after the engine's
+        # stop, whose stop sentinel the followers exit on
+        app.on_shutdown(lambda: end_job(
+            engine, getattr(engine, "followers", ())))
     app.on_shutdown(lambda: (engine.drain(drain_s), engine.stop()))
     config = app.config
     if _flag(config, "FLIGHT_RECORDER", True):
@@ -870,7 +1082,14 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
 
 
 def main() -> None:
-    build_app().run()
+    """Serve; a follower rank of an operator-launched TP job (JAX_PROCESS_ID
+    > 0) serves no HTTP and follows rank 0's waves instead."""
+    app = build_app()
+    plane = app.engine._plane
+    if plane is not None and not plane.is_leader:
+        follow(app.engine)
+        return
+    app.run()
 
 
 if __name__ == "__main__":

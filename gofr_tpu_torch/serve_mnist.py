@@ -49,7 +49,11 @@ APP_PORTED = ("HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT",
 # them
 APP_NOT_PORTED = tuple(entry for entry in LLM_NOT_PORTED if entry[0] in (
     "REMOTE_LOG_URL", "DB_DIALECT", "DB_PATH", "KV_STORE", "KV_ENABLED",
-    "PUBSUB_BACKEND", "JAX_COORDINATOR_ADDR"))
+    "PUBSUB_BACKEND")) + (
+    # the llm-server joins a job for its tensor-parallel engine; a batcher
+    # server has no sharded model to serve over one
+    ("JAX_COORDINATOR_ADDR", lambda e: bool(e.get("JAX_COORDINATOR_ADDR")),
+     "a multi-process job for the batcher servers waits in ROADMAP A18b"),)
 APP_INERT = tuple(entry for entry in LLM_INERT if entry[0] in (
     "TPU_ENABLED", "MODEL_NAME", "REMOTE_LOG_FETCH_INTERVAL")) + (
     ("TPU_PLATFORM", "picks the JAX platform of the reference's device "

@@ -19,6 +19,14 @@ testable with a fake budget. Two differences:
   pool). ``plan_capacity`` adds ``graph_pool_bytes`` (0 by default, the
   reference's plan) to the peak; the engines pass the margin on the card
   only, where graphs are captured.
+- Under a mesh (ROADMAP A14a) the reference plans the whole slice's
+  GLOBAL bytes (``params_nbytes`` of the sharded tree and the whole cache)
+  against its per-device budget times ``mesh.size``. Each rank of the port
+  is a process that sees its own card: it plans that card's bytes (its
+  block of the params, by ``params_nbytes`` of the tree it holds, and the
+  cache of its KV heads, from its rank-local config) against that card's
+  budget, which comes to the same fit. The ranks then take the minimum
+  plan (``LLMEngine._agree_on_plan``).
 - ``twin_budget_bytes`` sizes the second engine of a pair on one card
   (``DISAGG_MODE=both``) from the memory the first left free, where the
   reference hands both the device's whole limit.

@@ -191,6 +191,25 @@ rows the block will read with a control. Admission waves always run the
 filters (the identity on rows without controls). The post-hoc scoring
 passes (``score``, ``embed``, ``warmup_scoring``) are tpu/score.py's.
 
+Tensor-parallel serving and the admission plane (ROADMAP A14a) are the
+reference's ``LLMEngine(mesh=, admission_plane=)``. Under a mesh the engine
+checks that tp divides n_heads and n_kv_heads, keeps this rank's block of
+the params (parallel/sharding.serving_param_specs, int8 scales included)
+and a rank-local config (models/llama.ShardConfig: its heads, and the tp
+axis its programs reduce over), so the dense caches, the pools and the
+int8 scales hold this rank's KV heads and the loop state is whole on every
+rank, the reference's ``_place_state``. Where JAX has one controller for
+the mesh, PyTorch runs one process per card: each rank runs this loop, and
+``_agree_on_plan`` takes the minimum (n_slots, max_seq_len) over the ranks
+(each plans its own card's bytes; differing plans would dispatch different
+programs and deadlock). The plane (tpu/admission.py) is on every TP path:
+rank 0 publishes each iteration's wave and the followers replay it
+(``_exchange_wave``), ``submit`` on a follower raises, ``_is_cancelled``
+reads the synced set, ``stop`` publishes the stop sentinel, and QoS, the
+breaker, the drain's early return, the stall shed, replay after a reset,
+migration, the disaggregated roles and the post-hoc scoring passes are
+off or refused under it, at the reference's sites.
+
 Observability (ROADMAP A18a) is the reference's: ``LLMEngine(metrics=,
 tracer=, logger=)``, ``self._obs = MetricsHook(metrics)`` (tpu/obs.py; the
 names tpu/device.register_metrics registers), and ``submit(span=,
@@ -643,8 +662,22 @@ class LLMEngine:
                  reset_storm_window_s: float = 60.0,
                  breaker_cooldown_s: float = 5.0, faults=None,
                  finisher_queue: int = 256, disagg_role: str = "",
-                 handoff_sink=None):
+                 handoff_sink=None, mesh=None, admission_plane=None):
         self.device = resolve_device(device)
+        # tensor-parallel serving (the module docstring): this rank's block
+        # of the params (serving_param_specs) and its rank-local config,
+        # whose head counts shape the caches and pools and whose tp axis
+        # the model functions reduce over
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.sharding import (serving_param_specs,
+                                             shard_config, shard_params)
+
+            rank_cfg = shard_config(cfg, mesh)   # raises unless tp divides
+            params = shard_params(params, mesh, serving_param_specs(
+                quantized=isinstance(params, dict)
+                and "lm_head_s" in params))
+            cfg = rank_cfg
         self.params = params
         self.cfg = cfg
         self.logger = logger or new_logger()
@@ -679,6 +712,8 @@ class LLMEngine:
             self.prefill_buckets = self.plan.prefill_buckets
             (self.logger.warnf if self.plan.clamped
              else self.logger.infof)("%s", self.plan.summary())
+        if mesh is not None:
+            self._agree_on_plan()
         # the Pallas decode kernel reads the cache in min(512, S) blocks
         # and the reference rounds the cap down at boot so a grow clamped
         # to max_seq_len stays divisible; the CUDA kernel takes any S, but
@@ -783,6 +818,13 @@ class LLMEngine:
         self._draining = False
         self._state_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
+        # multi-controller admission (tpu/admission.AdmissionPlane): rank 0
+        # publishes each wave's composition, the other ranks replay it, so
+        # every rank of a TP group dispatches the same programs in the same
+        # order. None = single-controller serving
+        self._plane = admission_plane
+        if admission_plane is not None:
+            admission_plane.stop_event = self._stop
         # dispatched, not yet synced: (kind, host fetch, rows, block) with
         # kind "prefill" (rows: the admitted (slot, request) pairs) or
         # "decode" (rows: the active pairs at dispatch)
@@ -899,6 +941,10 @@ class LLMEngine:
         if self.disagg_role and not self.supports_kv_handoff:
             raise ValueError("disaggregated serving requires the paged "
                              "engine (KV hands off as page blobs)")
+        if self.disagg_role and admission_plane is not None:
+            raise ValueError(
+                "disaggregated roles are single-controller only; the "
+                "multi-host admission plane cannot mirror hand-offs")
         # prefill role: sink(request, blobs, n_ctx) on the loop thread right
         # after the first token; True when delivered (False: the sink
         # arranged the fallback). _handoff_fail: a failing request is
@@ -922,6 +968,42 @@ class LLMEngine:
         self._init_device_state()
         if self._stream is not None:   # the state was made on the default one
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _agree_on_plan(self) -> None:
+        """Every rank of the TP group must serve the same (n_slots,
+        max_seq_len, buckets): differing plans dispatch different programs
+        and deadlock the collectives. Each rank plans its own card's bytes
+        (tpu/capacity.py), and the group takes the minimum, by one
+        all-reduce, which is also the group's first collective: on the
+        card it runs eagerly, before any capture, so the NCCL communicator
+        exists when the programs are captured with their collectives."""
+        import torch.distributed as dist
+
+        agreed = torch.tensor([self.n_slots, self.max_seq_len],
+                              dtype=torch.int64, device=self.device)
+        dist.all_reduce(agreed, op=dist.ReduceOp.MIN,
+                        group=self.cfg.tp.group)
+        n_slots, seq = (int(v) for v in agreed.tolist())
+        if (n_slots, seq) != (self.n_slots, self.max_seq_len):
+            self.logger.warnf(
+                "tp group plan: n_slots %d -> %d, max_seq_len %d -> %d "
+                "(the smallest rank's)", self.n_slots, n_slots,
+                self.max_seq_len, seq)
+        self.n_slots, self.max_seq_len = n_slots, seq
+        self.prefill_buckets = tuple(b for b in self.prefill_buckets
+                                     if b <= seq)
+
+    @property
+    def tp_size(self) -> int:
+        """The engine's tensor-parallel degree (1 without a mesh)."""
+        return getattr(self.cfg, "tp_size", 1)
+
+    def _single_controller(self, what: str) -> None:
+        """Raise for an operation one rank of a TP group would issue alone:
+        its collectives would wait for peers that never join."""
+        if self.tp_size > 1:
+            raise RuntimeError(f"{what} is single-controller only; under "
+                               f"tp={self.tp_size} no peer rank mirrors it")
 
     # -- device state ---------------------------------------------------------
     def _init_device_state(self) -> None:
@@ -1920,7 +2002,12 @@ class LLMEngine:
     def _stall_over_threshold(self) -> float:
         """The shed policy, read once: 0.0 when healthy, else the stall age
         that tripped it (the 503 and the health report carry the same
-        reading)."""
+        reading). Multi-controller loops (an admission plane) are exempt, as
+        in the reference: they legitimately block in collectives and wave
+        waits for peer ranks, which host-side stall age cannot tell from a
+        dead card."""
+        if self._plane is not None:
+            return 0.0
         stall = self.stall_seconds
         return stall if stall > self.STALL_REJECT_S else 0.0
 
@@ -2020,6 +2107,12 @@ class LLMEngine:
                 self.recorder.record_engine_event(
                     "breaker_shed", state=self.breaker.state)
             raise DeviceLostError(retry_after)
+        if self._plane is not None and not self._plane.is_leader:
+            # multi-controller serving has ONE ingress: rank 0 composes
+            # every admission wave; this rank only replays them
+            raise RuntimeError(
+                "this rank mirrors admission waves from the leader; "
+                "submit on process 0")
         if not prompt_tokens:
             raise ValueError("prompt_tokens must be non-empty")
         self._check_token_ids(prompt_tokens, "prompt_tokens")
@@ -2157,7 +2250,11 @@ class LLMEngine:
         quiesced boundary: True means the sink took the stream (the slot
         evacuates, nothing more is emitted here); False or a raise leaves
         the slot decoding here. One-shot: slots admitted after the round
-        are not offered."""
+        are not offered. Single-controller only, as in the reference."""
+        if self._plane is not None:
+            raise RuntimeError("migration is single-controller only; the "
+                               "multi-host admission plane cannot mirror "
+                               "slot evacuations")
         self._migrate_sink = sink
         self._migrate_request = True
         self._wake.set()
@@ -2280,6 +2377,7 @@ class LLMEngine:
         tpu/score.py."""
         from .score import score_tokens
 
+        self._single_controller("scoring")
         return score_tokens(self, prompt_tokens, completion_tokens, top=top)
 
     def embed(self, tokens: Sequence[int], normalize: bool = True):
@@ -2288,6 +2386,7 @@ class LLMEngine:
         tpu/score.py."""
         from .score import embed_tokens
 
+        self._single_controller("embedding")
         return embed_tokens(self, tokens, normalize=normalize)
 
     def warmup_scoring(self, embeddings: bool = True) -> int:
@@ -2297,6 +2396,7 @@ class LLMEngine:
         score_pool_bytes, the card memory they reserved."""
         from .score import warmup_post_hoc
 
+        self._single_controller("scoring")
         idle = self._thread is None
         before = self._reserved() if idle else 0
         ran = warmup_post_hoc(self, embeddings=embeddings)
@@ -2329,6 +2429,10 @@ class LLMEngine:
                                    self.STOP_JOIN_S)
                 return
             self._thread = None
+        if self._plane is not None:
+            # leader: publish the stop sentinel AFTER the loop exits (no
+            # further waves can race it) so parked followers unblock
+            self._plane.close()
         self._drain_pending(RuntimeError("engine stopped"))
         if self._finisher is not None:
             # the loop is joined, so its last finish jobs are queued: run
@@ -2370,10 +2474,15 @@ class LLMEngine:
                 # a step that died mid-flight must not feed the baselines
                 self.steps.step_abort()
                 # a failed launch or sync is the expected failure: its
-                # message says where; anything else gets its traceback
-                self.logger.errorf("engine step failed: %s", exc
-                                   if isinstance(exc, CacheLostError)
-                                   else traceback.format_exc())
+                # message says where; anything else gets its traceback,
+                # but a follower's stop at its leader's sentinel is the
+                # normal end of its loop
+                if type(exc).__name__ == "LeaderStoppedError":
+                    self.logger.infof("engine loop stops: %s", exc)
+                else:
+                    self.logger.errorf("engine step failed: %s", exc
+                                       if isinstance(exc, CacheLostError)
+                                       else traceback.format_exc())
                 self._reset_device_state(exc)
             # the step closed before this park: the wait is the next
             # step's idle_gap, not this one's wall
@@ -2418,9 +2527,10 @@ class LLMEngine:
         with torch.no_grad(), self._stream_ctx():
             if self.breaker.probe_due():
                 self._breaker_probe()
-            if self.qos is not None:
+            if self.qos is not None and self._plane is None:
                 # the ladder acts before admission, so the slots a
-                # preemption frees admit this round
+                # preemption frees admit this round (single-controller
+                # only: a rank-local preemption would fork the replay)
                 with steps.seg("qos"):
                     self._qos_actuate()
             with steps.seg("admission"):
@@ -2496,6 +2606,12 @@ class LLMEngine:
                     request_id=rec.slowest_request_id)
 
     def _is_cancelled(self, request: GenerationRequest) -> bool:
+        """Cancellation as the dispatch path sees it: the live event, or,
+        under an admission plane, membership in the plane's synced set (a
+        cancel takes effect at the wave that broadcast it, on every rank at
+        the same loop iteration)."""
+        if self._plane is not None:
+            return request.id in self._plane.synced_cancelled
         return request.cancelled.is_set()
 
     def _admit(self) -> None:
@@ -2505,23 +2621,82 @@ class LLMEngine:
         breaker is open or half-open nothing admits: queued and replayed
         requests stay parked until the probe closes it."""
         with self._state_lock:
-            if self._draining:
+            if self._draining and self._plane is None:
                 self._drain_pending(EngineDrainingError())
                 return
-            if self.breaker.blocked():
+            if self._plane is None and self.breaker.blocked():
                 return
             self._admit_locked()
+
+    def _exchange_wave(self, free: List[int]) -> bool:
+        """The admission plane's wave for this iteration (the reference's
+        branch of ``_admit``): the leader publishes what it drained from
+        its queue, with its cancels and its drain flag; a follower takes
+        the same wave. The wave's entries, and only they, go into the
+        admission heap. Returns False when this iteration admits nothing
+        more (the drain landed)."""
+        drained: List[tuple] = []
+        while True:
+            try:
+                drained.append(self._pending.get_nowait())
+            except queue.Empty:
+                break
+        if self._draining and drained:
+            # a draining leader's local arrivals never enter a wave
+            exc = EngineDrainingError()
+            for _, _, request in drained:
+                self._fail_request(request, exc)
+            drained = []
+        # has_work is computed from MIRRORED state only (it decides whether
+        # a wave exists at all): work that can dispatch this iteration
+        has_work = (any(s.active or s.chunking is not None
+                        for s in self.slots)
+                    or bool(self._inflight) or bool(self._chunk_jobs)
+                    or (bool(self._admission_heap) and bool(free)))
+        try:
+            drained, drain_synced = self._plane.exchange(
+                drained, has_work, draining=self._draining)
+        except Exception as exc:
+            # the popped arrivals are in no queue, heap or slot
+            for _, _, request in drained:
+                self._fail_request(request, exc)
+            raise
+        if self._plane.closed and not self._plane.is_leader:
+            # the leader published its stop sentinel: no collective this
+            # rank dispatches can complete again; stop at THIS iteration
+            from .admission import LeaderStoppedError
+
+            self._stop.set()
+            raise LeaderStoppedError(
+                "admission leader stopped; follower cannot make "
+                "progress without its collective peer")
+        if drain_synced:
+            # the drain lands on every rank at THIS wave
+            self._draining = True
+            self._drain_pending(EngineDrainingError())
+            return False
+        for entry in drained:
+            heapq.heappush(self._admission_heap, entry)
+        return True
 
     def _admit_locked(self) -> None:
         free = [i for i, slot in enumerate(self.slots)
                 if not slot.active and slot.chunking is None]
-        if not free:
+        if self._plane is not None:
+            # the wave runs even with no free slot: cancels and the drain
+            # ride waves, and a saturated server is where a cancel must
+            # still free capacity
+            if not self._exchange_wave(free) or not free:
+                return
+        elif not free:
             return
-        while True:
-            try:
-                heapq.heappush(self._admission_heap, self._pending.get_nowait())
-            except queue.Empty:
-                break
+        else:
+            while True:
+                try:
+                    heapq.heappush(self._admission_heap,
+                                   self._pending.get_nowait())
+                except queue.Empty:
+                    break
         taken: List[GenerationRequest] = []
         while self._admission_heap and len(taken) < len(free):
             entry = heapq.heappop(self._admission_heap)
@@ -2530,7 +2705,7 @@ class LLMEngine:
                 self._abort_admission(request)
                 self._fail_request(request)
                 continue
-            if self.qos is not None:
+            if self.qos is not None and self._plane is None:
                 # the class gates (tpu/qos.py): an expired request fails
                 # before it costs a prefill; a park keeps the heap's order,
                 # as a page wait does
@@ -2693,7 +2868,10 @@ class LLMEngine:
     def _decode_block_now(self) -> int:
         """Full blocks for decode throughput, half blocks while requests
         wait for admission, so their TTFT is not gated behind a full block."""
-        if self._admission_heap or self._pending.qsize():
+        # under a plane only the mirrored heap may pick the block: the
+        # leader's local queue is invisible to the followers
+        if self._admission_heap or (self._plane is None
+                                    and self._pending.qsize()):
             return max(1, self.decode_block_size // 2)
         return self.decode_block_size
 
@@ -3261,6 +3439,11 @@ class LLMEngine:
                                    else None)
             self._sole_reset_streak = 1 if self._sole_reset_id else 0
         for request in survivors:
+            if self._plane is not None:
+                # a replay requeue would have to ride an admission wave to
+                # stay symmetric across ranks: fail loudly, as the reference
+                self._fail_request(request, exc)
+                continue
             if self._is_cancelled(request):
                 self._fail_request(request)
                 continue

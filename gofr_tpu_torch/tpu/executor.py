@@ -40,6 +40,24 @@ A replay runs no Python, so the kernels count their launches themselves,
 on the card (``ops/launch_counts.py``): a replayed kernel counts as an
 eager one does, and the warm-up run's kernels count too.
 
+Collectives inside a capture (tensor-parallel engines, ROADMAP A14a): a
+TP program's Megatron all-reduces and vocab all-gather (models/llama.py)
+are NCCL calls on the capturing stream, captured into the graph with the
+kernels around them, so a replay runs them with no Python. What that
+needs: the NCCL communicator exists before the first capture (the job's
+``init_process_group`` binds the card, parallel/multihost.join, and the
+engine's first act under a mesh is an eager all-reduce,
+``LLMEngine._agree_on_plan``); every rank captures the same programs in
+the same order, since a capture runs its collectives once eagerly in the
+warm-up run (the admission plane gives every rank the same dispatches,
+hence the same captures, at boot and after it); and
+``capture_error_mode="thread_local"`` (below), under which the NCCL
+watchdog's event queries on its own thread neither fail nor spoil a
+capture. On an H100 with torch 2.11 and a one-rank NCCL job this captured
+and replayed with no watchdog error and no capture after boot
+(chip_smoke.py phase 16); more ranks than one per job were not run on the
+card yet.
+
 Two threads may use one executor: the engine's loop, which captures and
 replays its programs on the engine's stream, and a caller of the post-hoc
 scoring passes (tpu/score.py), which captures and replays its window

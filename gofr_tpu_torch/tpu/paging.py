@@ -88,6 +88,13 @@ engine at the reference's sites: the reservation is the step ledger's
 ``app_tpu_page_waits_total`` and records one ``page_wait`` event per
 request), the page tables are ``host_prep``, and ``_finish_slot`` sets
 ``app_tpu_pages_used`` and ``app_tpu_kv_pool_pages{kind=used|free}``.
+
+Under a mesh (ROADMAP A14a; tpu/engine.py's docstring) the pools
+[L, P, Hkv/tp, dh, ps] and the int8 scale pools [L, P, Hkv/tp, ps] hold
+this rank's KV heads, the reference's ``_place_state`` (kv_cache_spec,
+kv_scale_pool_spec): they are shaped from the rank-local config. The page
+allocator, the reservations and the prefix cache are the same on every
+rank: the same admission waves drive them.
 """
 
 from __future__ import annotations

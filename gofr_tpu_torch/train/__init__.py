@@ -22,7 +22,7 @@ whole forward: the backward recomputes it, so a flash forward
 per step. The step writes the updated values into the parameter tensors in
 place (the counterpart of donating them), returns the same tree, and reads
 nothing back to the host: its metrics are 0-d tensors on the device.
-Sharding (the reference's dp / tp / pp / ep placement) waits in ROADMAP A14.
+Sharding (the reference's dp / tp / pp / ep placement) waits in ROADMAP A14b.
 """
 
 from __future__ import annotations

@@ -676,3 +676,61 @@ def test_landing_under_captured_decode_graphs_reads_the_landed_pages(cuda,
     assert [t.data_ptr() for t in tensors] == ptrs
     assert (after[counter] - before[counter]
             == cfg.n_layers * (b.decode_steps - steps))
+
+
+# -- the per-rank shapes of tensor and sequence parallelism (ROADMAP A14a) ---
+# (H, Hkv) one rank holds: Llama-3-8B (32/8 heads) and Llama-3-70B (64/8)
+# at tp = 2, 4 and 8 (G = H / Hkv unchanged: 4 and 8), and Ulysses' G = 1
+# (the KV heads repeated up to the query heads when sp does not divide Hkv)
+RANK_HEADS = {"8b-tp2": (16, 4), "8b-tp4": (8, 2), "8b-tp8": (4, 1),
+              "70b-tp2": (32, 4), "70b-tp4": (16, 2), "70b-tp8": (8, 1),
+              "ulysses-g1-h4": (4, 4), "ulysses-g1-h8": (8, 8)}
+
+
+@pytest.mark.parametrize("shape", sorted(RANK_HEADS))
+def test_flash_at_the_per_rank_heads(cuda, shape):
+    H, Hkv = RANK_HEADS[shape]
+    gen = torch.Generator(device=cuda).manual_seed(H * 10 + Hkv)
+    q = _randn(gen, cuda, 2, H, 256, 128)
+    k, v = (_randn(gen, cuda, 2, Hkv, 256, 128) for _ in range(2))
+    before = launch_counts()["flash_attention"]
+    got = flash_attention_cuda(q, k, v, True)
+    assert launch_counts()["flash_attention"] == before + 1
+    _assert_agrees(got, flash_attention_plain(q, k, v, True, KERNEL_BLOCK_KV))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("shape", sorted(h for h in RANK_HEADS
+                                         if not h.startswith("ulysses")))
+def test_reads_at_the_per_rank_heads(cuda, shape, quantized):
+    """The paged and the dense reads, bf16 and int8, at a TP rank's heads
+    (B=8, ragged lengths, page size 128, a dense S=700 cache)."""
+    H, Hkv = RANK_HEADS[shape]
+    gen = torch.Generator(device=cuda).manual_seed(H + Hkv + quantized)
+    lengths = [1, 127, 128, 129, 300, 700, 0, 513]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = _randn(gen, cuda, 8, H, 128)
+    table, P = _paged_table(gen, cuda, lengths, 128)
+    kp, vp = (_randn(gen, cuda, P, Hkv, 128, 128) for _ in range(2))
+    k, v = (_randn(gen, cuda, 8, Hkv, 128, 700) for _ in range(2))
+    name = "_q8" if quantized else ""
+    before = launch_counts()
+    if quantized:
+        (k8, ks), (v8, vs) = quantize_kv(kp), quantize_kv(vp)
+        paged = paged_attention_q8_cuda(q, k8, v8, ks, vs, table, lens)
+        paged_want = paged_attention_plain(q, k8, v8, table, lens, ks, vs)
+        (d8, dks), (e8, dvs) = quantize_kv(k), quantize_kv(v)
+        dense = decode_attention_q8_cuda(q, d8, e8, dks, dvs, lens)
+        dense_want = decode_attention_plain(q, d8, e8, lens, dks, dvs)
+    else:
+        paged = paged_attention_cuda(q, kp, vp, table, lens)
+        paged_want = paged_attention_reference(q, kp, vp, table, lens)
+        dense = decode_attention_cuda(q, k, v, lens)
+        dense_want = decode_attention_plain(q, k, v, lens)
+    after = launch_counts()
+    assert after["paged_attention" + name] > before["paged_attention" + name]
+    assert (after["decode_attention" + name]
+            > before["decode_attention" + name])
+    _assert_agrees(paged, paged_want)
+    _assert_agrees(dense, dense_want)
+    assert bool((paged[6] == 0).all()) and bool((dense[6] == 0).all())

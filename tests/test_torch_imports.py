@@ -62,6 +62,16 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
     assert {"gofr_tpu_torch.tpu.kvtier", "gofr_tpu_torch.tpu.disagg",
             "gofr_tpu_torch.tpu.migrate",
             "gofr_tpu_torch.service"} <= set(mods)
+    # parallelism (the mesh, sharding, the multi-process job, the explicit
+    # collectives, sequence parallelism) and the admission plane
+    assert {"gofr_tpu_torch.parallel", "gofr_tpu_torch.parallel.mesh",
+            "gofr_tpu_torch.parallel.multihost",
+            "gofr_tpu_torch.parallel.sharding",
+            "gofr_tpu_torch.parallel.collectives",
+            "gofr_tpu_torch.parallel.longcontext",
+            "gofr_tpu_torch.ops.ring_attention",
+            "gofr_tpu_torch.ops.ulysses",
+            "gofr_tpu_torch.tpu.admission"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -694,3 +694,62 @@ def test_every_batcher_server_key_is_accounted_for(example, module):
     doc = mod.__doc__
     for key in set(mod.PORTED) - set(serve_mnist.APP_PORTED):
         assert key in doc, key
+
+
+# -- tensor-parallel serving (TP_SHARDS, the JAX_* keys) ----------------------
+@pytest.mark.parametrize("config", ["paged", "dense"])
+def test_tp_shards_boots_serves_and_stops_its_follower(served, config):
+    """TP_SHARDS=2 on the CPU: this process is rank 0 of a local gloo job
+    and starts rank 1 (spawned) over a TCPStore; both load the same
+    checkpoint, each holds its KV heads, rank 1 replays rank 0's waves,
+    the greedy streams equal the JAX single-device engine's, /generate
+    answers on rank 0 only, and the App's shutdown stops the follower."""
+    env = {**BASE, **CONFIGS[config], "TP_SHARDS": "2",
+           "WEIGHTS_PATH": served["ckpt"]["file"], "LOG_LEVEL": "WARN"}
+    app = serve.build_app(env, device="cpu")
+    eng = app.engine
+    (follower,) = eng.followers
+    try:
+        assert follower.is_alive() and eng.tp_size == 2
+        assert eng._plane.is_leader
+        kv = eng.k_cache if config == "paged" else eng.k_cache[0]
+        assert kv.shape[-3 if config == "dense" else 2] == 1  # 2 KV heads / 2
+        got = [eng.generate(p, max_new_tokens=6, temperature=0.0)
+               for p in PROMPTS]
+        assert got == served["float"][2][config]
+        app.start()
+        status, body, _ = _post(app.http_port, {"prompt": "hello",
+                                                "max_tokens": 4,
+                                                "stream": False})
+        assert status == 201 or status == 200, body
+        assert json.loads(body)["data"]["tokens"] == 4
+    finally:
+        app.shutdown()
+    follower.join(timeout=30)
+    assert not follower.is_alive() and follower.exitcode == 0
+
+
+def test_tp_shards_above_the_visible_cards_refused_at_boot(monkeypatch):
+    """Two ranks never share a card and no smaller TP is served instead:
+    with one card visible, TP_SHARDS=2 raises before any process starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="TP_SHARDS=2 needs 2 cards, 1 "
+                                         "visible"):
+        serve.build_engine({**BASE, "TP_SHARDS": "2"})
+
+
+def test_tp_shards_must_match_the_job(monkeypatch):
+    """Under an operator's job (JAX_COORDINATOR_ADDR) the job is one tp
+    group: TP_SHARDS other than JAX_NUM_PROCESSES is refused."""
+    import gofr_tpu_torch.container as container_mod
+    from gofr_tpu_torch.parallel.multihost import MultiHostSpec
+
+    monkeypatch.setattr(
+        container_mod.Container, "join_job",
+        lambda self, device=None, config=None: (
+            MultiHostSpec.from_config(config), torch.device("cpu")))
+    with pytest.raises(ValueError, match="TP_SHARDS=1 but the job has 2"):
+        serve.build_engine({**BASE, "JAX_COORDINATOR_ADDR": "127.0.0.1:1",
+                            "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "0"},
+                           device="cpu")
