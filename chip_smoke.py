@@ -17,7 +17,9 @@ phase with phase 4b and its cost measurements, then its decode profile
 with the utilization ledger beside it). ``--faults`` (build, then phase
 11), ``--qos`` (build, then phase 12), ``--elastic`` (build, then phase
 13), ``--train`` (build, then phase 14), ``--models`` (build, then phase
-15) and ``--parallel`` (build, then phase 16) end with the ok line.
+15), ``--parallel`` (build, then phase 16; ``--parallel e``: its phase (e)
+alone) and ``--sharded-train`` (build, then phase 17) end with the ok
+line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -367,14 +369,38 @@ training's too (``train_launches``).
    the HTTP ingress and rank 1 replaying its waves over a TCPStore, 6
    staggered streams with one client leaving mid-stream: rank 1's streams
    equal rank 0's token for token, the cancelled one cut at the same
-   token; (e) with n > 1 cards visible, TP=n serving through serve.py
-   (TP_SHARDS), 8 concurrent streams held to the teacher-forced oracle,
-   with the client's TTFT and tok/s per stream, then the App's shutdown,
-   bounded (``shutdown_bounded``, ROADMAP C8).
+   token; (e) with n > 1 cards visible, run first: TP=n serving through
+   serve.py (TP_SHARDS), 8 concurrent streams held to the teacher-forced
+   oracle, with the client's TTFT and tok/s per stream, then the App's
+   shutdown, bounded (``shutdown_bounded``, ROADMAP C8), every follower
+   joined with exit code 0.
+17. sharded training (``--sharded-train``, ``sharded_train_mode``; ROADMAP
+   A14b): with n >= 2 cards, one process a card joined into an NCCL job
+   through the JAX_* keys, every rank drawing the weights from seed 0 and
+   running ``make_train_step(..., mesh=)`` on its blocks: A, dense
+   Llama-3-8B whole over dp = n/2 x tp = 2 (B=n, T=2048, remat on); B, the
+   MoE at Llama-3-8B widths, 8 experts top-2, over ep = n (ST_MOE_DEPTH
+   layers, B=2, T=1024); C, GPipe over pp = n (32 layers, 4 microbatches,
+   B=8, T=1024, remat off) with its bubble beside (pp-1)/(n_micro+pp-1);
+   D, ring over sp = n (TRAIN_DEPTH layers, B=1, T=8192). A, B and C
+   are held at TRAIN_DEPTH layers to rank 0's single-card step (loss
+   ST_LOSS_RTOL, grad_norm ST_GNORM_RTOL), D's first loss to the single
+   card's flash forward; flash is held to its plain version at A, B and
+   C's per-rank shapes on every rank; per step: loss, wall and card
+   ms, tokens/s a card, MFU against n x 989e12, peak memory and flash
+   launches on every rank, the NCCL kernels of a step on rank 0
+   (torch.profiler); the loss must fall; then every rank leaves the job
+   (stamped) and exits 0 within ST_LEAVE_S. With one card: the
+   world-of-one check below alone.
 
 The default run ends, after them, with phase 16 in short
 (``parallel_short``): (a) at CUT_DEPTH layers (4 streams x 16 tokens, no
-step profile) and (d) at [1, 128].
+step profile) and (d) at [1, 128]; and phase 17 in short
+(``sharded_short``): a one-rank NCCL job at CUT_DEPTH layers where flash
+is held to its plain version at the phase's shape, the sharded step equals
+the unsharded one bit for bit over 2 steps (its flash
+launches join the kernels JSON as ``sharded_launches``) and the pipelined
+forward at pp=1 gives the plain forward's logits.
 
 The last three lines are the nvidia-smi line, the kernels JSON and
 ``{"ok": true, "device": {...}}``.
@@ -7554,7 +7580,11 @@ def shutdown_bounded(app, n: int, limit_s: float = 180.0) -> None:
     threading.Thread(target=lambda: (app.shutdown(), done.set()),
                      daemon=True).start()
     if done.wait(limit_s):
-        log(f"parallel TP={n}: shutdown in {time.monotonic() - t0:.1f}s")
+        codes = [p.exitcode for p in getattr(app.engine, "followers", ())]
+        log(f"parallel TP={n}: shutdown in {time.monotonic() - t0:.1f}s; "
+            f"follower exit codes {codes}")
+        require(codes == [0] * (n - 1), f"parallel TP={n}: follower exit "
+                f"codes {codes}")
         return
     engine = app.engine
     loop = engine._thread
@@ -7575,15 +7605,25 @@ def leave_job() -> None:
     leave()
 
 
-def parallel_mode(dev, card: str) -> None:
-    """--parallel: phases (a) to (d) on the card, and (e) with more than
-    one card visible."""
+def parallel_mode(dev, card: str, only_e: bool = False) -> None:
+    """--parallel: with more than one card visible, (e) first (its App's
+    shutdown is ROADMAP C8's), then phases (a) to (d) on the card;
+    only_e (``--parallel e``): (e) alone."""
     import dataclasses
 
     import torch
 
     from gofr_tpu_torch.models.llama import LlamaConfig, llama_init
 
+    n = torch.cuda.device_count()
+    if n > 1:
+        t1 = time.monotonic()
+        multi_card_phase(dev, card, n)
+        log(f"parallel (e): {time.monotonic() - t1:.1f}s")
+    else:
+        log("parallel (e): one card visible, TP > 1 serving not run")
+    if only_e:
+        return
     t0 = time.monotonic()
     mesh = join_world_of_one()
     try:
@@ -7605,13 +7645,6 @@ def parallel_mode(dev, card: str) -> None:
         log(f"parallel (b): {time.monotonic() - t1:.1f}s")
     finally:
         leave_job()
-    n = torch.cuda.device_count()
-    if n > 1:
-        t1 = time.monotonic()
-        multi_card_phase(dev, card, n)
-        log(f"parallel (e): {time.monotonic() - t1:.1f}s")
-    else:
-        log("parallel (e): one card visible, TP > 1 serving not run")
     del dataclasses
 
 
@@ -7639,6 +7672,748 @@ def parallel_short(dev, card: str) -> None:
     finally:
         leave_job()
     log(f"parallel short phase: {time.monotonic() - t0:.1f}s")
+
+
+# -- phase 17: sharded training (--sharded-train, and the default short
+# phase) ---------------------------------------------------------------------
+# every rank runs make_train_step(..., mesh=) on its blocks; each phase is
+# held at TRAIN_DEPTH layers to rank 0's single-card step on the same
+# weights (llama_init / moe_llama_init seed 0 on every rank) and tokens: the
+# loss within ST_LOSS_RTOL and grad_norm within ST_GNORM_RTOL relative (the
+# sharded step sums its bf16 partial products, and reduces its bf16
+# gradients, in another order than one card)
+ST_LOSS_RTOL = 5e-3
+ST_GNORM_RTOL = 2e-2
+ST_SEED = 14000          # token seeds no other phase uses
+ST_STEPS = 6
+ST_RING_STEPS = 4
+# B's layers: what a card holds with 8 / ep experts a layer (at 12 layers
+# the update's new moments and updates beside the old state, ~81 GB a
+# rank, ran out of memory on an H100 80GB HBM3); TRAIN_DEPTH, so B's run is
+# itself held to one card
+ST_MOE_DEPTH = TRAIN_DEPTH
+# the phases' sequence lengths: A (B = n), B (B = 2), C
+# (B = 8, 4 microbatches), D (B = 1, T / n a rank)
+ST_T = {"A": 2048, "B": 1024, "C": 1024, "D": 8192}
+ST_BUBBLE_ITERS = 10     # C's timed pipeline forwards, after a warm one
+ST_LIMIT_S = 900.0       # the world's bound (every phase, 4 cards)
+ST_LEAVE_S = 120.0       # a rank's teardown and exit after its last phase
+ST_LOG_DIR = "sharded_train_logs"   # every rank's lines, under the cwd
+
+
+def st_tokens(vocab: int, B: int, T: int, dev, seed: int):
+    """(tokens, targets) [B, T] from a CPU generator: the same global batch
+    on every rank."""
+    import torch
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    seq = torch.randint(1, vocab, (B, T + 1), generator=gen)
+    return seq[:, :-1].to(dev), seq[:, 1:].to(dev)
+
+
+def st_log(rank: int, msg: str, all_ranks: bool = False) -> None:
+    """Rank 0's lines on stdout (every rank's with all_ranks), each rank's
+    into ST_LOG_DIR/rank<r>.log."""
+    import os
+
+    if rank == 0 or all_ranks:
+        log(f"[rank {rank}] {msg}" if rank else msg)
+    os.makedirs(ST_LOG_DIR, exist_ok=True)
+    with open(os.path.join(ST_LOG_DIR, f"rank{rank}.log"), "a") as f:
+        f.write(msg + "\n")
+
+
+# the single card's gradient is taken a group of leaves at a time, each
+# group up to this many bytes of gradient (a leaf larger, alone): the MoE's
+# stacked [L, E, D, F] expert leaves are 7 GiB each at 8 layers, and their
+# gradients, the select-backward buffers beside them and the f32 squares of
+# global_norm do not fit beside the weights on an H100 80GB HBM3 at once
+ST_GRAD_GROUP_BYTES = 8 * 2**30
+
+
+def st_sq(g) -> float:
+    """sum(g.float() ** 2), a slice of the first dim at a time."""
+    return sum(float(x.float().square().sum()) for x in g.reshape(
+        g.shape[0] if g.dim() > 1 else 1, -1))
+
+
+def st_oracle(rank: int, fwd, params, toks, tgts, has_aux: bool = False):
+    """Rank 0's single-card step on `params`: the first loss and grad_norm
+    (make_train_step's loss_and_grads, remat on; no optimizer state). The
+    gradient is taken for one group of leaves at a time (ST_GRAD_GROUP_BYTES,
+    the others held fixed in the forward), each leaf's squares summed as it
+    comes and the gradient freed; the norm is global_norm's over the whole
+    tree. The other ranks wait at a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import tree
+    from gofr_tpu_torch.train import make_train_step
+
+    out = None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        leaves = tree.leaves(params)
+        groups, size = [[]], 0
+        for i, p in enumerate(leaves):
+            nbytes = p.numel() * p.element_size()
+            if groups[-1] and size + nbytes > ST_GRAD_GROUP_BYTES:
+                groups.append([])
+                size = 0
+            groups[-1].append(i)
+            size += nbytes
+        sq, loss = 0.0, None
+        for group in groups:
+            def merged(sub, t, group=group):
+                full = list(leaves)
+                for i, p in zip(group, sub):
+                    full[i] = p
+                return fwd(tree.unflatten(params, full), t)
+
+            _, step = make_train_step(merged, has_aux_loss=has_aux)
+            got, _, _, grads = step.loss_and_grads(
+                [leaves[i] for i in group], toks, tgts)
+            loss = float(got) if loss is None else loss
+            for k in range(len(grads)):
+                sq += st_sq(grads[k])
+                grads[k] = None
+            del grads
+            torch.cuda.empty_cache()
+        out = (loss, math.sqrt(sq))
+        st_log(rank, f"single-card oracle: {len(groups)} gradient "
+               f"group(s), peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+               f" GiB")
+        del leaves
+    del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def st_held(rank: int, what: str, got, want, card: str, depth: int,
+            grad: bool = True) -> dict:
+    """Rank 0: the sharded first step's (loss, grad_norm) against the
+    single card's at `depth` layers, within ST_LOSS_RTOL / ST_GNORM_RTOL."""
+    if rank != 0:
+        return {}
+    dl = abs(got[0] - want[0]) / abs(want[0])
+    dg = abs(got[1] - want[1]) / abs(want[1]) if grad else 0.0
+    ok = dl <= ST_LOSS_RTOL and dg <= ST_GNORM_RTOL
+    st_log(rank, f"sharded {what}: check against one card at {depth} "
+           f"layers: loss {got[0]:.6f} vs {want[0]:.6f} (rel {dl:.2e}, tol "
+           f"{ST_LOSS_RTOL})" + (f", grad_norm {got[1]:.6f} vs {want[1]:.6f} "
+                                 f"(rel {dg:.2e}, tol {ST_GNORM_RTOL})"
+                                 if grad else ", forward only") +
+           f" {'ok' if ok else 'FAIL'} [{card}]")
+    require(ok, f"sharded {what}: the first step left the single card's")
+    return {"loss_rel": dl, "grad_norm_rel": dg}
+
+
+def st_first(step, params, toks, tgts) -> tuple:
+    """(loss, grad_norm) of one sharded step from fresh optimizer state."""
+    init, run = step
+    state = init(params)
+    _, _, m = run(params, state, toks, tgts)
+    out = (float(m["loss"]), float(m["grad_norm"]))
+    del state
+    return out
+
+
+def st_nccl_step(run, params, state, toks, tgts) -> dict:
+    """One more step under torch.profiler (CUDA kernels): its NCCL kernels
+    and their card ms, and the card's busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(params, state, toks, tgts)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    return {"nccl_kernels": sum(e.count for e in nccl),
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+
+
+def st_steps(rank: int, n: int, what: str, step, params, toks, tgts,
+             steps: int, flops: float, card: str, flash_per_step: int
+             ) -> dict:
+    """`steps` sharded steps on one repeated global batch, each timed by
+    the host clock and CUDA events, with this rank's peak memory and flash
+    launches (launch_counts, zeroed before the step; required to be
+    flash_per_step); tokens/s a card and MFU against n cards' peak; then
+    one more step under torch.profiler on rank 0 (every rank runs it):
+    NCCL kernels and ms. The loss must fall, every metric be finite."""
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.ops import launch_counts
+
+    init, run = step
+    state = init(params)
+    B, T = toks.shape
+    out = {"loss": [], "grad_norm": [], "aux": [], "card_ms": [],
+           "wall_ms": [], "peak_gib": 0.0, "launches": []}
+    for i in range(steps):
+        launch_counts.zero()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.monotonic()
+        start.record()
+        params, state, m = run(params, state, toks, tgts)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        card_ms = start.elapsed_time(end)
+        flash = launch_counts.counts()["flash_attention"]
+        loss, aux, gn = (float(m[k]) for k in ("loss", "aux_loss",
+                                                "grad_norm"))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mfu = flops / (card_ms / 1e3) / (n * H100_BF16_FLOPS)
+        for key, v in (("loss", loss), ("grad_norm", gn), ("aux", aux),
+                       ("card_ms", card_ms), ("wall_ms", wall * 1e3),
+                       ("launches", flash)):
+            out[key].append(v)
+        out["peak_gib"] = max(out["peak_gib"], peak)
+        st_log(rank, f"sharded {what} step {i}: loss={loss:.5f} aux={aux:.5f}"
+               f" grad_norm={gn:.5f} wall={wall * 1e3:.1f}ms card="
+               f"{card_ms:.1f}ms tok/s/card={B * T / wall / n:.0f} MFU="
+               f"{mfu:.4f} peak_mem={peak:.2f}GiB flash_launches={flash} "
+               f"[{card}]", all_ranks=i == steps - 1)
+        require(math.isfinite(loss) and math.isfinite(gn) and gn > 0
+                and math.isfinite(aux), f"sharded {what}: step {i} metrics "
+                f"loss={loss} grad_norm={gn} aux={aux}")
+        require(flash == flash_per_step, f"sharded {what}: {flash} flash "
+                f"launches on rank {rank} in step {i}, want {flash_per_step}")
+    require(out["loss"][-1] < out["loss"][0],
+            f"sharded {what}: the loss did not fall {out['loss']}")
+    dist.barrier()
+    if rank == 0:
+        prof = st_nccl_step(run, params, state, toks, tgts)
+    else:
+        run(params, state, toks, tgts)
+        prof = {}
+    out.update(prof)
+    out["tok_s_card"] = B * T / (out["wall_ms"][-1] / 1e3) / n
+    out["mfu"] = flops / (out["card_ms"][-1] / 1e3) / (n * H100_BF16_FLOPS)
+    if rank == 0:
+        st_log(rank, f"sharded {what} collectives (rank 0, one profiled "
+               f"step): {prof['nccl_kernels']} NCCL kernels, "
+               f"{prof['nccl_ms']:.2f} ms of card, card busy "
+               f"{prof['busy_ms']:.1f} ms [{card}]")
+    del state
+    return out
+
+
+def st_summary(rank: int, what: str, r: dict, card: str) -> None:
+    st_log(rank, f"sharded {what} summary: loss {r['loss'][0]:.4f} -> "
+           f"{r['loss'][-1]:.4f}; last step wall={r['wall_ms'][-1]:.1f}ms "
+           f"card={r['card_ms'][-1]:.1f}ms tok/s/card={r['tok_s_card']:.0f} "
+           f"MFU={r['mfu']:.4f}; peak_mem={r['peak_gib']:.2f}GiB; flash "
+           f"launches a step {r['launches'][-1]} [{card}]", all_ranks=True)
+
+
+def st_flash_check(what: str, B: int, T: int, H: int, Hkv: int, dev
+                   ) -> float:
+    """flash_attention, causal, at a sharded path's per-rank shape: q, k, v
+    in the model's [B, T, H, dh] layout, as the attention sublayer hands
+    them over, against flash_attention_plain on the same inputs
+    (check_agreement, per row, as check_flash)."""
+    import torch
+
+    from gofr_tpu_torch.ops.flash_attention import (KERNEL_BLOCK_KV,
+                                                    flash_attention,
+                                                    flash_attention_plain)
+
+    q, k, v = (t.transpose(1, 2).contiguous() for t in flash_inputs(
+        B, H, Hkv, T, T, 128, dev, seed=B * T + H))
+    got = flash_attention(q, k, v, True)
+    want = flash_attention_plain(*(t.transpose(1, 2) for t in (q, k, v)),
+                                 True, KERNEL_BLOCK_KV).transpose(1, 2)
+    err = check_agreement(f"{what} flash B={B} T=S={T} H={H} Hkv={Hkv} "
+                          f"causal, [B, T, H, dh] views in and out", got,
+                          want, per_row=True)
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def st_llama():
+    """Phases A, C and D's model: Llama-3-8B, flash attention."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.llama import LlamaConfig
+
+    return dataclasses.replace(LlamaConfig.llama3_8b(), attn_impl="flash")
+
+
+def st_moe_config():
+    """Phase B's model: the MoE defaults (Llama-3-8B's widths, 8 experts,
+    top-2), flash attention."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.moe import MoELlamaConfig
+
+    return dataclasses.replace(MoELlamaConfig(), attn_impl="flash")
+
+
+def st_dense(rank: int, n: int, dev, card: str) -> dict:
+    """A: dense Llama-3-8B (full width, all 32 layers) over dp = n/2 x
+    tp = 2, B = n, T = 2048, remat on (make_mesh_forward, flash in every
+    attention sublayer)."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache, llama_init
+    from gofr_tpu_torch.parallel import (MeshPlan, llama_param_specs,
+                                         make_mesh, make_mesh_forward,
+                                         shard_params)
+    from gofr_tpu_torch.train import make_train_step
+
+    mesh = make_mesh(MeshPlan(dp=n // 2, tp=2), device=dev.type)
+    full = st_llama()
+    B, T = n, ST_T["A"]
+    st_flash_check(f"sharded A rank {rank}", B // (n // 2), T,
+                   full.n_heads // 2, full.n_kv_heads // 2, dev)
+    cfg8 = dataclasses.replace(full, n_layers=TRAIN_DEPTH)
+    toks, tgts = st_tokens(full.vocab_size, B, T, dev, ST_SEED)
+    want = st_oracle(rank, lambda p, t: llama_forward_nocache(p, cfg8, t),
+                     llama_init(cfg8, 0, dev) if rank == 0 else None, toks,
+                     tgts)
+    params = shard_params(llama_init(cfg8, 0, dev), mesh, llama_param_specs())
+    got = st_first(make_train_step(make_mesh_forward(cfg8, mesh), mesh=mesh),
+                   params, toks, tgts)
+    held = st_held(rank, f"A dp={n // 2} tp=2", got, want, card, TRAIN_DEPTH)
+    del params
+    torch.cuda.empty_cache()
+    params = shard_params(llama_init(full, 0, dev), mesh, llama_param_specs())
+    torch.cuda.empty_cache()
+    flops = train_flops(full, full.param_count(), B, T)
+    r = st_steps(rank, n, f"A dp={n // 2} tp=2", make_train_step(
+        make_mesh_forward(full, mesh), mesh=mesh), params, toks, tgts,
+        ST_STEPS, flops, card, 2 * full.n_layers)
+    st_summary(rank, f"A dense llama3-8b {full.n_layers}L dp={n // 2} tp=2 "
+               f"B={B} T={T}", r, card)
+    del params
+    return {**r, **held}
+
+
+def st_moe(rank: int, n: int, dev, card: str) -> dict:
+    """B: the MoE at Llama-3-8B widths, 8 experts, top-2, over ep = n
+    (8 / n experts a rank), ST_MOE_DEPTH layers, B=2, T=1024, remat on;
+    its first step held to one card's."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.moe import (moe_llama_forward_nocache,
+                                           moe_llama_init)
+    from gofr_tpu_torch.parallel import (MeshPlan, llama_param_specs,
+                                         make_mesh, make_mesh_forward,
+                                         shard_params)
+    from gofr_tpu_torch.train import make_train_step
+
+    mesh = make_mesh(MeshPlan(ep=n), device=dev.type)
+    cfg = dataclasses.replace(st_moe_config(), n_layers=ST_MOE_DEPTH)
+    B, T = 2, ST_T["B"]
+    st_flash_check(f"sharded B rank {rank}", B, T, cfg.n_heads,
+                   cfg.n_kv_heads, dev)
+    toks, tgts = st_tokens(cfg.vocab_size, B, T, dev, ST_SEED + 2)
+    want = st_oracle(rank, lambda p, t: moe_llama_forward_nocache(p, cfg, t),
+                     moe_llama_init(cfg, 0, dev) if rank == 0 else None,
+                     toks, tgts, has_aux=True)
+    params = shard_params(moe_llama_init(cfg, 0, dev), mesh,
+                          llama_param_specs(moe=True))
+    torch.cuda.empty_cache()
+    n_params = cfg.param_count() + cfg.n_layers * (
+        (3 * cfg.n_experts - 3) * cfg.dim * cfg.ffn_dim
+        + cfg.dim * cfg.n_experts)
+    r = st_steps(rank, n, f"B ep={n}", make_train_step(
+        make_mesh_forward(cfg, mesh), has_aux_loss=True, mesh=mesh), params,
+        toks, tgts, ST_STEPS, train_flops(cfg, n_params, B, T), card,
+        2 * cfg.n_layers)
+    held = st_held(rank, f"B ep={n}", (r["loss"][0], r["grad_norm"][0]),
+                   want, card, ST_MOE_DEPTH)
+    st_summary(rank, f"B moe {ST_MOE_DEPTH}L {cfg.n_experts} experts top-"
+               f"{cfg.experts_per_token} ep={n} B={B} T={T} (dense dispatch: "
+               f"every expert computes every token, counted)", r, card)
+    del params
+    return {**r, **held}
+
+
+def st_stage_fn(cfg, mesh):
+    """pipelined_llama_forward's stage: this rank's layers over [mb, T, D]
+    (for the bubble's timing)."""
+    from gofr_tpu_torch.models.llama import (_attention_block_nocache,
+                                             _ffn_block)
+    from gofr_tpu_torch.parallel.sharding import shard_config
+
+    lcfg = shard_config(cfg, mesh)
+
+    def stage(layers, h):
+        import torch
+
+        mb, T = h.shape[:2]
+        positions = torch.arange(T, device=h.device).expand(mb, T)
+        for l in range(next(iter(layers.values())).shape[0]):
+            layer = {k: w[l] for k, w in layers.items()}
+            h = h + _attention_block_nocache(h, layer, positions, lcfg)
+            h = h + _ffn_block(h, layer, lcfg)
+        return h
+
+    return stage
+
+
+def st_gpipe(rank: int, n: int, dev, card: str) -> dict:
+    """C: GPipe, Llama-3-8B with all 32 layers, 32 / n a stage, over
+    pp = n, 4 microbatches, remat off (the reference's dryrun), B=8,
+    T=1024; the bubble measured beside (pp - 1) / (n_micro + pp - 1)."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache, llama_init
+    from gofr_tpu_torch.parallel import (MeshPlan, gpipe, llama_param_specs,
+                                         make_mesh, pipelined_llama_forward,
+                                         shard_params)
+    from gofr_tpu_torch.parallel.mesh import axis_of
+    from gofr_tpu_torch.train import make_train_step
+
+    n_micro = 4
+    mesh = make_mesh(MeshPlan(pp=n), device=dev.type)
+    full = st_llama()
+    cfg8 = dataclasses.replace(full, n_layers=TRAIN_DEPTH)
+    B, T = 8, ST_T["C"]
+    st_flash_check(f"sharded C rank {rank}", B // n_micro, T, full.n_heads,
+                   full.n_kv_heads, dev)
+    toks, tgts = st_tokens(full.vocab_size, B, T, dev, ST_SEED + 3)
+
+    def piped(cfg):
+        return make_train_step(
+            lambda p, t: pipelined_llama_forward(p, cfg, t, mesh, n_micro),
+            remat=False, mesh=mesh)
+
+    want = st_oracle(rank, lambda p, t: llama_forward_nocache(p, cfg8, t),
+                     llama_init(cfg8, 0, dev) if rank == 0 else None, toks,
+                     tgts)
+    params = shard_params(llama_init(cfg8, 0, dev), mesh, llama_param_specs())
+    got = st_first(piped(cfg8), params, toks, tgts)
+    held = st_held(rank, f"C pp={n}", got, want, card, TRAIN_DEPTH)
+    del params
+    torch.cuda.empty_cache()
+    params = shard_params(llama_init(full, 0, dev), mesh, llama_param_specs())
+    torch.cuda.empty_cache()
+    flops = train_flops(full, full.param_count(), B, T)
+    # every rank runs its stage at each of the n_micro + pp - 1 steps
+    r = st_steps(rank, n, f"C pp={n}", piped(full), params, toks, tgts,
+                 ST_STEPS, flops, card,
+                 (n_micro + n - 1) * full.n_layers // n)
+    # the bubble: the pipeline's forward against the n_micro stage calls
+    # of real microbatches, each stage call timed inside the pipeline
+    # (CUDA events around it, on the stream the pipeline runs on)
+    stage = st_stage_fn(full, mesh)
+    spans = []
+
+    def timed_stage(layers, h):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        h = stage(layers, h)
+        end.record()
+        spans.append((start, end))
+        return h
+
+    x = torch.randn((n_micro, B // n_micro, T, full.dim), device=dev,
+                    dtype=params["final_norm"].dtype)
+    pp = axis_of(mesh, "pp")
+    with torch.no_grad():
+        pipe_ms = time_events(lambda: gpipe(timed_stage, params["layers"], x,
+                                            pp), ST_BUBBLE_ITERS)
+    spans = spans[n_micro + n - 1:]     # time_events' own warm call
+    stage_ms = sum(a.elapsed_time(b) for a, b in spans) / len(spans)
+    bubble = 1.0 - n_micro * stage_ms / pipe_ms
+    exchange = 1.0 - (n_micro + n - 1) * stage_ms / pipe_ms
+    ideal = (n - 1) / (n_micro + n - 1)
+    st_log(rank, f"sharded C bubble: pipeline forward {pipe_ms:.2f}ms, a "
+           f"stage call inside it {stage_ms:.2f}ms (mean of {len(spans)}), "
+           f"bubble 1 - {n_micro} x stage / pipeline = {bubble:.4f} against "
+           f"(pp-1)/(n_micro+pp-1) = {ideal:.4f}; outside the "
+           f"{n_micro + n - 1} stage calls (exchanges, input select) "
+           f"{exchange:.4f} of the pipeline [{card}]", all_ranks=True)
+    st_summary(rank, f"C gpipe llama3-8b {full.n_layers}L pp={n} {n_micro} "
+               f"microbatches B={B} T={T} remat off", r, card)
+    del params, x
+    return {**r, **held, "bubble": bubble, "bubble_ideal": ideal,
+            "pipe_ms": pipe_ms, "stage_ms": stage_ms, "exchange": exchange}
+
+
+def st_ring(rank: int, n: int, dev, card: str) -> dict:
+    """D: ring over sp = n, Llama-3-8B at TRAIN_DEPTH layers, B=1, T=8192
+    (8192 / n a rank), remat off, ST_RING_STEPS steps; its first loss held
+    to the single card's flash forward at the same T (forward only: the
+    single card's backward at T=8192 recomputes [32, 8192, 8192] f32
+    scores a layer)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache, llama_init
+    from gofr_tpu_torch.parallel import MeshPlan, make_mesh, make_sp_forward
+    from gofr_tpu_torch.train import cross_entropy_loss, make_train_step
+
+    mesh = make_mesh(MeshPlan(sp=n), device=dev.type)
+    cfg = dataclasses.replace(st_llama(), n_layers=TRAIN_DEPTH)
+    B, T = 1, ST_T["D"]
+    toks, tgts = st_tokens(cfg.vocab_size, B, T, dev, ST_SEED + 4)
+    params = llama_init(cfg, 0, dev)
+    want = None
+    if rank == 0:
+        with torch.no_grad():
+            want = (float(cross_entropy_loss(
+                llama_forward_nocache(params, cfg, toks), tgts)), 0.0)
+        torch.cuda.empty_cache()
+    dist.barrier()
+    r = st_steps(rank, n, f"D ring sp={n}", make_train_step(
+        make_sp_forward(cfg, mesh, attn="ring"), remat=False, mesh=mesh),
+        params, toks, tgts, ST_RING_STEPS, train_flops(
+            cfg, cfg.param_count(), B, T), card, 0)
+    held = st_held(rank, f"D ring sp={n}", (r["loss"][0], 0.0), want, card,
+                   TRAIN_DEPTH, grad=False)
+    st_summary(rank, f"D ring llama3-8b {TRAIN_DEPTH}L sp={n} B={B} T={T} "
+               f"remat off (ring attends in plain PyTorch, as the "
+               f"reference's _block_attend)", r, card)
+    del params
+    return {**r, **held}
+
+
+def st_rank(rank: int, n: int, port: int, out, device=None) -> None:
+    """One process of --sharded-train: rank `rank` of an n-rank NCCL job
+    joined through the JAX_* keys (cuda:rank; device="cpu": a gloo job on
+    the CPU, for a rehearsal), phases A to D, then the teardown with
+    monotonic stamps; its results (or its traceback) on `out`."""
+    try:
+        import os
+
+        # the phases hold 55-65 GiB a card in tensors of many sizes
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        import torch
+        import torch.distributed as dist
+
+        from gofr_tpu_torch.config import as_config
+        from gofr_tpu_torch.parallel.multihost import (initialize_from_config,
+                                                       leave)
+        from gofr_tpu_torch.tpu.device import card_info
+
+        initialize_from_config(as_config({
+            "JAX_COORDINATOR_ADDR": f"127.0.0.1:{port}",
+            "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank),
+            "JAX_COORDINATOR_TIMEOUT_S": "300"}), device=device)
+        dev = (torch.device("cuda", rank) if device is None
+               else torch.device(device))
+        card = card_info().splitlines()[rank]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res = {}
+        for name, fn in (("A", st_dense), ("B", st_moe), ("C", st_gpipe),
+                         ("D", st_ring)):
+            t0 = time.monotonic()
+            res[name] = fn(rank, n, dev, card)
+            res[name]["seconds"] = time.monotonic() - t0
+            st_log(rank, f"sharded phase {name}: {res[name]['seconds']:.1f}s "
+                   f"[{card}]")
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        stamps = []
+
+        def stamp(step):
+            stamps.append((step, round(time.monotonic() - t0, 3)))
+            st_log(rank, f"teardown: {step} t={time.monotonic():.3f}",
+                   all_ranks=True)
+
+        stamp("barrier")
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stamp("destroy_process_group")
+        leave()
+        stamp("process group destroyed")
+        res["teardown"] = stamps
+        out.put((rank, True, res))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        import traceback
+
+        out.put((rank, False, traceback.format_exc()))
+
+
+def sharded_train_mode(dev, card: str) -> dict:
+    """--sharded-train: with n >= 2 cards, one process a card (st_rank),
+    phases A-D; every rank must report and exit 0 within ST_LEAVE_S of
+    its report (joined, not killed, unless past the bound). With one card:
+    the world-of-one check (sharded_short) alone."""
+    import multiprocessing as mp
+    import os
+    import queue
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("sharded-train: one card visible; phases A-D need n >= 2 cards "
+            "(NCCL runs one rank a card); the world-of-one check only")
+        sharded_short(dev, card)
+        return {}
+    require(8 % n == 0, f"sharded-train: {n} cards; the phases' meshes "
+            f"need n to divide 8")
+    for r in range(n):
+        try:
+            os.remove(os.path.join(ST_LOG_DIR, f"rank{r}.log"))
+        except OSError:
+            pass
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=st_rank, args=(r, n, port, out),
+                         name=f"sharded-rank-{r}") for r in range(n)]
+    t0 = time.monotonic()
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.monotonic() + ST_LIMIT_S
+    try:
+        while len(results) < n:
+            require(time.monotonic() < deadline, f"sharded-train: ranks "
+                    f"{sorted(set(range(n)) - set(results))} did not report "
+                    f"within {ST_LIMIT_S:.0f}s")
+            try:
+                rank, ok, value = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and not p.is_alive()]
+                require(not dead, f"sharded-train: rank {dead} died "
+                        f"(exit {[procs[r].exitcode for r in dead]})")
+                continue
+            require(ok, f"sharded-train: rank {rank} failed:\n{value}")
+            results[rank] = (value, time.monotonic())
+        t_join = time.monotonic()
+        for p in procs:
+            p.join(timeout=max(0.1, t_join + ST_LEAVE_S - time.monotonic()))
+        codes = [p.exitcode for p in procs]
+        exit_s = time.monotonic() - t_join
+        log(f"sharded-train teardown: every rank left the job and exited "
+            f"{codes} within {exit_s:.1f}s of the last report (bound "
+            f"{ST_LEAVE_S:.0f}s); per rank (step, s after its last phase): "
+            f"{json.dumps({r: results[r][0]['teardown'] for r in results})}"
+            f" [{card}]")
+        require(codes == [0] * n, f"sharded-train: exit codes {codes}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    log(f"sharded-train: {n} ranks, {time.monotonic() - t0:.1f}s")
+    return {r: v for r, (v, _) in results.items()}
+
+
+def sharded_short(dev, card: str) -> int:
+    """The default run's short phase: a one-rank NCCL job at CUT_DEPTH
+    layers of Llama-3-8B (flash), B=1, T=512: flash against its plain
+    version at that shape (st_flash_check); the sharded step on the
+    all-ones mesh (make_mesh_forward, mesh=) against make_train_step's
+    unsharded step from the same weights, bit for bit over 2 steps (every
+    metric and every leaf; both under torch.use_deterministic_algorithms,
+    warn_only); the pipelined forward at pp=1 (2 microbatches,
+    B=2) against the plain forward's logits. Returns the sharded step's
+    flash launches."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch import tree
+    from gofr_tpu_torch.models.llama import (LlamaConfig,
+                                             llama_forward_nocache, llama_init)
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.parallel import (llama_param_specs, make_mesh_forward,
+                                         pipelined_llama_forward, shard_params)
+    from gofr_tpu_torch.train import make_train_step
+
+    t0 = time.monotonic()
+    mesh = join_world_of_one()
+    try:
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layers=CUT_DEPTH,
+                                  attn_impl="flash")
+        # the step's and the pipelined forward's microbatch's shape
+        st_flash_check("sharded short", 1, 512, cfg.n_heads, cfg.n_kv_heads,
+                       dev)
+        toks, tgts = st_tokens(cfg.vocab_size, 1, 512, dev, ST_SEED + 5)
+        runs = {}
+        # deterministic kernels: the embedding's backward accumulates the
+        # rows of repeated ids, in any order by default
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for name in ("sharded", "plain"):
+            params = llama_init(cfg, 0, dev)
+            if name == "sharded":
+                params = shard_params(params, mesh, llama_param_specs())
+                init, step = make_train_step(make_mesh_forward(cfg, mesh),
+                                             mesh=mesh)
+            else:
+                init, step = make_train_step(
+                    lambda p, t: llama_forward_nocache(p, cfg, t))
+            state = init(params)
+            launch_counts.zero()
+            metrics = []
+            for _ in range(2):
+                params, state, m = step(params, state, toks, tgts)
+                metrics.append({k: v.clone() for k, v in m.items()})
+            runs[name] = (metrics, params,
+                          launch_counts.counts()["flash_attention"])
+            del state
+        torch.use_deterministic_algorithms(False)
+        (ms, ps, launches), (mp_, pp_, plain_launches) = (runs["sharded"],
+                                                         runs["plain"])
+        same_metrics = all(torch.equal(a[k], b[k])
+                           for a, b in zip(ms, mp_) for k in a)
+        leaves = list(zip(tree.leaves(ps), tree.leaves(pp_)))
+        same = sum(torch.equal(a, b) for a, b in leaves)
+        log(f"sharded short: world of one (NCCL), {CUT_DEPTH} layers B=1 "
+            f"T=512, 2 steps: sharded vs unsharded metrics bit-equal="
+            f"{same_metrics} (loss {float(ms[-1]['loss']):.6f}), "
+            f"{same}/{len(leaves)} leaves bit-equal; flash launches "
+            f"{launches} (unsharded {plain_launches}) [{card}]")
+        require(same_metrics and same == len(leaves),
+                "sharded short: the world-of-one step is not the unsharded "
+                "step bit for bit")
+        require(launches == 2 * 2 * CUT_DEPTH, f"sharded short: {launches} "
+                f"flash launches, want {4 * CUT_DEPTH}")
+        del runs, ps, pp_, leaves
+        torch.cuda.empty_cache()
+        params = llama_init(cfg, 0, dev)
+        toks2, _ = st_tokens(cfg.vocab_size, 2, 512, dev, ST_SEED + 6)
+        with torch.no_grad():
+            got = pipelined_llama_forward(
+                shard_params(params, mesh, llama_param_specs()), cfg, toks2,
+                mesh, 2)
+            want = llama_forward_nocache(params, cfg, toks2)
+        gap = float((got - want).abs().max())
+        equal = float((got == want).float().mean())
+        log(f"sharded short: pipelined forward at pp=1 (2 microbatches, B=2 "
+            f"T=512) against the plain forward: max_abs_diff={gap:.4f} (tol "
+            f"{MODEL_TOL}) bit-equal share={equal:.6f} [{card}]")
+        require(gap <= MODEL_TOL, "sharded short: the pipelined forward "
+                "left the plain one")
+        del params, got, want
+        torch.cuda.empty_cache()
+    finally:
+        leave_job()
+    log(f"sharded short phase: {time.monotonic() - t0:.1f}s")
+    return launches
 
 
 def flash_only(dev, card) -> None:
@@ -7683,8 +8458,10 @@ def main(argv=()) -> int:
     phase 13 (elastic_phase), ending with the ok line. --train: build,
     then phase 14 (train_phase); --models: build, then phase 15
     (models_phase), each ending with the ok line; --parallel: build, then
-    phase 16 (parallel_mode), ending with the ok line. The other short
-    modes print no ok line."""
+    phase 16 (parallel_mode; ``--parallel e``: its (e) alone), ending with
+    the ok line; --sharded-train: build, then phase 17
+    (sharded_train_mode), ending with the ok line. The other short modes
+    print no ok line."""
     import dataclasses
 
     import torch
@@ -7693,10 +8470,11 @@ def main(argv=()) -> int:
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
                     "--weights", "--spec", "--openai", "--obs", "--faults",
                     "--qos", "--elastic", "--train", "--models",
-                    "--parallel"):
+                    "--parallel", "--sharded-train"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
             f"--sc, --weights, --spec, --openai, --obs, --faults, --qos, "
-            f"--elastic, --train, --models, --parallel or none)")
+            f"--elastic, --train, --models, --parallel [e], --sharded-train "
+            f"or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -7734,11 +8512,13 @@ def main(argv=()) -> int:
             decode_only(dev, card)
             log(f"decode only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode in ("--train", "--models", "--parallel"):
+        if mode in ("--train", "--models", "--parallel", "--sharded-train"):
             if mode == "--train":
                 train_phase(dev, card)
             elif mode == "--parallel":
-                parallel_mode(dev, card)
+                parallel_mode(dev, card, only_e=argv[1:2] == ["e"])
+            elif mode == "--sharded-train":
+                sharded_train_mode(dev, card)
             else:
                 models_phase(dev, card, 64, "base")
             log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
@@ -7930,6 +8710,12 @@ def main(argv=()) -> int:
         # the TP path on a one-rank NCCL mesh and the sp=1 forwards, short
         # (--parallel runs them in full)
         parallel_short(dev, card)
+        # the sharded step in a world of one against the unsharded step
+        # (--sharded-train runs the sharded paths on n cards); its flash
+        # launches join the kernels line
+        sharded_launches = sharded_short(dev, card)
+        kernels[0]["launches"] += sharded_launches
+        kernels[0]["sharded_launches"] = sharded_launches
         log(f"total: {time.monotonic() - t_all:.1f}s")
     except Exception as exc:  # noqa: BLE001 - any phase failing fails the run
         import traceback

@@ -70,8 +70,20 @@ the rank's block of the program over the rank's block of the params
 - under llama_param_specs' vocab-sharded ``tok_emb``, a masked local
   gather then an all-reduce (``_embed``); the serving specs replicate it.
 
-With no tp axis (a LlamaConfig) nothing changes. The collectives are
-forward only (the sharded training step waits in ROADMAP A14b).
+With no tp axis (a LlamaConfig) nothing changes.
+
+The same places issue the conjugate pairs of parallel/collectives.py, so
+a loss through a sharded forward (the sharded training step, ROADMAP A14b)
+gets the reference's gradients: a
+``copy_to`` over tp ahead of the column-parallel products (``wq``/``wk``/
+``wv`` on the attention norm's output, ``w_gate``/``w_up`` on the FFN
+norm's, ``lm_head`` on the final norm's: ``_tp_in``), ``reduce_from``
+after ``wo`` / ``w_down`` and after the vocab-sharded embedding gather
+(only this rank's rows get a gradient), and ``gather_from`` for the
+``lm_head`` all-gather (backward: this rank's vocab slice). Under
+``no_grad`` (serving, and every graph it captures) each falls back to the
+forward-only collective above; the int8 path has no backward and calls
+the forward-only ones itself.
 
 Speculative verify and chunked prefill (ROADMAP A10): ``llama_verify_step``
 and ``llama_verify_step_paged`` (the window [tokens | drafts] in one
@@ -99,7 +111,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import all_gather, all_reduce
+from ..parallel.collectives import (all_reduce, copy_to, gather_from,
+                                    reduce_from)
 from ..tpu.device import resolve_device
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -359,6 +372,13 @@ def _tp(cfg):
     return getattr(cfg, "tp", None)
 
 
+def _tp_in(x, cfg):
+    """x as the input of column-parallel products: under a tp axis,
+    copy_to over tp (the gradient of x is partial on each rank)."""
+    tp = _tp(cfg)
+    return x if tp is None else copy_to(x, tp)
+
+
 def _mm_rows(x, tree, name, cfg):
     """x @ tree[name] for a row-parallel weight (wo, w_down): under a tp
     axis the contraction is this rank's block, and the partial products are
@@ -367,7 +387,7 @@ def _mm_rows(x, tree, name, cfg):
     if w.dtype == torch.int8:
         return _q_matmul(x, w, tree[name + "_s"], axis=tp)
     out = x @ w
-    return out if tp is None else all_reduce(out, tp)
+    return out if tp is None else reduce_from(out, tp)
 
 
 def _embed(params, cfg: LlamaConfig, tokens):
@@ -387,7 +407,8 @@ def _embed(params, cfg: LlamaConfig, tokens):
         scale = params["tok_emb_s"][tokens]
         e = (e.float() * scale[..., None]).to(DTYPES[cfg.dtype])
     if sharded:
-        e = all_reduce(torch.where(inside[..., None], e, 0).to(e.dtype), tp)
+        e = reduce_from(torch.where(inside[..., None], e, 0).to(e.dtype),
+                        tp)
     return e
 
 
@@ -398,9 +419,9 @@ def _head(x, params, cfg=None):
     if w.dtype == torch.int8:
         out = _q_matmul(x, w, params["lm_head_s"], out_dtype=torch.float32)
     else:
-        out = (x @ w).float()
+        out = (_tp_in(x, cfg) @ w).float()
     tp = _tp(cfg)
-    return out if tp is None else all_gather(out, tp)
+    return out if tp is None else gather_from(out, tp)
 
 
 def _quantize_leaf(w, axis: int):
@@ -554,7 +575,7 @@ def _attention_block(x, layer, k_cache_l, v_cache_l, positions,
 
 
 def _ffn_block(x, layer, cfg: LlamaConfig):
-    normed = rms_norm(x, layer["ffn_norm"], cfg.rms_eps)
+    normed = _tp_in(rms_norm(x, layer["ffn_norm"], cfg.rms_eps), cfg)
     gate = F.silu(_mm(normed, layer, "w_gate"))
     up = _mm(normed, layer, "w_up")
     return _mm_rows(gate * up, layer, "w_down", cfg)
@@ -1149,7 +1170,7 @@ def _attention_block_nocache(x, layer, positions, cfg: LlamaConfig,
 
     B, T, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    normed = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+    normed = _tp_in(rms_norm(x, layer["attn_norm"], cfg.rms_eps), cfg)
     q = rope(_mm(normed, layer, "wq").reshape(B, T, H, dh), positions,
              cfg.rope_theta)
     k = rope(_mm(normed, layer, "wk").reshape(B, T, Hkv, dh), positions,
@@ -1189,6 +1210,15 @@ def llama_forward_nocache(params, cfg: LlamaConfig, tokens):
     sequence chunk: its positions start at sp index * T, and attention
     reads the K/V of every chunk, all-gathered over sp
     (parallel/longcontext.gathered_attention)."""
+    positions, attn_fn = nocache_positions(cfg, tokens)
+    return forward_nocache_at(params, cfg, tokens, positions, attn_fn)
+
+
+def nocache_positions(cfg: LlamaConfig, tokens):
+    """(positions [B, T], attn_fn) of a cache-free forward over `tokens`:
+    [0, T) and the default attention, or under a ShardConfig with an sp
+    axis this rank's chunk's absolute positions and the K/V gathered over
+    sp (llama_forward_nocache's docstring). Shared with the MoE forward."""
     B, T = tokens.shape
     sp = getattr(cfg, "sp", None)
     start, attn_fn = 0, None
@@ -1198,4 +1228,4 @@ def llama_forward_nocache(params, cfg: LlamaConfig, tokens):
         start = sp.rank * T
         attn_fn = lambda q, k, v: gathered_attention(q, k, v, sp)  # noqa: E731
     positions = (start + torch.arange(T, device=tokens.device)).expand(B, T)
-    return forward_nocache_at(params, cfg, tokens, positions, attn_fn)
+    return positions, attn_fn

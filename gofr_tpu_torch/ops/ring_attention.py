@@ -19,6 +19,14 @@ Pallas kernel is on this path. Differentiable: autograd traces the loop,
 and ppermute's backward is the inverse permutation. The reference rotates
 after every step, the last included (the rotated block is dropped); here
 the last rotation is not made, which changes no value.
+
+With grad enabled each block's attention is checkpointed
+(``torch.utils.checkpoint``, non-reentrant): autograd keeps the block's
+inputs and its (numerator, max, sum) and recomputes the f32 scores and
+probabilities in the backward, where eager PyTorch would keep ~2 GB of
+them a block and a layer at 2048 queries and keys a rank (Llama-3-8B's 32
+heads); XLA fuses them away in the reference. The block holds no
+collective, so the recompute adds none.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..parallel.collectives import Axis, ppermute
 
@@ -79,8 +88,13 @@ def ring_attention(q, k, v, axis: Axis):
         kv_chunk = (my_chunk - s) % sp
         mask = (full_mask if kv_chunk < my_chunk else
                 local_mask if kv_chunk == my_chunk else none_mask)
-        num, m_blk, l_blk, valid = _block_attend(q, k_blk, v_blk, scale,
-                                                 mask)
+        if torch.is_grad_enabled():
+            num, m_blk, l_blk, valid = checkpoint(
+                _block_attend, q, k_blk, v_blk, scale, mask,
+                use_reentrant=False)
+        else:
+            num, m_blk, l_blk, valid = _block_attend(q, k_blk, v_blk, scale,
+                                                     mask)
         # online-softmax merge (flash recurrence) in [B,Hkv,G,Tq] space
         m_new = torch.maximum(m_run, torch.where(valid, m_blk, -math.inf))
         m_new_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

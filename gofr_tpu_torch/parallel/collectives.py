@@ -15,16 +15,45 @@ program, so every collective is written out, here, on a
   concatenated on one dim, the last by default): the Megatron collectives
   of the forward, issued on the current stream, so that they are captured
   into a CUDA graph with the program around them (tpu/executor.py). They
-  are
-  forward only: the sharded training step and its conjugate backward
-  collectives wait in ROADMAP A14b.
+  are forward only: serving runs under ``no_grad`` and captures them.
+- The conjugate pairs of the training step (Megatron's f and g), each an
+  ``autograd.Function`` whose collectives are issued on the current stream
+  too. The reference gets them from XLA's partitioner, which transposes
+  every collective it inserts; models/llama.py, models/moe.py,
+  parallel/longcontext.py and parallel/pipeline.py call them at every
+  site. With grad disabled (serving, and every graph it captures) each
+  falls back to the forward-only collective above (``copy_to`` to x
+  itself), so the serving forward issues, and counts, exactly the
+  all-reduces and all-gathers it issued before:
+
+  - ``copy_to``: identity forward, sum all-reduce backward (the input of a
+    column-parallel product, replicated over the axis, whose gradient is
+    partial on each rank);
+  - ``reduce_from``: sum all-reduce forward, identity backward (a
+    row-parallel product's partial sums, or a sum over the data axes whose
+    gradient each rank takes for its own share);
+  - ``gather_from``: all-gather on a dim forward; backward this rank's
+    slice (``grad="slice"``: the column-parallel ``lm_head``, whose
+    consumer is replicated over the axis) or a sum reduce-scatter
+    (``grad="sum"``: the sequence-parallel K/V gather, where every rank's
+    queries read every rank's keys);
+  - ``replicate_from``: the reference's ``psum(where(rank == src, x, 0))``
+    that ends ``gpipe``: the forward broadcasts src's x (the same sum: the
+    other ranks add zeros), the backward keeps the gradient on src alone
+    (the consumer is replicated over the axis, so its gradient is the
+    same on every rank and src's x is the one that reached it).
 - ``ppermute`` and ``all_to_all``: the sequence-parallel exchanges, each an
   ``autograd.Function`` whose backward is the inverse exchange
   (``jax.lax.ppermute``'s transpose is the inverse permutation, and a tiled
   ``all_to_all``'s is the all-to-all with the two axes swapped), so ring
   and Ulysses attention are differentiable as the reference's are.
 
-``COUNTS`` counts the host calls of each collective. A captured graph
+``COUNTS`` counts the host calls of each collective, and the applies of
+each conjugate with grad enabled (``copy_to``, ``reduce_from``,
+``gather_from``, ``replicate_from``); a conjugate's collective counts under
+its own name
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``broadcast``) when it
+is issued, in the forward or the backward. A captured graph
 replays what its capture issued, so the calls made while one program runs
 eagerly are the collectives of each of its replays (``counting``).
 """
@@ -150,3 +179,112 @@ def all_to_all(x: torch.Tensor, axis: Axis, split_dim: int,
     split_dim, block j sent to index j, the blocks received concatenated on
     concat_dim in index order. Differentiable."""
     return _AllToAll.apply(x, axis, split_dim, concat_dim)
+
+
+# -- the conjugate pairs of the training step (the module docstring) ---------
+
+def _summed(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """A new tensor: x summed over `axis`."""
+    return all_reduce(x.clone(memory_format=torch.contiguous_format), axis)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.axis), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return _summed(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _reduce_scatter(g: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """g summed over `axis`, then this rank's block of `dim`."""
+    COUNTS["reduce_scatter"] += 1
+    g = g.movedim(dim, 0).contiguous()
+    out = torch.empty((g.shape[0] // axis.size, *g.shape[1:]),
+                      dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, g, group=axis.group)
+    return out.movedim(0, dim)
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, grad):
+        ctx.args = (axis, dim % x.dim(), x.shape[dim % x.dim()], grad)
+        return all_gather(x, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, n, grad = ctx.args
+        if grad == "slice":
+            return g.narrow(dim, axis.rank * n, n), None, None, None
+        return _reduce_scatter(g, axis, dim), None, None, None
+
+
+class _ReplicateFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, src):
+        ctx.keep = axis.rank == src
+        COUNTS["broadcast"] += 1
+        out = (x.clone(memory_format=torch.contiguous_format) if ctx.keep
+               else torch.empty_like(x, memory_format=torch.contiguous_format))
+        dist.broadcast(out, _global(axis, src), group=axis.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None, None
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Identity forward; the gradient summed over `axis` (Megatron's f).
+    With grad disabled, x itself."""
+    if not torch.is_grad_enabled():
+        return x
+    COUNTS["copy_to"] += 1
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """x summed over `axis` (a new tensor); the gradient passed through
+    as it is (Megatron's g). With grad disabled, all_reduce: x summed in
+    place."""
+    if not torch.is_grad_enabled():
+        return all_reduce(x, axis)
+    COUNTS["reduce_from"] += 1
+    return _ReduceFrom.apply(x, axis)
+
+
+def gather_from(x: torch.Tensor, axis: Axis, dim: int = -1,
+                grad: str = "slice") -> torch.Tensor:
+    """The ranks' x concatenated on `dim` in rank order; the gradient is
+    this rank's slice of the output's (grad="slice") or the output's
+    summed over `axis`, then sliced (grad="sum", a reduce-scatter). With
+    grad disabled, all_gather."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"grad must be slice or sum, got {grad!r}")
+    if not torch.is_grad_enabled():
+        return all_gather(x, axis, dim=dim)
+    COUNTS["gather_from"] += 1
+    return _GatherFrom.apply(x, axis, dim, grad)
+
+
+def replicate_from(x: torch.Tensor, axis: Axis, src: int) -> torch.Tensor:
+    """The reference's psum(where(rank == src, x, 0)) over `axis`: src's x
+    on every rank; the gradient kept on src, zero elsewhere (the module
+    docstring)."""
+    if torch.is_grad_enabled():
+        COUNTS["replicate_from"] += 1
+    return _ReplicateFrom.apply(x, axis, src)

@@ -22,14 +22,21 @@ same function serves a long-context training step.
 forward (models/llama.llama_forward_nocache under a ShardConfig with an sp
 axis): the K/V of every chunk all-gathered over sp, then causal attention
 of this chunk's queries, what XLA inserts for the reference under
-``batch_spec()`` annotations (gofr_tpu/parallel/sharding.py).
+``batch_spec()`` annotations (gofr_tpu/parallel/sharding.py). The
+gather's backward is a sum reduce-scatter over sp
+(collectives.gather_from), XLA's transpose of that all-gather.
+
+Under the sharded training step (train.make_train_step with ``mesh=``)
+``make_sp_forward``'s forward gets the global batch and returns this
+rank's logits block; the step sums the replicated parameters' gradients
+over dp and sp.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .collectives import all_gather
+from .collectives import gather_from
 from .mesh import axis_of, axis_size
 
 
@@ -41,8 +48,10 @@ def gathered_attention(q, k, v, axis):
     read."""
     from ..ops.flash_attention import attention_reference
 
-    k_all = all_gather(k, axis, dim=1)
-    v_all = all_gather(v, axis, dim=1)
+    # every rank's queries read this chunk's K/V: the gradient of the
+    # gathered K/V is summed over sp, then split (a reduce-scatter)
+    k_all = gather_from(k, axis, dim=1, grad="sum")
+    v_all = gather_from(v, axis, dim=1, grad="sum")
     S = (axis.rank + 1) * q.shape[1]
     return attention_reference(q, k_all[:, :S], v_all[:, :S], causal=True)
 

@@ -22,6 +22,13 @@ itself (parallel/collectives.py, models/llama.py). ``shard_config`` gives
 the matching rank-local config (models/llama.ShardConfig: this rank's head
 counts, and the tp / sp axes the model functions reduce over).
 
+``mesh_llama_forward`` (``make_mesh_forward`` binds it for a training step)
+is the forward the reference's jitted step partitions from those
+placements: the global batch in, this rank's block of it run under
+``shard_config`` (the Megatron collectives and their conjugates in
+models/llama.py, the expert split in models/moe.py), this block's logits
+out.
+
 ``gofr_tpu/parallel/compat.py`` (a shim over JAX releases' ``shard_map``
 spellings) has no counterpart: nothing here depends on a JAX version.
 """
@@ -202,8 +209,12 @@ def shard_config(cfg, mesh, sp: bool = False):
     """The rank-local config of `cfg` under `mesh`
     (models/llama.ShardConfig): n_heads and n_kv_heads divided by |tp|
     (whole heads per rank; ValueError unless tp divides both), the tp axis,
-    and with sp=True the sp axis (the mesh forward's K/V all-gather)."""
+    and with sp=True the sp axis (the mesh forward's K/V all-gather). A
+    MoELlamaConfig gives a models/moe.MoEShardConfig, with the ep axis
+    (ValueError unless ep divides n_experts) and the data axes (dp, sp) of
+    size > 1, over which its aux loss takes the batch means."""
     from ..models.llama import ShardConfig
+    from ..models.moe import MoELlamaConfig, MoEShardConfig
     from .mesh import axis_of, axis_size
 
     tp = axis_size(mesh, "tp")
@@ -211,8 +222,45 @@ def shard_config(cfg, mesh, sp: bool = False):
         raise ValueError(
             f"tp={tp} must divide n_kv_heads={cfg.n_kv_heads} and "
             f"n_heads={cfg.n_heads} (whole heads per shard)")
-    base = {f.name: getattr(cfg, f.name)
-            for f in dataclasses.fields(cfg) if f.name not in ("tp", "sp")}
+    base = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name not in ("tp", "sp", "ep", "data")}
     base.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp)
-    return ShardConfig(**base, tp=axis_of(mesh, "tp"),
-                       sp=axis_of(mesh, "sp") if sp else None)
+    axes = dict(tp=axis_of(mesh, "tp"),
+                sp=axis_of(mesh, "sp") if sp else None)
+    if not isinstance(cfg, MoELlamaConfig):
+        return ShardConfig(**base, **axes)
+    ep = axis_size(mesh, "ep")
+    if cfg.n_experts % ep:
+        raise ValueError(f"ep={ep} must divide n_experts={cfg.n_experts}")
+    data = tuple(axis_of(mesh, a) for a in ("dp", "sp")
+                 if axis_size(mesh, a) > 1)
+    return MoEShardConfig(**base, **axes, ep=axis_of(mesh, "ep"), data=data)
+
+
+def mesh_llama_forward(params, cfg, tokens, mesh):
+    """The reference's annotation-sharded training forward on this rank:
+    llama_forward_nocache (or moe_llama_forward_nocache for a
+    MoELlamaConfig) over params placed by shard_params (llama_param_specs)
+    and a batch placed by batch_spec, which XLA partitions for the
+    reference. tokens: the GLOBAL [B, T] batch, the same on every rank;
+    this rank runs its [B/dp, T/sp] block under shard_config(cfg, mesh)
+    (the K/V gathered over sp when |sp| > 1) and returns that block's
+    logits [B/dp, T/sp, V] f32 (and the aux loss for a MoE)."""
+    from ..models.llama import llama_forward_nocache
+    from ..models.moe import MoELlamaConfig, moe_llama_forward_nocache
+    from .mesh import axis_size
+
+    local = local_block(tokens, mesh, batch_spec())
+    lcfg = shard_config(cfg, mesh, sp=axis_size(mesh, "sp") > 1)
+    if isinstance(cfg, MoELlamaConfig):
+        return moe_llama_forward_nocache(params, lcfg, local)
+    return llama_forward_nocache(params, lcfg, local)
+
+
+def make_mesh_forward(cfg, mesh):
+    """Bind (cfg, mesh) into a forward_fn(params, tokens) for the sharded
+    training step (train.make_train_step with mesh=)."""
+    def forward(params, tokens):
+        return mesh_llama_forward(params, cfg, tokens, mesh)
+
+    return forward

@@ -1,4 +1,4 @@
-"""Training step: causal-LM loss + AdamW, on one device.
+"""Training step: causal-LM loss + AdamW, on one device or sharded.
 
 Ports ``gofr_tpu/train/__init__.py``: ``cross_entropy_loss`` (optax's
 ``softmax_cross_entropy_with_integer_labels``, in f32, masked as the
@@ -22,7 +22,37 @@ whole forward: the backward recomputes it, so a flash forward
 per step. The step writes the updated values into the parameter tensors in
 place (the counterpart of donating them), returns the same tree, and reads
 nothing back to the host: its metrics are 0-d tensors on the device.
-Sharding (the reference's dp / tp / pp / ep placement) waits in ROADMAP A14b.
+
+Sharded (ROADMAP A14b): ``make_train_step(..., mesh=mesh)``. The reference
+shards by placement and lets XLA partition one jitted step; here every rank
+runs the step on its own blocks (``parallel/sharding.shard_params``), and
+the step is the reference's step over the global batch:
+
+- ``train_step`` takes the GLOBAL batch, the same on every rank, as the
+  reference's global arrays. ``forward_fn(params, tokens)`` gets it too and
+  returns this rank's logits block [B/dp, T/sp, V] (the forwards of
+  ``parallel/``: ``sharding.make_mesh_forward``,
+  ``longcontext.make_sp_forward``, ``pipeline.pipelined_llama_forward``);
+  the step cuts targets and mask to the same block (``batch_spec``).
+- The loss is the global mean: each rank's sum of its positions' losses
+  (masked) is summed over the data axes (dp, sp) by ``reduce_from``, over
+  the global count (the mask's sum over the same axes, at least 1): with a
+  mask, sum over sum across ranks, not the mean of the ranks' means. Every
+  rank holds the global loss; its gradient is this rank's share.
+- ``reduce_gradients`` sums every leaf's gradient over dp and sp (no leaf
+  is split over them), one all-reduce a leaf, so every rank then holds
+  the full gradient of its blocks (tp, pp and ep gradients come out of the
+  conjugate collectives of the forward).
+- ``grad_norm`` is ``optax.global_norm`` of the whole tree: each leaf's
+  squares weighted by its blocks over the world size (the product of the
+  sizes of the axes its spec in ``llama_param_specs(moe=has_aux_loss)``
+  splits it over), summed over the world in one all-reduce, so a split
+  leaf counts each block once and a replicated leaf once.
+- AdamW runs on each rank's blocks in place, as on one device.
+- Remat checkpoints the whole forward as on one device; its recompute
+  issues the forward's collectives again, in the same order on every rank.
+
+On a mesh whose axes are all 1 the step is the unsharded one, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,15 +65,20 @@ from torch.utils.checkpoint import checkpoint
 from .. import tree as tree_util
 
 
-def cross_entropy_loss(logits, targets, mask=None):
-    """logits: [B, T, V] (taken in f32); targets: [B, T] int; mask: [B, T]
-    (1 = count). The mean per-position loss over the counted positions."""
+def _position_losses(logits, targets):
+    """optax.softmax_cross_entropy_with_integer_labels, [B, T] f32."""
     logits = logits.float()
     # optax's order: shift by the (gradient-free) max, take the label's
     # logit, subtract it from the log of the shifted exponentials' sum
     shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
     label_logits = shifted.gather(-1, targets.long()[..., None])[..., 0]
-    losses = torch.log(torch.exp(shifted).sum(dim=-1)) - label_logits
+    return torch.log(torch.exp(shifted).sum(dim=-1)) - label_logits
+
+
+def cross_entropy_loss(logits, targets, mask=None):
+    """logits: [B, T, V] (taken in f32); targets: [B, T] int; mask: [B, T]
+    (1 = count). The mean per-position loss over the counted positions."""
+    losses = _position_losses(logits, targets)
     if mask is None:
         return losses.mean()
     mask = mask.to(losses.dtype)
@@ -122,9 +157,92 @@ def global_norm(tree) -> torch.Tensor:
                           for g in tree_util.leaves(tree)))
 
 
+def reduce_gradients(grads: list, axes) -> None:
+    """Sum each gradient of the list over each axis of `axes`, in place
+    (a non-contiguous one replaced by its contiguous copy first)."""
+    from ..parallel.collectives import all_reduce
+
+    for i, g in enumerate(grads):
+        grads[i] = g.contiguous()
+        for axis in axes:
+            all_reduce(grads[i], axis)
+
+
+def _spec_leaves(specs, params) -> list:
+    """The spec of every leaf of `params`, in flattening order."""
+    if isinstance(params, dict):
+        return [spec for k in sorted(params)
+                for spec in _spec_leaves(specs[k], params[k])]
+    return [specs]
+
+
+class _MeshPlan:
+    """What the sharded step needs of the mesh: the data axes (dp, sp) of
+    size > 1, the world size, and each leaf's number of blocks under its
+    spec."""
+
+    def __init__(self, mesh, specs, params):
+        from ..parallel.mesh import AXES, axis_of, axis_size
+
+        self.mesh = mesh
+        self.data = [axis_of(mesh, a) for a in ("dp", "sp")
+                     if axis_size(mesh, a) > 1]
+        self.world = 1
+        for a in AXES:
+            self.world *= axis_size(mesh, a)
+        self.blocks = []
+        for spec in _spec_leaves(specs, params):
+            n = 1
+            for a in spec:
+                n *= 1 if a is None else axis_size(mesh, a)
+            self.blocks.append(n)
+
+    def local(self, x):
+        """This rank's block of a global [B, T] batch tensor."""
+        from ..parallel.sharding import batch_spec, local_block
+
+        return local_block(x, self.mesh, batch_spec())
+
+    def loss(self, logits, targets, mask):
+        """The global mean loss over the data axes (the module
+        docstring), from this rank's block of the batch."""
+        if not self.data:
+            return cross_entropy_loss(logits, targets, mask)
+        from ..parallel.collectives import all_reduce, reduce_from
+
+        losses = _position_losses(logits, targets)
+        if mask is None:
+            num = losses.sum()
+            den = torch.full((), float(losses.numel()),
+                             device=losses.device)
+        else:
+            mask = mask.to(losses.dtype)
+            num = (losses * mask).sum()
+            den = mask.sum()
+        for axis in self.data:
+            num = reduce_from(num, axis)
+            den = all_reduce(den.detach().clone(), axis)
+        return num / torch.clamp(den, min=1.0)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """optax.global_norm of the whole (global) tree from this rank's
+        blocks (the module docstring)."""
+        if self.world == 1:
+            return global_norm(grads)
+        import torch.distributed as dist
+
+        from ..parallel.collectives import COUNTS
+
+        sq = sum(torch.sum(g.float() * g.float()) * (n / self.world)
+                 for g, n in zip(tree_util.leaves(grads), self.blocks))
+        COUNTS["all_reduce"] += 1
+        dist.all_reduce(sq)
+        return torch.sqrt(sq)
+
+
 def make_train_step(forward_fn: Callable, optimizer=None,
                     has_aux_loss: bool = False, aux_weight: float = 0.01,
-                    remat: bool = True):
+                    remat: bool = True, mesh=None):
     """Build (init_opt_state, train_step).
 
     forward_fn(params, tokens) -> logits, or (logits, aux_loss) when
@@ -132,9 +250,29 @@ def make_train_step(forward_fn: Callable, optimizer=None,
     ``update`` pair (default: adamw(3e-4, weight_decay=0.01, b1=0.9,
     b2=0.95), the reference's). train_step(params, opt_state, tokens,
     targets, mask=None) -> (params, opt_state, metrics dict), the params
-    tree the one passed in, its tensors updated in place."""
+    tree the one passed in, its tensors updated in place.
+
+    mesh: a parallel.make_mesh mesh: the sharded step of the module
+    docstring; params are this rank's blocks under
+    llama_param_specs(moe=has_aux_loss) (parallel.shard_params); tokens,
+    targets and mask the global batch.
+
+    ``train_step.loss_and_grads(params, tokens, targets, mask=None)``
+    gives (loss, aux_loss, total_loss, grads) as the step computes them
+    (on a mesh after the dp / sp reduction), without the update."""
     if optimizer is None:
         optimizer = adamw(3e-4, weight_decay=0.01, b1=0.9, b2=0.95)
+    plans = {}
+
+    def plan_of(params):
+        if mesh is None:
+            return None
+        if "plan" not in plans:
+            from ..parallel.sharding import llama_param_specs
+
+            plans["plan"] = _MeshPlan(
+                mesh, llama_param_specs(moe=has_aux_loss), params)
+        return plans["plan"]
 
     def fwd(params, tokens):
         if remat:
@@ -144,7 +282,11 @@ def make_train_step(forward_fn: Callable, optimizer=None,
     def init_opt_state(params):
         return optimizer.init(params)
 
-    def train_step(params, opt_state, tokens, targets, mask=None):
+    def loss_and_grads(params, tokens, targets, mask=None):
+        plan = plan_of(params)
+        if plan is not None:
+            targets = plan.local(targets)
+            mask = None if mask is None else plan.local(mask)
         leaves = tree_util.leaves(params)
         # autograd leaves over the parameters' own storage
         live = [p.detach().requires_grad_() for p in leaves]
@@ -156,20 +298,32 @@ def make_train_step(forward_fn: Callable, optimizer=None,
                 logits = out
                 aux = torch.zeros((), dtype=torch.float32,
                                   device=logits.device)
-            loss = cross_entropy_loss(logits, targets, mask)
+            loss = (cross_entropy_loss(logits, targets, mask) if plan is None
+                    else plan.loss(logits, targets, mask))
             total = loss + aux_weight * aux if has_aux_loss else loss
             grads = torch.autograd.grad(total, live, allow_unused=True)
-        grads = tree_util.unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
         del live, out, logits
-        grad_norm = global_norm(grads)
+        if plan is not None and plan.data:
+            reduce_gradients(grads, plan.data)
+        return (loss.detach(), aux.detach(), total.detach(),
+                tree_util.unflatten(params, grads))
+
+    def train_step(params, opt_state, tokens, targets, mask=None):
+        loss, aux, total, grads = loss_and_grads(params, tokens, targets,
+                                                 mask)
+        plan = plan_of(params)
+        grad_norm = (global_norm(grads) if plan is None
+                     else plan.global_norm(grads))
         with torch.no_grad():
             updates, opt_state = optimizer.update(grads, opt_state, params)
-            for p, u in zip(leaves, tree_util.leaves(updates)):
+            for p, u in zip(tree_util.leaves(params),
+                            tree_util.leaves(updates)):
                 p.add_(u)
         return params, opt_state, {
-            "loss": loss.detach(), "aux_loss": aux.detach(),
-            "total_loss": total.detach(), "grad_norm": grad_norm}
+            "loss": loss, "aux_loss": aux, "total_loss": total,
+            "grad_norm": grad_norm}
 
+    train_step.loss_and_grads = loss_and_grads
     return init_opt_state, train_step

@@ -72,6 +72,9 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
             "gofr_tpu_torch.ops.ring_attention",
             "gofr_tpu_torch.ops.ulysses",
             "gofr_tpu_torch.tpu.admission"} <= set(mods)
+    # sharded training: GPipe beside the step and the conjugate collectives
+    assert {"gofr_tpu_torch.parallel.pipeline",
+            "gofr_tpu_torch.train"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -1,7 +1,15 @@
 """Port speculative decoding vs the JAX package (ROADMAP A10).
 
 - `propose_draft`: the port's native scan, the engine's Python scan and
-  `gofr_tpu.native.propose_draft` agree on histories drawn by hypothesis.
+  the reference's native scan agree on histories drawn by hypothesis. The
+  reference's scan is `gofr_tpu/native/gofr_native.cc`'s
+  `gn_propose_draft`, built by a module fixture into a directory of its
+  own with the reference loader's flags (tmp file, then rename) and bound
+  by ctypes as `gofr_tpu.native` binds it: that loader builds its library
+  in place from every process that imports it first, and one that loses
+  the race gives up for the whole process, so its `available()` may be
+  False under xdist. A second test shows the fixture's comparison runs
+  with the reference loader's `available()` forced False.
 - `spec_accept_epilogue` against JAX's on the same greedy continuations,
   drafts and controls ([B] and [B, 3]; partial drafts, draft_lens 0, junk
   rows): accepted counts, emit counts and greedy rows' tokens exact.
@@ -21,7 +29,10 @@
   CHUNK_PREFILL_TOKENS, with the reference's message).
 """
 
+import ctypes
 import dataclasses
+import os
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -125,15 +136,72 @@ def _python_scan(history, d):
     return eng._propose_draft(history)
 
 
+_I32P = ctypes.POINTER(ctypes.c_int32)
+
+
+@pytest.fixture(scope="module")
+def reference_scan(tmp_path_factory):
+    """The reference's native prompt-lookup scan as a function (history,
+    d) -> list, as `gofr_tpu.native.propose_draft` calls it, from a library
+    this fixture builds from the reference's source with its loader's
+    compiler and flags into a directory of its own: written to a tmp file,
+    then renamed into place, so no other process sees half a file."""
+    src = os.path.join(os.path.dirname(jnative.__file__), "gofr_native.cc")
+    out_dir = tmp_path_factory.mktemp("reference_native")
+    lib_path = out_dir / "libgofr_native.so"
+    tmp = out_dir / f"libgofr_native.so.{os.getpid()}.tmp"
+    subprocess.run([os.environ.get("CXX", "g++"), "-O3", "-std=c++17",
+                    "-fPIC", "-shared", "-o", str(tmp), src], check=True,
+                   capture_output=True, timeout=120)
+    os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.gn_propose_draft.restype = ctypes.c_int32
+    lib.gn_propose_draft.argtypes = [_I32P, ctypes.c_int32, ctypes.c_int32,
+                                     _I32P]
+
+    def scan(history, d):
+        # gofr_tpu/native/__init__.py's propose_draft, over this library
+        n = len(history)
+        if n < 3 or d <= 0:
+            return []
+        hist = np.ascontiguousarray(np.asarray(history, dtype=np.int32))
+        out = np.empty(d, dtype=np.int32)
+        count = lib.gn_propose_draft(hist.ctypes.data_as(_I32P), n, d,
+                                     out.ctypes.data_as(_I32P))
+        return out[:count].tolist()
+
+    return scan
+
+
+def _three_scans_agree(history, d, reference_scan):
+    assert native.available()
+    got = native.propose_draft(history, d)
+    assert got == _python_scan(history, d) == reference_scan(history, d)
+    assert len(got) <= d
+
+
 @settings(max_examples=200, deadline=None)
 @given(history=st.lists(st.integers(0, 5), max_size=40),
        d=st.integers(0, 6))
-def test_propose_draft_native_equals_python_and_jax(history, d):
-    assert native.available() and jnative.available()
-    got = native.propose_draft(history, d)
-    assert got == _python_scan(history, d) == jnative.propose_draft(history,
-                                                                    d)
-    assert len(got) <= d
+def test_propose_draft_native_equals_python_and_jax(history, d,
+                                                    reference_scan):
+    _three_scans_agree(history, d, reference_scan)
+
+
+def test_reference_scan_holds_without_the_reference_loader(
+        reference_scan, monkeypatch):
+    """With gofr_tpu.native's loader in the state of a process that lost
+    its build race (no library, the attempt spent), the comparison still
+    runs against the reference's scan, and still catches a scan that
+    differs."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_load_attempted", True)
+    assert not jnative.available()
+    history = [1, 2, 3, 1, 2, 4, 5, 1, 2]
+    assert reference_scan(history, 3) == [4, 5, 1]
+    _three_scans_agree(history, 3, reference_scan)
+    with pytest.raises(AssertionError):
+        _three_scans_agree(history, 3, lambda h, d: reference_scan(h, d)[:1])
 
 
 # -- spec_accept_epilogue ----------------------------------------------------

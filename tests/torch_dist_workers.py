@@ -304,3 +304,169 @@ def sp_suite(rank, world, data, np_params, cfg):
     except ValueError as exc:
         out["seq_refused"] = str(exc)
     return out
+
+
+# -- sharded training (test_torch_sharded_train.py, test_torch_gpipe.py) ------
+def _snapshot(tree):
+    """A numpy copy of `tree` (the step updates its tensors in place)."""
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    return np.array(tree.detach().cpu() if torch.is_tensor(tree) else tree)
+
+
+def _train_run(mesh, forward, np_params, batch, steps, has_aux=False,
+               remat=True):
+    """The sharded step (train.make_train_step with mesh=) on this rank's
+    blocks of np_params (shard_params under llama_param_specs(moe=has_aux))
+    and the global batch (tokens, targets, mask or None): the first step's
+    gradient blocks (loss_and_grads), then `steps` steps' metrics and
+    parameter blocks."""
+    from gofr_tpu_torch.parallel import llama_param_specs, shard_params
+    from gofr_tpu_torch.train import make_train_step
+
+    specs = llama_param_specs(moe=has_aux)
+    # a copy: the step updates in place, and shard_params keeps a leaf no
+    # axis splits as it is (over the numpy arrays' memory)
+    params = shard_params(_tree(_snapshot(np_params)), mesh, specs)
+    tokens, targets, mask = (None if x is None else torch.from_numpy(x)
+                             for x in batch)
+    tokens, targets = tokens.long(), targets.long()
+    init, step = make_train_step(forward, has_aux_loss=has_aux, remat=remat,
+                                 mesh=mesh)
+    *_, grads = step.loss_and_grads(params, tokens, targets, mask)
+    out = {"coords": _coords(mesh), "grads": _snapshot(grads),
+           "metrics": [], "params": []}
+    state = init(params)
+    for _ in range(steps):
+        params, state, metrics = step(params, state, tokens, targets, mask)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["params"].append(_snapshot(params))
+    return out
+
+
+def _mutated(run, mutation):
+    """run() with one fault of the sharded step put in: "no_dp" drops the
+    dp sum of the gradients, "tp_identity" puts an identity in place of
+    the tp copy (so its backward all-reduce is gone)."""
+    from gofr_tpu_torch import train
+    from gofr_tpu_torch.models import llama
+
+    real_reduce, real_copy = train.reduce_gradients, llama.copy_to
+    if mutation == "no_dp":
+        train.reduce_gradients = lambda grads, axes: real_reduce(
+            grads, [a for a in axes if a.name != "dp"])
+    else:
+        llama.copy_to = lambda x, axis: x
+    try:
+        return run()
+    finally:
+        train.reduce_gradients, llama.copy_to = real_reduce, real_copy
+
+
+def dense_train_suite(rank, world, np_params, cfg, batch, mask, steps):
+    """The dense twin at dp=2 x sp=2 x tp=2 (remat on, as the reference's
+    default): the unmasked run, the masked run, and the unmasked run's
+    first step under each mutation."""
+    from gofr_tpu_torch.parallel import MeshPlan, make_mesh, make_mesh_forward
+
+    mesh = make_mesh(MeshPlan(dp=2, sp=2, tp=2), device="cpu")
+    fwd = make_mesh_forward(cfg, mesh)
+
+    def run(mask=None, n=steps):
+        return _train_run(mesh, fwd, np_params, (*batch, mask), n)
+
+    out = {"plain": run(), "masked": run(mask)}
+    for mutation in ("no_dp", "tp_identity"):
+        out[mutation] = _mutated(lambda: run(n=1), mutation)
+    return out
+
+
+def moe_train_suite(rank, world, np_params, cfg, batch, steps):
+    """The MoE twin at dp=2 x ep=4 (remat on)."""
+    from gofr_tpu_torch.parallel import MeshPlan, make_mesh, make_mesh_forward
+
+    mesh = make_mesh(MeshPlan(dp=2, ep=4), device="cpu")
+    return _train_run(mesh, make_mesh_forward(cfg, mesh), np_params,
+                      (*batch, None), steps, has_aux=True)
+
+
+def sp_train_suite(rank, world, np_params, cfg, batch, steps):
+    """The sequence-parallel twins (remat off, as the reference's): ring at
+    sp=8 and Ulysses at dp=2 x sp=4 (sp divides the 4 query heads)."""
+    from gofr_tpu_torch.parallel import MeshPlan, make_mesh, make_sp_forward
+
+    out = {}
+    for attn, plan in (("ring", MeshPlan(sp=8)),
+                       ("ulysses", MeshPlan(dp=2, sp=4))):
+        mesh = make_mesh(plan, device="cpu")
+        out[attn] = _train_run(mesh, make_sp_forward(cfg, mesh, attn=attn),
+                               np_params, (*batch, None), steps,
+                               remat=False)
+    return out
+
+
+def one_rank_train(rank, world, np_params, cfg, batch, steps):
+    """A world of one: the sharded step on the all-ones mesh against the
+    unsharded step on the same weights and batch (every metric and leaf
+    after each step, for a bit-for-bit comparison), and the pipelined
+    forward at pp=1 against the plain forward."""
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+    from gofr_tpu_torch.parallel import (MeshPlan, make_mesh,
+                                         make_mesh_forward,
+                                         pipelined_llama_forward)
+    from gofr_tpu_torch.train import make_train_step
+
+    mesh = make_mesh(MeshPlan(), device="cpu")
+    tokens, targets = (torch.from_numpy(x).long() for x in batch)
+    runs = {}
+    # the embedding's backward accumulates repeated ids' rows in any order
+    # unless asked for deterministic kernels
+    torch.use_deterministic_algorithms(True)
+    for name, kw in (("sharded", dict(mesh=mesh)), ("plain", {})):
+        fwd = (make_mesh_forward(cfg, mesh) if kw else
+               (lambda p, t: llama_forward_nocache(p, cfg, t)))
+        params = _tree(_snapshot(np_params))
+        init, step = make_train_step(fwd, **kw)
+        state = init(params)
+        runs[name] = []
+        for _ in range(steps):
+            params, state, metrics = step(params, state, tokens, targets)
+            runs[name].append(({k: _np(v) for k, v in metrics.items()},
+                               _snapshot(params)))
+    torch.use_deterministic_algorithms(False)
+    with torch.no_grad():
+        params = _tree(np_params)
+        runs["piped"] = _np(pipelined_llama_forward(params, cfg, tokens,
+                                                    mesh, 2))
+        runs["plain_logits"] = _np(llama_forward_nocache(params, cfg,
+                                                         tokens))
+    return runs
+
+
+def gpipe_suite(rank, world, np_params, cfg, tokens, n_micro, steps):
+    """The GPipe twin at pp=4 x tp=2 (remat off, as the reference's):
+    this rank's logits of the pipelined forward, the sharded step's run
+    on (tokens[:, :-1], tokens[:, 1:]), and the refusal of a microbatch
+    count that does not divide the batch."""
+    from gofr_tpu_torch.parallel import (MeshPlan, llama_param_specs,
+                                         make_mesh, pipelined_llama_forward,
+                                         shard_params)
+
+    mesh = make_mesh(MeshPlan(pp=4, tp=2), device="cpu")
+    toks = torch.from_numpy(tokens).long()
+    params = shard_params(_tree(np_params), mesh, llama_param_specs())
+    with torch.no_grad():
+        logits = _np(pipelined_llama_forward(params, cfg, toks, mesh,
+                                             n_micro))
+    try:
+        pipelined_llama_forward(params, cfg, toks, mesh, n_micro - 1)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+
+    def fwd(p, t):
+        return pipelined_llama_forward(p, cfg, t, mesh, n_micro)
+
+    run = _train_run(mesh, fwd, np_params, (tokens[:, :-1], tokens[:, 1:],
+                                             None), steps, remat=False)
+    return {"logits": logits, "refused": refused, **run}
