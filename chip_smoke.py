@@ -18,8 +18,8 @@ with the utilization ledger beside it). ``--faults`` (build, then phase
 11), ``--qos`` (build, then phase 12), ``--elastic`` (build, then phase
 13), ``--train`` (build, then phase 14), ``--models`` (build, then phase
 15), ``--parallel`` (build, then phase 16; ``--parallel e``: its phase (e)
-alone) and ``--sharded-train`` (build, then phase 17) end with the ok
-line.
+alone), ``--sharded-train`` (build, then phase 17) and ``--loadgen``
+(build, then phase 18) end with the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -392,6 +392,30 @@ training's too (``train_launches``).
    (torch.profiler); the loss must fall; then every rank leaves the job
    (stamped) and exits 0 within ST_LEAVE_S. With one card: the
    world-of-one check below alone.
+
+18. the open-loop load client, the datasources, pub/sub and the QoS batch
+   lane (``--loadgen``, ``loadgen_phase``; ROADMAP A18b parts 1-3): the
+   main path's engine at full depth with WARMUP=wide, QOS=true,
+   PUBSUB_BACKEND=inproc, a sqlite DB_PATH and KV_ENABLED
+   (``loadgen_env``); /.well-known/health lists sql, kv and pubsub UP and
+   a handler's SQL and KV round trip answers; a closed burst of LG_BURST
+   arrivals measures the throughput; a seeded Poisson trace
+   (``loadgen.synthesize``: 3 zipf tenants, all three classes, session
+   reuse) at LG_RATE_SHARE of it through ``OpenLoopRunner`` against POST
+   /generate, every row ok with its full token count, the worst dispatch
+   lag within LG_LAG_SHARE of the mean gap, flash and paged-read launches
+   in the window, the scorecard's per-class TTFT p50 / p95, TPOT p50 and
+   goodput; the replica's GET /debug/trace replayed and compared (no check
+   but slo_met may regress); LG_JOBS greedy jobs through the batch lane
+   beside interactive streams (results in order, each before its commit,
+   none delivered twice, each held to the teacher-forced plain oracle
+   within MODEL_TOL), lane.stats(), app_tpu_qos_lane_depth and one crontab
+   tick of the drain kick; then the knee (``loadgen.run_knee``) from 0.3x
+   to LG_KNEE_UP x the throughput, polling /debug/capacity, which must
+   report ``agrees``. The default run runs it short after phase 10, at
+   CUT_DEPTH layers with WARMUP=true: 4 s of arrivals and 4 jobs, no
+   replay and no knee; its flash and paged-read launches join the kernels
+   JSON as ``loadgen_launches``.
 
 The default run ends, after them, with phase 16 in short
 (``parallel_short``): (a) at CUT_DEPTH layers (4 streams x 16 tokens, no
@@ -8416,6 +8440,412 @@ def sharded_short(dev, card: str) -> int:
     return launches
 
 
+# -- phase 18: the open-loop load client, the datasources, pub/sub and the
+# QoS batch lane (ROADMAP A18b parts 1-3) ------------------------------------
+LG_SEED = 15000          # prompt seeds no other phase uses
+LG_MAX_NEW = (16, 32)    # tokens an open-loop arrival asks for
+LG_WORDS = (2, 6)        # prompt_text words of a synthesized arrival
+LG_BURST = 16            # the closed burst that measures the throughput
+LG_RATE_SHARE = 0.35     # the open loop's rate, of the measured throughput
+LG_JOBS = 8              # batch-lane jobs (--loadgen; the default run: 4)
+LG_JOB_TOKENS = 16
+LG_JOB_CHARS = 120
+LG_KNEE_UP = 2.5         # the knee's last rate, of the measured throughput
+LG_LAG_SHARE = 0.5       # the worst dispatch lag, of the mean gap
+
+
+def loadgen_env(tmp: str, warm: str) -> dict:
+    """The main path's serve config with the QoS plane, the in-process
+    broker (and with it the batch lane), a sqlite SQL datasource and the
+    in-process KV store; the buckets reach 512 tokens (a replayed prompt is
+    its token count in words); SLO targets of 10 s / 1 s, so the ladder
+    acts only past the knee; the capacity forecaster's 4 s window and
+    rho warning at 0.5, as the reference's knee test sets them."""
+    return {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "MAX_BATCH": "8",
+            "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+            "PREFILL_BUCKETS": "16,32,64,128,256,512",
+            "REQUEST_TIMEOUT": "600", "WARMUP": warm, "QOS": "true",
+            "PUBSUB_BACKEND": "inproc", "DB_DIALECT": "sqlite",
+            "DB_PATH": f"{tmp}/datasource.db", "KV_ENABLED": "true",
+            "QOS_LANE_MAX_INFLIGHT": "4", "SLO_TTFT_TARGET_S": "10",
+            "SLO_TPOT_TARGET_S": "1", "CAPACITY_WINDOW_S": "4",
+            "CAPACITY_RHO_WARN": "0.5", "INCIDENT_DIR": f"{tmp}/incidents",
+            "PROFILE_DIR": f"{tmp}/profiles"}
+
+
+def lg_datasource_route(app) -> None:
+    """POST /lg/ds: a SQL and a KV round trip from a handler (ctx.sql,
+    ctx.kv)."""
+    @app.post("/lg/ds")
+    def ds(ctx):
+        body = ctx.bind()
+        ctx.sql.exec("CREATE TABLE IF NOT EXISTS lg (k TEXT, v TEXT)")
+        ctx.sql.exec("INSERT INTO lg VALUES (?, ?)", body["k"], body["v"])
+        ctx.kv.set("lg:" + body["k"], body["v"])
+        return {"sql": ctx.sql.query_row("SELECT v FROM lg WHERE k = ?",
+                                         body["k"])[0],
+                "kv": ctx.kv.get("lg:" + body["k"])}
+
+
+def lg_datasources(app, card: str) -> None:
+    health = get_json(app.http_port, "/.well-known/health")
+    up = {n: health["details"].get(n, {}).get("status")
+          for n in ("sql", "kv", "pubsub")}
+    status, _, body = post_json(app.http_port, "/lg/ds",
+                                {"k": "a", "v": "1"})
+    trip = (body or {}).get("data")
+    log(f"loadgen datasources: health {json.dumps(up)} (aggregate "
+        f"{health['status']}); a handler's SQL and KV round trip: {status} "
+        f"{json.dumps(trip)} [{card}]")
+    require(all(s == "UP" for s in up.values()),
+            f"datasources not UP in /.well-known/health: {up}")
+    require(status == 201 and trip == {"sql": "1", "kv": "1"},
+            f"the datasource round trip answered {status} {body}")
+
+
+def lg_events(rate: float, seconds: float, seed: int, short: bool):
+    import random
+
+    from gofr_tpu_torch.loadgen import poisson_arrivals, synthesize
+
+    arrivals = poisson_arrivals(rate, seconds, random.Random(seed))
+    return synthesize(arrivals, tenants=3, sessions=4, prompt_tokens=LG_WORDS,
+                      max_new=(8, 16) if short else LG_MAX_NEW, seed=seed)
+
+
+def lg_rows_ok(what: str, rows, events, rec=None, eos=None) -> None:
+    """Every arrival a row, every row ok with the tokens its event asked
+    for, or fewer where its stream ended at the tokenizer's EOS (the
+    server's stop token): each short row's count is the length of a
+    recorded stream (record_tokens) that ends at `eos`."""
+    by_i = {r["i"]: r for r in rows}
+    bad = [r for r in rows if r["status"] != "ok"]
+    short = [(i, by_i[i].get("tokens"), e["max_new"])
+             for i, e in enumerate(events)
+             if i in by_i and by_i[i].get("tokens") != e["max_new"]]
+    require(len(rows) == len(events), f"{what}: {len(rows)} rows for "
+            f"{len(events)} arrivals")
+    require(not bad, f"{what}: rows not ok: {bad[:3]}")
+    import collections
+
+    at_eos = collections.Counter(len(ids) for _, ids in (rec or {}).values()
+                                 if ids and ids[-1] == eos)
+    if short:
+        log(f"{what}: {len(short)} streams ended at EOS before their "
+            f"max_tokens: (arrival, tokens, asked) {short}")
+    require(not collections.Counter(n for _, n, _ in short) - at_eos,
+            f"{what}: (arrival, tokens, asked) short without an EOS: "
+            f"{short[:3]} (EOS-ended lengths {dict(at_eos)})")
+
+
+def lg_scorecard(what: str, rows, card: str) -> dict:
+    from gofr_tpu_torch.loadgen import build_scorecard
+
+    sc = build_scorecard(rows)
+    for cls, cell in sorted(sc["classes"].items()):
+        log(f"{what} scorecard {cls}: offered {cell['offered']} ok "
+            f"{cell['ok']} TTFT p50 {cell.get('ttft_ms_p50')} ms p95 "
+            f"{cell.get('ttft_ms_p95')} ms, TPOT p50 "
+            f"{cell.get('tpot_ms_p50')} ms, goodput {cell.get('goodput')} "
+            f"[{card}]")
+    return sc
+
+
+def lg_throughput(base: str, card: str, short: bool) -> float:
+    """A closed burst of LG_BURST arrivals at t=0: completions a second."""
+    from gofr_tpu_torch.loadgen import OpenLoopRunner
+
+    events = lg_events(1000.0, 1.0, LG_SEED, short)[:LG_BURST]
+    for e in events:
+        e["t"] = 0.0
+    rows = OpenLoopRunner(base, events, timeout_s=600.0, label="burst").run(
+        drain_timeout_s=600.0)
+    require(all(r["status"] == "ok" for r in rows), "burst rows not ok")
+    wall = max(r["done_t"] for r in rows)
+    thr = len(rows) / wall
+    toks = sum(r["tokens"] for r in rows)
+    log(f"loadgen throughput: a closed burst of {len(rows)} arrivals "
+        f"({toks} tokens) in {wall:.3f}s: {thr:.3f} requests/s, "
+        f"{toks / wall:.1f} tokens/s [{card}]")
+    return thr
+
+
+def lg_open_loop(app, engine, base: str, rate: float, seconds: float,
+                 card: str, short: bool) -> tuple:
+    """The seeded Poisson trace through OpenLoopRunner: every row ok with
+    its full count, the dispatch lag small against the gaps; returns
+    (rows, the recorder's last request id before the run)."""
+    from gofr_tpu_torch.loadgen import OpenLoopRunner
+
+    events = lg_events(rate, seconds, LG_SEED + 1, short)
+    before = max((r["id"] for r in engine.recorder.snapshot()["recent"]),
+                 default=-1)
+    emit = engine._emit_block
+    rec = record_tokens(engine)
+    t0 = time.monotonic()
+    runner = OpenLoopRunner(base, events, timeout_s=600.0, label="open")
+    try:
+        rows = runner.run(drain_timeout_s=600.0)
+    finally:
+        engine._emit_block = emit
+    wall = time.monotonic() - t0
+    lags = [a["lag_s"] for a in runner.arrivals()]
+    gap = seconds / max(1, len(events))
+    classes = sorted({e["class"] for e in events})
+    tenants = sorted({e["tenant"] for e in events})
+    reused = sum(1 for e in events if e.get("turn"))
+    log(f"loadgen open loop: {len(events)} Poisson arrivals at {rate:.3f}/s "
+        f"over {seconds}s (classes {classes}, tenants {tenants}, "
+        f"{reused} later turns of a session), wall {wall:.1f}s; dispatch "
+        f"lag worst {max(lags) * 1e3:.3f} ms, mean "
+        f"{sum(lags) / len(lags) * 1e3:.3f} ms against a mean gap of "
+        f"{gap * 1e3:.1f} ms [{card}]")
+    lg_rows_ok("loadgen open loop", rows, events, rec, engine.tokenizer.EOS)
+    require(len(classes) == 3 and len(tenants) >= 2,
+            f"the trace mixes classes {classes} and tenants {tenants}")
+    require(max(lags) <= LG_LAG_SHARE * gap,
+            f"dispatch lag {max(lags):.4f}s beyond {LG_LAG_SHARE} of the "
+            f"mean gap {gap:.4f}s")
+    lg_scorecard("loadgen open loop", rows, card)
+    return rows, before
+
+
+def lg_replay(base: str, port: int, rows_a, before: int, card: str) -> None:
+    """GET /debug/trace, the open loop's arrivals replayed, the scorecards
+    compared: no metric but slo_met may regress. The recorder keeps no
+    class or tenant, so the replay is unclassified and the first run is
+    scored the same way. The recorder counts a prompt in tokens, so the
+    replay's prompt is ``prompt_text`` cut to that many tokens of the
+    server's one-token-a-character tokenizer (its BOS included), where
+    ``prompt_text`` alone would make that many words."""
+    from gofr_tpu_torch.loadgen import (OpenLoopRunner,
+                                        baseline_from_scorecard,
+                                        build_scorecard, compare,
+                                        prompt_text)
+
+    doc = get_json(port, "/debug/trace")
+    events = [e for e in doc["events"] if e["seed"] > before]
+    t0 = min(e["t"] for e in events)
+    for e in events:
+        e["t"] = round(e["t"] - t0, 6)
+    require(len(events) == len(rows_a), f"the replica's trace holds "
+            f"{len(events)} of the open loop's {len(rows_a)} arrivals")
+    rows_b = OpenLoopRunner(
+        base, events, timeout_s=600.0, label="replay",
+        prompt_fn=lambda e: prompt_text(e)[:max(1, e["prompt_tokens"] - 1)]
+    ).run(drain_timeout_s=600.0)
+    require(all(r["status"] == "ok" for r in rows_b), "replay rows not ok")
+    flat = [dict(r, **{"class": None, "tenant": None}) for r in rows_a]
+    base_card = baseline_from_scorecard(build_scorecard(flat))
+    sc = lg_scorecard("loadgen replay", rows_b, card)
+    result = compare(sc, base_card)
+    for c in result["checks"]:
+        log(f"loadgen replay compare: {json.dumps(c)}")
+    drifted = [c for c in result["checks"]
+               if c.get("metric") != "slo_met" and c["verdict"] == "regress"]
+    log(f"loadgen replay: {len(events)} captured arrivals replayed, "
+        f"verdict {result['verdict']}, {len(drifted)} checks regress beyond "
+        f"slo_met [{card}]")
+    require(not drifted, f"the replay drifted: {drifted}")
+
+
+def lg_lane(app, engine, params, cfg, dev, base: str, rate: float,
+            n_jobs: int, card: str, short: bool) -> None:
+    """n_jobs greedy jobs on qos.batch.jobs while interactive streams run:
+    every result on qos.batch.results, each published before its job
+    commits and the jobs committed in order, nothing delivered twice, each
+    stream held to the teacher-forced plain oracle (MODEL_TOL, the
+    greedy_vs_oracle rule); then lane.stats(), the depth gauge and one
+    cron tick of the drain kick."""
+    from gofr_tpu_torch.loadgen import OpenLoopRunner
+
+    broker = app.container.pubsub
+    lane = engine.qos.lane
+    require(lane is not None, "QOS with a broker started no batch lane")
+    seen = []
+    publish, subscribe = broker.publish, broker.subscribe
+
+    def logged_publish(topic, message, key=""):
+        if topic == lane.result_topic:
+            seen.append(("result", json.loads(message).get("job_id")))
+        publish(topic, message, key)
+
+    def logged_subscribe(topic, group="default", timeout_s=None):
+        msg = subscribe(topic, group, timeout_s=timeout_s)
+        if msg is not None and topic == lane.topic:
+            job = json.loads(msg.value).get("job_id")
+            seen.append(("deliver", job))
+            commit = msg.commit
+
+            def logged_commit():
+                seen.append(("commit", job))
+                commit()
+            msg.commit = logged_commit
+        return msg
+    broker.publish, broker.subscribe = logged_publish, logged_subscribe
+    # a poll the lane began before the swap returns empty first
+    time.sleep(2 * lane.poll_s)
+    reqs = []
+    submit = engine.submit
+
+    def kept_submit(*a, **k):
+        request = submit(*a, **k)
+        if k.get("tenant") == "lane":
+            reqs.append(request)
+        return request
+    engine.submit = kept_submit
+    emit = engine._emit_block
+    rec = record_tokens(engine)
+    tok = engine.tokenizer
+    try:
+        events = [dict(e, **{"class": "interactive"}) for e in
+                  lg_events(rate, 4.0 if short else 8.0, LG_SEED + 2, short)]
+        runner = OpenLoopRunner(base, events, timeout_s=600.0, label="inter")
+        runner.start()
+        for i in range(n_jobs):
+            broker.publish(lane.topic, json.dumps({
+                "tokens": tok.encode(make_prompt(LG_JOB_CHARS + 10 * i,
+                                                 LG_SEED + 100 + i)),
+                "max_tokens": LG_JOB_TOKENS, "tenant": "lane",
+                "job_id": i}).encode())
+        results = {}
+        deadline = time.monotonic() + 600
+        while len(results) < n_jobs and time.monotonic() < deadline:
+            msg = subscribe(lane.result_topic, "smoke", timeout_s=0.5)
+            if msg is not None:
+                payload = json.loads(msg.value)
+                results[payload["job_id"]] = payload
+                msg.commit()
+        require(runner.join(timeout_s=600.0), "interactive streams hung")
+        inter = runner.rows()
+    finally:
+        broker.publish, broker.subscribe = publish, subscribe
+        engine.submit = submit
+        engine._emit_block = emit
+    require(sorted(results) == list(range(n_jobs)),
+            f"lane results {sorted(results)} of {n_jobs}: {lane.stats()}")
+    require(all(r["ok"] and r["tokens"] == LG_JOB_TOKENS
+                for r in results.values()), f"lane results not ok: "
+            f"{[r for r in results.values() if not r['ok']][:2]}")
+    jobs = [e for e in seen if e[0] in ("result", "commit")]
+    order = [(kind, i) for i in range(n_jobs) for kind in ("result",
+                                                           "commit")]
+    delivered = [j for kind, j in seen if kind == "deliver"]
+    require(jobs == order, f"lane: results and commits out of order: {jobs}")
+    require(delivered == list(range(n_jobs)),
+            f"lane: jobs delivered {delivered}")
+    require(subscribe(lane.topic, lane.group, timeout_s=0.2) is None,
+            "lane: a job delivered again after its commit")
+    require(len(reqs) == n_jobs, f"lane submitted {len(reqs)} requests")
+    gaps, exact = [], []
+    for request in reqs:
+        prompt, ids = rec[request.id]
+        g, e = oracle_gap(params, cfg, dev, list(prompt), ids)
+        gaps.append(g)
+        exact.append(e)
+    stats = lane.stats()
+    depth = scrape(app.metrics_port).get("app_tpu_qos_lane_depth")
+    ticks = lane.cron_ticks
+    app._cron._tick(time.localtime())
+    t_end = time.monotonic() + 10
+    while lane.cron_ticks == ticks and time.monotonic() < t_end:
+        time.sleep(0.01)
+    log(f"loadgen lane: {n_jobs} greedy jobs x {LG_JOB_TOKENS} tokens beside "
+        f"{len(inter)} interactive streams: results in order, commits in "
+        f"order, none delivered twice; against the teacher-forced plain "
+        f"oracle exact argmax at {min(exact):.3f}-{max(exact):.3f} of "
+        f"positions, largest gap {max(gaps):.3e} (tol {MODEL_TOL}); "
+        f"lane.stats() {json.dumps(stats)}; app_tpu_qos_lane_depth {depth}; "
+        f"cron kick ticks {ticks} -> {lane.cron_ticks} [{card}]")
+    require(all(r["status"] == "ok" for r in inter),
+            "interactive streams beside the lane not ok")
+    require(max(gaps) <= MODEL_TOL, "lane: a stream leaves the oracle's")
+    require(stats["completed"] == n_jobs and stats["failed"] == 0
+            and stats["rejected"] == 0, f"lane stats {stats}")
+    require(depth == 0.0, f"app_tpu_qos_lane_depth {depth}, want 0")
+    require(lane.cron_ticks > ticks, "the crontab's tick did not kick the "
+            "lane")
+
+
+def lg_knee(app, base: str, thr: float, seconds: float, card: str) -> None:
+    """run_knee from 0.3x to LG_KNEE_UP x the measured throughput, polling
+    /debug/capacity: forecast samples, and ``agrees`` (the warning at or
+    before the first measured TTFT blowout, or neither)."""
+    from gofr_tpu_torch.loadgen import run_knee
+
+    port = app.http_port
+    result = run_knee(
+        base, lambda: get_json(port, "/debug/capacity"),
+        rate0_rps=0.3 * thr, rate1_rps=LG_KNEE_UP * thr, seconds=seconds,
+        seed=LG_SEED + 3, poll_s=0.25, drain_timeout_s=600.0,
+        request_timeout_s=600.0,
+        synth_kw={"tenants": 3, "prompt_tokens": LG_WORDS,
+                  "max_new": LG_MAX_NEW})
+    outcomes = result["status"]["outcomes"]
+    log(f"loadgen knee: {result['ramp']['arrivals']} arrivals ramping "
+        f"{0.3 * thr:.3f} -> {LG_KNEE_UP * thr:.3f}/s over {seconds}s; "
+        f"outcomes {json.dumps(outcomes)}; {len(result['samples'])} forecast "
+        f"samples; quiet baseline TTFT {result['baseline_ttft_ms']} ms, "
+        f"blowout at {result['blowout_ttft_ms']} ms first by the arrival at "
+        f"t={result['first_blowout_at_s']}s, collapse warning at "
+        f"t={result['collapse_warning_at_s']}s, peak rho "
+        f"{result['peak_rho']}, replicas_needed "
+        f"{result['replicas_needed_final']}; agrees {result['agrees']} "
+        f"({result['detail']}) [{card}]")
+    require(result["samples"], "the knee got no forecast sample")
+    require(result["agrees"], f"the knee disagrees: {result['detail']}")
+
+
+def loadgen_phase(params, cfg, dev, card: str, short: bool = False) -> dict:
+    """Phase 18 (--loadgen; the default run: short): the main path's engine
+    booted with loadgen_env; the datasources' health and round trip, the
+    throughput of a closed burst, the open-loop run, its capture replayed
+    and compared, the batch lane beside interactive streams, and (full
+    mode) the knee. The launch counts are zeroed just before the burst and
+    read after the last run: {kernel: launches}."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.ops import launch_counts
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="gofr-loadgen-")
+    env = loadgen_env(tmp, "true" if short else "wide")
+    engine = build_engine(env, device=dev, params=params)
+    boot_line(engine, "paged loadgen", card)
+    app = build_app(env, engine=engine)
+    lg_datasource_route(app)
+    app.start()
+    base = f"http://127.0.0.1:{app.http_port}"
+    try:
+        lg_datasources(app, card)
+        launch_counts.zero()
+        thr = lg_throughput(base, card, short)
+        rate = LG_RATE_SHARE * thr
+        rows, before = lg_open_loop(app, engine, base, rate,
+                                    4.0 if short else 20.0, card, short)
+        window = launch_counts.counts()
+        log(f"loadgen open loop launches: {json.dumps(window)}")
+        require(window["flash_attention"] > 0 and
+                window["paged_attention"] > 0,
+                "the open loop launched no flash or paged read")
+        if not short:
+            lg_replay(base, app.http_port, rows, before, card)
+        lg_lane(app, engine, params, cfg, dev, base, rate,
+                4 if short else LG_JOBS, card, short)
+        if not short:
+            lg_knee(app, base, thr, 20.0, card)
+        launches = launch_counts.counts()
+    finally:
+        app.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"loadgen: phase 18 {time.monotonic() - t_all:.1f}s, launches "
+        f"{json.dumps(launches)}")
+    return launches
+
+
 def flash_only(dev, card) -> None:
     """--flash: the flash checks, then its times at the windows that test
     the design (one and two kv tiles, the served windows, long prompts)."""
@@ -8460,8 +8890,9 @@ def main(argv=()) -> int:
     (models_phase), each ending with the ok line; --parallel: build, then
     phase 16 (parallel_mode; ``--parallel e``: its (e) alone), ending with
     the ok line; --sharded-train: build, then phase 17
-    (sharded_train_mode), ending with the ok line. The other short modes
-    print no ok line."""
+    (sharded_train_mode), ending with the ok line; --loadgen: build, then
+    phase 18 (loadgen_phase), ending with the ok line. The other short
+    modes print no ok line."""
     import dataclasses
 
     import torch
@@ -8470,11 +8901,11 @@ def main(argv=()) -> int:
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
                     "--weights", "--spec", "--openai", "--obs", "--faults",
                     "--qos", "--elastic", "--train", "--models",
-                    "--parallel", "--sharded-train"):
+                    "--parallel", "--sharded-train", "--loadgen"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
             f"--sc, --weights, --spec, --openai, --obs, --faults, --qos, "
-            f"--elastic, --train, --models, --parallel [e], --sharded-train "
-            f"or none)")
+            f"--elastic, --train, --models, --parallel [e], --sharded-train, "
+            f"--loadgen or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -8528,7 +8959,8 @@ def main(argv=()) -> int:
                 "count": torch.cuda.device_count()}}), flush=True)
             return 0
         if mode not in ("--prefill", "--weights", "--spec", "--openai",
-                        "--obs", "--faults", "--qos", "--elastic"):
+                        "--obs", "--faults", "--qos", "--elastic",
+                        "--loadgen"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -8578,11 +9010,13 @@ def main(argv=()) -> int:
             profile_decode(eng, card, "paged")
             log(f"obs only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode in ("--faults", "--qos", "--elastic"):
+        if mode in ("--faults", "--qos", "--elastic", "--loadgen"):
             if mode == "--faults":
                 faults_phase(params, cfg, dev, card)
             elif mode == "--qos":
                 qos_mode_phase(params, cfg, dev, card)
+            elif mode == "--loadgen":
+                loadgen_phase(params, cfg, dev, card)
             else:
                 elastic_phase(params, cfg, dev, card)
             log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
@@ -8700,6 +9134,14 @@ def main(argv=()) -> int:
         spec_phase(cut, cut_cfg, dev, card)
         chunk_phase(cut, cut_cfg, dev, card)
         log(f"spec and chunk phases: {time.monotonic() - t0:.1f}s")
+        # the open-loop client, the datasources and the batch lane, short
+        # (--loadgen runs them at full depth with the replay and the
+        # knee); their flash and paged-read launches join the kernels line
+        loadgen = loadgen_phase(cut, cut_cfg, dev, card, short=True)
+        for kern in kernels:
+            if kern["name"] in ("flash_attention", "paged_attention"):
+                kern["launches"] += loadgen[kern["name"]]
+                kern["loadgen_launches"] = loadgen[kern["name"]]
         # training and the batcher servers, short (--train and --models run
         # them in full); training's flash launches join the kernels line
         del params, cut

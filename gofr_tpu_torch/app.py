@@ -33,14 +33,22 @@ The observability planes, with the reference's config keys and defaults
 ``PROFILE_DIR``), ``enable_fault_injection`` (``/debug/faults``, only under
 ``FAULT_INJECTION=true``), ``enable_incident_autopsy`` (``/debug/slo``,
 ``/debug/incidents``), ``enable_capacity`` (``/debug/capacity``) and
-``enable_qos`` (``/debug/qos``, the QoS plane; its batch lane waits with
-pub/sub); each returns what the reference's returns and stops its thread
+``enable_qos`` (``/debug/qos``, the QoS plane, with its batch lane when
+the container has a broker); each returns what the reference's returns and stops its thread
 on shutdown; ``enable_drain_migration`` (``POST /migrate``, ``POST|GET
 /debug/drain``, ``GET /debug/kvtier``, gated on ``DRAIN_MIGRATE``), and
 under ``DISAGG_MODE=both`` ``enable_flight_recorder`` gives the prefill
-pool its own recorder. Waiting in
-ROADMAP A18b: the auth middlewares, gRPC, cron, pub/sub subscriptions
-(and with them the QoS batch lane), static files and the OpenAPI routes.
+pool its own recorder.
+
+Pub/sub, cron and the document store, as in the reference
+(``gofr_tpu/app.py:733-782``, ``:884-885``, ``:912-913``): ``subscribe``
+(one consumer loop per topic, subscriber.py; a handler that returns
+commits its message, one that raises leaves it for redelivery; without
+a broker it logs and registers nothing), ``add_cron_job`` (a 5-field
+spec, cron.py) and ``add_document_store`` (the injected-provider
+pattern). ``start`` starts the subscriptions and the crontab and
+``shutdown`` stops them after the hooks. Waiting in ROADMAP A18b: the
+auth middlewares, gRPC, static files and the OpenAPI routes.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ from .http.request import Request
 from .http.responder import Responder, Response, Stream
 from .http.router import Router
 from .http.server import HTTPServer
+from .subscriber import SubscriptionManager
 
 __all__ = ["App", "Context", "Stream"]
 
@@ -122,6 +131,8 @@ class App:
         self._http_server: Optional[HTTPServer] = None
         self._metrics_server: Optional[HTTPServer] = None
         self._shutdown_hooks: list = []
+        self._subscriptions = SubscriptionManager(self.container)
+        self._cron = None
         # the default chain, in the reference's order
         self.router.use_middleware(
             mw.tracer_middleware(self.container.tracer),
@@ -466,11 +477,15 @@ class App:
         SLOTS (1), QOS_BATCH_PAGE_FRACTION (0.5), QOS_DEADLINE_{INTERACTIVE,
         STANDARD,BATCH}_S (0 = none), QOS_SHED_TRACKS ("ttft,tpot"),
         QOS_ESCALATE_HOLD_S / QOS_RECOVER_HOLD_S (5 / 10), QOS_EVAL_S (1.0),
-        QOS_SHED_RETRY_AFTER_S (2.0). The reference's batch lane
-        (QOS_LANE, QOS_LANE_CRON, QOS_LANE_MAX_INFLIGHT, QOS_BATCH_TOPIC,
-        QOS_BATCH_RESULT_TOPIC) needs a pub/sub broker (ROADMAP A18b), and
-        the reference starts it only with one. Returns the QoSController."""
-        from .tpu.qos import (QoSController, install_routes,
+        QOS_SHED_RETRY_AFTER_S (2.0). With a pub/sub broker on the container
+        and QOS_LANE (true), the batch lane (tpu/qos.BatchLane) feeds the
+        batch band from QOS_BATCH_TOPIC ("qos.batch.jobs"), publishes to
+        QOS_BATCH_RESULT_TOPIC ("qos.batch.results") with up to
+        QOS_LANE_MAX_INFLIGHT (4) jobs in the engine, and a cron job on
+        QOS_LANE_CRON ("* * * * *") kicks its drain; it rides on
+        ``controller.lane`` and stops at shutdown. Returns the
+        QoSController."""
+        from .tpu.qos import (BatchLane, QoSController, install_routes,
                               register_qos_metrics)
 
         cfg = self.config
@@ -503,6 +518,21 @@ class App:
         controller.start_eval_loop(cfg.get_float("QOS_EVAL_S", 1.0))
         self.on_shutdown(controller.stop)
         self.container.add_scrape_hook("qos", controller.publish)
+        broker = self.container.pubsub
+        if cfg.get_bool("QOS_LANE", True) and broker is not None:
+            lane = BatchLane(
+                engine, broker,
+                topic=cfg.get_or_default("QOS_BATCH_TOPIC", "qos.batch.jobs"),
+                result_topic=cfg.get_or_default("QOS_BATCH_RESULT_TOPIC",
+                                                "qos.batch.results"),
+                tokenizer=getattr(engine, "tokenizer", None),
+                max_inflight=cfg.get_int("QOS_LANE_MAX_INFLIGHT", 4),
+                metrics=metrics, logger=self.logger, controller=controller)
+            controller.lane = lane
+            lane.start()
+            self.on_shutdown(lane.stop)
+            self.add_cron_job(cfg.get_or_default("QOS_LANE_CRON", "* * * * *"),
+                              "qos-batch-lane-drain", lane.cron_drain)
         install_routes(self, controller, path)
         return controller
 
@@ -577,6 +607,38 @@ class App:
         install_migration_routes(self, engine, coordinator)
         return coordinator
 
+    # -- pub/sub, cron and the document store ----------------------------------
+    def subscribe(self, topic: str, handler: Optional[Handler] = None):
+        """Consume `topic` with handler(ctx) from start() on (ctx.bind()
+        reads the message's JSON). Also a decorator."""
+        if handler is None:
+            def decorator(fn: Handler) -> Handler:
+                self.subscribe(topic, fn)
+                return fn
+            return decorator
+        if self.container.get_subscriber() is None:
+            self.logger.error("pub/sub not configured; set PUBSUB_BACKEND")
+            return handler
+        self._subscriptions.register(topic, handler)
+        return handler
+
+    def add_cron_job(self, spec: str, name: str, fn: Handler) -> None:
+        """Run fn(ctx) each minute `spec` matches (cron.Schedule; raises
+        cron.CronParseError on a bad spec)."""
+        if self._cron is None:
+            from .cron import Crontab
+
+            self._cron = Crontab(self.container)
+        self._cron.add_job(spec, name, fn)
+
+    def add_document_store(self, store) -> None:
+        """Inject a document store: use_logger / use_metrics / connect,
+        then ``container.docstore``, in the aggregate health."""
+        store.use_logger(self.logger)
+        store.use_metrics(self.container.metrics_manager)
+        store.connect()
+        self.container.docstore = store
+
     # -- health ---------------------------------------------------------------
     def add_health_contributor(self, name: str,
                                check: Callable[[], Any]) -> None:
@@ -633,6 +695,9 @@ class App:
                                        self.logger)
         self._http_server.start()
         self.http_port = self._http_server.port
+        self._subscriptions.start()
+        if self._cron is not None:
+            self._cron.start()
         self.logger.infof("app %s started: http=:%d metrics=:%d",
                           self.container.app_name, self.http_port,
                           self.metrics_port)
@@ -657,6 +722,9 @@ class App:
                 hook()
             except Exception as exc:  # noqa: BLE001 - shutdown must proceed
                 self.logger.errorf("shutdown hook failed: %s", exc)
+        self._subscriptions.stop()
+        if self._cron is not None:
+            self._cron.stop()
         for server in (self._http_server, self._metrics_server):
             if server is not None:
                 server.shutdown()

@@ -21,10 +21,21 @@ join fails boot loudly instead of serving alone. The port calls it from
 ``serve.build_engine``, which knows the device (NCCL on the card, gloo
 when the caller asks for the CPU).
 
-Waiting in ROADMAP A18b: the datasources the reference builds from config
-(``sql``, ``kv``, ``pubsub``, ``docstore``), the HTTP services and the
-``REMOTE_LOG_URL`` level poller (``create`` refuses a set
-``REMOTE_LOG_URL``). The reference's ``tpu`` datasource (a device client
+The datasources, as the reference's ``create`` builds them from config
+(``gofr_tpu/container/__init__.py:84-119``): ``sql`` under ``DB_DIALECT``
+or ``DB_PATH`` (datasource/sql.py), ``kv`` under ``KV_STORE=redis`` (the
+gated Redis twin) or ``KV_ENABLED`` / any other ``KV_STORE`` (the
+in-process store), ``pubsub`` under ``PUBSUB_BACKEND`` (inproc | memory |
+file, or the gated kafka | mqtt | google adapters, whose missing driver is
+logged and leaves pub/sub None, as a bad backend name does), and
+``docstore`` (injected by ``App.add_document_store``). Each joins the
+aggregate ``health`` by name and is closed by ``close``;
+``get_publisher`` / ``get_subscriber`` return the broker.
+``new_mock_container`` is the reference's fully-faked container.
+
+Waiting in ROADMAP A18b: the HTTP services and the ``REMOTE_LOG_URL``
+level poller (``create`` refuses a set ``REMOTE_LOG_URL``). The
+reference's ``tpu`` datasource (a device client
 built under ``TPU_ENABLED`` / ``MODEL_NAME``) has no counterpart: the port's
 engines resolve their card themselves (``tpu/device.resolve_device``), and
 the engine's health reaches the aggregate as a contributor.
@@ -35,31 +46,18 @@ from __future__ import annotations
 import gc
 import threading
 import time
-from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Mapping, Optional, Union
 
-from ..config import Config, as_config
-from ..logging import Logger, new_logger, parse_level
+from ..config import Config, MockConfig, as_config
+from ..datasource import Health, STATUS_DEGRADED, STATUS_DOWN, STATUS_UP
+from ..logging import Level, Logger, MockLogger, new_logger, parse_level
 from ..metrics import Manager as MetricsManager
 from ..tracing import Tracer, exporter_from_config
 
+__all__ = ["Container", "Health", "STATUS_UP", "STATUS_DOWN",
+           "STATUS_DEGRADED", "new_mock_container"]
+
 FRAMEWORK = "0.1.0-dev"
-
-STATUS_UP = "UP"
-STATUS_DOWN = "DOWN"
-STATUS_DEGRADED = "DEGRADED"
-
-@dataclass
-class Health:
-    """A health contributor's report (the reference's
-    ``gofr_tpu.datasource.Health``)."""
-
-    status: str = STATUS_UP
-    details: Dict[str, Any] = field(default_factory=dict)
-
-    def to_dict(self) -> Dict[str, Any]:
-        return {"status": self.status, "details": self.details}
-
 
 # the reference's framework histogram buckets (seconds)
 HTTP_BUCKETS = (0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1, 3, 10, 30)
@@ -74,6 +72,10 @@ class Container:
             parse_level(config.get_or_default("LOG_LEVEL", "INFO")))
         self.metrics_manager: Optional[MetricsManager] = None
         self.tracer: Optional[Tracer] = None
+        self.sql = None
+        self.kv = None
+        self.pubsub = None
+        self.docstore = None
         # app-level components in the aggregate health report (the serving
         # engines register here)
         self._health_contributors: Dict[str, Callable[[], Any]] = {}
@@ -96,7 +98,7 @@ class Container:
         if config.get_or_default("REMOTE_LOG_URL", ""):
             raise ValueError("REMOTE_LOG_URL is not supported by "
                              "gofr_tpu_torch yet: the remote log-level "
-                             "poller waits in ROADMAP A18b")
+                             "poller waits in ROADMAP A18b part 5")
         c = cls(config)
         c.logger.debugf("container created for app %s", c.app_name)
         c.metrics_manager = MetricsManager(logger=c.logger)
@@ -110,7 +112,59 @@ class Container:
             # app_obs_dropped_spans_total (registered above)
             exporter.use_metrics(c.metrics_manager)
         c.tracer = Tracer(service_name=c.app_name, exporter=exporter)
+        c._build_datasources()
         return c
+
+    def _build_datasources(self) -> None:
+        """The reference's datasource switch: a datasource that cannot
+        start is logged and stays None (or DOWN in the health report),
+        never a failed boot."""
+        config = self.config
+        if (config.get_or_default("DB_DIALECT", "")
+                or config.get_or_default("DB_PATH", "")):
+            from ..datasource.sql import SQL
+            self.sql = SQL(config, self.logger, self.metrics_manager)
+
+        kv_backend = config.get_or_default("KV_STORE", "").lower()
+        if kv_backend == "redis":
+            from ..datasource.kvredis import RedisKVStore
+            self.kv = RedisKVStore(config, self.logger, self.metrics_manager)
+        elif config.get_bool("KV_ENABLED", False) or kv_backend:
+            from ..datasource.kvstore import KVStore
+            self.kv = KVStore(config, self.logger, self.metrics_manager)
+
+        backend = config.get_or_default("PUBSUB_BACKEND", "").lower()
+        if backend in ("inproc", "memory"):
+            from ..pubsub.inproc import InProcBroker
+            self.pubsub = InProcBroker(config, self.logger,
+                                       self.metrics_manager)
+        elif backend == "file":
+            from ..pubsub.filebroker import FileBroker
+            self.pubsub = FileBroker(config, self.logger,
+                                     self.metrics_manager)
+        elif backend in ("kafka", "mqtt", "google"):
+            # the external drivers resolve lazily; a missing one leaves
+            # pub/sub None and the boot goes on
+            try:
+                from ..pubsub import external
+                adapter = {"kafka": external.KafkaAdapter,
+                           "mqtt": external.MQTTAdapter,
+                           "google": external.GooglePubSubAdapter}[backend]
+                self.pubsub = adapter(config, self.logger,
+                                      self.metrics_manager)
+            except Exception as exc:  # noqa: BLE001
+                self.logger.errorf("could not initialise %s pub/sub: %s",
+                                   backend, exc)
+        elif backend:
+            self.logger.errorf("unsupported PUBSUB_BACKEND %r (bundled: "
+                               "inproc, file; external: kafka, mqtt, "
+                               "google); pub/sub disabled", backend)
+
+    def get_publisher(self):
+        return self.pubsub
+
+    def get_subscriber(self):
+        return self.pubsub
 
     def join_job(self, device=None, config: Optional[Config] = None):
         """Join the job of the config's JAX_COORDINATOR_ADDR (and the other
@@ -142,6 +196,9 @@ class Container:
         m.new_histogram("app_http_response", "http response time in seconds", HTTP_BUCKETS)
         m.new_histogram("app_http_service_response", "outbound http call time in seconds", HTTP_BUCKETS)
         m.new_histogram("app_sql_stats", "sql query time in seconds", SQL_BUCKETS)
+        # set by the SQL datasource, which the reference does not register
+        m.new_gauge("app_sql_open_connections", "open sql connections")
+        m.new_gauge("app_sql_queries_total", "sql statements run")
         m.new_histogram("app_kv_stats", "kv command time in seconds", KV_BUCKETS)
         m.new_histogram("app_doc_stats", "document store op time in seconds", SQL_BUCKETS)
         m.new_counter("app_pubsub_publish_total_count", "messages published")
@@ -191,6 +248,18 @@ class Container:
         }
         details: Dict[str, Any] = {}
         statuses = []
+        for name, source in (("sql", self.sql), ("kv", self.kv),
+                             ("pubsub", self.pubsub),
+                             ("docstore", self.docstore)):
+            if source is None:
+                continue
+            try:
+                h = source.health_check()
+            except Exception as exc:  # noqa: BLE001 - a broken probe is DOWN
+                h = Health(status=STATUS_DOWN, details={"error": str(exc)})
+            details[name] = h.to_dict() if isinstance(h, Health) else h
+            statuses.append(h.status if isinstance(h, Health)
+                            else h.get("status", STATUS_DOWN))
         for name, fn in self._health_contributors.items():
             try:
                 h = fn()
@@ -217,12 +286,39 @@ class Container:
         return out
 
     def close(self) -> None:
-        """Drain the async trace exporter: what is queued reaches the
-        collector."""
+        """Drain the async trace exporter first (what is queued reaches the
+        collector), then close the datasources."""
         tracer = self.tracer
         if tracer is not None and hasattr(tracer.exporter, "close"):
             try:
                 tracer.exporter.close()
             except Exception:  # noqa: BLE001
                 pass
+        for source in (self.sql, self.kv, self.pubsub, self.docstore):
+            if source is not None and hasattr(source, "close"):
+                try:
+                    source.close()
+                except Exception:  # noqa: BLE001
+                    pass
+
+
+def new_mock_container(config: Optional[Mapping[str, str]] = None
+                       ) -> Container:
+    """A container for handler unit tests, as the reference's: the real
+    shape over fakes, an in-memory SQL (sqlite ``:memory:``), the
+    in-process KV store and broker, and a capturing logger."""
+    from ..datasource.kvstore import KVStore
+    from ..datasource.sql import SQL
+    from ..pubsub.inproc import InProcBroker
+
+    cfg = MockConfig(dict(config or {}))
+    c = Container(cfg, logger=MockLogger(level=Level.DEBUG))
+    c.metrics_manager = MetricsManager(logger=c.logger)
+    c.register_framework_metrics()
+    c.tracer = Tracer(service_name="test")
+    c.sql = SQL(MockConfig({"DB_PATH": ":memory:"}), c.logger,
+                c.metrics_manager)
+    c.kv = KVStore(cfg, c.logger, c.metrics_manager)
+    c.pubsub = InProcBroker(cfg, c.logger, c.metrics_manager)
+    return c
 

@@ -3,14 +3,17 @@
 Counterpart of ``gofr_tpu/context.py`` (``Context``), cut to what the port's
 handlers use: ``request``, ``container``, ``responder``, ``span`` (the
 tracer middleware's server span), ``bind()``, the deadline
-(``remaining()``, on the monotonic clock) and ``logger``. The rest of the
-reference's passthroughs (``trace``, ``metrics``, the datasources' ``sql``,
-``kv``, ``pubsub``, ``publish``) wait with the container's datasources in
-ROADMAP A18b.
+(``remaining()``, on the monotonic clock) and ``logger``, and the
+reference's passthroughs to the request (``param``, ``path_param``,
+``host_name``) and to the container (``config``, ``sql``, ``kv``,
+``pubsub``, ``publish``). A pub/sub message and a cron tick
+are requests too (pubsub.Message, cron's empty request), so subscription
+and cron handlers take the same Context.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Any, Optional
 
@@ -25,8 +28,19 @@ class Context:
         self.deadline = deadline
         self.span = getattr(request, "span", None)
 
-    def bind(self) -> Any:
-        return self.request.bind()
+    def bind(self, target: Any = None) -> Any:
+        if target is None:
+            return self.request.bind()
+        return self.request.bind(target)
+
+    def param(self, key: str) -> str:
+        return self.request.param(key)
+
+    def path_param(self, key: str) -> str:
+        return self.request.path_param(key)
+
+    def host_name(self) -> str:
+        return self.request.host_name()
 
     def remaining(self) -> Optional[float]:
         """Seconds left before the request deadline; None when unbounded."""
@@ -37,3 +51,32 @@ class Context:
     @property
     def logger(self):
         return self.container.logger
+
+    @property
+    def config(self):
+        return self.container.config
+
+    @property
+    def sql(self):
+        return self.container.sql
+
+    @property
+    def kv(self):
+        return self.container.kv
+
+    @property
+    def pubsub(self):
+        return self.container.pubsub
+
+    def publish(self, topic: str, message: Any) -> None:
+        """Publish on the container's broker: a dict or list goes as JSON,
+        a str as UTF-8, bytes as they are."""
+        pub = self.container.get_publisher()
+        if pub is None:
+            raise RuntimeError("no pub/sub backend configured (set "
+                               "PUBSUB_BACKEND)")
+        if isinstance(message, (dict, list)):
+            message = json.dumps(message).encode()
+        elif isinstance(message, str):
+            message = message.encode()
+        pub.publish(topic, message)

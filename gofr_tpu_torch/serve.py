@@ -152,7 +152,11 @@ app_tpu_qos_* series), tuned by QOS_INTERACTIVE_RESERVED_SLOTS,
 QOS_BATCH_PAGE_FRACTION, QOS_DEADLINE_INTERACTIVE_S,
 QOS_DEADLINE_STANDARD_S, QOS_DEADLINE_BATCH_S, QOS_SHED_TRACKS,
 QOS_ESCALATE_HOLD_S, QOS_RECOVER_HOLD_S, QOS_EVAL_S and
-QOS_SHED_RETRY_AFTER_S (app.py). As in the reference's servers, neither
+QOS_SHED_RETRY_AFTER_S (app.py); with a pub/sub broker (PUBSUB_BACKEND)
+and QOS_LANE (true), the batch lane (tpu/qos.BatchLane) feeds the batch
+band from QOS_BATCH_TOPIC and publishes each result to
+QOS_BATCH_RESULT_TOPIC before it commits the job, up to
+QOS_LANE_MAX_INFLIGHT jobs at once, with a cron kick on QOS_LANE_CRON. As in the reference's servers, neither
 serves /debug/profile: ``App.enable_profiler`` is there for a harness that
 wants it.
 The KV tier, the disaggregated pair, the warm boot and drain with migration
@@ -167,15 +171,20 @@ submitter of both servers, with GET /debug/disagg; prefill or decode build
 one engine in that role), DISAGG_PREFILL_SLOTS (0: the twin gets
 MAX_BATCH), DISAGG_QUEUE_DEPTH (64) and DISAGG_HANDOFF_TIMEOUT_S (10, the
 stale reaper's), DISAGG_TRANSPORT (queue, the in-process hand-off queue;
-pubsub is refused, A18b), ELASTIC_WARM_BOOT (false; true: the server comes
+pubsub: over the container's broker, tpu/disagg.PubSubTransport, or the
+queue when PUBSUB_BACKEND gives none), ELASTIC_WARM_BOOT (false; true: the server comes
 up ``warming``, a thread captures, then the engine starts and /stats
 shows ``serving`` and ``warm_boot_s``), DRAIN_MIGRATE (true: POST /migrate, POST|GET
 /debug/drain and GET /debug/kvtier, tpu/migrate.py) and
-DRAIN_SHIP_TIMEOUT_S (60). The Redis cold tier (KV_REDIS_TIER=true, and
-with it KV_REDIS_TTL_S and the warm boot's pre-warm from
-ELASTIC_PREWARM_PEERS' /debug/kvtier, up to ELASTIC_PREWARM_PAGES pages,
-which loads pages only through that shared store) waits with the
-datasources in A18b.
+DRAIN_SHIP_TIMEOUT_S (60). KV_REDIS_TIER=true (under a host tier) chains
+a write-behind Redis cold tier (datasource/kvredis.py, REDIS_HOST /
+REDIS_PORT / REDIS_DB; entries expire after KV_REDIS_TTL_S, 0: never)
+below host RAM, and the warm boot pre-warms through it from
+ELASTIC_PREWARM_PEERS' /debug/kvtier, up to ELASTIC_PREWARM_PAGES (64)
+pages. The container's datasources, as in the reference: DB_DIALECT /
+DB_PATH (SQL), KV_STORE / KV_ENABLED (KV) and PUBSUB_BACKEND (inproc |
+file | kafka | mqtt | google), reached from a handler through ``ctx.sql``,
+``ctx.kv`` and ``ctx.pubsub`` and listed in /.well-known/health.
 FLEET_AFFINITY_BLOCK sizes the affinity digest of /stats. The peak
 overrides TPU_PEAK_FLOPS / TPU_PEAK_HBM_BW are read from the process
 environment, as the reference reads them (tpu/utilization.py).
@@ -272,11 +281,19 @@ PORTED = (
     "KV_HOST_TIER_BYTES", "CONVERSATION_PIN_S", "DISAGG_MODE",
     "DISAGG_PREFILL_SLOTS", "DISAGG_QUEUE_DEPTH", "DISAGG_HANDOFF_TIMEOUT_S",
     "ELASTIC_WARM_BOOT", "DRAIN_MIGRATE", "DRAIN_SHIP_TIMEOUT_S",
-    # the QoS plane (app_for, App.enable_qos)
+    # the Redis cold tier under the KV tier, the pair's pub/sub transport
+    # and the warm boot's pre-warm through the cold tier (build_engine)
+    "KV_REDIS_TIER", "KV_REDIS_TTL_S", "DISAGG_TRANSPORT",
+    "ELASTIC_PREWARM_PEERS", "ELASTIC_PREWARM_PAGES",
+    # the QoS plane and its batch lane (app_for, App.enable_qos)
     "QOS", "QOS_INTERACTIVE_RESERVED_SLOTS", "QOS_BATCH_PAGE_FRACTION",
     "QOS_DEADLINE_INTERACTIVE_S", "QOS_DEADLINE_STANDARD_S",
     "QOS_DEADLINE_BATCH_S", "QOS_SHED_TRACKS", "QOS_ESCALATE_HOLD_S",
     "QOS_RECOVER_HOLD_S", "QOS_EVAL_S", "QOS_SHED_RETRY_AFTER_S",
+    "QOS_LANE", "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT", "QOS_BATCH_TOPIC",
+    "QOS_BATCH_RESULT_TOPIC",
+    # the container's datasources (Container.create)
+    "DB_DIALECT", "DB_PATH", "KV_STORE", "KV_ENABLED", "PUBSUB_BACKEND",
     # the App's and its container's (app.py, container/, tracing/)
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
@@ -288,62 +305,28 @@ PORTED = (
 # where). Checked at boot: a key that asks for an unported feature fails
 # loudly instead of being served without it.
 NOT_PORTED = (
-    ("KV_REDIS_TIER",
-     lambda e: (_int(e, "KV_HOST_TIER_BYTES", 0) > 0
-                and _flag(e, "KV_REDIS_TIER", False)),
-     "the Redis cold tier under serving needs datasource/kvredis.py, which "
-     "waits in ROADMAP A18b"),
-    ("DISAGG_TRANSPORT",
-     lambda e: (e.get_or_default("DISAGG_MODE", "off").lower() == "both"
-                and e.get_or_default("DISAGG_TRANSPORT", "queue").lower()
-                == "pubsub"),
-     "the pub/sub hand-off transport needs pubsub/, which waits in ROADMAP "
-     "A18b"),
     # the container's
     ("REMOTE_LOG_URL", lambda e: bool(e.get("REMOTE_LOG_URL")),
-     "the remote log-level poller waits in ROADMAP A18b"),
-    ("DB_DIALECT", lambda e: bool(e.get("DB_DIALECT")),
-     "the SQL datasource waits in ROADMAP A18b"),
-    ("DB_PATH", lambda e: bool(e.get("DB_PATH")),
-     "the SQL datasource waits in ROADMAP A18b"),
-    ("KV_STORE", lambda e: bool(e.get("KV_STORE")),
-     "the KV datasource waits in ROADMAP A18b"),
-    ("KV_ENABLED", lambda e: _flag(e, "KV_ENABLED", False),
-     "the KV datasource waits in ROADMAP A18b"),
-    ("PUBSUB_BACKEND", lambda e: bool(e.get("PUBSUB_BACKEND")),
-     "pub/sub waits in ROADMAP A18b"),
+     "the remote log-level poller waits in ROADMAP A18b part 5"),
 )
 
 # keys the reference reads that change nothing the port serves: (key, why)
 INERT = (
-    # they act only on a path refused above
-    ("KV_REDIS_TTL_S", "the TTL of the Redis cold tier of KV_REDIS_TIER, "
-     "refused (A18b)"),
-    # the pre-warm reads the peers' pages through the tier's shared cold
-    # store; a booting replica's host tier is empty, so without
-    # KV_REDIS_TIER no page can load
-    *((key, "the warm boot's KV pre-warm, which loads pages only through "
-      "the Redis cold tier of KV_REDIS_TIER, refused (A18b)")
-      for key in ("ELASTIC_PREWARM_PEERS", "ELASTIC_PREWARM_PAGES")),
-    # they tune the QoS batch lane, which the reference starts only with a
-    # pub/sub broker: PUBSUB_BACKEND is refused (A18b)
-    *((key, "tunes the QoS batch lane, which needs the pub/sub broker of "
-      "PUBSUB_BACKEND, refused (A18b)")
-      for key in ("QOS_LANE", "QOS_LANE_CRON", "QOS_LANE_MAX_INFLIGHT",
-                  "QOS_BATCH_TOPIC", "QOS_BATCH_RESULT_TOPIC")),
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
-    ("TPU_ENABLED", "builds the reference container's device client; the "
-     "port's engines resolve their card themselves (tpu/device.py)"),
-    ("MODEL_NAME", "builds the reference container's device client; the "
-     "port's engines resolve their card themselves (tpu/device.py)"),
+    ("TPU_ENABLED", "builds the reference container's device client, whose "
+     "CUDA twin waits in ROADMAP A18b part 6; the port's engines resolve "
+     "their card themselves (tpu/device.py)"),
+    ("MODEL_NAME", "builds the reference container's device client, whose "
+     "CUDA twin waits in ROADMAP A18b part 6; the port's engines resolve "
+     "their card themselves (tpu/device.py)"),
     # the App's: no server binds it
     ("GRPC_PORT", "the port serves no gRPC, so nothing binds it: the "
-     "llm-server's gRPC /generate waits in ROADMAP A18b, and the OpenAI "
-     "server registers no gRPC service"),
+     "llm-server's gRPC /generate waits in ROADMAP A18b part 5, and the "
+     "OpenAI server registers no gRPC service"),
     ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
-     "refused (A18b)"),
+     "refused (A18b part 5)"),
 )
 
 
@@ -589,9 +572,8 @@ def build_engine(env: EnvLike = None, device=None, params=None,
     family, so no request pays the compiler or a capture. The engine's
     `warmup_seconds` and `score_warmup_seconds` hold their times (0.0 when
     off). kv_cold_store: a store with the Redis datasource's set / get /
-    delete surface under the KV tier (KV_REDIS_TIER, which would build one
-    from config, waits in A18b), for a harness that shares one between
-    replicas. DISAGG_MODE=both also builds the prefill twin and the router,
+    delete surface under the KV tier, for a harness that shares one between
+    replicas (else KV_REDIS_TIER builds one from config). DISAGG_MODE=both also builds the prefill twin and the router,
     on ``engine.disagg_router`` (``_build_pair``); ELASTIC_WARM_BOOT=true
     returns at once with the engine ``warming`` (``_warm_boot``).
     TP_SHARDS > 1 or JAX_COORDINATOR_ADDR: this rank's engine of the TP
@@ -713,8 +695,18 @@ def build_engine(env: EnvLike = None, device=None, params=None,
             # of a prefill (tpu/kvtier.py)
             tier_bytes = _int(env, "KV_HOST_TIER_BYTES", 0)
             if tier_bytes > 0:
+                if kv_cold_store is None and _flag(env, "KV_REDIS_TIER",
+                                                   False):
+                    # a write-behind Redis cold tier below host RAM; a
+                    # store that cannot connect is counted in the tier's
+                    # errors and serving goes on
+                    from .datasource.kvredis import RedisKVStore
+
+                    kv_cold_store = RedisKVStore(env, log, metrics)
+                ttl = _float(env, "KV_REDIS_TTL_S", 0.0)
                 kw.update(kv_host_tier_bytes=tier_bytes,
                           kv_redis=kv_cold_store,
+                          kv_redis_ttl_s=ttl if ttl > 0 else None,
                           conversation_pin_s=_float(env, "CONVERSATION_PIN_S",
                                                     600.0))
             if disagg_mode != "off":
@@ -734,17 +726,27 @@ def build_engine(env: EnvLike = None, device=None, params=None,
         else:
             _warm(engine, warm, score, log)
         if disagg_mode == "both":
+            transport = None
+            if env.get_or_default("DISAGG_TRANSPORT",
+                                  "queue").lower() == "pubsub":
+                # hand-offs over the container's broker (commit to
+                # advance); without one, the in-process queue, as in the
+                # reference
+                from .tpu.disagg import PubSubTransport
+
+                if container.pubsub is not None:
+                    transport = PubSubTransport(container.pubsub)
             _build_pair(engine, warm, kw, params, budget_cfg, log,
+                        transport=transport,
                         n_slots=_int(env, "DISAGG_PREFILL_SLOTS", 0),
                         queue_depth=_int(env, "DISAGG_QUEUE_DEPTH", 64),
                         handoff_timeout_s=_float(
                             env, "DISAGG_HANDOFF_TIMEOUT_S", 10.0))
         if engine.lifecycle.state == "warming":
-            # the pre-warm's keys are inert without a cold store to load from,
-            # which only a harness's kv_cold_store gives until A18b
+            # the pre-warm loads pages through the tier's shared cold store:
+            # KV_REDIS_TIER's, or a harness's kv_cold_store
             peers = [p.strip() for p in env.get_or_default(
-                "ELASTIC_PREWARM_PEERS", "").split(",")
-                if p.strip()] if kv_cold_store is not None else []
+                "ELASTIC_PREWARM_PEERS", "").split(",") if p.strip()]
             _warm_boot(engine, warm, score, log, peers=peers,
                        prewarm_pages=_int(env, "ELASTIC_PREWARM_PAGES", 64))
         else:
@@ -812,7 +814,7 @@ def _warm_boot(engine, warm: str, score: bool, log, peers,
 
 def _build_pair(engine, warm: str, kw: dict, params, budget_cfg: int, log,
                 n_slots: int, queue_depth: int,
-                handoff_timeout_s: float) -> None:
+                handoff_timeout_s: float, transport=None) -> None:
     """DISAGG_MODE=both on one card: a prefill twin over the SAME params
     tensors (no second copy of the weights) and the router in front of the
     pair, on ``engine.disagg_router``. Each engine has its own stream,
@@ -821,7 +823,8 @@ def _build_pair(engine, warm: str, kw: dict, params, budget_cfg: int, log,
     (capacity.twin_budget_bytes, less the decode engine's graph pools when
     its captures are still to come); an explicit HBM_BUDGET_BYTES goes to
     both, as in the reference. n_slots (DISAGG_PREFILL_SLOTS, 0: the
-    decode engine's) sizes its slots."""
+    decode engine's) sizes its slots. transport: DISAGG_TRANSPORT=pubsub's
+    (None: the in-process queue)."""
     from .models.llama import params_nbytes
     from .tpu.capacity import twin_budget_bytes
     from .tpu.disagg import DisaggRouter, register_disagg_metrics
@@ -846,7 +849,7 @@ def _build_pair(engine, warm: str, kw: dict, params, budget_cfg: int, log,
     prefill.start()
     metrics = engine.container.metrics_manager
     router = DisaggRouter(prefill, engine, metrics=metrics,
-                          queue_depth=queue_depth,
+                          transport=transport, queue_depth=queue_depth,
                           handoff_timeout_s=handoff_timeout_s)
     if metrics is not None:
         register_disagg_metrics(metrics)

@@ -41,15 +41,15 @@ from .tpu.executor import Executor
 from .tpu.scheduler import DynamicBatcher
 
 # the keys every batcher server reads through its App, container and tracer
+# and datasources
 APP_PORTED = ("HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT",
               "MAX_CONCURRENT_REQUESTS", "LOG_LEVEL", "APP_NAME",
               "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
-              "GOFR_CONFIGS_DIR")
-# the container's datasources and clients, refused as the llm-server refuses
-# them
+              "GOFR_CONFIGS_DIR", "DB_DIALECT", "DB_PATH", "KV_STORE",
+              "KV_ENABLED", "PUBSUB_BACKEND")
+# the container's level poller, refused as the llm-server refuses it
 APP_NOT_PORTED = tuple(entry for entry in LLM_NOT_PORTED if entry[0] in (
-    "REMOTE_LOG_URL", "DB_DIALECT", "DB_PATH", "KV_STORE", "KV_ENABLED",
-    "PUBSUB_BACKEND")) + (
+    "REMOTE_LOG_URL",)) + (
     # the llm-server joins a job for its tensor-parallel engine; a batcher
     # server has no sharded model to serve over one
     ("JAX_COORDINATOR_ADDR", lambda e: bool(e.get("JAX_COORDINATOR_ADDR")),

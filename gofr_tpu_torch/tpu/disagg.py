@@ -3,9 +3,9 @@
 Ports ``gofr_tpu/tpu/disagg.py`` whole: ``encode_handoff`` /
 ``decode_handoff`` (the envelope is the reference's, byte for byte but its
 ``sent_at`` stamp; the encoded blobs are spliced into it escaped as
-json.dumps escapes them, without its scan of each one), ``QueueTransport``, ``PubSubTransport`` (ported, not
-served: ``DISAGG_TRANSPORT=pubsub`` needs the pub/sub broker of ROADMAP
-A18b, so it is tested over a fake broker only), ``PrefillWorker``,
+json.dumps escapes them, without its scan of each one), ``QueueTransport``, ``PubSubTransport`` (served
+under ``DISAGG_TRANSPORT=pubsub`` over the container's broker),
+``PrefillWorker``,
 ``DecodeCoordinator``, ``DisaggRouter`` (the exactly-once registry, the
 submit gate, the stale reaper, ``kill``), ``register_disagg_metrics`` and
 ``GET /debug/disagg`` (``install_routes``).

@@ -35,8 +35,9 @@ blobs are immutable.
 
 The cold tier takes any object with the ``set(key, value, ttl_s=)`` /
 ``get`` / ``delete`` surface of the reference's Redis datasource
-(``datasource/kvredis.py``, ROADMAP A18b, so only fakes here): a store that
-raises is counted in ``errors`` and serving never blocks on it.
+(``datasource/kvredis.py``, which ``KV_REDIS_TIER`` builds under
+serving): a store that raises is counted in ``errors`` and serving never
+blocks on it.
 """
 
 from __future__ import annotations

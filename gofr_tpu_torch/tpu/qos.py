@@ -1,18 +1,19 @@
 """QoS serving plane: tenant classes, quotas, deadlines and the shed ladder.
 
-A copy of ``gofr_tpu/tpu/qos.py`` without ``BatchLane``: ``CLASSES``,
+A copy of ``gofr_tpu/tpu/qos.py``: ``CLASSES``,
 ``CLASS_BAND``, ``LEVEL_LABELS``, ``normalize_class``, ``banded_priority``,
 ``effective_class``, ``QoSShedError``, ``QoSDeadlineError``,
 ``_ClassLedger``, ``QoSController`` (quotas, deadlines, the ladder's
 ``evaluate`` / ``force_level``, ``check_submit``, ``admission_decision``
 with ``_batch_page_share``, the ``note_*`` accounting hooks, ``publish``,
-``snapshot``), ``register_qos_metrics`` and ``install_routes`` (``GET
-/debug/qos``). The tenant helpers ``_MAX_TENANTS``, ``_TENANT_OVERFLOW`` and
+``snapshot``), ``BatchLane`` (``gofr_tpu/tpu/qos.py:554-771``: the
+offline lane that feeds the batch band from the App's pub/sub broker,
+which ``App.enable_qos`` starts when the container has one),
+``register_qos_metrics`` and ``install_routes`` (``GET /debug/qos``). The
+tenant helpers ``_MAX_TENANTS``, ``_TENANT_OVERFLOW`` and
 ``effective_class`` live here, and tpu/meter.py imports them, as the
-reference's does. The batch lane, which feeds the batch band from the
-App's pub/sub broker, waits with pub/sub in ROADMAP A18b (the reference
-starts it only when a broker exists); its ``app_tpu_qos_lane_depth`` gauge
-is registered as the reference registers it, and stays unset.
+reference's does. The lane submits through either engine's ``submit``
+(paged or dense) and sets ``app_tpu_qos_lane_depth``.
 
 Requests carry a tenant id and one of three classes, mapped onto disjoint
 bands of the engine's (priority, id) admission heap, so admission is
@@ -54,6 +55,7 @@ per submit and admission round.
 from __future__ import annotations
 
 import collections
+import json
 import threading
 import time
 from typing import Any, Callable, Dict, Optional
@@ -216,6 +218,7 @@ class QoSController:
         self._clock = clock
         self._burn = None
         self._burn_probe = burn_probe    # tests: () -> {slo: state}
+        self.lane = None                 # BatchLane, wired by enable_qos
         self.engine = None               # for snapshot(), optional
         self._lock = threading.Lock()
         self.level = 0
@@ -470,6 +473,8 @@ class QoSController:
             if goodput is not None:
                 self._obs.gauge("app_tpu_qos_goodput", round(goodput, 4),
                                 **{"class": cls})
+        if self.lane is not None:
+            self._obs.gauge("app_tpu_qos_lane_depth", self.lane.depth())
 
     def snapshot(self) -> Dict[str, Any]:
         """The GET /debug/qos payload."""
@@ -531,7 +536,228 @@ class QoSController:
         if engine is not None:
             snap["preemptions_total"] = getattr(engine, "preemptions_total",
                                                 0)
+        if self.lane is not None:
+            snap["lane"] = self.lane.stats()
         return snap
+
+
+class BatchLane:
+    """Offline work feeding the engine's batch band from the app's
+    pub/sub broker, with a cron kick as the drain backstop.
+
+    Jobs are JSON: ``{"prompt": str | "tokens": [ids], "max_tokens": n,
+    "temperature": f, "tenant": str, "job_id": any}``. Results publish
+    to the result topic BEFORE the message commits (commit-to-advance:
+    a crash between submit and commit redelivers the job — at-least-
+    once, like every broker consumer in this repo). Commits are strictly
+    in arrival order (the broker's committed offset is a high-water
+    mark, so an out-of-order commit would silently mark earlier
+    uncommitted jobs done).
+
+    The lane pauses intake while the shed ladder is at park_batch or
+    above — under pressure it must starve the engine of exactly the
+    work the ladder is trying to park."""
+
+    def __init__(self, engine, broker, topic: str = "qos.batch.jobs",
+                 result_topic: str = "qos.batch.results", tokenizer=None,
+                 max_inflight: int = 4, group: str = "qos-batch-lane",
+                 metrics=None, logger=None, controller=None,
+                 poll_s: float = 0.25):
+        self.engine = engine
+        self.broker = broker
+        self.topic = topic
+        self.result_topic = result_topic
+        self.tokenizer = tokenizer
+        self.max_inflight = max(1, int(max_inflight))
+        self.group = group
+        self.logger = logger
+        self.controller = controller
+        self.poll_s = float(poll_s)
+        self._obs = MetricsHook(metrics, logger=logger)
+        # FIFO of (message, request, job) — commits pop from the head
+        # only, preserving offset order
+        self._inflight: "collections.deque" = collections.deque()
+        self._held = None                # (message, job) submit-shed retry
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.submitted = 0
+        self.completed = 0
+        self.failed = 0
+        self.rejected = 0                # malformed jobs (committed away)
+        self.retries = 0                 # shed submits re-attempted
+        self.cron_ticks = 0
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, name="qos-lane",
+                                        daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=5.0)
+            self._thread = None
+
+    def cron_drain(self, ctx=None):  # noqa: ARG002 - gofr cron signature
+        """Cron backstop: kick the worker (a wedged poll wait ends now)
+        and flush the depth gauge, so a quiet broker still drains on the
+        cron cadence and the gauge never goes stale."""
+        self.cron_ticks += 1
+        self._wake.set()
+        self._obs.gauge("app_tpu_qos_lane_depth", self.depth())
+        return {"depth": self.depth(), "completed": self.completed}
+
+    # -- worker ---------------------------------------------------------------
+    def _paused(self) -> bool:
+        return self.controller is not None and self.controller.level >= 1
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self._reap()
+                if self._paused() or len(self._inflight) >= self.max_inflight:
+                    self._wake.wait(self.poll_s)
+                    self._wake.clear()
+                    continue
+                if self._held is not None:
+                    msg, job = self._held
+                    self._held = None
+                    self._take(msg, job)
+                    continue
+                msg = self.broker.subscribe(self.topic, self.group,
+                                            timeout_s=self.poll_s)
+                if msg is None:
+                    continue
+                self._take(msg, None)
+            except Exception as exc:  # noqa: BLE001 - the lane must survive
+                if self.logger is not None:
+                    try:
+                        self.logger.errorf("qos lane: %s", exc)
+                    except Exception:  # noqa: BLE001
+                        pass
+                self._stop.wait(self.poll_s)
+        # drain what already finished; uncommitted messages redeliver on
+        # the next boot (at-least-once by construction)
+        try:
+            self._reap()
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _take(self, msg, job) -> None:
+        if job is None:
+            try:
+                job = json.loads(msg.value.decode("utf-8"))
+                if not isinstance(job, dict):
+                    raise ValueError("job must be a JSON object")
+            except Exception as exc:  # noqa: BLE001 - poison: commit away
+                self._reject(msg, None, f"bad job payload: {exc}")
+                return
+        try:
+            tokens = job.get("tokens")
+            if tokens is None:
+                prompt = job.get("prompt")
+                if not isinstance(prompt, str) or not prompt \
+                        or self.tokenizer is None:
+                    raise ValueError("job needs 'tokens' or a 'prompt' "
+                                     "(with a tokenizer on the lane)")
+                tokens = self.tokenizer.encode(prompt)
+            request = self.engine.submit(
+                list(tokens),
+                max_new_tokens=max(1, int(job.get("max_tokens", 32))),
+                temperature=float(job.get("temperature", 0.0)),
+                qos_class="batch", tenant=str(job.get("tenant", "")))
+        except (TypeError, ValueError, InvalidParam) as exc:
+            # the JOB is wrong, not the server: commit it away with an
+            # error result or it redelivers forever
+            self._reject(msg, job, str(exc))
+            return
+        except Exception:  # noqa: BLE001 - shed (drain/stall/breaker):
+            # hold the message and retry after a beat — it is already
+            # delivered-not-committed, so the broker won't re-serve it
+            self._held = (msg, job)
+            self.retries += 1
+            self._stop.wait(self.poll_s)
+            return
+        self.submitted += 1
+        self._inflight.append((msg, request, job))
+        self._obs.gauge("app_tpu_qos_lane_depth", self.depth())
+
+    def _reject(self, msg, job, error: str) -> None:
+        self.rejected += 1
+        self._publish_result({"job_id": (job or {}).get("job_id"),
+                              "ok": False, "error": error})
+        try:
+            msg.commit()
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _reap(self) -> None:
+        """Complete head-of-line finished jobs: result out, THEN commit.
+        Strictly FIFO so the broker's high-water commit never covers a
+        still-running earlier job."""
+        while self._inflight:
+            msg, request, job = self._inflight[0]
+            if request.finished_at is None:
+                return
+            self._inflight.popleft()
+            result = {"job_id": job.get("job_id"),
+                      "tenant": job.get("tenant", "")}
+            try:
+                tokens = request.result(timeout_s=10.0)
+                result["ok"] = True
+                result["tokens"] = len(tokens)
+                result["replays"] = request.replays
+                result["preemptions"] = getattr(request, "preemptions", 0)
+                if self.tokenizer is not None:
+                    try:
+                        result["text"] = self.tokenizer.decode(tokens)
+                    except Exception:  # noqa: BLE001
+                        pass
+                self.completed += 1
+            except Exception as exc:  # noqa: BLE001 - terminal failure:
+                # commit anyway — an engine-failed generation redelivered
+                # forever would wedge the lane behind one poisoned job
+                result["ok"] = False
+                result["error"] = str(exc)
+                self.failed += 1
+            self._publish_result(result)
+            try:
+                msg.commit()
+            except Exception:  # noqa: BLE001
+                pass
+            self._obs.gauge("app_tpu_qos_lane_depth", self.depth())
+
+    def _publish_result(self, result: Dict[str, Any]) -> None:
+        try:
+            self.broker.publish(self.result_topic,
+                                json.dumps(result).encode("utf-8"))
+        except Exception as exc:  # noqa: BLE001
+            if self.logger is not None:
+                try:
+                    self.logger.errorf("qos lane result publish failed: %s",
+                                       exc)
+                except Exception:  # noqa: BLE001
+                    pass
+
+    # -- surface --------------------------------------------------------------
+    def depth(self) -> int:
+        return len(self._inflight) + (1 if self._held is not None else 0)
+
+    def stats(self) -> Dict[str, Any]:
+        return {"topic": self.topic, "result_topic": self.result_topic,
+                "group": self.group, "inflight": len(self._inflight),
+                "held": self._held is not None, "paused": self._paused(),
+                "max_inflight": self.max_inflight,
+                "submitted": self.submitted, "completed": self.completed,
+                "failed": self.failed, "rejected": self.rejected,
+                "retries": self.retries, "cron_ticks": self.cron_ticks}
 
 
 def register_qos_metrics(metrics) -> None:

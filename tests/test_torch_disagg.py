@@ -163,7 +163,8 @@ def test_queue_transport_sheds_when_full():
 
 
 def test_pubsub_transport_over_a_fake_broker():
-    """Ported, not served (DISAGG_TRANSPORT=pubsub waits in A18b): publish
+    """Served under DISAGG_TRANSPORT=pubsub (tests/test_torch_serve_config.py
+    holds the served pair): publish
     and a committed poll over a broker-shaped fake; a dead broker is a lost
     hand-off, never a raise."""
     class Msg:

@@ -1,8 +1,9 @@
 """The port stands alone: no jax, no gofr_tpu, and no silent CPU fallback.
 
 - every gofr_tpu_torch module (native/, the observability planes, the
-  incident plane, the KV tier, the disaggregated pair, migration and
-  service/ included) and chip_smoke.py imports
+  incident plane, the KV tier, the disaggregated pair, migration,
+  service/, loadgen/, datasource/, pubsub/, the subscriber and cron
+  included) and chip_smoke.py imports
   in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
   packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
   `transformers`, `tokenizers`) are blocked;
@@ -75,6 +76,20 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
     # sharded training: GPipe beside the step and the conjugate collectives
     assert {"gofr_tpu_torch.parallel.pipeline",
             "gofr_tpu_torch.train"} <= set(mods)
+    # the open-loop load client, the datasources, pub/sub, the subscriber
+    # and cron (their gated drivers import only when a backend asks)
+    assert {"gofr_tpu_torch.loadgen", "gofr_tpu_torch.loadgen.__main__",
+            "gofr_tpu_torch.loadgen.synth", "gofr_tpu_torch.loadgen.scorecard",
+            "gofr_tpu_torch.loadgen.generator",
+            "gofr_tpu_torch.loadgen.status", "gofr_tpu_torch.loadgen.knee",
+            "gofr_tpu_torch.datasource", "gofr_tpu_torch.datasource.kvstore",
+            "gofr_tpu_torch.datasource.sql",
+            "gofr_tpu_torch.datasource.kvredis",
+            "gofr_tpu_torch.datasource.docstore",
+            "gofr_tpu_torch.datasource.mongostore", "gofr_tpu_torch.pubsub",
+            "gofr_tpu_torch.pubsub.inproc", "gofr_tpu_torch.pubsub.filebroker",
+            "gofr_tpu_torch.pubsub.external", "gofr_tpu_torch.subscriber",
+            "gofr_tpu_torch.cron"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

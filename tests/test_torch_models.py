@@ -332,7 +332,8 @@ def test_servers_refuse_unported_keys_and_need_a_device():
     with pytest.raises(ValueError, match="A18b"):
         serve_bert.build_app({**ENV, "GRPC_PORT": "0"}, device="cpu")
     with pytest.raises(ValueError, match="A18b"):
-        serve_mnist.build_app({**ENV, "DB_DIALECT": "sqlite"}, device="cpu")
+        serve_mnist.build_app({**ENV, "REMOTE_LOG_URL": "http://127.0.0.1:9"},
+                              device="cpu")
     if not torch.cuda.is_available():
         from gofr_tpu_torch.models import moe as tm
 

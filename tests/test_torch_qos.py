@@ -2,9 +2,10 @@
 deadlines, the shed ladder and preemption of batch rows through the replay
 contract, on both servers.
 
-The twins of tests/test_qos.py, but ``test_batch_lane_round_trip`` (the
-batch lane needs the pub/sub broker, ROADMAP A18b), at the debug preset on
-the CPU. The controller's tests run one event sequence on a fake clock
+The twins of tests/test_qos.py at the debug preset on the CPU;
+``test_batch_lane_round_trip`` drives the batch lane (tpu/qos.BatchLane)
+over the port's in-process broker into the paged engine, and holds each
+job's greedy result to the JAX engine's stream. The controller's tests run one event sequence on a fake clock
 through the JAX QoSController and the port's and require equal answers and
 equal ``snapshot()``s after every event. The engine tests hold the port's
 paged and dense engines, driven by hand (``_step``), to the JAX engines'
@@ -566,3 +567,102 @@ def test_debug_qos_endpoint_e2e(weights):
             app.shutdown()
     for app in apps:
         assert app.engine.qos._eval_thread is None
+
+
+# -- the batch lane --------------------------------------------------------------
+class _LoggedBroker:
+    """The in-process broker, logging each lane result as it is published
+    and each job as it commits."""
+
+    def __init__(self):
+        from gofr_tpu_torch.pubsub.inproc import InProcBroker
+
+        self.inner = InProcBroker()
+        self.log = []
+
+    def publish(self, topic, message, key=""):
+        if topic == "qos.batch.results":
+            self.log.append(("result", json.loads(message)["job_id"]))
+        self.inner.publish(topic, message, key)
+
+    def subscribe(self, topic, group="default", timeout_s=None):
+        msg = self.inner.subscribe(topic, group, timeout_s=timeout_s)
+        if msg is not None and topic == "qos.batch.jobs":
+            try:
+                job_id = json.loads(msg.value).get("job_id")
+            except ValueError:
+                job_id = None
+            commit = msg.commit
+
+            def logged():
+                self.log.append(("commit", job_id))
+                commit()
+            msg.commit = logged
+        return msg
+
+
+class _IdsTokenizer:
+    """Decodes a result to its token ids, so a lane result carries them."""
+
+    def decode(self, ids):
+        return json.dumps(list(ids))
+
+
+def test_batch_lane_round_trip(weights):
+    """Three jobs and a poison message through the lane into the paged
+    engine: each result publishes before its commit with the JAX engine's
+    greedy stream, the poison one is rejected and committed away, nothing
+    redelivers, and the cron kick reports the count."""
+    prompts = [[1 + i, 2, 3] for i in range(3)]
+    jeng = JPaged(weights[0], JConfig.debug(), logger=MockLogger(),
+                  **dict(ENGINE, page_size=8))
+    jeng.start()
+    try:
+        want = [jeng.generate(p, max_new_tokens=4, temperature=0.0)
+                for p in prompts]
+    finally:
+        jeng.stop()
+    eng = _engine(weights, paged=True)
+    broker = _LoggedBroker()
+    lane = tqos.BatchLane(eng, broker, max_inflight=2, poll_s=0.05,
+                          logger=MockLogger(), tokenizer=_IdsTokenizer())
+    eng.start()
+    lane.start()
+    try:
+        for i, prompt in enumerate(prompts):
+            broker.publish("qos.batch.jobs", json.dumps(
+                {"tokens": prompt, "max_tokens": 4, "tenant": "acme",
+                 "job_id": i}).encode())
+        broker.publish("qos.batch.jobs", b"not json at all")  # poison
+        results = {}
+        deadline = __import__("time").time() + 120
+        while len(results) < 4 and __import__("time").time() < deadline:
+            msg = broker.subscribe("qos.batch.results", "test",
+                                   timeout_s=1.0)
+            if msg is None:
+                continue
+            payload = json.loads(msg.value.decode())
+            results[payload.get("job_id")] = payload
+            msg.commit()
+        assert len(results) == 4, f"lane stalled: {lane.stats()}"
+        for i in range(3):
+            assert results[i]["ok"] is True and results[i]["tokens"] == 4
+            assert results[i]["tenant"] == "acme"
+            assert json.loads(results[i]["text"]) == want[i]
+        assert results[None]["ok"] is False        # the poison job
+        assert "bad job payload" in results[None]["error"]
+        # each job's result is out before it commits, and the jobs commit
+        # in arrival order (the poison one commits when it is rejected)
+        jobs = [e for e in broker.log if e[1] is not None]
+        assert jobs == [(kind, i) for i in range(3)
+                        for kind in ("result", "commit")]
+        assert broker.log.count(("commit", None)) == 1
+        assert broker.subscribe("qos.batch.jobs", lane.group,
+                                timeout_s=0.1) is None
+        stats = lane.stats()
+        assert stats["completed"] == 3 and stats["rejected"] == 1
+        assert stats["submitted"] == 3 and stats["failed"] == 0
+        assert lane.cron_drain()["completed"] == 3 and lane.depth() == 0
+    finally:
+        lane.stop()
+        eng.stop()

@@ -24,6 +24,7 @@ import json
 import os
 import pathlib
 import re
+import sys
 import threading
 import time
 
@@ -103,6 +104,23 @@ def test_every_llm_server_key_is_accounted_for():
     assert not (ported | refused | inert) - set(keys)
 
 
+def test_only_the_waiting_keys_stay_refused_or_inert():
+    """What still waits (the remote log level and gRPC in A18b part 5, the
+    device client in part 6) and what has no analogue (the XLA program
+    cache) are the only keys refused or inert; each names its reason."""
+    assert {k for k, _, _ in serve.NOT_PORTED} == {"REMOTE_LOG_URL"}
+    assert {k for k, _ in serve.INERT} == {
+        "REMOTE_LOG_FETCH_INTERVAL", "GRPC_PORT", "TPU_ENABLED",
+        "MODEL_NAME", "PROGRAM_CACHE_DIR"}
+    waits = dict(serve.INERT)
+    assert "A18b part 5" in dict((k, w) for k, _, w in serve.NOT_PORTED)[
+        "REMOTE_LOG_URL"]
+    assert all("A18b part 5" in waits[k]
+               for k in ("REMOTE_LOG_FETCH_INTERVAL", "GRPC_PORT"))
+    assert all("A18b part 6" in waits[k] for k in ("TPU_ENABLED",
+                                                   "MODEL_NAME"))
+
+
 @pytest.mark.parametrize("key", serve.PORTED)
 def test_ported_keys_are_read_by_the_server(key):
     from gofr_tpu_torch import app, container, tracing
@@ -160,8 +178,8 @@ def test_qos_keys_tune_the_controller_as_the_reference(served, tuned):
     """QOS=true, with its defaults and with every tuning key set: the
     port's controller holds the settings the reference's App.enable_qos
     gives it from the same config, its eval thread runs at QOS_EVAL_S and
-    stops at shutdown; the batch lane's keys are inert, naming the pub/sub
-    broker they need (ROADMAP A18b), and start no lane."""
+    stops at shutdown; the batch lane's keys are served, and without a
+    pub/sub broker (no PUBSUB_BACKEND) neither App starts a lane."""
     import types
 
     from gofr_tpu.app import App as JApp
@@ -169,9 +187,7 @@ def test_qos_keys_tune_the_controller_as_the_reference(served, tuned):
 
     env = {**BASE, "QOS": "true", **(QOS_TUNING if tuned else {})}
     assert set(QOS_TUNING) | {"QOS"} <= set(serve.PORTED)
-    inert = dict(serve.INERT)
-    for key in QOS_LANE_KEYS:
-        assert "A18b" in inert[key] and "pub/sub" in inert[key]
+    assert set(QOS_LANE_KEYS) <= set(serve.PORTED)
     app = serve.build_app({**env, "QOS_LANE": "true"},
                           engine=serve.build_engine(
                               env, device="cpu", params=served["float"][1]))
@@ -183,7 +199,7 @@ def test_qos_keys_tune_the_controller_as_the_reference(served, tuned):
         want = ref.enable_qos(stub)
         assert _controller_settings(ctl) == _controller_settings(want)
         assert ctl._eval_thread is not None and ctl._eval_thread.is_alive()
-        assert not hasattr(ctl, "lane") and want.lane is None
+        assert ctl.lane is None and want.lane is None
         if tuned:
             assert ctl.interactive_reserved_slots == 2
             assert ctl.shed_tracks == ("ttft", "availability")
@@ -213,8 +229,9 @@ def test_build_engine_serves_a_cut_tree_at_its_depth(served):
 def test_elastic_warm_boot_refused_naming_a11(served):
     """The warm boot is served now (ROADMAP A11f): ELASTIC_WARM_BOOT=true
     boots ``warming`` and then serves the JAX engine's streams; what stays
-    refused names its ROADMAP item: the Redis cold tier under the KV tier
-    and the pub/sub hand-off transport (A18b)."""
+    refused names its ROADMAP item. The Redis cold tier under the KV tier
+    and the pub/sub hand-off transport are served now (A18b parts 2-3);
+    the remote log-level poller stays refused (A18b part 5)."""
     eng = serve.build_engine({**BASE, "ELASTIC_WARM_BOOT": "true"},
                              device="cpu", params=served["float"][1])
     try:
@@ -227,8 +244,10 @@ def test_elastic_warm_boot_refused_naming_a11(served):
         eng.stop()
     for env in ({"KV_HOST_TIER_BYTES": "1048576", "KV_REDIS_TIER": "true"},
                 {"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "pubsub"}):
-        with pytest.raises(ValueError, match="ROADMAP A18b"):
-            serve.build_engine({**BASE, **env}, device="cpu")
+        serve.check_config({**BASE, **env})
+    with pytest.raises(ValueError, match="ROADMAP A18b part 5"):
+        serve.build_engine({**BASE, "REMOTE_LOG_URL": "http://127.0.0.1:9"},
+                           device="cpu")
     serve.check_config({"ELASTIC_WARM_BOOT": "false"})
     serve.check_config({"KV_REDIS_TIER": "true"})   # no tier: nothing asked
     serve.check_config({"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "queue"})
@@ -753,3 +772,181 @@ def test_tp_shards_must_match_the_job(monkeypatch):
         serve.build_engine({**BASE, "JAX_COORDINATOR_ADDR": "127.0.0.1:1",
                             "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": "0"},
                            device="cpu")
+
+
+# -- the datasources, pub/sub and the batch lane under serving ----------------
+def _lane_results(broker, n, timeout_s=120.0):
+    """{job_id: result} from the lane's result topic, read by a group of
+    the test's own."""
+    out = {}
+    deadline = time.monotonic() + timeout_s
+    while len(out) < n and time.monotonic() < deadline:
+        msg = broker.subscribe("qos.batch.results", "test", timeout_s=0.5)
+        if msg is None:
+            continue
+        payload = json.loads(msg.value.decode())
+        out[payload.get("job_id")] = payload
+        msg.commit()
+    return out
+
+
+@pytest.mark.parametrize("config", ["paged", "dense"])
+def test_served_pubsub_qos_starts_the_batch_lane(served, config):
+    """PUBSUB_BACKEND=inproc with QOS=true: the App starts the batch lane
+    over the container's broker, with its keys' settings, on either
+    engine. Jobs published to QOS_BATCH_TOPIC come back on
+    QOS_BATCH_RESULT_TOPIC with the JAX engine's greedy streams, in
+    arrival order; /debug/qos carries the lane and the scrape sets
+    app_tpu_qos_lane_depth; the cron drain kick runs on a crontab tick;
+    the shutdown stops the lane."""
+    env = {**BASE, **CONFIGS[config], "QOS": "true",
+           "PUBSUB_BACKEND": "inproc", "QOS_LANE_MAX_INFLIGHT": "2",
+           "QOS_BATCH_TOPIC": "jobs", "QOS_LANE_CRON": "*/1 * * * *"}
+    app = serve.build_app(env, engine=serve.build_engine(
+        env, device="cpu", params=served["float"][1]))
+    app.start()
+    broker = app.container.pubsub
+    lane = app.engine.qos.lane
+    decoded = []
+    tokenizer = app.engine.tokenizer
+    try:
+        assert lane is not None and lane.topic == "jobs"
+        assert lane.result_topic == "qos.batch.results"
+        assert lane.max_inflight == 2 and lane._thread.is_alive()
+        for i, prompt in enumerate(PROMPTS):
+            broker.publish("jobs", json.dumps(
+                {"tokens": prompt, "max_tokens": 6, "tenant": "acme",
+                 "job_id": i}).encode())
+        results = _lane_results(broker, len(PROMPTS))
+        assert sorted(results) == list(range(len(PROMPTS))), lane.stats()
+        for i, prompt in enumerate(PROMPTS):
+            assert results[i]["ok"] and results[i]["tokens"] == 6
+            decoded.append(results[i]["text"])
+        assert decoded == [tokenizer.decode(s)
+                           for s in served["float"][2][config]]
+        # every job committed: nothing redelivers to the lane's group
+        assert broker.subscribe("jobs", lane.group, timeout_s=0.1) is None
+        stats = lane.stats()
+        assert stats["completed"] == len(PROMPTS) and stats["failed"] == 0
+        assert _get(app.http_port, "/debug/qos")["data"]["lane"][
+            "completed"] == len(PROMPTS)
+        # the ticker kicks at the first minute it sees (and at each new
+        # one); one more tick by hand runs the kick again
+        deadline = time.monotonic() + 10
+        while lane.cron_ticks == 0 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        ticks = lane.cron_ticks
+        assert ticks >= 1
+        app._cron._tick(time.localtime())
+        while lane.cron_ticks == ticks and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert lane.cron_ticks > ticks
+        app.container.refresh_runtime_metrics()
+        assert "app_tpu_qos_lane_depth 0" in \
+            app.container.metrics_manager.expose()
+    finally:
+        app.shutdown()
+    assert lane._thread is None
+
+
+def _get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def test_served_pair_over_pubsub_equals_colocated(served):
+    """DISAGG_TRANSPORT=pubsub with PUBSUB_BACKEND=inproc: the pair ships
+    every hand-off over the container's broker, and its greedy streams
+    equal the colocated JAX engine's."""
+    from gofr_tpu_torch.tpu.disagg import PubSubTransport
+
+    env = {**BASE, "DISAGG_MODE": "both", "DISAGG_TRANSPORT": "pubsub",
+           "PUBSUB_BACKEND": "inproc"}
+    app = serve.build_app(env, engine=serve.build_engine(
+        env, device="cpu", params=served["float"][1]))
+    try:
+        router = app.engine.disagg_router
+        assert isinstance(router.transport, PubSubTransport)
+        assert router.transport.broker is app.container.pubsub
+        got = [app.submitter.submit(p, max_new_tokens=6).result(timeout_s=60)
+               for p in PROMPTS]
+        assert got == served["float"][2]["paged"]
+        assert router.prefill_engine.handoffs_total == len(PROMPTS)
+        assert app.engine.prefill_dispatches + \
+            app.engine.prefix_dispatches == 0
+    finally:
+        app.shutdown()
+
+
+class _FakeRedis:
+    """redis-py's surface over one dict shared by every client, so two
+    engines share the cold store as two replicas share a Redis."""
+
+    data = {}
+    px = []
+
+    def __init__(self, host=None, port=None, db=0, decode_responses=False):
+        self.kwargs = dict(host=host, port=port, db=db)
+
+    def ping(self):
+        return True
+
+    def set(self, key, value, ex=None, px=None):
+        _FakeRedis.px.append(px)
+        _FakeRedis.data[key] = str(value)
+
+    def get(self, key):
+        return _FakeRedis.data.get(key)
+
+    def delete(self, *keys):
+        return sum(1 for k in keys if _FakeRedis.data.pop(k, None) is not None)
+
+    def info(self, section=None):
+        return {"total_commands_processed": 0}
+
+    def close(self):
+        pass
+
+
+def test_kv_redis_tier_spills_to_and_restores_from_redis(served,
+                                                         monkeypatch):
+    """KV_REDIS_TIER=true over a fake `redis` module: a host tier of ~1.5
+    page blobs pushes the spills on to the Redis cold tier (with
+    KV_REDIS_TTL_S as the entries' expiry), and a second engine over the
+    same Redis restores the first's prompt from it, bit-equal to the
+    first's cold prefill."""
+    import types
+
+    _FakeRedis.data, _FakeRedis.px = {}, []
+    monkeypatch.setitem(sys.modules, "redis",
+                        types.SimpleNamespace(Redis=_FakeRedis))
+    system = list(range(1, 33)) + [40, 41]
+    env = {**BASE, "MAX_SEQ_LEN": "128", "PREFILL_BUCKETS": "8,32,64",
+           "N_PAGES": "10", "KV_HOST_TIER_BYTES": "6144",
+           "KV_REDIS_TIER": "true", "KV_REDIS_TTL_S": "30"}
+    engines = [serve.build_engine(env, device="cpu",
+                                  params=served["float"][1])
+               for _ in range(2)]
+    a, b = engines
+    try:
+        cold = a.kv_tier.cold
+        assert cold is not None and cold.ttl_s == 30.0
+        golden = a.generate(system, max_new_tokens=8, temperature=0.0)
+        for i in range(12):   # churn the trunk out of the pool and host RAM
+            a.generate([(200 + 5 * i + j) % 250 + 1 for j in range(17)],
+                       max_new_tokens=6, temperature=0.0)
+        deadline = time.monotonic() + 30
+        while cold.stats()["stored"] < 4 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert cold.stats()["stored"] >= 4
+        assert any(k.startswith("gofr:kvpage:") for k in _FakeRedis.data)
+        assert set(_FakeRedis.px) == {30000}
+        assert b.generate(system, max_new_tokens=8,
+                          temperature=0.0) == golden
+        assert b._kv_restored > 0 and b.kv_tier.cold.stats()["hits"] > 0
+    finally:
+        for eng in engines:
+            eng.stop()
