@@ -18,8 +18,9 @@ with the utilization ledger beside it). ``--faults`` (build, then phase
 11), ``--qos`` (build, then phase 12), ``--elastic`` (build, then phase
 13), ``--train`` (build, then phase 14), ``--models`` (build, then phase
 15), ``--parallel`` (build, then phase 16; ``--parallel e``: its phase (e)
-alone), ``--sharded-train`` (build, then phase 17) and ``--loadgen``
-(build, then phase 18) end with the ok line.
+alone), ``--sharded-train`` (build, then phase 17), ``--loadgen``
+(build, then phase 18) and ``--fleet`` (build, then phase 19) end with
+the ok line.
 
 Phases, one or more lines each, any failure exits non-zero:
 
@@ -416,6 +417,48 @@ training's too (``train_launches``).
    CUT_DEPTH layers with WARMUP=true: 4 s of arrivals and 4 jobs, no
    replay and no knee; its flash and paged-read launches join the kernels
    JSON as ``loadgen_launches``.
+
+19. the fleet router tier (``--fleet``, ``fleet_phase``; ROADMAP A18b part
+   4): two replicas of the main path in this process (``serve.build_app``
+   over one params tree, full depth, WARMUP=wide, QoS, the prefix cache,
+   HBM_BUDGET_BYTES of FL_BUDGET each, ``fleet_env``) behind the port's
+   router (``serve_router.build_app``, ``router_env``): FL_SESSIONS
+   sessions, each a 384-token system prompt of its own and FL_TURNS
+   greedy turns, concurrent: every turn of a session on one replica (read
+   from its journey's hops), both replicas used, the landing replicas'
+   prefix-cache hits up, every stream what its replica delivered and
+   within MODEL_TOL of the teacher-forced oracle, and, sent again straight
+   to its replica, the same stream or one leaving it at a bf16 tie
+   (``check_ties``); /debug/fleet's affinity hit rate and in-flight; a
+   closed burst's throughput through the router and the seeded open loop
+   at LG_RATE_SHARE of it (every row ok and full, the scorecard per
+   class), the router's GET /debug/trace (classes and tenants kept)
+   replayed and compared (no check but slo_met may regress); the knee
+   through the router polling /debug/fleet/capacity (``agrees``,
+   replicas_needed an integer >= 1, quiet and at the peak rho); one
+   request's journey (router and replica hops), stitched timeline (>= 2
+   pids, the replica's flow events inside the router's route-to-finish
+   window) and /debug/fleet/slo (both replicas); the fail-over
+   (``fl_failover``): FL_FAIL_STREAMS streams, then r1's listener closed, a
+   turn pinned to r1 by affinity retried unstarted on r0 and complete, and
+   r1 shut down with DRAIN_TIMEOUT=0 as a crash: none sent twice, each
+   client's tokens what its replica delivered, each stream broken on r1 a
+   prefix ending in a stream_break hop, /.well-known/health DEGRADED and
+   r1 ejected in /debug/fleet; r1 booted again on its port (WARMUP=true),
+   probed back in and taking a request; then the autoscaler
+   (``fl_autoscale``): a router over r0 alone with ELASTIC on,
+   ELASTIC_LAUNCHER=subprocess, ELASTIC_LAUNCH_CMD="python -m
+   gofr_tpu_torch.serve", min 1, max 2: demand launches exactly one
+   replica, a process of its own on the card (its memory in
+   mem_get_info), routable once its /stats says serving; FL_LONG_STREAMS
+   streams then start, at least one on it; calm drains it with its live
+   sessions migrated to r0, every stream complete and within MODEL_TOL of
+   the oracle; the child exits and its card memory is freed. The default
+   run runs it short (``fleet_short``) inside phase 18's short phase: the
+   router over that server and one more CUT_DEPTH replica, 2 sessions of 2
+   turns, a turn pinned to the second replica retried unstarted on the
+   first after its listener closed, and that request's journey; its flash
+   and paged-read launches join the kernels JSON as ``fleet_launches``.
 
 The default run ends, after them, with phase 16 in short
 (``parallel_short``): (a) at CUT_DEPTH layers (4 streams x 16 tokens, no
@@ -5453,7 +5496,7 @@ def wait_for(cond, what: str, timeout_s: float = 60.0) -> None:
     deadline = time.monotonic() + timeout_s
     while not cond() and time.monotonic() < deadline:
         time.sleep(0.02)
-    require(cond(), f"faults: timed out waiting for {what}")
+    require(cond(), f"timed out waiting for {what}")
 
 
 def faults_phase(params, cfg, dev, card: str) -> None:
@@ -8797,13 +8840,15 @@ def lg_knee(app, base: str, thr: float, seconds: float, card: str) -> None:
     require(result["agrees"], f"the knee disagrees: {result['detail']}")
 
 
-def loadgen_phase(params, cfg, dev, card: str, short: bool = False) -> dict:
+def loadgen_phase(params, cfg, dev, card: str, short: bool = False,
+                  after=None) -> dict:
     """Phase 18 (--loadgen; the default run: short): the main path's engine
     booted with loadgen_env; the datasources' health and round trip, the
     throughput of a closed burst, the open-loop run, its capture replayed
     and compared, the batch lane beside interactive streams, and (full
     mode) the knee. The launch counts are zeroed just before the burst and
-    read after the last run: {kernel: launches}."""
+    read after the last run: {kernel: launches}. after(app), when given,
+    runs on the served App after that (the default run's phase 19)."""
     import shutil
     import tempfile
 
@@ -8838,12 +8883,881 @@ def loadgen_phase(params, cfg, dev, card: str, short: bool = False) -> dict:
         if not short:
             lg_knee(app, base, thr, 20.0, card)
         launches = launch_counts.counts()
+        if after is not None:
+            after(app)
     finally:
         app.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"loadgen: phase 18 {time.monotonic() - t_all:.1f}s, launches "
         f"{json.dumps(launches)}")
     return launches
+
+
+# -- phase 19: the fleet router tier (ROADMAP A18b part 4) --------------------
+FL_SEED = 16000          # prompt seeds no other phase uses
+FL_SYSTEM_CHARS = 383    # + BOS: a 384-token system prompt, 3 full pages
+FL_TURN_CHARS = 40       # what each turn of a session adds
+FL_TURN_TOKENS = 32
+FL_SESSIONS = 4          # --fleet (the default run: 2, of 2 turns)
+FL_TURNS = 3
+FL_FAIL_STREAMS = 8
+FL_FAIL_TOKENS = 200
+FL_FAIL_CHARS = 100
+FL_BUDGET = 30 * 2**30   # each replica's HBM_BUDGET_BYTES: two fit the card
+FL_LONG_STREAMS = 6      # the autoscaler phase's streams, migrated on calm
+FL_LONG_TOKENS = 800
+FL_LONG_CHARS = 60
+FL_SLACK_S = 2e-3        # the stitched timeline's alignment slack
+
+
+def fleet_env(tmp: str, name: str, warm: str, buckets: str =
+              "16,32,64,128,256,512", window: str = "4") -> dict:
+    """A replica of the fleet phase: the main path's serve config with QoS
+    and the prefix cache, an explicit HBM_BUDGET_BYTES (two replicas share
+    the card; each would otherwise plan for all of it), the capacity
+    forecaster's `window` (4 s, phase 18's) and SLO targets the ladder
+    never reaches, and
+    DRAIN_TIMEOUT=0: its shutdown fails the streams it holds at once, as a
+    crash would."""
+    return {**QUIET, "MODEL_PRESET": "llama3-8b", "ATTN_IMPL": "flash",
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": name,
+            "MAX_BATCH": "8", "MAX_SEQ_LEN": "1024", "PAGE_SIZE": "128",
+            "PREFILL_BUCKETS": buckets, "REQUEST_TIMEOUT": "600",
+            "WARMUP": warm, "QOS": "true", "PREFIX_CACHE": "true",
+            "HBM_BUDGET_BYTES": str(FL_BUDGET), "SLO_TTFT_TARGET_S": "10",
+            "SLO_TPOT_TARGET_S": "1", "CAPACITY_WINDOW_S": window,
+            "CAPACITY_RHO_WARN": "0.5", "DRAIN_TIMEOUT": "0",
+            "INCIDENT_DIR": f"{tmp}/incidents-{name}",
+            "PROFILE_DIR": f"{tmp}/profiles"}
+
+
+def router_env(tmp: str, replicas: dict, **extra) -> dict:
+    """The router over `replicas` ({name: App}): the affinity policy, a
+    probe every 2 s, the journey, timeline, SLO, capacity and trace planes
+    on; ELASTIC off unless `extra` turns it on."""
+    return {**QUIET, "HTTP_PORT": "0", "METRICS_PORT": "0",
+            "APP_NAME": "router", "REQUEST_TIMEOUT": "600",
+            "FLEET_REPLICAS": ",".join(
+                f"{n}=http://127.0.0.1:{a.http_port}"
+                for n, a in replicas.items()),
+            "FLEET_PROBE_S": "2", "ELASTIC": "false",
+            "INCIDENT_DIR": f"{tmp}/incidents-router", **extra}
+
+
+def fl_boot(env, params, dev, card, what):
+    from gofr_tpu_torch.serve import build_app, build_engine
+
+    engine = build_engine(env, device=dev, params=params)
+    boot_line(engine, what, card)
+    app = build_app(env, engine=engine)
+    app.start()
+    return app
+
+
+def fl_stream(port, prompt, max_tokens, trace=None, headers=None,
+              min_tokens=True) -> dict:
+    """POST /generate (SSE) with a traceparent of `trace`: every event
+    (text, done or error) and the first token's time."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    hdrs = {"Content-Type": "application/json", **(headers or {})}
+    if trace is not None:
+        hdrs["traceparent"] = f"00-{trace}-00f067aa0ba902b7-01"
+    body = {"prompt": prompt, "max_tokens": max_tokens, "stream": True,
+            "temperature": 0.0}
+    if min_tokens:
+        body["min_tokens"] = max_tokens   # every stream its full count
+    t0 = time.monotonic()
+    conn.request("POST", "/generate", body=json.dumps(body), headers=hdrs)
+    resp = conn.getresponse()
+    events, first = [], None
+    if resp.status != 200:   # the error envelope
+        events.append(json.loads(resp.read() or b"null"))
+    try:
+        while resp.status == 200:
+            line = resp.readline()
+            if not line:
+                break
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                if first is None and "text" in events[-1]:
+                    first = time.monotonic() - t0
+                if "done" in events[-1] or "error" in events[-1]:
+                    break
+    except (OSError, http.client.HTTPException) as exc:
+        events.append({"transport": str(exc)})
+    conn.close()
+    texts = [e["text"] for e in events if "text" in e]
+    return {"status": resp.status, "events": events, "texts": texts,
+            "ttft": first, "done": bool(events) and "done" in events[-1]}
+
+
+def fl_same(tok, texts, ids) -> bool:
+    """A client's token events are the ids its replica delivered: one
+    event a token, the same text (the synthetic vocabulary decodes every
+    id to one char, the specials to none)."""
+    return len(texts) == len(ids) and "".join(texts) == tok.decode(ids)
+
+
+def fl_resolve(params, cfg, dev, tok, prompt_ids, texts) -> list:
+    """A stream's ids from its SSE events, where no engine of this process
+    recorded them: each event's one char encodes back to its id; an empty
+    event is one of the specials (PAD, BOS, EOS: a stop token streams on
+    under min_tokens), the one the teacher-forced plain oracle ranks
+    highest there."""
+    import dataclasses
+
+    import torch
+
+    from gofr_tpu_torch.models.llama import llama_forward_nocache
+
+    ids = [tok.encode(t, bos=False)[0] if t else None for t in texts]
+    plain = dataclasses.replace(cfg, attn_impl="xla", decode_attn="xla",
+                                kv_dtype=None)
+    for p, i in enumerate(ids):
+        if i is None:
+            seq = torch.tensor([list(prompt_ids) + ids[:p]], device=dev)
+            with torch.no_grad():
+                last = llama_forward_nocache(params, plain, seq)[0, -1]
+            ids[p] = max((tok.PAD, tok.BOS, tok.EOS),
+                         key=lambda c: float(last[c]))
+    return ids
+
+
+def fl_record(apps) -> tuple:
+    """record_tokens on every App's engine: ({name: rec}, restore())."""
+    emits = {n: a.engine._emit_block for n, a in apps.items()}
+    recs = {n: record_tokens(a.engine) for n, a in apps.items()}
+
+    def restore():
+        for n, a in apps.items():
+            a.engine._emit_block = emits[n]
+    return recs, restore
+
+
+def fl_trace(i: int) -> str:
+    return f"{FL_SEED + i:032x}"
+
+
+def fl_journey(router, trace) -> dict:
+    return get_json(router.http_port, f"/debug/journey/{trace}")
+
+
+def fl_journey_or_none(router, trace) -> list:
+    """The attempts of `trace`'s journey so far ([] before it begins)."""
+    conn = http.client.HTTPConnection("127.0.0.1", router.http_port,
+                                      timeout=60)
+    conn.request("GET", f"/debug/journey/{trace}")
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    if resp.status != 200:
+        return []
+    return json.loads(raw)["data"]["journey"]["attempts"]
+
+
+def fl_served_by(router, trace) -> str:
+    return fl_journey(router, trace)["journey"].get("replica")
+
+
+def fl_sessions(router, n_sessions: int, n_turns: int, seed: int) -> dict:
+    """n_sessions sessions, each a system prompt of its own and n_turns
+    greedy turns, the sessions concurrent (each started 0.2 s after the
+    one before) and each session's turns in order: {(s, k): (prompt, stream, trace)}."""
+    out, lock = {}, threading.Lock()
+
+    def session(s):
+        prompt = make_prompt(FL_SYSTEM_CHARS, seed + s)
+        for k in range(n_turns):
+            prompt += make_prompt(FL_TURN_CHARS, seed + 100 + 10 * s + k)
+            trace = fl_trace(1000 + 10 * s + k)
+            r = fl_stream(router.http_port, prompt, FL_TURN_TOKENS, trace)
+            with lock:
+                out[(s, k)] = (prompt, r, trace)
+
+    threads = []
+    for s in range(n_sessions):
+        threads.append(threading.Thread(target=session, args=(s,)))
+        threads[-1].start()
+        time.sleep(0.05)
+    for t in threads:
+        t.join(600)
+    return out
+
+
+def fl_affinity(router, apps, params, cfg, dev, card, n_sessions, n_turns,
+                seed, straight=True) -> dict:
+    """The affinity check: every turn of a session lands on one replica
+    (read from its journey's hops), the sessions use every replica, each
+    landing replica's prefix-cache hits rise, each stream equals the
+    teacher-forced oracle within MODEL_TOL and, sent again straight to its
+    replica, the same stream (or leaves it at a bf16 tie, check_ties).
+    Returns ({session: replica}, {session: its last prompt})."""
+    engines = {n: a.engine for n, a in apps.items()}
+    hits0 = {n: e.prefix.stats()["hit_pages"] for n, e in engines.items()}
+    recs, restore = fl_record(apps)
+    try:
+        runs = fl_sessions(router, n_sessions, n_turns, seed)
+    finally:
+        restore()
+    landed = {}
+    for (s, k), (prompt, r, trace) in sorted(runs.items()):
+        require(r["status"] == 200 and r["done"]
+                and len(r["texts"]) == FL_TURN_TOKENS,
+                f"fleet affinity: session {s} turn {k}: {r['status']} "
+                f"{r['events'][-1:]}")
+        j = fl_journey(router, trace)
+        hops = j["hops"]
+        replicas = {h["actor"].split(":")[0] for h in hops
+                    if h["actor"] != "router"}
+        require(j["complete"] and len(replicas) == 1, f"fleet affinity: "
+                f"session {s} turn {k} hops on {replicas}")
+        landed.setdefault(s, set()).update(replicas)
+    per = {s: next(iter(v)) for s, v in landed.items()}
+    require(all(len(v) == 1 for v in landed.values()),
+            f"fleet affinity: a session bounced across replicas {landed}")
+    require(set(per.values()) == set(apps),
+            f"fleet affinity: the sessions used {sorted(set(per.values()))} "
+            f"of {sorted(apps)}")
+    hits = {n: e.prefix.stats()["hit_pages"] - hits0[n]
+            for n, e in engines.items()}
+    require(all(hits[n] > 0 for n in set(per.values())),
+            f"fleet affinity: prefix-cache hits per replica {hits}")
+    # the routed streams' ids, by prompt, from the landing engine
+    tok = next(iter(engines.values())).tokenizer
+    routed = {}
+    for n, rec in recs.items():
+        for prompt_ids, ids in list(rec.values()):
+            routed[tuple(prompt_ids)] = (n, list(ids))
+    gaps, exact = [], []
+    for (s, k), (prompt, r, _) in sorted(runs.items()):
+        ids = tok.encode(prompt)
+        n, got = routed[tuple(ids)]
+        require(n == per[s] and fl_same(tok, r["texts"], got),
+                f"fleet affinity: session {s} turn {k}: the client's tokens "
+                f"are not what {n} delivered")
+        g, e = oracle_gap(params, cfg, dev, ids, got)
+        gaps.append(g)
+        exact.append(e)
+    snap = get_json(router.http_port, "/debug/fleet")
+    log(f"fleet affinity: {n_sessions} sessions x {n_turns} turns x "
+        f"{FL_TURN_TOKENS} tokens on a {FL_SYSTEM_CHARS + 1}-token system "
+        f"prompt each: sessions on {json.dumps(per)}, prefix-cache hit pages "
+        f"{json.dumps(hits)}; /debug/fleet affinity {json.dumps(snap['affinity'])}"
+        f", in flight per replica "
+        f"{json.dumps({r['name']: r['inflight'] for r in snap['replicas']})}"
+        f", routes {json.dumps(snap['routes'])}; against the teacher-forced "
+        f"oracle exact argmax at {min(exact):.3f}-{max(exact):.3f}, largest "
+        f"gap {max(gaps):.3e} (tol {MODEL_TOL}) [{card}]")
+    require(max(gaps) <= MODEL_TOL, "fleet affinity: a stream leaves the "
+            "oracle's")
+    require(snap["affinity"]["hits"] >= n_sessions * (n_turns - 1),
+            f"fleet affinity: {snap['affinity']}")
+    if straight:
+        matched, total = 0, 0
+        for name in sorted(set(per.values())):
+            app = apps[name]
+            items = [(s, k, prompt) for (s, k), (prompt, _, _) in
+                     sorted(runs.items()) if per[s] == name]
+            ids = [tok.encode(p) for _, _, p in items]
+            got = [routed[tuple(i)][1] for i in ids]
+            recs, restore = fl_record({name: app})
+            try:
+                for s, k, prompt in items:
+                    r = fl_stream(app.http_port, prompt, FL_TURN_TOKENS)
+                    require(r["done"], f"fleet straight: {r['events'][-1:]}")
+            finally:
+                restore()
+            again = {tuple(p): list(i) for p, i in recs[name].values()}
+            ref = [again[tuple(i)] for i in ids]
+            matched += check_ties(app.engine, f"fleet straight {name}", ids,
+                                  got, ref)
+            total += len(items)
+        log(f"fleet affinity: the same {total} requests sent straight to "
+            f"their replicas: {matched} equal token for token, the rest at "
+            f"a bf16 tie [{card}]")
+    last = {s: runs[(s, n_turns - 1)][0] for s in range(n_sessions)}
+    return per, last
+
+
+def fl_open_loop(router, apps, rate, seconds, card) -> list:
+    """The seeded trace (3 zipf tenants, all classes, session reuse)
+    through OpenLoopRunner against the router: every row ok and full."""
+    from gofr_tpu_torch.loadgen import OpenLoopRunner
+
+    events = lg_events(rate, seconds, FL_SEED + 1, False)
+    recs, restore = fl_record(apps)
+    base = f"http://127.0.0.1:{router.http_port}"
+    t0 = time.monotonic()
+    runner = OpenLoopRunner(base, events, timeout_s=600.0, label="fleet")
+    try:
+        rows = runner.run(drain_timeout_s=600.0)
+    finally:
+        restore()
+    wall = time.monotonic() - t0
+    merged = {(n, k): v for n, rec in recs.items() for k, v in rec.items()}
+    lags = [a["lag_s"] for a in runner.arrivals()]
+    log(f"fleet open loop: {len(events)} Poisson arrivals at {rate:.3f}/s "
+        f"over {seconds}s through the router (classes "
+        f"{sorted({e['class'] for e in events})}, tenants "
+        f"{sorted({e['tenant'] for e in events})}, "
+        f"{sum(1 for e in events if e.get('turn'))} later turns), wall "
+        f"{wall:.1f}s, dispatch lag worst {max(lags) * 1e3:.3f} ms [{card}]")
+    eos = next(iter(apps.values())).engine.tokenizer.EOS
+    lg_rows_ok("fleet open loop", rows, events, merged, eos)
+    lg_scorecard("fleet open loop", rows, card)
+    return rows
+
+
+def fl_replay(router, rows_a, card) -> None:
+    """The router's GET /debug/trace: the open loop's arrivals with their
+    classes and tenants, replayed, the scorecards compared (no check but
+    slo_met may regress)."""
+    from gofr_tpu_torch.loadgen import (OpenLoopRunner,
+                                        baseline_from_scorecard,
+                                        build_scorecard, compare)
+
+    doc = get_json(router.http_port, "/debug/trace")
+    events = doc["events"][-len(rows_a):]
+    t0 = min(e["t"] for e in events)
+    for e in events:
+        e["t"] = round(e["t"] - t0, 6)
+    want = sorted((r.get("class"), r.get("tenant")) for r in rows_a)
+    got = sorted((e.get("class"), e.get("tenant")) for e in events)
+    require(got == want, "fleet replay: the router's trace lost classes or "
+            "tenants")
+    rows_b = OpenLoopRunner(f"http://127.0.0.1:{router.http_port}", events,
+                            timeout_s=600.0, label="replay").run(
+                                drain_timeout_s=600.0)
+    require(all(r["status"] == "ok" for r in rows_b), "replay rows not ok")
+    sc = lg_scorecard("fleet replay", rows_b, card)
+    result = compare(sc, baseline_from_scorecard(build_scorecard(rows_a)))
+    for c in result["checks"]:
+        log(f"fleet replay compare: {json.dumps(c)}")
+    drifted = [c for c in result["checks"]
+               if c.get("metric") != "slo_met" and c["verdict"] == "regress"]
+    log(f"fleet replay: {len(events)} captured arrivals (classes and "
+        f"tenants kept) replayed through the router, verdict "
+        f"{result['verdict']}, {len(drifted)} checks regress beyond slo_met "
+        f"[{card}]")
+    require(not drifted, f"fleet replay drifted: {drifted}")
+
+
+def fl_knee(router, thr, seconds, card) -> None:
+    """run_knee through the router from 0.3x to LG_KNEE_UP x the measured
+    throughput, polling /debug/fleet/capacity: samples, ``agrees``, and
+    replicas_needed an integer of at least 1 in every sample."""
+    from gofr_tpu_torch.loadgen import run_knee
+
+    port = router.http_port
+    result = run_knee(
+        f"http://127.0.0.1:{port}",
+        lambda: get_json(port, "/debug/fleet/capacity"),
+        rate0_rps=0.3 * thr, rate1_rps=LG_KNEE_UP * thr, seconds=seconds,
+        seed=FL_SEED + 3, poll_s=0.25, drain_timeout_s=600.0,
+        request_timeout_s=600.0,
+        synth_kw={"tenants": 3, "prompt_tokens": LG_WORDS,
+                  "max_new": LG_MAX_NEW})
+    samples = result["samples"]
+    require(samples, "the fleet knee got no forecast sample")
+    needed = [s.get("replicas_needed") for s in samples]
+    peak = max(samples, key=lambda s: s.get("rho") or 0.0)
+    log(f"fleet knee: {result['ramp']['arrivals']} arrivals ramping "
+        f"{0.3 * thr:.3f} -> {LG_KNEE_UP * thr:.3f}/s over {seconds}s "
+        f"through the router; outcomes "
+        f"{json.dumps(result['status']['outcomes'])}; {len(samples)} "
+        f"samples of /debug/fleet/capacity; quiet baseline TTFT "
+        f"{result['baseline_ttft_ms']} ms, blowout at "
+        f"{result['blowout_ttft_ms']} ms first by the arrival at "
+        f"t={result['first_blowout_at_s']}s, collapse warning at "
+        f"t={result['collapse_warning_at_s']}s; replicas_needed quiet "
+        f"{needed[0]}, at the peak rho {peak.get('rho')}: "
+        f"{peak.get('replicas_needed')}, final "
+        f"{result['replicas_needed_final']}; agrees {result['agrees']} "
+        f"({result['detail']}) [{card}]")
+    require(all(isinstance(n, int) and n >= 1 for n in needed),
+            f"fleet knee: replicas_needed {needed}")
+    require(result["agrees"], f"the fleet knee disagrees: {result['detail']}")
+
+
+def fl_planes(router, names, card) -> None:
+    """One routed request: its journey holds the router's hops and the
+    replica's queue, prefill and decode; its stitched timeline has >= 2
+    pids and the replica's flow events inside the router's route-to-finish
+    window; /debug/fleet/slo merges every replica."""
+    trace = fl_trace(1)
+    r = fl_stream(router.http_port, make_prompt(120, FL_SEED + 1), 16, trace)
+    require(r["done"], f"fleet planes: {r['events'][-1:]}")
+    deadline = time.monotonic() + 10
+    while (fl_journey(router, trace)["journey"].get("outcome") is None
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    j = fl_journey(router, trace)
+    kinds = {(h["actor"] == "router", h["hop"]) for h in j["hops"]}
+    want = {(True, "route"), (True, "stream"), (True, "finish"),
+            (False, "queue"), (False, "prefill"), (False, "decode")}
+    require(j["complete"] and want <= kinds, f"fleet journey: {kinds}")
+    t = get_json(router.http_port, f"/debug/fleet/timeline/{trace}")
+    events = t["traceEvents"]
+    pids = {ev["pid"] for ev in events}
+    route = [ev for ev in events if ev["pid"] == 1 and ev.get("ph") == "X"]
+    lo = min(ev["ts"] for ev in route)
+    hi = max(ev["ts"] + ev.get("dur", 0) for ev in route)
+    flows = [ev["ts"] for ev in events if ev["pid"] != 1
+             and ev.get("cat") == "flow" and ev.get("id") == trace]
+    slo = get_json(router.http_port, "/debug/fleet/slo")
+    log(f"fleet planes: journey {[h['hop'] for h in j['hops']]} complete "
+        f"{j['complete']}; timeline pids {t['pids']} ({len(events)} events), "
+        f"the replica's {len(flows)} flow events at "
+        f"{(min(flows) - lo) / 1e3:.3f}..{(max(flows) - lo) / 1e3:.3f} ms "
+        f"into the router's {(hi - lo) / 1e3:.3f} ms route-to-finish "
+        f"window; /debug/fleet/slo states {json.dumps(slo['fleet_states'])}"
+        f", replicas {sorted(slo['replicas'])} [{card}]")
+    require(len(pids) >= 2 and t["complete"], f"fleet timeline: {t['pids']} "
+            f"missing {t['missing']}")
+    require(flows and lo - FL_SLACK_S * 1e6 <= min(flows)
+            and max(flows) <= hi + FL_SLACK_S * 1e6,
+            "fleet timeline: the replica's events lie outside the router's "
+            "window")
+    require(set(slo["replicas"]) == set(names) and not any(
+        "error" in row for row in slo["replicas"].values()),
+        f"fleet slo: {slo['replicas']}")
+
+
+def fl_close_server(app) -> None:
+    """Stop the App's listener (new connections refused), its streams in
+    flight untouched."""
+    app._http_server.shutdown()
+    app._http_server = None
+
+
+def fl_failover(router, apps, victim, pinned, card) -> None:
+    """FL_FAIL_STREAMS streams through the router, then `victim` crashes
+    (its listener closed, then its App shut down with DRAIN_TIMEOUT=0):
+    no stream sent twice and no event repeated, each client's tokens what
+    its replica delivered; a stream broken on the victim ends with a
+    stream_break hop; `pinned` (a session prompt whose affinity is on the
+    victim) sent between the two, unstarted, is retried on the other
+    replica and completes; the router's health reads DEGRADED and
+    /debug/fleet shows the victim ejected."""
+    tok = apps[victim].engine.tokenizer
+    recs, restore = fl_record(apps)
+    out, threads = {}, []
+    prompts = [make_prompt(FL_FAIL_CHARS + 10 * i, FL_SEED + 300 + i)
+               for i in range(FL_FAIL_STREAMS)]
+
+    def go(i):
+        out[i] = fl_stream(router.http_port, prompts[i], FL_FAIL_TOKENS,
+                           fl_trace(300 + i))
+    for i in range(FL_FAIL_STREAMS):
+        threads.append(threading.Thread(target=go, args=(i,)))
+        threads[-1].start()
+    wait_for(lambda: any(len(v[1]) >= 8 for v in recs[victim].values())
+             or all(not t.is_alive() for t in threads),
+             "a stream decoding on the victim", 120)
+    fl_close_server(apps[victim])
+    pinned_out = {}
+    pin = threading.Thread(target=lambda: pinned_out.update(fl_stream(
+        router.http_port, pinned, FL_TURN_TOKENS, fl_trace(399))))
+    pin.start()
+    # its first attempt refused by the closed listener, then the crash
+    wait_for(lambda: len(fl_journey_or_none(router, fl_trace(399))) >= 2,
+             "the pinned request's retry", 30)
+    t_crash = time.monotonic()
+    apps[victim].shutdown()
+    crash_s = time.monotonic() - t_crash
+    for t in threads + [pin]:
+        t.join(600)
+    retried = pinned_out
+    restore()
+    served = {}
+    for n, rec in recs.items():
+        for prompt_ids, ids in rec.values():
+            served.setdefault(tuple(prompt_ids), []).append((n, list(ids)))
+    broken = []
+    for i, p in enumerate(prompts):
+        r = out[i]
+        runs = served.get(tuple(tok.encode(p)), [])
+        require(len(runs) == 1, f"fleet fail-over: stream {i} served "
+                f"{len(runs)} times: {[n for n, _ in runs]}")
+        n, ids = runs[0]
+        got = r["texts"]
+        j = fl_journey(router, fl_trace(300 + i))
+        if r["done"]:
+            require(len(got) == FL_FAIL_TOKENS and fl_same(tok, got, ids),
+                    f"fleet fail-over: stream {i} on {n} delivered "
+                    f"{len(got)} tokens, not its {len(ids)}")
+        else:
+            broken.append(i)
+            terminal = [h for h in j["hops"] if h["actor"] == "router"][-1]
+            require(n == victim and fl_same(tok, got, ids[:len(got)])
+                    and "error" in r["events"][-1]
+                    and terminal["hop"] == "stream_break",
+                    f"fleet fail-over: stream {i} broke on {n} with "
+                    f"{len(got)} of {len(ids)} tokens, terminal "
+                    f"{terminal['hop']}, last event {r['events'][-1:]}")
+    attempts = fl_journey(router, fl_trace(399))["journey"]["attempts"]
+    require(retried["done"] and len(retried["texts"]) == FL_TURN_TOKENS
+            and len(attempts) >= 2 and attempts[0]["replica"] == victim
+            and attempts[0]["outcome"] != "committed"
+            and attempts[-1]["outcome"] == "committed"
+            and attempts[-1]["replica"] != victim,
+            f"fleet fail-over: the pinned unstarted request: {attempts}, "
+            f"{retried['events'][-1:]}")
+    snap = None
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        snap = get_json(router.http_port, "/debug/fleet")
+        row = next(r for r in snap["replicas"] if r["name"] == victim)
+        if not row["available"]:
+            break
+        time.sleep(0.2)
+    health = [get_json(router.http_port, "/.well-known/health")
+              for _ in range(2)]
+    log(f"fleet fail-over: {FL_FAIL_STREAMS} streams x {FL_FAIL_TOKENS} "
+        f"tokens, {victim} crashed in {crash_s:.2f}s: {len(broken)} streams "
+        f"broke on it (stream_break, each a prefix of what it delivered), "
+        f"{FL_FAIL_STREAMS - len(broken)} complete, none sent twice; the "
+        f"pinned unstarted request {[(a['replica'], a['outcome']) for a in attempts]}; "
+        f"/debug/fleet {victim} {json.dumps({k: row[k] for k in ('state', 'available', 'breaker_open', 'probe_error')})}"
+        f"; health {[h['status'] for h in health]} (fleet "
+        f"{health[-1]['details']['fleet']['status']}) [{card}]")
+    require(broken, "fleet fail-over: no stream was on the victim")
+    require(not row["available"], f"fleet fail-over: {victim} not ejected")
+    require(health[-1]["status"] == "DEGRADED"
+            and health[-1]["details"]["fleet"]["status"] == "DEGRADED",
+            f"fleet fail-over: health {health[-1]}")
+
+
+def fl_rejoin(router, env, params, dev, card, name) -> object:
+    """Boot `name` again on its port (WARMUP=true): it is probed back in
+    and takes a request of 4 new sessions sent at once."""
+    port = int(env["HTTP_PORT"])
+    t0 = time.monotonic()
+    app = fl_boot(env, params, dev, card, f"fleet {name} again")
+    require(app.http_port == port, "fleet rejoin: another port")
+    wait_for(lambda: next(r for r in get_json(router.http_port,
+                                              "/debug/fleet")["replicas"]
+                          if r["name"] == name)["available"],
+             f"{name} probed back in", 60)
+    out, threads = {}, []
+    for i in range(4):
+        threads.append(threading.Thread(target=lambda i=i: out.__setitem__(
+            i, fl_stream(router.http_port, make_prompt(80, FL_SEED + 400 + i),
+                         16, fl_trace(400 + i)))))
+        threads[-1].start()
+    for t in threads:
+        t.join(600)
+    on = [fl_served_by(router, fl_trace(400 + i)) for i in range(4)]
+    log(f"fleet rejoin: {name} booted again in {time.monotonic() - t0:.1f}s "
+        f"on port {port}, probed back in; 4 new sessions landed on {on} "
+        f"[{card}]")
+    require(all(r["done"] for r in out.values()), "fleet rejoin: a stream "
+            "failed")
+    require(name in on, f"fleet rejoin: {name} took no request")
+    return app
+
+
+def fl_autoscale(params, cfg, dev, card, tmp, rate) -> dict:
+    """The autoscaler: a router over r0 alone with ELASTIC on,
+    ELASTIC_LAUNCHER=subprocess and ELASTIC_LAUNCH_CMD="python -m
+    gofr_tpu_torch.serve" (min 1, max 2, short holds; CAPACITY_TARGET_RHO
+    0.05, so the open-loop demand at `rate` asks for a second replica and
+    its end for one). Sustained demand launches exactly one replica, which
+    boots on the card as a process of its own (its card memory seen in
+    mem_get_info) and becomes routable; FL_LONG_STREAMS greedy streams
+    then start, at least one on the child, the demand stops, and calm
+    drains the child with its live sessions migrated to r0: every stream
+    complete and within MODEL_TOL of the teacher-forced oracle; the child
+    exits and its card memory is freed. Buckets reach 1024, so a migrated
+    session's resume window fits one, and the forecasters' window is 2 s,
+    so calm comes soon after the last arrival. Returns {"launches": ...,
+    "boot_s": ...}."""
+    import torch
+
+    from gofr_tpu_torch import serve_router
+    from gofr_tpu_torch.ops import launch_counts
+
+    buckets = "16,32,64,128,256,512,1024"
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_base = s.getsockname()[1]
+    r0 = fl_boot(fleet_env(tmp, "r0", "true", buckets, "2"), params, dev,
+                 card, "fleet autoscale r0")
+    router = serve_router.build_app(router_env(
+        tmp, {"r0": r0}, ELASTIC="true", ELASTIC_LAUNCHER="subprocess",
+        ELASTIC_LAUNCH_CMD="python -m gofr_tpu_torch.serve",
+        ELASTIC_PORT_BASE=str(port_base), ELASTIC_MIN_REPLICAS="1",
+        ELASTIC_MAX_REPLICAS="2", ELASTIC_INTERVAL_S="0.5",
+        ELASTIC_UP_HOLD_S="2", ELASTIC_DOWN_HOLD_S="1",
+        ELASTIC_COOLDOWN_S="3", DRAIN_TIMEOUT_S="120",
+        CAPACITY_TARGET_RHO="0.05", FLEET_PROBE_S="0.5"))
+    scaler = router.autoscaler
+    launcher = scaler.launcher
+    launcher.env = {k: v for k, v in fleet_env(tmp, "auto0", "true",
+                                               buckets, "2").items()
+                    if k not in ("HTTP_PORT", "METRICS_PORT")}
+    launcher.log_dir = f"{tmp}/children"
+    drains = []
+    drain = scaler.drain
+    scaler.drain = lambda *a, **k: drains.append(drain(*a, **k)) or drains[-1]
+    registry = router.fleet.registry
+    stop, sent = threading.Event(), []
+    tok = r0.engine.tokenizer
+    out, threads, proc = {}, [], None
+    try:
+        router.start()
+        port = router.http_port
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        launch_counts.zero()
+
+        def demand():
+            i = 0
+            while not stop.is_set():
+                threading.Thread(target=lambda i=i: sent.append(fl_stream(
+                    port, make_prompt(40, FL_SEED + 500 + i), 16,
+                    min_tokens=False)), daemon=True).start()
+                i += 1
+                stop.wait(1.0 / rate)
+        threading.Thread(target=demand, daemon=True).start()
+        t0 = time.monotonic()
+        deadline = time.monotonic() + 120
+        while (scaler.scale_events["up"] < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        require(scaler.scale_events["up"] == 1, f"fleet autoscale: no "
+                f"launch; capacity {get_json(port, '/debug/fleet/capacity')['fleet']}"
+                f", decisions {scaler.snapshot()['decisions'][-3:]}")
+        t_launch = time.monotonic() - t0
+        proc = launcher._procs.get("auto0")
+        require(proc is not None, "the launcher holds no auto0 process")
+
+        def serving():
+            r = registry.replica("auto0")
+            if proc.poll() is not None:
+                log_tail = open(f"{tmp}/children/auto0.log",
+                                errors="replace").read()[-4000:]
+                raise RuntimeError(f"auto0 exited {proc.returncode}: "
+                                   f"{log_tail}")
+            return r is not None and r.available()
+        wait_for(serving, "auto0 serving", 600)
+        t_boot = time.monotonic() - t0 - t_launch
+        free1 = torch.cuda.mem_get_info()[0]
+        prompts = [make_prompt(FL_LONG_CHARS + 5 * i, FL_SEED + 600 + i)
+                   for i in range(FL_LONG_STREAMS)]
+
+        def go(i):
+            out[i] = fl_stream(port, prompts[i], FL_LONG_TOKENS,
+                               fl_trace(600 + i))
+        for i in range(FL_LONG_STREAMS):
+            threads.append(threading.Thread(target=go, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.05)
+        wait_for(lambda: all(fl_journey(router, fl_trace(600 + i))[
+            "journey"].get("replica") for i in range(FL_LONG_STREAMS)),
+            "the long streams committed", 60)
+        on = [fl_served_by(router, fl_trace(600 + i))
+              for i in range(FL_LONG_STREAMS)]
+        stop.set()
+        t_calm = time.monotonic()
+        require("auto0" in on, f"fleet autoscale: no long stream on auto0: "
+                f"{on}")
+        wait_for(lambda: scaler.scale_events["down"] >= 1
+                 and registry.replica("auto0") is None,
+                 "auto0 drained and removed", 300)
+        t_drain = time.monotonic() - t_calm
+        for t in threads:
+            t.join(600)
+        wait_for(lambda: proc.poll() is not None, "auto0's exit", 60)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free2 = torch.cuda.mem_get_info()[0]
+        launches = launch_counts.counts()
+        gaps, exact = [], []
+        for i, p in enumerate(prompts):
+            r = out[i]
+            require(r["done"] and len(r["texts"]) == FL_LONG_TOKENS,
+                    f"fleet autoscale: stream {i} on {on[i]}: "
+                    f"{len(r['texts'])} tokens, {r['events'][-1:]}")
+            ids = tok.encode(p)
+            g, e = oracle_gap(params, cfg, dev, ids, fl_resolve(
+                params, cfg, dev, tok, ids, r["texts"]))
+            gaps.append(g)
+            exact.append(e)
+        result = drains[0] if drains else {}
+        status = result.get("status") or {}
+        # the reconciler's decisions (on time.monotonic) from the calm on:
+        # (s after it, needed, action or reason)
+        calm = [(round(d["t"] - t_calm, 2), d["needed"],
+                 d["action"] if d["action"] != "none" else d["reason"])
+                for d in scaler.decisions if d["t"] >= t_calm - 1.0]
+        log(f"fleet autoscale: demand at {rate:.3f}/s launched auto0 after "
+            f"{t_launch:.1f}s (python -m gofr_tpu_torch.serve, pid "
+            f"{proc.pid}), serving {t_boot:.1f}s later; card free "
+            f"{free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB with the child; "
+            f"{FL_LONG_STREAMS} streams x {FL_LONG_TOKENS} tokens on {on}; "
+            f"calm drained auto0 {t_drain:.1f}s after the demand stopped: "
+            f"drained {result.get('drained')}, removed "
+            f"{result.get('removed')}, outcomes "
+            f"{json.dumps(status.get('outcomes'))}, sessions "
+            f"{json.dumps(status.get('sessions'))}; the child exited "
+            f"{proc.returncode}, card free {free2 / 2**30:.2f} GiB; "
+            f"scale events {json.dumps(scaler.scale_events)}; the streams "
+            f"against the teacher-forced oracle: exact argmax at "
+            f"{min(exact):.3f}-{max(exact):.3f}, largest gap "
+            f"{max(gaps):.3e} (tol {MODEL_TOL}); {len(sent)} demand "
+            f"requests, {sum(1 for r in sent if r['done'])} ok; decisions "
+            f"from the calm on {calm} [{card}]")
+        require(scaler.scale_events == {"up": 1, "down": 1},
+                f"fleet autoscale: scale events {scaler.scale_events}")
+        require(result.get("drained") is True and result.get("removed"),
+                f"fleet autoscale: drain {result}")
+        require((status.get("outcomes") or {}).get("shipped", 0) >= 1,
+                f"fleet autoscale: no session migrated: {status}")
+        require(max(gaps) <= MODEL_TOL, "fleet autoscale: a stream leaves "
+                "the oracle's")
+        require(free1 < free0 - 8 * 2**30, "fleet autoscale: the child "
+                "holds no card memory")
+        require(free2 > free1 + 8 * 2**30, "fleet autoscale: the child's "
+                "card memory was not freed")
+        return {"launches": launches, "boot_s": t_boot}
+    finally:
+        stop.set()
+        router.shutdown()
+        r0.shutdown()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+
+
+def fleet_phase(params, cfg, dev, card) -> dict:
+    """Phase 19 (--fleet): two replicas of the main path in this process
+    (full depth, WARMUP=wide, one params tree), the router
+    (serve_router.build_app) over them; affinity, the open loop, its
+    replay and the knee through the router, the planes, the fail-over and
+    the rejoin, then the autoscaler. The launch counts are zeroed before
+    the affinity sessions and read after the fail-over, and again for the
+    autoscaler: {"routed": ..., "autoscale": ...}."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from gofr_tpu_torch import serve_router
+    from gofr_tpu_torch.ops import launch_counts
+
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="gofr-fleet-")
+    apps, router = {}, None
+    try:
+        for name in ("r0", "r1"):
+            apps[name] = fl_boot(fleet_env(tmp, name, "wide"), params, dev,
+                                 card, f"fleet {name}")
+        router = serve_router.build_app(router_env(tmp, apps))
+        router.start()
+        base = f"http://127.0.0.1:{router.http_port}"
+        launch_counts.zero()
+        per, last = fl_affinity(router, apps, params, cfg, dev, card,
+                                FL_SESSIONS, FL_TURNS, FL_SEED)
+        thr = lg_throughput(base, card, False)
+        rows = fl_open_loop(router, apps, LG_RATE_SHARE * thr, 20.0, card)
+        fl_replay(router, rows, card)
+        fl_knee(router, thr, 20.0, card)
+        fl_planes(router, list(apps), card)
+        victim = "r1"
+        s = next(s for s, n in per.items() if n == victim)
+        # a short next turn: the session's window stays within 512
+        pinned = last[s] + make_prompt(8, FL_SEED + 200)
+        port = apps[victim].http_port
+        fl_failover(router, apps, victim, pinned, card)
+        routed = launch_counts.counts()
+        log(f"fleet launches (the affinity, open-loop, replay, knee, planes "
+            f"and fail-over runs): {json.dumps(routed)}")
+        require(routed["flash_attention"] > 0
+                and routed["paged_attention"] > 0,
+                "the routed traffic launched no flash or paged read")
+        env = {**fleet_env(tmp, victim, "true"), "HTTP_PORT": str(port)}
+        apps[victim] = fl_rejoin(router, env, params, dev, card, victim)
+    finally:
+        if router is not None:
+            router.shutdown()
+        for app in apps.values():
+            app.shutdown()
+    apps.clear()
+    torch.cuda.empty_cache()
+    try:
+        auto = fl_autoscale(params, cfg, dev, card, tmp,
+                            LG_RATE_SHARE * thr / 2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"fleet: phase 19 {time.monotonic() - t_all:.1f}s, launches routed "
+        f"{json.dumps(routed)}, autoscale {json.dumps(auto['launches'])}")
+    return {"routed": routed, "autoscale": auto["launches"]}
+
+
+def fleet_short(app0, params, cfg, dev, card) -> dict:
+    """Phase 19 in short (the default run), on phase 18's short server
+    (CUT_DEPTH layers, WARMUP=true) and one more replica like it: the
+    router over both, 2 affinity sessions of 2 turns, then the second
+    replica's listener closed and a session turn pinned to it sent,
+    retried unstarted on the first and complete, its journey the router's
+    and the first replica's hops; then its shutdown. The launch counts
+    zeroed before the sessions and read after: {kernel: launches}."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch import serve_router
+    from gofr_tpu_torch.ops import launch_counts
+
+    t_all = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="gofr-fleet-")
+    apps = {"r0": app0}
+    router, r1_down = None, False
+    try:
+        apps["r1"] = fl_boot(fleet_env(tmp, "r1", "true"), params, dev, card,
+                             "fleet r1")
+        # no probe before the pinned request: the registry still lists r1
+        router = serve_router.build_app(router_env(tmp, apps,
+                                                   FLEET_PROBE_S="30"))
+        router.start()
+        launch_counts.zero()
+        per, last = fl_affinity(router, apps, params, cfg, dev, card, 2, 2,
+                                FL_SEED + 700, straight=False)
+        s = next(s for s, n in per.items() if n == "r1")
+        fl_close_server(apps["r1"])
+        trace = fl_trace(799)
+        r = fl_stream(router.http_port,
+                      last[s] + make_prompt(FL_TURN_CHARS, FL_SEED + 799),
+                      FL_TURN_TOKENS, trace)
+        r1_down = True
+        apps["r1"].shutdown()
+        j = fl_journey(router, trace)
+        attempts = [(a["replica"], a["outcome"])
+                    for a in j["journey"]["attempts"]]
+        hops = {(h["actor"].split(":")[0], h["hop"]) for h in j["hops"]}
+        launches = launch_counts.counts()
+        log(f"fleet short: the pinned turn after r1's listener closed: "
+            f"attempts {attempts}, {len(r['texts'])} tokens, journey "
+            f"complete {j['complete']} with {sorted(hops)}; launches "
+            f"{json.dumps(launches)}; {time.monotonic() - t_all:.1f}s "
+            f"[{card}]")
+        require(r["done"] and len(r["texts"]) == FL_TURN_TOKENS,
+                f"fleet short: the pinned turn {r['events'][-1:]}")
+        require(attempts[0][0] == "r1" and attempts[0][1] != "committed"
+                and attempts[-1] == ("r0", "committed"),
+                f"fleet short: attempts {attempts}")
+        require(j["complete"] and {("router", "route"), ("r0", "queue"),
+                                   ("r0", "prefill"), ("r0", "decode")}
+                <= hops, f"fleet short: journey hops {sorted(hops)}")
+        require(launches["flash_attention"] > 0
+                and launches["paged_attention"] > 0,
+                "fleet short: no flash or paged-read launch")
+        return launches
+    finally:
+        if router is not None:
+            router.shutdown()
+        if "r1" in apps and not r1_down:
+            apps["r1"].shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def flash_only(dev, card) -> None:
@@ -8891,7 +9805,8 @@ def main(argv=()) -> int:
     phase 16 (parallel_mode; ``--parallel e``: its (e) alone), ending with
     the ok line; --sharded-train: build, then phase 17
     (sharded_train_mode), ending with the ok line; --loadgen: build, then
-    phase 18 (loadgen_phase), ending with the ok line. The other short
+    phase 18 (loadgen_phase), ending with the ok line; --fleet: build, then
+    phase 19 (fleet_phase), ending with the ok line. The other short
     modes print no ok line."""
     import dataclasses
 
@@ -8901,11 +9816,11 @@ def main(argv=()) -> int:
     if mode not in (None, "--flash", "--decode", "--prefill", "--sc",
                     "--weights", "--spec", "--openai", "--obs", "--faults",
                     "--qos", "--elastic", "--train", "--models",
-                    "--parallel", "--sharded-train", "--loadgen"):
+                    "--parallel", "--sharded-train", "--loadgen", "--fleet"):
         log(f"FAIL unknown argument {mode!r} (--flash, --decode, --prefill, "
             f"--sc, --weights, --spec, --openai, --obs, --faults, --qos, "
             f"--elastic, --train, --models, --parallel [e], --sharded-train, "
-            f"--loadgen or none)")
+            f"--loadgen, --fleet or none)")
         return 2
 
     if not torch.cuda.is_available():
@@ -8960,7 +9875,7 @@ def main(argv=()) -> int:
             return 0
         if mode not in ("--prefill", "--weights", "--spec", "--openai",
                         "--obs", "--faults", "--qos", "--elastic",
-                        "--loadgen"):
+                        "--loadgen", "--fleet"):
             check_kernels(dev)
 
         cfg = LlamaConfig.llama3_8b()
@@ -9010,13 +9925,16 @@ def main(argv=()) -> int:
             profile_decode(eng, card, "paged")
             log(f"obs only: ok, total {time.monotonic() - t_all:.1f}s")
             return 0
-        if mode in ("--faults", "--qos", "--elastic", "--loadgen"):
+        if mode in ("--faults", "--qos", "--elastic", "--loadgen",
+                    "--fleet"):
             if mode == "--faults":
                 faults_phase(params, cfg, dev, card)
             elif mode == "--qos":
                 qos_mode_phase(params, cfg, dev, card)
             elif mode == "--loadgen":
                 loadgen_phase(params, cfg, dev, card)
+            elif mode == "--fleet":
+                fleet_phase(params, cfg, dev, card)
             else:
                 elastic_phase(params, cfg, dev, card)
             log(f"{mode[2:]} only: ok, total {time.monotonic() - t_all:.1f}s")
@@ -9136,12 +10054,20 @@ def main(argv=()) -> int:
         log(f"spec and chunk phases: {time.monotonic() - t0:.1f}s")
         # the open-loop client, the datasources and the batch lane, short
         # (--loadgen runs them at full depth with the replay and the
-        # knee); their flash and paged-read launches join the kernels line
-        loadgen = loadgen_phase(cut, cut_cfg, dev, card, short=True)
+        # knee), then the router over its server and one more (--fleet
+        # runs phase 19 at full depth); their flash and paged-read
+        # launches join the kernels line
+        fleet = {}
+        loadgen = loadgen_phase(
+            cut, cut_cfg, dev, card, short=True,
+            after=lambda app: fleet.update(fleet_short(app, cut, cut_cfg,
+                                                       dev, card)))
         for kern in kernels:
             if kern["name"] in ("flash_attention", "paged_attention"):
-                kern["launches"] += loadgen[kern["name"]]
+                kern["launches"] += loadgen[kern["name"]] + fleet[
+                    kern["name"]]
                 kern["loadgen_launches"] = loadgen[kern["name"]]
+                kern["fleet_launches"] = fleet[kern["name"]]
         # training and the batcher servers, short (--train and --models run
         # them in full); training's flash launches join the kernels line
         del params, cut

@@ -11,8 +11,9 @@ also share leading token pages.
   - ``AffinityRecorder``: the replica's bounded LRU of keys it served,
     advertised in ``/stats`` as a small digest with a per-boot
     ``generation`` id (a restarted replica is a cold one).
-  - ``AffinityMap``: the router's key -> replica map (the router itself
-    waits in ROADMAP A18b).
+  - ``AffinityMap``: the router's key -> replica map (``fleet/proxy.py``
+    learns it from routed responses, ``fleet/registry.py`` re-warms it
+    from the digests).
 """
 
 import hashlib

@@ -21,12 +21,27 @@ class HTTPError(Exception):
             self.status_code = status_code
 
 
+class MissingParam(HTTPError):
+    status_code = 400
+
+    def __init__(self, params: Sequence[str] = ()):
+        self.params = list(params)
+        super().__init__(f"Parameter(s) {','.join(self.params)} required for this request")
+
+
 class InvalidParam(HTTPError):
     status_code = 400
 
     def __init__(self, params: Sequence[str] = ()):
         self.params = list(params)
         super().__init__(f"Incorrect value for parameter(s): {','.join(self.params)}")
+
+
+class EntityNotFound(HTTPError):
+    status_code = 404
+
+    def __init__(self, name: str = "entity", value: str = ""):
+        super().__init__(f"No entity found with {name}: {value}")
 
 
 class RequestTimeout(HTTPError):

@@ -2,9 +2,9 @@
 capacity observatory saw it coming.
 
 Ports ``gofr_tpu/loadgen/knee.py`` whole: ``run_knee`` and
-``_normalize_forecast``. Against one of the port's replicas the forecast
-is its ``GET /debug/capacity``; ``replicas_needed`` is None there until
-the fleet rollup is ported (ROADMAP A18b part 4).
+``_normalize_forecast``. The forecast is a replica's ``GET
+/debug/capacity`` (``replicas_needed`` None) or the port's router's ``GET
+/debug/fleet/capacity`` (``fleet/capacity.py``, with ``replicas_needed``).
 
 The drill is the capacity forecaster's field exam. A linear λ-ramp
 (inhomogeneous Poisson, real sockets) walks offered load from well

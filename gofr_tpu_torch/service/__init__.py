@@ -6,7 +6,8 @@ surface, ``request`` with ``stream=True``), ``ServiceResponse`` (``json``,
 ``CircuitOpenError``, the ``Options`` decorators (``DefaultHeaders``,
 ``BasicAuthConfig``, ``APIKeyConfig``, ``OAuthConfig``, ``HealthConfig``,
 ``CircuitBreakerConfig`` with its ``CircuitBreaker``) and
-``new_http_service``. Every call is timed into
+``new_http_service``. The port's breaker adds ``close``, which ends its
+health prober (the fleet registry closes its replicas' breakers on stop). Every call is timed into
 ``app_http_service_response`` and logged at debug.
 
 The port's is stdlib only: ``http.client`` where the reference uses
@@ -311,6 +312,7 @@ class CircuitBreaker:
         self.opened_at = 0.0
         self._lock = threading.Lock()
         self._probe_thread: Optional[threading.Thread] = None
+        self._closed = threading.Event()
 
     def __getattr__(self, name):
         # passthrough for the non-verb attributes (address, ...)
@@ -336,8 +338,7 @@ class CircuitBreaker:
 
     def _start_probing(self) -> None:
         def probe() -> None:
-            while True:
-                time.sleep(self.interval_s)
+            while not self._closed.wait(self.interval_s):
                 health = self._svc.health_check()
                 if health.status == STATUS_UP:
                     with self._lock:
@@ -350,6 +351,10 @@ class CircuitBreaker:
                                               name="circuit-probe",
                                               daemon=True)
         self._probe_thread.start()
+
+    def close(self) -> None:
+        """End the prober (an owner going away: the fleet registry's stop)."""
+        self._closed.set()
 
     def get(self, ctx, path, params=None, headers=None):
         return self._execute(lambda: self._svc.get(ctx, path, params, headers))

@@ -15,7 +15,7 @@ has the serving engine's recorder and, under DISAGG_MODE=both, the prefill
 pool's (App.enable_flight_recorder gives it one): the prefill half gives
 queue and prefill, the decode half kv_handoff and decode, and the
 hand-off's finish is ``handoff``. The router's cross-replica assembly
-waits in A18b.
+(``fleet/journey.py``) merges these hops with its own.
 """
 
 from __future__ import annotations

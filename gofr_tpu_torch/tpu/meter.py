@@ -28,8 +28,8 @@ A copy of ``gofr_tpu/tpu/meter.py``, whole: ``TPUMeter``,
 
 The tenant helpers ``_MAX_TENANTS``, ``_TENANT_OVERFLOW`` and
 ``effective_class`` are tpu/qos.py's, imported as the reference imports
-them. The fleet half (``gofr_tpu/fleet/capacity.py``, the router's rollup and
-``replicas_needed``) waits with ``fleet/`` in A18b.
+them. The fleet half, the router's rollup of every replica's
+``/debug/capacity`` and ``replicas_needed``, is ``fleet/capacity.py``.
 
 Threading: ``account_step`` runs on the engine loop thread,
 ``note_arrival`` on submit threads, ``note_finished`` on the off-loop

@@ -3,7 +3,8 @@ App.enable_drain_migration, serve.py's ELASTIC_WARM_BOOT) against the
 reference's.
 
 The twins of tests/test_elastic.py's migration half at the debug preset
-on the CPU (the fleet autoscaler and router wait with ROADMAP A18b): a
+on the CPU (its autoscaler half, with the port's router, is in
+tests/test_torch_fleet_elastic.py): a
 session exported mid-stream from one port engine and landed on another is
 token-equal to the JAX colocated engine's stream on the same weights; a
 migration whose peers all refuse degrades to a local resume with the

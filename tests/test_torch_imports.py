@@ -2,8 +2,8 @@
 
 - every gofr_tpu_torch module (native/, the observability planes, the
   incident plane, the KV tier, the disaggregated pair, migration,
-  service/, loadgen/, datasource/, pubsub/, the subscriber and cron
-  included) and chip_smoke.py imports
+  service/, loadgen/, datasource/, pubsub/, the subscriber, cron, fleet/
+  and the router server included) and chip_smoke.py imports
   in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
   packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
   `transformers`, `tokenizers`) are blocked;
@@ -90,6 +90,13 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
             "gofr_tpu_torch.pubsub.inproc", "gofr_tpu_torch.pubsub.filebroker",
             "gofr_tpu_torch.pubsub.external", "gofr_tpu_torch.subscriber",
             "gofr_tpu_torch.cron"} <= set(mods)
+    # the fleet tier and the router server
+    assert {"gofr_tpu_torch.fleet", "gofr_tpu_torch.fleet.registry",
+            "gofr_tpu_torch.fleet.policy", "gofr_tpu_torch.fleet.proxy",
+            "gofr_tpu_torch.fleet.debug", "gofr_tpu_torch.fleet.journey",
+            "gofr_tpu_torch.fleet.timeline", "gofr_tpu_torch.fleet.slo",
+            "gofr_tpu_torch.fleet.capacity", "gofr_tpu_torch.fleet.elastic",
+            "gofr_tpu_torch.serve_router"} <= set(mods)
     code = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

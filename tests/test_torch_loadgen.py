@@ -12,10 +12,10 @@ inputs: ``synthesize`` for the same seeds, ``build_scorecard`` /
 ``dump_trace`` wrote, read by the other. The e2e tests boot the port's
 server (``serve.build_app``, the debug preset on the CPU, QoS and the
 capacity observatory on) and drive it over real sockets: an open-loop
-run, the replica's ``GET /debug/trace`` replayed and compared, and the
-knee drill polling the replica's ``GET /debug/capacity``. The reference's
-e2e tests go through its router (``fleet/``, ROADMAP A18b part 4); these
-go to the replica.
+run through the port's router (``serve_router.build_app``), the router's
+``GET /debug/trace`` (classes and tenants kept) replayed and compared, the
+replica's own trace export, and the knee drill polling the router's
+``GET /debug/fleet/capacity``, as the reference's go through its router.
 """
 
 import io
@@ -559,12 +559,13 @@ def test_cli_synth_equals_the_reference_cli(tmp_path):
 
 # ------------------------------------------------------- live debug e2e ----
 @pytest.fixture(scope="module")
-def replica():
+def live_fleet():
     """One port replica at the debug preset on the CPU, QoS, pub/sub and
-    the capacity observatory on, shared by the e2e tests below."""
-    from gofr_tpu_torch import serve
+    the capacity observatory on, behind the port's router
+    (serve_router.build_app), shared by the e2e tests below."""
+    from gofr_tpu_torch import serve, serve_router
 
-    app = serve.build_app({
+    replica = serve.build_app({
         "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "lg-r0",
         "MODEL_PRESET": "debug", "PAGED": "true", "PAGE_SIZE": "16",
         "MAX_SEQ_LEN": "256", "PREFILL_BUCKETS": "16,64,128", "MAX_BATCH": "4",
@@ -572,9 +573,22 @@ def replica():
         "QOS": "true", "PUBSUB_BACKEND": "inproc", "CAPACITY_WINDOW_S": "4",
         "CAPACITY_RHO_WARN": "0.5", "INCIDENT_AUTOPSY": "false",
         "HOSTPROF": "false", "INCIDENT_DIR": INCIDENT_DIR}, device="cpu")
-    app.start()
-    yield {"app": app, "base": f"http://127.0.0.1:{app.http_port}"}
-    app.shutdown()
+    replica.start()
+    try:
+        router = serve_router.build_app({
+            "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "lg-router",
+            "REQUEST_TIMEOUT": "60", "LOG_LEVEL": "ERROR",
+            "FLEET_REPLICAS": f"r0=http://127.0.0.1:{replica.http_port}",
+            "FLEET_PROBE_S": "0.3", "ELASTIC": "false",
+            "INCIDENT_DIR": INCIDENT_DIR})
+        router.start()
+        try:
+            yield {"router": router, "replica": replica,
+                   "base": f"http://127.0.0.1:{router.http_port}"}
+        finally:
+            router.shutdown()
+    finally:
+        replica.shutdown()
 
 
 def _get_json(url, timeout=10):
@@ -583,18 +597,14 @@ def _get_json(url, timeout=10):
     return body.get("data", body) if isinstance(body, dict) else body
 
 
-def test_e2e_capture_replay_reproduces(replica):
-    """Open-loop run -> the replica's capture -> replay the capture -> the
-    replay's scorecard holds the first run's goodput and every class is
-    present. Its latency checks are made and printed here, and held on the
-    card (``chip_smoke.py --loadgen``): the CPU shared by the test workers
-    moves a TTFT by more than the 150 ms band. The recorder counts a
-    prompt in tokens and ``prompt_text`` makes that many words, so the
-    replay cuts ``prompt_text`` to that many tokens of the debug
-    tokenizer (one a character, and the BOS). The recorder keeps no class
-    or tenant (neither the reference's nor the port's), so its trace
-    replays unclassified, and the first run is scored the same way."""
-    base = replica["base"]
+def test_e2e_capture_replay_reproduces(live_fleet):
+    """Open-loop run through the router -> the router's capture (class and
+    tenant kept) -> replay the capture -> the replay's scorecard holds the
+    first run's goodput and presence per class. Its latency checks are made
+    and printed here, and held on the card (``chip_smoke.py --fleet``): the
+    CPU shared by the test workers moves a TTFT by more than the 150 ms
+    band."""
+    base = live_fleet["base"]
     events = synthesize(poisson_arrivals(4.0, 3.0, random.Random(2)),
                         tenants=2, sessions=4, prompt_tokens=(2, 6),
                         max_new=(2, 4), seed=2)
@@ -607,23 +617,19 @@ def test_e2e_capture_replay_reproduces(replica):
                zip(sorted(rows_a, key=lambda r: r["i"]), events))
     doc = _get_json(base + "/debug/trace")
     captured = doc["events"]
-    assert doc["source"] == "flight_recorder"
+    # the router saw everything the generator offered, and kept the
+    # classes and tenants (a replica's recorder keeps neither)
     assert len(captured) >= len(rows_a)
     assert all("prompt" not in e for e in captured)
-    rows_b = OpenLoopRunner(
-        base, captured, timeout_s=60.0,
-        prompt_fn=lambda e: prompt_text(e)[:e["prompt_tokens"] - 1]).run(
-            drain_timeout_s=120.0)
+    assert {e.get("class") for e in captured} == {
+        e["class"] for e in events}
+    assert {e.get("tenant") for e in captured} == {
+        e["tenant"] for e in events}
+    rows_b = OpenLoopRunner(base, captured, timeout_s=60.0).run(
+        drain_timeout_s=120.0)
     assert all(r["status"] == "ok" for r in rows_b), rows_b
-    by_i = sorted(rows_b, key=lambda r: r["i"])
-    ordered = sorted(captured, key=lambda e: e["t"])
-    assert all(1 <= r["tokens"] <= e["max_new"]
-               for r, e in zip(by_i, ordered))
-    assert not any(e.get("class") or e.get("tenant") for e in captured)
-    unclassified = [dict(r, **{"class": None, "tenant": None})
-                    for r in rows_a]
-    comparison = compare(build_scorecard(rows_b), baseline_from_scorecard(
-        build_scorecard(unclassified)))
+    comparison = compare(build_scorecard(rows_b),
+                         baseline_from_scorecard(build_scorecard(rows_a)))
     print(json.dumps(comparison["checks"]))
     drifted = [c for c in comparison["checks"]
                if c.get("metric") in ("goodput", "presence")
@@ -631,40 +637,58 @@ def test_e2e_capture_replay_reproduces(replica):
     assert not drifted, drifted
     assert {"ttft_ms_p50", "ttft_ms_p95", "goodput"} <= {
         c.get("metric") for c in comparison["checks"]}
+    assert {c.get("class") for c in comparison["checks"]} >= {
+        e["class"] for e in events}
 
 
-def test_e2e_classes_and_tenants_reach_the_replica(replica):
-    """The runner's X-QoS-Class / X-Tenant headers land in the replica's
-    QoS ledgers and its capacity meter's tenants."""
-    base = replica["base"]
-    before = _get_json(base + "/debug/qos")["classes"]
+def test_e2e_replica_trace_export(live_fleet):
+    """The replica's flight recorder serves the same surface."""
+    replica = live_fleet["replica"]
+    doc = _get_json(f"http://127.0.0.1:{replica.http_port}/debug/trace")
+    assert doc["trace_version"] == TRACE_VERSION
+    assert doc["source"] == "flight_recorder"
+    assert doc["events"], "the recorder saw traffic but exported no events"
+    assert all("prompt" not in e for e in doc["events"])
+
+
+def test_e2e_classes_and_tenants_reach_the_replica(live_fleet):
+    """The runner's X-QoS-Class / X-Tenant headers cross the router and
+    land in the replica's QoS ledgers and its capacity meter's tenants."""
+    base = live_fleet["base"]
+    rbase = f"http://127.0.0.1:{live_fleet['replica'].http_port}"
+    before = _get_json(rbase + "/debug/qos")["classes"]
     events = [make_event(t=0.05 * i, prompt_tokens=3, seed=i, max_new=2,
                          cls=cls, tenant=f"t{i % 2}")
               for i, cls in enumerate(["interactive", "standard", "batch"])]
     rows = OpenLoopRunner(base, events, timeout_s=60.0).run(
         drain_timeout_s=60.0)
     assert [r["status"] for r in rows] == ["ok"] * 3
-    after = _get_json(base + "/debug/qos")["classes"]
+    after = _get_json(rbase + "/debug/qos")["classes"]
     for cls in ("interactive", "standard", "batch"):
         assert after[cls]["finished"] == before[cls]["finished"] + 1
-    tenants = json.dumps(_get_json(base + "/debug/capacity"))
+    tenants = json.dumps(_get_json(rbase + "/debug/capacity"))
     assert '"t0"' in tenants and '"t1"' in tenants
+    routed = _get_json(base + "/debug/fleet")["classes"]["routes"]
+    assert all(routed.get(cls, 0) >= 1
+               for cls in ("interactive", "standard", "batch"))
 
 
-def test_e2e_knee_forecaster_cross_check(replica):
-    """Knee mode on the port's replica, polling its /debug/capacity: the
-    drill gets forecast samples, every arrival is recorded, and when a
+def test_e2e_knee_forecaster_cross_check(live_fleet):
+    """Knee mode through the router, polling the fleet capacity rollup
+    (GET /debug/fleet/capacity): the drill gets forecast samples with a
+    replicas_needed of at least 1, every arrival is recorded, and when a
     blowout was measured the collapse warning fired first."""
-    base = replica["base"]
+    base = live_fleet["base"]
     result = run_knee(
-        base, lambda: _get_json(base + "/debug/capacity", timeout=5),
+        base, lambda: _get_json(base + "/debug/fleet/capacity", timeout=5),
         rate0_rps=2.0, rate1_rps=8.0, seconds=3.0, poll_s=0.3,
         drain_timeout_s=90.0, request_timeout_s=60.0,
         synth_kw={"tenants": 2, "prompt_tokens": (2, 4),
                   "max_new": (3, 6)})
-    assert result["samples"], "the capacity surface never answered"
+    assert result["samples"], "the fleet capacity surface never answered"
     assert result["ramp"]["arrivals"] == len(result["rows"])
-    assert all(s["replicas_needed"] is None for s in result["samples"])
+    assert all(isinstance(s["replicas_needed"], int)
+               and s["replicas_needed"] >= 1 for s in result["samples"])
     assert result["agrees"], result["detail"]
     assert {"baseline_ttft_ms", "blowout_ttft_ms", "peak_rho",
             "collapse_warning_at_s", "first_blowout_at_s",
