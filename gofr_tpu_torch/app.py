@@ -47,8 +47,25 @@ commits its message, one that raises leaves it for redelivery; without
 a broker it logs and registers nothing), ``add_cron_job`` (a 5-field
 spec, cron.py) and ``add_document_store`` (the injected-provider
 pattern). ``start`` starts the subscriptions and the crontab and
-``shutdown`` stops them after the hooks. Waiting in ROADMAP A18b: the
-auth middlewares, gRPC, static files and the OpenAPI routes.
+``shutdown`` stops them after the hooks.
+
+The serving surfaces and the device client, as in the reference
+(``gofr_tpu/app.py:210-241``, ``:765-773``, ``:874-881``, ``:917-918``):
+``use_middleware`` (appended to the chain), ``enable_basic_auth``,
+``enable_api_key_auth``, ``enable_oauth`` (HS256) and
+``enable_oauth_jwks`` (RS256 against a refreshed JWKS; without the
+``cryptography`` package it logs and is skipped; its refresher stops at
+shutdown), every one passing ``/.well-known/*`` through
+(http/middleware.py); ``register_grpc_service`` (grpcx/): with a service
+registered, ``start`` serves gRPC on GRPC_PORT (default 9000, 0 picks a
+free port, in ``grpc_port`` afterwards) after the HTTP server, and
+``shutdown`` stops it after the HTTP server; ``grpc`` is imported only
+then, and without it a set GRPC_PORT fails the start while an unset one
+is logged and serves no gRPC; ``add_tpu`` (the device client,
+tpu/device.CUDAClient: ``use_logger`` / ``use_metrics`` / ``connect``,
+then ``container.tpu``), which ``enable_fault_injection`` arms with the
+plane and ``enable_engine_snapshot``'s memory sampler reads. Waiting in
+ROADMAP A18b part 7: static files and the OpenAPI routes.
 """
 
 from __future__ import annotations
@@ -74,6 +91,7 @@ from .subscriber import SubscriptionManager
 __all__ = ["App", "Context", "Stream"]
 
 DEFAULT_HTTP_PORT = 8000
+DEFAULT_GRPC_PORT = 9000
 DEFAULT_METRICS_PORT = 2121
 DEFAULT_REQUEST_TIMEOUT_S = 5.0
 DEFAULT_MAX_CONCURRENT_REQUESTS = 256
@@ -102,7 +120,8 @@ def _stream_with_slot(stream: Stream, release: Callable[[], None]) -> Stream:
 
 class App:
     def __init__(self, config: Union[Config, Mapping[str, str], None] = None,
-                 container: Optional[Container] = None):
+                 container: Optional[Container] = None, device=None,
+                 device_client: bool = True):
         if container is not None:
             # an engine's container (serve.app_for): its metrics, tracer and
             # logger; the App's own keys come from `config` when given
@@ -114,7 +133,10 @@ class App:
                 config = EnvFile(os.environ.get("GOFR_CONFIGS_DIR",
                                                 "./configs"))
             self.config = as_config(config)
-            self.container = Container.create(self.config)
+            # device: the entry point's, for the container's device client
+            # (device_client False: none, for a process holding no tensor)
+            self.container = Container.create(self.config, device=device,
+                                              device_client=device_client)
         self.logger = self.container.logger
         self.router = Router()
         self.request_timeout_s = self.config.get_float(
@@ -126,10 +148,13 @@ class App:
             threading.BoundedSemaphore(self.max_concurrent_requests)
             if self.max_concurrent_requests > 0 else None)
         self.http_port = self.config.get_int("HTTP_PORT", DEFAULT_HTTP_PORT)
+        self.grpc_port = self.config.get_int("GRPC_PORT", DEFAULT_GRPC_PORT)
         self.metrics_port = self.config.get_int("METRICS_PORT",
                                                 DEFAULT_METRICS_PORT)
         self._http_server: Optional[HTTPServer] = None
         self._metrics_server: Optional[HTTPServer] = None
+        self._grpc_server = None
+        self._grpc_services: list = []
         self._shutdown_hooks: list = []
         self._subscriptions = SubscriptionManager(self.container)
         self._cron = None
@@ -199,6 +224,47 @@ class App:
                     self._handler_slots.release()
 
         return wire_handler
+
+    # -- middleware and auth --------------------------------------------------
+    def use_middleware(self, *mws) -> None:
+        """Append middleware to the chain, after the default four."""
+        self.router.use_middleware(*mws)
+
+    def enable_basic_auth(self, *creds: str, users=None,
+                          validate_func=None) -> None:
+        """Basic auth: users as (name, password) pairs, a dict, or
+        validate_func(name, password)."""
+        userdict = dict(users or {})
+        for i in range(0, len(creds) - 1, 2):
+            userdict[creds[i]] = creds[i + 1]
+        self.router.use_middleware(
+            mw.basic_auth_middleware(userdict, validate_func))
+
+    def enable_api_key_auth(self, *keys: str, validate_func=None) -> None:
+        """X-API-Key auth against `keys`, or validate_func(key)."""
+        self.router.use_middleware(
+            mw.api_key_auth_middleware(keys, validate_func))
+
+    def enable_oauth(self, secret: str) -> None:
+        """Bearer JWTs signed HS256 with `secret`."""
+        self.router.use_middleware(mw.oauth_middleware(secret))
+
+    def enable_oauth_jwks(self, jwks_url: str,
+                          refresh_interval_s: float = 300.0,
+                          keyset=None) -> None:
+        """Bearer JWTs signed RS256, against the kid-indexed keys of
+        `jwks_url` refreshed every `refresh_interval_s` on a background
+        thread (stopped at shutdown). Without the `cryptography` package
+        this logs and is skipped, as the reference's."""
+        try:
+            keyset = keyset or mw.JWKSKeySet(
+                jwks_url, refresh_interval_s=refresh_interval_s,
+                logger=self.logger)
+        except RuntimeError as exc:
+            self.logger.errorf("OAuth JWKS disabled: %s", exc)
+            return
+        self.on_shutdown(keyset.close)
+        self.router.use_middleware(mw.oauth_jwks_middleware(keyset))
 
     # -- the observability planes ---------------------------------------------
     def enable_flight_recorder(self, engine, path: str = "/debug/requests"):
@@ -288,8 +354,9 @@ class App:
         install_routes(self, engine, path)
         interval = self.config.get_float("ENGINE_HBM_SAMPLE_S", 10.0)
         if interval > 0:
-            sampler = MemorySampler(metrics, engine=engine,
-                                    interval_s=interval, logger=self.logger)
+            sampler = MemorySampler(metrics, tpu=self.container.tpu,
+                                    engine=engine, interval_s=interval,
+                                    logger=self.logger)
             sampler.start()
             self.on_shutdown(sampler.stop)
         return util
@@ -377,7 +444,8 @@ class App:
         install_routes(self, path)
 
     def enable_fault_injection(self, engine, path: str = "/debug/faults"):
-        """Arm the chaos plane (tpu/faults.py) on an engine and its executor
+        """Arm the chaos plane (tpu/faults.py) on an engine, its executor and
+        the container's device client (the ``device.health_probe`` site)
         and serve POST/GET /debug/faults, HARD-gated on FAULT_INJECTION=true:
         otherwise this returns None, registers no route (404) and leaves
         the engine's ``faults=None``. Config: FAULT_INJECTION,
@@ -392,10 +460,12 @@ class App:
         executor = getattr(engine, "executor", None)
         if executor is not None:
             executor.faults = plane
+        if self.container.tpu is not None:
+            self.container.tpu.faults = plane
         install_routes(self, plane, path)
         self.logger.warnf(
-            "FAULT INJECTION ENABLED: chaos plane armed on the engine and "
-            "executor; POST %s drives drills", path)
+            "FAULT INJECTION ENABLED: chaos plane armed on the engine, "
+            "executor, and device; POST %s drives drills", path)
         return plane
 
     def enable_incident_autopsy(self, engine, slo_path: str = "/debug/slo",
@@ -639,6 +709,46 @@ class App:
         store.connect()
         self.container.docstore = store
 
+    # -- gRPC and the device client ---------------------------------------------
+    def register_grpc_service(self, service) -> None:
+        """A grpcx.GenericService (or any object with its
+        ``__grpc_service_name__`` / ``__grpc_methods__``), served on
+        GRPC_PORT from start() on."""
+        self._grpc_services.append(service)
+
+    def add_tpu(self, tpu_client) -> None:
+        """Inject a device client (tpu/device.CUDAClient): use_logger,
+        use_metrics, connect, then ``container.tpu``."""
+        tpu_client.use_logger(self.logger)
+        tpu_client.use_metrics(self.container.metrics_manager)
+        tpu_client.connect()
+        self.container.tpu = tpu_client
+
+    def _grpc_server_or_none(self):
+        """The gRPC server for the registered services (None without one).
+        Without the grpc package a set GRPC_PORT raises, an unset one is
+        logged: a port asked for is never silently left unserved."""
+        if not self._grpc_services:
+            return None
+        try:
+            from .grpcx import GRPCServer
+
+            server = GRPCServer(self.container, self.grpc_port, self.logger)
+        except ImportError as exc:
+            if self.config.get("GRPC_PORT"):
+                raise RuntimeError(
+                    f"GRPC_PORT={self.config.get('GRPC_PORT')} with "
+                    f"{len(self._grpc_services)} gRPC service(s) "
+                    f"registered, but grpc is not importable: {exc}") from exc
+            self.logger.errorf(
+                "grpc is not importable (%s): %d gRPC service(s) not served; "
+                "set GRPC_PORT to make this fail the start", exc,
+                len(self._grpc_services))
+            return None
+        for service in self._grpc_services:
+            server.register(service)
+        return server
+
     # -- health ---------------------------------------------------------------
     def add_health_contributor(self, name: str,
                                check: Callable[[], Any]) -> None:
@@ -677,12 +787,16 @@ class App:
 
     # -- lifecycle ------------------------------------------------------------
     def start(self) -> None:
-        """Start the metrics and HTTP servers without blocking (port 0 picks
-        a free port; the bound ones are in metrics_port and http_port
-        afterwards). A metrics server that cannot bind is logged and
-        skipped, as in the reference."""
+        """Start the metrics and HTTP servers, then gRPC when a service is
+        registered, without blocking (port 0 picks a free port; the bound
+        ones are in metrics_port, http_port and grpc_port afterwards). A
+        metrics server that cannot bind is logged and skipped, as in the
+        reference."""
         if self._http_server is not None:
             return
+        # before any server starts: a GRPC_PORT that cannot be served
+        # fails the start with nothing left listening
+        grpc_server = self._grpc_server_or_none()
         self._metrics_server = HTTPServer(self._metrics_router(),
                                           self.metrics_port, self.logger)
         try:
@@ -695,6 +809,10 @@ class App:
                                        self.logger)
         self._http_server.start()
         self.http_port = self._http_server.port
+        if grpc_server is not None:
+            grpc_server.start()
+            self._grpc_server = grpc_server
+            self.grpc_port = grpc_server.port
         self._subscriptions.start()
         if self._cron is not None:
             self._cron.start()
@@ -728,5 +846,7 @@ class App:
         for server in (self._http_server, self._metrics_server):
             if server is not None:
                 server.shutdown()
-        self._http_server = self._metrics_server = None
+        if self._grpc_server is not None:
+            self._grpc_server.stop()
+        self._http_server = self._metrics_server = self._grpc_server = None
         self.container.close()

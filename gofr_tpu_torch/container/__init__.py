@@ -33,12 +33,18 @@ aggregate ``health`` by name and is closed by ``close``;
 ``get_publisher`` / ``get_subscriber`` return the broker.
 ``new_mock_container`` is the reference's fully-faked container.
 
-Waiting in ROADMAP A18b: the HTTP services and the ``REMOTE_LOG_URL``
-level poller (``create`` refuses a set ``REMOTE_LOG_URL``). The
-reference's ``tpu`` datasource (a device client
-built under ``TPU_ENABLED`` / ``MODEL_NAME``) has no counterpart: the port's
-engines resolve their card themselves (``tpu/device.resolve_device``), and
-the engine's health reaches the aggregate as a contributor.
+The remote log level and the device client, as the reference's
+``create`` builds them: REMOTE_LOG_URL starts the level poller
+(logging/remote.py) every REMOTE_LOG_FETCH_INTERVAL seconds (default 15),
+stopped by ``close``; TPU_ENABLED or MODEL_NAME first joins the job of
+JAX_COORDINATOR_ADDR (``join_job``: a configured rank that cannot join
+fails boot), then builds ``tpu``, the device client
+(tpu/device.CUDAClient, on the entry point's `device` or TPU_PLATFORM's).
+A client that fails without a coordinator is logged and ``tpu`` stays
+None; with one, boot fails (the other ranks wait on this one).
+``App.add_tpu`` injects a client instead. It refreshes the card-memory
+series at every scrape, reports in the aggregate health as ``tpu`` and is
+closed by ``close``. Waiting in ROADMAP A18b part 7: the HTTP services.
 """
 
 from __future__ import annotations
@@ -75,7 +81,11 @@ class Container:
         self.sql = None
         self.kv = None
         self.pubsub = None
+        self.tpu = None
         self.docstore = None
+        # the REMOTE_LOG_URL poller's stop event and thread (create)
+        self._level_stop = threading.Event()
+        self._level_poller: Optional[threading.Thread] = None
         # app-level components in the aggregate health report (the serving
         # engines register here)
         self._health_contributors: Dict[str, Callable[[], Any]] = {}
@@ -89,16 +99,16 @@ class Container:
         self._degraded_streak = 0
 
     @classmethod
-    def create(cls, config: Union[Config, Mapping[str, str], None]
-               ) -> "Container":
+    def create(cls, config: Union[Config, Mapping[str, str], None],
+               device=None, device_client: bool = True) -> "Container":
         """The container of an App: its logger, its metrics manager with
-        the framework metrics, and its tracer. Raises ValueError on a set
-        REMOTE_LOG_URL (ROADMAP A18b)."""
+        the framework metrics, its tracer, the REMOTE_LOG_URL poller, the
+        datasources and, under TPU_ENABLED or MODEL_NAME (unless
+        device_client is False: a process that holds no tensor, the fleet
+        router), the device client. device: the entry point's device for
+        the job and the client (None: TPU_PLATFORM's, the card by
+        default; "cpu" for tests)."""
         config = as_config(config)
-        if config.get_or_default("REMOTE_LOG_URL", ""):
-            raise ValueError("REMOTE_LOG_URL is not supported by "
-                             "gofr_tpu_torch yet: the remote log-level "
-                             "poller waits in ROADMAP A18b part 5")
         c = cls(config)
         c.logger.debugf("container created for app %s", c.app_name)
         c.metrics_manager = MetricsManager(logger=c.logger)
@@ -112,8 +122,47 @@ class Container:
             # app_obs_dropped_spans_total (registered above)
             exporter.use_metrics(c.metrics_manager)
         c.tracer = Tracer(service_name=c.app_name, exporter=exporter)
+        remote_url = config.get_or_default("REMOTE_LOG_URL", "")
+        if remote_url:
+            from ..logging.remote import start_remote_level_updater
+
+            c._level_poller = start_remote_level_updater(
+                c.logger, remote_url,
+                config.get_float("REMOTE_LOG_FETCH_INTERVAL", 15.0),
+                stop=c._level_stop)
         c._build_datasources()
+        if device_client and (config.get_bool("TPU_ENABLED", False)
+                              or config.get_or_default("MODEL_NAME", "")):
+            c._build_device_client(device)
         return c
+
+    def _build_device_client(self, device) -> None:
+        """Join the job (if configured) before the first device query, then
+        build the client: a rank that cannot join, or whose client fails
+        once joined, fails boot (the other ranks would wait on it); a
+        client that fails alone is logged and leaves ``tpu`` None."""
+        from ..tpu.device import CUDAClient, requested_device
+
+        config = self.config
+        try:
+            want = requested_device(config.get_or_default("TPU_PLATFORM", ""),
+                                    device)
+        except ValueError as exc:
+            if config.get_or_default("JAX_COORDINATOR_ADDR", ""):
+                raise
+            self.logger.errorf("could not initialise the device client: %s",
+                               exc)
+            return
+        joined = self.join_job(want)
+        try:
+            self.tpu = CUDAClient.from_config(
+                config, self.logger, self.metrics_manager,
+                device=joined[1] if joined else device)
+        except Exception as exc:  # noqa: BLE001 - boot survives a bad datasource
+            if joined:
+                raise
+            self.logger.errorf("could not initialise the device client: %s",
+                               exc)
 
     def _build_datasources(self) -> None:
         """The reference's datasource switch: a datasource that cannot
@@ -166,12 +215,14 @@ class Container:
     def get_subscriber(self):
         return self.pubsub
 
-    def join_job(self, device=None, config: Optional[Config] = None):
+    def join_job(self, device=None, config: Optional[Config] = None,
+                 backend: Optional[str] = None):
         """Join the job of the config's JAX_COORDINATOR_ADDR (and the other
         JAX_* keys) unless this process already has. Returns (spec, this
         rank's device), or None without a coordinator. config: read the
         keys there instead (serve.py's local TP job sets them over the
-        App's)."""
+        App's). backend: the process group's (parallel/multihost.join;
+        default NCCL on the card, gloo on the CPU)."""
         import torch
         import torch.distributed as dist
 
@@ -182,7 +233,8 @@ class Container:
             return None
         spec = MultiHostSpec.from_config(config)
         if not dist.is_initialized():
-            return spec, join(spec, device=device, logger=self.logger)
+            return spec, join(spec, device=device, logger=self.logger,
+                              backend=backend)
         if device is not None and torch.device(device).type == "cpu":
             return spec, torch.device("cpu")
         return spec, torch.device("cuda", torch.cuda.current_device())
@@ -226,6 +278,13 @@ class Container:
         m.set_gauge("app_python_threads", threading.active_count())
         m.set_gauge("app_python_gc_objects", len(gc.get_objects()) if gc.isenabled() else 0)
         m.set_gauge("app_uptime_seconds", time.time() - self._started_at)
+        if self.tpu is not None and hasattr(self.tpu, "refresh_memory_metrics"):
+            # a host-side read, no device round-trip: every scrape sees the
+            # card's current occupancy between the memory sampler's runs
+            try:
+                self.tpu.refresh_memory_metrics()
+            except Exception as exc:  # noqa: BLE001 - never break the scrape
+                self.logger.errorf("HBM metrics refresh failed: %s", exc)
         for hook in list(self._scrape_hooks.values()):
             try:
                 hook()
@@ -249,7 +308,7 @@ class Container:
         details: Dict[str, Any] = {}
         statuses = []
         for name, source in (("sql", self.sql), ("kv", self.kv),
-                             ("pubsub", self.pubsub),
+                             ("pubsub", self.pubsub), ("tpu", self.tpu),
                              ("docstore", self.docstore)):
             if source is None:
                 continue
@@ -286,15 +345,20 @@ class Container:
         return out
 
     def close(self) -> None:
-        """Drain the async trace exporter first (what is queued reaches the
-        collector), then close the datasources."""
+        """Stop the level poller, drain the async trace exporter (what is
+        queued reaches the collector), then close the datasources and the
+        device client."""
+        self._level_stop.set()
+        if self._level_poller is not None:
+            self._level_poller.join(timeout=5)
         tracer = self.tracer
         if tracer is not None and hasattr(tracer.exporter, "close"):
             try:
                 tracer.exporter.close()
             except Exception:  # noqa: BLE001
                 pass
-        for source in (self.sql, self.kv, self.pubsub, self.docstore):
+        for source in (self.sql, self.kv, self.pubsub, self.tpu,
+                       self.docstore):
             if source is not None and hasattr(source, "close"):
                 try:
                     source.close()

@@ -6,7 +6,7 @@ tracer middleware's server span), ``bind()``, the deadline
 (``remaining()``, on the monotonic clock) and ``logger``, and the
 reference's passthroughs to the request (``param``, ``path_param``,
 ``host_name``) and to the container (``config``, ``sql``, ``kv``,
-``pubsub``, ``publish``). A pub/sub message and a cron tick
+``pubsub``, ``tpu``, the device client, ``publish``). A pub/sub message and a cron tick
 are requests too (pubsub.Message, cron's empty request), so subscription
 and cron handlers take the same Context.
 """
@@ -67,6 +67,12 @@ class Context:
     @property
     def pubsub(self):
         return self.container.pubsub
+
+    @property
+    def tpu(self):
+        """The container's device client (tpu/device.CUDAClient), or None;
+        the reference's name, which handlers read."""
+        return self.container.tpu
 
     def publish(self, topic: str, message: Any) -> None:
         """Publish on the container's broker: a dict or list goes as JSON,

@@ -4,7 +4,8 @@ A copy of ``gofr_tpu/http/request.py``, trimmed to what the port's servers
 need: JSON bodies (multipart and dataclass binding are not ported),
 ``header()``, ``param()`` (the first value of a query parameter, the debug
 routes' ``?steps=N``), ``path_param()``, and the fields the router and the
-middleware set (``route_pattern``, ``span``, ``traceparent``).
+middleware set (``route_pattern``, ``span``, ``traceparent``, and the auth
+middlewares' ``auth_subject`` and ``context["jwt_claims"]``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ class Request:
         self.route_pattern: Optional[str] = None  # set by the router on match
         self.span = None  # set by the tracer middleware
         self.traceparent: Optional[str] = None  # the raw W3C header, ditto
+        self.auth_subject: Optional[str] = None  # set by an auth middleware
+        self.context: Dict[str, Any] = {}  # request-scoped values
 
     def header(self, key: str) -> str:
         return self.headers.get(key.lower(), "")

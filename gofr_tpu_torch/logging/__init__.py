@@ -4,9 +4,8 @@ A copy of ``gofr_tpu/logging/__init__.py``: ``Level`` (DEBUG..FATAL),
 ``parse_level``, ``PrettyPrint``, ``Logger`` (the 15-method surface:
 ``debug``/``debugf`` .. ``fatal``/``fatalf``, ``log``/``logf``,
 ``change_level``; one JSON line per record, or a colored line on a
-terminal), ``new_logger``, ``new_file_logger`` and ``MockLogger``. Not
-ported: ``logging/remote.py``, the ``REMOTE_LOG_URL`` level poller
-(ROADMAP A18b); the container refuses a set ``REMOTE_LOG_URL`` at boot.
+terminal), ``new_logger``, ``new_file_logger`` and ``MockLogger``. The
+``REMOTE_LOG_URL`` level poller is ``logging/remote.py``.
 
 Every import in the port is package-relative or absolute to
 ``gofr_tpu_torch``, so this package never shadows the stdlib ``logging``.

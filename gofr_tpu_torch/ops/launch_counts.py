@@ -7,7 +7,8 @@ graph that captured it is replayed (a replay runs no Python). Each wrapper
 passes ``counter(<kernel>, device)``; ``counts()`` reads every counter and
 ``zero()`` clears them. The counters of a device are one int64 buffer made
 at the first launch there, never freed or moved: a captured graph keeps its
-address.
+address. Their reads synchronize the device, so they wait for any CUDA
+graph capture under way in the process (tpu/executor.synchronize).
 """
 
 from __future__ import annotations
@@ -38,10 +39,12 @@ def counter(kernel: str, device: torch.device) -> int:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("kernel launch counters do not exist at "
                                "capture: launch a kernel eagerly first")
+        from ..tpu.executor import synchronize
+
         buf = torch.zeros(len(KERNELS), dtype=torch.int64,
                           device=torch.device("cuda", index))
         # the fill is on this stream; a kernel may count on another
-        torch.cuda.synchronize(index)
+        synchronize(index)
         _buffers[index] = buf
     return buf.data_ptr() + buf.element_size() * KERNELS.index(kernel)
 
@@ -49,9 +52,11 @@ def counter(kernel: str, device: torch.device) -> int:
 def counts() -> Dict[str, int]:
     """{kernel: launches run since the last zero()}, summed over devices;
     waits for every device that has counters."""
+    from ..tpu.executor import synchronize
+
     total = dict.fromkeys(KERNELS, 0)
     for index, buf in _buffers.items():
-        torch.cuda.synchronize(index)
+        synchronize(index)
         for kernel, n in zip(KERNELS, buf.tolist()):
             total[kernel] += n
     return total
@@ -60,7 +65,9 @@ def counts() -> Dict[str, int]:
 def zero() -> None:
     """Every counter to 0, after the work queued before the call and
     before any queued after it."""
+    from ..tpu.executor import synchronize
+
     for index, buf in _buffers.items():
-        torch.cuda.synchronize(index)
+        synchronize(index)
         buf.zero_()
-        torch.cuda.synchronize(index)
+        synchronize(index)

@@ -76,11 +76,14 @@ class MultiHostSpec:
         return host, int(port)
 
 
-def join(spec: MultiHostSpec, device=None, logger=None):
+def join(spec: MultiHostSpec, device=None, logger=None,
+         backend: Optional[str] = None):
     """Join the job `spec` describes: the TCPStore (served by rank 0),
     then the default process group over it. device None = the card
-    (NCCL; raises without one), "cpu" = gloo. Returns the card
-    (torch.device) this rank uses, or cpu."""
+    (NCCL; raises without one), "cpu" = gloo. backend "gloo" on the card:
+    a job that runs no collective on its cards (the batcher servers'),
+    whose ranks may then share one card (NCCL refuses two ranks on one).
+    Returns the card (torch.device) this rank uses, or cpu."""
     import torch
     import torch.distributed as dist
 
@@ -101,8 +104,9 @@ def join(spec: MultiHostSpec, device=None, logger=None):
     store = dist.TCPStore(host, port, spec.num_processes,
                           is_master=spec.process_id == 0, timeout=timeout,
                           wait_for_workers=False)
-    kw = {} if cpu else {"device_id": dev}
-    dist.init_process_group("gloo" if cpu else "nccl", store=store,
+    backend = backend or ("gloo" if cpu else "nccl")
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=store,
                             rank=spec.process_id,
                             world_size=spec.num_processes, timeout=timeout,
                             **kw)
@@ -110,7 +114,7 @@ def join(spec: MultiHostSpec, device=None, logger=None):
     if logger is not None:
         logger.infof("joined multi-process job: rank %d/%d via %s (%s)",
                      spec.process_id, spec.num_processes, spec.coordinator,
-                     "gloo" if cpu else f"nccl on {dev}")
+                     f"{backend} on {dev}")
     return dev
 
 

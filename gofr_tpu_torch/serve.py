@@ -27,6 +27,17 @@ body and sends the same events.
     recorder) and fleet {affinity digest, lifecycle, warm_boot_s (after a
     warm boot), qos {scaleout_wanted} (under QOS), duty_cycle}.
 
+    gRPC ``llm.Generator/Generate`` on GRPC_PORT (default 9000; 0 picks a
+    free port), server-streaming, JSON messages (grpcx/): the same body
+    keys as /generate (prompt, max_tokens, temperature, min_tokens,
+    priority, top_p, top_k) through the same submitter (the engine, with
+    its QoS plane and its admission plane, or the pair's router), one
+    {"text"} per decoded chunk that has text, then {"done": true, "tokens",
+    "tok_per_s"}; the request is cancelled when the stream ends or the
+    client goes away. An empty prompt or a refused parameter answers
+    INVALID_ARGUMENT, a shed UNAVAILABLE (``build_generate_service``).
+    Under a TP job only rank 0 binds it, as only rank 0 serves HTTP.
+
 Run: ``python -m gofr_tpu_torch.serve`` (config from .env files under
 GOFR_CONFIGS_DIR, the process environment over them). Every key the
 reference's llm-server and OpenAI server read, and every App-level key of
@@ -111,7 +122,15 @@ request), APP_NAME and APP_VERSION (app_info, the tracer's service name),
 TRACE_EXPORTER and TRACER_URL (zipkin | otlp | jaeger | otlp-grpc | http |
 gofr need the URL; log, memory; unset: none), GOFR_CONFIGS_DIR (where
 ``main`` reads .env files when no config is passed; the process environment
-wins). The engine gets the container's metrics manager, tracer and logger:
+wins), GRPC_PORT (above), REMOTE_LOG_URL and REMOTE_LOG_FETCH_INTERVAL
+(15 s: the container polls the URL for a new LOG_LEVEL, logging/remote.py),
+TPU_ENABLED or MODEL_NAME (the container builds the device client,
+tpu/device.CUDAClient, on the server's device: ``tpu`` in
+/.well-known/health with the card's memory, a single-flight probe that
+answers DEGRADED within its timeout when the card does not answer, the
+``device.health_probe`` fault site under FAULT_INJECTION, the
+app_tpu_hbm_* series at every scrape). The engine gets the container's
+metrics manager, tracer and logger:
 POST /generate threads its server span and the inbound traceparent into
 submit, so each request's tpu.generate span joins the caller's trace.
 
@@ -294,39 +313,26 @@ PORTED = (
     "QOS_BATCH_RESULT_TOPIC",
     # the container's datasources (Container.create)
     "DB_DIALECT", "DB_PATH", "KV_STORE", "KV_ENABLED", "PUBSUB_BACKEND",
-    # the App's and its container's (app.py, container/, tracing/)
+    # the App's and its container's (app.py, container/, tracing/): the
+    # gRPC server, the remote log level and the device client among them
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
-    "GOFR_CONFIGS_DIR",
+    "GOFR_CONFIGS_DIR", "GRPC_PORT", "REMOTE_LOG_URL",
+    "REMOTE_LOG_FETCH_INTERVAL", "TPU_ENABLED", "MODEL_NAME",
 )
 
 
 # (key, predicate on the config that asks for the feature, what waits and
 # where). Checked at boot: a key that asks for an unported feature fails
-# loudly instead of being served without it.
-NOT_PORTED = (
-    # the container's
-    ("REMOTE_LOG_URL", lambda e: bool(e.get("REMOTE_LOG_URL")),
-     "the remote log-level poller waits in ROADMAP A18b part 5"),
-)
+# loudly instead of being served without it. Every key of the reference's
+# llm-server is served now.
+NOT_PORTED = ()
 
 # keys the reference reads that change nothing the port serves: (key, why)
 INERT = (
     # no analogue
     ("PROGRAM_CACHE_DIR", "a persistent cache of XLA compiles; CUDA graphs "
      "are captured per process and cannot be stored"),
-    ("TPU_ENABLED", "builds the reference container's device client, whose "
-     "CUDA twin waits in ROADMAP A18b part 6; the port's engines resolve "
-     "their card themselves (tpu/device.py)"),
-    ("MODEL_NAME", "builds the reference container's device client, whose "
-     "CUDA twin waits in ROADMAP A18b part 6; the port's engines resolve "
-     "their card themselves (tpu/device.py)"),
-    # the App's: no server binds it
-    ("GRPC_PORT", "the port serves no gRPC, so nothing binds it: the "
-     "llm-server's gRPC /generate waits in ROADMAP A18b part 5, and the "
-     "OpenAI server registers no gRPC service"),
-    ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
-     "refused (A18b part 5)"),
 )
 
 
@@ -473,12 +479,12 @@ def _drop_graphs(engine) -> None:
     collective holds that communicator, which must outlive the graph."""
     import gc
 
-    import torch
+    from .tpu.executor import synchronize
 
     engine.executor.drop(lambda name: True)
     gc.collect()
     if engine.device.type == "cuda":
-        torch.cuda.synchronize(engine.device)
+        synchronize(engine.device)
 
 
 def end_job(engine, followers=(), timeout_s: float = 60.0) -> None:
@@ -584,7 +590,7 @@ def build_engine(env: EnvLike = None, device=None, params=None,
     warm = _warmup_mode(env)
     dev = resolve_device(device)
     if container is None:
-        container = Container.create(env)
+        container = Container.create(env, device=dev)
     tp = _int(env, "TP_SHARDS", 1)
     if tp > 1 and _flag(env, "ELASTIC_WARM_BOOT", False):
         raise ValueError("ELASTIC_WARM_BOOT with TP_SHARDS > 1: the warm "
@@ -872,7 +878,7 @@ def app_for(env: EnvLike, engine=None, device=None,
     if engine is not None and getattr(engine, "container", None) is not None:
         app = App(config=env, container=engine.container)
     else:
-        app = App(config=env)
+        app = App(config=env, device=device)
     if engine is None:
         engine = build_engine(
             app.config, device=device, container=app.container,
@@ -939,6 +945,58 @@ def app_for(env: EnvLike, engine=None, device=None,
     return app
 
 
+def build_generate_service(submitter, tokenizer):
+    """gRPC ``llm.Generator/Generate``, the server-streaming twin of SSE
+    /generate (the reference's ``build_generate_service``): the same
+    parameters through `submitter` (the engine or the pair's router), one
+    {"text"} message per decoded chunk that has text, then the {"done":
+    true, "tokens", "tok_per_s"} summary, the payloads the SSE stream
+    sends; the request is cancelled when the stream ends, a client's
+    cancel included, so its slot and pages come back."""
+    from .grpcx import GenericService
+
+    def grpc_generate(ctx):
+        body = ctx.request.payload or {}
+        if not isinstance(body, dict):
+            raise ValueError("the request must be a JSON object")
+        prompt = body.get("prompt")
+        if not isinstance(prompt, str) or not prompt:
+            raise ValueError("prompt must be a non-empty string")
+        request = submitter.submit(
+            tokenizer.encode(prompt),
+            max_new_tokens=int(body.get("max_tokens", 64)),
+            temperature=float(body.get("temperature", 0.0)),
+            stop_tokens={tokenizer.EOS},
+            min_tokens=max(0, int(body.get("min_tokens", 0) or 0)),
+            priority=max(0, min(9, int(body.get("priority", 0) or 0))),
+            top_p=float(body.get("top_p", 0.0) or 0.0),
+            top_k=int(body.get("top_k", 0) or 0))
+
+        def stream():
+            decoder = StreamingDecoder(tokenizer)
+            count = 0
+            start = time.monotonic()
+            try:
+                for token in request.stream():
+                    count += 1
+                    text = decoder.push(token)
+                    if text:
+                        yield {"text": text}
+                tail = decoder.flush()
+                if tail:
+                    yield {"text": tail}
+                yield {"done": True, "tokens": count,
+                       "tok_per_s": round(
+                           count / max(time.monotonic() - start, 1e-6), 1)}
+            finally:
+                request.cancel()   # a client's cancel frees the slot
+
+        return stream()
+
+    return GenericService("llm.Generator", {},
+                          stream_methods={"Generate": grpc_generate})
+
+
 def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     """App + engine + routes; the engine rides on ``app.engine``. Pass a
     built engine to wrap it in the serving surface."""
@@ -946,6 +1004,8 @@ def build_app(env: EnvLike = None, engine=None, device=None) -> App:
     engine = app.engine
     submitter = app.submitter   # the engine, or the pair's router
     tokenizer = engine.tokenizer
+    # token streaming over gRPC rides the same submitter (GRPC_PORT)
+    app.register_grpc_service(build_generate_service(submitter, tokenizer))
     # the /stats fleet digest of the prefixes this replica served, with a
     # per-boot generation id
     affinity = AffinityRecorder(

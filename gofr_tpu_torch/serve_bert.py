@@ -1,7 +1,7 @@
 """BERT /embed over the port: token rows, dynamic batching by length bucket.
 
-Counterpart of ``examples/bert-embed/main.py``'s HTTP surface: the same
-route, bodies, answers and 400s, on the port's ``App`` with a
+Counterpart of ``examples/bert-embed/main.py``: the same route, bodies,
+answers and 400s, over HTTP and gRPC, on the port's ``App`` with a
 ``tpu/scheduler.DynamicBatcher`` (``seq_axis=0``, ``pad_value=pad_id``) in
 front of ``models/bert.bert_embed`` (random weights from seed 0, as the
 reference's).
@@ -18,11 +18,13 @@ invisible. The reference warms up nothing here, and neither does this
 server: a pair's program is captured at its first batch (``app.batcher.
 warmup`` captures ahead).
 
-Config keys as ``serve_mnist`` accounts for them, plus BERT_PRESET (debug |
-base, default debug; any other value is debug, as in the reference) and
-SEQ_BUCKETS ("16,32,64,128"); MAX_BATCH (32), BATCH_WINDOW_S (0.003 s).
-The reference also serves EmbedService.Embed over gRPC on GRPC_PORT; with
-``grpcx/`` waiting in ROADMAP A18b, a GRPC_PORT refuses to boot.
+The same handler serves gRPC ``EmbedService/Embed`` on GRPC_PORT (default
+9000; 0 picks a free port; JSON messages, grpcx/), as the reference's
+does: the same bodies and answers, a 400's InvalidParam as
+INVALID_ARGUMENT. The device client, the job and the config keys are
+``serve_mnist``'s (``batcher_app``), plus BERT_PRESET (debug | base,
+default debug; any other value is debug, as in the reference), SEQ_BUCKETS
+("16,32,64,128"), MAX_BATCH (32), BATCH_WINDOW_S (0.003 s) and GRPC_PORT.
 
 Run: ``python -m gofr_tpu_torch.serve_bert`` (config from .env files under
 GOFR_CONFIGS_DIR, the process environment over them; ``device="cpu"`` only
@@ -34,18 +36,16 @@ from __future__ import annotations
 import numpy as np
 
 from .app import App
+from .grpcx import GenericService
 from .http.errors import InvalidParam
 from .models.bert import BertConfig, bert_embed, bert_init
 from .serve_mnist import (APP_INERT, APP_NOT_PORTED, APP_PORTED,
                           batcher_app)
 from .tpu.scheduler import DynamicBatcher
 
-PORTED = ("MAX_BATCH", "BATCH_WINDOW_S", "BERT_PRESET",
-          "SEQ_BUCKETS") + APP_PORTED
-NOT_PORTED = APP_NOT_PORTED + (
-    ("GRPC_PORT", lambda e: bool(e.get("GRPC_PORT")),
-     "the EmbedService over gRPC needs grpcx/, which waits in ROADMAP "
-     "A18b"),)
+PORTED = ("MAX_BATCH", "BATCH_WINDOW_S", "BERT_PRESET", "SEQ_BUCKETS",
+          "GRPC_PORT") + APP_PORTED
+NOT_PORTED = APP_NOT_PORTED
 INERT = APP_INERT
 
 
@@ -56,9 +56,9 @@ def _encode(text: str, max_len: int) -> np.ndarray:
 
 
 def build_app(env=None, device=None, params=None) -> App:
-    """The App with POST /embed; the batcher rides on ``app.batcher``, the
-    config and params on ``app.bert_cfg`` / ``app.params``, and the App's
-    shutdown stops the batcher. env: a Config, a mapping, or None (.env
+    """The App with POST /embed and gRPC EmbedService/Embed; the batcher
+    rides on ``app.batcher``, the config and params on ``app.bert_cfg`` /
+    ``app.params``, and the App's shutdown stops the batcher. env: a Config, a mapping, or None (.env
     files under GOFR_CONFIGS_DIR and the process environment). params: a
     BERT_PRESET params tree on `device` to serve (default: bert_init, seed
     0)."""
@@ -101,6 +101,8 @@ def build_app(env=None, device=None, params=None) -> App:
                 "dim": int(vec.shape[-1])}
 
     app.post("/embed", embed)
+    app.register_grpc_service(GenericService("EmbedService",
+                                             {"Embed": embed}))
     return app
 
 

@@ -15,6 +15,18 @@ and runs one program per bucket (a CUDA graph on the card). At boot the
 reference's warm-up sizes (1, 8, 64) are captured, so the first requests
 pay no capture.
 
+The device client (tpu/device.CUDAClient, the reference's ``TPUClient``)
+is injected with ``App.add_tpu``, as the reference's server does: ``tpu``
+in /.well-known/health with the card's memory, the app_tpu_hbm_* series at
+every scrape; the batcher runs on its device (TPU_PLATFORM=cpu asks for the
+CPU, as a ``device="cpu"`` argument does). A multi-process job
+(JAX_COORDINATOR_ADDR with JAX_NUM_PROCESSES, JAX_PROCESS_ID and the other
+JAX_* keys, parallel/multihost.py) is joined through the container before
+the first device query (``batcher_app``): one process per card, each
+serving its own card and its own HTTP port, joined over gloo (a batcher
+runs no collective, and two ranks may then share a card); the App's
+shutdown leaves the job.
+
 Config keys, as ``serve.py`` accounts for the llm-server's: every key the
 reference server reads (its own, its App's constructor, its container's and
 tracer's, and its device client's) is served (PORTED), refused at boot
@@ -33,32 +45,23 @@ import numpy as np
 from .app import App
 from .http.errors import InvalidParam
 from .models.mlp import MLPConfig, mlp_forward, mlp_init
-from .serve import INERT as LLM_INERT
-from .serve import NOT_PORTED as LLM_NOT_PORTED
+from .parallel.multihost import leave
 from .serve import check_config
-from .tpu.device import register_metrics, resolve_device
+from .tpu.device import CUDAClient, requested_device
 from .tpu.executor import Executor
 from .tpu.scheduler import DynamicBatcher
 
-# the keys every batcher server reads through its App, container and tracer
-# and datasources
+# the keys every batcher server reads through its App, container, tracer,
+# datasources, device client and job
 APP_PORTED = ("HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT",
               "MAX_CONCURRENT_REQUESTS", "LOG_LEVEL", "APP_NAME",
               "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
               "GOFR_CONFIGS_DIR", "DB_DIALECT", "DB_PATH", "KV_STORE",
-              "KV_ENABLED", "PUBSUB_BACKEND")
-# the container's level poller, refused as the llm-server refuses it
-APP_NOT_PORTED = tuple(entry for entry in LLM_NOT_PORTED if entry[0] in (
-    "REMOTE_LOG_URL",)) + (
-    # the llm-server joins a job for its tensor-parallel engine; a batcher
-    # server has no sharded model to serve over one
-    ("JAX_COORDINATOR_ADDR", lambda e: bool(e.get("JAX_COORDINATOR_ADDR")),
-     "a multi-process job for the batcher servers waits in ROADMAP A18b"),)
-APP_INERT = tuple(entry for entry in LLM_INERT if entry[0] in (
-    "TPU_ENABLED", "MODEL_NAME", "REMOTE_LOG_FETCH_INTERVAL")) + (
-    ("TPU_PLATFORM", "picks the JAX platform of the reference's device "
-     "client; the port's entry points take their device from the caller "
-     "(tpu/device.py)"),)
+              "KV_ENABLED", "PUBSUB_BACKEND", "REMOTE_LOG_URL",
+              "REMOTE_LOG_FETCH_INTERVAL", "TPU_ENABLED", "MODEL_NAME",
+              "TPU_PLATFORM", "JAX_COORDINATOR_ADDR")
+APP_NOT_PORTED = ()
+APP_INERT = ()
 
 PORTED = ("MAX_BATCH", "BATCH_WINDOW_S") + APP_PORTED
 NOT_PORTED = APP_NOT_PORTED
@@ -72,14 +75,22 @@ WARMUP_SIZES = (1, 8, 64)
 
 def batcher_app(env, device, not_ported):
     """(App, its device, an Executor there) for a batcher server: the
-    config checked against `not_ported`, the app_tpu_* series registered on
-    the App's metrics manager. device: None = the CUDA card (raises
-    without one); "cpu" for tests."""
-    app = App(config=env)
+    config checked against `not_ported`; the job of JAX_COORDINATOR_ADDR
+    joined (gloo, before the first device query; the App's shutdown leaves
+    it); the device client injected (``App.add_tpu``) on this rank's card
+    or the device asked for, the app_tpu_* series with it. device: None =
+    TPU_PLATFORM's, by default the CUDA card (raises without one); "cpu"
+    for tests."""
+    app = App(config=env, device=device)
     check_config(app.config, not_ported)
-    dev = resolve_device(device)
-    if app.container.metrics_manager is not None:
-        register_metrics(app.container.metrics_manager)
+    want = requested_device(app.config.get_or_default("TPU_PLATFORM", ""),
+                            device)
+    joined = app.container.join_job(want, backend="gloo")
+    if joined is not None:
+        app.on_shutdown(leave)
+    app.add_tpu(CUDAClient(app.config,
+                           device=joined[1] if joined else device))
+    dev = app.container.tpu.device
     executor = Executor(dev)
     executor.metrics = app.container.metrics_manager
     return app, dev, executor

@@ -13,6 +13,9 @@ Streaming responses emit ``data: {json}`` SSE chunks and end with
 is the llm-server's (``serve.build_engine``, every key of serve.PORTED,
 NOT_PORTED and INERT read the same way), with SAMPLING_CONTROLS on unless
 the config turns it off: an OpenAI client's top_p is served, never dropped.
+GRPC_PORT binds nothing here: the OpenAI server registers no gRPC service,
+as the reference's does not (the llm-server's ``llm.Generator`` is
+serve.py's).
 
 Ported from the reference's ``build_app``: ``_render_chat``; ``_params``
 with its refusals of non-default unsupported parameters

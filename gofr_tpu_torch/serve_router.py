@@ -40,8 +40,12 @@ Every key the reference router reads (its ``main.py``, ``gofr_tpu/fleet``'s
 ``from_config``s, its App's constructor, container and tracer, and the
 device client its container may build) is served (PORTED), refused at boot
 naming the ROADMAP item that waits (NOT_PORTED), or inert with its reason
-(INERT). The router holds no tensor, imports no torch and resolves no
-device; the replicas it fronts keep the port's device rule.
+(INERT); REMOTE_LOG_URL and REMOTE_LOG_FETCH_INTERVAL start the
+container's level poller (logging/remote.py). The router holds no tensor,
+imports no torch and resolves no device: its container builds no device
+client (``App(..., device_client=False)``), so TPU_ENABLED
+and its keys are inert here; the replicas it fronts keep the port's device
+rule.
 """
 
 from __future__ import annotations
@@ -92,30 +96,24 @@ PORTED = (
     "HTTP_PORT", "METRICS_PORT", "REQUEST_TIMEOUT", "MAX_CONCURRENT_REQUESTS",
     "LOG_LEVEL", "APP_NAME", "APP_VERSION", "TRACE_EXPORTER", "TRACER_URL",
     "GOFR_CONFIGS_DIR", "DB_DIALECT", "DB_PATH", "KV_STORE", "KV_ENABLED",
-    "PUBSUB_BACKEND",
+    "PUBSUB_BACKEND", "REMOTE_LOG_URL", "REMOTE_LOG_FETCH_INTERVAL",
 )
 
 # (key, predicate on the config that asks for the feature, what waits and
-# where): checked at boot
-NOT_PORTED = (
-    ("REMOTE_LOG_URL", lambda e: bool(e.get("REMOTE_LOG_URL")),
-     "the remote log-level poller waits in ROADMAP A18b part 5"),
-)
+# where): checked at boot. Every key of the reference router is served or
+# inert now.
+NOT_PORTED = ()
 
 # keys the reference reads that change nothing the router serves
 INERT = (
-    ("REMOTE_LOG_FETCH_INTERVAL", "the poll interval of REMOTE_LOG_URL, "
-     "refused (A18b part 5)"),
     ("GRPC_PORT", "the router registers no gRPC service, here as in the "
      "reference, so nothing binds it"),
     ("TPU_ENABLED", "builds the reference container's device client; the "
-     "router holds no tensor and resolves no device (its CUDA twin waits "
-     "in ROADMAP A18b part 6)"),
+     "router holds no tensor, and its container builds no device client"),
     ("MODEL_NAME", "builds the reference container's device client; the "
-     "router holds no tensor and resolves no device (its CUDA twin waits "
-     "in ROADMAP A18b part 6)"),
-    ("TPU_PLATFORM", "picks the JAX platform of the reference's device "
-     "client; the router resolves no device"),
+     "router holds no tensor, and its container builds no device client"),
+    ("TPU_PLATFORM", "picks the platform of the reference's device client; "
+     "the router's container builds none"),
     ("JAX_COORDINATOR_ADDR", "joins the reference container's device "
      "client to a multi-process job; the router has no device client and "
      "no model to shard, and the replicas behind it join their own jobs"),
@@ -128,7 +126,7 @@ def build_app(env: EnvLike = None) -> App:
     env: a Config, a mapping, or None (.env files under GOFR_CONFIGS_DIR
     and the process environment). The router starts probing here; the
     App's shutdown stops it."""
-    app = App(config=env)
+    app = App(config=env, device_client=False)
     for key, asks, where in NOT_PORTED:
         if asks(app.config):
             raise ValueError(f"{key}={app.config.get(key)!r} is not "

@@ -1,9 +1,31 @@
-"""Device resolution for the port: CUDA unless the caller asks for the CPU.
+"""The port's device client and device resolution: CUDA unless the caller
+asks for the CPU.
 
-Counterpart of ``gofr_tpu/tpu/device.py`` (``TPUClient``, which enumerates
-the JAX devices). The port has no device client; its entry points resolve
-their device here, and there is no silent fallback to the CPU: with no card
-and no explicit ``"cpu"``, resolution raises.
+Counterpart of ``gofr_tpu/tpu/device.py``. ``CUDAClient`` is the twin of
+``TPUClient``, the container's device datasource (the reference's injected
+provider pattern: ``use_logger`` / ``use_metrics`` / ``connect``, or
+``from_config``; ``App.add_tpu`` injects one, and the container builds one
+under TPU_ENABLED or MODEL_NAME, as ``container.tpu`` and ``ctx.tpu``).
+Where ``TPUClient`` holds the JAX devices of the whole slice, the port runs
+one process per card, so a client holds this process's card: the joined
+rank's under a multi-process job, else the current one (``cuda:0`` by
+default), or the CPU when the caller asks for it (a ``device="cpu"``
+argument, or ``TPU_PLATFORM=cpu`` in the config; with neither and no card,
+``connect`` raises). It gives ``devices``, ``device_count``, ``platform``
+("gpu" or "cpu", as JAX names them), ``mesh(axes)`` (a DeviceMesh over the
+job's ranks, parallel/mesh.py, in place of the reference's
+``jax.sharding.Mesh``), ``memory_stats`` / ``refresh_memory_metrics`` (the
+app_tpu_hbm_* series), ``health_check`` (the reference's single-flight
+probe with its timeout: a wedged device pins one probe thread, and health
+answers DEGRADED meanwhile) and ``close``. Its probe is one one-element
+launch and a synchronize of the probe's own stream, after the fault site
+``device.health_probe``: it never synchronizes the device and takes no
+lock of the executor's, so a probe during a CUDA graph capture (captures
+run ``thread_local``, tpu/executor.py) spoils neither.
+
+The engines still resolve their card themselves (``resolve_device``), and
+there is no silent fallback to the CPU: with no card and no explicit
+``"cpu"``, resolution raises.
 
 ``register_metrics`` is the part of ``TPUClient.register_metrics`` that the
 port records, with the reference's names, descriptions and buckets
@@ -27,10 +49,13 @@ from __future__ import annotations
 
 import shutil
 import subprocess
+import threading
+import time
 from typing import Any, Dict, List, Optional, Union
 
 import torch
 
+from ..datasource import Health, STATUS_DEGRADED, STATUS_DOWN, STATUS_UP
 from .stepledger import STEP_SECONDS_BUCKETS
 
 
@@ -203,3 +228,239 @@ def card_info() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip()
+
+
+def requested_device(platform: str = "", device=None):
+    """The device a caller asks for: `device` when given, else by
+    `platform` (TPU_PLATFORM): "cpu" asks for the CPU; "", "gpu" or "cuda"
+    for the card, None here. Raises ValueError on another platform."""
+    if device is not None:
+        return device
+    name = (platform or "").strip().lower()
+    if name == "cpu":
+        return "cpu"
+    if name in ("", "gpu", "cuda"):
+        return None
+    raise ValueError(f"TPU_PLATFORM must be cpu, gpu or cuda, got {name!r}")
+
+
+class CUDAClient:
+    """The container's device datasource: the twin of the reference's
+    ``TPUClient`` for one card (the module docstring)."""
+
+    # the device round-trip gets this long before the probe is declared
+    # stuck; /health must answer even when the card does not (a class
+    # attribute, so a deployment or a test tunes it per instance)
+    HEALTH_PROBE_TIMEOUT_S = 3.0
+
+    def __init__(self, config=None, device=None):
+        self.config = config
+        self.platform_override = (config.get_or_default("TPU_PLATFORM", "")
+                                  if config is not None else "")
+        self._device_arg = device
+        self.logger = None
+        self.metrics = None
+        self._devices: List[torch.device] = []
+        self._connected_at: Optional[float] = None
+        # the single-flight probe (health_check); the lock guards its start
+        # and its result, so two concurrent polls neither start two probes
+        # nor reset a result another poll is about to read
+        self._probe_lock = threading.Lock()
+        self._probe_thread: Optional[threading.Thread] = None
+        self._probe_result = None
+        # (stream, one, out, pinned host) of the probe, made at its first run
+        self._probe_state = None
+        # the fault plane (tpu/faults.py): None unless chaos is armed
+        self.faults = None
+
+    # -- the provider pattern -------------------------------------------------
+    def use_logger(self, logger) -> None:
+        self.logger = logger
+
+    def use_metrics(self, metrics) -> None:
+        self.metrics = metrics
+
+    def connect(self) -> None:
+        """Resolve the card (or the CPU, when asked), register the app_tpu_*
+        series on the metrics manager and log what was found. Raises
+        without a card unless the CPU was asked for."""
+        dev = resolve_device(requested_device(self.platform_override,
+                                              self._device_arg))
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._devices = [dev]
+        self._connected_at = time.monotonic()
+        if self.metrics is not None:
+            register_metrics(self.metrics)
+        if self.logger is not None:
+            self.logger.infof("connected to %d %s device(s): %s",
+                              len(self._devices), self.platform,
+                              ", ".join(self._kinds()))
+
+    @classmethod
+    def from_config(cls, config, logger, metrics, device=None
+                    ) -> "CUDAClient":
+        client = cls(config, device=device)
+        client.use_logger(logger)
+        client.use_metrics(metrics)
+        client.connect()
+        return client
+
+    # -- the device surface -----------------------------------------------------
+    @property
+    def devices(self) -> List[torch.device]:
+        return self._devices
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """This process's device (None before connect or after close)."""
+        return self._devices[0] if self._devices else None
+
+    @property
+    def device_count(self) -> int:
+        return len(self._devices)
+
+    @property
+    def platform(self) -> str:
+        if not self._devices:
+            return "none"
+        return "gpu" if self._devices[0].type == "cuda" else "cpu"
+
+    def _kinds(self) -> List[str]:
+        return sorted({torch.cuda.get_device_name(d) if d.type == "cuda"
+                       else "cpu" for d in self._devices})
+
+    def mesh(self, axes: Dict[str, int]):
+        """A DeviceMesh over the job's ranks (parallel/mesh.make_mesh, one
+        rank per card) in place of the reference's jax.sharding.Mesh over
+        devices. axes: {axis: size} over parallel.mesh.AXES; -1 for one
+        axis infers it from the job's world. Raises ValueError when the
+        sizes do not cover the world, RuntimeError before a job is joined
+        (Container.join_job)."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import AXES, MeshPlan, make_mesh
+
+        unknown = sorted(set(axes) - set(AXES))
+        if unknown:
+            raise ValueError(f"mesh axes {unknown} are not among {AXES}")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        sizes = dict(axes)
+        if -1 in sizes.values():
+            known = 1
+            for size in sizes.values():
+                if size != -1:
+                    known *= size
+            sizes[next(a for a, s in sizes.items() if s == -1)] = \
+                world // known
+        total = 1
+        for size in sizes.values():
+            total *= size
+        if total != world:
+            raise ValueError(f"mesh axes {sizes} need {total} ranks, the "
+                             f"job has {world}")
+        return make_mesh(MeshPlan(**sizes), device=self.device)
+
+    def memory_stats(self) -> List[Dict[str, Any]]:
+        """[{"id", "kind", "bytes_in_use", "bytes_limit"}] per device: the
+        card's (device_memory_stats), or zeros for the CPU, as the
+        reference reports a backend without stats."""
+        out = []
+        for d in self._devices:
+            if d.type == "cuda":
+                out.extend(device_memory_stats(d))
+            else:
+                out.append({"id": 0, "kind": "cpu", "bytes_in_use": 0,
+                            "bytes_limit": 0})
+        return out
+
+    def refresh_memory_metrics(self) -> None:
+        if self.metrics is None:
+            return
+        for s in self.memory_stats():
+            dev = str(s["id"])
+            self.metrics.set_gauge("app_tpu_hbm_bytes_used",
+                                   s["bytes_in_use"], device=dev)
+            self.metrics.set_gauge("app_tpu_hbm_bytes_limit",
+                                   s["bytes_limit"], device=dev)
+            self.metrics.set_gauge("app_tpu_hbm_bytes", s["bytes_in_use"],
+                                   device=dev, kind="in_use")
+            self.metrics.set_gauge("app_tpu_hbm_bytes", s["bytes_limit"],
+                                   device=dev, kind="limit")
+
+    # -- health (feeds /.well-known/health) -------------------------------------
+    def _round_trip(self) -> bool:
+        """One one-element launch and its result read back. On the card the
+        launch, the copy and the synchronize are all on the probe's own
+        stream (made, with its buffers, at the first probe): the device is
+        never synchronized, and a capture on another stream goes on."""
+        dev = self.device
+        if dev.type != "cuda":
+            return float(torch.ones(1) + 1.0) == 2.0
+        with torch.cuda.device(dev):
+            if self._probe_state is None:
+                stream = torch.cuda.Stream(device=dev)
+                with torch.cuda.stream(stream):
+                    one = torch.ones(1, device=dev)
+                    out = torch.empty(1, device=dev)
+                host = torch.empty(1, pin_memory=True)
+                self._probe_state = (stream, one, out, host)
+            stream, one, out, host = self._probe_state
+            with torch.cuda.stream(stream):
+                torch.add(one, 1.0, out=out)
+                host.copy_(out, non_blocking=True)
+            stream.synchronize()
+        return float(host[0]) == 2.0
+
+    def _probe_device(self) -> None:
+        """The device round-trip, on the single-flight probe thread: a
+        card that stops answering pins this one daemon thread, not every
+        health handler."""
+        try:
+            if self.faults is not None:  # chaos drills: wedge/fail the probe
+                self.faults.hit("device.health_probe")
+            ok = self._round_trip()
+            self._probe_result = (STATUS_UP if ok else STATUS_DEGRADED, None)
+        except Exception as exc:  # noqa: BLE001
+            self._probe_result = (STATUS_DOWN, str(exc))
+
+    def health_check(self) -> Health:
+        if not self._devices:
+            return Health(status=STATUS_DOWN, details={"error": "no devices"})
+        # single-flight: while one probe is still blocked inside the
+        # device, polls wait on it (and answer DEGRADED) instead of piling
+        # up a stuck thread per poll
+        with self._probe_lock:
+            probe = self._probe_thread
+            if probe is None or not probe.is_alive():
+                self._probe_result = None
+                probe = threading.Thread(target=self._probe_device,
+                                         name="cuda-health-probe",
+                                         daemon=True)
+                self._probe_thread = probe
+                probe.start()
+        probe.join(timeout=self.HEALTH_PROBE_TIMEOUT_S)
+        with self._probe_lock:
+            result = self._probe_result
+        if probe.is_alive() or result is None:
+            return Health(status=STATUS_DEGRADED, details={
+                "platform": self.platform,
+                "error": f"device probe stuck for "
+                         f">{self.HEALTH_PROBE_TIMEOUT_S:.0f}s "
+                         f"(runtime not answering)",
+            })
+        status, err = result
+        if status == STATUS_DOWN:
+            return Health(status=STATUS_DOWN, details={"error": err})
+        self.refresh_memory_metrics()
+        return Health(status=status, details={
+            "platform": self.platform,
+            "devices": len(self._devices),
+            "memory": self.memory_stats(),
+            "uptime_s": round(time.monotonic() - (self._connected_at
+                                                  or time.monotonic()), 1),
+        })
+
+    def close(self) -> None:
+        self._devices = []
+        self._probe_state = None

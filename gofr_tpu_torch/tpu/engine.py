@@ -274,7 +274,7 @@ from ..models.llama import (DTYPES, init_kv_cache_layers,
 from ..ops.decode_attention import quantize_kv
 from ..container import STATUS_DEGRADED, STATUS_DOWN, STATUS_UP, Health
 from .device import resolve_device
-from .executor import Executor, next_bucket
+from .executor import Executor, next_bucket, synchronize
 from .migrate import Lifecycle
 from .obs import MetricsHook
 from . import qos
@@ -1373,8 +1373,7 @@ class LLMEngine:
         if self._stream is None:
             return 0
         gc.collect()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
+        synchronize(self.device, empty_cache=True)
         return torch.cuda.memory_reserved(self.device)
 
     # -- speculative decoding (prompt-lookup drafting) ------------------------
@@ -3319,7 +3318,7 @@ class LLMEngine:
                 self.faults.hit("engine.probe")
             if self.device.type == "cuda":
                 float((torch.ones(1, device=self.device) + 1.0).item())
-                torch.cuda.synchronize(self.device)
+                synchronize(self.device)
             else:
                 float(torch.ones(1) + 1.0)
         except Exception as exc:  # noqa: BLE001 - the device is still sick

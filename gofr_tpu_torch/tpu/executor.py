@@ -73,6 +73,16 @@ programs on a stream of its own. So:
 - The graphs of each stream share one memory pool of their own. A pool is
   shared only by graphs that never run at once, and graphs replayed on two
   streams may.
+
+Two engines may share one process (the disaggregated pair's prefill twin
+and decode engine, a harness's replicas), each with its own executor. A
+capture begins with a device-wide synchronize and an emptying of the
+caching allocator, and a device-wide synchronize while another stream
+captures fails and spoils that capture. So every capture in the process,
+whatever its executor, holds ``CAPTURE_LOCK``, and so does every
+device-wide ``synchronize`` of the port (the launch counters' reads, the
+engine's memory reading and its breaker probe, a TP job's teardown): none
+runs while a capture is under way.
 """
 
 from __future__ import annotations
@@ -121,6 +131,21 @@ class Program:
         if owner.metrics is not None:
             owner._count("app_tpu_execute_total")
         return out
+
+
+# held by every capture of the process and every device-wide synchronize
+# (the module docstring); reentrant, so a synchronize on a capturing
+# thread fails as CUDA says rather than waiting on itself
+CAPTURE_LOCK = threading.RLock()
+
+
+def synchronize(device, empty_cache: bool = False) -> None:
+    """torch.cuda.synchronize(device), and then torch.cuda.empty_cache()
+    when asked, once no capture is under way in this process."""
+    with CAPTURE_LOCK:
+        torch.cuda.synchronize(device)
+        if empty_cache:
+            torch.cuda.empty_cache()
 
 
 def _graph_capture(pool, stream, generators):
@@ -252,7 +277,8 @@ class Executor:
             if pool is None:
                 pool = self._pools[stream] = torch.cuda.graph_pool_handle()
             capture = _graph_capture(pool, stream, generators)
-        return Program(name, inputs, capture(fn, inputs), self)
+        with CAPTURE_LOCK:
+            return Program(name, inputs, capture(fn, inputs), self)
 
     def drop(self, predicate: Callable[[str], bool]) -> int:
         """Forget the programs whose name satisfies `predicate` (their

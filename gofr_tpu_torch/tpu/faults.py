@@ -17,10 +17,12 @@ A copy of ``gofr_tpu/tpu/faults.py``, whole: ``InjectedFault``, ``KNOWN_SITES``,
     half-open probe (on the card: one tiny launch and a device
     synchronize) that closes the breaker or re-opens it.
 
-The site ``device.health_probe`` stays in ``KNOWN_SITES`` (a rule naming it
-arms and never fires): it hooks the reference's ``TPUClient`` health probe,
-and the port has no device client (``TPU_ENABLED`` is inert in
-``serve.py``); the engine's health comes from its own loop and breaker.
+The site ``device.health_probe`` is the device client's health probe
+(tpu/device.CUDAClient, the twin of the reference's ``TPUClient``): a
+``wedge`` there holds the single-flight probe, and ``/.well-known/health``
+answers DEGRADED within the probe's timeout; a ``raise`` is a DOWN probe.
+``App.enable_fault_injection`` arms the plane on the container's client
+too.
 
 Zero-overhead contract: every hooked component holds ``faults = None`` by
 default and guards each site with ONE attribute check. A FaultPlane exists
@@ -57,7 +59,7 @@ KNOWN_SITES = (
     "engine.cache_grow",    # dense KV growth copy
     "engine.probe",         # the breaker's half-open probe dispatch
     "executor.compile",     # program compile-or-hit lookups
-    "device.health_probe",  # the reference's TPUClient probe (no port site)
+    "device.health_probe",  # the device client's health probe
 )
 
 _ACTIONS = ("raise", "delay", "wedge")

@@ -367,14 +367,17 @@ def register_utilization_metrics(metrics) -> None:
 class MemorySampler:
     """Background card-memory / page-pool gauge refresher.
 
-    Polls ``tpu/device.device_memory_stats`` for `device` (default the
-    engine's) every ``interval_s`` into ``app_tpu_hbm_bytes{device,kind}``,
-    plus the engine's page-pool occupancy when it serves from a paged pool.
-    On the CPU there are no memory stats and only the pool gauges move."""
+    Polls the device client's ``memory_stats`` (`tpu`, the container's
+    tpu/device.CUDAClient, as the reference reads its TPUClient), else
+    ``tpu/device.device_memory_stats`` for `device` (default the engine's),
+    every ``interval_s`` into ``app_tpu_hbm_bytes{device,kind}``, plus the
+    engine's page-pool occupancy when it serves from a paged pool. On the
+    CPU the stats are zeros (a client) or none, and the pool gauges move."""
 
     def __init__(self, metrics, engine=None, interval_s: float = 10.0,
-                 logger=None, device=None):
+                 logger=None, device=None, tpu=None):
         self._obs = MetricsHook(metrics)
+        self.tpu = tpu
         self.engine = engine
         self.device = (device if device is not None
                        else getattr(engine, "device", None))
@@ -384,6 +387,8 @@ class MemorySampler:
         self._thread: Optional[threading.Thread] = None
 
     def _device_stats(self) -> List[Dict[str, Any]]:
+        if self.tpu is not None:
+            return self.tpu.memory_stats()
         return device_memory_stats(self.device)
 
     def sample_once(self) -> None:

@@ -429,6 +429,7 @@ def test_pair_app_journey_joins_both_halves(weights, goldens):
     from _torch_env import INCIDENT_DIR
 
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+           "GRPC_PORT": "0",
            "MAX_BATCH": "4", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16",
            "PAGE_SIZE": "8", "WARMUP": "false", "LOG_LEVEL": "WARN",
            "HOSTPROF": "false", "INCIDENT_DIR": INCIDENT_DIR,

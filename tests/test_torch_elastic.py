@@ -49,6 +49,7 @@ ENGINE = dict(n_slots=4, max_seq_len=64, prefill_buckets=(8, 16),
               page_size=8)
 PROMPT, N = [5, 6, 7, 8, 9], 32
 BASE = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+        "GRPC_PORT": "0",
         "MAX_BATCH": "4", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16",
         "PAGE_SIZE": "8", "WARMUP": "false", "REQUEST_TIMEOUT": "120",
         "LOG_LEVEL": "WARN", "HOSTPROF": "false",

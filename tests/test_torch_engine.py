@@ -192,6 +192,7 @@ def _post(port, body, headers=None):
 def test_sse_generate_end_to_end(served):
     goldens, params = served
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
+           "GRPC_PORT": "0",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "REQUEST_TIMEOUT": "60", "INCIDENT_DIR": INCIDENT_DIR}
     app = build_app(env, engine=build_engine(env, device="cpu",
@@ -262,10 +263,12 @@ def _server_pair(served, controls: str):
     spec.loader.exec_module(module)
     ref = module.build_app(config=MockConfig({
         "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "example",
+        "GRPC_PORT": "0",
         "TPU_PLATFORM": "cpu", "MODEL_PRESET": "debug", "WARMUP": "false",
         "REQUEST_TIMEOUT": "60", "SAMPLING_CONTROLS": controls,
         "INCIDENT_DIR": INCIDENT_DIR}))
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "GRPC_PORT": "0",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "SAMPLING_CONTROLS": controls, "INCIDENT_DIR": INCIDENT_DIR}
     port = build_app(env, engine=build_engine(env, device="cpu",
@@ -412,6 +415,7 @@ PORTED = {
 @pytest.mark.parametrize("key", sorted(PORTED))
 def test_ported_config_keys_boot_and_serve(served, key):
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "GRPC_PORT": "0",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "INCIDENT_DIR": INCIDENT_DIR, **PORTED[key]}
     engine = build_engine(env, device="cpu", params=served[1])

@@ -9,11 +9,10 @@ replays, a zero retry budget, poison quarantine, a reset storm opening the
 breaker and the half-open probe closing it (and re-opening it once), the
 executor's compile site, the zero-overhead default and /debug/faults,
 gated on FAULT_INJECTION, with /generate surviving a drill and a breaker
-shed answered 503 with Retry-After.
-
-Left out: the reference's ``test_health_probe_wedge_degrades_then_recovers``
-wedges its ``TPUClient`` health probe (the ``device.health_probe`` site);
-the port has no device client (tpu/faults.py).
+shed answered 503 with Retry-After, and the device client's health probe
+(the ``device.health_probe`` site) wedged and failed beside the
+reference's ``TPUClient`` under the same plans
+(``test_health_probe_wedge_degrades_then_recovers``).
 
 Engine against engine: the same fault plan on the JAX LLMEngine /
 PagedLLMEngine and on the port's, with the weights bridged by
@@ -361,6 +360,55 @@ def test_executor_compile_latency_injection():
     assert ex.faults.snapshot()["hits"]["executor.compile"] == 1
 
 
+def _probe_drill(client, plane_cls):
+    """The reference's drill on one client: UP; a wedge held past the
+    probe's timeout is DEGRADED ("not answering"), and UP again once it
+    ends; a raise is DOWN, not a crash. Returns the statuses seen."""
+    client.HEALTH_PROBE_TIMEOUT_S = 0.2
+    seen = [client.health_check().status]
+    client.faults = plane_cls(plan=[{"site": "device.health_probe",
+                                     "action": "wedge", "delay_s": 0.6,
+                                     "times": 1}])
+    h = client.health_check()
+    seen.append(h.status)
+    assert "not answering" in h.details["error"]
+    client._probe_thread.join(timeout=10)
+    seen.append(client.health_check().status)
+    client.faults = plane_cls(plan=[{"site": "device.health_probe",
+                                     "action": "raise", "times": 1}])
+    deadline = time.time() + 10
+    status = None
+    while time.time() < deadline:
+        status = client.health_check().status
+        if status == STATUS_DOWN:
+            break
+        time.sleep(0.05)
+    seen.append(status)
+    client.faults = None
+    seen.append(client.health_check().status)
+    return seen
+
+
+def test_health_probe_wedge_degrades_then_recovers():
+    """The reference's test on the port's device client (on the CPU),
+    beside the reference's TPUClient under the same plans: the
+    single-flight probe wedged answers DEGRADED within its timeout, the
+    next poll after the wedge is UP, a raise-action rule is DOWN, and the
+    probe comes back UP once the plane is gone."""
+    from gofr_tpu.tpu.device import TPUClient
+    from gofr_tpu_torch.tpu.device import CUDAClient
+
+    ref = TPUClient()
+    ref.connect()
+    port = CUDAClient(device="cpu")
+    port.connect()
+    want = _probe_drill(ref, jfaults.FaultPlane)
+    got = _probe_drill(port, FaultPlane)
+    assert got == want == [STATUS_UP, "DEGRADED", STATUS_UP, STATUS_DOWN,
+                           STATUS_UP]
+    assert port.faults is None and CUDAClient(device="cpu").faults is None
+
+
 def test_disarmed_components_hold_no_plane(weights):
     eng = _engine(weights[1])
     assert eng.faults is None
@@ -388,6 +436,7 @@ def _call(port, path, method="GET", body=None):
 
 
 BASE = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+        "GRPC_PORT": "0",
         "WARMUP": "false", "REQUEST_TIMEOUT": "120", "MAX_BATCH": "4",
         "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
         "LOG_LEVEL": "WARN", "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false"}

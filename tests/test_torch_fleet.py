@@ -64,6 +64,7 @@ pytestmark = pytest.mark.fleet
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 QUIET = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30",
+         "GRPC_PORT": "0",
          "LOG_LEVEL": "ERROR", "HOSTPROF": "false"}
 
 
@@ -1483,9 +1484,21 @@ def test_every_router_key_is_accounted_for():
 
 
 def test_router_refuses_the_waiting_keys_at_boot():
-    with pytest.raises(ValueError, match="A18b part 5"):
-        serve_router.build_app({**QUIET, "FLEET_REPLICAS": "http://h:1",
-                                "REMOTE_LOG_URL": "http://h:2/level"})
+    # no key waits any more: REMOTE_LOG_URL starts the container's level
+    # poller (A18b part 5), and the router's container builds no device
+    # client even under TPU_ENABLED
+    assert serve_router.NOT_PORTED == ()
+    app = serve_router.build_app({**QUIET, "FLEET_REPLICAS": "http://h:1",
+                                  "REMOTE_LOG_URL": "http://h:2/level",
+                                  "REMOTE_LOG_FETCH_INTERVAL": "30",
+                                  "TPU_ENABLED": "true",
+                                  "INCIDENT_DIR": INCIDENT_DIR})
+    poller = app.container._level_poller
+    try:
+        assert poller.is_alive() and app.container.tpu is None
+    finally:
+        app.shutdown()
+    assert not poller.is_alive()
     with pytest.raises(ValueError, match="FLEET_REPLICAS"):
         serve_router.build_app({**QUIET})
     with pytest.raises(ValueError, match="ELASTIC_LAUNCH_CMD"):

@@ -40,6 +40,7 @@ from _torch_env import INCIDENT_DIR
 pytestmark = pytest.mark.elastic
 
 QUIET = {"HTTP_PORT": "0", "METRICS_PORT": "0", "REQUEST_TIMEOUT": "30",
+         "GRPC_PORT": "0",
          "LOG_LEVEL": "ERROR", "HOSTPROF": "false"}
 
 

@@ -416,6 +416,7 @@ def test_engine_metric_series_match():
 
 # -- the span tree of one /generate call --------------------------------------
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+       "GRPC_PORT": "0",
        "MAX_BATCH": "2", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16",
        "PAGE_SIZE": "8", "WARMUP": "false", "TRACE_EXPORTER": "memory",
        "LOG_LEVEL": "WARN", "FLIGHT_RECORDER": "false",

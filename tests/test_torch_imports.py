@@ -2,11 +2,14 @@
 
 - every gofr_tpu_torch module (native/, the observability planes, the
   incident plane, the KV tier, the disaggregated pair, migration,
-  service/, loadgen/, datasource/, pubsub/, the subscriber, cron, fleet/
-  and the router server included) and chip_smoke.py imports
-  in a fresh interpreter where `jax`, `jaxlib`, `gofr_tpu` and the
-  packages the card's machine lacks (`ml_dtypes`, `regex`, `safetensors`,
-  `transformers`, `tokenizers`) are blocked;
+  service/, loadgen/, datasource/, pubsub/, the subscriber, cron, fleet/,
+  the router server, grpcx/, logging/remote.py and the device client
+  included) and chip_smoke.py imports in a fresh interpreter where `jax`,
+  `jaxlib`, `gofr_tpu` and the packages the card's machine lacks
+  (`ml_dtypes`, `regex`, `safetensors`, `transformers`, `tokenizers`) are
+  blocked, and so are `grpc`, `google.protobuf`, `cryptography` and
+  `requests`, which the port imports only where a gRPC server or client,
+  or a JWKS key set, is made (and never `requests`);
 - an AST scan finds no import of them anywhere in the package or script;
 - the port's LlamaConfig presets equal the JAX ones field for field;
 - with no card and no explicit device, the entry points raise.
@@ -26,6 +29,8 @@ PKG = ROOT / "gofr_tpu_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "gofr_tpu", "ml_dtypes", "regex",
              "safetensors", "transformers", "tokenizers")
+# imported only inside the functions that need them: absent at import time
+LAZY = ("grpc", "google.protobuf", "cryptography", "requests")
 
 
 def _module_names():
@@ -97,9 +102,14 @@ def test_every_module_imports_with_jax_and_gofr_tpu_blocked():
             "gofr_tpu_torch.fleet.timeline", "gofr_tpu_torch.fleet.slo",
             "gofr_tpu_torch.fleet.capacity", "gofr_tpu_torch.fleet.elastic",
             "gofr_tpu_torch.serve_router"} <= set(mods)
+    # the serving surfaces and the device client
+    assert {"gofr_tpu_torch.grpcx", "gofr_tpu_torch.logging.remote",
+            "gofr_tpu_torch.tpu.device", "gofr_tpu_torch.http.middleware",
+            "gofr_tpu_torch.serve_bert",
+            "gofr_tpu_torch.serve_mnist"} <= set(mods)
     code = (
         "import sys, importlib\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {FORBIDDEN + LAZY!r}:\n"
         "    sys.modules[name] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"

@@ -414,6 +414,7 @@ def test_reset_storm_autocaptures_bundle_and_rate_limits_second_storm(
 
 # -- the HTTP surface ---------------------------------------------------------
 BASE = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+        "GRPC_PORT": "0",
         "WARMUP": "false", "REQUEST_TIMEOUT": "120", "MAX_BATCH": "4",
         "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
         "LOG_LEVEL": "WARN", "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false"}

@@ -444,6 +444,7 @@ def test_openai_conversation_id_pins_the_trunk(weights):
     from _torch_env import INCIDENT_DIR
 
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+           "GRPC_PORT": "0",
            "MAX_BATCH": "4", "MAX_SEQ_LEN": "128",
            "PREFILL_BUCKETS": "8,16,32,64", "PAGE_SIZE": str(PS),
            "WARMUP": "false", "LOG_LEVEL": "WARN", "HOSTPROF": "false",

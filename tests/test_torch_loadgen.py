@@ -567,6 +567,7 @@ def live_fleet():
 
     replica = serve.build_app({
         "HTTP_PORT": "0", "METRICS_PORT": "0", "APP_NAME": "lg-r0",
+        "GRPC_PORT": "0",
         "MODEL_PRESET": "debug", "PAGED": "true", "PAGE_SIZE": "16",
         "MAX_SEQ_LEN": "256", "PREFILL_BUCKETS": "16,64,128", "MAX_BATCH": "4",
         "WARMUP": "false", "REQUEST_TIMEOUT": "60", "LOG_LEVEL": "ERROR",

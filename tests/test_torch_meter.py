@@ -351,6 +351,7 @@ def test_debug_capacity_conserves_against_debug_steps(tmp_path):
     from gofr_tpu_torch.serve_openai import build_app as build_openai
 
     env = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+           "GRPC_PORT": "0",
            "WARMUP": "false", "MAX_BATCH": "4", "MAX_SEQ_LEN": "64",
            "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8", "LOG_LEVEL": "WARN",
            "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false",
@@ -419,6 +420,7 @@ def test_conservation_live_multi_tenant_served(server, tmp_path):
     from gofr_tpu_torch.serve_openai import build_app as build_openai
 
     env = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+           "GRPC_PORT": "0",
            "WARMUP": "false", "MAX_BATCH": "4", "MAX_SEQ_LEN": "64",
            "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8", "LOG_LEVEL": "WARN",
            "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false",

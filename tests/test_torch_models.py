@@ -256,8 +256,9 @@ def _post(port, path, body):
         conn.close()
 
 
-ENV = {"HTTP_PORT": "0", "METRICS_PORT": "0", "LOG_LEVEL": "WARN",
-       "REQUEST_TIMEOUT": "60", "INCIDENT_DIR": INCIDENT_DIR}
+ENV = {"HTTP_PORT": "0", "METRICS_PORT": "0", "GRPC_PORT": "0",
+       "LOG_LEVEL": "WARN", "REQUEST_TIMEOUT": "60",
+       "INCIDENT_DIR": INCIDENT_DIR}
 
 
 def _concurrently(fn, args):
@@ -329,11 +330,22 @@ def test_bert_server_embeds_as_the_jax_encoder(bert):
 
 
 def test_servers_refuse_unported_keys_and_need_a_device():
-    with pytest.raises(ValueError, match="A18b"):
-        serve_bert.build_app({**ENV, "GRPC_PORT": "0"}, device="cpu")
-    with pytest.raises(ValueError, match="A18b"):
-        serve_mnist.build_app({**ENV, "REMOTE_LOG_URL": "http://127.0.0.1:9"},
-                              device="cpu")
+    # no key waits any more: the keys once refused (bert's GRPC_PORT, the
+    # REMOTE_LOG_URL poller) boot and are served
+    assert serve_bert.NOT_PORTED == serve_mnist.NOT_PORTED == ()
+    app = serve_bert.build_app(ENV, device="cpu")
+    try:
+        assert [s.__grpc_service_name__ for s in app._grpc_services] == [
+            "EmbedService"]
+    finally:
+        app.shutdown()
+    app = serve_mnist.build_app({**ENV, "REMOTE_LOG_URL": "http://127.0.0.1:9",
+                                 "REMOTE_LOG_FETCH_INTERVAL": "30"},
+                                device="cpu")
+    poller = app.container._level_poller
+    assert poller is not None and poller.is_alive()
+    app.shutdown()
+    assert not poller.is_alive()
     if not torch.cuda.is_available():
         from gofr_tpu_torch.models import moe as tm
 

@@ -524,6 +524,7 @@ def test_engines_agree_on_the_utilization_window(engine_pair):
 
 # -- server against server ----------------------------------------------------
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+       "GRPC_PORT": "0",
        "MAX_BATCH": "4", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16",
        "PAGE_SIZE": "8", "WARMUP": "false", "REQUEST_TIMEOUT": "120",
        "LOG_LEVEL": "WARN", "ENGINE_HBM_SAMPLE_S": "0",

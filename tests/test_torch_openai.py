@@ -34,6 +34,7 @@ from _torch_env import INCIDENT_DIR
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+       "GRPC_PORT": "0",
        "MAX_BATCH": "4", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "16,32",
        "PAGE_SIZE": "8", "WARMUP": "false", "REQUEST_TIMEOUT": "120",
        "LOG_LEVEL": "WARN", "INCIDENT_DIR": INCIDENT_DIR}

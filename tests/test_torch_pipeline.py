@@ -378,6 +378,7 @@ def test_dispatch_keys_boot_and_serve(weights, paged, keys):
     page span), false none; wide adds every K <= MAX_BATCH that is a power
     of two and, paged, every tail program the buckets can reach."""
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "GRPC_PORT": "0",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "REQUEST_TIMEOUT": "120", "PAGED": paged, "DECODE_ATTN": "kernel",
            "INCIDENT_DIR": INCIDENT_DIR, **keys}

@@ -22,6 +22,8 @@ engines on `llama_init(debug, seed=0)`, bridged by `params_from_numpy`.
   k_variants=True) admission programs, plus (wide, paged) the tail programs
   the buckets can reach (ROADMAP C).
 - The static inputs, the graph-vs-eager helper and a failed capture.
+- Captures of two executors in one process (two engines) never overlap:
+  each holds the process-wide capture lock.
 """
 
 import dataclasses
@@ -275,6 +277,7 @@ def test_growth_drops_the_old_lengths_prefill_programs(weights, config):
 # -- WARMUP -------------------------------------------------------------------
 
 WARM_ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
+            "GRPC_PORT": "0",
             "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16,32",
             "PAGE_SIZE": "8", "DECODE_ATTN": "kernel"}
 
@@ -432,3 +435,45 @@ def test_failed_prefill_capture_fails_its_wave_and_serving_goes_on(weights):
     finally:
         eng.stop()
     assert eng.allocator.used_pages == eng.prefix.resident_pages
+
+
+def test_captures_of_two_executors_never_overlap():
+    """Two executors (two engines of one process, as the disaggregated
+    pair's) compiling at once from two threads: their captures run one
+    after the other, never together (on the card a capture's device-wide
+    synchronize would spoil the other's), while their eager warm-up runs
+    may overlap."""
+    import threading
+    import time
+
+    active, overlaps, events = [0], [], []
+    lock = threading.Lock()
+
+    def stub(fn, inputs):
+        with lock:
+            active[0] += 1
+            overlaps.append(active[0])
+        time.sleep(0.05)
+        with lock:
+            active[0] -= 1
+            events.append("captured")
+        return lambda: fn(*inputs)
+
+    executors = [Executor("cpu", capture=stub) for _ in range(2)]
+    barrier = threading.Barrier(2)
+
+    def compile_some(ex, tag):
+        barrier.wait()
+        for i in range(4):
+            ex.compile(f"{tag}-{i}", lambda x: x + 1, (torch.ones(2),))
+
+    threads = [threading.Thread(target=compile_some, args=(ex, tag))
+               for ex, tag in zip(executors, "ab")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert events == ["captured"] * 8
+    assert max(overlaps) == 1
+    assert [ex.captures for ex in executors] == [4, 4]
+

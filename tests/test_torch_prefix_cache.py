@@ -503,6 +503,7 @@ def test_generate_serves_a_shared_prefix_from_the_cache(weights):
     whose prompts share a full page; the second hits it, prefills only its
     tail, and returns what an engine without the cache returns."""
     env = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "2",
+           "GRPC_PORT": "0",
            "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
            "INCIDENT_DIR": INCIDENT_DIR}
     texts = {}

@@ -203,6 +203,7 @@ def test_both_servers_serve_debug_profile_while_serving(server, tmp_path):
     from gofr_tpu_torch.serve_openai import build_app as build_openai
 
     env = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+           "GRPC_PORT": "0",
            "WARMUP": "false", "MAX_BATCH": "4", "MAX_SEQ_LEN": "128",
            "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8", "LOG_LEVEL": "WARN",
            "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false",

@@ -155,6 +155,7 @@ def _get(port, path):
 
 
 SERVE_ENV = {"HTTP_PORT": "0", "METRICS_PORT": "0", "MODEL_PRESET": "debug",
+             "GRPC_PORT": "0",
              "WARMUP": "false", "MAX_BATCH": "2", "MAX_SEQ_LEN": "64",
              "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8", "LOG_LEVEL": "WARN",
              "ENGINE_HBM_SAMPLE_S": "0", "HOSTPROF": "false",

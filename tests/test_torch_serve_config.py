@@ -53,6 +53,7 @@ KEY_SOURCES = [ROOT / "examples" / "openai-server" / "main.py",
                ROOT / "gofr_tpu" / "tracing" / "__init__.py",
                ROOT / "gofr_tpu" / "tpu" / "faults.py"]
 BASE = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "MAX_BATCH": "4",
+        "GRPC_PORT": "0",
         "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "8,16", "PAGE_SIZE": "8",
         "WARMUP": "false", "REQUEST_TIMEOUT": "120",
         "INCIDENT_DIR": INCIDENT_DIR}
@@ -105,20 +106,16 @@ def test_every_llm_server_key_is_accounted_for():
 
 
 def test_only_the_waiting_keys_stay_refused_or_inert():
-    """What still waits (the remote log level and gRPC in A18b part 5, the
-    device client in part 6) and what has no analogue (the XLA program
-    cache) are the only keys refused or inert; each names its reason."""
-    assert {k for k, _, _ in serve.NOT_PORTED} == {"REMOTE_LOG_URL"}
-    assert {k for k, _ in serve.INERT} == {
-        "REMOTE_LOG_FETCH_INTERVAL", "GRPC_PORT", "TPU_ENABLED",
-        "MODEL_NAME", "PROGRAM_CACHE_DIR"}
-    waits = dict(serve.INERT)
-    assert "A18b part 5" in dict((k, w) for k, _, w in serve.NOT_PORTED)[
-        "REMOTE_LOG_URL"]
-    assert all("A18b part 5" in waits[k]
-               for k in ("REMOTE_LOG_FETCH_INTERVAL", "GRPC_PORT"))
-    assert all("A18b part 6" in waits[k] for k in ("TPU_ENABLED",
-                                                   "MODEL_NAME"))
+    """No key waits any more: the remote log level, gRPC and the device
+    client are served (A18b parts 5-6), so nothing is refused, and the one
+    inert key is the one with no analogue (the XLA program cache), with
+    its reason."""
+    assert serve.NOT_PORTED == ()
+    assert {k for k, _ in serve.INERT} == {"PROGRAM_CACHE_DIR"}
+    assert "CUDA graphs" in dict(serve.INERT)["PROGRAM_CACHE_DIR"]
+    assert {"GRPC_PORT", "TPU_ENABLED", "MODEL_NAME", "REMOTE_LOG_URL",
+            "REMOTE_LOG_FETCH_INTERVAL"} <= set(serve.PORTED)
+    serve.check_config({"REMOTE_LOG_URL": "http://127.0.0.1:9/level"})
 
 
 @pytest.mark.parametrize("key", serve.PORTED)
@@ -230,8 +227,9 @@ def test_elastic_warm_boot_refused_naming_a11(served):
     """The warm boot is served now (ROADMAP A11f): ELASTIC_WARM_BOOT=true
     boots ``warming`` and then serves the JAX engine's streams; what stays
     refused names its ROADMAP item. The Redis cold tier under the KV tier
-    and the pub/sub hand-off transport are served now (A18b parts 2-3);
-    the remote log-level poller stays refused (A18b part 5)."""
+    and the pub/sub hand-off transport are served now (A18b parts 2-3),
+    and so is the remote log-level poller (A18b part 5): the engine's
+    container polls REMOTE_LOG_URL until it is closed."""
     eng = serve.build_engine({**BASE, "ELASTIC_WARM_BOOT": "true"},
                              device="cpu", params=served["float"][1])
     try:
@@ -245,9 +243,15 @@ def test_elastic_warm_boot_refused_naming_a11(served):
     for env in ({"KV_HOST_TIER_BYTES": "1048576", "KV_REDIS_TIER": "true"},
                 {"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "pubsub"}):
         serve.check_config({**BASE, **env})
-    with pytest.raises(ValueError, match="ROADMAP A18b part 5"):
-        serve.build_engine({**BASE, "REMOTE_LOG_URL": "http://127.0.0.1:9"},
-                           device="cpu")
+    eng = serve.build_engine({**BASE, "REMOTE_LOG_URL": "http://127.0.0.1:9"},
+                             device="cpu", params=served["float"][1])
+    poller = eng.container._level_poller
+    try:
+        assert poller.is_alive()
+    finally:
+        eng.stop()
+        eng.container.close()
+    assert not poller.is_alive()
     serve.check_config({"ELASTIC_WARM_BOOT": "false"})
     serve.check_config({"KV_REDIS_TIER": "true"})   # no tier: nothing asked
     serve.check_config({"DISAGG_MODE": "both", "DISAGG_TRANSPORT": "queue"})

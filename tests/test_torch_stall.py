@@ -32,6 +32,7 @@ from _torch_env import INCIDENT_DIR
 
 CFG = LlamaConfig.debug()
 ENV = {"MODEL_PRESET": "debug", "HTTP_PORT": "0", "METRICS_PORT": "0",
+       "GRPC_PORT": "0",
        "MAX_BATCH": "2", "MAX_SEQ_LEN": "64", "PREFILL_BUCKETS": "16",
        "PAGE_SIZE": "8", "WARMUP": "false", "LOG_LEVEL": "WARN",
        "REQUEST_TIMEOUT": "60", "ENGINE_HBM_SAMPLE_S": "0",

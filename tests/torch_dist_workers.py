@@ -470,3 +470,61 @@ def gpipe_suite(rank, world, np_params, cfg, tokens, n_micro, steps):
     run = _train_run(mesh, fwd, np_params, (tokens[:, :-1], tokens[:, 1:],
                                              None), steps, remat=False)
     return {"logits": logits, "refused": refused, **run}
+
+
+# -- the batcher servers' job -------------------------------------------------------
+def mnist_job(rank, world, port, images):
+    """One rank of serve_mnist's job, joined through the JAX_* keys on the
+    CPU: the device client's mesh over the job's ranks, then /predict on
+    this rank's own HTTP port for `images` against the unbatched forward
+    of this rank's params, /.well-known/health's tpu, and the App's
+    shutdown leaving the job."""
+    import http.client
+    import json
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gofr_tpu_torch import serve_mnist
+    from gofr_tpu_torch.models.mlp import mlp_forward
+
+    app = serve_mnist.build_app({
+        "JAX_COORDINATOR_ADDR": f"127.0.0.1:{port}",
+        "JAX_NUM_PROCESSES": str(world), "JAX_PROCESS_ID": str(rank),
+        "JAX_COORDINATOR_TIMEOUT_S": "60", "HTTP_PORT": "0",
+        "METRICS_PORT": "0", "LOG_LEVEL": "WARN", "REQUEST_TIMEOUT": "60",
+        "HOSTPROF": "false"}, device="cpu")
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": dist.get_backend(),
+           "platform": app.container.tpu.platform}
+    mesh = app.container.tpu.mesh({"dp": -1})
+    out["mesh"] = {name: mesh.size(i)
+                   for i, name in enumerate(mesh.mesh_dim_names)}
+    app.start()
+    try:
+        answers = []
+        for image in images:
+            conn = http.client.HTTPConnection("127.0.0.1", app.http_port,
+                                              timeout=60)
+            conn.request("POST", "/predict",
+                         json.dumps({"image": image.tolist()}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            answers.append((resp.status, json.loads(resp.read())))
+            conn.close()
+        with torch.no_grad():
+            logits = mlp_forward(app.params,
+                                 torch.from_numpy(np.stack(images))).numpy()
+        out["answers"] = answers
+        out["logits"] = logits
+        conn = http.client.HTTPConnection("127.0.0.1", app.http_port,
+                                          timeout=60)
+        conn.request("GET", "/.well-known/health")
+        out["health"] = json.loads(conn.getresponse().read())["data"]
+        conn.close()
+        dist.barrier()   # rank 0 serves the store: nobody leaves early
+    finally:
+        app.shutdown()
+    out["left"] = not dist.is_initialized()
+    return out
